@@ -1,0 +1,132 @@
+"""Checkpoint conversion and loading (port of the reference-format half of
+``nerf_tpu/engine/checkpoint.py``).
+
+Reference checkpoints are ``torch.save`` dicts with ``iter``,
+``model_coarse_state_dict``, ``model_fine_state_dict`` (or None),
+``optimizer_state_dict``, ``loss`` and ``psnr``, and optionally
+``height``/``width``/``focal_length``; they are read with
+``torch.load(..., weights_only=True)``.
+
+The JAX package's params layout (nested dicts of ``{"kernel": (in, out),
+"bias": (out,)}``, lists for ``layers_xyz``/``layers_dir``) is kept as the
+interchange format: ``load_jax_params`` puts such a dict of numpy arrays into
+a module of this package, so both packages can compute with the same weights.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+Params = Dict[str, Any]
+
+
+def convert_torch_state_dict(state_dict: Dict[str, Any]) -> Params:
+    """A reference ``state_dict`` (tensors or numpy arrays) -> params pytree of
+    numpy arrays: ``*.weight`` (out, in) becomes ``kernel`` (in, out)."""
+    params: Params = {}
+    list_sizes: Dict[str, int] = {}
+    for key in state_dict:
+        parts = key.split(".")
+        if len(parts) == 3 and parts[1].isdigit():
+            list_sizes[parts[0]] = max(list_sizes.get(parts[0], 0), int(parts[1]) + 1)
+    for name, size in list_sizes.items():
+        params[name] = [{} for _ in range(size)]
+
+    for key, value in state_dict.items():
+        arr = value.detach().cpu().numpy() if isinstance(value, torch.Tensor) else np.asarray(value)
+        parts = key.split(".")
+        if parts[-1] == "weight":
+            leaf_name, leaf = "kernel", arr.T.copy()
+        elif parts[-1] == "bias":
+            leaf_name, leaf = "bias", arr.copy()
+        else:
+            raise ValueError(f"Unrecognized state-dict leaf: {key}")
+        if len(parts) == 2:
+            params.setdefault(parts[0], {})[leaf_name] = leaf
+        elif len(parts) == 3 and parts[1].isdigit():
+            params[parts[0]][int(parts[1])][leaf_name] = leaf
+        else:
+            raise ValueError(f"Unrecognized state-dict key structure: {key}")
+    return params
+
+
+def to_torch_state_dict(params: Params) -> Dict[str, np.ndarray]:
+    """Inverse of :func:`convert_torch_state_dict` (values are numpy arrays)."""
+    out: Dict[str, np.ndarray] = {}
+
+    def emit(prefix: str, layer: Dict[str, Any]) -> None:
+        out[f"{prefix}.weight"] = np.asarray(layer["kernel"]).T.copy()
+        out[f"{prefix}.bias"] = np.asarray(layer["bias"]).copy()
+
+    for name, value in params.items():
+        if isinstance(value, (list, tuple)):
+            for i, layer in enumerate(value):
+                emit(f"{name}.{i}", layer)
+        else:
+            emit(name, value)
+    return out
+
+
+def load_jax_params(module: torch.nn.Module, params: Params) -> torch.nn.Module:
+    """Load a JAX-layout params dict (numpy ``kernel`` (in, out) and ``bias``)
+    into ``module`` in place, key for key (strict). Returns ``module``."""
+    state = {
+        k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32))
+        for k, v in to_torch_state_dict(params).items()
+    }
+    module.load_state_dict(state, strict=True)
+    return module
+
+
+def load_reference_checkpoint(path: str) -> Dict[str, Any]:
+    """Read a reference ``.ckpt`` into numpy params pytrees.
+
+    Returns ``step``, ``params_coarse``, ``params_fine`` (or None), ``loss``,
+    ``psnr`` and the optional ``height``/``width``/``focal_length`` keys.
+    """
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    out: Dict[str, Any] = {
+        "step": int(ckpt.get("iter", 0)),
+        "params_coarse": convert_torch_state_dict(ckpt["model_coarse_state_dict"]),
+        "params_fine": (
+            convert_torch_state_dict(ckpt["model_fine_state_dict"])
+            if ckpt.get("model_fine_state_dict") is not None
+            else None
+        ),
+        "loss": float(ckpt["loss"]) if "loss" in ckpt else None,
+        "psnr": float(ckpt["psnr"]) if "psnr" in ckpt else None,
+    }
+    for extra in ("height", "width", "focal_length"):
+        if extra in ckpt:
+            out[extra] = ckpt[extra]
+    return out
+
+
+def load_models_and_params(checkpoint_path: str, cfg, device="cpu"):
+    """Build the configured models on ``device`` and load a reference ``.ckpt``.
+
+    Reference checkpoints get default-shaped models
+    (``reference_compat_shapes``): the reference never passed size
+    hyperparameters to its constructors. Returns ``(model_coarse,
+    model_fine, ckpt)``; ``model_fine`` is None when the config or the
+    checkpoint has no fine model, and the coarse model then renders both
+    passes.
+    """
+    from ..config.schema import model_from_config  # config imports engine
+
+    if not checkpoint_path.endswith(".ckpt"):
+        raise NotImplementedError(
+            f"{checkpoint_path}: only reference .ckpt files are read; native .ntc "
+            "I/O is not ported yet (ROADMAP.md, open items §1 item 7)"
+        )
+    ckpt = load_reference_checkpoint(checkpoint_path)
+    model_coarse = model_from_config(cfg.models.coarse, reference_compat_shapes=True)
+    load_jax_params(model_coarse, ckpt["params_coarse"])
+    model_fine = None
+    if "fine" in cfg.models and ckpt["params_fine"] is not None:
+        model_fine = model_from_config(cfg.models.fine, reference_compat_shapes=True)
+        model_fine = load_jax_params(model_fine, ckpt["params_fine"]).to(device).eval()
+    return model_coarse.to(device).eval(), model_fine, ckpt

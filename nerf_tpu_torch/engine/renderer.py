@@ -1,0 +1,294 @@
+"""Hierarchical coarse->fine NeRF rendering (port of
+``nerf_tpu/engine/renderer.py``).
+
+PyTorch runs eagerly, so the JAX package's compiled ``lax.map`` over ray
+megabatches becomes a Python loop over ``chunksize``-ray chunks under
+``torch.inference_mode()``. Models are ``nn.Module``s that hold their
+weights, so the functions here take modules where the JAX ones take
+(model, params) pairs. Random numbers come from one ``torch.Generator``
+where the JAX package splits a key.
+
+The radiance field goes through the hand-written kernel
+(``kernels/mlp_t.py``) when fused evaluation is on (``RenderSettings
+.use_pallas``, read from the config's ``use_pallas`` key) and the model is the
+4x128 10/4 FlexibleNeRF; otherwise through positional encoding + the module.
+Compositing and resampling are plain PyTorch, as they are plain XLA on the
+JAX package's kernel path.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from ..kernels.mlp_t import fused_mlp_t, supports_fused
+from ..ops.encoding import coarse_to_fine_window, positional_encoding
+from ..ops.rays import get_ray_bundle, ndc_rays, ray_aabb_interval
+from ..ops.sampling import coarse_z_values, perturb_z_values, sample_pdf
+from ..ops.volume import RenderOutputs, volume_render_radiance_field
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderSettings:
+    """Per-mode render configuration (the config's ``nerf.{train,validation}``
+    section plus the dataset and encoding fields the render path needs)."""
+
+    num_coarse: int = 64
+    num_fine: int = 64
+    chunksize: int = 16384
+    perturb: bool = True
+    radiance_field_noise_std: float = 0.0
+    white_background: bool = False
+    lindisp: bool = False
+    near: float = 2.0
+    far: float = 6.0
+    use_viewdirs: bool = True
+    use_ndc: bool = False
+    # NDC needs the camera intrinsics.
+    height: int = 0
+    width: int = 0
+    focal_length: float = 0.0
+    num_encoding_fn_xyz: int = 6
+    num_encoding_fn_dir: int = 4
+    include_input_xyz: bool = True
+    include_input_dir: bool = True
+    log_sampling_xyz: bool = True
+    log_sampling_dir: bool = True
+    # Coarse-to-fine encoding window (BARF); negative = off. Plain path only.
+    pe_alpha_xyz: float = -1.0
+    # (xmin, ymin, zmin, xmax, ymax, zmax): tighten every ray's sample
+    # interval to its crossing of this box; misses keep [near, far].
+    aabb: Optional[Tuple[float, float, float, float, float, float]] = None
+    # Fused encode+MLP kernel for radiance-field evaluation (forward only).
+    use_pallas: bool = False
+    # Training kernels and rematerialization: not ported yet.
+    use_pallas_train: bool = False
+    remat: bool = False
+    # MLP matmul input dtype: "float32" or "bfloat16" (f32 sums either way).
+    compute_dtype: str = "float32"
+
+    def eval_variant(self) -> "RenderSettings":
+        """Deterministic copy for validation/eval rendering."""
+        return dataclasses.replace(self, perturb=False, radiance_field_noise_std=0.0)
+
+
+class RayRenderResult(NamedTuple):
+    """Coarse + (optional) fine composited maps for a ray batch."""
+
+    coarse: RenderOutputs
+    fine: Optional[RenderOutputs]
+
+    @property
+    def rgb(self) -> torch.Tensor:
+        """The displayable map: fine if present, else coarse."""
+        return self.fine.rgb if self.fine is not None else self.coarse.rgb
+
+
+def render_maps_dict(out: RayRenderResult) -> Dict[str, torch.Tensor]:
+    """rgb/disp/acc/depth for coarse (and fine when present); the per-sample
+    weights are left out (S times larger than every other map)."""
+    res = {
+        "rgb_coarse": out.coarse.rgb,
+        "disp_coarse": out.coarse.disp,
+        "acc_coarse": out.coarse.acc,
+        "depth_coarse": out.coarse.depth,
+    }
+    if out.fine is not None:
+        res.update(
+            rgb_fine=out.fine.rgb,
+            disp_fine=out.fine.disp,
+            acc_fine=out.fine.acc,
+            depth_fine=out.fine.depth,
+        )
+    return res
+
+
+def encode_points(pts: torch.Tensor, viewdirs: Optional[torch.Tensor],
+                  s: RenderSettings) -> torch.Tensor:
+    """Positional-encode (..., S, 3) sample points and append the encoded
+    (..., 3) viewdirs broadcast over the samples: (..., S, D)."""
+    enc = positional_encoding(pts, s.num_encoding_fn_xyz, s.include_input_xyz, s.log_sampling_xyz)
+    if s.pe_alpha_xyz >= 0.0 and s.num_encoding_fn_xyz > 0:
+        w = coarse_to_fine_window(s.num_encoding_fn_xyz, s.pe_alpha_xyz, enc.dtype, enc.device)
+        c = pts.shape[-1]
+        mask = torch.cat([
+            torch.ones(c if s.include_input_xyz else 0, dtype=enc.dtype, device=enc.device),
+            torch.repeat_interleave(w, 2 * c),  # per-freq [sin(C), cos(C)] blocks
+        ])
+        enc = enc * mask
+    if viewdirs is not None:
+        enc_dir = positional_encoding(
+            viewdirs, s.num_encoding_fn_dir, s.include_input_dir, s.log_sampling_dir
+        )
+        enc_dir = enc_dir[..., None, :].expand(*pts.shape[:-1], enc_dir.shape[-1])
+        enc = torch.cat([enc, enc_dir], dim=-1)
+    return enc
+
+
+def _eval_radiance_field(model, pts: torch.Tensor, viewdirs: Optional[torch.Tensor],
+                         s: RenderSettings) -> torch.Tensor:
+    """Radiance field at sample points: the fused kernel when enabled and
+    applicable, else positional encoding + the module."""
+    if s.use_pallas_train:
+        raise NotImplementedError(
+            "use_pallas_train: the training kernels are not ported yet "
+            "(ROADMAP.md, open items §2 kernel #8 and §1 item 5)"
+        )
+    if s.remat:
+        raise NotImplementedError(
+            "remat is a training option; training is not ported yet (ROADMAP.md, open items §1 item 5)"
+        )
+    if (s.use_pallas and viewdirs is not None and s.log_sampling_xyz
+            and s.log_sampling_dir and s.pe_alpha_xyz < 0.0
+            and supports_fused(model) and pts.ndim == 3):
+        return fused_mlp_t(model, pts, viewdirs, compute_dtype=s.compute_dtype)
+
+    enc = encode_points(pts, viewdirs, s)
+    if s.compute_dtype != "float32":
+        # The encoding stays f32 (high-frequency phases); only the MLP's
+        # matmuls drop to the compute dtype.
+        enc = enc.to(getattr(torch, s.compute_dtype))
+    return model(enc).float()
+
+
+def _composite(rf, z_vals, rd, s: RenderSettings, generator, final_dists=None) -> RenderOutputs:
+    return volume_render_radiance_field(
+        rf, z_vals, rd,
+        radiance_field_noise_std=s.radiance_field_noise_std,
+        white_background=s.white_background,
+        generator=generator,
+        final_dists=final_dists,
+    )
+
+
+def render_rays(
+    model_coarse,
+    model_fine,
+    ray_origins: torch.Tensor,
+    ray_directions: torch.Tensor,
+    settings: RenderSettings,
+    generator: Optional[torch.Generator] = None,
+) -> RayRenderResult:
+    """Render a flat (N, 3) batch of rays through the coarse->fine hierarchy.
+
+    ``model_fine`` None reuses the coarse model for the fine pass.
+    """
+    s = settings
+    viewdirs = None
+    if s.use_viewdirs:
+        viewdirs = ray_directions / torch.linalg.norm(ray_directions, dim=-1, keepdim=True)
+
+    if s.use_ndc:
+        ro, rd = ndc_rays(s.height, s.width, s.focal_length, 1.0, ray_origins, ray_directions)
+    else:
+        ro, rd = ray_origins, ray_directions
+
+    tightened = None
+    if s.aabb is not None and not s.use_ndc:
+        if s.num_coarse < 2:
+            raise ValueError(f"RenderSettings.aabb needs num_coarse >= 2 (got {s.num_coarse})")
+        near, far = ray_aabb_interval(ro, rd, s.aabb[:3], s.aabb[3:], s.near, s.far)
+        # Only rays that end before the far plane know the space past their
+        # last sample is empty; the others keep the 1e10 sentinel.
+        tightened = far < s.far
+    else:
+        near = torch.full(ro.shape[:1], s.near, dtype=ro.dtype, device=ro.device)
+        far = torch.full(ro.shape[:1], s.far, dtype=ro.dtype, device=ro.device)
+
+    def last_bin_or_sentinel(z):
+        if tightened is None:
+            return None
+        return torch.where(tightened, z[..., -1] - z[..., -2], torch.full_like(z[..., -1], 1e10))
+
+    z_vals = coarse_z_values(near, far, s.num_coarse, s.lindisp, dtype=ro.dtype)
+    if s.perturb:
+        z_vals = perturb_z_values(z_vals, generator)
+
+    pts = ro[..., None, :] + rd[..., None, :] * z_vals[..., :, None]
+    rf = _eval_radiance_field(model_coarse, pts, viewdirs, s)
+    coarse = _composite(rf, z_vals, rd, s, generator, last_bin_or_sentinel(z_vals))
+
+    fine = None
+    if s.num_fine > 0:
+        z_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
+        z_samples = sample_pdf(
+            z_mid, coarse.weights[..., 1:-1], s.num_fine,
+            det=not s.perturb, generator=generator,
+        ).detach()
+        z_all, _ = torch.sort(torch.cat([z_vals, z_samples], dim=-1), dim=-1)
+        pts = ro[..., None, :] + rd[..., None, :] * z_all[..., :, None]
+        fine_model = model_fine if model_fine is not None else model_coarse
+        rf = _eval_radiance_field(fine_model, pts, viewdirs, s)
+        fine = _composite(rf, z_all, rd, s, generator, last_bin_or_sentinel(z_all))
+    return RayRenderResult(coarse, fine)
+
+
+def make_render_fn(model_coarse, model_fine, settings: RenderSettings
+                   ) -> Callable[..., RayRenderResult]:
+    """``render(ray_origins, ray_directions, generator=None) -> RayRenderResult``."""
+
+    def render(ray_origins, ray_directions, generator=None):
+        return render_rays(model_coarse, model_fine, ray_origins, ray_directions,
+                           settings, generator)
+
+    return render
+
+
+def make_image_render_fn(model_coarse, model_fine, settings: RenderSettings
+                         ) -> Callable[..., Dict[str, torch.Tensor]]:
+    """Full-image renderer: ``render_image(ray_origins, ray_directions,
+    generator=None) -> dict`` of (H, W[, 3]) maps, rendering ``chunksize``
+    rays at a time (the last chunk holds the remainder)."""
+    s = settings
+
+    def render_image(ray_origins, ray_directions, generator=None):
+        h, w = ray_origins.shape[0], ray_origins.shape[1]
+        ro = ray_origins.reshape(-1, 3)
+        rd = ray_directions.reshape(-1, 3)
+        chunks = []
+        with torch.inference_mode():
+            for start in range(0, ro.shape[0], s.chunksize):
+                out = render_rays(
+                    model_coarse, model_fine,
+                    ro[start:start + s.chunksize], rd[start:start + s.chunksize],
+                    s, generator,
+                )
+                chunks.append(render_maps_dict(out))
+            return {
+                name: torch.cat([c[name] for c in chunks]).reshape(
+                    (h, w) + chunks[0][name].shape[1:]
+                )
+                for name in chunks[0]
+            }
+
+    return render_image
+
+
+def make_pose_render_fn(model_coarse, model_fine, settings: RenderSettings,
+                        height: int, width: int, focal: float,
+                        output: str = "maps") -> Callable[..., Any]:
+    """``render(pose34) -> out``: rays for a (3, 4) camera-to-world pose are
+    made on the pose's device, then rendered as one image.
+
+    ``output``: "maps" = all (H, W[, 3]) maps plus ``rgb_u8``; "u8" = the
+    uint8 displayed image; "f32" = the [0, 1]-clipped float image.
+    """
+    if output not in ("maps", "u8", "f32"):
+        raise ValueError(f"unknown output mode {output!r}")
+    base = make_image_render_fn(model_coarse, model_fine, settings)
+
+    def render(pose34, generator=None):
+        ro, rd = get_ray_bundle(height, width, focal, pose34)
+        maps = base(ro, rd, generator)
+        rgb = maps.get("rgb_fine", maps["rgb_coarse"])
+        if output == "f32":
+            return torch.clamp(rgb, 0.0, 1.0)
+        u8 = (torch.clamp(rgb, 0.0, 1.0) * 255.0).to(torch.uint8)
+        if output == "u8":
+            return u8
+        maps["rgb_u8"] = u8
+        return maps
+
+    return render

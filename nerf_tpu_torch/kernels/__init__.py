@@ -1,0 +1,12 @@
+"""Hand-written CUDA kernels and their Python wrappers.
+
+Each wrapper keeps a plain PyTorch version of its kernel beside it: a tensor
+on the CPU goes through the plain version, a tensor on a CUDA device through
+the kernel (or the call raises). Nothing here imports a compiler or builds a
+kernel when it is imported; the build happens at the first CUDA call
+(``_build.load_library``).
+"""
+
+from .mlp_t import fused_mlp_t, mlp_t_plain, supports_fused
+
+__all__ = ["fused_mlp_t", "mlp_t_plain", "supports_fused"]

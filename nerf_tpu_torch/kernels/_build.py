@@ -1,0 +1,84 @@
+"""Build the package's CUDA sources into one shared library and load it.
+
+The sources in ``nerf_tpu_torch/csrc/`` are compiled with ``nvcc`` for
+Hopper (``sm_90a``) into ``build/nerf_tpu_torch/`` at the root of the
+checkout, at first use, under a name keyed by a hash of the sources and the
+flags. The library has a plain C interface and is loaded with ``ctypes``;
+nothing here includes PyTorch's headers, so a build takes seconds.
+
+Fast math is never on: the encoding's sinusoids take arguments up to
+|x| * 2^9 and must be the accurate ``sincosf``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "nerf_tpu_torch"
+NVCC_FALLBACK = "/usr/local/cuda/bin/nvcc"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+
+def find_nvcc() -> str:
+    """``nvcc`` on PATH, else the CUDA toolkit's default location."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if os.access(NVCC_FALLBACK, os.X_OK):
+        return NVCC_FALLBACK
+    raise RuntimeError(
+        f"nvcc not found: looked for 'nvcc' on PATH and at {NVCC_FALLBACK}"
+    )
+
+
+def _sources() -> list:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources() + sorted(CSRC.glob("*.cuh")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return BUILD_DIR / f"libnerf_tpu_torch_{h.hexdigest()[:16]}.so"
+
+
+def build_library() -> Path:
+    """Compile the sources unless a library for them exists; return its path.
+
+    The compiler's output (``-Xptxas -v``: registers, shared memory and
+    spills of each kernel) is kept beside the library as ``<name>.log``.
+    """
+    out = library_path()
+    if out.exists():
+        return out
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
+        )
+    os.replace(tmp, out)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library, once per process."""
+    return ctypes.CDLL(str(build_library()))

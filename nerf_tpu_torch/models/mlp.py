@@ -1,0 +1,122 @@
+"""The FlexibleNeRF radiance-field MLP as an ``nn.Module`` (port of
+``FlexibleNeRFModel`` in ``nerf_tpu/models/mlp.py``).
+
+Attribute names are the reference's (``layer1``, ``layers_xyz.N``,
+``fc_feat``, ``fc_alpha``, ``layers_dir.N``, ``fc_rgb``, ``fc_out``), so the
+state dict matches ``nerf_tpu/engine/checkpoint.py:to_torch_state_dict`` key
+for key and reference ``.ckpt`` files load as they are.
+
+Init is ``nn.Linear``'s: weight and bias ~ U(-1/sqrt(fan_in), 1/sqrt(fan_in)),
+drawn from the ``generator`` given (PyTorch's default generator otherwise).
+
+The skip connection is the intended one (concatenate the encoded xyz back
+in), under the constructor's condition ``_has_skip`` for both the shapes and
+the forward: the reference's forward crashes on it.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def _xyz_dir_dims(num_encoding_fn_xyz, num_encoding_fn_dir, include_input_xyz, include_input_dir):
+    dim_xyz = (3 if include_input_xyz else 0) + 2 * 3 * num_encoding_fn_xyz
+    dim_dir = (3 if include_input_dir else 0) + 2 * 3 * num_encoding_fn_dir
+    return dim_xyz, dim_dir
+
+
+def _linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """``x @ W.T + b`` in the dtype of ``x`` (the JAX ``linear``: bf16 inputs
+    give bf16 outputs)."""
+    return F.linear(x, layer.weight.to(x.dtype), layer.bias.to(x.dtype))
+
+
+class FlexibleNeRFModel(nn.Module):
+    """Configurable-depth NeRF MLP; the defaults (4 layers, 128 hidden) are
+    the shape of every reference checkpoint."""
+
+    def __init__(
+        self,
+        num_layers: int = 4,
+        hidden_size: int = 128,
+        skip_connect_every: int = 4,
+        num_encoding_fn_xyz: int = 6,
+        num_encoding_fn_dir: int = 4,
+        include_input_xyz: bool = True,
+        include_input_dir: bool = True,
+        use_viewdirs: bool = True,
+        generator: Optional[torch.Generator] = None,
+        device=None,
+    ):
+        super().__init__()
+        self.num_layers = num_layers
+        self.hidden_size = hidden_size
+        self.skip_connect_every = skip_connect_every
+        self.num_encoding_fn_xyz = num_encoding_fn_xyz
+        self.num_encoding_fn_dir = num_encoding_fn_dir
+        self.include_input_xyz = include_input_xyz
+        self.include_input_dir = include_input_dir
+        self.use_viewdirs = use_viewdirs
+        self.dim_xyz, dim_dir = _xyz_dir_dims(
+            num_encoding_fn_xyz, num_encoding_fn_dir, include_input_xyz, include_input_dir
+        )
+        self.dim_dir = dim_dir if use_viewdirs else 0
+
+        h = hidden_size
+
+        def linear(i, o):
+            return nn.utils.skip_init(nn.Linear, i, o, device=device or "cpu")
+
+        # Registration order is the reference's parameters() order.
+        self.layer1 = linear(self.dim_xyz, h)
+        self.layers_xyz = nn.ModuleList(
+            linear(self.dim_xyz + h if self._has_skip(i) else h, h)
+            for i in range(num_layers - 1)
+        )
+        if use_viewdirs:
+            self.layers_dir = nn.ModuleList([linear(self.dim_dir + h, h // 2)])
+            self.fc_alpha = linear(h, 1)
+            self.fc_rgb = linear(h // 2, 3)
+            self.fc_feat = linear(h, h)
+        else:
+            self.fc_out = linear(h, 4)
+        self.reset_parameters(generator)
+
+    @property
+    def input_dim(self) -> int:
+        return self.dim_xyz + self.dim_dir
+
+    def _has_skip(self, i: int) -> bool:
+        """Skip-connection condition for layers_xyz[i]."""
+        return i % self.skip_connect_every == 0 and i > 0 and i != self.num_layers - 1
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        for layer in self.modules():
+            if isinstance(layer, nn.Linear):
+                bound = 1.0 / math.sqrt(layer.in_features)
+                layer.weight.uniform_(-bound, bound, generator=generator)
+                layer.bias.uniform_(-bound, bound, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(..., dim_xyz [+ dim_dir]) encoded input -> (..., 4) raw [r, g, b, sigma]."""
+        xyz = x[..., : self.dim_xyz]
+        h = _linear(self.layer1, xyz)
+        for i, layer in enumerate(self.layers_xyz):
+            if self._has_skip(i):
+                h = torch.cat([h, xyz], dim=-1)
+            h = torch.relu(_linear(layer, h))
+        if not self.use_viewdirs:
+            return _linear(self.fc_out, h)
+        feat = torch.relu(_linear(self.fc_feat, h))
+        alpha = _linear(self.fc_alpha, h)
+        h = torch.cat([feat, x[..., self.dim_xyz:]], dim=-1)
+        for layer in self.layers_dir:
+            h = torch.relu(_linear(layer, h))
+        rgb = _linear(self.fc_rgb, h)
+        return torch.cat([rgb, alpha], dim=-1)
