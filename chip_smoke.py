@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's render path once on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's render and training paths on one NVIDIA GPU and check them.
 
 Run from the root of a checkout, with one card:
 
@@ -16,7 +16,20 @@ Phases, one or more lines each:
      ``.ckpt``), and must have gone through the kernel; frame 0 is held
      against the plain path;
   5. times on this card: the kernel against the plain version at one
-     fine-pass chunk, and seconds per 400x400 frame for both paths.
+     fine-pass chunk, and seconds per 400x400 frame for both paths;
+  6. training kernels vs plain: the fused FlexibleNeRF forward + backward
+     pair against its plain PyTorch version at the training path's shapes,
+     float32 and bfloat16: the forward, every parameter gradient and ddc;
+  7. training main path: ``nerf_tpu_torch.train_nerf.train`` trains the
+     flagship model at the ``configs/lego_fused.yml`` train protocol (bf16,
+     training kernels on) on the procedural synthetic scene (20 views of
+     400x400) for TRAIN_STEPS steps, through both training kernels; the loss
+     must fall; the checkpoint it writes is rendered at a novel orbit pose
+     through ``eval_nerf.render_trajectory`` and the forward kernel, and must
+     clear PSNR_FLOOR_TRAINED_DB against the analytic scene; a float32
+     trajectory through the kernels must track the plain path's;
+  8. times on this card: the training kernels against the plain pair, and
+     rays per second of a training step on the kernel and plain paths.
 
 Then one JSON line of per-kernel results and, last, the JSON device line.
 Any failure raises: the script exits non-zero and prints no result. There is
@@ -42,6 +55,13 @@ MAX_RESAMPLE_PIXELS = 160  # fine-pass pixels whose resampled depths may move (0
 NUM_POSES = 3
 SEED = 0
 KERNEL_CHUNK = (131072, 128)   # one fine-pass chunk: rays x samples
+TRAIN_CHECK_SHAPES = ((1024, 64), (1024, 128), (333, 61))   # coarse, fine, ragged
+TRAIN_SHAPE = (1024, 128)      # the fine pass of a 1024-ray training step
+TRAIN_STEPS = 300
+TRAJECTORY_STEPS = 20
+TRAJECTORY_RTOL = 2e-3         # f32 loss per step, kernel path vs plain path
+PSNR_FLOOR_TRAINED_DB = 30.0   # novel view after TRAIN_STEPS steps (37.64 dB measured on an H100)
+TIMED_STEPS = 30
 # The render path's shapes, and one whose points end mid-tile.
 CHECK_SHAPES = ((2048, 64), (2048, 128), (1000, 128), (333, 61))
 DEVICE = "cuda"
@@ -51,8 +71,8 @@ MACS_PER_POINT = 63 * 128 + 3 * 128 * 128 + 128 * 129 + 128 * 64 + 64 * 3
 
 
 def lego_fused_config():
-    """``configs/lego_fused.yml``'s dataset, models and nerf.validation values
-    merged over the defaults, in code (no YAML reader needed)."""
+    """``configs/lego_fused.yml``'s values merged over the defaults, in code
+    (no YAML reader needed)."""
     from nerf_tpu_torch.config import get_default_config
 
     cfg = get_default_config()
@@ -76,7 +96,28 @@ def lego_fused_config():
     }
     for key, value in validation.items():
         pairs += [f"nerf.validation.{key}", value]
+    train = dict(validation, num_random_rays=1024, perturb=True, radiance_field_noise_std=0.2,
+                 compute_dtype="bfloat16", use_pallas_train=True)
+    for key, value in train.items():
+        pairs += [f"nerf.train.{key}", value]
+    pairs += [
+        "experiment.id", "lego-fused", "experiment.logdir", "logs", "experiment.randomseed", 42,
+        "experiment.train_iters", 200000, "experiment.validate_every", 1000,
+        "experiment.save_every", 5000, "experiment.print_every", 100,
+        "optimizer.type", "Adam", "optimizer.lr", 5.0e-3,
+        "scheduler.lr_decay", 250, "scheduler.lr_decay_factor", 0.1,
+    ]
     cfg.merge_from_list(pairs)
+    return cfg
+
+
+def synthetic_train_config(train_iters: int):
+    """The flagship protocol with its dataset replaced by the procedural
+    synthetic scene (20 views of 400x400, a 3.2M-ray store), cut to
+    ``train_iters`` steps."""
+    cfg = lego_fused_config()
+    cfg.merge_from_list(["dataset.type", "synthetic", "dataset.num_views", 20,
+                         "dataset.image_size", 400, "experiment.train_iters", train_iters])
     return cfg
 
 
@@ -218,6 +259,211 @@ def frame_seconds(render, pose) -> float:
 def psnr(a, b) -> float:
     mse = float(((a.double() - b.double()) ** 2).mean())
     return -10.0 * math.log10(max(mse, 1e-12))
+
+
+def train_case(n: int, s: int, model, dev, seed: int):
+    """Inputs of the training kernel pair at a training pass's shape: orbit
+    points, the direction contribution, the packed parameters and a random
+    cotangent."""
+    import torch
+
+    from nerf_tpu_torch.kernels.mlp_t import dir_contribution, pack_params
+
+    pts, vd = orbit_points(n, s, dev, seed)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    g = torch.randn(n, s, 4, generator=gen, device=dev)
+    return pts, dir_contribution(model, vd).detach(), pack_params(model).detach(), g
+
+
+def check_training_kernels(model, dev) -> dict:
+    """Phase 6: the training kernel pair against its plain version. Returns
+    the worst error of each kernel per dtype (gradients scaled by the plain
+    gradient's largest entry, per leaf)."""
+    import torch
+
+    from nerf_tpu_torch.kernels.flex_train import (
+        flex_train_bwd, flex_train_fwd, flex_train_plain_bwd, flex_train_plain_fwd,
+        unpack_params,
+    )
+
+    worst = {(k, d): 0.0 for k in ("fwd", "bwd") for d in ("float32", "bfloat16")}
+    for n, s in TRAIN_CHECK_SHAPES:
+        pts, dc, params, g = train_case(n, s, model, dev, seed=n * s)
+        for dtype, tol in (("float32", F32_TOL), ("bfloat16", BF16_TOL)):
+            out, res = flex_train_fwd(pts, dc, params, dtype)
+            grad, ddc = flex_train_bwd(g, res, params, n, s, dtype)
+            torch.cuda.synchronize()
+            want, want_res = flex_train_plain_fwd(pts, dc, params, dtype)
+            want_grad, want_ddc = flex_train_plain_bwd(g, want_res, params, n, s, dtype)
+            check(bool(torch.isfinite(out).all() and torch.isfinite(grad).all()
+                       and torch.isfinite(ddc).all()), f"training kernels at ({n}, {s}) {dtype}")
+            f_err = float((out - want).abs().max())
+            errs = {"ddc": float((ddc - want_ddc).abs().max() / want_ddc.abs().max())}
+            got_leaves = unpack_params(grad)
+            for name, leaves in unpack_params(want_grad).items():
+                for leaf, got, ref in zip(("weight", "bias"), got_leaves[name], leaves):
+                    errs[f"{name}.{leaf}"] = float((got - ref).abs().max()
+                                                   / ref.abs().max().clamp(min=1e-30))
+            b_name, b_err = max(errs.items(), key=lambda kv: kv[1])
+            worst["fwd", dtype] = max(worst["fwd", dtype], f_err)
+            worst["bwd", dtype] = max(worst["bwd", dtype], b_err)
+            print(f"[train-kernel] ({n}, {s}) {dtype}: forward max |kernel - plain| = "
+                  f"{f_err:.3e}; gradients (16 leaves + ddc) max |kernel - plain| / max |plain| "
+                  f"= {b_err:.3e} at {b_name} (tol {tol:g})")
+            check(f_err <= tol, f"training forward at ({n}, {s}) {dtype}: {f_err} > {tol}")
+            check(b_err <= tol, f"training gradient {b_name} at ({n}, {s}) {dtype}: {b_err} > {tol}")
+    return worst
+
+
+def training_loss_trajectories(cfg, dev):
+    """Phase 7, part 3: TRAJECTORY_STEPS float32 steps (perturb off, noise
+    0) through the training kernels and through the plain path, from the same
+    seeded models, on the same seeded ray batches. Returns both loss lists."""
+    import torch
+
+    from nerf_tpu_torch.config import optimizer_from_config, render_settings_from_config
+    from nerf_tpu_torch.data import flatten_rays, make_synthetic_dataset
+    from nerf_tpu_torch.engine.train import create_train_state, make_train_loop
+
+    data = make_synthetic_dataset(num_views=4, height=100, width=100, device=dev)
+    store = [torch.as_tensor(a, device=dev) for a in flatten_rays(data, dev)]
+    base = dataclasses.replace(render_settings_from_config(cfg, "train", hwf=data.hwf),
+                               perturb=False, radiance_field_noise_std=0.0,
+                               compute_dtype="float32")
+    losses = {}
+    for label, kernel in (("kernel", True), ("plain", False)):
+        mc = seeded_model(SEED, opacify=False).train().to(dev)
+        mf = seeded_model(SEED + 1, opacify=False).train().to(dev)
+        state = create_train_state(mc, mf, optimizer_from_config(cfg))
+        loop = make_train_loop(mc, mf, dataclasses.replace(base, use_pallas_train=kernel),
+                               int(cfg.nerf.train.num_random_rays), TRAJECTORY_STEPS)
+        state, metrics = loop(state, *store, SEED)
+        losses[label] = metrics.loss.cpu()
+    return losses["kernel"], losses["plain"]
+
+
+def train_main_path(cfg, tmp: str, dev) -> dict:
+    """Phase 7: train through ``train_nerf.train`` and check what it did and
+    what it wrote. Returns the launch counts and the numbers it printed."""
+    import torch
+
+    from nerf_tpu_torch.data import render_analytic_image, resolve_render_poses
+    from nerf_tpu_torch.eval_nerf import render_trajectory
+    from nerf_tpu_torch.kernels.flex_train import fused_flex_mlp_train
+    from nerf_tpu_torch.kernels.mlp_t import fused_mlp_t
+    from nerf_tpu_torch.train_nerf import train
+
+    fused_flex_mlp_train.fwd_launches = fused_flex_mlp_train.bwd_launches = 0
+    run = train(cfg, logdir=os.path.join(tmp, "train"), device=DEVICE)
+    launches = {"fwd": fused_flex_mlp_train.fwd_launches,
+                "bwd": fused_flex_mlp_train.bwd_launches}
+    steps = len(run.losses)
+    print(f"[train] {steps} steps of {cfg.nerf.train.num_random_rays} rays, "
+          f"{cfg.nerf.train.compute_dtype}: {launches['fwd']} forward and {launches['bwd']} "
+          f"backward kernel launches (expected {2 * steps} each); "
+          f"{run.rays_per_sec:,.0f} rays/s over {run.seconds:.2f} s")
+    check(steps == TRAIN_STEPS, f"{steps} steps trained")
+    check(launches["fwd"] == 2 * steps and launches["bwd"] == 2 * steps,
+          f"training kernel launches {launches} != {2 * steps} each")
+    losses = torch.tensor(run.losses)
+    check(bool(torch.isfinite(losses).all()), "non-finite training loss")
+    first, last = float(losses[:20].mean()), float(losses[-20:].mean())
+    print(f"[train] mean loss of the first 20 steps {first:.5f}, of the last 20 {last:.5f}; "
+          f"validation PSNR {run.val_psnrs[-1]:.2f} dB")
+    check(last < first, f"the loss did not fall: {first} -> {last}")
+    check(run.checkpoint is not None and os.path.exists(run.checkpoint), "no checkpoint")
+
+    fused_mlp_t.launches = 0
+    rendered = render_trajectory(cfg, run.checkpoint, os.path.join(tmp, "trained"),
+                                 num_poses=1, renderer="kernel", device=DEVICE)
+    render_launches = fused_mlp_t.launches
+    check(render_launches > 0 and all(rendered.finite), "trained render did not use the kernel")
+    poses, h, w, focal = resolve_render_poses(cfg)
+    truth = torch.as_tensor(render_analytic_image(h, w, focal, poses[0], device=dev))
+    db = psnr(rendered.first_maps["rgb_fine"], truth)
+    print(f"[train] the trained checkpoint rendered at orbit pose 0 (a novel view) through "
+          f"the forward kernel ({render_launches} launches): PSNR {db:.2f} dB against the "
+          f"analytic scene (floor {PSNR_FLOOR_TRAINED_DB})")
+    check(db >= PSNR_FLOOR_TRAINED_DB, f"trained render PSNR {db} < {PSNR_FLOOR_TRAINED_DB}")
+
+    kernel, plain = training_loss_trajectories(cfg, dev)
+    rel = float(((kernel - plain).abs() / plain.abs()).max())
+    print(f"[train] {TRAJECTORY_STEPS}-step float32 trajectory, kernel path vs plain path: "
+          f"loss {float(kernel[0]):.5f} -> {float(kernel[-1]):.5f}, max relative difference "
+          f"per step {rel:.3e} (tol {TRAJECTORY_RTOL:g})")
+    check(rel <= TRAJECTORY_RTOL, f"kernel vs plain trajectory: {rel} > {TRAJECTORY_RTOL}")
+    return {"launches": launches, "render_launches": render_launches, "psnr": db,
+            "rays_per_sec": run.rays_per_sec}
+
+
+def time_training(cfg, dev, on: str) -> dict:
+    """Phase 8: the training kernel pair against the plain pair at
+    TRAIN_SHAPE, and training-step rays/s on the kernel and plain paths, in
+    turns (plain, kernel, kernel, plain)."""
+    import torch
+
+    from nerf_tpu_torch.config import optimizer_from_config, render_settings_from_config
+    from nerf_tpu_torch.data import flatten_rays, make_synthetic_dataset
+    from nerf_tpu_torch.engine.train import create_train_state, make_train_loop
+    from nerf_tpu_torch.kernels.flex_train import (
+        flex_train_bwd, flex_train_fwd, flex_train_plain_bwd, flex_train_plain_fwd,
+    )
+
+    times = {}
+    model = seeded_model(SEED, opacify=False).to(dev)
+    n, s = TRAIN_SHAPE
+    pts, dc, params, g = train_case(n, s, model, dev, seed=3)
+    for dtype in ("float32", "bfloat16"):
+        _, res = flex_train_fwd(pts, dc, params, dtype)
+        _, plain_res = flex_train_plain_fwd(pts, dc, params, dtype)
+        fns = {
+            "fwd": (lambda: flex_train_fwd(pts, dc, params, dtype),
+                    lambda: flex_train_plain_fwd(pts, dc, params, dtype)),
+            "bwd": (lambda: flex_train_bwd(g, res, params, n, s, dtype),
+                    lambda: flex_train_plain_bwd(g, plain_res, params, n, s, dtype)),
+        }
+        for which, (kernel, plain) in fns.items():
+            p1, k1, k2, p2 = (cuda_ms(f, 10) for f in (plain, kernel, kernel, plain))
+            times[which, dtype] = ((k1 + k2) / 2, (p1 + p2) / 2)
+            print(f"[time] fused_flex_mlp_train {which} ({n}, {s}) {dtype}: kernel "
+                  f"{k1:.3f} / {k2:.3f} ms, plain {p1:.3f} / {p2:.3f} ms {on}")
+        del res, plain_res
+
+    data = make_synthetic_dataset(num_views=4, height=100, width=100, device=dev)
+    store = [torch.as_tensor(a, device=dev) for a in flatten_rays(data, dev)]
+    batch = int(cfg.nerf.train.num_random_rays)
+    base = render_settings_from_config(cfg, "train", hwf=data.hwf)
+    loops = {}
+    for dtype in ("float32", "bfloat16"):
+        for label, kernel in (("plain", False), ("kernel", True)):
+            mc = seeded_model(SEED, opacify=False).train().to(dev)
+            mf = seeded_model(SEED + 1, opacify=False).train().to(dev)
+            settings = dataclasses.replace(base, use_pallas_train=kernel, compute_dtype=dtype)
+            state = create_train_state(mc, mf, optimizer_from_config(cfg))
+            loop = make_train_loop(mc, mf, settings, batch, TIMED_STEPS)
+            state, _ = loop(state, *store, SEED)      # warm-up
+            loops[label, dtype] = (loop, state)
+    torch.cuda.reset_peak_memory_stats()
+    for dtype in ("float32", "bfloat16"):
+        secs = {}
+        for label in ("plain", "kernel", "kernel", "plain"):
+            loop, state = loops[label, dtype]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = loop(state, *store, SEED)
+            metrics.loss.cpu()
+            torch.cuda.synchronize()
+            secs.setdefault(label, []).append(time.perf_counter() - t0)
+        for label, turns in secs.items():
+            rates = [batch * TIMED_STEPS / t for t in turns]
+            times["step", label, dtype] = sum(rates) / len(rates)
+            print(f"[time] training step, {batch} rays, {base.num_coarse}+{base.num_fine} "
+                  f"samples, {label} path {dtype}: "
+                  f"{' / '.join(f'{1e3 * t / TIMED_STEPS:.3f}' for t in turns)} ms/step, "
+                  f"{' / '.join(f'{r:,.0f}' for r in rates)} rays/s {on}")
+    print(f"[time] peak device memory over those training steps: "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB {on}")
+    return times
 
 
 def main() -> int:
@@ -376,8 +622,20 @@ def main() -> int:
         print(f"[time] peak device memory over those frames: "
               f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB {on}")
 
+    # Phase 6: the training kernels vs plain, at the training path's shapes.
+    with torch.no_grad():
+        train_worst = check_training_kernels(model, dev)
+
+    # Phase 7: the training main path, through the train entry point.
+    cfg_train = synthetic_train_config(TRAIN_STEPS)
+    with tempfile.TemporaryDirectory() as tmp:
+        trained = train_main_path(cfg_train, tmp, dev)
+
+    # Phase 8: times of the training kernels and of a training step.
+    train_times = time_training(cfg_train, dev, on)
+
     k_ms, p_ms = times["float32"]
-    print(json.dumps({"kernels": [{
+    entries = [{
         "name": "fused_mlp_t",
         "route": "cuda",
         "source": "nerf_tpu_torch/csrc/mlp_t.cu",
@@ -389,7 +647,23 @@ def main() -> int:
         "plain_ms": p_ms,
         "ms_bf16": times["bfloat16"][0],
         "plain_ms_bf16": times["bfloat16"][1],
-    }]}))
+    }]
+    for which, line in (("fwd", 197), ("bwd", 241)):
+        entries.append({
+            "name": f"fused_flex_mlp_train_{which}",
+            "route": "cuda",
+            "source": "nerf_tpu_torch/csrc/flex_train.cu",
+            "replaces": f"nerf_tpu/ops/pallas/train_vjp.py:{line}",
+            "launches": trained["launches"][which],
+            "max_abs_err": train_worst[which, "float32"],
+            "max_abs_err_bf16": train_worst[which, "bfloat16"],
+            "ms": train_times[which, "float32"][0],
+            "plain_ms": train_times[which, "float32"][1],
+            "ms_bf16": train_times[which, "bfloat16"][0],
+            "plain_ms_bf16": train_times[which, "bfloat16"][1],
+            "shape": list(TRAIN_SHAPE),
+        })
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -6,6 +6,7 @@ from .schema import (
     load_config,
     migrate_legacy_schema,
     model_from_config,
+    optimizer_from_config,
     render_settings_from_config,
 )
 
@@ -16,5 +17,6 @@ __all__ = [
     "load_config",
     "migrate_legacy_schema",
     "model_from_config",
+    "optimizer_from_config",
     "render_settings_from_config",
 ]

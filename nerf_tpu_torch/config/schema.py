@@ -6,8 +6,8 @@ unchanged. One naming difference: this package calls the radiance-field
 kernel "fused" or "kernel" where the JAX package says "pallas". It still
 reads the ``nerf.<mode>.use_pallas`` key, which turns on the hand-written
 CUDA kernel (``RenderSettings.use_pallas``, ``kernels/mlp_t.py``), and
-``nerf.train.use_pallas_train``, which names the training kernels that are
-not ported yet.
+``nerf.train.use_pallas_train``, which turns on the training kernels
+(``kernels/flex_train.py``).
 
 Reference quirk: the reference never passes num_layers/hidden_size/
 skip_connect_every to its model constructors, so all its checkpoints are
@@ -15,8 +15,8 @@ default-shaped (4x128). ``model_from_config`` passes sizes through;
 ``reference_compat_shapes=True`` reproduces the reference's construction
 for loading its checkpoints.
 
-``optimizer_from_config`` comes with training (ROADMAP.md, open items §1
-item 5).
+``optimizer_from_config`` builds the ``torch.optim`` rule, its LR schedule
+and its clipping from ``cfg.optimizer`` / ``cfg.scheduler``.
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ import inspect
 from typing import Optional, Tuple
 
 from ..engine.renderer import RenderSettings
+from ..engine.train import OptimizerSpec, make_optimizer
 from ..models import MODEL_REGISTRY, get_model
 from .cfgnode import CfgNode
 
@@ -261,3 +262,13 @@ def model_from_config(model_cfg: CfgNode, reference_compat_shapes: bool = False)
     accepted = inspect.signature(cls).parameters
     return get_model(name, **{k: model_cfg[k] for k in _SIZE_KEYS
                               if k in model_cfg and k in accepted})
+
+
+def optimizer_from_config(cfg: CfgNode) -> OptimizerSpec:
+    """The optimizer + schedule from cfg.optimizer / cfg.scheduler."""
+    lr_decay = cfg.scheduler.lr_decay if "scheduler" in cfg else None
+    lr_decay_factor = cfg.scheduler.lr_decay_factor if "scheduler" in cfg else None
+    return make_optimizer(
+        cfg.optimizer.type, float(cfg.optimizer.lr), lr_decay, lr_decay_factor,
+        grad_clip_norm=float(getattr(cfg.optimizer, "grad_clip_norm", 0.0)) or None,
+    )

@@ -1,11 +1,17 @@
-"""Checkpoint conversion and loading (port of the reference-format half of
-``nerf_tpu/engine/checkpoint.py``).
+"""Checkpoint conversion, loading and writing (port of the reference-format
+half of ``nerf_tpu/engine/checkpoint.py``).
 
 Reference checkpoints are ``torch.save`` dicts with ``iter``,
 ``model_coarse_state_dict``, ``model_fine_state_dict`` (or None),
 ``optimizer_state_dict``, ``loss`` and ``psnr``, and optionally
 ``height``/``width``/``focal_length``; they are read with
-``torch.load(..., weights_only=True)``.
+``torch.load(..., weights_only=True)``. ``optimizer_state_dict`` is a
+``torch.optim.Adam.state_dict()`` over ``list(coarse.parameters()) +
+list(fine.parameters())``: the layout the JAX package's
+``reference_optimizer_state_dict`` writes from its optax state, so a
+checkpoint either package exported resumes training here with its moments.
+The JAX package's native ``.ntc`` files are not read or written yet
+(ROADMAP.md, open items §1 item 7).
 
 The JAX package's params layout (nested dicts of ``{"kernel": (in, out),
 "bias": (out,)}``, lists for ``layers_xyz``/``layers_dir``) is kept as the
@@ -15,7 +21,8 @@ a module of this package, so both packages can compute with the same weights.
 
 from __future__ import annotations
 
-from typing import Any, Dict
+import os
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -130,3 +137,96 @@ def load_models_and_params(checkpoint_path: str, cfg, device="cpu"):
         model_fine = model_from_config(cfg.models.fine, reference_compat_shapes=True)
         model_fine = load_jax_params(model_fine, ckpt["params_fine"]).to(device).eval()
     return model_coarse.to(device).eval(), model_fine, ckpt
+
+
+def _to_cpu(obj):
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu()
+    if isinstance(obj, dict):
+        return {k: _to_cpu(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_cpu(v) for v in obj)
+    return obj
+
+
+def export_reference_checkpoint(path: str, step: int, model_coarse: torch.nn.Module,
+                                model_fine: Optional[torch.nn.Module], loss: float,
+                                psnr: float, optimizer: torch.optim.Optimizer,
+                                hwf: Optional[tuple] = None) -> None:
+    """Write a reference-schema ``.ckpt`` (``torch.save``, tensors on the CPU):
+    the modules' state dicts, ``optimizer.state_dict()`` and the loss and
+    PSNR of the last step."""
+    ckpt: Dict[str, Any] = {
+        "iter": int(step),
+        "model_coarse_state_dict": _to_cpu(model_coarse.state_dict()),
+        "model_fine_state_dict": (_to_cpu(model_fine.state_dict())
+                                  if model_fine is not None else None),
+        "optimizer_state_dict": _to_cpu(optimizer.state_dict()),
+        "loss": float(loss),
+        "psnr": float(psnr),
+    }
+    if hwf is not None:
+        ckpt["height"], ckpt["width"], ckpt["focal_length"] = int(hwf[0]), int(hwf[1]), float(hwf[2])
+    tmp = path + ".tmp"
+    torch.save(ckpt, tmp)
+    os.replace(tmp, path)
+
+
+def latest_checkpoint(logdir: str, prefix: str = "checkpoint", suffix: str = ".ckpt"
+                      ) -> Optional[str]:
+    """The highest-step ``<prefix>NNNNN<suffix>`` file in ``logdir``, or None."""
+    if not os.path.isdir(logdir):
+        return None
+    best, best_step = None, -1
+    for name in os.listdir(logdir):
+        if name.startswith(prefix) and name.endswith(suffix):
+            digits = "".join(ch for ch in name[len(prefix):-len(suffix)] if ch.isdigit())
+            step = int(digits) if digits else 0
+            if step > best_step:
+                best, best_step = os.path.join(logdir, name), step
+    return best
+
+
+def load_train_checkpoint(path: str, model_coarse: torch.nn.Module,
+                          model_fine: Optional[torch.nn.Module],
+                          optimizer: torch.optim.Optimizer) -> Dict[str, Any]:
+    """Restore a reference ``.ckpt`` into the modules and, when its
+    ``optimizer_state_dict`` holds moments shaped like ``optimizer``'s
+    parameters, into ``optimizer``.
+
+    Returns ``{"step": iter, "count": updates the restored moments have
+    seen (0 when they restart fresh), "moments": whether they were
+    restored}``.
+    """
+    if not path.endswith(".ckpt"):
+        raise NotImplementedError(
+            f"{path}: only reference .ckpt files are read; native .ntc I/O is not "
+            "ported yet (ROADMAP.md, open items §1 item 7)"
+        )
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    model_coarse.load_state_dict(ckpt["model_coarse_state_dict"])
+    if model_fine is not None:
+        if ckpt.get("model_fine_state_dict") is None:
+            raise ValueError(f"{path} has no fine model, but a fine model is configured")
+        model_fine.load_state_dict(ckpt["model_fine_state_dict"])
+    params = optimizer.param_groups[0]["params"]
+    moments = (ckpt.get("optimizer_state_dict") or {}).get("state") or {}
+    fits = len(moments) == len(params) and all(
+        i in moments and tuple(moments[i]["exp_avg"].shape) == tuple(p.shape)
+        for i, p in enumerate(params)
+    )
+    count = 0
+    if fits:
+        # The moments come from the file; the hyperparameters stay this
+        # optimizer's own (the file's are the exporter's).
+        own = [{k: v for k, v in g.items() if k != "params"} for g in optimizer.param_groups]
+        # The JAX package's exporter writes one `step` tensor shared by every
+        # parameter's state; torch's Adam adds to each state's `step` in
+        # place, so a shared one would count every update once per parameter.
+        for entry in moments.values():
+            entry["step"] = torch.as_tensor(entry["step"], dtype=torch.float32).clone()
+        optimizer.load_state_dict(ckpt["optimizer_state_dict"])
+        for group, hyper in zip(optimizer.param_groups, own):
+            group.update(hyper)
+        count = int(float(moments[0]["step"]))
+    return {"step": int(ckpt.get("iter", 0)), "count": count, "moments": fits}

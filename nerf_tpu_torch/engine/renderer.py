@@ -8,12 +8,13 @@ weights, so the functions here take modules where the JAX ones take
 (model, params) pairs. Random numbers come from one ``torch.Generator``
 where the JAX package splits a key.
 
-The radiance field goes through the hand-written kernel
-(``kernels/mlp_t.py``) when fused evaluation is on (``RenderSettings
-.use_pallas``, read from the config's ``use_pallas`` key) and the model is the
-4x128 10/4 FlexibleNeRF; otherwise through positional encoding + the module.
-Compositing and resampling are plain PyTorch, as they are plain XLA on the
-JAX package's kernel path.
+The radiance field of the 4x128 10/4 FlexibleNeRF goes through the
+hand-written training kernels (``kernels/flex_train.py``, forward and
+backward) when ``RenderSettings.use_pallas_train`` is on, else through the
+forward-only kernel (``kernels/mlp_t.py``) when ``use_pallas`` is on;
+otherwise, and for every other model shape, through positional encoding +
+the module. Compositing and resampling are plain PyTorch, as they are plain
+XLA on the JAX package's kernel path.
 """
 
 from __future__ import annotations
@@ -22,7 +23,9 @@ import dataclasses
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
+from ..kernels.flex_train import fused_flex_mlp_train
 from ..kernels.mlp_t import fused_mlp_t, supports_fused
 from ..ops.encoding import coarse_to_fine_window, positional_encoding
 from ..ops.rays import get_ray_bundle, ndc_rays, ray_aabb_interval
@@ -63,8 +66,10 @@ class RenderSettings:
     aabb: Optional[Tuple[float, float, float, float, float, float]] = None
     # Fused encode+MLP kernel for radiance-field evaluation (forward only).
     use_pallas: bool = False
-    # Training kernels and rematerialization: not ported yet.
+    # Fused training kernels (forward + backward); pts and viewdirs get no
+    # gradient through them, so never for pose optimization.
     use_pallas_train: bool = False
+    # Recompute the plain evaluation's activations in the backward.
     remat: bool = False
     # MLP matmul input dtype: "float32" or "bfloat16" (f32 sums either way).
     compute_dtype: str = "float32"
@@ -129,28 +134,27 @@ def encode_points(pts: torch.Tensor, viewdirs: Optional[torch.Tensor],
 
 def _eval_radiance_field(model, pts: torch.Tensor, viewdirs: Optional[torch.Tensor],
                          s: RenderSettings) -> torch.Tensor:
-    """Radiance field at sample points: the fused kernel when enabled and
-    applicable, else positional encoding + the module."""
-    if s.use_pallas_train:
-        raise NotImplementedError(
-            "use_pallas_train: the training kernels are not ported yet "
-            "(ROADMAP.md, open items §2 kernel #8 and §1 item 5)"
-        )
-    if s.remat:
-        raise NotImplementedError(
-            "remat is a training option; training is not ported yet (ROADMAP.md, open items §1 item 5)"
-        )
-    if (s.use_pallas and viewdirs is not None and s.log_sampling_xyz
-            and s.log_sampling_dir and s.pe_alpha_xyz < 0.0
-            and supports_fused(model) and pts.ndim == 3):
+    """Radiance field at sample points: a fused kernel when enabled and the
+    model's shape is the one it takes, else positional encoding + the
+    module. The training kernels are checked first."""
+    fused_shape = (viewdirs is not None and s.log_sampling_xyz and s.log_sampling_dir
+                   and s.pe_alpha_xyz < 0.0 and supports_fused(model) and pts.ndim == 3)
+    if s.use_pallas_train and fused_shape:
+        return fused_flex_mlp_train(model, pts, viewdirs, compute_dtype=s.compute_dtype)
+    if s.use_pallas and fused_shape:
         return fused_mlp_t(model, pts, viewdirs, compute_dtype=s.compute_dtype)
 
-    enc = encode_points(pts, viewdirs, s)
-    if s.compute_dtype != "float32":
-        # The encoding stays f32 (high-frequency phases); only the MLP's
-        # matmuls drop to the compute dtype.
-        enc = enc.to(getattr(torch, s.compute_dtype))
-    return model(enc).float()
+    def eval_fn(pts_, viewdirs_):
+        enc = encode_points(pts_, viewdirs_, s)
+        if s.compute_dtype != "float32":
+            # The encoding stays f32 (high-frequency phases); only the MLP's
+            # matmuls drop to the compute dtype.
+            enc = enc.to(getattr(torch, s.compute_dtype))
+        return model(enc).float()
+
+    if s.remat:
+        return torch.utils.checkpoint.checkpoint(eval_fn, pts, viewdirs, use_reentrant=False)
+    return eval_fn(pts, viewdirs)
 
 
 def _composite(rf, z_vals, rd, s: RenderSettings, generator, final_dists=None) -> RenderOutputs:

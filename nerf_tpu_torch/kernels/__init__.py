@@ -7,6 +7,14 @@ kernel when it is imported; the build happens at the first CUDA call
 (``_build.load_library``).
 """
 
+from .flex_train import fused_flex_mlp_train, flex_train_plain_bwd, flex_train_plain_fwd
 from .mlp_t import fused_mlp_t, mlp_t_plain, supports_fused
 
-__all__ = ["fused_mlp_t", "mlp_t_plain", "supports_fused"]
+__all__ = [
+    "fused_flex_mlp_train",
+    "flex_train_plain_bwd",
+    "flex_train_plain_fwd",
+    "fused_mlp_t",
+    "mlp_t_plain",
+    "supports_fused",
+]

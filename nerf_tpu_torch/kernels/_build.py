@@ -3,7 +3,8 @@
 The sources in ``nerf_tpu_torch/csrc/`` are compiled with ``nvcc`` for
 Hopper (``sm_90a``) into ``build/nerf_tpu_torch/`` at the root of the
 checkout, at first use, under a name keyed by a hash of the sources and the
-flags. The library has a plain C interface and is loaded with ``ctypes``;
+flags: one ``nvcc -c`` per ``.cu`` file, all started together, then one
+link. The library has a plain C interface and is loaded with ``ctypes``;
 nothing here includes PyTorch's headers, so a build takes seconds.
 
 Fast math is never on: the encoding's sinusoids take arguments up to
@@ -25,7 +26,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "nerf_tpu_torch"
 NVCC_FALLBACK = "/usr/local/cuda/bin/nvcc"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+    "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -66,14 +67,27 @@ def build_library() -> Path:
         return out
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-        )
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(_sources(), objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    logs = [proc.communicate()[0] for proc in procs]
+    tmp = out.with_name(f"{tag}.tmp")
+    link = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *map(str, objs)]
+    failed = [(cmd, log) for cmd, log, proc in zip(cmds, logs, procs) if proc.returncode != 0]
+    if not failed:
+        proc = subprocess.run(link, capture_output=True, text=True)
+        logs.append(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed = [(link, proc.stderr)]
+    out.with_suffix(".log").write_text("".join(logs))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        cmd, log = failed[0]
+        raise RuntimeError(f"nvcc failed: {' '.join(cmd)}\n{log}")
     os.replace(tmp, out)
     return out
 

@@ -1,0 +1,274 @@
+"""Fused FlexibleNeRF (4x128, 10/4) training kernels: forward + backward.
+
+Replaces ``nerf_tpu/ops/pallas/flex_train.py:fused_flex_mlp_train`` (the
+custom-VJP pair that ``train_vjp.py:build_train_vjp`` builds; ``pallas_call``
+at ``train_vjp.py:197`` forward and ``:241`` backward) with two hand-written
+CUDA kernels for Hopper in ``csrc/flex_train.cu``, behind one
+``torch.autograd.Function`` (``kernels/train_vjp.py``):
+
+- forward: ``mlp_t``'s evaluation (N, S, 3) + dc (N, 64) -> (N, S, 4) raw
+  f32, saving the residuals in the compute dtype: enc, a0 (layer1's output,
+  not ReLU'd), h1, h2, h3, feat and hd (post-ReLU);
+- backward: (N, S, 4) f32 cotangent + residuals -> the gradient of the
+  packed parameter buffer (``kernels/mlp_t.pack_params``'s layout: every
+  weight and bias but the viewdir columns of ``layers_dir[0]``) and ddc
+  (N, 64), the gradient of the per-ray direction contribution. Four
+  launches (layer gradients, weight gradients per chunk of points, a
+  fixed-order sum over chunks, ddc per ray): deterministic, no atomics.
+
+``flex_train_plain_fwd`` / ``flex_train_plain_bwd`` are the plain PyTorch
+version: the same residuals and the same gradients from them, by the
+hand-derived backward. CPU tensors take them; CUDA tensors take the kernels
+or raise. With ``compute_dtype="bfloat16"`` both operands of every product
+are rounded to bf16 and the sums stay f32 (``.bfloat16().float()`` and f32
+matmuls in the plain version); bias gradients and ddc sum the unrounded f32
+gradients, as the TPU kernel does.
+
+``fused_flex_mlp_train.fwd_launches`` and ``.bwd_launches`` count the
+kernels' launches (one per call each).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Dict, Tuple
+
+import torch
+
+from ..ops.encoding import positional_encoding
+from .mlp_t import _DIM_XYZ, _HIDDEN, _NUM_FREQ_XYZ, pack_params, supports_fused
+from .train_vjp import TrainKernelFamily, build_train_vjp
+
+_DIR_HIDDEN = 64
+_TILE = 64                 # points per block (csrc/flex_mlp.cuh kTile)
+_TILES_PER_CHUNK = 16      # point tiles per weight-gradient block
+_RES_ROWS = _DIM_XYZ + 5 * _HIDDEN + _DIR_HIDDEN          # 767 residual rows per point
+_DELTA_ROWS = 4 + _DIR_HIDDEN + 5 * _HIDDEN               # 708 f32 gradient rows per point
+
+# Packed parameter buffer (kernels/mlp_t.pack_params, csrc/flex_mlp.cuh):
+# name -> (in, out) of each weight, then its bias (out,).
+_LAYOUT = (
+    ("layer1", _DIM_XYZ, _HIDDEN),
+    ("layers_xyz.0", _HIDDEN, _HIDDEN),
+    ("layers_xyz.1", _HIDDEN, _HIDDEN),
+    ("layers_xyz.2", _HIDDEN, _HIDDEN),
+    ("fc_feat", _HIDDEN, _HIDDEN),
+    ("fc_alpha", _HIDDEN, 1),
+    ("layers_dir.0", _HIDDEN, _DIR_HIDDEN),
+    ("fc_rgb", _DIR_HIDDEN, 3),
+)
+_NUM_PARAMS = sum(i * o + o for _, i, o in _LAYOUT)      # 82820
+# Backward weights (csrc/flex_train.cu kT*): nn.Linear (out, in) matrices.
+_BWD_ORDER = ("fc_rgb", "layers_dir.0", "fc_feat", "fc_alpha",
+              "layers_xyz.2", "layers_xyz.1", "layers_xyz.0")
+_NUM_BWD_WEIGHTS = sum(i * o for n, i, o in _LAYOUT if n in _BWD_ORDER)   # 74048
+
+
+def unpack_params(params: torch.Tensor) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
+    """Views of the packed buffer: name -> (weight (in, out), bias (out,))."""
+    out, off = {}, 0
+    for name, i, o in _LAYOUT:
+        out[name] = (params[off:off + i * o].view(i, o), params[off + i * o:off + i * o + o])
+        off += i * o + o
+    return out
+
+
+def pack_backward_weights(params: torch.Tensor) -> torch.Tensor:
+    """The backward kernel's weights: each layer's (out, in) matrix, in the
+    order of ``csrc/flex_train.cu``'s kT* offsets."""
+    layers = unpack_params(params)
+    return torch.cat([layers[name][0].t().reshape(-1) for name in _BWD_ORDER])
+
+
+def _rounder(compute_dtype: str):
+    if compute_dtype == "bfloat16":
+        return lambda x: x.bfloat16().float()
+    return lambda x: x
+
+
+def flex_train_plain_fwd(pts: torch.Tensor, dc: torch.Tensor, params: torch.Tensor,
+                         compute_dtype: str = "float32"):
+    """Plain version of the forward kernel: ``(raw (N, S, 4) f32, residuals)``,
+    residuals = (enc, a0, h1, h2, h3, feat, hd), each (N*S, C) in the compute
+    dtype."""
+    r = _rounder(compute_dtype)
+    layers = unpack_params(params.float())
+    n, s = pts.shape[0], pts.shape[1]
+
+    def dense(name, x):
+        w, b = layers[name]
+        return x @ r(w) + b
+
+    enc = r(positional_encoding(pts.reshape(-1, 3).float(), _NUM_FREQ_XYZ))
+    a0 = r(dense("layer1", enc))                       # layer1: no ReLU
+    h1 = r(torch.relu(dense("layers_xyz.0", a0)))
+    h2 = r(torch.relu(dense("layers_xyz.1", h1)))
+    h3 = r(torch.relu(dense("layers_xyz.2", h2)))
+    feat = r(torch.relu(dense("fc_feat", h3)))
+    sigma = dense("fc_alpha", h3)
+    hd = r(torch.relu(dense("layers_dir.0", feat) + dc.float().repeat_interleave(s, dim=0)))
+    rgb = dense("fc_rgb", hd)
+    out = torch.cat([rgb, sigma], dim=-1).reshape(n, s, 4)
+    store = torch.bfloat16 if compute_dtype == "bfloat16" else torch.float32
+    return out, tuple(x.to(store) for x in (enc, a0, h1, h2, h3, feat, hd))
+
+
+def flex_train_plain_bwd(g: torch.Tensor, residuals, params: torch.Tensor, n: int, s: int,
+                         compute_dtype: str = "float32"):
+    """Plain version of the backward kernel: ``(d params (82820,) in the
+    packed layout, ddc (N, 64))`` from the cotangent and the residuals."""
+    r = _rounder(compute_dtype)
+    layers = unpack_params(params.float())
+    enc, a0, h1, h2, h3, feat, hd = (x.float() for x in residuals)
+    g = g.reshape(-1, 4).float()
+    drgb, dsigma = g[:, :3], g[:, 3:]
+
+    def back(dy, name, mask=None):
+        # dX = dY W^T (W stored (in, out)), masked where the stored
+        # post-ReLU activation is not positive.
+        dx = r(dy) @ r(layers[name][0]).t()
+        return dx if mask is None else torch.where(mask > 0, dx, torch.zeros_like(dx))
+
+    dhd = back(drgb, "fc_rgb", hd)
+    dfeat = back(dhd, "layers_dir.0", feat)
+    # The fused head: [dfeat; dsigma] against [W_feat; W_alpha], joined at h3.
+    wfa = torch.cat([layers["fc_feat"][0], layers["fc_alpha"][0]], dim=1)
+    dh3 = r(torch.cat([dfeat, dsigma], dim=-1)) @ r(wfa).t()
+    dh3 = torch.where(h3 > 0, dh3, torch.zeros_like(dh3))
+    dh2 = back(dh3, "layers_xyz.2", h2)
+    dh1 = back(dh2, "layers_xyz.1", h1)
+    da0 = back(dh1, "layers_xyz.0")                    # layer1 has no ReLU: no mask
+
+    pairs = {
+        "layer1": (enc, da0), "layers_xyz.0": (a0, dh1), "layers_xyz.1": (h1, dh2),
+        "layers_xyz.2": (h2, dh3), "fc_feat": (h3, dfeat), "fc_alpha": (h3, dsigma),
+        "layers_dir.0": (feat, dhd), "fc_rgb": (hd, drgb),
+    }
+    grads = []
+    for name, _, _ in _LAYOUT:
+        x, dy = pairs[name]
+        grads += [(r(x).t() @ r(dy)).reshape(-1), dy.sum(dim=0)]
+    return torch.cat(grads), dhd.reshape(n, s, _DIR_HIDDEN).sum(dim=1)
+
+
+@functools.lru_cache(maxsize=None)
+def _kernels():
+    from ._build import load_library
+
+    lib = load_library()
+    lib.nerf_flex_train_layout.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.nerf_flex_train_layout.restype = None
+    layout = (ctypes.c_int * 6)()
+    lib.nerf_flex_train_layout(layout)
+    want = (_RES_ROWS, _DELTA_ROWS, _NUM_PARAMS, _NUM_BWD_WEIGHTS, _TILE, _TILES_PER_CHUNK)
+    if tuple(layout) != want:
+        raise RuntimeError(f"csrc/flex_train.cu layout {tuple(layout)} != wrapper's {want}")
+    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    fwd = lib.nerf_flex_train_forward
+    fwd.argtypes = [ptr, ptr, ptr, i64, ptr, ptr, i64, i32, i32, ptr]
+    fwd.restype = ctypes.c_int
+    bwd = lib.nerf_flex_train_backward
+    bwd.argtypes = [ptr, ptr, ptr, i64, ptr, ptr, ptr, ptr, i64, i32, i32, ptr]
+    bwd.restype = ctypes.c_int
+    return fwd, bwd
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """Contiguous, float32 and 16-byte aligned (the kernels read float4)."""
+    t = t.float().contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _check_cuda(what: str, pts: torch.Tensor, *others: torch.Tensor) -> None:
+    if pts.device.type != "cuda":
+        raise ValueError(f"{what}: no kernel for device {pts.device}")
+    if any(t.device != pts.device for t in others):
+        raise ValueError(f"{what}: every tensor must be on {pts.device}")
+
+
+def flex_train_fwd(pts: torch.Tensor, dc: torch.Tensor, params: torch.Tensor,
+                   compute_dtype: str = "float32"):
+    """The forward: the kernel on CUDA tensors, the plain version on CPU ones."""
+    if pts.device.type == "cpu":
+        return flex_train_plain_fwd(pts, dc, params, compute_dtype)
+    what = "fused_flex_mlp_train forward"
+    _check_cuda(what, pts, dc, params)
+    n, s = pts.shape[0], pts.shape[1]
+    if pts.ndim != 3 or pts.shape[-1] != 3 or tuple(dc.shape) != (n, _DIR_HIDDEN):
+        raise ValueError(f"{what}: want pts (N, S, 3) and dc (N, 64), got "
+                         f"{tuple(pts.shape)} and {tuple(dc.shape)}")
+    if pts.dtype != torch.float32 or params.numel() != _NUM_PARAMS:
+        raise ValueError(f"{what}: want float32 pts and a {_NUM_PARAMS}-float parameter buffer")
+    bf16 = compute_dtype == "bfloat16"
+    tiles = -(-n * s // _TILE)
+    out = torch.empty((n, s, 4), dtype=torch.float32, device=pts.device)
+    res = torch.empty(tiles * _RES_ROWS * _TILE, device=pts.device,
+                      dtype=torch.bfloat16 if bf16 else torch.float32)
+    if n * s == 0:
+        return out, (res,)
+    # The aligned copies are freed when this returns, before the kernel may
+    # have run: the caching allocator hands their blocks out again only in
+    # this stream's order, after the kernel.
+    with torch.cuda.device(pts.device):
+        pts_c, dc_c, params_c = (_aligned(t) for t in (pts, dc, params))
+        stream = torch.cuda.current_stream(pts.device).cuda_stream
+        rc = _kernels()[0](pts_c.data_ptr(), dc_c.data_ptr(), params_c.data_ptr(),
+                           params_c.numel(), out.data_ptr(), res.data_ptr(), n * s, s,
+                           int(bf16), stream)
+    if rc != 0:
+        raise RuntimeError(f"{what}: kernel launch failed with CUDA error {rc}")
+    fused_flex_mlp_train.fwd_launches += 1
+    return out, (res,)
+
+
+def flex_train_bwd(g: torch.Tensor, residuals, params: torch.Tensor, n: int, s: int,
+                   compute_dtype: str = "float32"):
+    """The backward: the kernel on CUDA tensors, the plain version on CPU ones."""
+    if g.device.type == "cpu":
+        return flex_train_plain_bwd(g, residuals, params, n, s, compute_dtype)
+    what = "fused_flex_mlp_train backward"
+    (res,) = residuals
+    _check_cuda(what, g, res, params)
+    if tuple(g.shape) != (n, s, 4):
+        raise ValueError(f"{what}: want a ({n}, {s}, 4) cotangent, got {tuple(g.shape)}")
+    device = g.device
+    grad = torch.empty(_NUM_PARAMS, dtype=torch.float32, device=device)
+    ddc = torch.empty((n, _DIR_HIDDEN), dtype=torch.float32, device=device)
+    if n * s == 0:
+        return grad.zero_(), ddc
+    tiles = -(-n * s // _TILE)
+    chunks = -(-tiles // _TILES_PER_CHUNK)
+    # Scratch, freed when this returns: the caching allocator hands the
+    # blocks out again only in this stream's order, after the kernels.
+    delta = torch.empty(tiles * _DELTA_ROWS * _TILE, dtype=torch.float32, device=device)
+    partial = torch.empty(chunks * _NUM_PARAMS, dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        g_c = _aligned(g)
+        wt = _aligned(pack_backward_weights(params.detach()))
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = _kernels()[1](g_c.data_ptr(), res.data_ptr(), wt.data_ptr(), wt.numel(),
+                           delta.data_ptr(), partial.data_ptr(), grad.data_ptr(),
+                           ddc.data_ptr(), n * s, s, int(compute_dtype == "bfloat16"), stream)
+    if rc != 0:
+        raise RuntimeError(f"{what}: kernel launch failed with CUDA error {rc}")
+    fused_flex_mlp_train.bwd_launches += 1
+    return grad, ddc
+
+
+_FAMILY = TrainKernelFamily(
+    name="fused_flex_mlp_train",
+    supports=supports_fused,
+    pack_params=pack_params,
+    forward=flex_train_fwd,
+    backward=flex_train_bwd,
+)
+
+fused_flex_mlp_train = build_train_vjp(_FAMILY)
+fused_flex_mlp_train.__doc__ = """Differentiable fused FlexibleNeRF evaluation for training:
+``fused_flex_mlp_train(model, pts (N, S, 3), viewdirs (N, 3), compute_dtype)``
+-> (N, S, 4) raw [r, g, b, sigma] f32. Forward and backward are the kernels
+of ``csrc/flex_train.cu`` on CUDA tensors (the plain version on CPU
+tensors). pts and viewdirs get no gradient."""
+fused_flex_mlp_train.fwd_launches = 0
+fused_flex_mlp_train.bwd_launches = 0

@@ -1,0 +1,272 @@
+"""Train a NeRF (port of ``train_nerf.py``).
+
+Same config schema, metric tags and checkpoint cadence as the JAX CLI: the
+training rays live on the device as one flat store; each loop call takes
+``steps_per_call`` steps (ray batch drawn on the device, coarse + fine
+render, MSE(coarse) + MSE(fine), backward, update, LR decay) and fetches
+their metrics once; validation renders ``val_poses[0]`` at
+``validate_every``; checkpoints are reference ``.ckpt`` files with the
+optimizer's state, ``checkpointNNNNN.ckpt`` at ``save_every`` and at the end.
+With ``nerf.train.use_pallas_train`` the 4x128 10/4 FlexibleNeRF's
+radiance field and its gradient go through the hand-written training
+kernels (``kernels/flex_train.py``).
+
+Usage:
+  python -m nerf_tpu_torch.train_nerf --config cfg.yml [--load-checkpoint ckpt] \\
+      [--overrides key value ...] [--device cuda]
+
+``main(argv)`` parses the flags; ``train(cfg, ...)`` does the work and takes a
+``CfgNode``, so a caller can drive it without a YAML file.
+
+Not ported yet, and raising: the blender and LLFF loaders and the native
+``.nrc`` ray cache (ROADMAP.md, open items §2, next slice 3), ``.ntc``
+checkpoints (§1 item 7), more than one device and ``--tighten-aabb`` (§1
+item 11).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import time
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from .config import (
+    load_config,
+    model_from_config,
+    optimizer_from_config,
+    render_settings_from_config,
+)
+from .data import (
+    flatten_rays,
+    is_reference_cache_dir,
+    load_ray_cache,
+    load_reference_cache_dir,
+    make_synthetic_dataset,
+    shuffle_ray_store,
+)
+from .engine.checkpoint import export_reference_checkpoint, latest_checkpoint, load_train_checkpoint
+from .engine.renderer import make_image_render_fn
+from .engine.train import create_train_state, make_train_loop, steps_per_call
+from .ops import get_ray_bundle, img2mse, mse2psnr
+from .utils import MetricWriter, RateMeter
+
+_SLICE_3 = "(ROADMAP.md, open items §2, next slice 3)"
+
+
+def load_dataset(cfg, device="cpu") -> dict:
+    """The training rays and the validation views of ``cfg.dataset``: a dict
+    of host arrays (``rays`` = (origins, directions, targets), ``hwf``,
+    ``near``, ``far``, ``val_images``, ``val_poses``)."""
+    ds = cfg.dataset
+    if getattr(ds, "cachedir", None):
+        path = ds.cachedir
+        if os.path.isdir(path):
+            if is_reference_cache_dir(path):
+                ro, rd, targets, meta, _ = load_reference_cache_dir(path)
+                return {"rays": (ro, rd, targets),
+                        "hwf": (meta["height"], meta["width"], meta["focal"]),
+                        "near": ds.near, "far": ds.far, "val_images": None, "val_poses": None}
+            for name in ("rays.npz", "rays.nrc"):
+                if os.path.exists(os.path.join(path, name)):
+                    path = os.path.join(path, name)
+                    break
+        if path.endswith(".nrc"):
+            raise NotImplementedError(
+                f"{path}: the native .nrc ray cache needs the C++ store builder, not "
+                f"ported yet {_SLICE_3}")
+        ro, rd, targets, meta, extras = load_ray_cache(path)
+        return {"rays": (ro, rd, targets), "hwf": (meta["height"], meta["width"], meta["focal"]),
+                "near": meta.get("near", ds.near), "far": meta.get("far", ds.far),
+                "val_images": extras.get("val_images"), "val_poses": extras.get("val_poses")}
+    if ds.type in ("blender", "llff"):
+        raise NotImplementedError(
+            f"dataset.type {ds.type!r}: the loader (data/{ds.type}.py) is not ported yet "
+            f"{_SLICE_3}; use dataset.type synthetic or a ray cache")
+    if ds.type == "synthetic":
+        dataset = make_synthetic_dataset(num_views=int(getattr(ds, "num_views", 20)),
+                                         height=int(getattr(ds, "image_size", 64)),
+                                         width=int(getattr(ds, "image_size", 64)), device=device)
+        return {"rays": flatten_rays(dataset, device), "hwf": dataset.hwf,
+                "near": dataset.near, "far": dataset.far,
+                "val_images": dataset.images[:2], "val_poses": dataset.poses[:2]}
+    raise ValueError(f"Unknown dataset type {ds.type!r}")
+
+
+@dataclasses.dataclass
+class TrainResult:
+    """What a training run did. Every per-step value was fetched from the
+    device once per loop call."""
+
+    logdir: str
+    start_step: int
+    losses: List[float] = dataclasses.field(default_factory=list)   # every step's loss
+    psnrs: List[float] = dataclasses.field(default_factory=list)    # every step's PSNR
+    call_losses: List[float] = dataclasses.field(default_factory=list)  # last of each call
+    call_psnrs: List[float] = dataclasses.field(default_factory=list)
+    val_psnrs: List[float] = dataclasses.field(default_factory=list)
+    seconds: float = 0.0        # host seconds in loop calls, each ending in its fetch
+    rays_per_sec: float = 0.0   # rays trained / seconds
+    checkpoint: Optional[str] = None
+
+
+def train(cfg, logdir: Optional[str] = None, device="cuda", load_checkpoint: str = "",
+          num_devices: int = 1, tighten_aabb: Optional[float] = None) -> TrainResult:
+    """Train the configured models on ``device``; returns a :class:`TrainResult`."""
+    if num_devices != 1:
+        raise NotImplementedError(
+            f"num_devices={num_devices}: data-parallel training (parallel/dp.py) is not "
+            "ported yet (ROADMAP.md, open items §1 item 11)")
+    if tighten_aabb is not None:
+        raise NotImplementedError(
+            "--tighten-aabb needs engine/geometry.py, not ported yet "
+            "(ROADMAP.md, open items §1 item 11)")
+    if load_checkpoint and not os.path.exists(load_checkpoint):
+        raise SystemExit(f"--load-checkpoint {load_checkpoint!r} does not exist")
+    cfg = cfg.clone()
+    if cfg.is_frozen():
+        cfg.defrost()
+    seed = int(cfg.experiment.randomseed)
+    data = load_dataset(cfg, device)
+    h, w, focal = data["hwf"]
+    if cfg.dataset.no_ndc:
+        cfg.dataset.near = float(data["near"])
+        cfg.dataset.far = float(data["far"])
+    ro_store, rd_store, tgt_store = data["rays"]
+    sampling = str(getattr(cfg.nerf.train, "ray_sampling", "gather"))
+    if sampling == "sliced":
+        ro_store, rd_store, tgt_store = shuffle_ray_store(ro_store, rd_store, tgt_store, seed=seed)
+    ro_store, rd_store, tgt_store = (torch.as_tensor(np.ascontiguousarray(a), device=device)
+                                     for a in (ro_store, rd_store, tgt_store))
+    print(f"ray store: {ro_store.shape[0]:,} rays on {device} ({sampling} sampling)", flush=True)
+
+    settings = render_settings_from_config(cfg, "train", hwf=(h, w, focal))
+    val_settings = render_settings_from_config(cfg, "validation", hwf=(h, w, focal))
+    # Reference checkpoints hold default-shaped models whatever the config says.
+    reference_resume = load_checkpoint.endswith(".ckpt")
+    model_coarse = model_from_config(cfg.models.coarse, reference_compat_shapes=reference_resume)
+    model_fine = (model_from_config(cfg.models.fine, reference_compat_shapes=reference_resume)
+                  if "fine" in cfg.models else None)
+    for i, model in enumerate((model_coarse, model_fine)):
+        if model is not None:
+            model.reset_parameters(torch.Generator().manual_seed(seed + i))
+            model.to(device)
+    spec = optimizer_from_config(cfg)
+    state = create_train_state(model_coarse, model_fine, spec)
+
+    logdir = logdir or os.path.join(cfg.experiment.logdir, cfg.experiment.id)
+    os.makedirs(logdir, exist_ok=True)
+    with open(os.path.join(logdir, "config.json"), "w") as f:
+        json.dump(cfg.to_dict(), f, indent=2, sort_keys=True)
+    ckpt_path = load_checkpoint or latest_checkpoint(logdir)
+    if ckpt_path:
+        info = load_train_checkpoint(ckpt_path, model_coarse, model_fine, state.optimizer)
+        state.step = info["step"]
+        state.scheduler = spec.make_scheduler(state.optimizer, info["count"])
+        print(f"resumed from {ckpt_path} at step {state.step} "
+              f"({'with' if info['moments'] else 'without'} optimizer moments)", flush=True)
+
+    result = TrainResult(logdir=logdir, start_step=state.step)
+    writer = MetricWriter(logdir)
+    rate = RateMeter()
+    batch = int(cfg.nerf.train.num_random_rays)
+    train_iters = int(cfg.experiment.train_iters)
+    every = {k: int(getattr(cfg.experiment, k)) for k in
+             ("print_every", "validate_every", "save_every")}
+    k_call = steps_per_call(*every.values(), train_iters - state.step)
+    nan_guard = bool(getattr(cfg.experiment, "nan_guard", False))
+    loops = {}
+    render_image = make_image_render_fn(model_coarse, model_fine, val_settings)
+    trained = 0
+
+    while state.step < train_iters:
+        k_steps = min(k_call, train_iters - state.step)
+        if k_steps not in loops:
+            loops[k_steps] = make_train_loop(model_coarse, model_fine, settings, batch, k_steps,
+                                             nan_guard=nan_guard, sample_mode=sampling)
+        prev_done = state.step
+        t0 = time.perf_counter()
+        state, metrics = loops[k_steps](state, ro_store, rd_store, tgt_store, seed)
+        metrics = type(metrics)(*(x.cpu() for x in metrics))   # the call's one fetch
+        result.seconds += time.perf_counter() - t0
+        trained += batch * k_steps
+        rate.update(batch * k_steps)
+        result.losses += metrics.loss.tolist()
+        result.psnrs += metrics.psnr.tolist()
+        loss, psnr = float(metrics.loss[-1]), float(metrics.psnr[-1])
+        result.call_losses.append(loss)
+        result.call_psnrs.append(psnr)
+        done = state.step
+        i_end = done - 1
+        print(f"[TRAIN] iter {i_end} loss {loss:.6f} psnr {psnr:.3f} "
+              f"rays/s {rate.rate():,.0f}", flush=True)
+        writer.scalars({
+            "train/loss": loss,
+            "train/coarse_loss": float(metrics.coarse_loss[-1]),
+            "train/fine_loss": float(metrics.fine_loss[-1]),
+            "train/psnr": psnr,
+            "train/rays_per_sec": rate.rate(),
+        }, i_end)
+
+        def crossed(period: int) -> bool:
+            return done // period > prev_done // period
+
+        if data["val_images"] is not None and (crossed(every["validate_every"])
+                                               or done >= train_iters):
+            t_val = time.perf_counter()
+            pose = torch.as_tensor(np.asarray(data["val_poses"][0])[:3, :4],
+                                   dtype=torch.float32, device=device)
+            maps = render_image(*get_ray_bundle(h, w, focal, pose))
+            target = torch.as_tensor(np.asarray(data["val_images"][0])[..., :3], device=device)
+            coarse_loss = img2mse(maps["rgb_coarse"], target)
+            fine_loss = img2mse(maps["rgb_fine"], target) if "rgb_fine" in maps else 0.0
+            val_loss = float(coarse_loss + fine_loss)
+            val_psnr = float(mse2psnr(torch.tensor(val_loss)))
+            result.val_psnrs.append(val_psnr)
+            writer.scalars({"validation/loss": val_loss,
+                            "validation/coarse_loss": float(coarse_loss),
+                            "validation/fine_loss": float(fine_loss),
+                            "validation/psnr": val_psnr}, i_end)
+            name = "rgb_fine" if "rgb_fine" in maps else "rgb_coarse"
+            writer.image(f"validation/{name}", maps[name].cpu().numpy(), i_end)
+            print(f"[VAL] iter {i_end} loss {val_loss:.6f} psnr {val_psnr:.3f} "
+                  f"({time.perf_counter() - t_val:.2f}s)", flush=True)
+
+        if crossed(every["save_every"]) or done >= train_iters:
+            result.checkpoint = os.path.join(logdir, f"checkpoint{done:05d}.ckpt")
+            export_reference_checkpoint(result.checkpoint, done, model_coarse, model_fine,
+                                        loss, psnr, state.optimizer, hwf=(h, w, focal))
+        writer.flush()
+
+    writer.close()
+    result.rays_per_sec = trained / result.seconds if result.seconds > 0 else 0.0
+    print(f"done: {state.step - result.start_step} iters in {result.seconds:.1f}s of training "
+          f"({result.rays_per_sec:,.0f} rays/s)", flush=True)
+    return result
+
+
+def main(argv: Optional[List[str]] = None) -> TrainResult:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--config", type=str, required=True, help="YAML or .py config.")
+    parser.add_argument("--load-checkpoint", type=str, default="",
+                        help="Reference .ckpt to resume from.")
+    parser.add_argument("--overrides", type=str, nargs="*", default=None,
+                        help="Dotted-key value pairs, e.g. optimizer.lr 1e-3")
+    parser.add_argument("--device", type=str, default="cuda")
+    parser.add_argument("--num-devices", type=int, default=1,
+                        help="Devices to train on (only 1 is ported).")
+    parser.add_argument("--tighten-aabb", type=float, default=None, metavar="TAU",
+                        help="Density-AABB sample tightening (not ported yet).")
+    args = parser.parse_args(argv)
+    cfg = load_config(args.config, args.overrides)
+    return train(cfg, device=args.device, load_checkpoint=args.load_checkpoint,
+                 num_devices=args.num_devices, tighten_aabb=args.tighten_aabb)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,5 +1,6 @@
 """Small host-side utilities."""
 
+from .logging import MetricWriter, RateMeter
 from .png import write_png
 
-__all__ = ["write_png"]
+__all__ = ["MetricWriter", "RateMeter", "write_png"]

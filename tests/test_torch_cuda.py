@@ -14,7 +14,15 @@ import pytest
 import torch
 
 from nerf_tpu_torch.engine import renderer
-from nerf_tpu_torch.kernels.mlp_t import fused_mlp_t, mlp_t_plain
+from nerf_tpu_torch.kernels.flex_train import (
+    flex_train_bwd,
+    flex_train_fwd,
+    flex_train_plain_bwd,
+    flex_train_plain_fwd,
+    fused_flex_mlp_train,
+    unpack_params,
+)
+from nerf_tpu_torch.kernels.mlp_t import dir_contribution, fused_mlp_t, mlp_t_plain, pack_params
 from nerf_tpu_torch.models import FlexibleNeRFModel
 
 pytestmark = pytest.mark.cuda
@@ -88,3 +96,69 @@ def test_renderer_goes_through_the_kernel(model):
                                      dataclasses.replace(settings, use_pallas=False))
     assert fused_mlp_t.launches == before + 1
     assert float((fused.rgb - plain.rgb).abs().max()) <= 1e-4
+
+
+def _train_case(model, n, s, compute_dtype, seed):
+    pts, vd = _inputs(n, s, seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    g = torch.randn(n, s, 4, generator=gen, device="cuda")
+    params = pack_params(model).detach()
+    dc = dir_contribution(model, vd).detach()
+    return pts, dc, params, g
+
+
+def _scaled_err(got, want):
+    return float((got - want).abs().max() / want.abs().max().clamp(min=1e-3))
+
+
+@pytest.mark.parametrize("compute_dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("n,s", [(1, 1), (33, 64), (1024, 128), (7, 61)])
+def test_train_kernels_match_plain(model, n, s, compute_dtype, tol):
+    """Forward, every parameter gradient and ddc of the kernel pair against
+    the plain pair on the same inputs; gradients scaled by the plain one's
+    largest entry."""
+    pts, dc, params, g = _train_case(model, n, s, compute_dtype, seed=n * s)
+    fwd0, bwd0 = fused_flex_mlp_train.fwd_launches, fused_flex_mlp_train.bwd_launches
+    out, res = flex_train_fwd(pts, dc, params, compute_dtype)
+    grad, ddc = flex_train_bwd(g, res, params, n, s, compute_dtype)
+    torch.cuda.synchronize()
+    assert (fused_flex_mlp_train.fwd_launches, fused_flex_mlp_train.bwd_launches) == (
+        fwd0 + 1, bwd0 + 1)
+    want, want_res = flex_train_plain_fwd(pts, dc, params, compute_dtype)
+    want_grad, want_ddc = flex_train_plain_bwd(g, want_res, params, n, s, compute_dtype)
+    assert out.shape == (n, s, 4) and bool(torch.isfinite(out).all())
+    assert float((out - want).abs().max()) <= tol
+    got_layers, want_layers = unpack_params(grad), unpack_params(want_grad)
+    for name, (w, b) in want_layers.items():
+        assert _scaled_err(got_layers[name][0], w) <= tol, name
+        assert _scaled_err(got_layers[name][1], b) <= tol, name
+    assert ddc.shape == (n, 64) and _scaled_err(ddc, want_ddc) <= tol
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_train_backward_is_deterministic(model, compute_dtype):
+    pts, dc, params, g = _train_case(model, 1024, 128, compute_dtype, seed=5)
+    _, res = flex_train_fwd(pts, dc, params, compute_dtype)
+    a = flex_train_bwd(g, res, params, 1024, 128, compute_dtype)
+    b = flex_train_bwd(g, res, params, 1024, 128, compute_dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_train_function_goes_through_both_kernels(model):
+    """The autograd entry point: one forward and one backward launch per
+    evaluation, gradients on every parameter, none on pts or viewdirs."""
+    pts, vd = _inputs(64, 32, seed=7)
+    pts.requires_grad_(True)
+    vd.requires_grad_(True)
+    fwd0, bwd0 = fused_flex_mlp_train.fwd_launches, fused_flex_mlp_train.bwd_launches
+    model.zero_grad()
+    fused_flex_mlp_train(model, pts, vd).square().sum().backward()
+    got = {k: p.grad.clone() for k, p in model.named_parameters()}
+    assert (fused_flex_mlp_train.fwd_launches, fused_flex_mlp_train.bwd_launches) == (
+        fwd0 + 1, bwd0 + 1)
+    assert pts.grad is None and vd.grad is None
+    model.zero_grad()
+    mlp_t_plain(model, pts.detach(), vd.detach()).square().sum().backward()
+    for name, p in model.named_parameters():
+        assert _scaled_err(got[name], p.grad) <= 1e-4, name

@@ -128,6 +128,13 @@ def test_chip_smoke_config_is_lego_fused():
         assert got[section].to_dict() == want[section].to_dict()
     assert got.nerf.validation.to_dict() == want.nerf.validation.to_dict()
     assert got.nerf.use_viewdirs == want.nerf.use_viewdirs
+    for section in ("experiment", "optimizer", "scheduler"):
+        assert got[section].to_dict() == want[section].to_dict(), section
+    assert got.nerf.train.to_dict() == want.nerf.train.to_dict()
+    synthetic = chip_smoke.synthetic_train_config(300)
+    assert (synthetic.dataset.type, synthetic.dataset.num_views, synthetic.dataset.image_size,
+            synthetic.experiment.train_iters) == ("synthetic", 20, 400, 300)
+    assert synthetic.nerf.train.to_dict() == want.nerf.train.to_dict()
 
 
 @pytest.mark.parametrize("name", CONFIGS)
