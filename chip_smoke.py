@@ -29,9 +29,28 @@ Phases, one or more lines each:
      clear PSNR_FLOOR_TRAINED_DB against the analytic scene; a float32
      trajectory through the kernels must track the plain path's;
   8. times on this card: the training kernels against the plain pair, and
-     rays per second of a training step on the kernel and plain paths.
+     rays per second of a training step on the kernel and plain paths;
+  9. PaperNeRF kernels vs plain: the 8x256 forward kernel and training pair
+     against their plain versions at the Paper path's shapes, float32 and
+     bfloat16, at 10 encoding frequencies and once at 6; layers_dir.3's
+     gradient exactly zero, two backward calls bitwise equal;
+ 10. PaperNeRF main path: ``train_nerf.train`` trains the
+     ``configs/lego_paper.yml`` protocol (8x256, lr 5e-4, bf16, training
+     kernels on) on the synthetic scene for PAPER_TRAIN_STEPS steps through
+     the training pair (2 + 2 launches a step); the checkpoint it writes is
+     rendered through ``eval_nerf.render_trajectory`` and the forward kernel
+     (2 launches a chunk) and must clear PAPER_PSNR_FLOOR_DB against the
+     analytic scene; the same frame on the plain path (at PLAIN_CHUNK rays a
+     chunk: its 256-wide f32 activations would near the card's 80 GB at
+     131072) must match; a float32 trajectory through the kernels must track
+     the plain path's;
+ 11. times on this card: the Paper kernels against their plain versions,
+     seconds per 400x400 Paper frame and training rays per second on the
+     kernel and plain paths.
 
-Then one JSON line of per-kernel results and, last, the JSON device line.
+Then one JSON line of per-kernel results (each kernel's launches on its main
+path, error, time, plain time and the least time the card could take for the
+same work) and, last, the JSON device line.
 Any failure raises: the script exits non-zero and prints no result. There is
 no CPU path: without CUDA it exits with code 2.
 """
@@ -61,18 +80,64 @@ TRAIN_STEPS = 300
 TRAJECTORY_STEPS = 20
 TRAJECTORY_RTOL = 2e-3         # f32 loss per step, kernel path vs plain path
 PSNR_FLOOR_TRAINED_DB = 30.0   # novel view after TRAIN_STEPS steps (37.64 dB measured on an H100)
+# Novel view of the Paper checkpoint after PAPER_TRAIN_STEPS steps: a CPU
+# rehearsal of the protocol at 64x64, 512 rays, 32 + 32 samples reached
+# 29.4 dB in 300 steps, the empty white scene it may collapse to reads ~11 dB;
+# the floor sits between.
+PAPER_PSNR_FLOOR_DB = 20.0
 TIMED_STEPS = 30
+# The PaperNeRF slice (phases 9-11).
+PAPER_CHECK_SHAPES = ((2048, 64), (2048, 128), (1000, 128), (333, 61))
+PAPER_TRAIN_STEPS = 300
+PAPER_TIMED_STEPS = 10
+PLAIN_CHUNK = 16384            # rays a chunk of the plain Paper path (memory, not speed)
+# The card's peaks (NVIDIA's H100 SXM data sheet, at 700 W): f32 outside the
+# tensor cores, bf16 on them, and device memory.
+F32_FLOPS = 67e12
+BF16_FLOPS = 989e12
+HBM_BYTES_PER_S = 3.35e12
 # The render path's shapes, and one whose points end mid-tile.
 CHECK_SHAPES = ((2048, 64), (2048, 128), (1000, 128), (333, 61))
 DEVICE = "cuda"
 # Multiply-adds per point of the 4x128 10/4 FlexibleNeRF forward, dir
-# contribution excluded: 63x128 + 3x128x128 + 128x129 + 128x64 + 64x3.
+# contribution excluded: 63x128 + 3x128x128 + 128x129 + 128x64 + 64x3; of its
+# backward: the layer-gradient pass (74048, as many as the backward weights)
+# and the weight gradients (as many as the forward's).
 MACS_PER_POINT = 63 * 128 + 3 * 128 * 128 + 128 * 129 + 128 * 64 + 64 * 3
+BWD_MACS_PER_POINT = 74048 + MACS_PER_POINT
+# The same for the 8x256 10/4 PaperNeRF: 63x256 + 3x256x256 + 319x256 +
+# 3x256x256 + 256x256 + 256 + 256x128 + 2x128x128 + 128x3 forward; backward
+# 590464 (layer gradients) + the forward's count (weight gradients).
+PAPER_MACS_PER_POINT = 622720
+PAPER_BWD_MACS_PER_POINT = 590464 + PAPER_MACS_PER_POINT
+
+
+FLEX_MODEL = {
+    "type": "FlexibleNeRFModel", "num_layers": 4, "hidden_size": 128,
+    "skip_connect_every": 4, "num_encoding_fn_xyz": 10, "num_encoding_fn_dir": 4,
+    "use_viewdirs": True,
+}
+PAPER_MODEL = {
+    "type": "PaperNeRFModel", "num_layers": 8, "hidden_size": 256,
+    "num_encoding_fn_xyz": 10, "num_encoding_fn_dir": 4, "use_viewdirs": True,
+}
 
 
 def lego_fused_config():
     """``configs/lego_fused.yml``'s values merged over the defaults, in code
     (no YAML reader needed)."""
+    return lego_config(FLEX_MODEL, 5.0e-3, "lego-fused")
+
+
+def lego_paper_config():
+    """``configs/lego_paper.yml``'s values merged over the defaults, in code:
+    the same protocol as lego_fused.yml with the 8x256 PaperNeRF and lr 5e-4."""
+    return lego_config(PAPER_MODEL, 5.0e-4, "lego-paper")
+
+
+def lego_config(model: dict, lr: float, experiment_id: str):
+    """The blender lego protocol shared by configs/lego_fused.yml and
+    configs/lego_paper.yml, with ``model`` as both models."""
     from nerf_tpu_torch.config import get_default_config
 
     cfg = get_default_config()
@@ -82,11 +147,6 @@ def lego_fused_config():
         "dataset.half_res", True, "dataset.testskip", 1, "dataset.no_ndc", True,
         "dataset.near", 2, "dataset.far", 6, "dataset.height", 400, "dataset.width", 400,
     ]
-    model = {
-        "type": "FlexibleNeRFModel", "num_layers": 4, "hidden_size": 128,
-        "skip_connect_every": 4, "num_encoding_fn_xyz": 10, "num_encoding_fn_dir": 4,
-        "use_viewdirs": True,
-    }
     for which in ("coarse", "fine"):
         for key, value in model.items():
             pairs += [f"models.{which}.{key}", value]
@@ -101,28 +161,29 @@ def lego_fused_config():
     for key, value in train.items():
         pairs += [f"nerf.train.{key}", value]
     pairs += [
-        "experiment.id", "lego-fused", "experiment.logdir", "logs", "experiment.randomseed", 42,
+        "experiment.id", experiment_id, "experiment.logdir", "logs", "experiment.randomseed", 42,
         "experiment.train_iters", 200000, "experiment.validate_every", 1000,
         "experiment.save_every", 5000, "experiment.print_every", 100,
-        "optimizer.type", "Adam", "optimizer.lr", 5.0e-3,
+        "optimizer.type", "Adam", "optimizer.lr", lr,
         "scheduler.lr_decay", 250, "scheduler.lr_decay_factor", 0.1,
     ]
     cfg.merge_from_list(pairs)
     return cfg
 
 
-def synthetic_train_config(train_iters: int):
-    """The flagship protocol with its dataset replaced by the procedural
+def synthetic_train_config(train_iters: int, base=lego_fused_config):
+    """A lego protocol (``base``) with its dataset replaced by the procedural
     synthetic scene (20 views of 400x400, a 3.2M-ray store), cut to
     ``train_iters`` steps."""
-    cfg = lego_fused_config()
+    cfg = base()
     cfg.merge_from_list(["dataset.type", "synthetic", "dataset.num_views", 20,
                          "dataset.image_size", 400, "experiment.train_iters", train_iters])
     return cfg
 
 
-def seeded_model(seed: int, opacify: bool):
-    """The flagship FlexibleNeRF with weights from ``seed``.
+def seeded_model(seed: int, opacify: bool, family: str = "FlexibleNeRFModel"):
+    """The flagship FlexibleNeRF (or the 8x256 PaperNeRF), 10/4 encoding,
+    with weights from ``seed``.
 
     ``opacify`` scales every weight by 3 and adds 2 to the density bias, as
     bench.py's numerics guard does: plain random fields render almost empty,
@@ -130,10 +191,10 @@ def seeded_model(seed: int, opacify: bool):
     """
     import torch
 
-    from nerf_tpu_torch.models import FlexibleNeRFModel
+    from nerf_tpu_torch import models
 
-    model = FlexibleNeRFModel(num_encoding_fn_xyz=10, num_encoding_fn_dir=4,
-                              generator=torch.Generator().manual_seed(seed))
+    model = getattr(models, family)(num_encoding_fn_xyz=10, num_encoding_fn_dir=4,
+                                    generator=torch.Generator().manual_seed(seed))
     if opacify:
         with torch.no_grad():
             for p in model.parameters():
@@ -165,7 +226,7 @@ def orbit_points(num_rays: int, num_samples: int, device, seed: int):
     return pts, rd / torch.linalg.norm(rd, dim=-1, keepdim=True)
 
 
-def check_resample_outliers(cfg, pixels, hwf) -> None:
+def check_resample_outliers(cfg, pixels, hwf, mc, mf, kernel) -> None:
     """Hold the fine pass at the pixels where the two paths' frames differ
     against itself on common depth samples, and fail if they still differ.
 
@@ -173,16 +234,16 @@ def check_resample_outliers(cfg, pixels, hwf) -> None:
     sample jumps across a bin when a coarse weight sits on that edge (a bin
     of weight ~6e-9 has a floored pdf of ~1e-5). Coarse weights that agree to
     1e-7 can then give depths a bin apart, and fine colours that differ. So
-    at each such pixel the fine stage is run again, through the kernel and
-    through the plain model, on the same depths (the kernel path's), and the
-    two composited colours must agree to ``RENDER_RGB_TOL``.
+    at each such pixel the fine stage of ``mc``/``mf`` is run again, through
+    the forward ``kernel`` and through the plain model, on the same depths
+    (the kernel path's), and the two composited colours must agree to
+    ``RENDER_RGB_TOL``.
     """
     import torch
 
     from nerf_tpu_torch.config import render_settings_from_config
     from nerf_tpu_torch.data import resolve_render_poses
     from nerf_tpu_torch.engine.renderer import encode_points, render_rays
-    from nerf_tpu_torch.kernels.mlp_t import fused_mlp_t
     from nerf_tpu_torch.ops import (
         coarse_z_values, get_ray_bundle, sample_pdf, volume_render_radiance_field,
     )
@@ -193,8 +254,6 @@ def check_resample_outliers(cfg, pixels, hwf) -> None:
     ro, rd = ro.reshape(-1, 3)[pixels], rd.reshape(-1, 3)[pixels]
     vd = rd / torch.linalg.norm(rd, dim=-1, keepdim=True)
     s = render_settings_from_config(cfg, "validation", hwf=hwf)
-    mc = seeded_model(SEED, opacify=True).to(DEVICE)
-    mf = seeded_model(SEED + 1, opacify=True).to(DEVICE)
     with torch.inference_mode():
         z = coarse_z_values(torch.full((len(pixels),), s.near, device=DEVICE), s.far,
                             s.num_coarse)
@@ -207,7 +266,7 @@ def check_resample_outliers(cfg, pixels, hwf) -> None:
         z_all, _ = torch.sort(torch.cat([z, z_fine[True]], dim=-1), dim=-1)
         pts = ro[:, None, :] + rd[:, None, :] * z_all[..., None]
         rgb = {
-            "kernel": fused_mlp_t(mf, pts, vd),
+            "kernel": kernel(mf, pts, vd),
             "plain": mf(encode_points(pts, vd, s)),
         }
         rgb = {k: volume_render_radiance_field(v, z_all, rd, white_background=True).rgb
@@ -226,6 +285,41 @@ def check_resample_outliers(cfg, pixels, hwf) -> None:
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
+
+
+def launch_counters():
+    """Every kernel wrapper's launch counter: name -> (holder, attribute)."""
+    from nerf_tpu_torch.kernels.flex_train import fused_flex_mlp_train
+    from nerf_tpu_torch.kernels.mlp_t import fused_mlp_t
+    from nerf_tpu_torch.kernels.paper_t import fused_paper_mlp_t
+    from nerf_tpu_torch.kernels.paper_train import fused_paper_mlp_train
+
+    return {
+        "fused_mlp_t": (fused_mlp_t, "launches"),
+        "fused_flex_mlp_train_fwd": (fused_flex_mlp_train, "fwd_launches"),
+        "fused_flex_mlp_train_bwd": (fused_flex_mlp_train, "bwd_launches"),
+        "fused_paper_mlp_t": (fused_paper_mlp_t, "launches"),
+        "fused_paper_mlp_train_fwd": (fused_paper_mlp_train, "fwd_launches"),
+        "fused_paper_mlp_train_bwd": (fused_paper_mlp_train, "bwd_launches"),
+    }
+
+
+def reset_launches() -> None:
+    """Set every kernel's launch count to 0 (just before a main path runs)."""
+    for holder, attr in launch_counters().values():
+        setattr(holder, attr, 0)
+
+
+def read_launches() -> dict:
+    return {name: getattr(holder, attr) for name, (holder, attr) in launch_counters().items()}
+
+
+def bound(flops: float, nbytes: float, peak: float = F32_FLOPS):
+    """The least time the card could take: the larger of the operations over
+    the peak rate for their type and the bytes over the memory rate. Returns
+    (ms, "operations" or "bytes")."""
+    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -315,10 +409,11 @@ def check_training_kernels(model, dev) -> dict:
     return worst
 
 
-def training_loss_trajectories(cfg, dev):
-    """Phase 7, part 3: TRAJECTORY_STEPS float32 steps (perturb off, noise
-    0) through the training kernels and through the plain path, from the same
-    seeded models, on the same seeded ray batches. Returns both loss lists."""
+def training_loss_trajectories(cfg, dev, family: str = "FlexibleNeRFModel"):
+    """Phases 7 and 10, part 3: TRAJECTORY_STEPS float32 steps (perturb off,
+    noise 0) through the training kernels and through the plain path, from
+    the same seeded models, on the same seeded ray batches. Returns both loss
+    lists."""
     import torch
 
     from nerf_tpu_torch.config import optimizer_from_config, render_settings_from_config
@@ -332,8 +427,8 @@ def training_loss_trajectories(cfg, dev):
                                compute_dtype="float32")
     losses = {}
     for label, kernel in (("kernel", True), ("plain", False)):
-        mc = seeded_model(SEED, opacify=False).train().to(dev)
-        mf = seeded_model(SEED + 1, opacify=False).train().to(dev)
+        mc = seeded_model(SEED, opacify=False, family=family).train().to(dev)
+        mf = seeded_model(SEED + 1, opacify=False, family=family).train().to(dev)
         state = create_train_state(mc, mf, optimizer_from_config(cfg))
         loop = make_train_loop(mc, mf, dataclasses.replace(base, use_pallas_train=kernel),
                                int(cfg.nerf.train.num_random_rays), TRAJECTORY_STEPS)
@@ -349,14 +444,13 @@ def train_main_path(cfg, tmp: str, dev) -> dict:
 
     from nerf_tpu_torch.data import render_analytic_image, resolve_render_poses
     from nerf_tpu_torch.eval_nerf import render_trajectory
-    from nerf_tpu_torch.kernels.flex_train import fused_flex_mlp_train
-    from nerf_tpu_torch.kernels.mlp_t import fused_mlp_t
     from nerf_tpu_torch.train_nerf import train
 
-    fused_flex_mlp_train.fwd_launches = fused_flex_mlp_train.bwd_launches = 0
+    reset_launches()
     run = train(cfg, logdir=os.path.join(tmp, "train"), device=DEVICE)
-    launches = {"fwd": fused_flex_mlp_train.fwd_launches,
-                "bwd": fused_flex_mlp_train.bwd_launches}
+    counts = read_launches()
+    launches = {"fwd": counts["fused_flex_mlp_train_fwd"],
+                "bwd": counts["fused_flex_mlp_train_bwd"]}
     steps = len(run.losses)
     print(f"[train] {steps} steps of {cfg.nerf.train.num_random_rays} rays, "
           f"{cfg.nerf.train.compute_dtype}: {launches['fwd']} forward and {launches['bwd']} "
@@ -373,10 +467,10 @@ def train_main_path(cfg, tmp: str, dev) -> dict:
     check(last < first, f"the loss did not fall: {first} -> {last}")
     check(run.checkpoint is not None and os.path.exists(run.checkpoint), "no checkpoint")
 
-    fused_mlp_t.launches = 0
+    reset_launches()
     rendered = render_trajectory(cfg, run.checkpoint, os.path.join(tmp, "trained"),
                                  num_poses=1, renderer="kernel", device=DEVICE)
-    render_launches = fused_mlp_t.launches
+    render_launches = read_launches()["fused_mlp_t"]
     check(render_launches > 0 and all(rendered.finite), "trained render did not use the kernel")
     poses, h, w, focal = resolve_render_poses(cfg)
     truth = torch.as_tensor(render_analytic_image(h, w, focal, poses[0], device=dev))
@@ -466,6 +560,335 @@ def time_training(cfg, dev, on: str) -> dict:
     return times
 
 
+def paper_case(n: int, s: int, model, dev, seed: int):
+    """Inputs of the Paper kernels at a render or training pass's shape:
+    orbit points, viewdirs, the direction contribution, the packed
+    parameters and a random cotangent."""
+    import torch
+
+    from nerf_tpu_torch.kernels.paper_t import dir_contribution, pack_params
+
+    pts, vd = orbit_points(n, s, dev, seed)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    g = torch.randn(n, s, 4, generator=gen, device=dev)
+    return pts, vd, dir_contribution(model, vd).detach(), pack_params(model).detach(), g
+
+
+def check_paper_kernels(dev) -> dict:
+    """Phase 9: the Paper forward kernel and training pair against their
+    plain versions at 10 frequencies, and at 6 once each. Returns the worst
+    error of each kernel per dtype (gradients scaled by the plain gradient's
+    largest entry, per leaf)."""
+    import torch
+
+    from nerf_tpu_torch.kernels.paper_t import fused_paper_mlp_t, paper_t_plain, unpack_params
+    from nerf_tpu_torch.kernels.paper_train import (
+        fused_paper_mlp_train, paper_train_bwd, paper_train_fwd, paper_train_plain_bwd,
+        paper_train_plain_fwd,
+    )
+    from nerf_tpu_torch.models import PaperNeRFModel
+
+    models = {f: PaperNeRFModel(num_encoding_fn_xyz=f, num_encoding_fn_dir=4,
+                                generator=torch.Generator().manual_seed(SEED + f)).to(dev)
+              for f in (10, 6)}
+    tols = (("float32", F32_TOL), ("bfloat16", BF16_TOL))
+    worst = {(k, d): 0.0 for k in ("t", "fwd", "bwd") for d in ("float32", "bfloat16")}
+    with torch.inference_mode():
+        for f, (n, s) in [(10, shape) for shape in PAPER_CHECK_SHAPES] + [(6, (1000, 128))]:
+            pts, vd, _, _, _ = paper_case(n, s, models[f], dev, seed=n + s)
+            for dtype, tol in tols:
+                got = fused_paper_mlp_t(models[f], pts, vd, dtype)
+                torch.cuda.synchronize()
+                err = float((got - paper_t_plain(models[f], pts, vd, dtype)).abs().max())
+                check(got.shape == (n, s, 4) and bool(torch.isfinite(got).all()),
+                      f"paper kernel output at ({n}, {s}) {dtype}")
+                worst["t", dtype] = max(worst["t", dtype], err)
+                print(f"[paper-kernel] fused_paper_mlp_t ({n}, {s}) F={f} {dtype}: "
+                      f"max |kernel - plain| = {err:.3e} (tol {tol:g})")
+                check(err <= tol, f"paper kernel at ({n}, {s}) F={f} {dtype}: {err} > {tol}")
+    with torch.no_grad():
+        for f, (n, s) in [(10, shape) for shape in TRAIN_CHECK_SHAPES] + [(6, (333, 61))]:
+            pts, _, dc, params, g = paper_case(n, s, models[f], dev, seed=n * s)
+            for dtype, tol in tols:
+                out, res = paper_train_fwd(pts, dc, params, dtype, f)
+                grad, ddc = paper_train_bwd(g, res, params, n, s, dtype, f)
+                again = paper_train_bwd(g, res, params, n, s, dtype, f)
+                torch.cuda.synchronize()
+                check(torch.equal(grad, again[0]) and torch.equal(ddc, again[1]),
+                      f"paper backward at ({n}, {s}) {dtype} not bitwise repeatable")
+                want, want_res = paper_train_plain_fwd(pts, dc, params, dtype, f)
+                want_grad, want_ddc = paper_train_plain_bwd(g, want_res, params, n, s, dtype, f)
+                check(bool(torch.isfinite(out).all() and torch.isfinite(grad).all()
+                           and torch.isfinite(ddc).all()), f"paper training kernels ({n}, {s})")
+                f_err = float((out - want).abs().max())
+                errs = {"ddc": float((ddc - want_ddc).abs().max() / want_ddc.abs().max())}
+                got_leaves = unpack_params(grad, f)
+                for name, leaves in unpack_params(want_grad, f).items():
+                    for leaf, a, b in zip(("weight", "bias"), got_leaves[name], leaves):
+                        errs[f"{name}.{leaf}"] = float((a - b).abs().max()
+                                                       / b.abs().max().clamp(min=1e-30))
+                b_name, b_err = max(errs.items(), key=lambda kv: kv[1])
+                worst["fwd", dtype] = max(worst["fwd", dtype], f_err)
+                worst["bwd", dtype] = max(worst["bwd", dtype], b_err)
+                print(f"[paper-train-kernel] ({n}, {s}) F={f} {dtype}: forward max |kernel - "
+                      f"plain| = {f_err:.3e}; gradients (28 leaves + ddc) scaled max = "
+                      f"{b_err:.3e} at {b_name} (tol {tol:g}); two backward calls bitwise equal")
+                check(f_err <= tol, f"paper training forward ({n}, {s}) {dtype}: {f_err}")
+                check(b_err <= tol, f"paper gradient {b_name} ({n}, {s}) {dtype}: {b_err}")
+                del res, want_res
+    # Through the autograd entry point: layers_dir.3 ends with a zero gradient.
+    model = models[10]
+    pts, vd, _, _, _ = paper_case(1024, 64, model, dev, seed=9)
+    for p in model.parameters():
+        p.grad = torch.zeros_like(p)
+    fused_paper_mlp_train(model, pts, vd, "bfloat16").square().sum().backward()
+    dead = float(model.layers_dir[3].weight.grad.abs().max()
+                 + model.layers_dir[3].bias.grad.abs().max())
+    print(f"[paper-train-kernel] layers_dir.3 gradient after a backward through the kernels: "
+          f"max |g| = {dead} (must be 0)")
+    check(dead == 0.0, "layers_dir.3 got a gradient")
+    return worst
+
+
+def paper_config(train_iters: int):
+    """configs/lego_paper.yml on the synthetic scene, cut to ``train_iters``
+    steps. train()'s own validation renders through the plain path
+    (lego_paper.yml's validation section has no use_pallas), at PLAIN_CHUNK
+    rays a chunk."""
+    cfg = synthetic_train_config(train_iters, base=lego_paper_config)
+    cfg.merge_from_list(["nerf.validation.chunksize", PLAIN_CHUNK])
+    return cfg
+
+
+def paper_main_path(cfg, tmp: str, dev) -> dict:
+    """Phase 10: train the Paper protocol through ``train_nerf.train``,
+    render its checkpoint through ``eval_nerf.render_trajectory`` and the
+    forward kernel, and check both against the plain path."""
+    import torch
+
+    from nerf_tpu_torch.data import render_analytic_image, resolve_render_poses
+    from nerf_tpu_torch.engine.checkpoint import load_models_and_params
+    from nerf_tpu_torch.eval_nerf import render_trajectory
+    from nerf_tpu_torch.kernels.paper_t import fused_paper_mlp_t
+    from nerf_tpu_torch.train_nerf import train
+
+    reset_launches()
+    run = train(cfg, logdir=os.path.join(tmp, "paper_train"), device=DEVICE)
+    counts = read_launches()
+    launches = {"fwd": counts["fused_paper_mlp_train_fwd"],
+                "bwd": counts["fused_paper_mlp_train_bwd"]}
+    steps = len(run.losses)
+    print(f"[paper-train] {steps} steps of {cfg.nerf.train.num_random_rays} rays, 8x256, "
+          f"{cfg.nerf.train.compute_dtype}: {launches['fwd']} forward and {launches['bwd']} "
+          f"backward kernel launches (expected {2 * steps} each); "
+          f"{run.rays_per_sec:,.0f} rays/s over {run.seconds:.2f} s")
+    check(steps == PAPER_TRAIN_STEPS, f"{steps} Paper steps trained")
+    check(launches["fwd"] == 2 * steps and launches["bwd"] == 2 * steps,
+          f"Paper training kernel launches {launches} != {2 * steps} each")
+    losses = torch.tensor(run.losses)
+    check(bool(torch.isfinite(losses).all()), "non-finite Paper training loss")
+    k = min(20, steps // 2)
+    first, last = float(losses[:k].mean()), float(losses[-k:].mean())
+    print(f"[paper-train] mean loss of the first {k} steps {first:.5f}, of the last {k} "
+          f"{last:.5f}; validation PSNR {run.val_psnrs[-1]:.2f} dB")
+    check(last < first, f"the Paper loss did not fall: {first} -> {last}")
+    check(run.checkpoint is not None and os.path.exists(run.checkpoint), "no Paper checkpoint")
+
+    kernel_cfg = cfg.clone()
+    kernel_cfg.merge_from_list(["nerf.validation.chunksize", 131072])   # lego_paper.yml's
+    poses, h, w, focal = resolve_render_poses(cfg)
+    expected = 2 * math.ceil(h * w / 131072)
+    reset_launches()
+    rendered = render_trajectory(kernel_cfg, run.checkpoint, os.path.join(tmp, "paper_kernel"),
+                                 num_poses=1, renderer="kernel", device=DEVICE)
+    render_launches = read_launches()["fused_paper_mlp_t"]
+    check(render_launches == expected and all(rendered.finite),
+          f"Paper render: {render_launches} kernel launches, expected {expected}")
+    truth = torch.as_tensor(render_analytic_image(h, w, focal, poses[0], device=dev))
+    db = psnr(rendered.first_maps["rgb_fine"], truth)
+    print(f"[paper-main] the trained checkpoint rendered at orbit pose 0 (a novel view) "
+          f"through the forward kernel ({render_launches} launches, expected {expected}): "
+          f"PSNR {db:.2f} dB against the analytic scene (floor {PAPER_PSNR_FLOOR_DB})")
+    check(db >= PAPER_PSNR_FLOOR_DB, f"Paper render PSNR {db} < {PAPER_PSNR_FLOOR_DB}")
+
+    plain = render_trajectory(cfg, run.checkpoint, os.path.join(tmp, "paper_plain"),
+                              num_poses=1, renderer="plain", device=DEVICE)
+    maps, ref = rendered.first_maps, plain.first_maps
+    err = float((maps["rgb_coarse"] - ref["rgb_coarse"]).abs().max())
+    fine_err = (maps["rgb_fine"] - ref["rgb_fine"]).abs().amax(dim=-1).reshape(-1)
+    outliers = torch.nonzero(fine_err > RENDER_RGB_TOL).flatten()
+    print(f"[paper-main] frame 0, kernel path (chunk 131072) vs plain path (chunk "
+          f"{PLAIN_CHUNK}): rgb_coarse max |diff| {err:.3e} (tol {RENDER_RGB_TOL:g}); rgb_fine "
+          f"max {float(fine_err.max()):.3e}, {len(outliers)} of {fine_err.numel()} pixels over "
+          f"{RENDER_RGB_TOL:g} (at most {MAX_RESAMPLE_PIXELS}, each a moved resample)")
+    check(err <= RENDER_RGB_TOL, f"Paper rgb_coarse kernel vs plain: {err}")
+    check(len(outliers) <= MAX_RESAMPLE_PIXELS, f"{len(outliers)} Paper rgb_fine outliers")
+    if len(outliers):
+        mc, mf, _ = load_models_and_params(run.checkpoint, cfg, DEVICE)
+        check_resample_outliers(cfg, outliers, (h, w, focal), mc, mf, fused_paper_mlp_t)
+
+    kernel, plain_losses = training_loss_trajectories(cfg, dev, family="PaperNeRFModel")
+    rel = float(((kernel - plain_losses).abs() / plain_losses.abs()).max())
+    print(f"[paper-train] {TRAJECTORY_STEPS}-step float32 trajectory, kernel path vs plain "
+          f"path: loss {float(kernel[0]):.5f} -> {float(kernel[-1]):.5f}, max relative "
+          f"difference per step {rel:.3e} (tol {TRAJECTORY_RTOL:g})")
+    check(rel <= TRAJECTORY_RTOL, f"Paper kernel vs plain trajectory: {rel} > {TRAJECTORY_RTOL}")
+    return {"launches": launches, "render_launches": render_launches, "psnr": db,
+            "checkpoint": run.checkpoint}
+
+
+def time_paper(cfg, checkpoint: str, dev, on: str) -> dict:
+    """Phase 11: the Paper kernels against their plain versions, frame
+    seconds and training rays/s on the kernel and plain paths, in turns
+    (plain, kernel, kernel, plain)."""
+    import torch
+
+    from nerf_tpu_torch.config import optimizer_from_config, render_settings_from_config
+    from nerf_tpu_torch.data import flatten_rays, make_synthetic_dataset, resolve_render_poses
+    from nerf_tpu_torch.engine.checkpoint import load_models_and_params
+    from nerf_tpu_torch.engine.renderer import make_pose_render_fn
+    from nerf_tpu_torch.engine.train import create_train_state, make_train_loop
+    from nerf_tpu_torch.kernels.paper_t import fused_paper_mlp_t, paper_t_plain
+    from nerf_tpu_torch.kernels.paper_train import (
+        paper_train_bwd, paper_train_fwd, paper_train_plain_bwd, paper_train_plain_fwd,
+    )
+
+    times = {}
+    model = seeded_model(SEED, opacify=False, family="PaperNeRFModel").to(dev)
+    with torch.inference_mode():
+        n, s = KERNEL_CHUNK
+        pts, vd, _, _, _ = paper_case(n, s, model, dev, seed=1)
+        step = n // (KERNEL_CHUNK[0] // PLAIN_CHUNK)
+
+        def plain_chunked(dtype):
+            # The plain version over the same chunk, PLAIN_CHUNK rays at a time
+            # (one call at 131072 x 128 would hold ~60 GB of activations).
+            for i in range(0, n, step):
+                paper_t_plain(model, pts[i:i + step], vd[i:i + step], dtype)
+
+        for dtype in ("float32", "bfloat16"):
+            p1 = cuda_ms(lambda: plain_chunked(dtype), 1)
+            k1 = cuda_ms(lambda: fused_paper_mlp_t(model, pts, vd, dtype), 2)
+            k2 = cuda_ms(lambda: fused_paper_mlp_t(model, pts, vd, dtype), 2)
+            p2 = cuda_ms(lambda: plain_chunked(dtype), 1)
+            times["t", dtype] = ((k1 + k2) / 2, (p1 + p2) / 2)
+            gflop = 2 * n * s * PAPER_MACS_PER_POINT / 1e9
+            print(f"[time] fused_paper_mlp_t ({n}, {s}) {dtype}: kernel {k1:.2f} / {k2:.2f} ms "
+                  f"({gflop / times['t', dtype][0]:.1f} TFLOP/s), plain {p1:.2f} / {p2:.2f} ms "
+                  f"{on}")
+        del pts, vd
+
+    with torch.no_grad():
+        n, s = TRAIN_SHAPE
+        pts, _, dc, params, g = paper_case(n, s, model, dev, seed=3)
+        for dtype in ("float32", "bfloat16"):
+            _, res = paper_train_fwd(pts, dc, params, dtype, 10)
+            _, plain_res = paper_train_plain_fwd(pts, dc, params, dtype, 10)
+            fns = {
+                "fwd": (lambda: paper_train_fwd(pts, dc, params, dtype, 10),
+                        lambda: paper_train_plain_fwd(pts, dc, params, dtype, 10)),
+                "bwd": (lambda: paper_train_bwd(g, res, params, n, s, dtype, 10),
+                        lambda: paper_train_plain_bwd(g, plain_res, params, n, s, dtype, 10)),
+            }
+            for which, (kernel, plain) in fns.items():
+                p1, k1, k2, p2 = (cuda_ms(f, 5) for f in (plain, kernel, kernel, plain))
+                times[which, dtype] = ((k1 + k2) / 2, (p1 + p2) / 2)
+                print(f"[time] fused_paper_mlp_train {which} ({n}, {s}) {dtype}: kernel "
+                      f"{k1:.3f} / {k2:.3f} ms, plain {p1:.3f} / {p2:.3f} ms {on}")
+            del res, plain_res
+
+    mc, mf, _ = load_models_and_params(checkpoint, cfg, DEVICE)
+    poses, h, w, focal = resolve_render_poses(cfg)
+    pose = torch.as_tensor(poses[1], device=dev)
+    base = render_settings_from_config(cfg, "validation", hwf=(h, w, focal))
+    renders = {}
+    with torch.inference_mode():
+        for label, use_kernel, dtype, chunk in (("plain f32", False, "float32", PLAIN_CHUNK),
+                                                ("kernel f32", True, "float32", 131072),
+                                                ("kernel bf16", True, "bfloat16", 131072)):
+            settings = dataclasses.replace(base, use_pallas=use_kernel, compute_dtype=dtype,
+                                           chunksize=chunk)
+            renders[label] = make_pose_render_fn(mc, mf, settings, h, w, focal)
+            renders[label](pose)   # warm-up
+        frame = {label: [] for label in renders}
+        for label in ("plain f32", "kernel f32", "kernel bf16", "kernel bf16", "kernel f32",
+                      "plain f32"):
+            frame[label].append(frame_seconds(renders[label], pose))
+    for label, secs in frame.items():
+        mean = sum(secs) / len(secs)
+        times["frame", label] = mean
+        print(f"[time] {h}x{w} Paper frame, {base.num_coarse}+{base.num_fine} samples, {label}: "
+              f"{' / '.join(f'{x:.4f}' for x in secs)} s/frame, {h * w / mean:,.0f} rays/s {on}")
+
+    data = make_synthetic_dataset(num_views=4, height=100, width=100, device=dev)
+    store = [torch.as_tensor(a, device=dev) for a in flatten_rays(data, dev)]
+    batch = int(cfg.nerf.train.num_random_rays)
+    base = render_settings_from_config(cfg, "train", hwf=data.hwf)
+    loops = {}
+    for dtype in ("float32", "bfloat16"):
+        for label, kernel in (("plain", False), ("kernel", True)):
+            mc = seeded_model(SEED, opacify=False, family="PaperNeRFModel").train().to(dev)
+            mf = seeded_model(SEED + 1, opacify=False, family="PaperNeRFModel").train().to(dev)
+            settings = dataclasses.replace(base, use_pallas_train=kernel, compute_dtype=dtype)
+            state = create_train_state(mc, mf, optimizer_from_config(cfg))
+            loop = make_train_loop(mc, mf, settings, batch, PAPER_TIMED_STEPS)
+            state, _ = loop(state, *store, SEED)      # warm-up
+            loops[label, dtype] = (loop, state)
+    torch.cuda.reset_peak_memory_stats()
+    for dtype in ("float32", "bfloat16"):
+        secs = {}
+        for label in ("plain", "kernel", "kernel", "plain"):
+            loop, state = loops[label, dtype]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = loop(state, *store, SEED)
+            metrics.loss.cpu()
+            torch.cuda.synchronize()
+            secs.setdefault(label, []).append(time.perf_counter() - t0)
+        for label, turns in secs.items():
+            rates = [batch * PAPER_TIMED_STEPS / t for t in turns]
+            times["step", label, dtype] = sum(rates) / len(rates)
+            print(f"[time] Paper training step, {batch} rays, {base.num_coarse}+{base.num_fine} "
+                  f"samples, {label} path {dtype}: "
+                  f"{' / '.join(f'{1e3 * t / PAPER_TIMED_STEPS:.3f}' for t in turns)} ms/step, "
+                  f"{' / '.join(f'{r:,.0f}' for r in rates)} rays/s {on}")
+    print(f"[time] peak device memory over those Paper training steps: "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB {on}")
+    for label, dtype in (("kernel", "bfloat16"), ("plain", "float32")):
+        loop, state = loops[label, dtype]
+        profile_steps(lambda: loop(state, *store, SEED)[1].loss.cpu(), PAPER_TIMED_STEPS,
+                      f"Paper training step, {label} path {dtype}", on)
+    return times
+
+
+def profile_steps(run, steps: int, what: str, on: str) -> None:
+    """One ``run()`` of ``steps`` steps under ``torch.profiler``: wall time,
+    the device's busy share (kernel time over wall; one stream, so kernels do
+    not overlap) and the kernels that take the most device time. The
+    profiler's own cost lengthens the wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [(e.key, getattr(e, "self_device_time_total", 0), e.count)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.key.startswith("Optimizer.")]
+    busy = sum(t for _, t, _ in rows) / 1e3          # ms
+    launches = sum(c for _, _, c in rows)
+    rows.sort(key=lambda r: -r[1])
+    top = "; ".join(f"{k[:40]} {t / 1e3 / steps:.2f}" for k, t, _ in rows[:5])
+    print(f"[profile] {what}: {1e3 * wall / steps:.2f} ms/step wall under the profiler, device "
+          f"busy {busy / steps:.2f} ms/step ({100 * busy / (1e3 * wall):.1f}%), "
+          f"{launches / steps:.0f} launches/step; top ms/step: {top} {on}")
+
+
 def main() -> int:
     import torch
 
@@ -534,11 +957,11 @@ def main() -> int:
             "model_fine_state_dict": seeded_model(SEED + 1, opacify=True).state_dict(),
         }, ckpt)
 
-        fused_mlp_t.launches = 0
+        reset_launches()
         main_run = render_trajectory(cfg, ckpt, os.path.join(tmp, "kernel"),
                                      num_poses=NUM_POSES, precision="float32",
                                      renderer="kernel", device=DEVICE)
-        launches = fused_mlp_t.launches
+        launches = read_launches()["fused_mlp_t"]
         print(f"[main] {NUM_POSES} frames {main_run.height}x{main_run.width} through "
               f"the kernel: {launches} launches (expected {expected})")
         check(launches == expected, f"kernel launches {launches} != {expected}")
@@ -567,7 +990,9 @@ def main() -> int:
         check(len(outliers) <= MAX_RESAMPLE_PIXELS, f"{len(outliers)} rgb_fine outliers")
         if len(outliers):
             check_resample_outliers(cfg, outliers, (main_run.height, main_run.width,
-                                                    main_run.focal))
+                                                    main_run.focal),
+                                    seeded_model(SEED, opacify=True).to(dev),
+                                    seeded_model(SEED + 1, opacify=True).to(dev), fused_mlp_t)
         for name in ("acc_fine", "depth_fine", "disp_fine"):
             print(f"[main] frame 0 {name}: max |kernel path - plain path| = "
                   f"{float((maps[name] - ref[name]).abs().max()):.3e}")
@@ -634,35 +1059,59 @@ def main() -> int:
     # Phase 8: times of the training kernels and of a training step.
     train_times = time_training(cfg_train, dev, on)
 
-    k_ms, p_ms = times["float32"]
-    entries = [{
-        "name": "fused_mlp_t",
-        "route": "cuda",
-        "source": "nerf_tpu_torch/csrc/mlp_t.cu",
-        "replaces": "nerf_tpu/ops/pallas/mlp_t.py:164",
-        "launches": launches,
-        "max_abs_err": worst["float32"],
-        "max_abs_err_bf16": worst["bfloat16"],
-        "ms": k_ms,
-        "plain_ms": p_ms,
-        "ms_bf16": times["bfloat16"][0],
-        "plain_ms_bf16": times["bfloat16"][1],
-    }]
-    for which, line in (("fwd", 197), ("bwd", 241)):
+    # Phase 9: the Paper kernels vs plain.
+    paper_worst = check_paper_kernels(dev)
+
+    # Phases 10 and 11: the Paper main path, then its times.
+    cfg_paper = paper_config(PAPER_TRAIN_STEPS)
+    with tempfile.TemporaryDirectory() as tmp:
+        paper = paper_main_path(cfg_paper, tmp, dev)
+        paper_times = time_paper(cfg_paper, paper["checkpoint"], dev, on)
+
+    entries = []
+
+    def entry(name, source, replaces, launches, worst, ms, flops, nbytes):
+        ms_bound, bound_by = bound(flops, nbytes)
         entries.append({
-            "name": f"fused_flex_mlp_train_{which}",
-            "route": "cuda",
-            "source": "nerf_tpu_torch/csrc/flex_train.cu",
-            "replaces": f"nerf_tpu/ops/pallas/train_vjp.py:{line}",
-            "launches": trained["launches"][which],
-            "max_abs_err": train_worst[which, "float32"],
-            "max_abs_err_bf16": train_worst[which, "bfloat16"],
-            "ms": train_times[which, "float32"][0],
-            "plain_ms": train_times[which, "float32"][1],
-            "ms_bf16": train_times[which, "bfloat16"][0],
-            "plain_ms_bf16": train_times[which, "bfloat16"][1],
-            "shape": list(TRAIN_SHAPE),
+            "name": name, "route": "cuda", "source": f"nerf_tpu_torch/csrc/{source}",
+            "replaces": f"nerf_tpu/ops/pallas/{replaces}", "launches": launches,
+            "max_abs_err": worst["float32"], "max_abs_err_bf16": worst["bfloat16"],
+            "ms": ms["float32"][0], "plain_ms": ms["float32"][1],
+            "bound_ms": ms_bound, "bound_by": bound_by, "library_ms": None,
+            "bound_ms_bf16": bound(flops, nbytes, BF16_FLOPS)[0],
+            "ms_bf16": ms["bfloat16"][0], "plain_ms_bf16": ms["bfloat16"][1],
         })
+
+    # Bytes: each input read once and each output written once, f32
+    # residuals; operations: 2 per multiply-add of this run's shapes.
+    n, s = KERNEL_CHUNK
+    p = n * s
+    entry("fused_mlp_t", "mlp_t.cu", "mlp_t.py:164", launches, worst, times,
+          2 * p * MACS_PER_POINT, 4 * (3 * p + 64 * n + 82820 + 4 * p))
+    entry("fused_paper_mlp_t", "paper_t.cu", "paper_t.py:177", paper["render_launches"],
+          {d: paper_worst["t", d] for d in ("float32", "bfloat16")},
+          {d: paper_times["t", d] for d in ("float32", "bfloat16")},
+          2 * p * PAPER_MACS_PER_POINT, 4 * (3 * p + 128 * n + 625416 + 4 * p))
+    n, s = TRAIN_SHAPE
+    p = n * s
+    for which, line in (("fwd", 197), ("bwd", 241)):
+        entry(f"fused_flex_mlp_train_{which}", "flex_train.cu", f"train_vjp.py:{line}",
+              trained["launches"][which],
+              {d: train_worst[which, d] for d in ("float32", "bfloat16")},
+              {d: train_times[which, d] for d in ("float32", "bfloat16")},
+              2 * p * (MACS_PER_POINT if which == "fwd" else BWD_MACS_PER_POINT),
+              4 * (3 * p + 64 * n + 82820 + 4 * p + 767 * p) if which == "fwd"
+              else 4 * (4 * p + 767 * p + 74048 + 82820 + 64 * n))
+    for which, line in (("fwd", 197), ("bwd", 241)):
+        entry(f"fused_paper_mlp_train_{which}", "paper_train.cu", f"train_vjp.py:{line}",
+              paper["launches"][which],
+              {d: paper_worst[which, d] for d in ("float32", "bfloat16")},
+              {d: paper_times[which, d] for d in ("float32", "bfloat16")},
+              2 * p * (PAPER_MACS_PER_POINT if which == "fwd" else PAPER_BWD_MACS_PER_POINT),
+              4 * (3 * p + 128 * n + 625416 + 4 * p + 2751 * p) if which == "fwd"
+              else 4 * (4 * p + 2751 * p + 590464 + 625416 + 128 * n))
+    for e in entries:
+        check(e["launches"] > 0, f"{e['name']} was not launched on its main path")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

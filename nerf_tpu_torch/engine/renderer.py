@@ -8,10 +8,11 @@ weights, so the functions here take modules where the JAX ones take
 (model, params) pairs. Random numbers come from one ``torch.Generator``
 where the JAX package splits a key.
 
-The radiance field of the 4x128 10/4 FlexibleNeRF goes through the
-hand-written training kernels (``kernels/flex_train.py``, forward and
-backward) when ``RenderSettings.use_pallas_train`` is on, else through the
-forward-only kernel (``kernels/mlp_t.py``) when ``use_pallas`` is on;
+The radiance field of the 4x128 10/4 FlexibleNeRF and of the 8x256
+PaperNeRF goes through hand-written training kernels (``kernels/flex_train.py``,
+``kernels/paper_train.py``: forward and backward) when
+``RenderSettings.use_pallas_train`` is on, else through a forward-only kernel
+(``kernels/mlp_t.py``, ``kernels/paper_t.py``) when ``use_pallas`` is on;
 otherwise, and for every other model shape, through positional encoding +
 the module. Compositing and resampling are plain PyTorch, as they are plain
 XLA on the JAX package's kernel path.
@@ -27,6 +28,8 @@ import torch.utils.checkpoint
 
 from ..kernels.flex_train import fused_flex_mlp_train
 from ..kernels.mlp_t import fused_mlp_t, supports_fused
+from ..kernels.paper_t import fused_paper_mlp_t, supports_fused_paper
+from ..kernels.paper_train import fused_paper_mlp_train
 from ..ops.encoding import coarse_to_fine_window, positional_encoding
 from ..ops.rays import get_ray_bundle, ndc_rays, ray_aabb_interval
 from ..ops.sampling import coarse_z_values, perturb_z_values, sample_pdf
@@ -135,14 +138,21 @@ def encode_points(pts: torch.Tensor, viewdirs: Optional[torch.Tensor],
 def _eval_radiance_field(model, pts: torch.Tensor, viewdirs: Optional[torch.Tensor],
                          s: RenderSettings) -> torch.Tensor:
     """Radiance field at sample points: a fused kernel when enabled and the
-    model's shape is the one it takes, else positional encoding + the
-    module. The training kernels are checked first."""
-    fused_shape = (viewdirs is not None and s.log_sampling_xyz and s.log_sampling_dir
-                   and s.pe_alpha_xyz < 0.0 and supports_fused(model) and pts.ndim == 3)
-    if s.use_pallas_train and fused_shape:
-        return fused_flex_mlp_train(model, pts, viewdirs, compute_dtype=s.compute_dtype)
-    if s.use_pallas and fused_shape:
-        return fused_mlp_t(model, pts, viewdirs, compute_dtype=s.compute_dtype)
+    model's shape is one it takes, else positional encoding + the module.
+    The JAX package's order: the training kernels first (FlexibleNeRF, then
+    PaperNeRF), then the forward-only ones (the same order)."""
+    fusable = (viewdirs is not None and s.log_sampling_xyz and s.log_sampling_dir
+               and s.pe_alpha_xyz < 0.0 and pts.ndim == 3)
+    if s.use_pallas_train and fusable:
+        if supports_fused(model):
+            return fused_flex_mlp_train(model, pts, viewdirs, compute_dtype=s.compute_dtype)
+        if supports_fused_paper(model):
+            return fused_paper_mlp_train(model, pts, viewdirs, compute_dtype=s.compute_dtype)
+    if s.use_pallas and fusable:
+        if supports_fused(model):
+            return fused_mlp_t(model, pts, viewdirs, compute_dtype=s.compute_dtype)
+        if supports_fused_paper(model):
+            return fused_paper_mlp_t(model, pts, viewdirs, compute_dtype=s.compute_dtype)
 
     def eval_fn(pts_, viewdirs_):
         enc = encode_points(pts_, viewdirs_, s)

@@ -7,7 +7,8 @@ Usage:
   python -m nerf_tpu_torch.eval_nerf --config cfg.yml --checkpoint ckpt --savedir out/
 
 ``--renderer kernel`` (the default) evaluates the radiance field with the
-hand-written CUDA kernel (the JAX CLI's ``pallas``); ``--renderer plain``
+hand-written CUDA kernel of the model's family, FlexibleNeRF or PaperNeRF
+(the JAX CLI's ``pallas``); ``--renderer plain``
 with positional encoding + the module (the JAX CLI's ``xla``). ``main(argv)``
 parses the flags; ``render_trajectory(cfg, ...)`` does the work and takes a
 ``CfgNode``, so a caller can drive it without a YAML file.
@@ -122,9 +123,10 @@ def main(argv: Optional[List[str]] = None) -> EvalResult:
     parser.add_argument("--precision", choices=["float32", "bfloat16"], default="float32",
                         help="MLP matmul input dtype; sums stay float32.")
     parser.add_argument("--renderer", choices=["kernel", "plain"], default="kernel",
-                        help="kernel (default): the fused CUDA encode+MLP kernel for "
-                             "the 4x128 10/4 FlexibleNeRF (other shapes use plain); "
-                             "plain: positional encoding + the module.")
+                        help="kernel (default): the fused CUDA encode+MLP kernel of "
+                             "the model's family (the 4x128 10/4 FlexibleNeRF, the 8x256 "
+                             "PaperNeRF; other shapes use plain); plain: positional "
+                             "encoding + the module.")
     parser.add_argument("--tighten-aabb", type=float, default=None, metavar="TAU",
                         help="Density-AABB sample tightening (not ported yet).")
     parser.add_argument("--aabb-sweep-bounds", type=float, nargs=6, default=None,

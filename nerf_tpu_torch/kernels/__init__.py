@@ -9,6 +9,8 @@ kernel when it is imported; the build happens at the first CUDA call
 
 from .flex_train import fused_flex_mlp_train, flex_train_plain_bwd, flex_train_plain_fwd
 from .mlp_t import fused_mlp_t, mlp_t_plain, supports_fused
+from .paper_t import fused_paper_mlp_t, paper_t_plain, supports_fused_paper
+from .paper_train import fused_paper_mlp_train, paper_train_plain_bwd, paper_train_plain_fwd
 
 __all__ = [
     "fused_flex_mlp_train",
@@ -17,4 +19,10 @@ __all__ = [
     "fused_mlp_t",
     "mlp_t_plain",
     "supports_fused",
+    "fused_paper_mlp_t",
+    "paper_t_plain",
+    "supports_fused_paper",
+    "fused_paper_mlp_train",
+    "paper_train_plain_bwd",
+    "paper_train_plain_fwd",
 ]

@@ -37,7 +37,14 @@ from typing import Dict, Tuple
 import torch
 
 from ..ops.encoding import positional_encoding
-from .mlp_t import _DIM_XYZ, _HIDDEN, _NUM_FREQ_XYZ, pack_params, supports_fused
+from .mlp_t import (
+    _DIM_XYZ,
+    _HIDDEN,
+    _NUM_FREQ_XYZ,
+    dir_contribution,
+    pack_params,
+    supports_fused,
+)
 from .train_vjp import TrainKernelFamily, build_train_vjp
 
 _DIR_HIDDEN = 64
@@ -259,7 +266,9 @@ def flex_train_bwd(g: torch.Tensor, residuals, params: torch.Tensor, n: int, s: 
 _FAMILY = TrainKernelFamily(
     name="fused_flex_mlp_train",
     supports=supports_fused,
+    dir_contribution=dir_contribution,
     pack_params=pack_params,
+    static_args=lambda model: (),
     forward=flex_train_fwd,
     backward=flex_train_bwd,
 )

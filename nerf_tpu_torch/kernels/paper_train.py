@@ -1,0 +1,258 @@
+"""Fused PaperNeRF (8x256) training kernels: forward + backward.
+
+Replaces ``nerf_tpu/ops/pallas/paper_train.py:fused_paper_mlp_train`` (the
+custom-VJP pair that ``train_vjp.py:build_train_vjp`` builds; ``pallas_call``
+at ``train_vjp.py:197`` forward and ``:241`` backward) with hand-written CUDA
+kernels for Hopper in ``csrc/paper_train.cu``, behind one
+``torch.autograd.Function`` (``kernels/train_vjp.py``):
+
+- forward: ``paper_t``'s evaluation (N, S, 3) + dc (N, 128) -> (N, S, 4) raw
+  f32, saving the residuals in the compute dtype: enc, the eight post-ReLU
+  trunk activations, feat (not ReLU'd) and the three post-ReLU direction
+  activations;
+- backward: (N, S, 4) f32 cotangent + residuals -> the gradient of the
+  packed parameter buffer (``kernels/paper_t.pack_params``'s layout: every
+  weight and bias but the viewdir columns of ``layers_dir[0]`` and the dead
+  ``layers_dir[3]``) and ddc (N, 128), the gradient of the per-ray direction
+  contribution. Four launches (layer gradients, weight gradients per chunk
+  of points, a fixed-order sum over chunks, ddc per ray): deterministic, no
+  atomics.
+
+``layers_dir[3]`` is never run, so autograd gives it no gradient; the
+trainer's ``create_train_state`` sets every gradient to zeros and steps
+keep them (``zero_grad(set_to_none=False)``), so it ends each step with a
+zero gradient, as the JAX kernel gives it. pts and viewdirs get no gradient.
+
+``paper_train_plain_fwd`` / ``paper_train_plain_bwd`` are the plain PyTorch
+version: the same residuals and the same gradients from them, by the
+hand-derived backward. CPU tensors take them; CUDA tensors take the kernels
+or raise. With ``compute_dtype="bfloat16"`` both operands of every product
+are rounded to bf16 and the sums stay f32; bias gradients and ddc sum the
+unrounded f32 gradients. (The JAX kernel sums its bias gradients with a
+ones-row dot at DEFAULT precision, which rounds dY to bf16 on the TPU and
+not on the CPU; the port keeps the f32 sums of its kernel #8.)
+
+``fused_paper_mlp_train.fwd_launches`` and ``.bwd_launches`` count the
+kernels' launches (one per call each).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from .flex_train import _aligned, _check_cuda, _rounder
+from .paper_t import (
+    _DIR_WIDTH,
+    _WIDTH,
+    _pad4,
+    dir_contribution,
+    layout,
+    num_params,
+    pack_params,
+    paper_plain_forward,
+    supports_fused_paper,
+    unpack_params,
+)
+from .train_vjp import TrainKernelFamily, build_train_vjp
+
+_TILE = 64                 # points per block (csrc/paper_mlp.cuh kTile)
+_TILES_PER_CHUNK = 32      # point tiles per weight-gradient block
+_DELTA_ROWS = 4 + 3 * _DIR_WIDTH + 9 * _WIDTH     # 2692 f32 gradient rows per point
+# Backward weights (csrc/paper_train.cu kT*): nn.Linear (out, in) matrices;
+# [layers_dir.0 feat cols; fc_alpha] is one (129, 256) block, layers_xyz.4
+# gives its h columns only.
+_BWD_ORDER = ("fc_rgb", "layers_dir.2", "layers_dir.1", "layers_dir.0", "fc_alpha", "fc_feat",
+              "layers_xyz.7", "layers_xyz.6", "layers_xyz.5", "layers_xyz.4",
+              "layers_xyz.3", "layers_xyz.2", "layers_xyz.1")
+_NUM_BWD_WEIGHTS = 3 * 128 + 2 * 128 * 128 + 129 * 256 + 8 * 256 * 256   # 590464
+
+
+def res_rows(num_freq: int) -> int:
+    """Residual rows of a point: enc, h0..h7, feat, d0..d2."""
+    return 3 + 6 * num_freq + 9 * _WIDTH + 3 * _DIR_WIDTH
+
+
+def pack_backward_weights(params: torch.Tensor, num_freq: int) -> torch.Tensor:
+    """The backward kernel's weights: each layer's (out, in) matrix, in the
+    order of ``csrc/paper_train.cu``'s kT* offsets."""
+    layers = unpack_params(params, num_freq)
+    dim = 3 + 6 * num_freq
+    parts = []
+    for name in _BWD_ORDER:
+        w = layers[name][0]
+        parts.append((w[dim:] if name == "layers_xyz.4" else w).t().reshape(-1))
+    return torch.cat(parts)
+
+
+def paper_train_plain_fwd(pts: torch.Tensor, dc: torch.Tensor, params: torch.Tensor,
+                          compute_dtype: str = "float32", num_freq: int = 10):
+    """Plain version of the forward kernel: ``(raw (N, S, 4) f32, residuals)``,
+    residuals = (enc, h0..h7, feat, d0, d1, d2), each (N*S, C) in the compute
+    dtype."""
+    out, residuals = paper_plain_forward(pts, dc, params, num_freq, compute_dtype)
+    store = torch.bfloat16 if compute_dtype == "bfloat16" else torch.float32
+    return out, tuple(x.to(store) for x in residuals)
+
+
+def paper_train_plain_bwd(g: torch.Tensor, residuals, params: torch.Tensor, n: int, s: int,
+                          compute_dtype: str = "float32", num_freq: int = 10):
+    """Plain version of the backward kernel: ``(d params in the packed layout
+    (zero pads), ddc (N, 128))`` from the cotangent and the residuals."""
+    r = _rounder(compute_dtype)
+    layers = unpack_params(params.float(), num_freq)
+    dim = 3 + 6 * num_freq
+    enc, *hs = (x.float() for x in residuals)
+    hs, feat, ds = hs[:8], hs[8], hs[9:]
+    g = g.reshape(-1, 4).float()
+    drgb, dsigma = g[:, :3], g[:, 3:]
+
+    def back(dy, w, mask=None):
+        # dX = dY W^T (W stored (in, out)), masked where the stored post-ReLU
+        # activation is not positive.
+        dx = r(dy) @ r(w).t()
+        return dx if mask is None else torch.where(mask > 0, dx, torch.zeros_like(dx))
+
+    def weight(name):
+        return layers[name][0]
+
+    dd2 = back(drgb, weight("fc_rgb"), ds[2])
+    dd1 = back(dd2, weight("layers_dir.2"), ds[1])
+    dd0 = back(dd1, weight("layers_dir.1"), ds[0])
+    # The heads join at feat: [dd0; dsigma] against [W_d0 feat rows; W_alpha].
+    dfeat = back(torch.cat([dd0, dsigma], dim=-1),
+                 torch.cat([weight("layers_dir.0"), weight("fc_alpha")], dim=1))
+    dz = {7: back(dfeat, weight("fc_feat"), hs[7])}
+    for i in range(7, 0, -1):
+        # The skip layer sends gradient to h3 only; enc is data.
+        w = weight(f"layers_xyz.{i}")
+        dz[i - 1] = back(dz[i], w[dim:] if i == 4 else w, hs[i - 1])
+
+    pairs = {f"layers_xyz.{i}": (enc if i == 0 else torch.cat([enc, hs[3]], -1) if i == 4
+                                 else hs[i - 1], dz[i]) for i in range(8)}
+    pairs.update({"fc_feat": (hs[7], dfeat), "fc_alpha": (feat, dsigma),
+                  "layers_dir.0": (feat, dd0), "layers_dir.1": (ds[0], dd1),
+                  "layers_dir.2": (ds[1], dd2), "fc_rgb": (ds[2], drgb)})
+    grads = []
+    for name, i, o in layout(num_freq):
+        x, dy = pairs[name]
+        for part in ((r(x).t() @ r(dy)).reshape(-1), dy.sum(dim=0)):
+            grads += [part, part.new_zeros(_pad4(part.numel()) - part.numel())]
+    return torch.cat(grads), dd0.reshape(n, s, _DIR_WIDTH).sum(dim=1)
+
+
+@functools.lru_cache(maxsize=None)
+def _kernels(num_freq: int):
+    from ._build import load_library
+
+    lib = load_library()
+    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.nerf_paper_train_layout.argtypes = [i32, ctypes.POINTER(ctypes.c_int)]
+    lib.nerf_paper_train_layout.restype = None
+    got = (ctypes.c_int * 6)()
+    lib.nerf_paper_train_layout(num_freq, got)
+    want = (res_rows(num_freq), _DELTA_ROWS, num_params(num_freq), _NUM_BWD_WEIGHTS, _TILE,
+            _TILES_PER_CHUNK)
+    if tuple(got) != want:
+        raise RuntimeError(f"csrc/paper_train.cu layout {tuple(got)} != wrapper's {want}")
+    fwd = lib.nerf_paper_train_forward
+    fwd.argtypes = [ptr, ptr, ptr, i64, ptr, ptr, i64, i32, i32, i32, ptr]
+    fwd.restype = ctypes.c_int
+    bwd = lib.nerf_paper_train_backward
+    bwd.argtypes = [ptr, ptr, ptr, i64, ptr, ptr, ptr, ptr, i64, i32, i32, i32, ptr]
+    bwd.restype = ctypes.c_int
+    return fwd, bwd
+
+
+def paper_train_fwd(pts: torch.Tensor, dc: torch.Tensor, params: torch.Tensor,
+                    compute_dtype: str = "float32", num_freq: int = 10):
+    """The forward: the kernel on CUDA tensors, the plain version on CPU ones."""
+    if pts.device.type == "cpu":
+        return paper_train_plain_fwd(pts, dc, params, compute_dtype, num_freq)
+    what = "fused_paper_mlp_train forward"
+    _check_cuda(what, pts, dc, params)
+    n, s = pts.shape[0], pts.shape[1]
+    if pts.ndim != 3 or pts.shape[-1] != 3 or tuple(dc.shape) != (n, _DIR_WIDTH):
+        raise ValueError(f"{what}: want pts (N, S, 3) and dc (N, 128), got "
+                         f"{tuple(pts.shape)} and {tuple(dc.shape)}")
+    if pts.dtype != torch.float32 or params.numel() != num_params(num_freq):
+        raise ValueError(f"{what}: want float32 pts and a {num_params(num_freq)}-float "
+                         "parameter buffer")
+    bf16 = compute_dtype == "bfloat16"
+    tiles = -(-n * s // _TILE)
+    out = torch.empty((n, s, 4), dtype=torch.float32, device=pts.device)
+    res = torch.empty(tiles * res_rows(num_freq) * _TILE, device=pts.device,
+                      dtype=torch.bfloat16 if bf16 else torch.float32)
+    if n * s == 0:
+        return out, (res,)
+    # The aligned copies are freed when this returns, before the kernel may
+    # have run: the caching allocator hands their blocks out again only in
+    # this stream's order, after the kernel.
+    with torch.cuda.device(pts.device):
+        pts_c, dc_c, params_c = (_aligned(t) for t in (pts, dc, params))
+        stream = torch.cuda.current_stream(pts.device).cuda_stream
+        rc = _kernels(num_freq)[0](pts_c.data_ptr(), dc_c.data_ptr(), params_c.data_ptr(),
+                                   params_c.numel(), out.data_ptr(), res.data_ptr(), n * s, s,
+                                   num_freq, int(bf16), stream)
+    if rc != 0:
+        raise RuntimeError(f"{what}: kernel launch failed with CUDA error {rc}")
+    fused_paper_mlp_train.fwd_launches += 1
+    return out, (res,)
+
+
+def paper_train_bwd(g: torch.Tensor, residuals, params: torch.Tensor, n: int, s: int,
+                    compute_dtype: str = "float32", num_freq: int = 10):
+    """The backward: the kernel on CUDA tensors, the plain version on CPU ones."""
+    if g.device.type == "cpu":
+        return paper_train_plain_bwd(g, residuals, params, n, s, compute_dtype, num_freq)
+    what = "fused_paper_mlp_train backward"
+    (res,) = residuals
+    _check_cuda(what, g, res, params)
+    if tuple(g.shape) != (n, s, 4):
+        raise ValueError(f"{what}: want a ({n}, {s}, 4) cotangent, got {tuple(g.shape)}")
+    device = g.device
+    n_params = num_params(num_freq)
+    grad = torch.empty(n_params, dtype=torch.float32, device=device)
+    ddc = torch.empty((n, _DIR_WIDTH), dtype=torch.float32, device=device)
+    if n * s == 0:
+        return grad.zero_(), ddc
+    tiles = -(-n * s // _TILE)
+    chunks = -(-tiles // _TILES_PER_CHUNK)
+    # Scratch, freed when this returns: the caching allocator hands the
+    # blocks out again only in this stream's order, after the kernels.
+    delta = torch.empty(tiles * _DELTA_ROWS * _TILE, dtype=torch.float32, device=device)
+    partial = torch.empty(chunks * n_params, dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        g_c = _aligned(g)
+        wt = _aligned(pack_backward_weights(params.detach(), num_freq))
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = _kernels(num_freq)[1](g_c.data_ptr(), res.data_ptr(), wt.data_ptr(), wt.numel(),
+                                   delta.data_ptr(), partial.data_ptr(), grad.data_ptr(),
+                                   ddc.data_ptr(), n * s, s, num_freq,
+                                   int(compute_dtype == "bfloat16"), stream)
+    if rc != 0:
+        raise RuntimeError(f"{what}: kernel launch failed with CUDA error {rc}")
+    fused_paper_mlp_train.bwd_launches += 1
+    return grad, ddc
+
+
+_FAMILY = TrainKernelFamily(
+    name="fused_paper_mlp_train",
+    supports=supports_fused_paper,
+    dir_contribution=dir_contribution,
+    pack_params=pack_params,
+    static_args=lambda model: (model.num_encoding_fn_xyz,),
+    forward=paper_train_fwd,
+    backward=paper_train_bwd,
+)
+
+fused_paper_mlp_train = build_train_vjp(_FAMILY)
+fused_paper_mlp_train.__doc__ = """Differentiable fused PaperNeRF evaluation for training:
+``fused_paper_mlp_train(model, pts (N, S, 3), viewdirs (N, 3), compute_dtype)``
+-> (N, S, 4) raw [r, g, b, sigma] f32. Forward and backward are the kernels
+of ``csrc/paper_train.cu`` on CUDA tensors (the plain version on CPU
+tensors). pts and viewdirs get no gradient; ``layers_dir[3]`` none either."""
+fused_paper_mlp_train.fwd_launches = 0
+fused_paper_mlp_train.bwd_launches = 0

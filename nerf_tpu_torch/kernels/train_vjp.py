@@ -2,12 +2,15 @@
 ``nerf_tpu/ops/pallas/train_vjp.py:build_train_vjp``).
 
 A kernel family declares a :class:`TrainKernelFamily`: its shape gate, its
-packed parameter buffer, and a forward and a backward that each take the
-kernel on CUDA tensors and the family's plain PyTorch version on CPU
-tensors. ``build_train_vjp`` wraps them in one ``torch.autograd.Function``:
+direction split, its packed parameter buffer, and a forward and a backward
+that each take the kernel on CUDA tensors and the family's plain PyTorch
+version on CPU tensors. ``build_train_vjp`` wraps them in one
+``torch.autograd.Function``:
 
-- ``dc = dir_contribution(model, viewdirs)``, the per-ray
-  ``enc(viewdirs) @ W_dir[:, split:].T`` (N, D), is computed outside the
+- ``dc = family.dir_contribution(model, viewdirs)``, the per-ray
+  ``enc(viewdirs) @ W_dir[:, split:].T`` (N, D) at the family's split row
+  and width (FlexibleNeRF: 128 and 64; PaperNeRF: 256 and 128; the JAX
+  package's ``wdir_split_row``/``dir_width``), is computed outside the
   kernels with one host matmul, under autograd, so the viewdir columns of
   ``layers_dir[0]`` get their gradient from ``ddc`` through that matmul
   (``train_vjp.py:170-174, 253-255`` of the JAX package);
@@ -18,7 +21,7 @@ tensors. ``build_train_vjp`` wraps them in one ``torch.autograd.Function``:
 
 Precision policy (``train_vjp.py:47-55``): float32 means real float32. The
 host matmul runs with ``torch.backends.cuda.matmul.allow_tf32 = False``
-(``kernels/mlp_t.dir_contribution`` sets it), on the bfloat16 path too.
+(each family's ``dir_contribution`` sets it), on the bfloat16 path too.
 """
 
 from __future__ import annotations
@@ -26,8 +29,6 @@ from __future__ import annotations
 from typing import Callable, NamedTuple
 
 import torch
-
-from .mlp_t import dir_contribution
 
 _COMPUTE_DTYPES = ("float32", "bfloat16")
 
@@ -38,11 +39,17 @@ class TrainKernelFamily(NamedTuple):
     name: str
     # model -> True when the family's kernels take its shape.
     supports: Callable[..., bool]
+    # (model, viewdirs (N, 3)) -> dc (N, D), differentiable in the model.
+    dir_contribution: Callable[..., torch.Tensor]
     # model -> the differentiable packed parameter buffer the kernels read.
     pack_params: Callable[..., torch.Tensor]
-    # (pts (N, S, 3), dc (N, D), params, compute_dtype) -> (raw (N, S, 4) f32, residuals)
+    # model -> the kernels' trailing arguments that are not tensors (a tuple).
+    static_args: Callable[..., tuple]
+    # (pts (N, S, 3), dc (N, D), params, compute_dtype, *static)
+    #   -> (raw (N, S, 4) f32, residuals)
     forward: Callable
-    # (g (N, S, 4), residuals, params, n, s, compute_dtype) -> (d params, d dc (N, D))
+    # (g (N, S, 4), residuals, params, n, s, compute_dtype, *static)
+    #   -> (d params, d dc (N, D))
     backward: Callable
 
 
@@ -53,21 +60,21 @@ def build_train_vjp(family: TrainKernelFamily) -> Callable[..., torch.Tensor]:
 
     class _Fn(torch.autograd.Function):
         @staticmethod
-        def forward(ctx, pts, dc, params, compute_dtype):
-            out, residuals = family.forward(pts, dc, params, compute_dtype)
+        def forward(ctx, pts, dc, params, compute_dtype, static):
+            out, residuals = family.forward(pts, dc, params, compute_dtype, *static)
             ctx.save_for_backward(params)
             ctx.residuals = residuals
-            ctx.meta = (pts.shape[0], pts.shape[1], compute_dtype)
+            ctx.meta = (pts.shape[0], pts.shape[1], compute_dtype, static)
             return out
 
         @staticmethod
         @torch.autograd.function.once_differentiable
         def backward(ctx, g):
             (params,) = ctx.saved_tensors
-            n, s, compute_dtype = ctx.meta
-            dparams, ddc = family.backward(g, ctx.residuals, params, n, s, compute_dtype)
+            n, s, compute_dtype, static = ctx.meta
+            dparams, ddc = family.backward(g, ctx.residuals, params, n, s, compute_dtype, *static)
             ctx.residuals = None
-            return None, ddc, dparams, None
+            return None, ddc, dparams, None, None
 
     def train_fn(model, pts: torch.Tensor, viewdirs: torch.Tensor,
                  compute_dtype: str = "float32") -> torch.Tensor:
@@ -75,8 +82,9 @@ def build_train_vjp(family: TrainKernelFamily) -> Callable[..., torch.Tensor]:
             raise ValueError(f"compute_dtype must be one of {_COMPUTE_DTYPES}")
         if not family.supports(model):
             raise ValueError(f"{family.name}: the model is not the shape its kernels take")
-        dc = dir_contribution(model, viewdirs.detach())
-        return _Fn.apply(pts.detach(), dc, family.pack_params(model), compute_dtype)
+        dc = family.dir_contribution(model, viewdirs.detach())
+        return _Fn.apply(pts.detach(), dc, family.pack_params(model), compute_dtype,
+                         family.static_args(model))
 
     train_fn.__name__ = family.name
     return train_fn

@@ -4,12 +4,15 @@ from __future__ import annotations
 
 from typing import Any, Dict, Type
 
-from .mlp import FlexibleNeRFModel
+from .mlp import FlexibleNeRFModel, PaperNeRFModel
 
-MODEL_REGISTRY: Dict[str, Type[Any]] = {"FlexibleNeRFModel": FlexibleNeRFModel}
+MODEL_REGISTRY: Dict[str, Type[Any]] = {
+    "FlexibleNeRFModel": FlexibleNeRFModel,
+    "PaperNeRFModel": PaperNeRFModel,
+}
 
 # Families the JAX package has and this package does not yet.
-_NOT_PORTED = ("VeryTinyNeRFModel", "MultiHeadNeRFModel", "ReplicateNeRFModel", "PaperNeRFModel")
+_NOT_PORTED = ("VeryTinyNeRFModel", "MultiHeadNeRFModel", "ReplicateNeRFModel")
 
 
 def get_model(name: str, **kwargs):
@@ -17,7 +20,7 @@ def get_model(name: str, **kwargs):
     if name in _NOT_PORTED:
         raise NotImplementedError(
             f"{name} is not ported to nerf_tpu_torch yet "
-            "(ROADMAP.md, open items §1 item 3 and item 10)"
+            "(ROADMAP.md, open items §1 item 3)"
         )
     try:
         cls = MODEL_REGISTRY[name]
@@ -28,4 +31,4 @@ def get_model(name: str, **kwargs):
     return cls(**kwargs)
 
 
-__all__ = ["MODEL_REGISTRY", "get_model", "FlexibleNeRFModel"]
+__all__ = ["MODEL_REGISTRY", "get_model", "FlexibleNeRFModel", "PaperNeRFModel"]

@@ -1,5 +1,6 @@
-"""The FlexibleNeRF radiance-field MLP as an ``nn.Module`` (port of
-``FlexibleNeRFModel`` in ``nerf_tpu/models/mlp.py``).
+"""The FlexibleNeRF and PaperNeRF radiance-field MLPs as ``nn.Module``s
+(ports of ``FlexibleNeRFModel`` and ``PaperNeRFModel`` in
+``nerf_tpu/models/mlp.py``).
 
 Attribute names are the reference's (``layer1``, ``layers_xyz.N``,
 ``fc_feat``, ``fc_alpha``, ``layers_dir.N``, ``fc_rgb``, ``fc_out``), so the
@@ -9,9 +10,9 @@ for key and reference ``.ckpt`` files load as they are.
 Init is ``nn.Linear``'s: weight and bias ~ U(-1/sqrt(fan_in), 1/sqrt(fan_in)),
 drawn from the ``generator`` given (PyTorch's default generator otherwise).
 
-The skip connection is the intended one (concatenate the encoded xyz back
-in), under the constructor's condition ``_has_skip`` for both the shapes and
-the forward: the reference's forward crashes on it.
+FlexibleNeRF's skip connection is the intended one (concatenate the encoded
+xyz back in), under the constructor's condition ``_has_skip`` for both the
+shapes and the forward: the reference's forward crashes on it.
 """
 
 from __future__ import annotations
@@ -117,6 +118,87 @@ class FlexibleNeRFModel(nn.Module):
         alpha = _linear(self.fc_alpha, h)
         h = torch.cat([feat, x[..., self.dim_xyz:]], dim=-1)
         for layer in self.layers_dir:
+            h = torch.relu(_linear(layer, h))
+        rgb = _linear(self.fc_rgb, h)
+        return torch.cat([rgb, alpha], dim=-1)
+
+
+class PaperNeRFModel(nn.Module):
+    """The NeRF paper's Fig. 7 model (reference models.py:123-183): an 8x256
+    trunk with the encoding re-injected at layer 4, a 128-wide direction
+    branch.
+
+    The reference's quirks are kept: the 8/256/128 layout is fixed whatever
+    ``num_layers``/``hidden_size`` say; layer 4 reads ``[enc_xyz, h]``
+    (encoding first); ``fc_feat`` has no ReLU; alpha is read from ``feat``,
+    not from the trunk; ``layers_dir[3]`` exists in the state dict but the
+    forward never runs it.
+    """
+
+    def __init__(
+        self,
+        num_layers: int = 8,
+        hidden_size: int = 256,
+        skip_connect_every: int = 4,
+        num_encoding_fn_xyz: int = 6,
+        num_encoding_fn_dir: int = 4,
+        include_input_xyz: bool = True,
+        include_input_dir: bool = True,
+        use_viewdirs: bool = True,
+        generator: Optional[torch.Generator] = None,
+        device=None,
+    ):
+        super().__init__()
+        self.num_layers = num_layers
+        self.hidden_size = hidden_size
+        self.skip_connect_every = skip_connect_every
+        self.num_encoding_fn_xyz = num_encoding_fn_xyz
+        self.num_encoding_fn_dir = num_encoding_fn_dir
+        self.include_input_xyz = include_input_xyz
+        self.include_input_dir = include_input_dir
+        self.use_viewdirs = use_viewdirs
+        self.dim_xyz, dim_dir = _xyz_dir_dims(
+            num_encoding_fn_xyz, num_encoding_fn_dir, include_input_xyz, include_input_dir
+        )
+        self.dim_dir = dim_dir if use_viewdirs else 0
+
+        def linear(i, o):
+            return nn.utils.skip_init(nn.Linear, i, o, device=device or "cpu")
+
+        # Registration order is the reference's parameters() order.
+        self.layers_xyz = nn.ModuleList(
+            linear(self.dim_xyz if i == 0 else self.dim_xyz + 256 if i == 4 else 256, 256)
+            for i in range(8)
+        )
+        self.fc_feat = linear(256, 256)
+        self.fc_alpha = linear(256, 1)
+        self.layers_dir = nn.ModuleList(
+            [linear(256 + self.dim_dir, 128)] + [linear(128, 128) for _ in range(3)]
+        )
+        self.fc_rgb = linear(128, 3)
+        self.reset_parameters(generator)
+
+    @property
+    def input_dim(self) -> int:
+        return self.dim_xyz + self.dim_dir
+
+    reset_parameters = FlexibleNeRFModel.reset_parameters
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(..., dim_xyz [+ dim_dir]) encoded input -> (..., 4) raw [r, g, b, sigma]."""
+        xyz = x[..., : self.dim_xyz]
+        h = xyz
+        for i, layer in enumerate(self.layers_xyz):
+            if i == 4:
+                h = torch.cat([xyz, h], dim=-1)
+            h = torch.relu(_linear(layer, h))
+        feat = _linear(self.fc_feat, h)
+        alpha = _linear(self.fc_alpha, feat)
+        if self.use_viewdirs:
+            feat = torch.cat([feat, x[..., self.dim_xyz:]], dim=-1)
+        h = torch.relu(_linear(self.layers_dir[0], feat))
+        # layers_dir[3] is never run (reference models.py:178-180).
+        for layer in self.layers_dir[1:3]:
             h = torch.relu(_linear(layer, h))
         rgb = _linear(self.fc_rgb, h)
         return torch.cat([rgb, alpha], dim=-1)

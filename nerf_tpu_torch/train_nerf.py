@@ -7,9 +7,10 @@ render, MSE(coarse) + MSE(fine), backward, update, LR decay) and fetches
 their metrics once; validation renders ``val_poses[0]`` at
 ``validate_every``; checkpoints are reference ``.ckpt`` files with the
 optimizer's state, ``checkpointNNNNN.ckpt`` at ``save_every`` and at the end.
-With ``nerf.train.use_pallas_train`` the 4x128 10/4 FlexibleNeRF's
-radiance field and its gradient go through the hand-written training
-kernels (``kernels/flex_train.py``).
+With ``nerf.train.use_pallas_train`` the radiance field and its gradient go
+through the hand-written training kernels of the model's family: the 4x128
+10/4 FlexibleNeRF's (``kernels/flex_train.py``) or the 8x256 PaperNeRF's
+(``kernels/paper_train.py``, ``configs/lego_paper.yml``).
 
 Usage:
   python -m nerf_tpu_torch.train_nerf --config cfg.yml [--load-checkpoint ckpt] \\

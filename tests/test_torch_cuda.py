@@ -22,8 +22,9 @@ from nerf_tpu_torch.kernels.flex_train import (
     fused_flex_mlp_train,
     unpack_params,
 )
+from nerf_tpu_torch.kernels import paper_t, paper_train
 from nerf_tpu_torch.kernels.mlp_t import dir_contribution, fused_mlp_t, mlp_t_plain, pack_params
-from nerf_tpu_torch.models import FlexibleNeRFModel
+from nerf_tpu_torch.models import FlexibleNeRFModel, PaperNeRFModel
 
 pytestmark = pytest.mark.cuda
 torch.set_num_threads(1)
@@ -162,3 +163,101 @@ def test_train_function_goes_through_both_kernels(model):
     mlp_t_plain(model, pts.detach(), vd.detach()).square().sum().backward()
     for name, p in model.named_parameters():
         assert _scaled_err(got[name], p.grad) <= 1e-4, name
+
+
+@pytest.fixture
+def paper_model():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc; run on the card (see module docstring)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return PaperNeRFModel(num_encoding_fn_xyz=10, generator=torch.Generator().manual_seed(0)
+                          ).cuda().eval()
+
+
+@pytest.mark.parametrize("compute_dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("n,s", [(1, 1), (33, 64), (1000, 128), (7, 61)])
+def test_paper_kernel_matches_plain(paper_model, n, s, compute_dtype, tol):
+    pts, vd = _inputs(n, s, seed=n * s)
+    before = paper_t.fused_paper_mlp_t.launches
+    with torch.inference_mode():
+        got = paper_t.fused_paper_mlp_t(paper_model, pts, vd, compute_dtype)
+        torch.cuda.synchronize()
+        want = paper_t.paper_t_plain(paper_model, pts, vd, compute_dtype)
+    assert paper_t.fused_paper_mlp_t.launches == before + 1
+    assert got.shape == (n, s, 4) and got.is_cuda
+    assert float((got - want).abs().max()) <= tol
+
+
+def test_paper_kernel_takes_any_encoding_depth():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc; run on the card (see module docstring)")
+    pts, vd = _inputs(40, 16, seed=3)
+    for f in (0, 4, 6, 16):
+        model = PaperNeRFModel(num_encoding_fn_xyz=f, generator=torch.Generator().manual_seed(f))
+        model = model.cuda()
+        with torch.inference_mode():
+            got = paper_t.fused_paper_mlp_t(model, pts, vd)
+            want = paper_t.paper_t_plain(model, pts, vd)
+        assert float((got - want).abs().max()) <= 1e-4, f
+
+
+@pytest.mark.parametrize("compute_dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("n,s", [(1, 1), (33, 64), (1024, 128), (7, 61)])
+def test_paper_train_kernels_match_plain(paper_model, n, s, compute_dtype, tol):
+    pts, vd = _inputs(n, s, seed=n * s)
+    gen = torch.Generator(device="cuda").manual_seed(n)
+    g = torch.randn(n, s, 4, generator=gen, device="cuda")
+    params = paper_t.pack_params(paper_model).detach()
+    dc = paper_t.dir_contribution(paper_model, vd).detach()
+    fused = paper_train.fused_paper_mlp_train
+    fwd0, bwd0 = fused.fwd_launches, fused.bwd_launches
+    out, res = paper_train.paper_train_fwd(pts, dc, params, compute_dtype, 10)
+    grad, ddc = paper_train.paper_train_bwd(g, res, params, n, s, compute_dtype, 10)
+    again = paper_train.paper_train_bwd(g, res, params, n, s, compute_dtype, 10)
+    torch.cuda.synchronize()
+    assert (fused.fwd_launches, fused.bwd_launches) == (fwd0 + 1, bwd0 + 2)
+    assert torch.equal(grad, again[0]) and torch.equal(ddc, again[1])    # deterministic
+    want, want_res = paper_train.paper_train_plain_fwd(pts, dc, params, compute_dtype, 10)
+    want_grad, want_ddc = paper_train.paper_train_plain_bwd(g, want_res, params, n, s,
+                                                            compute_dtype, 10)
+    assert float((out - want).abs().max()) <= tol
+    got_layers = paper_t.unpack_params(grad, 10)
+    for name, (w, b) in paper_t.unpack_params(want_grad, 10).items():
+        assert _scaled_err(got_layers[name][0], w) <= tol, name
+        assert _scaled_err(got_layers[name][1], b) <= tol, name
+    assert ddc.shape == (n, 128) and _scaled_err(ddc, want_ddc) <= tol
+
+
+def test_paper_train_function_goes_through_both_kernels(paper_model):
+    pts, vd = _inputs(64, 32, seed=7)
+    fused = paper_train.fused_paper_mlp_train
+    fwd0, bwd0 = fused.fwd_launches, fused.bwd_launches
+    for p in paper_model.parameters():
+        p.grad = torch.zeros_like(p)
+    fused(paper_model, pts, vd).square().sum().backward()
+    got = {k: p.grad.clone() for k, p in paper_model.named_parameters()}
+    assert (fused.fwd_launches, fused.bwd_launches) == (fwd0 + 1, bwd0 + 1)
+    assert not bool(got["layers_dir.3.weight"].any())
+    paper_model.zero_grad()
+    paper_t.paper_t_plain(paper_model, pts, vd).square().sum().backward()
+    for name, p in paper_model.named_parameters():
+        if p.grad is not None:
+            assert _scaled_err(got[name], p.grad) <= 1e-4, name
+
+
+def test_renderer_goes_through_the_paper_kernels(paper_model):
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    ro = torch.randn(300, 3, generator=gen, device="cuda") * 0.1 + torch.tensor(
+        [0.0, 0.0, 4.0], device="cuda")
+    rd = torch.randn(300, 3, generator=gen, device="cuda") * 0.2 - torch.tensor(
+        [0.0, 0.0, 1.0], device="cuda")
+    settings = renderer.RenderSettings(num_coarse=32, num_fine=0, perturb=False,
+                                       white_background=True, num_encoding_fn_xyz=10,
+                                       num_encoding_fn_dir=4, use_pallas=True)
+    before = paper_t.fused_paper_mlp_t.launches
+    with torch.inference_mode():
+        fused = renderer.render_rays(paper_model, None, ro, rd, settings)
+        plain = renderer.render_rays(paper_model, None, ro, rd,
+                                     dataclasses.replace(settings, use_pallas=False))
+    assert paper_t.fused_paper_mlp_t.launches == before + 1
+    assert float((fused.rgb - plain.rgb).abs().max()) <= 1e-4

@@ -20,7 +20,7 @@ from nerf_tpu_torch.engine.checkpoint import (
     load_models_and_params,
     load_reference_checkpoint,
 )
-from nerf_tpu_torch.models import FlexibleNeRFModel, get_model
+from nerf_tpu_torch.models import FlexibleNeRFModel, PaperNeRFModel, get_model
 
 torch.set_num_threads(1)
 
@@ -84,10 +84,11 @@ def test_init_is_linear_style_and_seeded():
         assert not torch.equal(pa, pc)
 
 
-def test_get_model_registers_flexible_only():
+def test_get_model_raises_for_replicate():
     assert isinstance(get_model("FlexibleNeRFModel", hidden_size=16), FlexibleNeRFModel)
+    assert isinstance(get_model("PaperNeRFModel", num_encoding_fn_xyz=10), PaperNeRFModel)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_model("PaperNeRFModel")
+        get_model("ReplicateNeRFModel")
     with pytest.raises(ValueError, match="Unknown model type"):
         get_model("NoSuchModel")
 
