@@ -46,7 +46,22 @@ Phases, one or more lines each:
      the plain path's;
  11. times on this card: the Paper kernels against their plain versions,
      seconds per 400x400 Paper frame and training rays per second on the
-     kernel and plain paths.
+     kernel and plain paths;
+ 12. compositing, resampling and whole-stage kernels vs plain: the
+     compositing scan (#5), the inverse-CDF resample (#6) and the whole
+     render stage (#7) against their plain versions at the flagship render
+     path's chunks (131072 x 64 and x 128) and a ragged (333, 61), on the
+     fields the encode+MLP kernel makes at orbit points (and a random one);
+     #6 on those composited weights, det and with uniforms that include 1.0,
+     each sample within RESAMPLE_TOL in depth or RESAMPLE_CDF_TOL in CDF
+     space; #7 in float32 and bfloat16;
+ 13. the flagship render path with these kernels: chain A (#1 -> #5 -> #6 ->
+     sort -> #1 -> #5) and chain B (#7 -> #6 -> sort -> #7) render a 400x400
+     frame of ``configs/lego_fused.yml`` at chunk 131072 with their expected
+     launches and are held against the renderer's kernel path; then the
+     three kernels' times against their plain versions (#7 also against #1 +
+     plain compositing) and seconds per frame of the renderer's kernel path
+     and of both chains.
 
 Then one JSON line of per-kernel results (each kernel's launches on its main
 path, error, time, plain time and the least time the card could take for the
@@ -91,6 +106,19 @@ PAPER_CHECK_SHAPES = ((2048, 64), (2048, 128), (1000, 128), (333, 61))
 PAPER_TRAIN_STEPS = 300
 PAPER_TIMED_STEPS = 10
 PLAIN_CHUNK = 16384            # rays a chunk of the plain Paper path (memory, not speed)
+# The compositing, resampling and whole-stage slice (phases 12-13): the
+# render path's coarse and fine chunks, and a shape whose points end mid-tile.
+STAGE_CHECK_SHAPES = ((131072, 64), (131072, 128), (333, 61))
+# #5 and #7 vs plain, float32, per map: summation order only (disp relative).
+MAP_TOLS = {"rgb": 1e-5, "acc": 1e-5, "weights": 1e-5, "depth": 1e-4, "disp": 1e-4}
+RESAMPLE_TOL = 1e-5        # #6 vs sample_pdf, depth
+# #6, a sample over RESAMPLE_TOL in depth, in CDF space: the 1e-5 guard's
+# width plus the two prefix sums' rounding (check_resample).
+RESAMPLE_CDF_TOL = 1.1e-5
+# Operations a sample of the compositing scan: the distance, alpha (exp),
+# the transmittance factor, its product, the weight, three sigmoids (exp,
+# add, divide) and five sums.
+COMPOSITE_OPS_PER_SAMPLE = 25
 # The card's peaks (NVIDIA's H100 SXM data sheet, at 700 W): f32 outside the
 # tensor cores, bf16 on them, and device memory.
 F32_FLOPS = 67e12
@@ -205,7 +233,14 @@ def seeded_model(seed: int, opacify: bool, family: str = "FlexibleNeRFModel"):
 
 def orbit_points(num_rays: int, num_samples: int, device, seed: int):
     """Points as the render path makes them: random pixels of the 400x400
-    orbit frames, at sorted depths in [near, far] = [2, 6]."""
+    orbit frames, at sorted depths in [near, far] = [2, 6]. Returns the
+    points and the normalized view directions."""
+    return orbit_rays(num_rays, num_samples, device, seed)[:2]
+
+
+def orbit_rays(num_rays: int, num_samples: int, device, seed: int):
+    """``orbit_points``, with the depths (N, S) and the un-normalized ray
+    directions (N, 3) as well."""
     import torch
 
     from nerf_tpu_torch.data import spherical_render_poses
@@ -223,7 +258,7 @@ def orbit_points(num_rays: int, num_samples: int, device, seed: int):
     z, _ = torch.sort(2.0 + 4.0 * torch.rand(num_rays, num_samples, generator=gen,
                                              device=device), dim=-1)
     pts = ro[:, None, :] + rd[:, None, :] * z[..., None]
-    return pts, rd / torch.linalg.norm(rd, dim=-1, keepdim=True)
+    return pts, rd / torch.linalg.norm(rd, dim=-1, keepdim=True), z, rd
 
 
 def check_resample_outliers(cfg, pixels, hwf, mc, mf, kernel) -> None:
@@ -282,6 +317,30 @@ def check_resample_outliers(cfg, pixels, hwf, mc, mf, kernel) -> None:
           "rgb_fine outliers that differ on common depth samples")
 
 
+def ptxas_summary(log: str) -> str:
+    """``nvcc -Xptxas -v``'s report as one line: each kernel as source:name
+    (its bool template argument as <0>/<1>), its registers and, where it
+    spills, the spill store/load bytes."""
+    import re
+
+    out, name = [], None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            source = re.search(r"_\d+_([a-z_]+?)_cu_", entry.group(1))
+            kernel = re.search(r"\d+([a-z_]+_kernel)(ILb([01])E)?", entry.group(1))
+            name = (f"{source.group(1) if source else '?'}:{kernel.group(1)}"
+                    + (f"<{kernel.group(3)}>" if kernel.group(2) else ""))
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill and name and spill.groups() != ("0", "0"):
+            name += f" ({spill.group(1)}/{spill.group(2)})"
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs and name:
+            out.append(f"{name} {regs.group(1)}")
+            name = None
+    return ", ".join(out)
+
+
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
@@ -289,10 +348,13 @@ def check(ok: bool, what: str) -> None:
 
 def launch_counters():
     """Every kernel wrapper's launch counter: name -> (holder, attribute)."""
+    from nerf_tpu_torch.kernels.composite import fused_volume_render
     from nerf_tpu_torch.kernels.flex_train import fused_flex_mlp_train
     from nerf_tpu_torch.kernels.mlp_t import fused_mlp_t
     from nerf_tpu_torch.kernels.paper_t import fused_paper_mlp_t
     from nerf_tpu_torch.kernels.paper_train import fused_paper_mlp_train
+    from nerf_tpu_torch.kernels.resample import fused_sample_pdf
+    from nerf_tpu_torch.kernels.stage import fused_render_stage
 
     return {
         "fused_mlp_t": (fused_mlp_t, "launches"),
@@ -301,6 +363,9 @@ def launch_counters():
         "fused_paper_mlp_t": (fused_paper_mlp_t, "launches"),
         "fused_paper_mlp_train_fwd": (fused_paper_mlp_train, "fwd_launches"),
         "fused_paper_mlp_train_bwd": (fused_paper_mlp_train, "bwd_launches"),
+        "fused_volume_render": (fused_volume_render, "launches"),
+        "fused_sample_pdf": (fused_sample_pdf, "launches"),
+        "fused_render_stage": (fused_render_stage, "launches"),
     }
 
 
@@ -889,6 +954,373 @@ def profile_steps(run, steps: int, what: str, on: str) -> None:
           f"{launches / steps:.0f} launches/step; top ms/step: {top} {on}")
 
 
+def map_errors(got: dict, want: dict) -> dict:
+    """Max |kernel - plain| of each composited map (disparity relative)."""
+    errs = {k: float((got[k] - want[k]).abs().max()) for k in ("rgb", "acc", "weights", "depth")}
+    errs["disp"] = float(((got["disp"] - want["disp"]).abs()
+                          / want["disp"].abs().clamp(min=1e-30)).max())
+    return errs
+
+
+def fmt_errors(errs: dict) -> str:
+    return ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+
+
+def plain_cdf(weights):
+    """sample_pdf's zero-prepended CDF of (N, M-1) bin weights: (N, M)."""
+    import torch
+
+    w = weights + 1e-5
+    cdf = torch.cumsum(w / w.sum(-1, keepdim=True), -1)
+    return torch.cat([torch.zeros_like(cdf[:, :1]), cdf], -1)
+
+
+def cdf_at(bins, cdf, x):
+    """The piecewise-linear CDF (knots ``cdf`` at ``bins``) at depths x: the
+    map that sample_pdf's samples invert."""
+    import torch
+
+    j = (torch.searchsorted(bins.contiguous(), x.contiguous(), right=True) - 1).clamp(
+        0, bins.shape[1] - 2)
+    e0, e1 = torch.gather(bins, 1, j), torch.gather(bins, 1, j + 1)
+    c0, c1 = torch.gather(cdf, 1, j), torch.gather(cdf, 1, j + 1)
+    return c0 + ((x - e0) / (e1 - e0)).clamp(0, 1) * (c1 - c0)
+
+
+def check_resample(bins, weights, num_samples: int, u) -> dict:
+    """Phase 12, #6: the resampling kernel against ``sample_pdf``, det and
+    with the uniforms ``u``.
+
+    A cdf that differs by e (the two prefix sums' order) moves a sample by
+    e * width / pdf, so in bins of small pdf the two differ by more than
+    RESAMPLE_TOL in depth, and by up to the bin where the two put a
+    denominator on opposite sides of the 1e-5 guard. Each sample over
+    RESAMPLE_TOL must therefore agree in CDF space, to RESAMPLE_CDF_TOL; the
+    ones whose plain denominator lies within 1e-6 of the guard are counted
+    as guard flips.
+    """
+    import torch
+
+    from nerf_tpu_torch.kernels.resample import fused_sample_pdf
+    from nerf_tpu_torch.ops import sample_pdf
+
+    n, m = bins.shape
+    cdf = plain_cdf(weights)
+    out = {"err": 0.0, "over": 0, "cdf_err": 0.0}
+    for label, kw in (("det", {"det": True}), ("u", {"u": u})):
+        got = fused_sample_pdf(bins, weights, num_samples, **kw)
+        torch.cuda.synchronize()
+        want = sample_pdf(bins, weights, num_samples, **kw)
+        check(bool(torch.isfinite(got).all() and (got >= bins[:, :1]).all()
+                   and (got <= bins[:, -1:]).all()), f"fused_sample_pdf ({n}, {m}) {label} range")
+        uu = u if label == "u" else torch.linspace(0.0, 1.0, num_samples,
+                                                   device=u.device).expand(n, num_samples)
+        inds = torch.searchsorted(cdf.contiguous(), uu.contiguous(), right=True)
+        denom = (torch.gather(cdf, 1, inds.clamp(max=m - 1))
+                 - torch.gather(cdf, 1, (inds - 1).clamp(min=0)))
+        dx = (got - want).abs()
+        du = (cdf_at(bins, cdf, got) - cdf_at(bins, cdf, want)).abs()
+        over = dx > RESAMPLE_TOL
+        guard = int((over & ((denom - 1e-5).abs() <= 1e-6)).sum())
+        du_over = float(du[over].max()) if bool(over.any()) else 0.0
+        print(f"[stage-kernel] fused_sample_pdf ({n} rays, M {m} -> {num_samples}) {label}: "
+              f"max |kernel - plain| {float(dx.max()):.2e}; {int(over.sum())} of {dx.numel()} "
+              f"samples over {RESAMPLE_TOL:g} ({guard} guard flips, the rest in bins of small "
+              f"pdf), in CDF space within {du_over:.2e} (tol {RESAMPLE_CDF_TOL:g})")
+        check(du_over <= RESAMPLE_CDF_TOL, f"fused_sample_pdf ({n}, {m}) {label}: {du_over}")
+        out = {"err": max(out["err"], float(dx.max())), "over": out["over"] + int(over.sum()),
+               "cdf_err": max(out["cdf_err"], du_over)}
+    return out
+
+
+def check_render_stage_kernels(dev) -> dict:
+    """Phase 12: the compositing kernel (#5), the resampling kernel (#6) and
+    the whole-stage kernel (#7) against their plain versions at
+    STAGE_CHECK_SHAPES, on the flagship's field: #1's output of the opacified
+    seeded model at orbit points (and a random field for #5); #6 resamples the
+    composited weights of the coarse shape and of the ragged one, det and
+    with uniforms that include exactly 1.0, one ray with all-zero weights.
+    Returns the worst error of each kernel."""
+    import torch
+
+    from nerf_tpu_torch.kernels.composite import fused_volume_render, volume_render_plain
+    from nerf_tpu_torch.kernels.mlp_t import fused_mlp_t
+    from nerf_tpu_torch.kernels.stage import fused_render_stage, render_stage_plain
+
+    model = seeded_model(SEED, opacify=True).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    tols = {"float32": MAP_TOLS, "bfloat16": {k: BF16_TOL for k in MAP_TOLS}}
+    worst = {"composite": {"float32": 0.0}, "stage": {"float32": 0.0, "bfloat16": 0.0}}
+    resample = {"err": 0.0, "over": 0, "cdf_err": 0.0}
+    with torch.inference_mode():
+        for n, s in STAGE_CHECK_SHAPES:
+            pts, vd, z, rd = orbit_rays(n, s, dev, seed=n + s)
+            field = fused_mlp_t(model, pts, vd)
+            errs = []
+            for rf in (field, torch.randn(n, s, 4, generator=gen, device=dev) * 2):
+                for white in (False, True):
+                    got = fused_volume_render(rf, z, rd, white)
+                    torch.cuda.synchronize()
+                    errs.append(map_errors(got, volume_render_plain(rf, z, rd, white)))
+            e = {k: max(x[k] for x in errs) for k in errs[0]}
+            print(f"[stage-kernel] fused_volume_render ({n}, {s}), #1's field and a random one, "
+                  f"white background off and on: max |kernel - plain| {fmt_errors(e)}")
+            check(all(e[k] <= MAP_TOLS[k] for k in e), f"fused_volume_render ({n}, {s}): {e}")
+            worst["composite"]["float32"] = max(worst["composite"]["float32"], e["rgb"], e["acc"],
+                                                e["weights"], e["depth"])
+            for dtype in ("float32", "bfloat16"):
+                got = fused_render_stage(model, pts, vd, z, rd, True, dtype)
+                torch.cuda.synchronize()
+                e = map_errors(got, render_stage_plain(model, pts, vd, z, rd, True, dtype))
+                print(f"[stage-kernel] fused_render_stage ({n}, {s}) {dtype}: max |kernel - "
+                      f"plain| {fmt_errors(e)}")
+                check(all(e[k] <= tols[dtype][k] for k in e),
+                      f"fused_render_stage ({n}, {s}) {dtype}: {e}")
+                worst["stage"][dtype] = max(worst["stage"][dtype], e["rgb"], e["acc"],
+                                            e["weights"], e["depth"])
+            if s == 128:
+                continue
+            # Resample the composited coarse weights' inner bins, as the
+            # renderer does: M = S - 1 edges, S new samples.
+            weights = volume_render_plain(field, z, rd, True)["weights"][:, 1:-1].clone()
+            weights[0] = 0.0
+            u = torch.rand(n, s, generator=gen, device=dev)
+            u[::101, 0] = 1.0
+            r = check_resample(0.5 * (z[:, 1:] + z[:, :-1]), weights, s, u)
+            resample = {"err": max(resample["err"], r["err"]), "over": resample["over"] + r["over"],
+                        "cdf_err": max(resample["cdf_err"], r["cdf_err"])}
+    return {"composite": worst["composite"], "stage": worst["stage"], "resample": resample}
+
+
+def stage_a(model, pts, vd, z, rd, s):
+    """Chain A's stage: the field through #1, composited by #5."""
+    from nerf_tpu_torch.kernels.composite import fused_volume_render
+    from nerf_tpu_torch.kernels.mlp_t import fused_mlp_t
+
+    return fused_volume_render(fused_mlp_t(model, pts, vd, s.compute_dtype), z, rd,
+                               s.white_background)
+
+
+def stage_b(model, pts, vd, z, rd, s):
+    """Chain B's stage: the whole stage in one launch of #7."""
+    from nerf_tpu_torch.kernels.stage import fused_render_stage
+
+    return fused_render_stage(model, pts, vd, z, rd, s.white_background, s.compute_dtype)
+
+
+def render_chain(stage, mc, mf, ro, rd, s):
+    """The deterministic render path of ``render_rays`` over a chunk of rays,
+    with its stages taken by ``stage``: coarse stage -> #6 (det) on the
+    coarse weights' inner bins -> sort -> fine stage. Returns both stages'
+    maps."""
+    import torch
+
+    from nerf_tpu_torch.kernels.resample import fused_sample_pdf
+    from nerf_tpu_torch.ops import coarse_z_values
+
+    vd = rd / torch.linalg.norm(rd, dim=-1, keepdim=True)
+    near = torch.full(ro.shape[:1], s.near, dtype=ro.dtype, device=ro.device)
+    z = coarse_z_values(near, s.far, s.num_coarse, s.lindisp, dtype=ro.dtype)
+    coarse = stage(mc, ro[:, None, :] + rd[:, None, :] * z[..., None], vd, z, rd, s)
+    z_mid = 0.5 * (z[:, 1:] + z[:, :-1])
+    z_fine = fused_sample_pdf(z_mid, coarse["weights"][:, 1:-1], s.num_fine, det=True)
+    z_all, _ = torch.sort(torch.cat([z, z_fine], dim=-1), dim=-1)
+    fine = stage(mf, ro[:, None, :] + rd[:, None, :] * z_all[..., None], vd, z_all, rd, s)
+    return coarse, fine
+
+
+def chain_render_fn(stage, mc, mf, s, h: int, w: int, focal: float):
+    """``render(pose34) -> {"rgb_coarse", "rgb_fine"}`` (H, W, 3) through
+    ``render_chain``, s.chunksize rays at a time, as make_pose_render_fn
+    renders a frame."""
+    import torch
+
+    from nerf_tpu_torch.ops import get_ray_bundle
+
+    def render(pose34):
+        ro, rd = get_ray_bundle(h, w, focal, pose34)
+        ro, rd = ro.reshape(-1, 3), rd.reshape(-1, 3)
+        parts = []
+        with torch.inference_mode():
+            for i in range(0, ro.shape[0], s.chunksize):
+                coarse, fine = render_chain(stage, mc, mf, ro[i:i + s.chunksize],
+                                            rd[i:i + s.chunksize], s)
+                parts.append((coarse["rgb"], fine["rgb"]))
+            return {name: torch.cat([p[k] for p in parts]).reshape(h, w, 3)
+                    for k, name in enumerate(("rgb_coarse", "rgb_fine"))}
+
+    return render
+
+
+def check_chain_outliers(stage, name: str, pixels, mc, mf, s, pose, hwf) -> None:
+    """At the pixels where a chain's fine rgb differs from the renderer's
+    kernel path, run the chain's fine stage again on the renderer's own fine
+    depths: there the two must agree to RENDER_RGB_TOL, so that what moved is
+    the resampled depths alone (#6's cdf against torch.cumsum's, in bins of
+    small pdf; see check_resample)."""
+    import torch
+
+    from nerf_tpu_torch.engine.renderer import render_rays
+    from nerf_tpu_torch.kernels.mlp_t import fused_mlp_t
+    from nerf_tpu_torch.ops import (
+        coarse_z_values, get_ray_bundle, sample_pdf, volume_render_radiance_field,
+    )
+
+    h, w, focal = hwf
+    ro, rd = get_ray_bundle(h, w, focal, pose)
+    ro, rd = ro.reshape(-1, 3)[pixels], rd.reshape(-1, 3)[pixels]
+    vd = rd / torch.linalg.norm(rd, dim=-1, keepdim=True)
+    with torch.inference_mode():
+        coarse = render_rays(mc, None, ro, rd, dataclasses.replace(s, num_fine=0)).coarse
+        z = coarse_z_values(torch.full(ro.shape[:1], s.near, device=ro.device), s.far,
+                            s.num_coarse, s.lindisp)
+        z_fine = sample_pdf(0.5 * (z[:, 1:] + z[:, :-1]), coarse.weights[:, 1:-1], s.num_fine,
+                            det=True)
+        z_all, _ = torch.sort(torch.cat([z, z_fine], dim=-1), dim=-1)
+        pts = ro[:, None, :] + rd[:, None, :] * z_all[..., None]
+        want = volume_render_radiance_field(fused_mlp_t(mf, pts, vd, s.compute_dtype), z_all, rd,
+                                            white_background=s.white_background).rgb
+        err = float((stage(mf, pts, vd, z_all, rd, s)["rgb"] - want).abs().max())
+    print(f"[chain]   {name} at those pixels, on the renderer's fine depths: rgb_fine max "
+          f"|diff| {err:.3e}")
+    check(err <= RENDER_RGB_TOL, f"chain {name} outliers differ on common depths: {err}")
+
+
+def render_chains(cfg, dev) -> dict:
+    """Phase 13: chain A (#1 -> #5 -> #6 -> sort -> #1 -> #5) and chain B
+    (#7 -> #6 -> sort -> #7) render frame 0 of ``cfg``'s orbit, each held
+    against the renderer's kernel path (``make_pose_render_fn``,
+    ``use_pallas``) with its launches counted. Returns the launches."""
+    import torch
+
+    from nerf_tpu_torch.config import render_settings_from_config
+    from nerf_tpu_torch.data import resolve_render_poses
+    from nerf_tpu_torch.engine.renderer import make_pose_render_fn
+
+    mc = seeded_model(SEED, opacify=True).to(dev)
+    mf = seeded_model(SEED + 1, opacify=True).to(dev)
+    poses, h, w, focal = resolve_render_poses(cfg)
+    pose = torch.as_tensor(poses[0], device=dev)
+    s = dataclasses.replace(render_settings_from_config(cfg, "validation", hwf=(h, w, focal)),
+                            use_pallas=True)
+    ref = make_pose_render_fn(mc, mf, s, h, w, focal)(pose)
+    chunks = math.ceil(h * w / s.chunksize)
+    expected = {"A": {"fused_mlp_t": 2 * chunks, "fused_volume_render": 2 * chunks,
+                      "fused_sample_pdf": chunks},
+                "B": {"fused_render_stage": 2 * chunks, "fused_sample_pdf": chunks}}
+    launches = {}
+    for name, stage in (("A", stage_a), ("B", stage_b)):
+        reset_launches()
+        maps = chain_render_fn(stage, mc, mf, s, h, w, focal)(pose)
+        counts = {k: v for k, v in read_launches().items() if v}
+        launches[name] = counts
+        coarse = float((maps["rgb_coarse"] - ref["rgb_coarse"]).abs().max())
+        fine = (maps["rgb_fine"] - ref["rgb_fine"]).abs().amax(dim=-1)
+        outliers = int((fine > RENDER_RGB_TOL).sum())
+        print(f"[chain] {name} {h}x{w} frame at chunk {s.chunksize}: launches {counts} "
+              f"(expected {expected[name]}); vs the renderer's kernel path: rgb_coarse max "
+              f"|diff| {coarse:.3e} (tol {RENDER_RGB_TOL:g}), rgb_fine max "
+              f"{float(fine.max()):.3e}, {outliers} of {fine.numel()} pixels over "
+              f"{RENDER_RGB_TOL:g} (at most {MAX_RESAMPLE_PIXELS})")
+        check(counts == expected[name], f"chain {name} launches {counts} != {expected[name]}")
+        check(all(bool(torch.isfinite(v).all()) for v in maps.values()), f"chain {name} finite")
+        check(coarse <= RENDER_RGB_TOL, f"chain {name} rgb_coarse: {coarse}")
+        check(outliers <= MAX_RESAMPLE_PIXELS, f"chain {name}: {outliers} rgb_fine outliers")
+        if outliers:
+            check_chain_outliers(stage, name, torch.nonzero(fine.reshape(-1) > RENDER_RGB_TOL)
+                                 .flatten(), mc, mf, s, pose, (h, w, focal))
+    return launches
+
+
+def time_render_stage(cfg, dev, on: str) -> dict:
+    """Phase 13, times: #5 and #6 against their plain versions at the render
+    path's shapes; #7 against its plain version and against #1 + plain
+    compositing (the renderer's kernel path) at KERNEL_CHUNK, float32 and
+    bfloat16; seconds per 400x400 frame on the renderer's kernel path and
+    through chains A and B. Turns alternate (plain first and last)."""
+    import torch
+
+    from nerf_tpu_torch.config import render_settings_from_config
+    from nerf_tpu_torch.data import resolve_render_poses
+    from nerf_tpu_torch.engine.renderer import make_pose_render_fn
+    from nerf_tpu_torch.kernels.composite import fused_volume_render, volume_render_plain
+    from nerf_tpu_torch.kernels.mlp_t import fused_mlp_t
+    from nerf_tpu_torch.kernels.resample import fused_sample_pdf
+    from nerf_tpu_torch.kernels.stage import fused_render_stage, render_stage_plain
+    from nerf_tpu_torch.ops import sample_pdf
+
+    times = {}
+    model = seeded_model(SEED, opacify=True).to(dev)
+    with torch.inference_mode():
+        n, s = KERNEL_CHUNK
+        pts, vd, z, rd = orbit_rays(n, s, dev, seed=1)
+        rf = fused_mlp_t(model, pts, vd)
+        kernel = lambda: fused_volume_render(rf, z, rd, True)   # noqa: E731
+        plain = lambda: volume_render_plain(rf, z, rd, True)    # noqa: E731
+        p1, k1, k2, p2 = (cuda_ms(f, r) for f, r in ((plain, 10), (kernel, 50), (kernel, 50),
+                                                      (plain, 10)))
+        times["composite"] = {"float32": ((k1 + k2) / 2, (p1 + p2) / 2)}
+        print(f"[time] fused_volume_render ({n}, {s}): kernel {k1:.4f} / {k2:.4f} ms, plain "
+              f"{p1:.4f} / {p2:.4f} ms {on}")
+
+        pts_c, vd_c, zc, rd_c = orbit_rays(n, 64, dev, seed=2)
+        bins = 0.5 * (zc[:, 1:] + zc[:, :-1])
+        weights = volume_render_plain(fused_mlp_t(model, pts_c, vd_c), zc, rd_c,
+                                      True)["weights"][:, 1:-1].contiguous()
+        kernel = lambda: fused_sample_pdf(bins, weights, 64, det=True)   # noqa: E731
+        plain = lambda: sample_pdf(bins, weights, 64, det=True)          # noqa: E731
+        p1, k1, k2, p2 = (cuda_ms(f, r) for f, r in ((plain, 10), (kernel, 50), (kernel, 50),
+                                                      (plain, 10)))
+        times["resample"] = {"float32": ((k1 + k2) / 2, (p1 + p2) / 2)}
+        print(f"[time] fused_sample_pdf ({n} rays, M 63 -> 64, det): kernel {k1:.4f} / "
+              f"{k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms {on}")
+
+        times["stage"] = {}
+        for dtype in ("float32", "bfloat16"):
+            fns = {
+                "plain": lambda: render_stage_plain(model, pts, vd, z, rd, True, dtype),
+                "#1 + plain compositing": lambda: volume_render_plain(
+                    fused_mlp_t(model, pts, vd, dtype), z, rd, True),
+                "#1 + #5": lambda: fused_volume_render(fused_mlp_t(model, pts, vd, dtype), z, rd,
+                                                       True),
+                "kernel": lambda: fused_render_stage(model, pts, vd, z, rd, True, dtype),
+            }
+            turns = {}
+            for label in ("plain", "#1 + plain compositing", "#1 + #5", "kernel", "kernel",
+                          "#1 + #5", "#1 + plain compositing", "plain"):
+                turns.setdefault(label, []).append(cuda_ms(fns[label], 2))
+            mean = {k: sum(v) / len(v) for k, v in turns.items()}
+            times["stage"][dtype] = (mean["kernel"], mean["plain"])
+            times["stage unfused", dtype] = mean["#1 + plain compositing"]
+            print(f"[time] fused_render_stage ({n}, {s}) {dtype}: "
+                  + "; ".join(f"{k} {' / '.join(f'{t:.2f}' for t in v)} ms"
+                              for k, v in turns.items()) + f" {on}")
+        del pts, vd, z, rd, rf, pts_c, vd_c, zc, rd_c, bins, weights
+
+    mc = seeded_model(SEED, opacify=True).to(dev)
+    mf = seeded_model(SEED + 1, opacify=True).to(dev)
+    poses, h, w, focal = resolve_render_poses(cfg)
+    pose = torch.as_tensor(poses[1], device=dev)
+    base = dataclasses.replace(render_settings_from_config(cfg, "validation", hwf=(h, w, focal)),
+                               use_pallas=True)
+    renders = {"renderer kernel path": make_pose_render_fn(mc, mf, base, h, w, focal),
+               "chain A": chain_render_fn(stage_a, mc, mf, base, h, w, focal),
+               "chain B": chain_render_fn(stage_b, mc, mf, base, h, w, focal)}
+    with torch.inference_mode():
+        for render in renders.values():
+            render(pose)   # warm-up
+        frame = {label: [] for label in renders}
+        for label in ("renderer kernel path", "chain A", "chain B", "chain B", "chain A",
+                      "renderer kernel path"):
+            frame[label].append(frame_seconds(renders[label], pose))
+    for label, secs in frame.items():
+        mean = sum(secs) / len(secs)
+        times["frame", label] = mean
+        print(f"[time] {h}x{w} frame, {base.num_coarse}+{base.num_fine} samples, f32, {label}: "
+              f"{' / '.join(f'{x:.4f}' for x in secs)} s/frame, {h * w / mean:,.0f} rays/s {on}")
+    return times
+
+
 def main() -> int:
     import torch
 
@@ -919,9 +1351,8 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = _build.build_library()
     print(f"[build] {lib.name} in {time.perf_counter() - t0:.2f} s")
-    for line in lib.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build] {line.strip()}")
+    print(f"[build] registers (spill store/load bytes): "
+          f"{ptxas_summary(lib.with_suffix('.log').read_text())}")
 
     # Phase 3: kernel vs plain at the render path's shapes.
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1068,18 +1499,29 @@ def main() -> int:
         paper = paper_main_path(cfg_paper, tmp, dev)
         paper_times = time_paper(cfg_paper, paper["checkpoint"], dev, on)
 
+    # Phase 12: the compositing, resampling and whole-stage kernels vs plain.
+    stage_worst = check_render_stage_kernels(dev)
+
+    # Phase 13: chains A and B on the flagship render path, then the times.
+    chains = render_chains(cfg, dev)
+    stage_times = time_render_stage(cfg, dev, on)
+
     entries = []
 
-    def entry(name, source, replaces, launches, worst, ms, flops, nbytes):
+    def entry(name, source, replaces, launches, worst, ms, flops, nbytes, **extra):
+        """One kernel's results; the bf16 fields are null for a kernel that
+        has no bf16 variant (no "bfloat16" key in ``worst``)."""
         ms_bound, bound_by = bound(flops, nbytes)
+        bf16 = "bfloat16" in worst
         entries.append({
             "name": name, "route": "cuda", "source": f"nerf_tpu_torch/csrc/{source}",
             "replaces": f"nerf_tpu/ops/pallas/{replaces}", "launches": launches,
-            "max_abs_err": worst["float32"], "max_abs_err_bf16": worst["bfloat16"],
+            "max_abs_err": worst["float32"], "max_abs_err_bf16": worst.get("bfloat16"),
             "ms": ms["float32"][0], "plain_ms": ms["float32"][1],
             "bound_ms": ms_bound, "bound_by": bound_by, "library_ms": None,
-            "bound_ms_bf16": bound(flops, nbytes, BF16_FLOPS)[0],
-            "ms_bf16": ms["bfloat16"][0], "plain_ms_bf16": ms["bfloat16"][1],
+            "bound_ms_bf16": bound(flops, nbytes, BF16_FLOPS)[0] if bf16 else None,
+            "ms_bf16": ms["bfloat16"][0] if bf16 else None,
+            "plain_ms_bf16": ms["bfloat16"][1] if bf16 else None, **extra,
         })
 
     # Bytes: each input read once and each output written once, f32
@@ -1110,6 +1552,40 @@ def main() -> int:
               2 * p * (PAPER_MACS_PER_POINT if which == "fwd" else PAPER_BWD_MACS_PER_POINT),
               4 * (3 * p + 128 * n + 625416 + 4 * p + 2751 * p) if which == "fwd"
               else 4 * (4 * p + 2751 * p + 590464 + 625416 + 128 * n))
+    # Phase 12-13's kernels, at the shapes they were timed at (#6: det, so u
+    # is one row of S floats); launches from phase 13's chains.
+    n, s = KERNEL_CHUNK
+    p = n * s
+    entry("fused_volume_render", "composite.cu", "composite.py:90",
+          chains["A"]["fused_volume_render"], stage_worst["composite"],
+          stage_times["composite"], COMPOSITE_OPS_PER_SAMPLE * p, 4 * (6 * p + 9 * n))
+    m, s6 = 63, 64
+    entry("fused_sample_pdf", "resample.cu", "resample.py:83",
+          chains["A"]["fused_sample_pdf"] + chains["B"]["fused_sample_pdf"],
+          {"float32": stage_worst["resample"]["err"]}, stage_times["resample"],
+          n * (3 * (m - 1) + s6 * (2 * math.ceil(math.log2(m + 1)) + 8)),
+          4 * (n * m + n * (m - 1) + s6 + n * s6),
+          samples_over_tol=stage_worst["resample"]["over"],
+          max_cdf_err=stage_worst["resample"]["cdf_err"])
+    entry("fused_render_stage", "stage.cu", "stage.py:132", chains["B"]["fused_render_stage"],
+          stage_worst["stage"], stage_times["stage"],
+          2 * p * MACS_PER_POINT + COMPOSITE_OPS_PER_SAMPLE * p,
+          4 * (5 * p + 73 * n + 82820),
+          unfused_ms=stage_times["stage unfused", "float32"],
+          unfused_ms_bf16=stage_times["stage unfused", "bfloat16"])
+    # Still to port (no kernel, no launches): the bounds of the 4x128 forwards
+    # #2 (point-major; the direction encoding in-kernel adds 27 x 64
+    # multiply-adds a point) and #3 (ray-major; #1's work) at KERNEL_CHUNK.
+    n, s = KERNEL_CHUNK
+    p = n * s
+    for name, macs, nbytes in (("fused_flexible_mlp", MACS_PER_POINT + 27 * 64,
+                                4 * (3 * p + 3 * p + 82820 + 27 * 64 + 4 * p)),
+                               ("fused_flexible_mlp_rays", MACS_PER_POINT,
+                                4 * (3 * p + 64 * n + 82820 + 4 * p))):
+        (f32_ms, by), (bf16_ms, _) = (bound(2 * p * macs, nbytes, peak)
+                                      for peak in (F32_FLOPS, BF16_FLOPS))
+        print(f"[bound] {name} (to port) at ({n}, {s}): {f32_ms:.2f} ms f32, {bf16_ms:.2f} ms "
+              f"bf16 ({by})")
     for e in entries:
         check(e["launches"] > 0, f"{e['name']} was not launched on its main path")
     print(json.dumps({"kernels": entries}))

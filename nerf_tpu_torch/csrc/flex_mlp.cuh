@@ -1,5 +1,6 @@
 // Device code shared by the 4x128 FlexibleNeRF kernels (mlp_t.cu, the
-// render-path forward, and flex_train.cu, the training forward + backward):
+// render-path forward, flex_train.cu, the training forward + backward, and
+// stage.cu, the forward fused with compositing):
 // the packed parameter layout, the bf16 rounding, the positional encoding of
 // a point tile, the feature-major dense layer over a tile in shared memory,
 // and the whole forward over a tile, which saves the training residuals when
@@ -140,21 +141,23 @@ __device__ __forceinline__ void save_rows(const float* act, int rows, R* dst) {
   for (int i = threadIdx.x; i < rows * kTile; i += kThreads) store(dst + i, act[i]);
 }
 
-// The forward over the tile blockIdx.x: encoding, layer1 (no activation),
-// the ReLU trunk, fc_feat (ReLU) and fc_alpha (from h3), the direction layer
-// with the ray's dc, fc_rgb -> out (n_points, 4) [r, g, b, sigma]. The
-// tile's activations ping-pong between buf_a and buf_b (128 x kTile each).
-// With res non-null, each layer's stored input is also written to the
-// tile's residual rows (type R, already rounded to the compute dtype).
+// The forward over the tile of points tile0 .. tile0 + kTile - 1: encoding,
+// layer1 (no activation), the ReLU trunk, fc_feat (ReLU) and fc_alpha (from
+// h3), the direction layer with the ray's dc, fc_rgb -> row (point - out0) of
+// out (.., 4) [r, g, b, sigma], for the points below n_points. The tile's
+// activations ping-pong between buf_a and buf_b (128 x kTile each). With res
+// non-null, each layer's stored input is also written to the tile's residual
+// rows (type R, already rounded to the compute dtype). It ends without a
+// barrier: a caller that runs a second tile in the same block syncs first.
 template <bool kBf16, typename R>
-__device__ __forceinline__ void forward_tile(const float* __restrict__ pts,
-                                             const float* __restrict__ dc,
-                                             const float* __restrict__ params,
-                                             float* __restrict__ out, R* res,
-                                             long long n_points, int samples,
-                                             float* buf_a, float* buf_b) {
-  const long long tile0 = static_cast<long long>(blockIdx.x) * kTile;
-  R* rt = res == nullptr ? nullptr : res + static_cast<long long>(blockIdx.x) * kResRows * kTile;
+__device__ __forceinline__ void forward_tile_at(const float* __restrict__ pts,
+                                                const float* __restrict__ dc,
+                                                const float* __restrict__ params,
+                                                float* __restrict__ out, long long out0,
+                                                R* res, long long tile0,
+                                                long long n_points, int samples,
+                                                float* buf_a, float* buf_b) {
+  R* rt = res == nullptr ? nullptr : res + (tile0 / kTile) * kResRows * kTile;
   auto row = [rt](int r) { return rt == nullptr ? nullptr : rt + r * kTile; };
 
   // Encoding into buf_a rows 0..62, checkpoint order.
@@ -189,7 +192,7 @@ __device__ __forceinline__ void forward_tile(const float* __restrict__ pts,
     for (int k = 0; k < kHidden; ++k) {
       acc = fmaf(rnd<kBf16>(__ldg(params + kOffWa + k)), buf_a[k * kTile + p], acc);
     }
-    if (tile0 + p < n_points) out[(tile0 + p) * 4 + 3] = acc + __ldg(params + kOffBa);
+    if (tile0 + p < n_points) out[(tile0 + p - out0) * 4 + 3] = acc + __ldg(params + kOffBa);
   }
   __syncthreads();
 
@@ -208,8 +211,21 @@ __device__ __forceinline__ void forward_tile(const float* __restrict__ pts,
     for (int k = 0; k < kDirHidden; ++k) {
       acc = fmaf(rnd<kBf16>(__ldg(params + kOffWr + k * 3 + c)), buf_a[k * kTile + p], acc);
     }
-    if (tile0 + p < n_points) out[(tile0 + p) * 4 + c] = acc + __ldg(params + kOffBr + c);
+    if (tile0 + p < n_points) out[(tile0 + p - out0) * 4 + c] = acc + __ldg(params + kOffBr + c);
   }
+}
+
+// The forward over the tile blockIdx.x, into out (n_points, 4).
+template <bool kBf16, typename R>
+__device__ __forceinline__ void forward_tile(const float* __restrict__ pts,
+                                             const float* __restrict__ dc,
+                                             const float* __restrict__ params,
+                                             float* __restrict__ out, R* res,
+                                             long long n_points, int samples,
+                                             float* buf_a, float* buf_b) {
+  forward_tile_at<kBf16, R>(pts, dc, params, out, 0, res,
+                            static_cast<long long>(blockIdx.x) * kTile, n_points, samples,
+                            buf_a, buf_b);
 }
 
 }  // namespace flex

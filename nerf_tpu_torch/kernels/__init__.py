@@ -7,12 +7,17 @@ kernel when it is imported; the build happens at the first CUDA call
 (``_build.load_library``).
 """
 
+from .composite import fused_volume_render, volume_render_plain
 from .flex_train import fused_flex_mlp_train, flex_train_plain_bwd, flex_train_plain_fwd
 from .mlp_t import fused_mlp_t, mlp_t_plain, supports_fused
 from .paper_t import fused_paper_mlp_t, paper_t_plain, supports_fused_paper
 from .paper_train import fused_paper_mlp_train, paper_train_plain_bwd, paper_train_plain_fwd
+from .resample import fused_sample_pdf, sample_pdf
+from .stage import fused_render_stage, render_stage_plain
 
 __all__ = [
+    "fused_volume_render",
+    "volume_render_plain",
     "fused_flex_mlp_train",
     "flex_train_plain_bwd",
     "flex_train_plain_fwd",
@@ -25,4 +30,8 @@ __all__ = [
     "fused_paper_mlp_train",
     "paper_train_plain_bwd",
     "paper_train_plain_fwd",
+    "fused_sample_pdf",
+    "sample_pdf",
+    "fused_render_stage",
+    "render_stage_plain",
 ]

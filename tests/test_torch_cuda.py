@@ -22,7 +22,7 @@ from nerf_tpu_torch.kernels.flex_train import (
     fused_flex_mlp_train,
     unpack_params,
 )
-from nerf_tpu_torch.kernels import paper_t, paper_train
+from nerf_tpu_torch.kernels import composite, paper_t, paper_train, resample, stage
 from nerf_tpu_torch.kernels.mlp_t import dir_contribution, fused_mlp_t, mlp_t_plain, pack_params
 from nerf_tpu_torch.models import FlexibleNeRFModel, PaperNeRFModel
 
@@ -261,3 +261,84 @@ def test_renderer_goes_through_the_paper_kernels(paper_model):
                                      dataclasses.replace(settings, use_pallas=False))
     assert paper_t.fused_paper_mlp_t.launches == before + 1
     assert float((fused.rgb - plain.rgb).abs().max()) <= 1e-4
+
+
+def _ray_case(n, s, seed):
+    """Points, viewdirs, sorted depths in [2, 6] and un-normalized directions."""
+    pts, vd = _inputs(n, s, seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    z = torch.sort(2.0 + 4.0 * torch.rand(n, s, generator=gen, device="cuda"), dim=-1)[0]
+    return pts, vd, z, vd * (1.0 + torch.rand(n, 1, generator=gen, device="cuda"))
+
+
+def _map_errs(got, want):
+    return {k: float((got[k] - want[k]).abs().max()) for k in want}
+
+
+@pytest.mark.parametrize("white_background", [False, True])
+def test_composite_kernel_matches_plain(model, white_background):
+    _, _, z, rd = _ray_case(333, 61, seed=1)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rf = torch.randn(333, 61, 4, generator=gen, device="cuda") * 2
+    before = composite.fused_volume_render.launches
+    got = composite.fused_volume_render(rf, z, rd, white_background)
+    again = composite.fused_volume_render(rf, z, rd, white_background)
+    torch.cuda.synchronize()
+    assert composite.fused_volume_render.launches == before + 2
+    assert all(torch.equal(got[k], again[k]) for k in got)
+    errs = _map_errs(got, composite.volume_render_plain(rf, z, rd, white_background))
+    assert max(errs["rgb"], errs["acc"], errs["weights"]) <= 1e-5 and errs["depth"] <= 1e-4, errs
+
+
+def test_resample_kernel_matches_plain(model):
+    _, _, z, _ = _ray_case(333, 62, seed=3)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    w = torch.rand(333, 61, generator=gen, device="cuda")
+    w[0] = 0.0
+    u = torch.rand(333, 61, generator=gen, device="cuda")
+    u[1, 0] = 1.0
+    before = resample.fused_sample_pdf.launches
+    for kw in ({"det": True}, {"u": u}):
+        got = resample.fused_sample_pdf(z, w, 61, **kw)
+        again = resample.fused_sample_pdf(z, w, 61, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        # Uniform weights keep the pdfs far from the 1e-5 guard; a prefix sum
+        # in another order moves a sample by ~ulp * width / pdf (the JAX
+        # package's atol for its own kernel, tests/test_pallas_resample.py).
+        assert float((got - resample.sample_pdf(z, w, 61, **kw)).abs().max()) <= 2e-4
+    assert resample.fused_sample_pdf.launches == before + 4
+
+
+@pytest.mark.parametrize("compute_dtype,tol", [("float32", 1e-5), ("bfloat16", 2e-2)])
+def test_stage_kernel_matches_plain(model, compute_dtype, tol):
+    pts, vd, z, rd = _ray_case(333, 61, seed=5)
+    before = stage.fused_render_stage.launches
+    with torch.inference_mode():
+        got = stage.fused_render_stage(model, pts, vd, z, rd, True, compute_dtype)
+        again = stage.fused_render_stage(model, pts, vd, z, rd, True, compute_dtype)
+        torch.cuda.synchronize()
+        want = stage.render_stage_plain(model, pts, vd, z, rd, True, compute_dtype)
+    assert stage.fused_render_stage.launches == before + 2
+    assert all(torch.equal(got[k], again[k]) for k in got)
+    errs = _map_errs(got, want)
+    assert max(errs["rgb"], errs["acc"], errs["weights"]) <= tol, errs
+
+
+def test_new_kernels_refuse_what_they_do_not_take(model):
+    pts, vd, z, rd = _ray_case(4, 8, seed=6)
+    rf = torch.zeros(4, 8, 4, device="cuda")
+    with pytest.raises(ValueError, match="float32"):
+        composite.fused_volume_render(rf.double(), z, rd)
+    with pytest.raises(ValueError, match="want depths"):
+        composite.fused_volume_render(rf, z[:, :5], rd)
+    with pytest.raises(ValueError, match="float32"):
+        resample.fused_sample_pdf(z.double(), z[:, 1:].double(), 4, det=True)
+    with pytest.raises(ValueError, match="want bins"):
+        resample.fused_sample_pdf(z, z, 4, det=True)
+    with pytest.raises(ValueError, match="want u"):
+        resample.fused_sample_pdf(z, z[:, 1:], 4, u=torch.rand(4, 5, device="cuda"))
+    with pytest.raises(ValueError, match="float32"):
+        stage.fused_render_stage(model, pts.double(), vd.double(), z, rd)
+    with pytest.raises(ValueError, match="want depths"):
+        stage.fused_render_stage(model, pts, vd, z[:3], rd)
