@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's render and training paths on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's render, training and serving paths on one NVIDIA GPU and check them.
 
 Run from the root of a checkout, with one card:
 
@@ -61,7 +61,21 @@ Phases, one or more lines each:
      launches and are held against the renderer's kernel path; then the
      three kernels' times against their plain versions (#7 also against #1 +
      plain compositing) and seconds per frame of the renderer's kernel path
-     and of both chains.
+     and of both chains;
+ 14. the point-major (#2) and ray-major (#3) 4x128 forwards vs their plain
+     versions at the render path's shapes, float32 and bfloat16, and #3 vs
+     #1 (bitwise); chain C (#3 -> plain compositing -> sample_pdf -> sort ->
+     #3) and chain D (the same with #2 on the flattened points) render the
+     flagship frame (4 launches each) against the renderer's kernel path;
+ 15. times: #2 and #3 vs plain with #1 in the same turns at one fine-pass
+     chunk, float32 and bfloat16; frames of chains C and D beside the
+     renderer's kernel path;
+ 16. the render server: phase 7's checkpoint written as a native .ntc and
+     served at bf16 by ``nerf_tpu_torch.serve_nerf`` over HTTP from a thread
+     (/health, /, GET and POST renders whose PNGs must be bitwise equal to
+     the renderer's u8 frames, 4 launches of #1 a frame, a 400 and a 404),
+     the median request latency, then a --logdir service that must pick up
+     a newer .ntc of other weights.
 
 Then one JSON line of per-kernel results (each kernel's launches on its main
 path, error, time, plain time and the least time the card could take for the
@@ -72,6 +86,7 @@ no CPU path: without CUDA it exits with code 2.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -103,6 +118,7 @@ PAPER_PSNR_FLOOR_DB = 20.0
 TIMED_STEPS = 30
 # The PaperNeRF slice (phases 9-11).
 PAPER_CHECK_SHAPES = ((2048, 64), (2048, 128), (1000, 128), (333, 61))
+SERVE_RENDERS = 5              # renders over HTTP whose median latency phase 16 reports
 PAPER_TRAIN_STEPS = 300
 PAPER_TIMED_STEPS = 10
 PLAIN_CHUNK = 16384            # rays a chunk of the plain Paper path (memory, not speed)
@@ -126,6 +142,7 @@ BF16_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
 # The render path's shapes, and one whose points end mid-tile.
 CHECK_SHAPES = ((2048, 64), (2048, 128), (1000, 128), (333, 61))
+SERVE_RENDERS = 5              # renders over HTTP whose median latency phase 16 reports
 DEVICE = "cuda"
 # Multiply-adds per point of the 4x128 10/4 FlexibleNeRF forward, dir
 # contribution excluded: 63x128 + 3x128x128 + 128x129 + 128x64 + 64x3; of its
@@ -317,10 +334,11 @@ def check_resample_outliers(cfg, pixels, hwf, mc, mf, kernel) -> None:
           "rgb_fine outliers that differ on common depth samples")
 
 
-def ptxas_summary(log: str) -> str:
+def ptxas_summary(log: str, frames: bool = False) -> str:
     """``nvcc -Xptxas -v``'s report as one line: each kernel as source:name
     (its bool template argument as <0>/<1>), its registers and, where it
-    spills, the spill store/load bytes."""
+    spills, the spill store/load bytes; with ``frames``, its stack frame
+    bytes too."""
     import re
 
     out, name = [], None
@@ -328,9 +346,12 @@ def ptxas_summary(log: str) -> str:
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
             source = re.search(r"_\d+_([a-z_]+?)_cu_", entry.group(1))
-            kernel = re.search(r"\d+([a-z_]+_kernel)(ILb([01])E)?", entry.group(1))
+            kernel = re.search(r"\d+([a-z_]+)_kernel(ILb([01])E)?", entry.group(1))
             name = (f"{source.group(1) if source else '?'}:{kernel.group(1)}"
                     + (f"<{kernel.group(3)}>" if kernel.group(2) else ""))
+        frame = re.search(r"(\d+) bytes stack frame", line)
+        if frames and frame and name and frame.group(1) != "0":
+            name += f" [frame {frame.group(1)}]"
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if spill and name and spill.groups() != ("0", "0"):
             name += f" ({spill.group(1)}/{spill.group(2)})"
@@ -346,10 +367,21 @@ def check(ok: bool, what: str) -> None:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
 
 
+def quiet():
+    """Keep the progress lines of what runs inside (the trainer's, the eval
+    loop's, the server's request log) out of the output, which a run must
+    keep short; failures still raise."""
+    import contextlib
+    import io
+
+    return contextlib.redirect_stdout(io.StringIO())
+
+
 def launch_counters():
     """Every kernel wrapper's launch counter: name -> (holder, attribute)."""
     from nerf_tpu_torch.kernels.composite import fused_volume_render
     from nerf_tpu_torch.kernels.flex_train import fused_flex_mlp_train
+    from nerf_tpu_torch.kernels.mlp import fused_flexible_mlp, fused_flexible_mlp_rays
     from nerf_tpu_torch.kernels.mlp_t import fused_mlp_t
     from nerf_tpu_torch.kernels.paper_t import fused_paper_mlp_t
     from nerf_tpu_torch.kernels.paper_train import fused_paper_mlp_train
@@ -366,6 +398,8 @@ def launch_counters():
         "fused_volume_render": (fused_volume_render, "launches"),
         "fused_sample_pdf": (fused_sample_pdf, "launches"),
         "fused_render_stage": (fused_render_stage, "launches"),
+        "fused_flexible_mlp": (fused_flexible_mlp, "launches"),
+        "fused_flexible_mlp_rays": (fused_flexible_mlp_rays, "launches"),
     }
 
 
@@ -448,6 +482,7 @@ def check_training_kernels(model, dev) -> dict:
     worst = {(k, d): 0.0 for k in ("fwd", "bwd") for d in ("float32", "bfloat16")}
     for n, s in TRAIN_CHECK_SHAPES:
         pts, dc, params, g = train_case(n, s, model, dev, seed=n * s)
+        parts = []
         for dtype, tol in (("float32", F32_TOL), ("bfloat16", BF16_TOL)):
             out, res = flex_train_fwd(pts, dc, params, dtype)
             grad, ddc = flex_train_bwd(g, res, params, n, s, dtype)
@@ -466,11 +501,11 @@ def check_training_kernels(model, dev) -> dict:
             b_name, b_err = max(errs.items(), key=lambda kv: kv[1])
             worst["fwd", dtype] = max(worst["fwd", dtype], f_err)
             worst["bwd", dtype] = max(worst["bwd", dtype], b_err)
-            print(f"[train-kernel] ({n}, {s}) {dtype}: forward max |kernel - plain| = "
-                  f"{f_err:.3e}; gradients (16 leaves + ddc) max |kernel - plain| / max |plain| "
-                  f"= {b_err:.3e} at {b_name} (tol {tol:g})")
+            parts.append(f"{dtype} {f_err:.3e} / {b_err:.3e} at {b_name} (tol {tol:g})")
             check(f_err <= tol, f"training forward at ({n}, {s}) {dtype}: {f_err} > {tol}")
             check(b_err <= tol, f"training gradient {b_name} at ({n}, {s}) {dtype}: {b_err} > {tol}")
+        print(f"[train-kernel] ({n}, {s}): max |kernel - plain| of the forward / of the 16 "
+              f"leaves' and ddc's gradients over max |plain|: {'; '.join(parts)}")
     return worst
 
 
@@ -512,7 +547,8 @@ def train_main_path(cfg, tmp: str, dev) -> dict:
     from nerf_tpu_torch.train_nerf import train
 
     reset_launches()
-    run = train(cfg, logdir=os.path.join(tmp, "train"), device=DEVICE)
+    with quiet():
+        run = train(cfg, logdir=os.path.join(tmp, "train"), device=DEVICE)
     counts = read_launches()
     launches = {"fwd": counts["fused_flex_mlp_train_fwd"],
                 "bwd": counts["fused_flex_mlp_train_bwd"]}
@@ -533,8 +569,9 @@ def train_main_path(cfg, tmp: str, dev) -> dict:
     check(run.checkpoint is not None and os.path.exists(run.checkpoint), "no checkpoint")
 
     reset_launches()
-    rendered = render_trajectory(cfg, run.checkpoint, os.path.join(tmp, "trained"),
-                                 num_poses=1, renderer="kernel", device=DEVICE)
+    with quiet():
+        rendered = render_trajectory(cfg, run.checkpoint, os.path.join(tmp, "trained"),
+                                     num_poses=1, renderer="kernel", device=DEVICE)
     render_launches = read_launches()["fused_mlp_t"]
     check(render_launches > 0 and all(rendered.finite), "trained render did not use the kernel")
     poses, h, w, focal = resolve_render_poses(cfg)
@@ -552,7 +589,21 @@ def train_main_path(cfg, tmp: str, dev) -> dict:
           f"per step {rel:.3e} (tol {TRAJECTORY_RTOL:g})")
     check(rel <= TRAJECTORY_RTOL, f"kernel vs plain trajectory: {rel} > {TRAJECTORY_RTOL}")
     return {"launches": launches, "render_launches": render_launches, "psnr": db,
-            "rays_per_sec": run.rays_per_sec}
+            "rays_per_sec": run.rays_per_sec, "checkpoint": run.checkpoint}
+
+
+def ntc_state(ckpt_path: str) -> dict:
+    """A reference .ckpt's step, weights, loss and PSNR as the dict a native
+    .ntc holds (the JAX trainer's keys, params in the JAX layout)."""
+    import torch
+
+    from nerf_tpu_torch.engine.checkpoint import convert_torch_state_dict
+
+    ckpt = torch.load(ckpt_path, map_location="cpu", weights_only=True)
+    return {"step": int(ckpt["iter"]),
+            "params_coarse": convert_torch_state_dict(ckpt["model_coarse_state_dict"]),
+            "params_fine": convert_torch_state_dict(ckpt["model_fine_state_dict"]),
+            "loss": float(ckpt["loss"]), "psnr": float(ckpt["psnr"])}
 
 
 def time_training(cfg, dev, on: str) -> dict:
@@ -581,11 +632,12 @@ def time_training(cfg, dev, on: str) -> dict:
             "bwd": (lambda: flex_train_bwd(g, res, params, n, s, dtype),
                     lambda: flex_train_plain_bwd(g, plain_res, params, n, s, dtype)),
         }
+        parts = []
         for which, (kernel, plain) in fns.items():
             p1, k1, k2, p2 = (cuda_ms(f, 10) for f in (plain, kernel, kernel, plain))
             times[which, dtype] = ((k1 + k2) / 2, (p1 + p2) / 2)
-            print(f"[time] fused_flex_mlp_train {which} ({n}, {s}) {dtype}: kernel "
-                  f"{k1:.3f} / {k2:.3f} ms, plain {p1:.3f} / {p2:.3f} ms {on}")
+            parts.append(f"{which} kernel {k1:.3f} / {k2:.3f}, plain {p1:.3f} / {p2:.3f}")
+        print(f"[time] fused_flex_mlp_train ({n}, {s}) {dtype}, ms: {'; '.join(parts)} {on}")
         del res, plain_res
 
     data = make_synthetic_dataset(num_views=4, height=100, width=100, device=dev)
@@ -613,13 +665,14 @@ def time_training(cfg, dev, on: str) -> dict:
             metrics.loss.cpu()
             torch.cuda.synchronize()
             secs.setdefault(label, []).append(time.perf_counter() - t0)
+        parts = []
         for label, turns in secs.items():
             rates = [batch * TIMED_STEPS / t for t in turns]
             times["step", label, dtype] = sum(rates) / len(rates)
-            print(f"[time] training step, {batch} rays, {base.num_coarse}+{base.num_fine} "
-                  f"samples, {label} path {dtype}: "
-                  f"{' / '.join(f'{1e3 * t / TIMED_STEPS:.3f}' for t in turns)} ms/step, "
-                  f"{' / '.join(f'{r:,.0f}' for r in rates)} rays/s {on}")
+            parts.append(f"{label} {' / '.join(f'{1e3 * t / TIMED_STEPS:.3f}' for t in turns)} "
+                         f"ms ({times['step', label, dtype]:,.0f} rays/s)")
+        print(f"[time] training step, {batch} rays, {base.num_coarse}+{base.num_fine} samples, "
+              f"{dtype}: {'; '.join(parts)} {on}")
     print(f"[time] peak device memory over those training steps: "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB {on}")
     return times
@@ -661,6 +714,7 @@ def check_paper_kernels(dev) -> dict:
     with torch.inference_mode():
         for f, (n, s) in [(10, shape) for shape in PAPER_CHECK_SHAPES] + [(6, (1000, 128))]:
             pts, vd, _, _, _ = paper_case(n, s, models[f], dev, seed=n + s)
+            errs = []
             for dtype, tol in tols:
                 got = fused_paper_mlp_t(models[f], pts, vd, dtype)
                 torch.cuda.synchronize()
@@ -668,12 +722,14 @@ def check_paper_kernels(dev) -> dict:
                 check(got.shape == (n, s, 4) and bool(torch.isfinite(got).all()),
                       f"paper kernel output at ({n}, {s}) {dtype}")
                 worst["t", dtype] = max(worst["t", dtype], err)
-                print(f"[paper-kernel] fused_paper_mlp_t ({n}, {s}) F={f} {dtype}: "
-                      f"max |kernel - plain| = {err:.3e} (tol {tol:g})")
+                errs.append(err)
                 check(err <= tol, f"paper kernel at ({n}, {s}) F={f} {dtype}: {err} > {tol}")
+            print(f"[paper-kernel] fused_paper_mlp_t ({n}, {s}) F={f}: max |kernel - plain| "
+                  f"f32 {errs[0]:.3e}, bf16 {errs[1]:.3e} (tol {F32_TOL:g} / {BF16_TOL:g})")
     with torch.no_grad():
         for f, (n, s) in [(10, shape) for shape in TRAIN_CHECK_SHAPES] + [(6, (333, 61))]:
             pts, _, dc, params, g = paper_case(n, s, models[f], dev, seed=n * s)
+            parts = []
             for dtype, tol in tols:
                 out, res = paper_train_fwd(pts, dc, params, dtype, f)
                 grad, ddc = paper_train_bwd(g, res, params, n, s, dtype, f)
@@ -695,12 +751,12 @@ def check_paper_kernels(dev) -> dict:
                 b_name, b_err = max(errs.items(), key=lambda kv: kv[1])
                 worst["fwd", dtype] = max(worst["fwd", dtype], f_err)
                 worst["bwd", dtype] = max(worst["bwd", dtype], b_err)
-                print(f"[paper-train-kernel] ({n}, {s}) F={f} {dtype}: forward max |kernel - "
-                      f"plain| = {f_err:.3e}; gradients (28 leaves + ddc) scaled max = "
-                      f"{b_err:.3e} at {b_name} (tol {tol:g}); two backward calls bitwise equal")
+                parts.append(f"{dtype} {f_err:.3e} / {b_err:.3e} at {b_name} (tol {tol:g})")
                 check(f_err <= tol, f"paper training forward ({n}, {s}) {dtype}: {f_err}")
                 check(b_err <= tol, f"paper gradient {b_name} ({n}, {s}) {dtype}: {b_err}")
                 del res, want_res
+            print(f"[paper-train-kernel] ({n}, {s}) F={f}: forward / 28 leaves' and ddc's "
+                  f"gradients, scaled: {'; '.join(parts)}")
     # Through the autograd entry point: layers_dir.3 ends with a zero gradient.
     model = models[10]
     pts, vd, _, _, _ = paper_case(1024, 64, model, dev, seed=9)
@@ -709,8 +765,8 @@ def check_paper_kernels(dev) -> dict:
     fused_paper_mlp_train(model, pts, vd, "bfloat16").square().sum().backward()
     dead = float(model.layers_dir[3].weight.grad.abs().max()
                  + model.layers_dir[3].bias.grad.abs().max())
-    print(f"[paper-train-kernel] layers_dir.3 gradient after a backward through the kernels: "
-          f"max |g| = {dead} (must be 0)")
+    print(f"[paper-train-kernel] two backward calls bitwise equal at every shape; layers_dir.3 "
+          f"gradient after a backward through the kernels: max |g| = {dead} (must be 0)")
     check(dead == 0.0, "layers_dir.3 got a gradient")
     return worst
 
@@ -738,7 +794,8 @@ def paper_main_path(cfg, tmp: str, dev) -> dict:
     from nerf_tpu_torch.train_nerf import train
 
     reset_launches()
-    run = train(cfg, logdir=os.path.join(tmp, "paper_train"), device=DEVICE)
+    with quiet():
+        run = train(cfg, logdir=os.path.join(tmp, "paper_train"), device=DEVICE)
     counts = read_launches()
     launches = {"fwd": counts["fused_paper_mlp_train_fwd"],
                 "bwd": counts["fused_paper_mlp_train_bwd"]}
@@ -764,8 +821,10 @@ def paper_main_path(cfg, tmp: str, dev) -> dict:
     poses, h, w, focal = resolve_render_poses(cfg)
     expected = 2 * math.ceil(h * w / 131072)
     reset_launches()
-    rendered = render_trajectory(kernel_cfg, run.checkpoint, os.path.join(tmp, "paper_kernel"),
-                                 num_poses=1, renderer="kernel", device=DEVICE)
+    with quiet():
+        rendered = render_trajectory(kernel_cfg, run.checkpoint,
+                                     os.path.join(tmp, "paper_kernel"), num_poses=1,
+                                     renderer="kernel", device=DEVICE)
     render_launches = read_launches()["fused_paper_mlp_t"]
     check(render_launches == expected and all(rendered.finite),
           f"Paper render: {render_launches} kernel launches, expected {expected}")
@@ -776,8 +835,9 @@ def paper_main_path(cfg, tmp: str, dev) -> dict:
           f"PSNR {db:.2f} dB against the analytic scene (floor {PAPER_PSNR_FLOOR_DB})")
     check(db >= PAPER_PSNR_FLOOR_DB, f"Paper render PSNR {db} < {PAPER_PSNR_FLOOR_DB}")
 
-    plain = render_trajectory(cfg, run.checkpoint, os.path.join(tmp, "paper_plain"),
-                              num_poses=1, renderer="plain", device=DEVICE)
+    with quiet():
+        plain = render_trajectory(cfg, run.checkpoint, os.path.join(tmp, "paper_plain"),
+                                  num_poses=1, renderer="plain", device=DEVICE)
     maps, ref = rendered.first_maps, plain.first_maps
     err = float((maps["rgb_coarse"] - ref["rgb_coarse"]).abs().max())
     fine_err = (maps["rgb_fine"] - ref["rgb_fine"]).abs().amax(dim=-1).reshape(-1)
@@ -831,6 +891,7 @@ def time_paper(cfg, checkpoint: str, dev, on: str) -> dict:
             for i in range(0, n, step):
                 paper_t_plain(model, pts[i:i + step], vd[i:i + step], dtype)
 
+        parts = []
         for dtype in ("float32", "bfloat16"):
             p1 = cuda_ms(lambda: plain_chunked(dtype), 1)
             k1 = cuda_ms(lambda: fused_paper_mlp_t(model, pts, vd, dtype), 2)
@@ -838,9 +899,9 @@ def time_paper(cfg, checkpoint: str, dev, on: str) -> dict:
             p2 = cuda_ms(lambda: plain_chunked(dtype), 1)
             times["t", dtype] = ((k1 + k2) / 2, (p1 + p2) / 2)
             gflop = 2 * n * s * PAPER_MACS_PER_POINT / 1e9
-            print(f"[time] fused_paper_mlp_t ({n}, {s}) {dtype}: kernel {k1:.2f} / {k2:.2f} ms "
-                  f"({gflop / times['t', dtype][0]:.1f} TFLOP/s), plain {p1:.2f} / {p2:.2f} ms "
-                  f"{on}")
+            parts.append(f"{dtype} kernel {k1:.2f} / {k2:.2f} ({gflop / times['t', dtype][0]:.1f}"
+                         f" TFLOP/s), plain {p1:.2f} / {p2:.2f}")
+        print(f"[time] fused_paper_mlp_t ({n}, {s}), ms: {'; '.join(parts)} {on}")
         del pts, vd
 
     with torch.no_grad():
@@ -855,11 +916,12 @@ def time_paper(cfg, checkpoint: str, dev, on: str) -> dict:
                 "bwd": (lambda: paper_train_bwd(g, res, params, n, s, dtype, 10),
                         lambda: paper_train_plain_bwd(g, plain_res, params, n, s, dtype, 10)),
             }
+            parts = []
             for which, (kernel, plain) in fns.items():
                 p1, k1, k2, p2 = (cuda_ms(f, 5) for f in (plain, kernel, kernel, plain))
                 times[which, dtype] = ((k1 + k2) / 2, (p1 + p2) / 2)
-                print(f"[time] fused_paper_mlp_train {which} ({n}, {s}) {dtype}: kernel "
-                      f"{k1:.3f} / {k2:.3f} ms, plain {p1:.3f} / {p2:.3f} ms {on}")
+                parts.append(f"{which} kernel {k1:.3f} / {k2:.3f}, plain {p1:.3f} / {p2:.3f}")
+            print(f"[time] fused_paper_mlp_train ({n}, {s}) {dtype}, ms: {'; '.join(parts)} {on}")
             del res, plain_res
 
     mc, mf, _ = load_models_and_params(checkpoint, cfg, DEVICE)
@@ -880,10 +942,11 @@ def time_paper(cfg, checkpoint: str, dev, on: str) -> dict:
                       "plain f32"):
             frame[label].append(frame_seconds(renders[label], pose))
     for label, secs in frame.items():
-        mean = sum(secs) / len(secs)
-        times["frame", label] = mean
-        print(f"[time] {h}x{w} Paper frame, {base.num_coarse}+{base.num_fine} samples, {label}: "
-              f"{' / '.join(f'{x:.4f}' for x in secs)} s/frame, {h * w / mean:,.0f} rays/s {on}")
+        times["frame", label] = sum(secs) / len(secs)
+    print(f"[time] {h}x{w} Paper frame, {base.num_coarse}+{base.num_fine} samples, s/frame: "
+          + "; ".join(f"{label} {' / '.join(f'{x:.4f}' for x in secs)} "
+                      f"({h * w / times['frame', label]:,.0f} rays/s)"
+                      for label, secs in frame.items()) + f" {on}")
 
     data = make_synthetic_dataset(num_views=4, height=100, width=100, device=dev)
     store = [torch.as_tensor(a, device=dev) for a in flatten_rays(data, dev)]
@@ -910,13 +973,15 @@ def time_paper(cfg, checkpoint: str, dev, on: str) -> dict:
             metrics.loss.cpu()
             torch.cuda.synchronize()
             secs.setdefault(label, []).append(time.perf_counter() - t0)
+        parts = []
         for label, turns in secs.items():
             rates = [batch * PAPER_TIMED_STEPS / t for t in turns]
             times["step", label, dtype] = sum(rates) / len(rates)
-            print(f"[time] Paper training step, {batch} rays, {base.num_coarse}+{base.num_fine} "
-                  f"samples, {label} path {dtype}: "
-                  f"{' / '.join(f'{1e3 * t / PAPER_TIMED_STEPS:.3f}' for t in turns)} ms/step, "
-                  f"{' / '.join(f'{r:,.0f}' for r in rates)} rays/s {on}")
+            parts.append(f"{label} "
+                         f"{' / '.join(f'{1e3 * t / PAPER_TIMED_STEPS:.3f}' for t in turns)} ms "
+                         f"({times['step', label, dtype]:,.0f} rays/s)")
+        print(f"[time] Paper training step, {batch} rays, {base.num_coarse}+{base.num_fine} "
+              f"samples, {dtype}: {'; '.join(parts)} {on}")
     print(f"[time] peak device memory over those Paper training steps: "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB {on}")
     for label, dtype in (("kernel", "bfloat16"), ("plain", "float32")):
@@ -948,7 +1013,7 @@ def profile_steps(run, steps: int, what: str, on: str) -> None:
     busy = sum(t for _, t, _ in rows) / 1e3          # ms
     launches = sum(c for _, _, c in rows)
     rows.sort(key=lambda r: -r[1])
-    top = "; ".join(f"{k[:40]} {t / 1e3 / steps:.2f}" for k, t, _ in rows[:5])
+    top = "; ".join(f"{k[:40]} {t / 1e3 / steps:.2f}" for k, t, _ in rows[:4])
     print(f"[profile] {what}: {1e3 * wall / steps:.2f} ms/step wall under the profiler, device "
           f"busy {busy / steps:.2f} ms/step ({100 * busy / (1e3 * wall):.1f}%), "
           f"{launches / steps:.0f} launches/step; top ms/step: {top} {on}")
@@ -1007,6 +1072,7 @@ def check_resample(bins, weights, num_samples: int, u) -> dict:
     n, m = bins.shape
     cdf = plain_cdf(weights)
     out = {"err": 0.0, "over": 0, "cdf_err": 0.0}
+    parts = []
     for label, kw in (("det", {"det": True}), ("u", {"u": u})):
         got = fused_sample_pdf(bins, weights, num_samples, **kw)
         torch.cuda.synchronize()
@@ -1023,13 +1089,13 @@ def check_resample(bins, weights, num_samples: int, u) -> dict:
         over = dx > RESAMPLE_TOL
         guard = int((over & ((denom - 1e-5).abs() <= 1e-6)).sum())
         du_over = float(du[over].max()) if bool(over.any()) else 0.0
-        print(f"[stage-kernel] fused_sample_pdf ({n} rays, M {m} -> {num_samples}) {label}: "
-              f"max |kernel - plain| {float(dx.max()):.2e}; {int(over.sum())} of {dx.numel()} "
-              f"samples over {RESAMPLE_TOL:g} ({guard} guard flips, the rest in bins of small "
-              f"pdf), in CDF space within {du_over:.2e} (tol {RESAMPLE_CDF_TOL:g})")
+        parts.append(f"{label}: max {float(dx.max()):.2e}, {int(over.sum())} over "
+                     f"{RESAMPLE_TOL:g} ({guard} guard flips), in CDF space {du_over:.2e}")
         check(du_over <= RESAMPLE_CDF_TOL, f"fused_sample_pdf ({n}, {m}) {label}: {du_over}")
         out = {"err": max(out["err"], float(dx.max())), "over": out["over"] + int(over.sum()),
                "cdf_err": max(out["cdf_err"], du_over)}
+    print(f"[stage-kernel] fused_sample_pdf ({n} rays, M {m} -> {num_samples}), |kernel - plain| "
+          f"of {n * num_samples} samples (CDF tol {RESAMPLE_CDF_TOL:g}): {'; '.join(parts)}")
     return out
 
 
@@ -1063,21 +1129,23 @@ def check_render_stage_kernels(dev) -> dict:
                     torch.cuda.synchronize()
                     errs.append(map_errors(got, volume_render_plain(rf, z, rd, white)))
             e = {k: max(x[k] for x in errs) for k in errs[0]}
-            print(f"[stage-kernel] fused_volume_render ({n}, {s}), #1's field and a random one, "
-                  f"white background off and on: max |kernel - plain| {fmt_errors(e)}")
+            print(f"[stage-kernel] fused_volume_render ({n}, {s}), #1's and a random field, "
+                  f"both backgrounds: max |kernel - plain| {fmt_errors(e)}")
             check(all(e[k] <= MAP_TOLS[k] for k in e), f"fused_volume_render ({n}, {s}): {e}")
             worst["composite"]["float32"] = max(worst["composite"]["float32"], e["rgb"], e["acc"],
                                                 e["weights"], e["depth"])
+            parts = []
             for dtype in ("float32", "bfloat16"):
                 got = fused_render_stage(model, pts, vd, z, rd, True, dtype)
                 torch.cuda.synchronize()
                 e = map_errors(got, render_stage_plain(model, pts, vd, z, rd, True, dtype))
-                print(f"[stage-kernel] fused_render_stage ({n}, {s}) {dtype}: max |kernel - "
-                      f"plain| {fmt_errors(e)}")
+                parts.append(f"{dtype} {max(e.values()):.2e} ({max(e, key=e.get)})")
                 check(all(e[k] <= tols[dtype][k] for k in e),
                       f"fused_render_stage ({n}, {s}) {dtype}: {e}")
                 worst["stage"][dtype] = max(worst["stage"][dtype], e["rgb"], e["acc"],
                                             e["weights"], e["depth"])
+            print(f"[stage-kernel] fused_render_stage ({n}, {s}): max |kernel - plain| over the "
+                  f"maps (disp relative) {'; '.join(parts)}")
             if s == 128:
                 continue
             # Resample the composited coarse weights' inner bins, as the
@@ -1108,14 +1176,54 @@ def stage_b(model, pts, vd, z, rd, s):
     return fused_render_stage(model, pts, vd, z, rd, s.white_background, s.compute_dtype)
 
 
-def render_chain(stage, mc, mf, ro, rd, s):
+def stage_c(model, pts, vd, z, rd, s):
+    """Chain C's stage: the field through #3 on (R, S, 3), plain compositing."""
+    from nerf_tpu_torch.kernels.composite import volume_render_plain
+    from nerf_tpu_torch.kernels.mlp import fused_flexible_mlp_rays
+
+    return volume_render_plain(fused_flexible_mlp_rays(model, pts, vd, s.compute_dtype), z, rd,
+                               s.white_background)
+
+
+def stage_d(model, pts, vd, z, rd, s):
+    """Chain D's stage: the field through #2 on the flattened (R*S, 3) points,
+    each with its ray's view direction; plain compositing."""
+    from nerf_tpu_torch.kernels.composite import volume_render_plain
+    from nerf_tpu_torch.kernels.mlp import fused_flexible_mlp
+
+    r, k = pts.shape[:2]
+    field = fused_flexible_mlp(model, pts.reshape(-1, 3),
+                               vd[:, None, :].expand(r, k, 3).reshape(-1, 3), s.compute_dtype)
+    return volume_render_plain(field.reshape(r, k, 4), z, rd, s.white_background)
+
+
+# The kernel chains of phases 13 and 14: the stage, whether resampling is #6
+# (else the renderer's sample_pdf), and each kernel's launches a chunk.
+CHAINS = {
+    "A": (stage_a, True, {"fused_mlp_t": 2, "fused_volume_render": 2, "fused_sample_pdf": 1}),
+    "B": (stage_b, True, {"fused_render_stage": 2, "fused_sample_pdf": 1}),
+    "C": (stage_c, False, {"fused_flexible_mlp_rays": 2}),
+    "D": (stage_d, False, {"fused_flexible_mlp": 2}),
+}
+
+
+def chain_parts(name: str):
+    """Chain ``name``'s stage function and resampler."""
+    from nerf_tpu_torch.kernels.resample import fused_sample_pdf
+    from nerf_tpu_torch.ops import sample_pdf
+
+    stage, kernel_resample, _ = CHAINS[name]
+    return stage, fused_sample_pdf if kernel_resample else sample_pdf
+
+
+def render_chain(stage, resample, mc, mf, ro, rd, s):
     """The deterministic render path of ``render_rays`` over a chunk of rays,
-    with its stages taken by ``stage``: coarse stage -> #6 (det) on the
-    coarse weights' inner bins -> sort -> fine stage. Returns both stages'
-    maps."""
+    with its stages taken by ``stage`` and its resampling by ``resample``
+    (#6 or the renderer's ``sample_pdf``): coarse stage -> resample (det) on
+    the coarse weights' inner bins -> sort -> fine stage. Returns both
+    stages' maps."""
     import torch
 
-    from nerf_tpu_torch.kernels.resample import fused_sample_pdf
     from nerf_tpu_torch.ops import coarse_z_values
 
     vd = rd / torch.linalg.norm(rd, dim=-1, keepdim=True)
@@ -1123,19 +1231,21 @@ def render_chain(stage, mc, mf, ro, rd, s):
     z = coarse_z_values(near, s.far, s.num_coarse, s.lindisp, dtype=ro.dtype)
     coarse = stage(mc, ro[:, None, :] + rd[:, None, :] * z[..., None], vd, z, rd, s)
     z_mid = 0.5 * (z[:, 1:] + z[:, :-1])
-    z_fine = fused_sample_pdf(z_mid, coarse["weights"][:, 1:-1], s.num_fine, det=True)
+    z_fine = resample(z_mid, coarse["weights"][:, 1:-1], s.num_fine, det=True)
     z_all, _ = torch.sort(torch.cat([z, z_fine], dim=-1), dim=-1)
     fine = stage(mf, ro[:, None, :] + rd[:, None, :] * z_all[..., None], vd, z_all, rd, s)
     return coarse, fine
 
 
-def chain_render_fn(stage, mc, mf, s, h: int, w: int, focal: float):
+def chain_render_fn(name: str, mc, mf, s, h: int, w: int, focal: float):
     """``render(pose34) -> {"rgb_coarse", "rgb_fine"}`` (H, W, 3) through
-    ``render_chain``, s.chunksize rays at a time, as make_pose_render_fn
-    renders a frame."""
+    ``render_chain`` with chain ``name``'s stage and resampler (``CHAINS``),
+    s.chunksize rays at a time, as make_pose_render_fn renders a frame."""
     import torch
 
     from nerf_tpu_torch.ops import get_ray_bundle
+
+    stage, resample = chain_parts(name)
 
     def render(pose34):
         ro, rd = get_ray_bundle(h, w, focal, pose34)
@@ -1143,7 +1253,7 @@ def chain_render_fn(stage, mc, mf, s, h: int, w: int, focal: float):
         parts = []
         with torch.inference_mode():
             for i in range(0, ro.shape[0], s.chunksize):
-                coarse, fine = render_chain(stage, mc, mf, ro[i:i + s.chunksize],
+                coarse, fine = render_chain(stage, resample, mc, mf, ro[i:i + s.chunksize],
                                             rd[i:i + s.chunksize], s)
                 parts.append((coarse["rgb"], fine["rgb"]))
             return {name: torch.cat([p[k] for p in parts]).reshape(h, w, 3)
@@ -1186,11 +1296,11 @@ def check_chain_outliers(stage, name: str, pixels, mc, mf, s, pose, hwf) -> None
     check(err <= RENDER_RGB_TOL, f"chain {name} outliers differ on common depths: {err}")
 
 
-def render_chains(cfg, dev) -> dict:
-    """Phase 13: chain A (#1 -> #5 -> #6 -> sort -> #1 -> #5) and chain B
-    (#7 -> #6 -> sort -> #7) render frame 0 of ``cfg``'s orbit, each held
-    against the renderer's kernel path (``make_pose_render_fn``,
-    ``use_pallas``) with its launches counted. Returns the launches."""
+def render_chains(cfg, dev, names) -> dict:
+    """Phases 13 and 14: the chains ``names`` of ``CHAINS`` render frame 0 of
+    ``cfg``'s orbit, each held against the renderer's kernel path
+    (``make_pose_render_fn``, ``use_pallas``) with its launches counted.
+    Returns the launches."""
     import torch
 
     from nerf_tpu_torch.config import render_settings_from_config
@@ -1205,31 +1315,63 @@ def render_chains(cfg, dev) -> dict:
                             use_pallas=True)
     ref = make_pose_render_fn(mc, mf, s, h, w, focal)(pose)
     chunks = math.ceil(h * w / s.chunksize)
-    expected = {"A": {"fused_mlp_t": 2 * chunks, "fused_volume_render": 2 * chunks,
-                      "fused_sample_pdf": chunks},
-                "B": {"fused_render_stage": 2 * chunks, "fused_sample_pdf": chunks}}
     launches = {}
-    for name, stage in (("A", stage_a), ("B", stage_b)):
+    for name in names:
+        expected = {k: n * chunks for k, n in CHAINS[name][2].items()}
         reset_launches()
-        maps = chain_render_fn(stage, mc, mf, s, h, w, focal)(pose)
+        maps = chain_render_fn(name, mc, mf, s, h, w, focal)(pose)
         counts = {k: v for k, v in read_launches().items() if v}
         launches[name] = counts
         coarse = float((maps["rgb_coarse"] - ref["rgb_coarse"]).abs().max())
         fine = (maps["rgb_fine"] - ref["rgb_fine"]).abs().amax(dim=-1)
         outliers = int((fine > RENDER_RGB_TOL).sum())
-        print(f"[chain] {name} {h}x{w} frame at chunk {s.chunksize}: launches {counts} "
-              f"(expected {expected[name]}); vs the renderer's kernel path: rgb_coarse max "
-              f"|diff| {coarse:.3e} (tol {RENDER_RGB_TOL:g}), rgb_fine max "
-              f"{float(fine.max()):.3e}, {outliers} of {fine.numel()} pixels over "
-              f"{RENDER_RGB_TOL:g} (at most {MAX_RESAMPLE_PIXELS})")
-        check(counts == expected[name], f"chain {name} launches {counts} != {expected[name]}")
+        print(f"[chain] {name} {h}x{w} at chunk {s.chunksize}: launches {counts}; vs the "
+              f"renderer's kernel path, max |diff| rgb_coarse {coarse:.3e}, rgb_fine "
+              f"{float(fine.max()):.3e} ({outliers} of {fine.numel()} pixels over "
+              f"{RENDER_RGB_TOL:g})")
+        check(counts == expected, f"chain {name} launches {counts} != {expected}")
         check(all(bool(torch.isfinite(v).all()) for v in maps.values()), f"chain {name} finite")
         check(coarse <= RENDER_RGB_TOL, f"chain {name} rgb_coarse: {coarse}")
         check(outliers <= MAX_RESAMPLE_PIXELS, f"chain {name}: {outliers} rgb_fine outliers")
         if outliers:
-            check_chain_outliers(stage, name, torch.nonzero(fine.reshape(-1) > RENDER_RGB_TOL)
-                                 .flatten(), mc, mf, s, pose, (h, w, focal))
+            check_chain_outliers(chain_parts(name)[0], name,
+                                 torch.nonzero(fine.reshape(-1) > RENDER_RGB_TOL).flatten(),
+                                 mc, mf, s, pose, (h, w, focal))
     return launches
+
+
+def chain_frame_seconds(cfg, dev, names, on: str) -> dict:
+    """Seconds per 400x400 frame (f32) of the renderer's kernel path and of
+    the chains ``names``, in turns (the renderer first and last)."""
+    import torch
+
+    from nerf_tpu_torch.config import render_settings_from_config
+    from nerf_tpu_torch.data import resolve_render_poses
+    from nerf_tpu_torch.engine.renderer import make_pose_render_fn
+
+    mc = seeded_model(SEED, opacify=True).to(dev)
+    mf = seeded_model(SEED + 1, opacify=True).to(dev)
+    poses, h, w, focal = resolve_render_poses(cfg)
+    pose = torch.as_tensor(poses[1], device=dev)
+    base = dataclasses.replace(render_settings_from_config(cfg, "validation", hwf=(h, w, focal)),
+                               use_pallas=True)
+    renders = {"renderer kernel path": make_pose_render_fn(mc, mf, base, h, w, focal)}
+    renders.update({f"chain {name}": chain_render_fn(name, mc, mf, base, h, w, focal)
+                    for name in names})
+    labels = list(renders)
+    with torch.inference_mode():
+        for render in renders.values():
+            render(pose)   # warm-up
+        frame = {label: [] for label in renders}
+        for label in labels + labels[::-1]:
+            frame[label].append(frame_seconds(renders[label], pose))
+    times = {}
+    for label, secs in frame.items():
+        times["frame", label] = sum(secs) / len(secs)
+    print(f"[time] {h}x{w} frame, {base.num_coarse}+{base.num_fine} samples, f32, s/frame: "
+          + "; ".join(f"{label} {' / '.join(f'{x:.4f}' for x in secs)}"
+                      for label, secs in frame.items()) + f" {on}")
+    return times
 
 
 def time_render_stage(cfg, dev, on: str) -> dict:
@@ -1240,9 +1382,6 @@ def time_render_stage(cfg, dev, on: str) -> dict:
     through chains A and B. Turns alternate (plain first and last)."""
     import torch
 
-    from nerf_tpu_torch.config import render_settings_from_config
-    from nerf_tpu_torch.data import resolve_render_poses
-    from nerf_tpu_torch.engine.renderer import make_pose_render_fn
     from nerf_tpu_torch.kernels.composite import fused_volume_render, volume_render_plain
     from nerf_tpu_torch.kernels.mlp_t import fused_mlp_t
     from nerf_tpu_torch.kernels.resample import fused_sample_pdf
@@ -1297,28 +1436,277 @@ def time_render_stage(cfg, dev, on: str) -> dict:
                               for k, v in turns.items()) + f" {on}")
         del pts, vd, z, rd, rf, pts_c, vd_c, zc, rd_c, bins, weights
 
-    mc = seeded_model(SEED, opacify=True).to(dev)
-    mf = seeded_model(SEED + 1, opacify=True).to(dev)
-    poses, h, w, focal = resolve_render_poses(cfg)
-    pose = torch.as_tensor(poses[1], device=dev)
-    base = dataclasses.replace(render_settings_from_config(cfg, "validation", hwf=(h, w, focal)),
-                               use_pallas=True)
-    renders = {"renderer kernel path": make_pose_render_fn(mc, mf, base, h, w, focal),
-               "chain A": chain_render_fn(stage_a, mc, mf, base, h, w, focal),
-               "chain B": chain_render_fn(stage_b, mc, mf, base, h, w, focal)}
-    with torch.inference_mode():
-        for render in renders.values():
-            render(pose)   # warm-up
-        frame = {label: [] for label in renders}
-        for label in ("renderer kernel path", "chain A", "chain B", "chain B", "chain A",
-                      "renderer kernel path"):
-            frame[label].append(frame_seconds(renders[label], pose))
-    for label, secs in frame.items():
-        mean = sum(secs) / len(secs)
-        times["frame", label] = mean
-        print(f"[time] {h}x{w} frame, {base.num_coarse}+{base.num_fine} samples, f32, {label}: "
-              f"{' / '.join(f'{x:.4f}' for x in secs)} s/frame, {h * w / mean:,.0f} rays/s {on}")
+    times.update(chain_frame_seconds(cfg, dev, ("A", "B"), on))
     return times
+
+
+def check_flexible_kernels(model, dev) -> dict:
+    """Phase 14: the ray-major (#3) and point-major (#2) forwards against
+    their plain versions at CHECK_SHAPES, float32 and bfloat16 (#2 on the
+    flattened points, each with its ray's direction), and #3 against #1 on
+    the same inputs. Returns the worst errors."""
+    import torch
+
+    from nerf_tpu_torch.kernels.mlp import (
+        flexible_mlp_plain, flexible_mlp_rays_plain, fused_flexible_mlp, fused_flexible_mlp_rays,
+    )
+    from nerf_tpu_torch.kernels.mlp_t import fused_mlp_t
+
+    tols = {"float32": F32_TOL, "bfloat16": BF16_TOL}
+    worst = {(k, d): 0.0 for k in ("rays", "points", "rays vs #1") for d in tols}
+    bitwise = True
+    with torch.inference_mode():
+        for n, s in CHECK_SHAPES:
+            pts, vd = orbit_points(n, s, dev, seed=n + s)
+            flat_pts, flat_vd = pts.reshape(-1, 3), vd[:, None, :].expand(n, s, 3).reshape(-1, 3)
+            errs = {}
+            for dtype, tol in tols.items():
+                rays = fused_flexible_mlp_rays(model, pts, vd, dtype)
+                points = fused_flexible_mlp(model, flat_pts, flat_vd, dtype)
+                one = fused_mlp_t(model, pts, vd, dtype)
+                torch.cuda.synchronize()
+                check(rays.shape == (n, s, 4) and points.shape == (n * s, 4)
+                      and bool(torch.isfinite(rays).all() and torch.isfinite(points).all()),
+                      f"#2/#3 output at ({n}, {s}) {dtype}")
+                errs["rays", dtype] = float(
+                    (rays - flexible_mlp_rays_plain(model, pts, vd, dtype)).abs().max())
+                errs["points", dtype] = float(
+                    (points - flexible_mlp_plain(model, flat_pts, flat_vd, dtype)).abs().max())
+                errs["rays vs #1", dtype] = float((rays - one).abs().max())
+                bitwise = bitwise and torch.equal(rays, one)
+                for k in ("rays", "points"):
+                    check(errs[k, dtype] <= tol,
+                          f"fused_flexible_mlp{'_rays' * (k == 'rays')} ({n}, {s}) {dtype}: "
+                          f"{errs[k, dtype]} > {tol}")
+            for key, err in errs.items():
+                worst[key] = max(worst[key], err)
+            print(f"[flex-kernel] ({n}, {s}): max |kernel - plain| f32 / bf16: #3 "
+                  f"{errs['rays', 'float32']:.2e} / {errs['rays', 'bfloat16']:.2e}, #2 "
+                  f"{errs['points', 'float32']:.2e} / {errs['points', 'bfloat16']:.2e} (tol "
+                  f"{F32_TOL:g} / {BF16_TOL:g}); |#3 - #1| {errs['rays vs #1', 'float32']:.2e} / "
+                  f"{errs['rays vs #1', 'bfloat16']:.2e}")
+    print(f"[flex-kernel] #3 bitwise equal to #1 at every shape and dtype: {bitwise}")
+    worst["bitwise"] = bitwise
+    return worst
+
+
+def time_flexible(model, dev, on: str) -> dict:
+    """Phase 15: #3 and #2 against their plain versions at KERNEL_CHUNK, with
+    #1 in the same turns (plain first and last), float32 and bfloat16."""
+    import torch
+
+    from nerf_tpu_torch.kernels.mlp import (
+        flexible_mlp_plain, flexible_mlp_rays_plain, fused_flexible_mlp, fused_flexible_mlp_rays,
+    )
+    from nerf_tpu_torch.kernels.mlp_t import fused_mlp_t
+
+    times = {}
+    with torch.inference_mode():
+        n, s = KERNEL_CHUNK
+        pts, vd = orbit_points(n, s, dev, seed=1)
+        flat_pts, flat_vd = pts.reshape(-1, 3), vd[:, None, :].expand(n, s, 3).reshape(-1, 3)
+        for dtype in ("float32", "bfloat16"):
+            fns = {
+                "plain #3": (lambda: flexible_mlp_rays_plain(model, pts, vd, dtype), 1),
+                "plain #2": (lambda: flexible_mlp_plain(model, flat_pts, flat_vd, dtype), 1),
+                "#3": (lambda: fused_flexible_mlp_rays(model, pts, vd, dtype), 2),
+                "#2": (lambda: fused_flexible_mlp(model, flat_pts, flat_vd, dtype), 2),
+                "#1": (lambda: fused_mlp_t(model, pts, vd, dtype), 2),
+            }
+            order = list(fns)
+            turns = {}
+            for label in order + order[::-1]:
+                fn, reps = fns[label]
+                turns.setdefault(label, []).append(cuda_ms(fn, reps))
+            mean = {k: sum(v) / len(v) for k, v in turns.items()}
+            times["rays", dtype] = (mean["#3"], mean["plain #3"])
+            times["points", dtype] = (mean["#2"], mean["plain #2"])
+            times["#1", dtype] = mean["#1"]
+            print(f"[time] ({n}, {s}) {dtype}, ms: "
+                  + "; ".join(f"{k} {' / '.join(f'{t:.2f}' for t in v)}"
+                              for k, v in turns.items()) + f" {on}")
+        del pts, vd, flat_pts, flat_vd
+    return times
+
+
+def http(base: str, path: str, data: bytes = None):
+    """One request to the server at ``base`` (POST when ``data`` is given):
+    (status, content type, body), for an HTTP error too."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(base + path, data=data, method="GET" if data is None else "POST",
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            return resp.status, resp.headers.get("Content-Type"), resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers.get("Content-Type"), e.read()
+
+
+def decode_png(data: bytes):
+    """The (H, W, 3) uint8 image of an 8-bit RGB PNG whose rows are
+    unfiltered (what ``nerf_tpu_torch.utils.png`` writes), with zlib."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    check(data[:8] == b"\x89PNG\r\n\x1a\n", "a response is not a PNG")
+    pos, header, idat = 8, None, []
+    while pos < len(data):
+        size, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + size]
+        pos += 12 + size
+        if tag == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat.append(body)
+    w, h, depth, color = header[:4]
+    check(depth == 8 and color == 2, f"PNG depth {depth} color type {color}")
+    rows = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8).reshape(h, 1 + 3 * w)
+    check(not rows[:, 0].any(), "PNG rows are filtered")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+@contextlib.contextmanager
+def serving(service):
+    """Serve ``service`` with the port's HTTP server on 127.0.0.1 at a free
+    port from a thread, its request log kept out of the output; yields the
+    base URL, and stops the server and its thread on leaving."""
+    import threading
+
+    from nerf_tpu_torch.serve_nerf import serve
+
+    with quiet():
+        httpd = serve(service, "127.0.0.1", 0)
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        try:
+            yield f"http://127.0.0.1:{httpd.server_address[1]}"
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            thread.join(timeout=30)
+    check(not thread.is_alive(), "the server thread did not stop")
+
+
+def u8_frame_fn(mc, mf, cfg, hwf):
+    """``pose (3|4, 4) -> (H, W, 3) uint8`` through the renderer's kernel path
+    in bfloat16 (``make_pose_render_fn(..., output="u8")``), as the server
+    renders."""
+    import numpy as np
+    import torch
+
+    from nerf_tpu_torch.config import render_settings_from_config
+    from nerf_tpu_torch.engine.renderer import make_pose_render_fn
+
+    settings = dataclasses.replace(render_settings_from_config(cfg, "validation", hwf=hwf),
+                                   compute_dtype="bfloat16", use_pallas=True)
+    render = make_pose_render_fn(mc, mf, settings, *hwf, output="u8")
+
+    def frame(pose):
+        pose = torch.as_tensor(np.asarray(pose, np.float32)[:3, :4], device=DEVICE)
+        with torch.inference_mode():
+            return render(pose).cpu().numpy()
+
+    return frame
+
+
+def serve_main_path(cfg, state: dict, dev, on: str) -> dict:
+    """Phase 16: the render server on the card. ``state`` (phase 7's trained
+    checkpoint as params) is written as a native .ntc and served at bf16
+    through ``serve_nerf.RenderService`` over HTTP: /health, /, two GET
+    renders and a POST /pose, each PNG bitwise equal to the renderer's u8
+    frame of the same pose (4 launches of #1 a frame), a 400 and a 404; the
+    median latency of SERVE_RENDERS renders. Then a --logdir service: a
+    newer .ntc of other weights lands, and the next request serves them."""
+    import numpy as np
+
+    from nerf_tpu_torch.data import pose_spherical
+    from nerf_tpu_torch.engine.checkpoint import (
+        convert_torch_state_dict, load_models_and_params, save_checkpoint,
+    )
+    from nerf_tpu_torch.serve_nerf import RenderService
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        logdir = os.path.join(tmp, "run")
+        os.makedirs(logdir)
+        path = os.path.join(logdir, f"checkpoint{state['step']:05d}.ntc")
+        save_checkpoint(path, state)
+        service = RenderService(cfg, path, precision="bfloat16", renderer="kernel", device=DEVICE)
+        hwf = (service.height, service.width, service.focal)
+        chunks = math.ceil(hwf[0] * hwf[1] / service.settings.chunksize)
+        pose1 = np.asarray(service.poses[1], np.float32)
+        requests = {"/render?frame=0": (None, service.poses[0]),
+                    "/render?theta=30&phi=-30&radius=4": (None, pose_spherical(30.0, -30.0, 4.0)),
+                    "/pose": (json.dumps({"pose": pose1.tolist()}).encode(), pose1)}
+        with serving(service) as base:
+            status, ctype, body = http(base, "/health")
+            check(status == 200 and json.loads(body)["status"] == "ok", f"/health: {status}")
+            status, ctype, body = http(base, "/")
+            check(status == 200 and ctype == "text/html" and b"/render?" in body, f"/: {status}")
+            reset_launches()
+            got = {}
+            for route, (data, _) in requests.items():
+                status, ctype, body = http(base, route, data)
+                check(status == 200 and ctype == "image/png", f"{route}: {status} {body[:200]}")
+                got[route] = decode_png(body)
+            launches = read_launches()["fused_mlp_t"]
+            bad = http(base, "/render?frame=x")[0], http(base, "/pose", b"[1, 2]")[0]
+            missing = http(base, "/nope")[0], http(base, "/nope", b"{}")[0]
+            times = []
+            for i in range(SERVE_RENDERS):
+                t0 = time.perf_counter()
+                status, _, body = http(base, f"/render?frame={i}")
+                times.append(time.perf_counter() - t0)
+                check(status == 200, f"/render?frame={i}: {status}")
+            health = json.loads(http(base, "/health")[2])
+        mc, mf, _ = load_models_and_params(path, cfg, DEVICE)
+        reference = u8_frame_fn(mc, mf, cfg, hwf)
+        same = {route: bool(np.array_equal(img, reference(pose)))
+                for (route, img), (_, pose) in zip(got.items(), requests.values())}
+        expected = 2 * chunks * len(requests)
+        print(f"[serve] {hwf[0]}x{hwf[1]} bf16 from a .ntc of phase 7's checkpoint (step "
+              f"{health['checkpoint_step']}): /health, /; {sum(same.values())} of "
+              f"{len(requests)} renders (GET frame, GET orbit, POST /pose) bitwise equal to "
+              f"the renderer's u8 frames; fused_mlp_t launches {launches} (expected "
+              f"{expected}); bad requests {bad}, unknown routes {missing}")
+        check(all(same.values()), f"served frames differ from the renderer's: {same}")
+        check(launches == expected, f"server launches {launches} != {expected}")
+        check(bad == (400, 400) and missing == (404, 404), f"status codes {bad} {missing}")
+        check(health["checkpoint_step"] == state["step"] and health["devices"] == 1,
+              f"/health {health}")
+        out["latency_s"] = sorted(times)[len(times) // 2]
+        out["last_render_s"] = health["last_render_s"]
+        print(f"[time] server, {hwf[0]}x{hwf[1]} bf16 frame over HTTP: request latency "
+              f"{' / '.join(f'{t:.4f}' for t in times)} s, median {out['latency_s']:.4f} s; "
+              f"last_render_s {health['last_render_s']} s; warm-up {health['compile_s']} s {on}")
+
+        # A --logdir service: the newest .ntc is served, and a newer one of
+        # other weights (the seeded opacified models) is picked up.
+        watch = RenderService(cfg, precision="bfloat16", renderer="kernel", watch_logdir=logdir,
+                              device=DEVICE)
+        with serving(watch) as base:
+            before = json.loads(http(base, "/health")[2])["checkpoint_step"]
+            models = [seeded_model(SEED + i, opacify=True) for i in (0, 1)]
+            step = state["step"] + 1000
+            save_checkpoint(os.path.join(logdir, f"checkpoint{step:05d}.ntc"), {
+                "step": step, "params_coarse": convert_torch_state_dict(models[0].state_dict()),
+                "params_fine": convert_torch_state_dict(models[1].state_dict())})
+            status, _, body = http(base, "/render?frame=0")
+            check(status == 200, f"watch /render?frame=0: {status}")
+            after = json.loads(http(base, "/health")[2])["checkpoint_step"]
+        swapped = decode_png(body)
+        want = u8_frame_fn(*(m.to(dev) for m in models), cfg, hwf)(service.poses[0])
+        same = bool(np.array_equal(swapped, want))
+        print(f"[serve] --logdir service: checkpoint_step {before} -> {after} after a newer "
+              f".ntc landed; its frame 0 bitwise equal to the new weights' frame: {same} "
+              f"(differs from the old one: {not np.array_equal(swapped, got['/render?frame=0'])})")
+        check(before == state["step"] and after == step, f"watch steps {before} -> {after}")
+        check(same and not np.array_equal(swapped, got["/render?frame=0"]), "the hot swap")
+    return out
 
 
 def main() -> int:
@@ -1345,7 +1733,7 @@ def main() -> int:
     print(f"[device] {card}")
     print(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]} cards {torch.cuda.device_count()}")
-    on = f"({card})"
+    on = f"({card.removeprefix('NVIDIA ')})"
 
     # Phase 2: build.
     t0 = time.perf_counter()
@@ -1362,6 +1750,7 @@ def main() -> int:
     with torch.inference_mode():
         for n, s in CHECK_SHAPES:
             pts, vd = orbit_points(n, s, dev, seed=n + s)
+            errs = {}
             for dtype, tol in (("float32", F32_TOL), ("bfloat16", BF16_TOL)):
                 got = fused_mlp_t(model, pts, vd, dtype)
                 torch.cuda.synchronize()
@@ -1369,11 +1758,12 @@ def main() -> int:
                 torch.cuda.synchronize()
                 check(got.shape == (n, s, 4) and bool(torch.isfinite(got).all()),
                       f"kernel output at ({n}, {s}) {dtype}")
-                err = float((got - want).abs().max())
+                err = errs[dtype] = float((got - want).abs().max())
                 worst[dtype] = max(worst[dtype], err)
-                print(f"[kernel] ({n}, {s}) {dtype}: max |kernel - plain| = {err:.3e} "
-                      f"(tol {tol:g}), max |plain| = {float(want.abs().max()):.3e}")
                 check(err <= tol, f"kernel vs plain at ({n}, {s}) {dtype}: {err} > {tol}")
+            print(f"[kernel] ({n}, {s}): max |kernel - plain| f32 {errs['float32']:.3e}, bf16 "
+                  f"{errs['bfloat16']:.3e} (tol {F32_TOL:g} / {BF16_TOL:g}), max |plain| "
+                  f"{float(want.abs().max()):.3e}")
 
     # Phase 4: the main path, through the eval entry point.
     cfg = lego_fused_config()
@@ -1389,9 +1779,10 @@ def main() -> int:
         }, ckpt)
 
         reset_launches()
-        main_run = render_trajectory(cfg, ckpt, os.path.join(tmp, "kernel"),
-                                     num_poses=NUM_POSES, precision="float32",
-                                     renderer="kernel", device=DEVICE)
+        with quiet():
+            main_run = render_trajectory(cfg, ckpt, os.path.join(tmp, "kernel"),
+                                         num_poses=NUM_POSES, precision="float32",
+                                         renderer="kernel", device=DEVICE)
         launches = read_launches()["fused_mlp_t"]
         print(f"[main] {NUM_POSES} frames {main_run.height}x{main_run.width} through "
               f"the kernel: {launches} launches (expected {expected})")
@@ -1406,8 +1797,9 @@ def main() -> int:
               f"rgb mean {float(maps['rgb_fine'].mean()):.4f}, "
               f"rgb std {float(maps['rgb_fine'].std()):.4f}")
 
-        plain_run = render_trajectory(cfg, ckpt, os.path.join(tmp, "plain"), num_poses=1,
-                                      precision="float32", renderer="plain", device=DEVICE)
+        with quiet():
+            plain_run = render_trajectory(cfg, ckpt, os.path.join(tmp, "plain"), num_poses=1,
+                                          precision="float32", renderer="plain", device=DEVICE)
         ref = plain_run.first_maps
         err = float((maps["rgb_coarse"] - ref["rgb_coarse"]).abs().max())
         print(f"[main] frame 0 rgb_coarse: max |kernel path - plain path| = {err:.3e} "
@@ -1424,12 +1816,13 @@ def main() -> int:
                                                     main_run.focal),
                                     seeded_model(SEED, opacify=True).to(dev),
                                     seeded_model(SEED + 1, opacify=True).to(dev), fused_mlp_t)
-        for name in ("acc_fine", "depth_fine", "disp_fine"):
-            print(f"[main] frame 0 {name}: max |kernel path - plain path| = "
-                  f"{float((maps[name] - ref[name]).abs().max()):.3e}")
+        print("[main] frame 0 max |kernel path - plain path|: " + ", ".join(
+            f"{name} {float((maps[name] - ref[name]).abs().max()):.3e}"
+            for name in ("acc_fine", "depth_fine", "disp_fine")))
 
-        bf16_run = render_trajectory(cfg, ckpt, os.path.join(tmp, "bf16"), num_poses=1,
-                                     precision="bfloat16", renderer="kernel", device=DEVICE)
+        with quiet():
+            bf16_run = render_trajectory(cfg, ckpt, os.path.join(tmp, "bf16"), num_poses=1,
+                                         precision="bfloat16", renderer="kernel", device=DEVICE)
         db = psnr(bf16_run.first_maps["rgb_fine"], ref["rgb_fine"])
         print(f"[main] frame 0 bf16 kernel path vs f32 plain path: PSNR {db:.2f} dB "
               f"(floor {PSNR_FLOOR_DB})")
@@ -1440,6 +1833,7 @@ def main() -> int:
     with torch.inference_mode():
         n, s = KERNEL_CHUNK
         pts, vd = orbit_points(n, s, dev, seed=1)
+        parts = []
         for dtype in ("float32", "bfloat16"):
             p1 = cuda_ms(lambda: mlp_t_plain(model, pts, vd, dtype), 2)
             k1 = cuda_ms(lambda: fused_mlp_t(model, pts, vd, dtype), 3)
@@ -1447,9 +1841,9 @@ def main() -> int:
             p2 = cuda_ms(lambda: mlp_t_plain(model, pts, vd, dtype), 2)
             times[dtype] = ((k1 + k2) / 2, (p1 + p2) / 2)
             gflop = 2 * n * s * MACS_PER_POINT / 1e9
-            print(f"[time] fused_mlp_t ({n}, {s}) {dtype}: kernel {k1:.2f} / {k2:.2f} ms "
-                  f"({gflop / times[dtype][0]:.1f} TFLOP/s), plain {p1:.2f} / {p2:.2f} ms "
-                  f"{on}")
+            parts.append(f"{dtype} kernel {k1:.2f} / {k2:.2f} ({gflop / times[dtype][0]:.1f} "
+                         f"TFLOP/s), plain {p1:.2f} / {p2:.2f}")
+        print(f"[time] fused_mlp_t ({n}, {s}), ms: {'; '.join(parts)} {on}")
         del pts, vd
 
         mc = seeded_model(SEED, opacify=True).to(dev)
@@ -1470,11 +1864,11 @@ def main() -> int:
         frame = {label: [] for label in renders}
         for label in order:
             frame[label].append(frame_seconds(renders[label], pose))
-        for label, secs in frame.items():
-            mean = sum(secs) / len(secs)
-            print(f"[time] {h}x{w} frame, {base.num_coarse}+{base.num_fine} samples, {label}: "
-                  f"{' / '.join(f'{x:.4f}' for x in secs)} s/frame, "
-                  f"{h * w / mean:,.0f} rays/s {on}")
+        frame_s = {label: sum(secs) / len(secs) for label, secs in frame.items()}
+        print(f"[time] {h}x{w} frame, {base.num_coarse}+{base.num_fine} samples, s/frame: "
+              + "; ".join(f"{label} {' / '.join(f'{x:.4f}' for x in secs)} "
+                          f"({h * w / frame_s[label]:,.0f} rays/s)"
+                          for label, secs in frame.items()) + f" {on}")
         print(f"[time] peak device memory over those frames: "
               f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB {on}")
 
@@ -1486,6 +1880,7 @@ def main() -> int:
     cfg_train = synthetic_train_config(TRAIN_STEPS)
     with tempfile.TemporaryDirectory() as tmp:
         trained = train_main_path(cfg_train, tmp, dev)
+        served_state = ntc_state(trained["checkpoint"])
 
     # Phase 8: times of the training kernels and of a training step.
     train_times = time_training(cfg_train, dev, on)
@@ -1503,8 +1898,22 @@ def main() -> int:
     stage_worst = check_render_stage_kernels(dev)
 
     # Phase 13: chains A and B on the flagship render path, then the times.
-    chains = render_chains(cfg, dev)
+    chains = render_chains(cfg, dev, ("A", "B"))
     stage_times = time_render_stage(cfg, dev, on)
+
+    # Phase 14: #2 and #3 vs plain, then chains C and D on the render path.
+    flex_worst = check_flexible_kernels(model, dev)
+    chains.update(render_chains(cfg, dev, ("C", "D")))
+
+    # Phase 15: their times, and the chains' frames beside the renderer's.
+    flex_times = time_flexible(model, dev, on)
+    chain_frame_seconds(cfg, dev, ("C", "D"), on)
+
+    # Phase 16: the render server on the card, from phase 7's checkpoint.
+    served = serve_main_path(cfg, served_state, dev, on)
+    print(f"[time] server median request latency {served['latency_s']:.4f} s and last_render_s "
+          f"{served['last_render_s']} s against phase 5's bf16 kernel frame "
+          f"{frame_s['kernel bf16']:.4f} s {on}")
 
     entries = []
 
@@ -1573,22 +1982,27 @@ def main() -> int:
           4 * (5 * p + 73 * n + 82820),
           unfused_ms=stage_times["stage unfused", "float32"],
           unfused_ms_bf16=stage_times["stage unfused", "bfloat16"])
-    # Still to port (no kernel, no launches): the bounds of the 4x128 forwards
-    # #2 (point-major; the direction encoding in-kernel adds 27 x 64
-    # multiply-adds a point) and #3 (ray-major; #1's work) at KERNEL_CHUNK.
+    # Phase 14-15's kernels at KERNEL_CHUNK; launches from chains C and D. #2
+    # reads a direction a point and holds the 27 direction rows of W_dir.
     n, s = KERNEL_CHUNK
     p = n * s
-    for name, macs, nbytes in (("fused_flexible_mlp", MACS_PER_POINT + 27 * 64,
-                                4 * (3 * p + 3 * p + 82820 + 27 * 64 + 4 * p)),
-                               ("fused_flexible_mlp_rays", MACS_PER_POINT,
-                                4 * (3 * p + 64 * n + 82820 + 4 * p))):
-        (f32_ms, by), (bf16_ms, _) = (bound(2 * p * macs, nbytes, peak)
-                                      for peak in (F32_FLOPS, BF16_FLOPS))
-        print(f"[bound] {name} (to port) at ({n}, {s}): {f32_ms:.2f} ms f32, {bf16_ms:.2f} ms "
-              f"bf16 ({by})")
+    entry("fused_flexible_mlp", "mlp.cu", "mlp.py:322", chains["D"]["fused_flexible_mlp"],
+          {d: flex_worst["points", d] for d in ("float32", "bfloat16")},
+          {d: flex_times["points", d] for d in ("float32", "bfloat16")},
+          2 * p * (MACS_PER_POINT + 27 * 64), 4 * (3 * p + 3 * p + 84548 + 4 * p))
+    entry("fused_flexible_mlp_rays", "mlp.cu", "mlp.py:257",
+          chains["C"]["fused_flexible_mlp_rays"],
+          {d: flex_worst["rays", d] for d in ("float32", "bfloat16")},
+          {d: flex_times["rays", d] for d in ("float32", "bfloat16")},
+          2 * p * MACS_PER_POINT, 4 * (3 * p + 64 * n + 82820 + 4 * p),
+          max_abs_diff_vs_fused_mlp_t=flex_worst["rays vs #1", "float32"],
+          bitwise_vs_fused_mlp_t=flex_worst["bitwise"],
+          fused_mlp_t_ms=flex_times["#1", "float32"],
+          fused_mlp_t_ms_bf16=flex_times["#1", "bfloat16"])
     for e in entries:
         check(e["launches"] > 0, f"{e['name']} was not launched on its main path")
-    print(json.dumps({"kernels": entries}))
+    print(json.dumps({"kernels": [{k: float(f"{v:.6g}") if type(v) is float else v
+                                    for k, v in e.items()} for e in entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,7 @@
 // Device code shared by the 4x128 FlexibleNeRF kernels (mlp_t.cu, the
-// render-path forward, flex_train.cu, the training forward + backward, and
-// stage.cu, the forward fused with compositing):
+// render-path forward, flex_train.cu, the training forward + backward,
+// stage.cu, the forward fused with compositing, and mlp.cu, the point-major
+// and ray-major forwards):
 // the packed parameter layout, the bf16 rounding, the positional encoding of
 // a point tile, the feature-major dense layer over a tile in shared memory,
 // and the whole forward over a tile, which saves the training residuals when
@@ -19,7 +20,9 @@ namespace flex {
 constexpr int kHidden = 128;
 constexpr int kDirHidden = 64;
 constexpr int kFreqXyz = 10;
-constexpr int kEnc = 3 + 6 * kFreqXyz;  // 63
+constexpr int kFreqDir = 4;
+constexpr int kEnc = 3 + 6 * kFreqXyz;     // 63
+constexpr int kEncDir = 3 + 6 * kFreqDir;  // 27
 constexpr int kThreads = 128;
 constexpr int kTile = 64;
 
@@ -39,6 +42,10 @@ constexpr int kOffBd = kOffWd + kHidden * kDirHidden;
 constexpr int kOffWr = kOffBd + kDirHidden;                // fc_rgb (64, 3)
 constexpr int kOffBr = kOffWr + kDirHidden * 3;
 constexpr int kParams = kOffBr + 3;                        // 82820
+// The point-major forward (mlp.cu) encodes each point's direction itself: its
+// buffer appends layers_dir.0's direction rows (27, 64) to the one above.
+constexpr int kOffWdDir = kParams;
+constexpr int kParamsDir = kOffWdDir + kEncDir * kDirHidden;   // 84548
 
 // Training residual rows of a point, stored per tile: res[tile][row][point].
 constexpr int kResEnc = 0;                       // enc (63)
@@ -66,11 +73,12 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
 __device__ __forceinline__ float load(const float* p) { return *p; }
 __device__ __forceinline__ float load(const __nv_bfloat16* p) { return __bfloat162float(*p); }
 
-// Encoding of the tile's points into act rows 0..62, in the checkpoint's
+// Encoding of the tile's 3-vectors (points, or with kFreq = kFreqDir view
+// directions) into act rows 0..3 + 6 kFreq - 1, in the checkpoint's
 // interleaved order [x | sin f0 | cos f0 | sin f1 | ...]; points past
 // n_points encode x = 0. The sinusoids are sincosf of x * 2^f (exact in f32),
 // without fast math.
-template <bool kBf16>
+template <bool kBf16, int kFreq = kFreqXyz>
 __device__ __forceinline__ void encode_tile(const float* __restrict__ pts,
                                             long long tile0, long long n_points,
                                             float* act) {
@@ -81,7 +89,7 @@ __device__ __forceinline__ void encode_tile(const float* __restrict__ pts,
     act[c * kTile + p] = rnd<kBf16>(x);
     float scale = 1.f;
 #pragma unroll
-    for (int f = 0; f < kFreqXyz; ++f) {
+    for (int f = 0; f < kFreq; ++f) {
       float s, co;
       sincosf(x * scale, &s, &co);
       act[(3 + 6 * f + c) * kTile + p] = rnd<kBf16>(s);
@@ -133,6 +141,92 @@ __device__ __forceinline__ void dense(const float* __restrict__ W,
   }
 }
 
+// The layers of mlp.cu's direction layers: the same dense split into its
+// sum (accumulate) and its epilogue (finish), so that a layer can sum two
+// input blocks (dense2) or add a term of its own (dense_with). dense above
+// keeps its own loop: the trunk of every kernel here runs it, and nvcc
+// compiles the stage kernel (stage.cu) to 128 registers with it, to 110 with
+// the split version, which ran 13% slower (NVIDIA H100 80GB HBM3, 700 W).
+template <int OUT>
+constexpr int kRunOf = kTile / (kThreads / OUT);
+
+template <int OUT>
+__device__ __forceinline__ int run0() {
+  return (threadIdx.x / OUT) * kRunOf<OUT>;
+}
+
+// acc[p] += sum_k in[k][p0 + p] * W[k][j] over in_dim input rows, for the
+// thread's feature j = t % OUT and run of points from p0 = run0<OUT>().
+template <int OUT, bool kBf16>
+__device__ __forceinline__ void accumulate(float (&acc)[kRunOf<OUT>],
+                                           const float* __restrict__ W, int in_dim,
+                                           const float* in) {
+  const int j = threadIdx.x % OUT;
+  const int p0 = run0<OUT>();
+  for (int k = 0; k < in_dim; ++k) {
+    const float w = rnd<kBf16>(__ldg(W + k * OUT + j));
+    const float4* a = reinterpret_cast<const float4*>(in + k * kTile + p0);
+#pragma unroll
+    for (int q = 0; q < kRunOf<OUT> / 4; ++q) {
+      const float4 v = a[q];
+      acc[4 * q + 0] = fmaf(w, v.x, acc[4 * q + 0]);
+      acc[4 * q + 1] = fmaf(w, v.y, acc[4 * q + 1]);
+      acc[4 * q + 2] = fmaf(w, v.z, acc[4 * q + 2]);
+      acc[4 * q + 3] = fmaf(w, v.w, acc[4 * q + 3]);
+    }
+  }
+}
+
+// out[j][p] = act(add(p, j, acc[p] + b[j])) for the thread's run; add(p, j,
+// y) returns y plus whatever the caller adds for point p of the tile. The
+// callbacks are structs with force-inlined operators, not lambdas: a
+// lambda's call is not certain to be inlined.
+template <int OUT, bool kRelu, bool kBf16, typename Add>
+__device__ __forceinline__ void finish(const float (&acc)[kRunOf<OUT>],
+                                       const float* __restrict__ bias, float* out,
+                                       Add add) {
+  const int j = threadIdx.x % OUT;
+  const int p0 = run0<OUT>();
+  const float bj = __ldg(bias + j);
+#pragma unroll
+  for (int p = 0; p < kRunOf<OUT>; ++p) {
+    float y = add(p0 + p, j, acc[p] + bj);
+    if (kRelu) y = fmaxf(y, 0.f);
+    out[j * kTile + p0 + p] = rnd<kBf16>(y);
+  }
+}
+
+struct AddNothing {
+  __device__ __forceinline__ float operator()(int, int, float y) const { return y; }
+};
+
+// dense with add(p, j, y) in place of dc (mlp.cu's ray-major direction layer).
+template <int OUT, bool kRelu, bool kBf16, typename Add>
+__device__ __forceinline__ void dense_with(const float* __restrict__ W,
+                                           const float* __restrict__ bias, int in_dim,
+                                           const float* in, float* out, Add add) {
+  float acc[kRunOf<OUT>];
+#pragma unroll
+  for (int p = 0; p < kRunOf<OUT>; ++p) acc[p] = 0.f;
+  accumulate<OUT, kBf16>(acc, W, in_dim, in);
+  finish<OUT, kRelu, kBf16>(acc, bias, out, add);
+}
+
+// dense over two input blocks into one sum: in_dim rows of `in` through W,
+// then in_dim2 rows of in2 through W2.
+template <int OUT, bool kRelu, bool kBf16>
+__device__ __forceinline__ void dense2(const float* __restrict__ W, int in_dim, const float* in,
+                                       const float* __restrict__ W2, int in_dim2,
+                                       const float* in2, const float* __restrict__ bias,
+                                       float* out) {
+  float acc[kRunOf<OUT>];
+#pragma unroll
+  for (int p = 0; p < kRunOf<OUT>; ++p) acc[p] = 0.f;
+  accumulate<OUT, kBf16>(acc, W, in_dim, in);
+  accumulate<OUT, kBf16>(acc, W2, in_dim2, in2);
+  finish<OUT, kRelu, kBf16>(acc, bias, out, AddNothing{});
+}
+
 // Copy `rows` feature rows of a tile from shared memory to its residual rows
 // (a no-op without a residual buffer).
 template <typename R>
@@ -143,20 +237,25 @@ __device__ __forceinline__ void save_rows(const float* act, int rows, R* dst) {
 
 // The forward over the tile of points tile0 .. tile0 + kTile - 1: encoding,
 // layer1 (no activation), the ReLU trunk, fc_feat (ReLU) and fc_alpha (from
-// h3), the direction layer with the ray's dc, fc_rgb -> row (point - out0) of
-// out (.., 4) [r, g, b, sigma], for the points below n_points. The tile's
-// activations ping-pong between buf_a and buf_b (128 x kTile each). With res
-// non-null, each layer's stored input is also written to the tile's residual
-// rows (type R, already rounded to the compute dtype). It ends without a
-// barrier: a caller that runs a second tile in the same block syncs first.
-template <bool kBf16, typename R>
-__device__ __forceinline__ void forward_tile_at(const float* __restrict__ pts,
-                                                const float* __restrict__ dc,
-                                                const float* __restrict__ params,
-                                                float* __restrict__ out, long long out0,
-                                                R* res, long long tile0,
-                                                long long n_points, int samples,
-                                                float* buf_a, float* buf_b) {
+// h3), the direction layer, fc_rgb -> row (point - out0) of out (.., 4)
+// [r, g, b, sigma], for the points below n_points. The tile's activations
+// ping-pong between buf_a and buf_b (128 x kTile each). With res non-null,
+// each layer's stored input is also written to the tile's residual rows (type
+// R, already rounded to the compute dtype). It ends without a barrier: a
+// caller that runs a second tile in the same block syncs first.
+//
+// dir_layer(feat, hd), a struct as finish's callbacks are, writes hd =
+// relu(feat @ W_dir[:128] + the direction's term + b) into rows 0..63 of hd
+// (buf_a) from feat (buf_b). Every thread calls it, after a barrier that
+// ends the trunk's reads of buf_a, so it may use buf_a's rows 64..127 as
+// scratch, with a barrier of its own before its dense layer reads them.
+template <bool kBf16, typename R, typename DirLayer>
+__device__ __forceinline__ void forward_tile_with(const float* __restrict__ pts,
+                                                  const float* __restrict__ params,
+                                                  float* __restrict__ out, long long out0,
+                                                  R* res, long long tile0,
+                                                  long long n_points, float* buf_a,
+                                                  float* buf_b, DirLayer dir_layer) {
   R* rt = res == nullptr ? nullptr : res + (tile0 / kTile) * kResRows * kTile;
   auto row = [rt](int r) { return rt == nullptr ? nullptr : rt + r * kTile; };
 
@@ -165,27 +264,27 @@ __device__ __forceinline__ void forward_tile_at(const float* __restrict__ pts,
   __syncthreads();
   save_rows(buf_a, kEnc, row(kResEnc));
   dense<kHidden, false, kBf16>(params + kOffW1, params + kOffB1, kEnc, buf_a,
-                               buf_b, nullptr, tile0, samples, n_points);
+                               buf_b, nullptr, tile0, 1, n_points);
   __syncthreads();
   save_rows(buf_b, kHidden, row(kResA0));
   dense<kHidden, true, kBf16>(params + kOffWx, params + kOffWx + kHidden * kHidden,
-                              kHidden, buf_b, buf_a, nullptr, tile0, samples, n_points);
+                              kHidden, buf_b, buf_a, nullptr, tile0, 1, n_points);
   __syncthreads();
   save_rows(buf_a, kHidden, row(kResH1));
   dense<kHidden, true, kBf16>(params + kOffWx + kLayerX,
                               params + kOffWx + kLayerX + kHidden * kHidden,
-                              kHidden, buf_a, buf_b, nullptr, tile0, samples, n_points);
+                              kHidden, buf_a, buf_b, nullptr, tile0, 1, n_points);
   __syncthreads();
   save_rows(buf_b, kHidden, row(kResH2));
   dense<kHidden, true, kBf16>(params + kOffWx + 2 * kLayerX,
                               params + kOffWx + 2 * kLayerX + kHidden * kHidden,
-                              kHidden, buf_b, buf_a, nullptr, tile0, samples, n_points);
+                              kHidden, buf_b, buf_a, nullptr, tile0, 1, n_points);
   __syncthreads();
 
   // h3 in buf_a: feat = relu(fc_feat) into buf_b; sigma (raw) per point.
   save_rows(buf_a, kHidden, row(kResH3));
   dense<kHidden, true, kBf16>(params + kOffWf, params + kOffBf, kHidden, buf_a,
-                              buf_b, nullptr, tile0, samples, n_points);
+                              buf_b, nullptr, tile0, 1, n_points);
   if (threadIdx.x < kTile) {
     const int p = threadIdx.x;
     float acc = 0.f;
@@ -196,10 +295,9 @@ __device__ __forceinline__ void forward_tile_at(const float* __restrict__ pts,
   }
   __syncthreads();
 
-  // Direction layer: relu(feat @ W_dir[:128] + dc[ray] + b) into buf_a rows 0..63.
+  // Direction layer into buf_a rows 0..63.
   save_rows(buf_b, kHidden, row(kResFeat));
-  dense<kDirHidden, true, kBf16>(params + kOffWd, params + kOffBd, kHidden, buf_b,
-                                 buf_a, dc, tile0, samples, n_points);
+  dir_layer(buf_b, buf_a);
   __syncthreads();
   save_rows(buf_a, kDirHidden, row(kResHd));
 
@@ -213,6 +311,34 @@ __device__ __forceinline__ void forward_tile_at(const float* __restrict__ pts,
     }
     if (tile0 + p < n_points) out[(tile0 + p - out0) * 4 + c] = acc + __ldg(params + kOffBr + c);
   }
+}
+
+// The direction layer whose term is the ray's row of dc (n_points / samples,
+// 64), read from device memory.
+template <bool kBf16>
+struct DirLayerRayRow {
+  const float* params;
+  const float* dc;
+  long long tile0;
+  long long n_points;
+  int samples;
+  __device__ __forceinline__ void operator()(const float* feat, float* hd) const {
+    dense<kDirHidden, true, kBf16>(params + kOffWd, params + kOffBd, kHidden, feat, hd, dc,
+                                   tile0, samples, n_points);
+  }
+};
+
+// forward_tile_with with DirLayerRayRow (mlp_t.cu, flex_train.cu, stage.cu).
+template <bool kBf16, typename R>
+__device__ __forceinline__ void forward_tile_at(const float* __restrict__ pts,
+                                                const float* __restrict__ dc,
+                                                const float* __restrict__ params,
+                                                float* __restrict__ out, long long out0,
+                                                R* res, long long tile0,
+                                                long long n_points, int samples,
+                                                float* buf_a, float* buf_b) {
+  forward_tile_with<kBf16, R>(pts, params, out, out0, res, tile0, n_points, buf_a, buf_b,
+                              DirLayerRayRow<kBf16>{params, dc, tile0, n_points, samples});
 }
 
 // The forward over the tile blockIdx.x, into out (n_points, 4).

@@ -1,5 +1,5 @@
-"""Checkpoint conversion, loading and writing (port of the reference-format
-half of ``nerf_tpu/engine/checkpoint.py``).
+"""Checkpoint conversion, loading and writing (port of
+``nerf_tpu/engine/checkpoint.py``).
 
 Reference checkpoints are ``torch.save`` dicts with ``iter``,
 ``model_coarse_state_dict``, ``model_fine_state_dict`` (or None),
@@ -10,8 +10,13 @@ Reference checkpoints are ``torch.save`` dicts with ``iter``,
 list(fine.parameters())``: the layout the JAX package's
 ``reference_optimizer_state_dict`` writes from its optax state, so a
 checkpoint either package exported resumes training here with its moments.
-The JAX package's native ``.ntc`` files are not read or written yet
-(ROADMAP.md, open items §1 item 7).
+
+Native ``.ntc`` checkpoints are the JAX package's: flax msgpack of a plain
+dict (``step``, ``params_coarse``, ``params_fine``, and from its trainer
+``opt_state``, ``loss`` and ``psnr``), read and written here by
+``utils/msgpack.py`` without flax. Their params render here
+(``load_models_and_params``); resuming training from one, with its optax
+Adam state, is not ported yet (ROADMAP.md, open items §1 item 7).
 
 The JAX package's params layout (nested dicts of ``{"kernel": (in, out),
 "bias": (out,)}``, lists for ``layers_xyz``/``layers_dir``) is kept as the
@@ -26,6 +31,8 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+
+from ..utils.msgpack import msgpack_restore, msgpack_serialize
 
 Params = Dict[str, Any]
 
@@ -112,31 +119,62 @@ def load_reference_checkpoint(path: str) -> Dict[str, Any]:
     return out
 
 
+def save_checkpoint(path: str, state: Dict[str, Any]) -> None:
+    """Write ``state`` (a dict of dicts, lists, scalars, numpy arrays and
+    tensors) as a native ``.ntc``: the bytes ``flax.serialization.
+    msgpack_serialize`` gives, written to a temporary file and moved into
+    place, so a reader never sees a partial file."""
+    data = msgpack_serialize(_to_numpy(state))
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(data)
+    os.replace(tmp, path)
+
+
+def load_checkpoint(path: str) -> Dict[str, Any]:
+    """Read a native ``.ntc``: the dict it holds, arrays as numpy arrays."""
+    with open(path, "rb") as f:
+        return msgpack_restore(f.read())
+
+
 def load_models_and_params(checkpoint_path: str, cfg, device="cpu"):
-    """Build the configured models on ``device`` and load a reference ``.ckpt``.
+    """Build the configured models on ``device`` and load a checkpoint into
+    them: a native ``.ntc`` or a reference ``.ckpt``.
 
     Reference checkpoints get default-shaped models
     (``reference_compat_shapes``): the reference never passed size
-    hyperparameters to its constructors. Returns ``(model_coarse,
-    model_fine, ckpt)``; ``model_fine`` is None when the config or the
-    checkpoint has no fine model, and the coarse model then renders both
-    passes.
+    hyperparameters to its constructors. Native ones get the models as
+    configured, as in the JAX package. Returns ``(model_coarse, model_fine,
+    ckpt)``, ``ckpt`` the checkpoint's dict; ``model_fine`` is None when the
+    config or the checkpoint has no fine model, and the coarse model then
+    renders both passes.
     """
     from ..config.schema import model_from_config  # config imports engine
 
-    if not checkpoint_path.endswith(".ckpt"):
-        raise NotImplementedError(
-            f"{checkpoint_path}: only reference .ckpt files are read; native .ntc "
-            "I/O is not ported yet (ROADMAP.md, open items §1 item 7)"
-        )
-    ckpt = load_reference_checkpoint(checkpoint_path)
-    model_coarse = model_from_config(cfg.models.coarse, reference_compat_shapes=True)
+    reference = checkpoint_path.endswith(".ckpt")
+    if reference:
+        ckpt = load_reference_checkpoint(checkpoint_path)
+    elif checkpoint_path.endswith(".ntc"):
+        ckpt = load_checkpoint(checkpoint_path)
+    else:
+        raise ValueError(f"{checkpoint_path}: want a native .ntc or a reference .ckpt")
+    model_coarse = model_from_config(cfg.models.coarse, reference_compat_shapes=reference)
     load_jax_params(model_coarse, ckpt["params_coarse"])
     model_fine = None
-    if "fine" in cfg.models and ckpt["params_fine"] is not None:
-        model_fine = model_from_config(cfg.models.fine, reference_compat_shapes=True)
+    if "fine" in cfg.models and ckpt.get("params_fine") is not None:
+        model_fine = model_from_config(cfg.models.fine, reference_compat_shapes=reference)
         model_fine = load_jax_params(model_fine, ckpt["params_fine"]).to(device).eval()
     return model_coarse.to(device).eval(), model_fine, ckpt
+
+
+def _to_numpy(obj):
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu().numpy()
+    if isinstance(obj, dict):
+        return {k: _to_numpy(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_to_numpy(v) for v in obj]
+    return obj
 
 
 def _to_cpu(obj):
@@ -200,8 +238,9 @@ def load_train_checkpoint(path: str, model_coarse: torch.nn.Module,
     """
     if not path.endswith(".ckpt"):
         raise NotImplementedError(
-            f"{path}: only reference .ckpt files are read; native .ntc I/O is not "
-            "ported yet (ROADMAP.md, open items §1 item 7)"
+            f"{path}: training resumes from reference .ckpt files only; resuming from a "
+            "native .ntc with its optax Adam state is not ported yet (ROADMAP.md, open "
+            "items §1 item 7)"
         )
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     model_coarse.load_state_dict(ckpt["model_coarse_state_dict"])

@@ -1,7 +1,8 @@
 """Render novel views from a trained NeRF checkpoint (port of ``eval_nerf.py``).
 
-Loads a reference ``.ckpt``, renders the dataset's render-pose trajectory to
-PNGs (optionally with disparity maps) and reports the time per frame.
+Loads a native ``.ntc`` (the JAX trainer's) or a reference ``.ckpt``,
+renders the dataset's render-pose trajectory to PNGs (optionally with
+disparity maps) and reports the time per frame.
 
 Usage:
   python -m nerf_tpu_torch.eval_nerf --config cfg.yml --checkpoint ckpt --savedir out/

@@ -9,7 +9,14 @@ kernel when it is imported; the build happens at the first CUDA call
 
 from .composite import fused_volume_render, volume_render_plain
 from .flex_train import fused_flex_mlp_train, flex_train_plain_bwd, flex_train_plain_fwd
-from .mlp_t import fused_mlp_t, mlp_t_plain, supports_fused
+from .mlp import (
+    flexible_mlp_plain,
+    flexible_mlp_rays_plain,
+    fused_flexible_mlp,
+    fused_flexible_mlp_rays,
+    supports_fused,
+)
+from .mlp_t import fused_mlp_t, mlp_t_plain
 from .paper_t import fused_paper_mlp_t, paper_t_plain, supports_fused_paper
 from .paper_train import fused_paper_mlp_train, paper_train_plain_bwd, paper_train_plain_fwd
 from .resample import fused_sample_pdf, sample_pdf
@@ -21,9 +28,13 @@ __all__ = [
     "fused_flex_mlp_train",
     "flex_train_plain_bwd",
     "flex_train_plain_fwd",
+    "flexible_mlp_plain",
+    "flexible_mlp_rays_plain",
+    "fused_flexible_mlp",
+    "fused_flexible_mlp_rays",
+    "supports_fused",
     "fused_mlp_t",
     "mlp_t_plain",
-    "supports_fused",
     "fused_paper_mlp_t",
     "paper_t_plain",
     "supports_fused_paper",

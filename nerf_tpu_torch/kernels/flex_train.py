@@ -10,7 +10,7 @@ CUDA kernels for Hopper in ``csrc/flex_train.cu``, behind one
   f32, saving the residuals in the compute dtype: enc, a0 (layer1's output,
   not ReLU'd), h1, h2, h3, feat and hd (post-ReLU);
 - backward: (N, S, 4) f32 cotangent + residuals -> the gradient of the
-  packed parameter buffer (``kernels/mlp_t.pack_params``'s layout: every
+  packed parameter buffer (``kernels/mlp.pack_params``'s layout: every
   weight and bias but the viewdir columns of ``layers_dir[0]``) and ddc
   (N, 64), the gradient of the per-ray direction contribution. Four
   launches (layer gradients, weight gradients per chunk of points, a
@@ -37,7 +37,7 @@ from typing import Dict, Tuple
 import torch
 
 from ..ops.encoding import positional_encoding
-from .mlp_t import (
+from .mlp import (
     _DIM_XYZ,
     _HIDDEN,
     _NUM_FREQ_XYZ,
@@ -53,7 +53,7 @@ _TILES_PER_CHUNK = 16      # point tiles per weight-gradient block
 _RES_ROWS = _DIM_XYZ + 5 * _HIDDEN + _DIR_HIDDEN          # 767 residual rows per point
 _DELTA_ROWS = 4 + _DIR_HIDDEN + 5 * _HIDDEN               # 708 f32 gradient rows per point
 
-# Packed parameter buffer (kernels/mlp_t.pack_params, csrc/flex_mlp.cuh):
+# Packed parameter buffer (kernels/mlp.pack_params, csrc/flex_mlp.cuh):
 # name -> (in, out) of each weight, then its bias (out,).
 _LAYOUT = (
     ("layer1", _DIM_XYZ, _HIDDEN),

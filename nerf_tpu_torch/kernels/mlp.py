@@ -1,0 +1,282 @@
+"""The 4x128 FlexibleNeRF field's fused forwards, point-major and ray-major.
+
+Replaces ``nerf_tpu/ops/pallas/mlp.py``'s ``fused_flexible_mlp`` (points
+(N, 3) with one view direction each -> (N, 4)) and
+``fused_flexible_mlp_rays`` ((R, S, 3) points + (R, 3) ray directions ->
+(R, S, 4)) with hand-written CUDA kernels for Hopper (``csrc/mlp.cu``): raw
+[r, g, b, sigma] f32, the positional encoding, the trunk, fc_feat/fc_alpha,
+the direction layer and fc_rgb in one launch whose activations stay in
+shared memory and registers.
+
+What bounds them on the card is arithmetic: ~82k multiply-adds per point
+(the point-major one 27 x 64 more) against 24-28 B of point traffic. Both
+run ``csrc/flex_mlp.cuh``'s forward, the one ``kernels/mlp_t.py``'s kernel
+runs, on f32 FMAs; only the direction layer differs. The point-major kernel
+encodes each point's direction itself and sums its 27 direction rows into
+the direction layer, as the TPU kernel does. The ray-major one adds the
+per-ray contribution ``enc(viewdirs) @ W_dir[128:]`` (R, 64), made outside
+the kernel with one matmul, from a copy in shared memory: it computes what
+``fused_mlp_t`` computes, bit for bit.
+
+This module also holds what the family's kernels share, as the JAX
+package's ``mlp.py`` does: the shape gate ``supports_fused``, the packed
+parameter layout and the per-ray direction contribution.
+
+``compute_dtype="bfloat16"`` rounds both operands of every matmul to bf16
+and keeps f32 sums (``preferred_element_type=f32``). The point-major kernel
+rounds its direction encoding and the direction rows of W_dir too; the
+ray-major one keeps the direction contribution f32. The plain versions
+``flexible_mlp_plain`` and ``flexible_mlp_rays_plain`` emulate exactly that
+with ``.bfloat16().float()`` and f32 matmuls.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ..models.mlp import FlexibleNeRFModel
+from ..ops.encoding import positional_encoding
+
+_NUM_FREQ_XYZ = 10
+_NUM_FREQ_DIR = 4
+_DIM_XYZ = 3 + 6 * _NUM_FREQ_XYZ   # 63
+_HIDDEN = 128
+_COMPUTE_DTYPES = ("float32", "bfloat16")
+
+
+def supports_fused(model) -> bool:
+    """True when ``model`` is the default FlexibleNeRF shape the kernels fuse
+    (the gate of ``nerf_tpu/ops/pallas/mlp.py:supports_fused``)."""
+    return (
+        isinstance(model, FlexibleNeRFModel)
+        and model.num_layers == 4
+        and model.hidden_size == _HIDDEN
+        and model.use_viewdirs
+        and model.num_encoding_fn_xyz == _NUM_FREQ_XYZ
+        and model.num_encoding_fn_dir == _NUM_FREQ_DIR
+        and model.include_input_xyz
+        and model.include_input_dir
+        and len(model.layers_xyz) == 3
+        and tuple(model.layer1.weight.shape) == (_HIDDEN, _DIM_XYZ)
+    )
+
+
+def dir_contribution(model: FlexibleNeRFModel, viewdirs: torch.Tensor) -> torch.Tensor:
+    """Per-ray ``enc(viewdirs) @ W_dir[128:]``: (N, 3) -> (N, 64) f32.
+
+    Sets ``torch.backends.cuda.matmul.allow_tf32 = False`` (PyTorch's own
+    default): f32 here means full f32 on the card, not TF32.
+    """
+    torch.backends.cuda.matmul.allow_tf32 = False
+    direnc = positional_encoding(viewdirs.float(), _NUM_FREQ_DIR)      # (N, 27)
+    w_dir = model.layers_dir[0].weight[:, _HIDDEN:].float()           # (64, 27)
+    return direnc @ w_dir.t()
+
+
+def pack_params(model: FlexibleNeRFModel) -> torch.Tensor:
+    """The kernels' parameter buffer: each layer's (in, out) weight, then its
+    bias, in the order of the offsets in ``csrc/flex_mlp.cuh`` (layers_dir.0's
+    feature rows only)."""
+    parts = [model.layer1.weight.t(), model.layer1.bias]
+    for layer in model.layers_xyz:
+        parts += [layer.weight.t(), layer.bias]
+    parts += [
+        model.fc_feat.weight.t(), model.fc_feat.bias,
+        model.fc_alpha.weight.t(), model.fc_alpha.bias,
+        model.layers_dir[0].weight[:, :_HIDDEN].t(), model.layers_dir[0].bias,
+        model.fc_rgb.weight.t(), model.fc_rgb.bias,
+    ]
+    return torch.cat([p.float().reshape(-1) for p in parts])
+
+
+def pack_params_points(model: FlexibleNeRFModel) -> torch.Tensor:
+    """The point-major kernel's buffer: ``pack_params`` followed by
+    layers_dir.0's direction rows (27, 64)."""
+    w_dir = model.layers_dir[0].weight[:, _HIDDEN:].t()
+    return torch.cat([pack_params(model), w_dir.float().reshape(-1)])
+
+
+def _rounding(compute_dtype: str):
+    """x -> x rounded to the matmul input dtype, kept f32."""
+    if compute_dtype not in _COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype must be one of {_COMPUTE_DTYPES}")
+    if compute_dtype == "bfloat16":
+        return lambda x: x.bfloat16().float()
+    return lambda x: x
+
+
+def _dense(layer, x, r, cols=None):
+    w = layer.weight if cols is None else layer.weight[:, cols]
+    return r(x) @ r(w.float()).t() + layer.bias.float()
+
+
+def _trunk_plain(model, pts, r):
+    """(feat, sigma) of the points (..., 3)."""
+    h = _dense(model.layer1, positional_encoding(pts.float(), _NUM_FREQ_XYZ), r)
+    for layer in model.layers_xyz:
+        h = torch.relu(_dense(layer, h, r))
+    return torch.relu(_dense(model.fc_feat, h, r)), _dense(model.fc_alpha, h, r)
+
+
+def flexible_mlp_rays_plain(
+    model: FlexibleNeRFModel,
+    pts: torch.Tensor,
+    viewdirs: torch.Tensor,
+    compute_dtype: str = "float32",
+) -> torch.Tensor:
+    """Plain PyTorch version of the ray-major kernel (and of ``fused_mlp_t``,
+    which computes the same function): (R, S, 4) f32."""
+    r = _rounding(compute_dtype)
+    dc = dir_contribution(model, viewdirs)                          # (R, 64)
+    feat, sigma = _trunk_plain(model, pts, r)
+    hd = torch.relu(
+        _dense(model.layers_dir[0], feat, r, cols=slice(0, _HIDDEN)) + dc[:, None, :]
+    )
+    return torch.cat([_dense(model.fc_rgb, hd, r), sigma], dim=-1)
+
+
+def flexible_mlp_plain(
+    model: FlexibleNeRFModel,
+    pts: torch.Tensor,
+    viewdirs: torch.Tensor,
+    compute_dtype: str = "float32",
+) -> torch.Tensor:
+    """Plain PyTorch version of the point-major kernel: (N, 4) f32. In
+    bfloat16 the direction encoding and W_dir's direction rows are rounded
+    too, as the kernel rounds them."""
+    r = _rounding(compute_dtype)
+    feat, sigma = _trunk_plain(model, pts, r)
+    layer = model.layers_dir[0]
+    w = layer.weight.float()
+    direnc = positional_encoding(viewdirs.float(), _NUM_FREQ_DIR)   # (N, 27)
+    hd = torch.relu(r(feat) @ r(w[:, :_HIDDEN]).t() + r(direnc) @ r(w[:, _HIDDEN:]).t()
+                    + layer.bias.float())
+    return torch.cat([_dense(model.fc_rgb, hd, r), sigma], dim=-1)
+
+
+@functools.lru_cache(maxsize=None)
+def _kernels():
+    from ._build import load_library
+
+    lib = load_library()
+    points = lib.nerf_flexible_mlp_forward
+    points.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_void_p,
+                                               ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+    rays = lib.nerf_flexible_mlp_rays_forward
+    rays.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_void_p,
+                                             ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                                             ctypes.c_void_p]
+    points.restype = rays.restype = ctypes.c_int
+    return points, rays
+
+
+def _check(name: str, model, pts: torch.Tensor, compute_dtype: str):
+    """The checks both wrappers make before choosing a path."""
+    if compute_dtype not in _COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype must be one of {_COMPUTE_DTYPES}")
+    if not supports_fused(model):
+        raise ValueError(f"{name}: model is not the 4x128 10/4 FlexibleNeRF shape")
+    if pts.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: no kernel for device {pts.device}")
+
+
+def _check_cuda(name: str, model, pts: torch.Tensor, viewdirs: torch.Tensor):
+    if pts.dtype != torch.float32 or viewdirs.dtype != torch.float32:
+        raise ValueError(f"{name}: pts and viewdirs must be float32")
+    if viewdirs.device != pts.device or model.layer1.weight.device != pts.device:
+        raise ValueError(f"{name}: pts, viewdirs and the model must share a device")
+
+
+def fused_flexible_mlp(
+    model: FlexibleNeRFModel,
+    pts: torch.Tensor,
+    viewdirs: torch.Tensor,
+    compute_dtype: str = "float32",
+) -> torch.Tensor:
+    """Radiance field of ``model`` at points ``pts`` (N, 3), each seen along
+    its own ``viewdirs`` row (N, 3): (N, 4) raw [r, g, b, sigma] f32.
+
+    CPU tensors go through ``flexible_mlp_plain``. CUDA tensors go through
+    the kernel; anything it does not take raises.
+    ``fused_flexible_mlp.launches`` counts the kernel's launches.
+    """
+    _check("fused_flexible_mlp", model, pts, compute_dtype)
+    if pts.device.type == "cpu":
+        return flexible_mlp_plain(model, pts, viewdirs, compute_dtype)
+    if pts.ndim != 2 or pts.shape[-1] != 3 or tuple(viewdirs.shape) != tuple(pts.shape):
+        raise ValueError(
+            f"fused_flexible_mlp: want pts (N, 3) and viewdirs (N, 3), got "
+            f"{tuple(pts.shape)} and {tuple(viewdirs.shape)}"
+        )
+    _check_cuda("fused_flexible_mlp", model, pts, viewdirs)
+    n = pts.shape[0]
+    out = torch.empty((n, 4), dtype=torch.float32, device=pts.device)
+    if n == 0:
+        return out
+    # params is freed when this returns, before the kernel may have run: the
+    # caching allocator hands its block out again only in this stream's
+    # order, after the kernel.
+    with torch.no_grad(), torch.cuda.device(pts.device):
+        pts_c, vd_c = pts.contiguous(), viewdirs.contiguous()
+        params = pack_params_points(model).contiguous()
+        stream = torch.cuda.current_stream(pts.device).cuda_stream
+        rc = _kernels()[0](
+            pts_c.data_ptr(), vd_c.data_ptr(), params.data_ptr(), params.numel(),
+            out.data_ptr(), n, int(compute_dtype == "bfloat16"), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"fused_flexible_mlp: kernel launch failed with CUDA error {rc}")
+    fused_flexible_mlp.launches += 1
+    return out
+
+
+fused_flexible_mlp.launches = 0
+
+
+def fused_flexible_mlp_rays(
+    model: FlexibleNeRFModel,
+    pts: torch.Tensor,
+    viewdirs: torch.Tensor,
+    compute_dtype: str = "float32",
+) -> torch.Tensor:
+    """Radiance field of ``model`` at ``pts`` (R, S, 3), the samples of rays
+    seen along ``viewdirs`` (R, 3): (R, S, 4) raw [r, g, b, sigma] f32.
+
+    CPU tensors go through ``flexible_mlp_rays_plain``. CUDA tensors go
+    through the kernel; anything it does not take raises.
+    ``fused_flexible_mlp_rays.launches`` counts the kernel's launches.
+    """
+    _check("fused_flexible_mlp_rays", model, pts, compute_dtype)
+    if pts.device.type == "cpu":
+        return flexible_mlp_rays_plain(model, pts, viewdirs, compute_dtype)
+    if pts.ndim != 3 or pts.shape[-1] != 3 or tuple(viewdirs.shape) != (pts.shape[0], 3):
+        raise ValueError(
+            f"fused_flexible_mlp_rays: want pts (R, S, 3) and viewdirs (R, 3), got "
+            f"{tuple(pts.shape)} and {tuple(viewdirs.shape)}"
+        )
+    _check_cuda("fused_flexible_mlp_rays", model, pts, viewdirs)
+    r, s = pts.shape[0], pts.shape[1]
+    out = torch.empty((r, s, 4), dtype=torch.float32, device=pts.device)
+    if r * s == 0:
+        return out
+    # dc and params are freed when this returns, before the kernel may have
+    # run: see fused_flexible_mlp.
+    with torch.no_grad(), torch.cuda.device(pts.device):
+        pts_c = pts.contiguous()
+        dc = dir_contribution(model, viewdirs).contiguous()
+        params = pack_params(model).contiguous()
+        stream = torch.cuda.current_stream(pts.device).cuda_stream
+        rc = _kernels()[1](
+            pts_c.data_ptr(), dc.data_ptr(), params.data_ptr(), params.numel(),
+            out.data_ptr(), r * s, s, int(compute_dtype == "bfloat16"), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"fused_flexible_mlp_rays: kernel launch failed with CUDA error {rc}")
+    fused_flexible_mlp_rays.launches += 1
+    return out
+
+
+fused_flexible_mlp_rays.launches = 0

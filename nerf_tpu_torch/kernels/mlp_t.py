@@ -18,8 +18,9 @@ one matmul and added to each sample's direction-layer pre-activation inside.
 
 ``compute_dtype="bfloat16"`` rounds both operands of every matmul to bf16 and
 keeps f32 sums, as the TPU kernel does (``preferred_element_type=f32``). The
-plain version ``mlp_t_plain`` emulates exactly that with ``.bfloat16().float()``
-and f32 matmuls; a bf16 ``torch.matmul`` would round its output too.
+plain version ``mlp_t_plain`` (``kernels/mlp.flexible_mlp_rays_plain``)
+emulates exactly that with ``.bfloat16().float()`` and f32 matmuls; a bf16
+``torch.matmul`` would round its output too.
 """
 
 from __future__ import annotations
@@ -30,89 +31,18 @@ import functools
 import torch
 
 from ..models.mlp import FlexibleNeRFModel
-from ..ops.encoding import positional_encoding
+# The family's shared pieces live with the gate in kernels/mlp.py, as in the
+# JAX package; they are re-exported here for the callers of this module.
+from .mlp import (  # noqa: F401
+    _COMPUTE_DTYPES,
+    dir_contribution,
+    flexible_mlp_rays_plain,
+    pack_params,
+    supports_fused,
+)
 
-_NUM_FREQ_XYZ = 10
-_NUM_FREQ_DIR = 4
-_DIM_XYZ = 3 + 6 * _NUM_FREQ_XYZ   # 63
-_HIDDEN = 128
-_COMPUTE_DTYPES = ("float32", "bfloat16")
-
-
-def supports_fused(model) -> bool:
-    """True when ``model`` is the default FlexibleNeRF shape the kernel fuses
-    (the gate of ``nerf_tpu/ops/pallas/mlp.py:supports_fused``)."""
-    return (
-        isinstance(model, FlexibleNeRFModel)
-        and model.num_layers == 4
-        and model.hidden_size == _HIDDEN
-        and model.use_viewdirs
-        and model.num_encoding_fn_xyz == _NUM_FREQ_XYZ
-        and model.num_encoding_fn_dir == _NUM_FREQ_DIR
-        and model.include_input_xyz
-        and model.include_input_dir
-        and len(model.layers_xyz) == 3
-        and tuple(model.layer1.weight.shape) == (_HIDDEN, _DIM_XYZ)
-    )
-
-
-def dir_contribution(model: FlexibleNeRFModel, viewdirs: torch.Tensor) -> torch.Tensor:
-    """Per-ray ``enc(viewdirs) @ W_dir[128:]``: (N, 3) -> (N, 64) f32.
-
-    Sets ``torch.backends.cuda.matmul.allow_tf32 = False`` (PyTorch's own
-    default): f32 here means full f32 on the card, not TF32.
-    """
-    torch.backends.cuda.matmul.allow_tf32 = False
-    direnc = positional_encoding(viewdirs.float(), _NUM_FREQ_DIR)      # (N, 27)
-    w_dir = model.layers_dir[0].weight[:, _HIDDEN:].float()           # (64, 27)
-    return direnc @ w_dir.t()
-
-
-def mlp_t_plain(
-    model: FlexibleNeRFModel,
-    pts: torch.Tensor,
-    viewdirs: torch.Tensor,
-    compute_dtype: str = "float32",
-) -> torch.Tensor:
-    """Plain PyTorch version of the kernel, same semantics: (N, S, 4) f32."""
-    if compute_dtype not in _COMPUTE_DTYPES:
-        raise ValueError(f"compute_dtype must be one of {_COMPUTE_DTYPES}")
-    bf16 = compute_dtype == "bfloat16"
-
-    def r(x):
-        return x.bfloat16().float() if bf16 else x
-
-    def dense(layer, x, cols=None):
-        w = layer.weight if cols is None else layer.weight[:, cols]
-        return r(x) @ r(w.float()).t() + layer.bias.float()
-
-    dc = dir_contribution(model, viewdirs)                          # (N, 64)
-    enc = positional_encoding(pts.float(), _NUM_FREQ_XYZ)           # (N, S, 63)
-    h = dense(model.layer1, enc)
-    for layer in model.layers_xyz:
-        h = torch.relu(dense(layer, h))
-    feat = torch.relu(dense(model.fc_feat, h))
-    sigma = dense(model.fc_alpha, h)
-    hd = torch.relu(
-        dense(model.layers_dir[0], feat, cols=slice(0, _HIDDEN)) + dc[:, None, :]
-    )
-    rgb = dense(model.fc_rgb, hd)
-    return torch.cat([rgb, sigma], dim=-1)
-
-
-def pack_params(model: FlexibleNeRFModel) -> torch.Tensor:
-    """The kernel's parameter buffer: each layer's (in, out) weight, then its
-    bias, in the order of the offsets in ``csrc/mlp_t.cu``."""
-    parts = [model.layer1.weight.t(), model.layer1.bias]
-    for layer in model.layers_xyz:
-        parts += [layer.weight.t(), layer.bias]
-    parts += [
-        model.fc_feat.weight.t(), model.fc_feat.bias,
-        model.fc_alpha.weight.t(), model.fc_alpha.bias,
-        model.layers_dir[0].weight[:, :_HIDDEN].t(), model.layers_dir[0].bias,
-        model.fc_rgb.weight.t(), model.fc_rgb.bias,
-    ]
-    return torch.cat([p.float().reshape(-1) for p in parts])
+# #1 computes the ray-major kernel's function: one plain version serves both.
+mlp_t_plain = flexible_mlp_rays_plain
 
 
 @functools.lru_cache(maxsize=None)

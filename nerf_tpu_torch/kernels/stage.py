@@ -11,8 +11,8 @@ What bounds it on the card is the MLP's arithmetic (that of
 ``kernels/mlp_t.py``); the kernel runs ``csrc/flex_mlp.cuh``'s forward over
 the tiles of a block's rays into shared memory, then ``csrc/composite.cuh``'s
 scan over them. The per-ray direction contribution and the packed parameters
-are ``mlp_t.dir_contribution`` and ``mlp_t.pack_params``, and the shape gate
-is ``mlp_t.supports_fused``, 10 encoding frequencies included.
+are ``mlp.dir_contribution`` and ``mlp.pack_params``, and the shape gate
+is ``mlp.supports_fused``, 10 encoding frequencies included.
 
 The plain version ``render_stage_plain`` is ``mlp_t_plain`` followed by
 ``volume_render_plain``; ``compute_dtype="bfloat16"`` rounds the MLP's
@@ -28,7 +28,8 @@ from typing import Dict
 import torch
 
 from .composite import MAP_NAMES, check_ray_inputs, empty_maps, volume_render_plain
-from .mlp_t import _COMPUTE_DTYPES, dir_contribution, mlp_t_plain, pack_params, supports_fused
+from .mlp import _COMPUTE_DTYPES, dir_contribution, pack_params, supports_fused
+from .mlp_t import mlp_t_plain
 
 
 def render_stage_plain(

@@ -20,9 +20,9 @@ Usage:
 ``CfgNode``, so a caller can drive it without a YAML file.
 
 Not ported yet, and raising: the blender and LLFF loaders and the native
-``.nrc`` ray cache (ROADMAP.md, open items §2, next slice 3), ``.ntc``
-checkpoints (§1 item 7), more than one device and ``--tighten-aabb`` (§1
-item 11).
+``.nrc`` ray cache (ROADMAP.md, open items §2, next slice 3), resuming
+from a native ``.ntc`` checkpoint with its optax state (§1 item 7), more
+than one device and ``--tighten-aabb`` (§1 item 11).
 """
 
 from __future__ import annotations

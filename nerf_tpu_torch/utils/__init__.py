@@ -1,6 +1,6 @@
 """Small host-side utilities."""
 
 from .logging import MetricWriter, RateMeter
-from .png import write_png
+from .png import png_bytes, write_png
 
-__all__ = ["MetricWriter", "RateMeter", "write_png"]
+__all__ = ["MetricWriter", "RateMeter", "png_bytes", "write_png"]

@@ -22,7 +22,7 @@ from nerf_tpu_torch.kernels.flex_train import (
     fused_flex_mlp_train,
     unpack_params,
 )
-from nerf_tpu_torch.kernels import composite, paper_t, paper_train, resample, stage
+from nerf_tpu_torch.kernels import composite, mlp, paper_t, paper_train, resample, stage
 from nerf_tpu_torch.kernels.mlp_t import dir_contribution, fused_mlp_t, mlp_t_plain, pack_params
 from nerf_tpu_torch.models import FlexibleNeRFModel, PaperNeRFModel
 
@@ -97,6 +97,42 @@ def test_renderer_goes_through_the_kernel(model):
                                      dataclasses.replace(settings, use_pallas=False))
     assert fused_mlp_t.launches == before + 1
     assert float((fused.rgb - plain.rgb).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("compute_dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("n,s", [(1, 1), (1000, 128), (7, 61)])
+def test_flexible_kernels_match_plain(model, n, s, compute_dtype, tol):
+    """#3 (ray-major) and #2 (point-major, on the flattened points with each
+    ray's direction) against their plain versions; #3 bitwise equal to #1."""
+    pts, vd = _inputs(n, s, seed=n + s)
+    flat_pts, flat_vd = pts.reshape(-1, 3), vd[:, None, :].expand(n, s, 3).reshape(-1, 3)
+    before = (mlp.fused_flexible_mlp.launches, mlp.fused_flexible_mlp_rays.launches)
+    with torch.inference_mode():
+        rays = mlp.fused_flexible_mlp_rays(model, pts, vd, compute_dtype)
+        points = mlp.fused_flexible_mlp(model, flat_pts, flat_vd, compute_dtype)
+        one = fused_mlp_t(model, pts, vd, compute_dtype)
+        torch.cuda.synchronize()
+        want_rays = mlp.flexible_mlp_rays_plain(model, pts, vd, compute_dtype)
+        want_points = mlp.flexible_mlp_plain(model, flat_pts, flat_vd, compute_dtype)
+    assert (mlp.fused_flexible_mlp.launches, mlp.fused_flexible_mlp_rays.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert rays.shape == (n, s, 4) and points.shape == (n * s, 4) and points.is_cuda
+    assert float((rays - want_rays).abs().max()) <= tol
+    assert float((points - want_points).abs().max()) <= tol
+    assert torch.equal(rays, one)
+
+
+def test_flexible_kernels_refuse_what_they_do_not_take(model):
+    pts, vd = _inputs(4, 8, seed=2)
+    with pytest.raises(ValueError, match="float32"):
+        mlp.fused_flexible_mlp_rays(model, pts.double(), vd.double())
+    with pytest.raises(ValueError, match="want pts"):
+        mlp.fused_flexible_mlp_rays(model, pts, vd[:3])
+    with pytest.raises(ValueError, match="want pts"):
+        mlp.fused_flexible_mlp(model, pts, vd)
+    with pytest.raises(ValueError, match="share a device"):
+        mlp.fused_flexible_mlp(FlexibleNeRFModel(num_encoding_fn_xyz=10, num_encoding_fn_dir=4),
+                               pts.reshape(-1, 3), vd.repeat(8, 1))
 
 
 def _train_case(model, n, s, compute_dtype, seed):

@@ -113,6 +113,22 @@ def test_reference_ckpt_from_jax_loads_in_the_port(tmp_path):
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
-def test_load_models_refuses_native_checkpoints():
-    with pytest.raises(NotImplementedError, match=".ntc"):
-        load_models_and_params("model.ntc", get_default_config())
+def test_load_models_refuses_native_checkpoints(tmp_path):
+    """A native .ntc loads into the models as configured (not the reference's
+    default shapes), strictly: one of another shape is refused, and so is a
+    file that is neither .ntc nor .ckpt."""
+    from nerf_tpu.engine.checkpoint import save_checkpoint
+
+    path = str(tmp_path / "model.ntc")
+    params = JaxFlexible(**SHAPES["narrow"]).init(jax.random.PRNGKey(0))
+    save_checkpoint(path, {"step": 3, "params_coarse": params, "params_fine": None})
+    cfg = get_default_config()                      # 4x128 models, 6/4 encoding functions
+    with pytest.raises(RuntimeError, match="size mismatch"):
+        load_models_and_params(path, cfg)
+    for key, value in SHAPES["narrow"].items():
+        cfg.merge_from_list([f"models.coarse.{key}", value, f"models.fine.{key}", value])
+    model_coarse, model_fine, ckpt = load_models_and_params(path, cfg)
+    assert model_fine is None and ckpt["step"] == 3
+    assert model_coarse.layer1.weight.shape == (32, 27)
+    with pytest.raises(ValueError, match=".ntc or a reference .ckpt"):
+        load_models_and_params(str(tmp_path / "model.pt"), cfg)
