@@ -1,5 +1,7 @@
 // Device code shared by the 8x256 PaperNeRF kernels (paper_t.cu, the
-// render-path forward, and paper_train.cu, the training forward + backward):
+// render-path forward, and paper_train.cu, the training forward + backward;
+// their f32 instances run this file's FMA design, their bf16 instances the
+// tensor-core one of paper_tc.cuh, which shares its parameter layout):
 // the packed parameter layout, the residual rows, the positional encoding of
 // a point tile at any depth, the register-tiled dense layer over a tile in
 // shared memory, and the whole forward over a tile, which saves the training
@@ -23,13 +25,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include "flex_mlp.cuh"  // rnd, load, store
-
 namespace paper {
-
-using flex::load;
-using flex::rnd;
-using flex::store;
 
 constexpr int kWidth = 256;
 constexpr int kDirWidth = 128;
@@ -105,20 +101,19 @@ __host__ __device__ constexpr int res_rows(int dim) { return res_d(dim, 3); }
 // interleaved order [x | sin f0 | cos f0 | sin f1 | ...]; points past
 // n_points encode x = 0. The sinusoids are sincosf of x * 2^f (exact in
 // f32), without fast math.
-template <bool kBf16>
 __device__ __forceinline__ void encode_tile(const float* __restrict__ pts, long long tile0,
                                             long long n_points, int num_freq, float* enc) {
   for (int i = threadIdx.x; i < kTile * 3; i += kThreads) {
     const int p = i / 3;
     const int c = i % 3;
     const float x = tile0 + p < n_points ? pts[tile0 * 3 + i] : 0.f;
-    enc[c * kTile + p] = rnd<kBf16>(x);
+    enc[c * kTile + p] = x;
     float scale = 1.f;
     for (int f = 0; f < num_freq; ++f) {
       float s, co;
       sincosf(x * scale, &s, &co);
-      enc[(3 + 6 * f + c) * kTile + p] = rnd<kBf16>(s);
-      enc[(6 + 6 * f + c) * kTile + p] = rnd<kBf16>(co);
+      enc[(3 + 6 * f + c) * kTile + p] = s;
+      enc[(6 + 6 * f + c) * kTile + p] = co;
       scale *= 2.f;
     }
   }
@@ -145,15 +140,11 @@ struct Acc {
 
   // v[f][p] += sum_{k < K} W[k][j0 + f] * in[k][p0 + p]; W (K, OUT) row-major
   // in device memory, 16-byte aligned; in feature-major in shared memory.
-  // Weights are rounded to the compute dtype as they are read (the
-  // activations were rounded when they were stored).
-  template <bool kBf16>
   __device__ __forceinline__ void mac(const float* __restrict__ W, int K, const float* in) {
 #pragma unroll 2
     for (int k = 0; k < K; ++k) {
       const float4 w4 = __ldg(reinterpret_cast<const float4*>(W + k * OUT + j0));
-      const float w[kTF] = {rnd<kBf16>(w4.x), rnd<kBf16>(w4.y), rnd<kBf16>(w4.z),
-                            rnd<kBf16>(w4.w)};
+      const float w[kTF] = {w4.x, w4.y, w4.z, w4.w};
       const float4* a = reinterpret_cast<const float4*>(in + k * kTile + p0);
 #pragma unroll
       for (int q = 0; q < kRun / 4; ++q) {
@@ -169,10 +160,9 @@ struct Acc {
     }
   }
 
-  // Write v (rounded to the compute dtype) over the tile buffer `out` once
-  // every thread has finished reading the layer's inputs (which may be
-  // `out` itself); returns when the new rows are visible to the block.
-  template <bool kBf16>
+  // Write v over the tile buffer `out` once every thread has finished
+  // reading the layer's inputs (which may be `out` itself); returns when the
+  // new rows are visible to the block.
   __device__ __forceinline__ void write(float* out) {
     __syncthreads();
 #pragma unroll
@@ -180,8 +170,7 @@ struct Acc {
 #pragma unroll
       for (int q = 0; q < kRun / 4; ++q) {
         *reinterpret_cast<float4*>(out + (j0 + f) * kTile + p0 + 4 * q) =
-            make_float4(rnd<kBf16>(v[f][4 * q]), rnd<kBf16>(v[f][4 * q + 1]),
-                        rnd<kBf16>(v[f][4 * q + 2]), rnd<kBf16>(v[f][4 * q + 3]));
+            make_float4(v[f][4 * q], v[f][4 * q + 1], v[f][4 * q + 2], v[f][4 * q + 3]);
       }
     }
     __syncthreads();
@@ -217,10 +206,9 @@ struct Acc {
 
 // Copy `rows` feature rows of a tile from shared memory to its residual rows
 // (a no-op without a residual buffer).
-template <typename R>
-__device__ __forceinline__ void save_rows(const float* act, int rows, R* dst) {
+__device__ __forceinline__ void save_rows(const float* act, int rows, float* dst) {
   if (dst == nullptr) return;
-  for (int i = threadIdx.x; i < rows * kTile; i += kThreads) store(dst + i, act[i]);
+  for (int i = threadIdx.x; i < rows * kTile; i += kThreads) dst[i] = act[i];
 }
 
 // The forward over the tile blockIdx.x: encoding into `enc` (dim rows), the
@@ -229,44 +217,45 @@ __device__ __forceinline__ void save_rows(const float* act, int rows, R* dst) {
 // then layers_dir.1 and .2, all ReLU'd), fc_rgb -> out (n_points, 4)
 // [r, g, b, sigma]. Every layer writes its output over `act` (256 rows).
 // With res non-null each layer's stored output is also written to the
-// tile's residual rows (type R, already rounded to the compute dtype).
-template <bool kBf16, typename R>
+// tile's residual rows. This is the f32 design: the bf16 one is
+// paper_tc.cuh's.
 __device__ __forceinline__ void forward_tile(const float* __restrict__ pts,
                                              const float* __restrict__ dc,
                                              const float* __restrict__ params, const Layout& L,
-                                             float* __restrict__ out, R* res, long long n_points,
-                                             int samples, int num_freq, float* enc, float* act) {
+                                             float* __restrict__ out, float* res,
+                                             long long n_points, int samples, int num_freq,
+                                             float* enc, float* act) {
   const long long tile0 = static_cast<long long>(blockIdx.x) * kTile;
   const int dim = L.dim;
-  R* rt = res == nullptr ? nullptr
-                         : res + static_cast<long long>(blockIdx.x) * res_rows(dim) * kTile;
+  float* rt = res == nullptr ? nullptr
+                             : res + static_cast<long long>(blockIdx.x) * res_rows(dim) * kTile;
   auto row = [rt](int r) { return rt == nullptr ? nullptr : rt + r * kTile; };
 
-  encode_tile<kBf16>(pts, tile0, n_points, num_freq, enc);
+  encode_tile(pts, tile0, n_points, num_freq, enc);
   __syncthreads();
   save_rows(enc, dim, row(0));
 
   for (int i = 0; i < 8; ++i) {
     Acc<kWidth> a;
     if (i == 0) {
-      a.mac<kBf16>(params + L.w[0], dim, enc);
+      a.mac(params + L.w[0], dim, enc);
     } else if (i == 4) {
       // Skip: W4 rows [enc; h], two products summed in f32.
-      a.mac<kBf16>(params + L.w[4], dim, enc);
-      a.mac<kBf16>(params + L.w[4] + dim * kWidth, kWidth, act);
+      a.mac(params + L.w[4], dim, enc);
+      a.mac(params + L.w[4] + dim * kWidth, kWidth, act);
     } else {
-      a.mac<kBf16>(params + L.w[i], kWidth, act);
+      a.mac(params + L.w[i], kWidth, act);
     }
     a.bias_act<true>(params + L.b[i], nullptr, tile0, samples, n_points);
-    a.write<kBf16>(act);
+    a.write(act);
     save_rows(act, kWidth, row(res_h(dim, i)));
   }
 
   {  // feat = fc_feat(h7), not ReLU'd.
     Acc<kWidth> a;
-    a.mac<kBf16>(params + L.wf, kWidth, act);
+    a.mac(params + L.wf, kWidth, act);
     a.bias_act<false>(params + L.bf, nullptr, tile0, samples, n_points);
-    a.write<kBf16>(act);
+    a.write(act);
     save_rows(act, kWidth, row(res_feat(dim)));
   }
   // sigma from feat, one point per thread; done before layers_dir.0 writes
@@ -275,15 +264,15 @@ __device__ __forceinline__ void forward_tile(const float* __restrict__ pts,
     const int p = threadIdx.x;
     float acc = 0.f;
     for (int k = 0; k < kWidth; ++k) {
-      acc = fmaf(rnd<kBf16>(__ldg(params + L.wa + k)), act[k * kTile + p], acc);
+      acc = fmaf(__ldg(params + L.wa + k), act[k * kTile + p], acc);
     }
     if (tile0 + p < n_points) out[(tile0 + p) * 4 + 3] = acc + __ldg(params + L.ba);
   }
   for (int i = 0; i < 3; ++i) {
     Acc<kDirWidth> a;
-    a.mac<kBf16>(params + L.wd[i], i == 0 ? kWidth : kDirWidth, act);
+    a.mac(params + L.wd[i], i == 0 ? kWidth : kDirWidth, act);
     a.bias_act<true>(params + L.bd[i], i == 0 ? dc : nullptr, tile0, samples, n_points);
-    a.write<kBf16>(act);
+    a.write(act);
     save_rows(act, kDirWidth, row(res_d(dim, i)));
   }
 
@@ -293,7 +282,7 @@ __device__ __forceinline__ void forward_tile(const float* __restrict__ pts,
     const int p = i % kTile;
     float acc = 0.f;
     for (int k = 0; k < kDirWidth; ++k) {
-      acc = fmaf(rnd<kBf16>(__ldg(params + L.wr + k * 3 + c)), act[k * kTile + p], acc);
+      acc = fmaf(__ldg(params + L.wr + k * 3 + c), act[k * kTile + p], acc);
     }
     if (tile0 + p < n_points) out[(tile0 + p) * 4 + c] = acc + __ldg(params + L.br + c);
   }

@@ -1,0 +1,390 @@
+// Tensor-core device code of the bf16 PaperNeRF (8x256) kernels: paper_t.cu's
+// render forward and paper_train.cu's training forward, layer-gradient pass
+// and weight-gradient pass, at compute dtype bf16. The f32 instances keep
+// paper_mlp.cuh's FMA design.
+//
+// Every wide product is mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32:
+// bf16 operands, f32 sums, the semantics of the TPU kernel's
+// preferred_element_type=f32 (only the summation order differs from the FMA
+// loop). mma.sync keeps a warp's accumulators in registers, which the
+// in-place design needs: a layer's whole output tile sits in registers, the
+// block synchronises, and the tile is written over its own input.
+//
+// Forward and layer-gradient pass (one block of 256 threads = 8 warps per
+// tile of kTile = 64 points): activations live in shared memory as bf16,
+// point-major, act[point][feature] with rows of 256 + 8 (the 16-byte pad puts
+// the 8 rows an ldmatrix reads on distinct banks). M = the 64 points, N = the
+// layer's outputs, K = its inputs: each warp computes all 64 points x
+// N / 8 outputs (4 x NT m16n8 tiles, NT = N / 64), its A fragments read with
+// ldmatrix from the shared tile, its B fragments read straight from device
+// memory (L2-resident: ~1.2 MB of bf16 weights) in fragment order. The
+// wrapper packs each weight once per call in that order (kernels/paper_t.py
+// pack_tc_forward, kernels/paper_train.py pack_tc_backward): for k-step ks,
+// warp w and lane l, the NT x 4 bf16 that lane l's b0..b3 registers hold, so
+// a warp reads 256 x NT contiguous bytes a k-step, 16 or 32 per lane. Each
+// block reads every weight once per tile (the warps split N), one k-step
+// ahead of the products. K is padded to a multiple of 16 with zero rows: the
+// encoding width 3 + 6F (63 -> 64 at F = 10, the skip's 319 -> 320).
+//
+// Narrow products stay on FMA, in f32 from the bf16 tile: sigma = feat .
+// W_alpha (256 -> 1) and rgb = d2 . W_rgb (128 -> 3), 4 threads a point. The
+// layer-gradient pass pads its narrow product instead: drgb . W_rgb^T is a
+// K = 3 -> 16 product, and [dd0; dsigma] . [W_d0; W_alpha]^T one K = 129 ->
+// 144 product.
+//
+// Weight-gradient pass: dW = X^T dY over the points, M = a weight block's
+// inputs, N = its outputs, K = points. A block owns a 128 x 128 output tile
+// of one weight block and a chunk of point tiles; per 64-point tile it stages
+// X (the bf16 residual rows) and dY (the f32 delta rows, rounded to bf16 as
+// they are staged) point-major in shared memory and reads both operands with
+// ldmatrix.trans. Its bias sums add the unrounded f32 deltas as they pass.
+//
+// Why mma.sync and not wgmma: wgmma reads B from shared memory, so every
+// weight would have to be staged there (128 KB for a 256 x 256 layer), and
+// its 64-row warpgroup tiles and asynchronous completion would replace the
+// in-place structure above; mma.sync keeps the f32 design's structure with
+// bf16 operands. On an H100 80GB HBM3 at 700 W a 131072 x 128 chunk of the
+// render forward takes ~62 ms (~335 TFLOP/s); with the weight fragments
+// served from L1 instead of L2 (a probe, wrong results) it took ~53 ms, so
+// the L2 weight stream costs ~14% and the rest is the instruction rate of
+// mma.sync and ldmatrix and the per-layer barriers.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "paper_mlp.cuh"
+
+namespace paper {
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kWarps = kThreads / 32;   // 8
+constexpr int kStride = kWidth + 8;     // act row, bf16
+
+__host__ __device__ constexpr int pad16(int x) { return (x + 15) & ~15; }
+__host__ __device__ constexpr int enc_stride(int dim) { return pad16(dim) + 8; }
+
+// Training residual rows of a point, bf16, point-major: res[point][row] with
+// enc padded to a multiple of 16 (zero pad), h0..h7, feat, d0..d2.
+__host__ __device__ constexpr int res_h(int dim, int i) { return pad16(dim) + kWidth * i; }
+__host__ __device__ constexpr int res_feat(int dim) { return pad16(dim) + 8 * kWidth; }
+__host__ __device__ constexpr int res_d(int dim, int i) {
+  return pad16(dim) + 9 * kWidth + kDirWidth * i;
+}
+__host__ __device__ constexpr int res_rows(int dim) { return res_d(dim, 3); }
+
+// Offsets (bf16 elements) of the forward weights: each wide layer in fragment
+// order (K rows padded to 16; layers_xyz.4 is [enc rows, zero pad, h rows]),
+// then fc_alpha (256) and fc_rgb as (3, 128), plain.
+struct FwdLayout {
+  int w[8], wf, wd[3], wa, wr, total;
+};
+
+__host__ __device__ inline FwdLayout make_fwd_layout(int dim) {
+  const int kin = pad16(dim);
+  FwdLayout t{};
+  int off = 0;
+  for (int i = 0; i < 8; ++i) {
+    t.w[i] = off;
+    off += (i == 0 ? kin : i == 4 ? kin + kWidth : kWidth) * kWidth;
+  }
+  t.wf = off;
+  off += kWidth * kWidth;
+  t.wd[0] = off;
+  off += kWidth * kDirWidth;
+  for (int i = 1; i < 3; ++i) {
+    t.wd[i] = off;
+    off += kDirWidth * kDirWidth;
+  }
+  t.wa = off;
+  off += kWidth;
+  t.wr = off;
+  off += 3 * kDirWidth;
+  t.total = off;
+  return t;
+}
+
+// Offsets (bf16 elements) of the backward weights, fragment order, for
+// dX = dY W (N = the layer's inputs, K = its outputs): fc_rgb (K 3 -> 16),
+// layers_dir.2, .1, [layers_dir.0 feat; fc_alpha] (K 129 -> 144), fc_feat,
+// layers_xyz.7 .. .1 (layer 4: its h rows).
+constexpr int kBRgb = 0;
+constexpr int kBD2 = kBRgb + 16 * kDirWidth;
+constexpr int kBD1 = kBD2 + kDirWidth * kDirWidth;
+constexpr int kBHead = kBD1 + kDirWidth * kDirWidth;
+constexpr int kBFeat = kBHead + 144 * kWidth;
+__host__ __device__ constexpr int kbx(int i) { return kBFeat + kWidth * kWidth * (8 - i); }
+constexpr int kBTotal = kbx(1) + kWidth * kWidth;   // 595968
+
+// Dynamic shared memory of a forward block: the encoding and the activation
+// tile, bf16.
+inline size_t fwd_smem_bytes(int dim) {
+  return static_cast<size_t>(enc_stride(dim) + kStride) * kTile * sizeof(bf16);
+}
+constexpr size_t kActSmem = static_cast<size_t>(kStride) * kTile * sizeof(bf16);
+
+__device__ __forceinline__ void mma(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldsm4(uint32_t* r, const bf16* p) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+__device__ __forceinline__ void ldsm4t(uint32_t* r, const bf16* p) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+// A warp's share of a layer over the tile: acc[mt][nt] is the m16n8 tile of
+// points 16 mt .. 16 mt + 15 and outputs warp * 8 NT + 8 nt .. + 7.
+template <int NT>
+struct Acc {
+  float v[4][NT][4];
+
+  __device__ __forceinline__ Acc() {
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) v[m][n][e] = 0.f;
+      }
+    }
+  }
+
+  // v += A (64 points x 16 ksteps, bf16 rows of `a` with `a_stride`) . B
+  // (the fragment-ordered weights at w). kUnroll > 0 unrolls the k-steps
+  // that many times (2 in the forward, whose layers are unrolled too, to
+  // fit 128 registers); 0 leaves it to the compiler (the backward).
+  template <int kUnroll = 0>
+  __device__ __forceinline__ void mac(const bf16* __restrict__ w, const bf16* a, int a_stride,
+                                      int ksteps) {
+    constexpr int kU = NT / 2;                   // uint4 of B per lane a k-step
+    constexpr int kStep = kWarps * 32 * kU;      // uint4 a k-step
+    const int lane = threadIdx.x & 31;
+    const uint4* wp = reinterpret_cast<const uint4*>(w) + ((threadIdx.x >> 5) * 32 + lane) * kU;
+    // ldmatrix x4 rows: lanes 0-15 points 0-15 at k, lanes 16-31 at k + 8.
+    const bf16* ap = a + (lane & 15) * a_stride + (lane >> 4) * 8;
+    uint4 cur[kU];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) cur[u] = __ldg(wp + u);
+    // One k-step: load the next step's B, multiply with this one's.
+    auto step = [&](int ks) {
+      uint4 nxt[kU];
+      const int kn = ks + 1 < ksteps ? ks + 1 : ks;
+#pragma unroll
+      for (int u = 0; u < kU; ++u) nxt[u] = __ldg(wp + kn * kStep + u);
+      const uint32_t* b = reinterpret_cast<const uint32_t*>(cur);
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        uint32_t af[4];
+        ldsm4(af, ap + m * 16 * a_stride + ks * 16);
+#pragma unroll
+        for (int n = 0; n < NT; ++n) mma(v[m][n], af, b[2 * n], b[2 * n + 1]);
+      }
+#pragma unroll
+      for (int u = 0; u < kU; ++u) cur[u] = nxt[u];
+    };
+    if constexpr (kUnroll > 0) {
+#pragma unroll (kUnroll > 0 ? kUnroll : 1)
+      for (int ks = 0; ks < ksteps; ++ks) step(ks);
+    } else {
+      for (int ks = 0; ks < ksteps; ++ks) step(ks);
+    }
+  }
+
+  // The forward epilogue: v = act(v + b[n] (+ dc[ray(p)][n])); dc is (rays,
+  // N) f32, the ray of tile point p is (tile0 + p) / samples.
+  template <bool kRelu>
+  __device__ __forceinline__ void bias_act(const float* __restrict__ bias,
+                                           const float* __restrict__ dc, long long tile0,
+                                           int samples, long long n_points) {
+    constexpr int kN = 8 * NT * kWarps;
+    const int lane = threadIdx.x & 31;
+    const int n0 = (threadIdx.x >> 5) * 8 * NT + 2 * (lane & 3);
+    float2 b[NT];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) b[n] = __ldg(reinterpret_cast<const float2*>(bias + n0 + 8 * n));
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long long gp = tile0 + 16 * m + (lane >> 2) + 8 * h;
+        const float* drow = dc != nullptr && gp < n_points ? dc + (gp / samples) * kN : nullptr;
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          float2 d = make_float2(0.f, 0.f);
+          if (drow != nullptr) d = __ldg(reinterpret_cast<const float2*>(drow + n0 + 8 * n));
+          const float y0 = v[m][n][2 * h] + b[n].x + d.x;
+          const float y1 = v[m][n][2 * h + 1] + b[n].y + d.y;
+          v[m][n][2 * h] = kRelu ? fmaxf(y0, 0.f) : y0;
+          v[m][n][2 * h + 1] = kRelu ? fmaxf(y1, 0.f) : y1;
+        }
+      }
+    }
+  }
+
+  // Write v rounded to bf16 over the tile `act` once every thread has
+  // finished reading the layer's inputs (which may be `act` itself); returns
+  // when the new rows are visible to the block.
+  __device__ __forceinline__ void write(bf16* act) {
+    const int lane = threadIdx.x & 31;
+    const int n0 = (threadIdx.x >> 5) * 8 * NT + 2 * (lane & 3);
+    __syncthreads();
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        bf16* row = act + (16 * m + (lane >> 2) + 8 * h) * kStride + n0;
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          *reinterpret_cast<__nv_bfloat162*>(row + 8 * n) =
+              __floats2bfloat162_rn(v[m][n][2 * h], v[m][n][2 * h + 1]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+};
+
+// Copy `cols` (a multiple of 8) bf16 columns of the tile's rows in shared
+// memory to the tile's residual rows res[(tile * kTile + point) * rows + r].
+__device__ __forceinline__ void save_rows(const bf16* src, int stride, int cols, bf16* res,
+                                          int rows, int r) {
+  bf16* dst = res + static_cast<long long>(blockIdx.x) * kTile * rows + r;
+  const int chunks = cols / 8;
+  for (int i = threadIdx.x; i < kTile * chunks; i += kThreads) {
+    const int p = i / chunks;
+    const int c = i - p * chunks;
+    *reinterpret_cast<uint4*>(dst + p * rows + 8 * c) =
+        *reinterpret_cast<const uint4*>(src + p * stride + 8 * c);
+  }
+}
+
+// out = sum_k act[p][k] w[k] for the tile point p = threadIdx.x / 4, in f32,
+// from the bf16 tile; the 4 threads of a point take interleaved pairs of k
+// (bank-conflict free) and the sum is complete in all four.
+__device__ __forceinline__ float head_dot(const bf16* act, const bf16* __restrict__ w, int k_len) {
+  const int p = threadIdx.x >> 2;
+  const int q = threadIdx.x & 3;
+  float s = 0.f;
+  for (int k = 2 * q; k < k_len; k += 8) {
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+        act + p * kStride + k));
+    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(w + k));
+    s = fmaf(a.x, b.x, s);
+    s = fmaf(a.y, b.y, s);
+  }
+  s += __shfl_xor_sync(0xffffffffu, s, 1);
+  s += __shfl_xor_sync(0xffffffffu, s, 2);
+  return s;
+}
+
+// The bf16 forward over the tile blockIdx.x, paper_mlp.cuh's forward_tile on
+// the tensor cores: encoding into `enc` (64 x enc_stride), the trunk, fc_feat,
+// sigma, the direction branch and fc_rgb over `act` (64 x kStride). Biases
+// come from the f32 parameters (layout L), weights from the bf16 fragments
+// (layout T). With res non-null every layer's stored output is also written
+// to the tile's residual rows (res_rows(dim) a point).
+__device__ __forceinline__ void forward_tile(const float* __restrict__ pts,
+                                             const float* __restrict__ dc,
+                                             const float* __restrict__ params,
+                                             const bf16* __restrict__ w, const Layout& L,
+                                             const FwdLayout& T, float* __restrict__ out,
+                                             bf16* res, long long n_points, int samples,
+                                             int num_freq, bf16* enc, bf16* act) {
+  const long long tile0 = static_cast<long long>(blockIdx.x) * kTile;
+  const int dim = L.dim;
+  const int kin = pad16(dim);
+  const int es = enc_stride(dim);
+  const int rows = res_rows(dim);
+  auto save = [&](const bf16* src, int stride, int cols, int r) {
+    if (res != nullptr) save_rows(src, stride, cols, res, rows, r);
+  };
+
+  // Encoding, point-major, as paper_mlp.cuh's encode_tile computes it;
+  // points past n_points encode x = 0; columns dim .. kin - 1 are zero.
+  for (int i = threadIdx.x; i < kTile * 3; i += kThreads) {
+    const int p = i / 3;
+    const int c = i % 3;
+    const float x = tile0 + p < n_points ? pts[tile0 * 3 + i] : 0.f;
+    bf16* e = enc + p * es;
+    e[c] = __float2bfloat16_rn(x);
+    float scale = 1.f;
+    for (int f = 0; f < num_freq; ++f) {
+      float s, co;
+      sincosf(x * scale, &s, &co);
+      e[3 + 6 * f + c] = __float2bfloat16_rn(s);
+      e[6 + 6 * f + c] = __float2bfloat16_rn(co);
+      scale *= 2.f;
+    }
+  }
+  for (int i = threadIdx.x; i < kTile * (kin - dim); i += kThreads) {
+    enc[(i / (kin - dim)) * es + dim + i % (kin - dim)] = __float2bfloat16_rn(0.f);
+  }
+  __syncthreads();
+  save(enc, es, kin, 0);
+
+  // The layer loops are unrolled (layer offsets and biases then come from
+  // the kernel's parameters as constants).
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    Acc<4> a;
+    if (i == 0) {
+      a.mac<2>(w + T.w[0], enc, es, kin / 16);
+    } else if (i == 4) {
+      // Skip: [enc; h3] . W4 as one K = kin + 256 product.
+      a.mac<2>(w + T.w[4], enc, es, kin / 16);
+      a.mac<2>(w + T.w[4] + kin * kWidth, act, kStride, kWidth / 16);
+    } else {
+      a.mac<2>(w + T.w[i], act, kStride, kWidth / 16);
+    }
+    a.bias_act<true>(params + L.b[i], nullptr, tile0, samples, n_points);
+    a.write(act);
+    save(act, kStride, kWidth, res_h(dim, i));
+  }
+  {  // feat = fc_feat(h7), not ReLU'd.
+    Acc<4> a;
+    a.mac<2>(w + T.wf, act, kStride, kWidth / 16);
+    a.bias_act<false>(params + L.bf, nullptr, tile0, samples, n_points);
+    a.write(act);
+    save(act, kStride, kWidth, res_feat(dim));
+  }
+  {  // sigma from feat; layers_dir.0's write waits for every thread.
+    const float s = head_dot(act, w + T.wa, kWidth);
+    const long long gp = tile0 + (threadIdx.x >> 2);
+    if ((threadIdx.x & 3) == 0 && gp < n_points) out[gp * 4 + 3] = s + __ldg(params + L.ba);
+  }
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    Acc<2> a;
+    a.mac<2>(w + T.wd[i], act, kStride, (i == 0 ? kWidth : kDirWidth) / 16);
+    a.bias_act<true>(params + L.bd[i], i == 0 ? dc : nullptr, tile0, samples, n_points);
+    a.write(act);
+    save(act, kStride, kDirWidth, res_d(dim, i));
+  }
+  const long long gp = tile0 + (threadIdx.x >> 2);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {  // fc_rgb
+    const float s = head_dot(act, w + T.wr + c * kDirWidth, kDirWidth);
+    if ((threadIdx.x & 3) == 0 && gp < n_points) out[gp * 4 + c] = s + __ldg(params + L.br + c);
+  }
+}
+
+}  // namespace tc
+}  // namespace paper

@@ -17,20 +17,26 @@
 //             autograd leaves its gradient at zero); pts and viewdirs get no
 //             gradient (training data), as on the TPU.
 //
-// What bounds it on the card: arithmetic. A point costs 622,720
+// What bounds it on the card: in f32, arithmetic. A point costs 622,720
 // multiply-adds forward and ~1.2M backward (~0.6M to carry the gradient back
 // through the layers, ~0.6M for the weight gradients) at F = 10, against
 // ~5.5 KB (bf16) or ~11 KB (f32) of residuals and ~10.8 KB of f32 deltas
-// moved through device memory: far above the memory roofline. At 1024 x 128
-// points the f32 FMA peak (67 TFLOP/s) bounds the forward at 2.4 ms and the
-// backward at ~4.9 ms. The first design runs f32 FMAs from registers and
-// shared memory; tensor cores (wgmma) are later work.
+// moved through device memory. At 1024 x 128 points the f32 FMA peak (67
+// TFLOP/s) bounds the forward at 2.4 ms and the backward at ~4.9 ms. On the
+// bf16 tensor cores (989 TFLOP/s) the arithmetic takes 0.17 + 0.33 ms, and
+// the bytes set the pace: the forward's 0.72 GB of residual writes (0.22 ms
+// at 3.35 TB/s), and the backward's 1.41 GB of f32 deltas, written by the
+// layer-gradient pass and read by the weight-gradient pass.
 //
-// Design (right and simple first), PR 2's FlexibleNeRF design widened:
-//   * forward: paper_t.cu's evaluation (paper_mlp.cuh's forward_tile), one
-//     block of 256 threads per tile of 64 points, given a residual buffer, so
-//     it also copies each layer's tile from shared memory into
-//     res[tile][row][point], coalesced;
+// The f32 instances run the FMA design below (the 4x128 training kernels'
+// design widened); the bf16 instances run the same passes on the tensor cores
+// (paper_tc.cuh: mma.sync m16n8k16, bf16 operands, f32 sums), with the tile,
+// the residuals and the deltas point-major, and bf16 weights the wrapper
+// prepares in fragment order (kernels/paper_train.py pack_tc_backward):
+//   * forward: paper_t.cu's evaluation (paper_mlp.cuh's or paper_tc.cuh's
+//     forward_tile), one block of 256 threads per tile of 64 points, given a
+//     residual buffer, so it also copies each layer's tile from shared memory
+//     into res[tile][row][point] (f32) or res[point][row] (bf16), coalesced;
 //   * backward, four launches on one stream:
 //     1. train_bwd_act: per 64-point tile, carries the cotangent back through
 //        fc_rgb, layers_dir.2, .1, the fused [layers_dir.0 feat rows;
@@ -39,22 +45,27 @@
 //        (the skip layer sends gradient to h3 only, through W4[dim:]; enc is
 //        data). ReLU masks compare the stored (compute-dtype) activation with
 //        0; feat has no mask. Every layer's output gradient is written, f32
-//        and unrounded, to delta[tile][row][point], and rounded over the
-//        tile's shared buffer as the next product's operand;
+//        and unrounded, to the delta rows (delta[tile][row][point] in f32,
+//        delta[point][row] in bf16), and over the tile's shared buffer
+//        (rounded, in bf16) as the next product's operand. The bf16 instance
+//        runs the fused head and drgb . W_rgb as padded products (K 129 ->
+//        144 and 3 -> 16);
 //     2. train_bwd_wgrad: dW = X^T dY and db = sum dY for the 15 weight
 //        blocks (layer 4's enc rows and h rows are two), as one launch over
-//        (64 x 64 output tile, chunk of 32 point tiles). Each block keeps its
-//        partial sums in registers and writes them to its chunk's row of a
-//        scratch buffer laid out like the packed parameters;
+//        (output tile, chunk of 32 point tiles): 64 x 64 tiles on the FMA
+//        pipes (f32), 128 x 128 on the tensor cores (bf16: half the re-reads
+//        of each X and dY row). Each block keeps its partial sums in
+//        registers and writes them to its chunk's row of a work buffer
+//        laid out like the packed parameters;
 //     3. train_bwd_reduce: sums the chunks' rows in a fixed order. No atomics:
 //        two identical calls give bitwise-equal gradients;
 //     4. train_bwd_ddc: ddc[ray] = sum over the ray's samples of layers_dir.0's
 //        output gradient, one thread per (ray, feature), so rays that
 //        straddle tiles are summed whole.
-//   * the backward reads the weights as nn.Linear's (out, in) matrices from a
-//     second packed buffer (kT* offsets below), so that neighbouring threads
-//     read neighbouring weights when they compute neighbouring input
-//     features.
+//   * the f32 backward reads the weights as nn.Linear's (out, in) matrices
+//     from a second packed buffer (kT* offsets below), so that neighbouring
+//     threads read neighbouring weights when they compute neighbouring input
+//     features; the bf16 one reads their fragments (paper_tc.cuh kB*).
 //
 // compute dtype bf16: both operands of every product (forward, dX = dY W^T
 // and dW = X^T dY) are rounded to bf16 and the sums stay f32, as
@@ -69,6 +80,7 @@
 #include <type_traits>
 
 #include "paper_mlp.cuh"
+#include "paper_tc.cuh"
 
 namespace {
 
@@ -105,8 +117,14 @@ constexpr int kWThreads = 256;        // 16 x 16 threads, 4 x 4 outputs each
 constexpr int kTilesPerChunk = 32;    // point tiles summed by one block
 constexpr int kWPad = kWTile + 4;     // shared row length (float4-aligned)
 
+// bf16 weight-gradient tiling: 128 inputs x 128 outputs, 8 warps of 32 x 64.
+constexpr int kGTile = 128;
+constexpr int kGStride = kGTile + 8;   // shared row (bf16): ldmatrix rows on distinct banks
+
+using bf16 = __nv_bfloat16;
+
 template <bool kBf16>
-using Res = std::conditional_t<kBf16, __nv_bfloat16, float>;
+using Res = std::conditional_t<kBf16, bf16, float>;
 
 // ---------------------------------------------------------------------------
 // Forward: paper_t's evaluation, saving every residual.
@@ -114,30 +132,37 @@ using Res = std::conditional_t<kBf16, __nv_bfloat16, float>;
 template <bool kBf16>
 __global__ void __launch_bounds__(kThreads, 2)
 train_fwd_kernel(const float* __restrict__ pts, const float* __restrict__ dc,
-                 const float* __restrict__ params, const Layout L, float* __restrict__ out,
-                 Res<kBf16>* __restrict__ res, long long n_points, int samples, int num_freq) {
+                 const float* __restrict__ params, const bf16* __restrict__ wbf, const Layout L,
+                 const tc::FwdLayout T, float* __restrict__ out, Res<kBf16>* __restrict__ res,
+                 long long n_points, int samples, int num_freq) {
   extern __shared__ float4 smem[];
-  float* enc = reinterpret_cast<float*>(smem);
-  forward_tile<kBf16, Res<kBf16>>(pts, dc, params, L, out, res, n_points, samples, num_freq, enc,
-                                  enc + L.dim * kTile);
+  if constexpr (kBf16) {
+    auto* enc = reinterpret_cast<bf16*>(smem);
+    tc::forward_tile(pts, dc, params, wbf, L, T, out, res, n_points, samples, num_freq, enc,
+                     enc + tc::enc_stride(L.dim) * kTile);
+  } else {
+    float* enc = reinterpret_cast<float*>(smem);
+    forward_tile(pts, dc, params, L, out, res, n_points, samples, num_freq, enc,
+                 enc + L.dim * kTile);
+  }
 }
 
 // ---------------------------------------------------------------------------
 // Backward 1: the gradient of every layer's output, per tile.
 
-// dX = mask(stored activation > 0) * acc, written unrounded to the tile's
-// delta rows (f32) and, unless act is null, rounded over the shared tile
-// buffer as the next product's operand. mask_rows null = no mask.
-template <int OUT, bool kBf16>
-__device__ __forceinline__ void store_grad(Acc<OUT>& a, const Res<kBf16>* __restrict__ mask_rows,
+// The f32 instance: dX = mask(stored activation > 0) * acc, written to the
+// tile's delta rows and, unless act is null, over the shared tile buffer as
+// the next product's operand. mask_rows null = no mask.
+template <int OUT>
+__device__ __forceinline__ void store_grad(Acc<OUT>& a, const float* __restrict__ mask_rows,
                                            float* __restrict__ delta_rows, float* act) {
   constexpr int kRun = Acc<OUT>::kRun;
   if (mask_rows != nullptr) {
 #pragma unroll
     for (int f = 0; f < kTF; ++f) {
-      const Res<kBf16>* m = mask_rows + (a.j0 + f) * kTile + a.p0;
+      const float* m = mask_rows + (a.j0 + f) * kTile + a.p0;
 #pragma unroll
-      for (int p = 0; p < kRun; ++p) a.v[f][p] = load(m + p) > 0.f ? a.v[f][p] : 0.f;
+      for (int p = 0; p < kRun; ++p) a.v[f][p] = m[p] > 0.f ? a.v[f][p] : 0.f;
     }
   }
 #pragma unroll
@@ -148,18 +173,115 @@ __device__ __forceinline__ void store_grad(Acc<OUT>& a, const Res<kBf16>* __rest
       d[q] = make_float4(a.v[f][4 * q], a.v[f][4 * q + 1], a.v[f][4 * q + 2], a.v[f][4 * q + 3]);
     }
   }
-  if (act != nullptr) a.template write<kBf16>(act);
+  if (act != nullptr) a.write(act);
 }
 
-template <bool kBf16>
-__global__ void __launch_bounds__(kThreads, 2)
-train_bwd_act_kernel(const float* __restrict__ g, const Res<kBf16>* __restrict__ res,
-                     const float* __restrict__ wt, float* __restrict__ delta, long long n_points,
-                     int dim) {
-  extern __shared__ float4 smem[];
-  float* act = reinterpret_cast<float*>(smem);   // 256 rows
+// The bf16 instance: dX = mask(stored activation > 0) * acc, written
+// unrounded to the point's delta rows (f32, point-major) and, unless act is
+// null, rounded over the shared tile as the next product's operand.
+// mask null = no mask.
+template <int NT>
+__device__ __forceinline__ void store_grad_tc(tc::Acc<NT>& a, const bf16* __restrict__ mask,
+                                              int rows, float* __restrict__ drow, bf16* act) {
+  const int lane = threadIdx.x & 31;
+  const int n0 = (threadIdx.x >> 5) * 8 * NT + 2 * (lane & 3);
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = 16 * m + (lane >> 2) + 8 * h;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        float y0 = a.v[m][n][2 * h];
+        float y1 = a.v[m][n][2 * h + 1];
+        if (mask != nullptr) {
+          const float2 mk = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+              mask + static_cast<long long>(p) * rows + n0 + 8 * n));
+          y0 = mk.x > 0.f ? y0 : 0.f;
+          y1 = mk.y > 0.f ? y1 : 0.f;
+          a.v[m][n][2 * h] = y0;
+          a.v[m][n][2 * h + 1] = y1;
+        }
+        *reinterpret_cast<float2*>(drow + static_cast<long long>(p) * kDRows + n0 + 8 * n) =
+            make_float2(y0, y1);
+      }
+    }
+  }
+  if (act != nullptr) a.write(act);
+}
+
+__device__ __forceinline__ void bwd_act_tile_tc(const float* __restrict__ g,
+                                                const bf16* __restrict__ res,
+                                                const bf16* __restrict__ w,
+                                                float* __restrict__ delta, long long n_points,
+                                                int dim, bf16* act) {
+  using tc::kStride;
   const long long tile0 = static_cast<long long>(blockIdx.x) * kTile;
-  const Res<kBf16>* rt = res + static_cast<long long>(blockIdx.x) * res_rows(dim) * kTile;
+  const int rows = tc::res_rows(dim);
+  const bf16* rt = res + tile0 * rows;
+  float* dt = delta + tile0 * kDRows;
+
+  // Cotangent: drgb into act columns 0..2 and dsigma into column 128 (the
+  // fused head's extra row), the two padded products' K pads (3..15,
+  // 129..143) zero; padded points get 0, so they add nothing anywhere.
+  if (threadIdx.x < kTile) {
+    const int p = threadIdx.x;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (tile0 + p < n_points) v = reinterpret_cast<const float4*>(g)[tile0 + p];
+    bf16* r = act + p * kStride;
+    const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+    reinterpret_cast<uint4*>(r)[0] = zero;
+    reinterpret_cast<uint4*>(r)[1] = zero;
+    reinterpret_cast<uint4*>(r + kDirWidth)[0] = zero;
+    reinterpret_cast<uint4*>(r + kDirWidth)[1] = zero;
+    r[0] = __float2bfloat16_rn(v.x);
+    r[1] = __float2bfloat16_rn(v.y);
+    r[2] = __float2bfloat16_rn(v.z);
+    r[kDirWidth] = __float2bfloat16_rn(v.w);
+    *reinterpret_cast<float4*>(dt + static_cast<long long>(p) * kDRows + kDRgb) = v;
+  }
+  __syncthreads();
+  {  // dd2 = mask(d2) * drgb W_rgb
+    tc::Acc<2> a;
+    a.mac(w + tc::kBRgb, act, kStride, 1);
+    store_grad_tc(a, rt + tc::res_d(dim, 2), rows, dt + kDD2, act);
+  }
+  {  // dd1 = mask(d1) * dd2 W_d2
+    tc::Acc<2> a;
+    a.mac(w + tc::kBD2, act, kStride, kDirWidth / 16);
+    store_grad_tc(a, rt + tc::res_d(dim, 1), rows, dt + kDD1, act);
+  }
+  {  // dd0 = mask(d0) * dd1 W_d1
+    tc::Acc<2> a;
+    a.mac(w + tc::kBD1, act, kStride, kDirWidth / 16);
+    store_grad_tc(a, rt + tc::res_d(dim, 0), rows, dt + kDD0, act);
+  }
+  {  // dfeat = [dd0; dsigma] [W_d0 feat cols; W_alpha]; feat has no ReLU
+    tc::Acc<4> a;
+    a.mac(w + tc::kBHead, act, kStride, 144 / 16);
+    store_grad_tc(a, nullptr, rows, dt + kDFeat, act);
+  }
+  {  // dz7 = mask(h7) * dfeat W_feat
+    tc::Acc<4> a;
+    a.mac(w + tc::kBFeat, act, kStride, kWidth / 16);
+    store_grad_tc(a, rt + tc::res_h(dim, 7), rows, dt + d_z(7), act);
+  }
+  // dz_{i-1} = mask(h_{i-1}) * dz_i W_i (layer 4: its h columns only).
+  for (int i = 7; i >= 1; --i) {
+    tc::Acc<4> a;
+    a.mac(w + tc::kbx(i), act, kStride, kWidth / 16);
+    store_grad_tc(a, rt + tc::res_h(dim, i - 1), rows, dt + d_z(i - 1), i > 1 ? act : nullptr);
+  }
+}
+
+// The f32 instance, on the FMA pipes; act holds 256 rows.
+__device__ __forceinline__ void bwd_act_tile_fma(const float* __restrict__ g,
+                                                 const float* __restrict__ res,
+                                                 const float* __restrict__ wt,
+                                                 float* __restrict__ delta, long long n_points,
+                                                 int dim, float* act) {
+  const long long tile0 = static_cast<long long>(blockIdx.x) * kTile;
+  const float* rt = res + static_cast<long long>(blockIdx.x) * res_rows(dim) * kTile;
   float* dt = delta + static_cast<long long>(blockIdx.x) * kDRows * kTile;
   auto rrow = [rt](int r) { return rt + r * kTile; };
   auto drow = [dt](int r) { return dt + r * kTile; };
@@ -171,10 +293,10 @@ train_bwd_act_kernel(const float* __restrict__ g, const Res<kBf16>* __restrict__
     const int p = threadIdx.x;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
     if (tile0 + p < n_points) v = reinterpret_cast<const float4*>(g)[tile0 + p];
-    act[0 * kTile + p] = rnd<kBf16>(v.x);
-    act[1 * kTile + p] = rnd<kBf16>(v.y);
-    act[2 * kTile + p] = rnd<kBf16>(v.z);
-    act[kDirWidth * kTile + p] = rnd<kBf16>(v.w);
+    act[0 * kTile + p] = v.x;
+    act[1 * kTile + p] = v.y;
+    act[2 * kTile + p] = v.z;
+    act[kDirWidth * kTile + p] = v.w;
     dt[(kDRgb + 0) * kTile + p] = v.x;
     dt[(kDRgb + 1) * kTile + p] = v.y;
     dt[(kDRgb + 2) * kTile + p] = v.z;
@@ -183,35 +305,50 @@ train_bwd_act_kernel(const float* __restrict__ g, const Res<kBf16>* __restrict__
   __syncthreads();
   {  // dd2 = mask(d2) * drgb W_rgb
     Acc<kDirWidth> a;
-    a.mac<kBf16>(wt + kTWr, 3, act);
-    store_grad<kDirWidth, kBf16>(a, rrow(res_d(dim, 2)), drow(kDD2), act);
+    a.mac(wt + kTWr, 3, act);
+    store_grad<kDirWidth>(a, rrow(res_d(dim, 2)), drow(kDD2), act);
   }
   {  // dd1 = mask(d1) * dd2 W_d2
     Acc<kDirWidth> a;
-    a.mac<kBf16>(wt + kTWd2, kDirWidth, act);
-    store_grad<kDirWidth, kBf16>(a, rrow(res_d(dim, 1)), drow(kDD1), act);
+    a.mac(wt + kTWd2, kDirWidth, act);
+    store_grad<kDirWidth>(a, rrow(res_d(dim, 1)), drow(kDD1), act);
   }
   {  // dd0 = mask(d0) * dd1 W_d1
     Acc<kDirWidth> a;
-    a.mac<kBf16>(wt + kTWd1, kDirWidth, act);
-    store_grad<kDirWidth, kBf16>(a, rrow(res_d(dim, 0)), drow(kDD0), act);
+    a.mac(wt + kTWd1, kDirWidth, act);
+    store_grad<kDirWidth>(a, rrow(res_d(dim, 0)), drow(kDD0), act);
   }
   {  // dfeat = [dd0; dsigma] [W_d0 feat cols; W_alpha]; feat has no ReLU
     Acc<kWidth> a;
-    a.mac<kBf16>(wt + kTWda, kDirWidth + 1, act);
-    store_grad<kWidth, kBf16>(a, nullptr, drow(kDFeat), act);
+    a.mac(wt + kTWda, kDirWidth + 1, act);
+    store_grad<kWidth>(a, nullptr, drow(kDFeat), act);
   }
   {  // dz7 = mask(h7) * dfeat W_feat
     Acc<kWidth> a;
-    a.mac<kBf16>(wt + kTWf, kWidth, act);
-    store_grad<kWidth, kBf16>(a, rrow(res_h(dim, 7)), drow(d_z(7)), act);
+    a.mac(wt + kTWf, kWidth, act);
+    store_grad<kWidth>(a, rrow(res_h(dim, 7)), drow(d_z(7)), act);
   }
   // dz_{i-1} = mask(h_{i-1}) * dz_i W_i (layer 4: its h columns only).
   for (int i = 7; i >= 1; --i) {
     Acc<kWidth> a;
-    a.mac<kBf16>(wt + tw_x(i), kWidth, act);
-    store_grad<kWidth, kBf16>(a, rrow(res_h(dim, i - 1)), drow(d_z(i - 1)),
+    a.mac(wt + tw_x(i), kWidth, act);
+    store_grad<kWidth>(a, rrow(res_h(dim, i - 1)), drow(d_z(i - 1)),
                               i > 1 ? act : nullptr);
+  }
+}
+
+template <bool kBf16>
+__global__ void __launch_bounds__(kThreads, 2)
+train_bwd_act_kernel(const float* __restrict__ g, const Res<kBf16>* __restrict__ res,
+                     const void* __restrict__ weights, float* __restrict__ delta,
+                     long long n_points, int dim) {
+  extern __shared__ float4 smem[];
+  if constexpr (kBf16) {
+    bwd_act_tile_tc(g, res, static_cast<const bf16*>(weights), delta, n_points, dim,
+                    reinterpret_cast<bf16*>(smem));
+  } else {
+    bwd_act_tile_fma(g, res, static_cast<const float*>(weights), delta, n_points, dim,
+                     reinterpret_cast<float*>(smem));
   }
 }
 
@@ -222,7 +359,7 @@ struct WJob {
   int x_row, in_dim;    // residual rows X
   int d_row, out_dim;   // delta rows dY
   int w_off, b_off;     // where dW (in, out) and db go in the packed layout (b_off -1: none)
-  int first_tile;       // index of the job's first 64 x 64 output tile
+  int first_tile;       // index of the job's first output tile
 };
 
 constexpr int kMaxJobs = 16;
@@ -231,27 +368,33 @@ struct WJobs {
   int n_jobs, n_wtiles;
 };
 
-WJobs make_jobs(const Layout& L) {
+// The weight blocks, their residual rows (the f32 layout, or the bf16 one of
+// the tensor-core instance) and their output tiles (kWTile square, or kGTile).
+WJobs make_jobs(const Layout& L, bool tensor_cores) {
   const int dim = L.dim;
+  const int tile = tensor_cores ? kGTile : kWTile;
+  auto res_h = [&](int i) { return tensor_cores ? tc::res_h(dim, i) : paper::res_h(dim, i); };
+  auto res_d = [&](int i) { return tensor_cores ? tc::res_d(dim, i) : paper::res_d(dim, i); };
+  const int res_feat = tensor_cores ? tc::res_feat(dim) : paper::res_feat(dim);
   WJobs t{};
   int n = 0, tiles = 0;
   auto add = [&](int x_row, int in_dim, int d_row, int out_dim, int w_off, int b_off) {
     t.job[n++] = {x_row, in_dim, d_row, out_dim, w_off, b_off, tiles};
-    tiles += ((in_dim + kWTile - 1) / kWTile) * ((out_dim + kWTile - 1) / kWTile);
+    tiles += ((in_dim + tile - 1) / tile) * ((out_dim + tile - 1) / tile);
   };
-  add(res_d(dim, 2), kDirWidth, kDRgb, 3, L.wr, L.br);                  // fc_rgb
-  add(res_d(dim, 1), kDirWidth, kDD2, kDirWidth, L.wd[2], L.bd[2]);     // layers_dir.2
-  add(res_d(dim, 0), kDirWidth, kDD1, kDirWidth, L.wd[1], L.bd[1]);     // layers_dir.1
-  add(res_feat(dim), kWidth, kDD0, kDirWidth, L.wd[0], L.bd[0]);        // layers_dir.0 feat rows
-  add(res_feat(dim), kWidth, kDSig, 1, L.wa, L.ba);                     // fc_alpha
-  add(res_h(dim, 7), kWidth, kDFeat, kWidth, L.wf, L.bf);               // fc_feat
+  add(res_d(2), kDirWidth, kDRgb, 3, L.wr, L.br);                       // fc_rgb
+  add(res_d(1), kDirWidth, kDD2, kDirWidth, L.wd[2], L.bd[2]);          // layers_dir.2
+  add(res_d(0), kDirWidth, kDD1, kDirWidth, L.wd[1], L.bd[1]);          // layers_dir.1
+  add(res_feat, kWidth, kDD0, kDirWidth, L.wd[0], L.bd[0]);             // layers_dir.0 feat rows
+  add(res_feat, kWidth, kDSig, 1, L.wa, L.ba);                          // fc_alpha
+  add(res_h(7), kWidth, kDFeat, kWidth, L.wf, L.bf);                    // fc_feat
   for (int i = 7; i >= 5; --i) {
-    add(res_h(dim, i - 1), kWidth, d_z(i), kWidth, L.w[i], L.b[i]);     // layers_xyz.7 .. .5
+    add(res_h(i - 1), kWidth, d_z(i), kWidth, L.w[i], L.b[i]);          // layers_xyz.7 .. .5
   }
   add(0, dim, d_z(4), kWidth, L.w[4], L.b[4]);                          // layers_xyz.4 enc rows
-  add(res_h(dim, 3), kWidth, d_z(4), kWidth, L.w[4] + dim * kWidth, -1);  // .4 h rows
+  add(res_h(3), kWidth, d_z(4), kWidth, L.w[4] + dim * kWidth, -1);     // .4 h rows
   for (int i = 3; i >= 1; --i) {
-    add(res_h(dim, i - 1), kWidth, d_z(i), kWidth, L.w[i], L.b[i]);     // layers_xyz.3 .. .1
+    add(res_h(i - 1), kWidth, d_z(i), kWidth, L.w[i], L.b[i]);          // layers_xyz.3 .. .1
   }
   add(0, dim, d_z(0), kWidth, L.w[0], L.b[0]);                          // layers_xyz.0
   t.n_jobs = n;
@@ -259,17 +402,22 @@ WJobs make_jobs(const Layout& L) {
   return t;
 }
 
-template <bool kBf16>
-__global__ void __launch_bounds__(kWThreads)
-train_bwd_wgrad_kernel(const Res<kBf16>* __restrict__ res, const float* __restrict__ delta,
-                       float* __restrict__ partial, long long n_tiles, int dim, int n_params,
-                       const __grid_constant__ WJobs jobs) {
-  __shared__ __align__(16) float xs[kTile * kWPad];   // xs[p][i]
-  __shared__ __align__(16) float ys[kTile * kWPad];   // ys[p][o], rounded
-
+// The job of output tile blockIdx.x.
+__device__ __forceinline__ WJob find_job(const WJobs& jobs) {
   int jb = 0;
   while (jb + 1 < jobs.n_jobs && jobs.job[jb + 1].first_tile <= static_cast<int>(blockIdx.x)) ++jb;
-  const WJob job = jobs.job[jb];
+  return jobs.job[jb];
+}
+
+// The f32 instance, on the FMA pipes: 16 x 16 threads, 4 x 4 outputs each.
+__device__ __forceinline__ void wgrad_fma(const float* __restrict__ res,
+                                          const float* __restrict__ delta,
+                                          float* __restrict__ partial, long long n_tiles, int dim,
+                                          int n_params, const WJobs& jobs) {
+  __shared__ __align__(16) float xs[kTile * kWPad];   // xs[p][i]
+  __shared__ __align__(16) float ys[kTile * kWPad];   // ys[p][o]
+
+  const WJob job = find_job(jobs);
   const int o_tiles = (job.out_dim + kWTile - 1) / kWTile;
   const int local = blockIdx.x - job.first_tile;
   const int i0 = (local / o_tiles) * kWTile;
@@ -291,13 +439,13 @@ train_bwd_wgrad_kernel(const Res<kBf16>* __restrict__ res, const float* __restri
   const long long t_begin = static_cast<long long>(blockIdx.y) * kTilesPerChunk;
   const long long t_end = min(t_begin + kTilesPerChunk, n_tiles);
   for (long long t = t_begin; t < t_end; ++t) {
-    const Res<kBf16>* xt = res + (t * rows + job.x_row) * kTile;
+    const float* xt = res + (t * rows + job.x_row) * kTile;
     const float* dtile = delta + (t * kDRows + job.d_row) * kTile;
     for (int e = threadIdx.x; e < kWTile * kTile; e += kWThreads) {
       const int r = e / kTile;
       const int p = e % kTile;
-      xs[p * kWPad + r] = i0 + r < job.in_dim ? load(xt + (i0 + r) * kTile + p) : 0.f;
-      ys[p * kWPad + r] = o0 + r < job.out_dim ? rnd<kBf16>(dtile[(o0 + r) * kTile + p]) : 0.f;
+      xs[p * kWPad + r] = i0 + r < job.in_dim ? xt[(i0 + r) * kTile + p] : 0.f;
+      ys[p * kWPad + r] = o0 + r < job.out_dim ? dtile[(o0 + r) * kTile + p] : 0.f;
     }
     if (bias_block) {
       const float* row = dtile + (o0 + threadIdx.x) * kTile;
@@ -339,6 +487,155 @@ train_bwd_wgrad_kernel(const Res<kBf16>* __restrict__ res, const float* __restri
   }
 }
 
+// The bf16 instance, on the tensor cores: a kGTile x kGTile output tile,
+// 8 warps of 32 inputs x 64 outputs (2 x 8 m16n8 tiles); per 64-point tile,
+// X (bf16 residuals) and dY (f32 deltas, rounded as they are staged) are
+// staged point-major and read with ldmatrix.trans (K = points). The bias
+// sums add the unrounded deltas as they are staged: each thread sums 4
+// outputs over 8 points of a tile, and the 8 warps' sums are added in a
+// fixed order at the end.
+__device__ __forceinline__ void wgrad_tc(const bf16* __restrict__ res,
+                                         const float* __restrict__ delta,
+                                         float* __restrict__ partial, long long n_tiles, int dim,
+                                         int n_params, const WJobs& jobs) {
+  __shared__ __align__(16) bf16 xs[kTile * kGStride];   // xs[p][i - i0]
+  __shared__ __align__(16) bf16 ys[kTile * kGStride];   // ys[p][o - o0], rounded
+  __shared__ float red[tc::kWarps][kGTile];
+
+  const WJob job = find_job(jobs);
+  const int o_tiles = (job.out_dim + kGTile - 1) / kGTile;
+  const int local = blockIdx.x - job.first_tile;
+  const int i0 = (local / o_tiles) * kGTile;
+  const int o0 = (local % o_tiles) * kGTile;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int wm = warp & 3;      // inputs wm * 32 .. + 31
+  const int wn = warp >> 2;     // outputs wn * 64 .. + 63
+  const int rows = tc::res_rows(dim);
+  const bool aligned = (job.d_row & 3) == 0;
+
+  float acc[2][8][4];
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
+    }
+  }
+  float bs[4] = {0.f, 0.f, 0.f, 0.f};
+
+  const long long t_begin = static_cast<long long>(blockIdx.y) * kTilesPerChunk;
+  const long long t_end = min(t_begin + kTilesPerChunk, n_tiles);
+  for (long long t = t_begin; t < t_end; ++t) {
+    // X: 16 chunks of 8 inputs x 64 points, 4 a thread. Inputs past in_dim
+    // (rounded up to 8: the residual's enc pad is zero) stage as 0.
+    const bf16* xt = res + t * kTile * rows + job.x_row + i0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = threadIdx.x & 15;
+      const int p = (threadIdx.x >> 4) + 16 * j;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (i0 + 8 * c < job.in_dim) {
+        v = *reinterpret_cast<const uint4*>(xt + static_cast<long long>(p) * rows + 8 * c);
+      }
+      *reinterpret_cast<uint4*>(xs + p * kGStride + 8 * c) = v;
+    }
+    // dY: outputs o0 + 4 lane .. + 3 of points warp + 8 j.
+    const int o = o0 + 4 * lane;
+    const float* dtile = delta + t * kTile * kDRows + job.d_row + o;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int p = warp + 8 * j;
+      const float* src = dtile + static_cast<long long>(p) * kDRows;
+      float4 v;
+      if (aligned && o + 4 <= job.out_dim) {
+        v = *reinterpret_cast<const float4*>(src);
+      } else {
+        v.x = o < job.out_dim ? src[0] : 0.f;
+        v.y = o + 1 < job.out_dim ? src[1] : 0.f;
+        v.z = o + 2 < job.out_dim ? src[2] : 0.f;
+        v.w = o + 3 < job.out_dim ? src[3] : 0.f;
+      }
+      bs[0] += v.x;
+      bs[1] += v.y;
+      bs[2] += v.z;
+      bs[3] += v.w;
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+      *reinterpret_cast<uint2*>(ys + p * kGStride + 4 * lane) =
+          make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                     *reinterpret_cast<const uint32_t*>(&hi));
+    }
+    __syncthreads();
+#pragma unroll
+    for (int ks = 0; ks < kTile / 16; ++ks) {
+      uint32_t af[2][4];
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        tc::ldsm4t(af[m], xs + (ks * 16 + (lane & 7) + (lane >> 4) * 8) * kGStride + wm * 32 +
+                              m * 16 + ((lane >> 3) & 1) * 8);
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        uint32_t bf[4];
+        tc::ldsm4t(bf, ys + (ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kGStride +
+                           wn * 64 + q * 16 + (lane >> 4) * 8);
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          tc::mma(acc[m][2 * q], af[m], bf[0], bf[1]);
+          tc::mma(acc[m][2 * q + 1], af[m], bf[2], bf[3]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  float* out = partial + static_cast<long long>(blockIdx.y) * n_params;
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = i0 + wm * 32 + m * 16 + (lane >> 2) + 8 * h;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int oo = o0 + wn * 64 + n * 8 + 2 * (lane & 3) + e;
+          if (i < job.in_dim && oo < job.out_dim) {
+            out[job.w_off + i * job.out_dim + oo] = acc[m][n][2 * h + e];
+          }
+        }
+      }
+    }
+  }
+  if (job.b_off >= 0 && i0 == 0) {   // uniform over the block
+#pragma unroll
+    for (int e = 0; e < 4; ++e) red[warp][4 * lane + e] = bs[e];
+    __syncthreads();
+    const int ob = o0 + static_cast<int>(threadIdx.x);
+    if (threadIdx.x < kGTile && ob < pad4(job.out_dim)) {
+      float sum = 0.f;
+      for (int w = 0; w < tc::kWarps; ++w) sum += red[w][threadIdx.x];
+      // The layout pads a short bias (fc_alpha's 1, fc_rgb's 3) to 4
+      // floats: the pad gets a zero.
+      out[job.b_off + ob] = ob < job.out_dim ? sum : 0.f;
+    }
+  }
+}
+
+template <bool kBf16>
+__global__ void __launch_bounds__(kWThreads, kBf16 ? 2 : 1)
+train_bwd_wgrad_kernel(const Res<kBf16>* __restrict__ res, const float* __restrict__ delta,
+                       float* __restrict__ partial, long long n_tiles, int dim, int n_params,
+                       const __grid_constant__ WJobs jobs) {
+  if constexpr (kBf16) {
+    wgrad_tc(res, delta, partial, n_tiles, dim, n_params, jobs);
+  } else {
+    wgrad_fma(res, delta, partial, n_tiles, dim, n_params, jobs);
+  }
+}
+
 // Backward 3: grad[e] = sum over chunks c, in order, of partial[c][e].
 __global__ void train_bwd_reduce_kernel(const float* __restrict__ partial, int n_chunks,
                                         int n_params, float* __restrict__ grad) {
@@ -349,7 +646,9 @@ __global__ void train_bwd_reduce_kernel(const float* __restrict__ partial, int n
   grad[e] = s;
 }
 
-// Backward 4: ddc[r][c] = sum over s of dd0 at point r * samples + s.
+// Backward 4: ddc[r][c] = sum over s of dd0 at point r * samples + s; the
+// deltas are point-major in the bf16 instance.
+template <bool kBf16>
 __global__ void train_bwd_ddc_kernel(const float* __restrict__ delta, long long n_rays,
                                      int samples, float* __restrict__ ddc) {
   const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -359,42 +658,45 @@ __global__ void train_bwd_ddc_kernel(const float* __restrict__ delta, long long 
   float s = 0.f;
   for (int k = 0; k < samples; ++k) {
     const long long q = r * samples + k;
-    s += delta[((q / kTile) * kDRows + kDD0 + c) * kTile + q % kTile];
+    s += kBf16 ? delta[q * kDRows + kDD0 + c]
+               : delta[((q / kTile) * kDRows + kDD0 + c) * kTile + q % kTile];
   }
   ddc[idx] = s;
 }
 
 template <bool kBf16>
-cudaError_t launch_fwd(const float* pts, const float* dc, const float* params, const Layout& L,
-                       float* out, void* res, long long n_points, int samples, int num_freq,
-                       cudaStream_t stream) {
-  const size_t smem = fwd_smem_bytes(L);
+cudaError_t launch_fwd(const float* pts, const float* dc, const float* params, const bf16* wbf,
+                       const Layout& L, float* out, void* res, long long n_points, int samples,
+                       int num_freq, cudaStream_t stream) {
+  const size_t smem = kBf16 ? tc::fwd_smem_bytes(L.dim) : fwd_smem_bytes(L);
   cudaError_t err = cudaFuncSetAttribute(train_fwd_kernel<kBf16>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const long long tiles = (n_points + kTile - 1) / kTile;
   train_fwd_kernel<kBf16><<<static_cast<unsigned int>(tiles), kThreads, smem, stream>>>(
-      pts, dc, params, L, out, static_cast<Res<kBf16>*>(res), n_points, samples, num_freq);
+      pts, dc, params, wbf, L, tc::make_fwd_layout(L.dim), out, static_cast<Res<kBf16>*>(res),
+      n_points, samples, num_freq);
   return cudaGetLastError();
 }
 
 template <bool kBf16>
-cudaError_t launch_bwd(const float* g, const void* res, const float* wt, const Layout& L,
+cudaError_t launch_bwd(const float* g, const void* res, const void* wt, const Layout& L,
                        float* delta, float* partial, float* grad, float* ddc, long long n_points,
                        int samples, cudaStream_t stream) {
   const long long tiles = (n_points + kTile - 1) / kTile;
   const long long chunks = (tiles + kTilesPerChunk - 1) / kTilesPerChunk;
   const Res<kBf16>* r = static_cast<const Res<kBf16>*>(res);
+  const size_t smem = kBf16 ? tc::kActSmem : kActSmem;
   cudaError_t err = cudaFuncSetAttribute(train_bwd_act_kernel<kBf16>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(kActSmem));
+                                         static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  train_bwd_act_kernel<kBf16><<<static_cast<unsigned int>(tiles), kThreads, kActSmem, stream>>>(
+  train_bwd_act_kernel<kBf16><<<static_cast<unsigned int>(tiles), kThreads, smem, stream>>>(
       g, r, wt, delta, n_points, L.dim);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const WJobs jobs = make_jobs(L);
+  const WJobs jobs = make_jobs(L, kBf16);
   train_bwd_wgrad_kernel<kBf16><<<dim3(jobs.n_wtiles, static_cast<unsigned int>(chunks)),
                                   kWThreads, 0, stream>>>(r, delta, partial, tiles, L.dim,
                                                           L.total, jobs);
@@ -406,8 +708,8 @@ cudaError_t launch_bwd(const float* g, const void* res, const float* wt, const L
   if (err != cudaSuccess) return err;
   const long long n_rays = n_points / samples;
   const long long threads = n_rays * kDirWidth;
-  train_bwd_ddc_kernel<<<static_cast<unsigned int>((threads + 255) / 256), 256, 0, stream>>>(
-      delta, n_rays, samples, ddc);
+  train_bwd_ddc_kernel<kBf16><<<static_cast<unsigned int>((threads + 255) / 256), 256, 0,
+                                stream>>>(delta, n_rays, samples, ddc);
   return cudaGetLastError();
 }
 
@@ -422,9 +724,10 @@ bool bad_shape(long long n_points, int samples, int num_freq) {
 }  // namespace
 
 // The layout the Python wrapper allocates for, at encoding depth num_freq:
-// {rows of residuals per point, rows of f32 deltas per point, floats of the
-// packed forward parameters, of the packed backward weights, points per
-// tile, point tiles per chunk}.
+// {rows of f32 residuals per point, rows of f32 deltas per point, floats of
+// the packed forward parameters, of the packed f32 backward weights, points
+// per tile, point tiles per chunk, rows of bf16 residuals per point, bf16
+// values of the tensor-core forward weights, of the backward ones}.
 extern "C" void nerf_paper_train_layout(int num_freq, int* out) {
   const Layout L = make_layout(num_freq);
   out[0] = res_rows(L.dim);
@@ -433,36 +736,46 @@ extern "C" void nerf_paper_train_layout(int num_freq, int* out) {
   out[3] = kTParams;
   out[4] = kTile;
   out[5] = kTilesPerChunk;
+  out[6] = tc::res_rows(L.dim);
+  out[7] = tc::make_fwd_layout(L.dim).total;
+  out[8] = tc::kBTotal;
 }
 
 // pts (n_points, 3), dc (n_points / samples, 128), params (packed, see
 // nerf_paper_train_layout), out (n_points, 4): contiguous f32 device
-// buffers, dc and params 16-byte aligned; res: tiles * res_rows * kTile
-// elements of the compute dtype (bf16 when bf16 != 0, else f32). Returns a
-// cudaError_t.
+// buffers, dc and params 16-byte aligned; with bf16 != 0 also wbf, the bf16
+// forward weights in fragment order (16-byte aligned; ignored for f32); res:
+// tiles * kTile * (f32 or bf16 residual rows) elements of the compute dtype.
+// Returns a cudaError_t.
 extern "C" int nerf_paper_train_forward(const float* pts, const float* dc, const float* params,
-                                        long long n_params, float* out, void* res,
-                                        long long n_points, int samples, int num_freq, int bf16,
-                                        void* stream) {
+                                        long long n_params, const void* wbf, long long n_wbf,
+                                        float* out, void* res, long long n_points, int samples,
+                                        int num_freq, int bf16, void* stream) {
   if (bad_shape(n_points, samples, num_freq)) return static_cast<int>(cudaErrorInvalidValue);
   const Layout L = make_layout(num_freq);
-  if (n_params != L.total) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_params != L.total ||
+      (bf16 && (wbf == nullptr || n_wbf != tc::make_fwd_layout(L.dim).total))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* w = static_cast<const __nv_bfloat16*>(wbf);
   const cudaError_t err =
-      bf16 ? launch_fwd<true>(pts, dc, params, L, out, res, n_points, samples, num_freq, s)
-           : launch_fwd<false>(pts, dc, params, L, out, res, n_points, samples, num_freq, s);
+      bf16 ? launch_fwd<true>(pts, dc, params, w, L, out, res, n_points, samples, num_freq, s)
+           : launch_fwd<false>(pts, dc, params, w, L, out, res, n_points, samples, num_freq, s);
   return static_cast<int>(err);
 }
 
-// g (n_points, 4) f32 cotangent; res from the forward; wt (kTParams,) the
-// backward weights; scratch: delta (tiles * kDRows * kTile f32) and partial
-// (chunks * n_params f32); outputs: grad (n_params,) in the packed parameter
-// layout and ddc (n_points / samples, 128). Returns a cudaError_t.
-extern "C" int nerf_paper_train_backward(const float* g, const void* res, const float* wt,
+// g (n_points, 4) f32 cotangent; res from the forward; wt the backward
+// weights: (kTParams,) f32 (out, in) matrices, or with bf16 != 0 (kBTotal,)
+// bf16 fragments, 16-byte aligned; work buffers: delta (tiles * kDRows * kTile
+// f32) and partial (chunks * n_params f32); outputs: grad (n_params,) in the
+// packed parameter layout and ddc (n_points / samples, 128). Returns a
+// cudaError_t.
+extern "C" int nerf_paper_train_backward(const float* g, const void* res, const void* wt,
                                          long long n_wt, float* delta, float* partial,
                                          float* grad, float* ddc, long long n_points,
                                          int samples, int num_freq, int bf16, void* stream) {
-  if (n_wt != kTParams || bad_shape(n_points, samples, num_freq)) {
+  if (n_wt != (bf16 ? tc::kBTotal : kTParams) || bad_shape(n_points, samples, num_freq)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Layout L = make_layout(num_freq);

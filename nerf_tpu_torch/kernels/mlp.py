@@ -32,6 +32,7 @@ with ``.bfloat16().float()`` and f32 matmuls.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 
@@ -64,16 +65,46 @@ def supports_fused(model) -> bool:
     )
 
 
-def dir_contribution(model: FlexibleNeRFModel, viewdirs: torch.Tensor) -> torch.Tensor:
-    """Per-ray ``enc(viewdirs) @ W_dir[128:]``: (N, 3) -> (N, 64) f32.
-
-    Sets ``torch.backends.cuda.matmul.allow_tf32 = False`` (PyTorch's own
-    default): f32 here means full f32 on the card, not TF32.
-    """
+@contextlib.contextmanager
+def _no_tf32():
+    """TF32 off for the matmuls inside; the caller's setting is restored."""
+    before = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+
+
+class _F32MatMul(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        with _no_tf32():
+            return a @ b
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        with _no_tf32():
+            return (g @ b.t() if ctx.needs_input_grad[0] else None,
+                    a.t() @ g if ctx.needs_input_grad[1] else None)
+
+
+def f32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in full float32 on the card, forward and gradient, whatever
+    ``torch.backends.cuda.matmul.allow_tf32`` says: the JAX package asks for
+    HIGHEST precision per dot, so the flag is turned off around these
+    products only and the caller's setting is kept."""
+    return _F32MatMul.apply(a, b)
+
+
+def dir_contribution(model: FlexibleNeRFModel, viewdirs: torch.Tensor) -> torch.Tensor:
+    """Per-ray ``enc(viewdirs) @ W_dir[128:]``: (N, 3) -> (N, 64) f32, in
+    full f32 on the card (``f32_matmul``)."""
     direnc = positional_encoding(viewdirs.float(), _NUM_FREQ_DIR)      # (N, 27)
     w_dir = model.layers_dir[0].weight[:, _HIDDEN:].float()           # (64, 27)
-    return direnc @ w_dir.t()
+    return f32_matmul(direnc, w_dir.t())
 
 
 def pack_params(model: FlexibleNeRFModel) -> torch.Tensor:

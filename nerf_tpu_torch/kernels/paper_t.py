@@ -10,9 +10,11 @@ registers. The encoding depth is the model's ``num_encoding_fn_xyz``, a
 runtime argument of the kernel (0 to 16).
 
 What bounds it on the card is arithmetic: 622,720 multiply-adds a point at
-10 frequencies against 28 B of point traffic. The first design runs f32 FMAs
-from registers (the source note in ``csrc/paper_t.cu`` has the details);
-tensor cores are later work.
+10 frequencies against 28 B of point traffic. ``compute_dtype="float32"``
+runs f32 FMAs from registers; ``"bfloat16"`` runs every wide product on the
+tensor cores (``mma.sync``, bf16 operands, f32 sums; ``csrc/paper_tc.cuh``),
+its weights handed over as a bf16 copy in the instruction's fragment order
+(``pack_tc_forward``), built once per call.
 
 Like the TPU version, the per-ray direction contribution
 ``enc(viewdirs) @ W_dir[:, 256:].T`` (N, 128) is computed outside the kernel
@@ -35,6 +37,7 @@ import torch
 from ..models.mlp import PaperNeRFModel
 from ..ops.encoding import positional_encoding
 from .flex_train import _aligned, _rounder
+from .mlp import f32_matmul
 from .mlp_t import _COMPUTE_DTYPES
 
 _WIDTH = 256
@@ -59,14 +62,11 @@ def supports_fused_paper(model) -> bool:
 
 
 def dir_contribution(model: PaperNeRFModel, viewdirs: torch.Tensor) -> torch.Tensor:
-    """Per-ray ``enc(viewdirs) @ W_dir[:, 256:].T``: (N, 3) -> (N, 128) f32.
-
-    Sets ``torch.backends.cuda.matmul.allow_tf32 = False`` (PyTorch's own
-    default): f32 here means full f32 on the card, not TF32.
-    """
-    torch.backends.cuda.matmul.allow_tf32 = False
+    """Per-ray ``enc(viewdirs) @ W_dir[:, 256:].T``: (N, 3) -> (N, 128) f32,
+    in full f32 on the card (``f32_matmul``: TF32 off for this product and
+    its gradient only)."""
     direnc = positional_encoding(viewdirs.float(), model.num_encoding_fn_dir)
-    return direnc @ model.layers_dir[0].weight[:, _WIDTH:].float().t()
+    return f32_matmul(direnc, model.layers_dir[0].weight[:, _WIDTH:].float().t())
 
 
 def _pad4(n: int) -> int:
@@ -115,6 +115,98 @@ def unpack_params(params: torch.Tensor, num_freq: int
         off += _pad4(i * o)
         out[name] = (w, params[off:off + o])
         off += _pad4(o)
+    return out
+
+
+def _pad16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def fragment_order(m: torch.Tensor) -> torch.Tensor:
+    """An (N, K) operand matrix (N a multiple of 64, K of 16) flattened in the
+    order the tensor-core kernels read it (``csrc/paper_tc.cuh``): for each
+    16-deep k-step, for each of the 8 warps (N / 8 consecutive outputs), for
+    each lane l, the NT = N / 64 m16n8k16 B fragments that lane holds:
+    ``m[n][k]`` for n = (warp * NT + j) * 8 + l // 4 and k = 16 ks + 8 h +
+    2 (l % 4) + e, in (j, h, e) order."""
+    n, k = m.shape
+    x = m.reshape(8, n // 64, 8, k // 16, 2, 4, 2)    # warp, j, l // 4, ks, h, l % 4, e
+    return x.permute(3, 0, 2, 5, 1, 4, 6).reshape(-1)
+
+
+def fragment_matrix(flat: torch.Tensor, n: int, k: int) -> torch.Tensor:
+    """The inverse of ``fragment_order``: the (N, K) matrix."""
+    x = flat.reshape(k // 16, 8, 8, 4, n // 64, 2, 2)
+    return x.permute(1, 4, 2, 0, 5, 3, 6).reshape(n, k)
+
+
+def _tc_forward_matrices(layers, dim: int, pad) -> List[Tuple[str, torch.Tensor]]:
+    """The tensor-core forward's operands, in ``csrc/paper_tc.cuh``'s
+    FwdLayout order: each wide layer as (out, in) with K padded to 16 by
+    ``pad`` (layers_xyz.4: [enc rows, pad, h rows]), then fc_alpha (1, 256)
+    and fc_rgb (3, 128), read plain."""
+    kin = _pad16(dim)
+    mats = []
+    for i in range(8):
+        w = layers[f"layers_xyz.{i}"][0].t()
+        if i == 0:
+            w = torch.nn.functional.pad(w, (0, kin - dim), value=pad)
+        elif i == 4:
+            enc_rows = torch.nn.functional.pad(w[:, :dim], (0, kin - dim), value=pad)
+            w = torch.cat([enc_rows, w[:, dim:]], dim=1)
+        mats.append((f"layers_xyz.{i}", w))
+    return mats + [(name, layers[name][0].t()) for name in (
+        "fc_feat", "layers_dir.0", "layers_dir.1", "layers_dir.2", "fc_alpha", "fc_rgb")]
+
+
+def _flatten(mats) -> torch.Tensor:
+    return torch.cat([fragment_order(m) if m.shape[0] >= 64 else m.reshape(-1)
+                      for _, m in mats])
+
+
+@functools.lru_cache(maxsize=None)
+def _gather_index(matrices, num_freq: int, device: str) -> torch.Tensor:
+    """Where each value of a bf16 weight buffer comes from in the packed
+    parameters (``num_params`` for a zero pad), on ``device``: the packing,
+    worked out once by running ``matrices`` on the positions themselves."""
+    n = num_params(num_freq)
+    ref = torch.arange(n + 1, dtype=torch.float64)
+    flat = _flatten(matrices(unpack_params(ref, num_freq), 3 + 6 * num_freq, float(n)))
+    return flat.long().to(device)
+
+
+def _gather_bf16(params: torch.Tensor, matrices, num_freq: int) -> torch.Tensor:
+    """The bf16 weight buffer that ``matrices`` lays out, from the packed f32
+    parameters: one gather and one rounding, 16-byte aligned."""
+    params = params.detach().float().reshape(-1)
+    ext = torch.cat([params, params.new_zeros(1)])
+    out = ext[_gather_index(matrices, num_freq, str(params.device))].to(torch.bfloat16)
+    return out if out.data_ptr() % 16 == 0 else out.clone()
+
+
+def pack_tc_forward(params: torch.Tensor, num_freq: int) -> torch.Tensor:
+    """The bf16 forward kernels' weights (``csrc/paper_tc.cuh`` FwdLayout),
+    from the packed parameters: every weight rounded to bf16, the wide ones
+    in fragment order with zero K pads."""
+    return _gather_bf16(params, _tc_forward_matrices, num_freq)
+
+
+def unpack_tc_forward(buf: torch.Tensor, num_freq: int) -> Dict[str, torch.Tensor]:
+    """``pack_tc_forward``'s buffer as f32 operand matrices: name -> (out,
+    in) with its K pads."""
+    return _unflatten(buf, _tc_forward_matrices(
+        unpack_params(torch.zeros(num_params(num_freq)), num_freq), 3 + 6 * num_freq, 0.0))
+
+
+def _unflatten(buf: torch.Tensor, mats) -> Dict[str, torch.Tensor]:
+    out, off = {}, 0
+    for name, m in mats:
+        n, k = m.shape
+        part = buf[off:off + n * k].float()
+        out[name] = fragment_matrix(part, n, k) if n >= 64 else part.view(n, k)
+        off += n * k
+    if off != buf.numel():
+        raise ValueError(f"a buffer of {buf.numel()} values for a layout of {off}")
     return out
 
 
@@ -168,15 +260,23 @@ def _kernel():
     lib = load_library()
     fn = lib.nerf_paper_t_forward
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    fn.argtypes = [ptr, ptr, ptr, i64, ptr, i64, i32, i32, i32, ptr]
+    fn.argtypes = [ptr, ptr, ptr, i64, ptr, i64, ptr, i64, i32, i32, i32, ptr]
     fn.restype = ctypes.c_int
-    lib.nerf_paper_num_params.argtypes = [i32]
-    lib.nerf_paper_num_params.restype = i32
-    for f in (0, 6, 10):
-        if lib.nerf_paper_num_params(f) != num_params(f):
-            raise RuntimeError(f"csrc/paper_mlp.cuh layout at {f} frequencies "
-                               f"({lib.nerf_paper_num_params(f)}) != wrapper's ({num_params(f)})")
+    for name in ("nerf_paper_num_params", "nerf_paper_tc_weights"):
+        getattr(lib, name).argtypes = [i32]
+        getattr(lib, name).restype = i32
+    for f in (0, 6, 10, 16):
+        got = (lib.nerf_paper_num_params(f), lib.nerf_paper_tc_weights(f))
+        want = (num_params(f), tc_forward_weights(f))
+        if got != want:
+            raise RuntimeError(f"csrc/paper_mlp.cuh / paper_tc.cuh layouts at {f} frequencies "
+                               f"{got} != wrapper's {want}")
     return fn
+
+
+def tc_forward_weights(num_freq: int) -> int:
+    """bf16 values of ``pack_tc_forward``'s buffer."""
+    return _gather_index(_tc_forward_matrices, num_freq, "cpu").numel()
 
 
 def fused_paper_mlp_t(model: PaperNeRFModel, pts: torch.Tensor, viewdirs: torch.Tensor,
@@ -209,17 +309,19 @@ def fused_paper_mlp_t(model: PaperNeRFModel, pts: torch.Tensor, viewdirs: torch.
     out = torch.empty((n, s, 4), dtype=torch.float32, device=pts.device)
     if n * s == 0:
         return out
-    # dc and params are freed when this returns, before the kernel may have
-    # run: the caching allocator hands their blocks out again only in this
-    # stream's order, after the kernel.
+    # dc, params and wbf are freed when this returns, before the kernel may
+    # have run: the caching allocator hands their blocks out again only in
+    # this stream's order, after the kernel.
     with torch.no_grad(), torch.cuda.device(pts.device):
         pts_c = pts.contiguous()
         dc = _aligned(dir_contribution(model, viewdirs))
         params = _aligned(pack_params(model))
+        f = model.num_encoding_fn_xyz
+        wbf = pack_tc_forward(params, f) if compute_dtype == "bfloat16" else None
         stream = torch.cuda.current_stream(pts.device).cuda_stream
         rc = _kernel()(pts_c.data_ptr(), dc.data_ptr(), params.data_ptr(), params.numel(),
-                       out.data_ptr(), n * s, s, model.num_encoding_fn_xyz,
-                       int(compute_dtype == "bfloat16"), stream)
+                       None if wbf is None else wbf.data_ptr(), 0 if wbf is None else wbf.numel(),
+                       out.data_ptr(), n * s, s, f, int(wbf is not None), stream)
     if rc != 0:
         raise RuntimeError(f"{what}: kernel launch failed with CUDA error {rc}")
     fused_paper_mlp_t.launches += 1

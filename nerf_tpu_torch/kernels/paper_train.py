@@ -18,6 +18,13 @@ kernels for Hopper in ``csrc/paper_train.cu``, behind one
   of points, a fixed-order sum over chunks, ddc per ray): deterministic, no
   atomics.
 
+``compute_dtype="float32"`` runs both on f32 FMAs; ``"bfloat16"`` runs the
+forward, the layer gradients and the weight gradients on the tensor cores
+(``mma.sync``, bf16 operands, f32 sums; ``csrc/paper_tc.cuh``), with bf16
+copies of the weights in the instruction's fragment order
+(``kernels/paper_t.pack_tc_forward``, ``pack_tc_backward``) built once per
+call.
+
 ``layers_dir[3]`` is never run, so autograd gives it no gradient; the
 trainer's ``create_train_state`` sets every gradient to zeros and steps
 keep them (``zero_grad(set_to_none=False)``), so it ends each step with a
@@ -47,13 +54,18 @@ from .flex_train import _aligned, _check_cuda, _rounder
 from .paper_t import (
     _DIR_WIDTH,
     _WIDTH,
+    _gather_bf16,
     _pad4,
+    _pad16,
+    _unflatten,
     dir_contribution,
     layout,
     num_params,
     pack_params,
+    pack_tc_forward,
     paper_plain_forward,
     supports_fused_paper,
+    tc_forward_weights,
     unpack_params,
 )
 from .train_vjp import TrainKernelFamily, build_train_vjp
@@ -68,11 +80,17 @@ _BWD_ORDER = ("fc_rgb", "layers_dir.2", "layers_dir.1", "layers_dir.0", "fc_alph
               "layers_xyz.7", "layers_xyz.6", "layers_xyz.5", "layers_xyz.4",
               "layers_xyz.3", "layers_xyz.2", "layers_xyz.1")
 _NUM_BWD_WEIGHTS = 3 * 128 + 2 * 128 * 128 + 129 * 256 + 8 * 256 * 256   # 590464
+_NUM_TC_BWD_WEIGHTS = 16 * 128 + 2 * 128 * 128 + 144 * 256 + 8 * 256 * 256   # 595968
 
 
 def res_rows(num_freq: int) -> int:
     """Residual rows of a point: enc, h0..h7, feat, d0..d2."""
     return 3 + 6 * num_freq + 9 * _WIDTH + 3 * _DIR_WIDTH
+
+
+def tc_res_rows(num_freq: int) -> int:
+    """Residual rows of a point in the bf16 kernels, enc padded to 16."""
+    return _pad16(3 + 6 * num_freq) + 9 * _WIDTH + 3 * _DIR_WIDTH
 
 
 def pack_backward_weights(params: torch.Tensor, num_freq: int) -> torch.Tensor:
@@ -85,6 +103,60 @@ def pack_backward_weights(params: torch.Tensor, num_freq: int) -> torch.Tensor:
         w = layers[name][0]
         parts.append((w[dim:] if name == "layers_xyz.4" else w).t().reshape(-1))
     return torch.cat(parts)
+
+
+def _tc_backward_matrices(layers, dim: int, pad):
+    """The bf16 layer-gradient pass's operands, in ``csrc/paper_tc.cuh``'s
+    kB* order, each (in, out) for dX = dY W: fc_rgb (K 3 -> 16),
+    layers_dir.2, .1, [layers_dir.0 feat rows; fc_alpha] (K 129 -> 144),
+    fc_feat, layers_xyz.7 .. .1 (layer 4: its h rows); K pads hold ``pad``."""
+    def w(name):
+        return layers[name][0]
+
+    head = torch.cat([w("layers_dir.0"), w("fc_alpha")], dim=1)
+    mats = [("fc_rgb", torch.nn.functional.pad(w("fc_rgb"), (0, 13), value=pad)),
+            ("layers_dir.2", w("layers_dir.2")), ("layers_dir.1", w("layers_dir.1")),
+            ("head", torch.nn.functional.pad(head, (0, 15), value=pad)),
+            ("fc_feat", w("fc_feat"))]
+    return mats + [(f"layers_xyz.{i}", w(f"layers_xyz.{i}")[dim:] if i == 4
+                    else w(f"layers_xyz.{i}")) for i in range(7, 0, -1)]
+
+
+def pack_tc_backward(params: torch.Tensor, num_freq: int) -> torch.Tensor:
+    """The bf16 backward kernel's weights (``csrc/paper_tc.cuh`` kB*), from
+    the packed parameters: rounded to bf16, fragment order, zero K pads."""
+    return _gather_bf16(params, _tc_backward_matrices, num_freq)
+
+
+def unpack_tc_backward(buf: torch.Tensor, num_freq: int):
+    """``pack_tc_backward``'s buffer as f32 operand matrices: name -> (in,
+    out) with its K pads ("head" is [layers_dir.0 feat rows; fc_alpha])."""
+    zeros = unpack_params(torch.zeros(num_params(num_freq)), num_freq)
+    return _unflatten(buf, _tc_backward_matrices(zeros, 3 + 6 * num_freq, 0.0))
+
+
+def residuals_as_plain(residuals, n_points: int, num_freq: int, compute_dtype: str = "float32"):
+    """``paper_train_fwd``'s residuals as views in the plain version's form,
+    (enc, h0..h7, feat, d0, d1, d2), each (n_points, C) in the compute dtype:
+    the plain backward run on the forward kernel's own residuals is the
+    backward kernel's plain version on the same inputs. The kernel's f32
+    buffer is res[tile][row][point], its bf16 one res[point][row] with enc
+    padded to 16; the plain forward's (CPU) residuals are returned as they
+    are."""
+    if len(residuals) != 1:
+        return tuple(residuals)
+    (res,) = residuals
+    dim = 3 + 6 * num_freq
+    if compute_dtype == "bfloat16":
+        rows, kin = tc_res_rows(num_freq), _pad16(dim)
+        table = res.view(-1, rows)[:n_points]
+    else:
+        rows, kin = res_rows(num_freq), dim
+        table = res.view(-1, rows, _TILE).transpose(1, 2).reshape(-1, rows)[:n_points]
+    widths = [dim] + [_WIDTH] * 9 + [_DIR_WIDTH] * 3
+    starts = [0] + [kin + _WIDTH * i for i in range(9)] + [
+        kin + 9 * _WIDTH + _DIR_WIDTH * i for i in range(3)]
+    return tuple(table[:, a:a + w] for a, w in zip(starts, widths))
 
 
 def paper_train_plain_fwd(pts: torch.Tensor, dc: torch.Tensor, params: torch.Tensor,
@@ -151,14 +223,15 @@ def _kernels(num_freq: int):
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.nerf_paper_train_layout.argtypes = [i32, ctypes.POINTER(ctypes.c_int)]
     lib.nerf_paper_train_layout.restype = None
-    got = (ctypes.c_int * 6)()
+    got = (ctypes.c_int * 9)()
     lib.nerf_paper_train_layout(num_freq, got)
     want = (res_rows(num_freq), _DELTA_ROWS, num_params(num_freq), _NUM_BWD_WEIGHTS, _TILE,
-            _TILES_PER_CHUNK)
+            _TILES_PER_CHUNK, tc_res_rows(num_freq), tc_forward_weights(num_freq),
+            _NUM_TC_BWD_WEIGHTS)
     if tuple(got) != want:
         raise RuntimeError(f"csrc/paper_train.cu layout {tuple(got)} != wrapper's {want}")
     fwd = lib.nerf_paper_train_forward
-    fwd.argtypes = [ptr, ptr, ptr, i64, ptr, ptr, i64, i32, i32, i32, ptr]
+    fwd.argtypes = [ptr, ptr, ptr, i64, ptr, i64, ptr, ptr, i64, i32, i32, i32, ptr]
     fwd.restype = ctypes.c_int
     bwd = lib.nerf_paper_train_backward
     bwd.argtypes = [ptr, ptr, ptr, i64, ptr, ptr, ptr, ptr, i64, i32, i32, i32, ptr]
@@ -183,7 +256,8 @@ def paper_train_fwd(pts: torch.Tensor, dc: torch.Tensor, params: torch.Tensor,
     bf16 = compute_dtype == "bfloat16"
     tiles = -(-n * s // _TILE)
     out = torch.empty((n, s, 4), dtype=torch.float32, device=pts.device)
-    res = torch.empty(tiles * res_rows(num_freq) * _TILE, device=pts.device,
+    rows = tc_res_rows(num_freq) if bf16 else res_rows(num_freq)
+    res = torch.empty(tiles * rows * _TILE, device=pts.device,
                       dtype=torch.bfloat16 if bf16 else torch.float32)
     if n * s == 0:
         return out, (res,)
@@ -192,10 +266,12 @@ def paper_train_fwd(pts: torch.Tensor, dc: torch.Tensor, params: torch.Tensor,
     # this stream's order, after the kernel.
     with torch.cuda.device(pts.device):
         pts_c, dc_c, params_c = (_aligned(t) for t in (pts, dc, params))
+        wbf = pack_tc_forward(params_c, num_freq) if bf16 else None
         stream = torch.cuda.current_stream(pts.device).cuda_stream
         rc = _kernels(num_freq)[0](pts_c.data_ptr(), dc_c.data_ptr(), params_c.data_ptr(),
-                                   params_c.numel(), out.data_ptr(), res.data_ptr(), n * s, s,
-                                   num_freq, int(bf16), stream)
+                                   params_c.numel(), None if wbf is None else wbf.data_ptr(),
+                                   0 if wbf is None else wbf.numel(), out.data_ptr(),
+                                   res.data_ptr(), n * s, s, num_freq, int(bf16), stream)
     if rc != 0:
         raise RuntimeError(f"{what}: kernel launch failed with CUDA error {rc}")
     fused_paper_mlp_train.fwd_launches += 1
@@ -226,7 +302,8 @@ def paper_train_bwd(g: torch.Tensor, residuals, params: torch.Tensor, n: int, s:
     partial = torch.empty(chunks * n_params, dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         g_c = _aligned(g)
-        wt = _aligned(pack_backward_weights(params.detach(), num_freq))
+        wt = (pack_tc_backward(params, num_freq) if compute_dtype == "bfloat16"
+              else _aligned(pack_backward_weights(params.detach(), num_freq)))
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = _kernels(num_freq)[1](g_c.data_ptr(), res.data_ptr(), wt.data_ptr(), wt.numel(),
                                    delta.data_ptr(), partial.data_ptr(), grad.data_ptr(),

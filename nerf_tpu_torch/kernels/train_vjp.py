@@ -20,8 +20,10 @@ version on CPU tensors. ``build_train_vjp`` wraps them in one
 - ``pts`` and ``viewdirs`` get no gradient (training data), as in JAX.
 
 Precision policy (``train_vjp.py:47-55``): float32 means real float32. The
-host matmul runs with ``torch.backends.cuda.matmul.allow_tf32 = False``
-(each family's ``dir_contribution`` sets it), on the bfloat16 path too.
+host matmul and its gradient run in full f32 on the bfloat16 path too: each
+family's ``dir_contribution`` goes through ``kernels/mlp.f32_matmul``, which
+turns ``torch.backends.cuda.matmul.allow_tf32`` off around that product only
+and leaves the caller's setting as it was.
 """
 
 from __future__ import annotations

@@ -20,7 +20,7 @@ Usage:
 ``CfgNode``, so a caller can drive it without a YAML file.
 
 Not ported yet, and raising: the blender and LLFF loaders and the native
-``.nrc`` ray cache (ROADMAP.md, open items §2, next slice 3), resuming
+``.nrc`` ray cache (ROADMAP.md, open items §1 item 6), resuming
 from a native ``.ntc`` checkpoint with its optax state (§1 item 7), more
 than one device and ``--tighten-aabb`` (§1 item 11).
 """
@@ -57,7 +57,7 @@ from .engine.train import create_train_state, make_train_loop, steps_per_call
 from .ops import get_ray_bundle, img2mse, mse2psnr
 from .utils import MetricWriter, RateMeter
 
-_SLICE_3 = "(ROADMAP.md, open items §2, next slice 3)"
+_SLICE_3 = "(ROADMAP.md, open items §1 item 6)"
 
 
 def load_dataset(cfg, device="cpu") -> dict:

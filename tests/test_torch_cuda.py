@@ -237,31 +237,68 @@ def test_paper_kernel_takes_any_encoding_depth():
         assert float((got - want).abs().max()) <= 1e-4, f
 
 
-@pytest.mark.parametrize("compute_dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2)])
-@pytest.mark.parametrize("n,s", [(1, 1), (33, 64), (1024, 128), (7, 61)])
-def test_paper_train_kernels_match_plain(paper_model, n, s, compute_dtype, tol):
-    pts, vd = _inputs(n, s, seed=n * s)
+def _check_paper_train_pair(model, n, s, compute_dtype, tol, f=10):
+    """#9's forward (output and residuals) against the plain forward, its
+    backward against the plain backward on the forward kernel's residuals,
+    two backward calls bitwise equal; one forward and two backward launches."""
+    pts, vd = _inputs(n, s, seed=n * s + f)
     gen = torch.Generator(device="cuda").manual_seed(n)
     g = torch.randn(n, s, 4, generator=gen, device="cuda")
-    params = paper_t.pack_params(paper_model).detach()
-    dc = paper_t.dir_contribution(paper_model, vd).detach()
+    params = paper_t.pack_params(model).detach()
+    dc = paper_t.dir_contribution(model, vd).detach()
     fused = paper_train.fused_paper_mlp_train
     fwd0, bwd0 = fused.fwd_launches, fused.bwd_launches
-    out, res = paper_train.paper_train_fwd(pts, dc, params, compute_dtype, 10)
-    grad, ddc = paper_train.paper_train_bwd(g, res, params, n, s, compute_dtype, 10)
-    again = paper_train.paper_train_bwd(g, res, params, n, s, compute_dtype, 10)
+    out, res = paper_train.paper_train_fwd(pts, dc, params, compute_dtype, f)
+    grad, ddc = paper_train.paper_train_bwd(g, res, params, n, s, compute_dtype, f)
+    again = paper_train.paper_train_bwd(g, res, params, n, s, compute_dtype, f)
     torch.cuda.synchronize()
     assert (fused.fwd_launches, fused.bwd_launches) == (fwd0 + 1, bwd0 + 2)
     assert torch.equal(grad, again[0]) and torch.equal(ddc, again[1])    # deterministic
-    want, want_res = paper_train.paper_train_plain_fwd(pts, dc, params, compute_dtype, 10)
-    want_grad, want_ddc = paper_train.paper_train_plain_bwd(g, want_res, params, n, s,
-                                                            compute_dtype, 10)
+    want, want_res = paper_train.paper_train_plain_fwd(pts, dc, params, compute_dtype, f)
+    kernel_res = paper_train.residuals_as_plain(res, n * s, f, compute_dtype)
+    want_grad, want_ddc = paper_train.paper_train_plain_bwd(g, kernel_res, params, n, s,
+                                                            compute_dtype, f)
     assert float((out - want).abs().max()) <= tol
-    got_layers = paper_t.unpack_params(grad, 10)
-    for name, (w, b) in paper_t.unpack_params(want_grad, 10).items():
+    for got_r, want_r in zip(kernel_res, want_res, strict=True):
+        assert got_r.dtype == want_r.dtype and _scaled_err(got_r.float(), want_r.float()) <= tol
+    got_layers = paper_t.unpack_params(grad, f)
+    for name, (w, b) in paper_t.unpack_params(want_grad, f).items():
         assert _scaled_err(got_layers[name][0], w) <= tol, name
         assert _scaled_err(got_layers[name][1], b) <= tol, name
     assert ddc.shape == (n, 128) and _scaled_err(ddc, want_ddc) <= tol
+
+
+@pytest.mark.parametrize("compute_dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("n,s", [(1, 1), (33, 64), (1024, 128), (7, 61)])
+def test_paper_train_kernels_match_plain(paper_model, n, s, compute_dtype, tol):
+    _check_paper_train_pair(paper_model, n, s, compute_dtype, tol)
+
+
+@pytest.mark.parametrize("f", [0, 6, 10, 16])
+@pytest.mark.parametrize("n,s", [(7, 61), (333, 61)])     # points end mid-tile
+def test_paper_bf16_kernels_match_plain_at_any_depth(paper_model, f, n, s):
+    """The tensor-core (bf16) #4 and #9 at every K padding of the encoding:
+    3 + 6F -> 16, 48, 64, 112."""
+    model = PaperNeRFModel(num_encoding_fn_xyz=f,
+                           generator=torch.Generator().manual_seed(f)).cuda().eval()
+    pts, vd = _inputs(n, s, seed=f)
+    with torch.inference_mode():
+        got = paper_t.fused_paper_mlp_t(model, pts, vd, "bfloat16")
+        torch.cuda.synchronize()
+        want = paper_t.paper_t_plain(model, pts, vd, "bfloat16")
+    assert float((got - want).abs().max()) <= 2e-2
+    with torch.no_grad():
+        _check_paper_train_pair(model, n, s, "bfloat16", 2e-2, f)
+
+
+def test_paper_bf16_dead_layer_gets_a_zero_gradient(paper_model):
+    pts, vd = _inputs(64, 32, seed=8)
+    for p in paper_model.parameters():
+        p.grad = torch.zeros_like(p)
+    paper_train.fused_paper_mlp_train(paper_model, pts, vd, "bfloat16").square().sum().backward()
+    assert not bool(paper_model.layers_dir[3].weight.grad.any())
+    assert not bool(paper_model.layers_dir[3].bias.grad.any())
+    assert bool(paper_model.layers_dir[2].weight.grad.any())
 
 
 def test_paper_train_function_goes_through_both_kernels(paper_model):
