@@ -4,8 +4,9 @@
 // and ray-major forwards):
 // the packed parameter layout, the bf16 rounding, the positional encoding of
 // a point tile, the feature-major dense layer over a tile in shared memory,
-// and the whole forward over a tile, which saves the training residuals when
-// it is given a buffer for them.
+// and the whole forward over a tile, which saves the f32 training residuals
+// when it is given a buffer for them (the bf16 training forward runs
+// flex_tc.cuh's tensor-core tile instead).
 //
 // A tile is kTile = 64 consecutive points of the public (N*S) point order,
 // held feature-major in shared memory: act[feature][point].
@@ -65,13 +66,6 @@ __device__ __forceinline__ float rnd(float x) {
     return x;
   }
 }
-
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
-__device__ __forceinline__ float load(const float* p) { return *p; }
-__device__ __forceinline__ float load(const __nv_bfloat16* p) { return __bfloat162float(*p); }
 
 // Encoding of the tile's 3-vectors (points, or with kFreq = kFreqDir view
 // directions) into act rows 0..3 + 6 kFreq - 1, in the checkpoint's
@@ -229,10 +223,9 @@ __device__ __forceinline__ void dense2(const float* __restrict__ W, int in_dim, 
 
 // Copy `rows` feature rows of a tile from shared memory to its residual rows
 // (a no-op without a residual buffer).
-template <typename R>
-__device__ __forceinline__ void save_rows(const float* act, int rows, R* dst) {
+__device__ __forceinline__ void save_rows(const float* act, int rows, float* dst) {
   if (dst == nullptr) return;
-  for (int i = threadIdx.x; i < rows * kTile; i += kThreads) store(dst + i, act[i]);
+  for (int i = threadIdx.x; i < rows * kTile; i += kThreads) dst[i] = act[i];
 }
 
 // The forward over the tile of points tile0 .. tile0 + kTile - 1: encoding,
@@ -240,23 +233,23 @@ __device__ __forceinline__ void save_rows(const float* act, int rows, R* dst) {
 // h3), the direction layer, fc_rgb -> row (point - out0) of out (.., 4)
 // [r, g, b, sigma], for the points below n_points. The tile's activations
 // ping-pong between buf_a and buf_b (128 x kTile each). With res non-null,
-// each layer's stored input is also written to the tile's residual rows (type
-// R, already rounded to the compute dtype). It ends without a barrier: a
-// caller that runs a second tile in the same block syncs first.
+// each layer's stored input is also written to the tile's residual rows (f32,
+// the f32 training forward's). It ends without a barrier: a caller that runs a
+// second tile in the same block syncs first.
 //
 // dir_layer(feat, hd), a struct as finish's callbacks are, writes hd =
 // relu(feat @ W_dir[:128] + the direction's term + b) into rows 0..63 of hd
 // (buf_a) from feat (buf_b). Every thread calls it, after a barrier that
 // ends the trunk's reads of buf_a, so it may use buf_a's rows 64..127 as
 // scratch, with a barrier of its own before its dense layer reads them.
-template <bool kBf16, typename R, typename DirLayer>
+template <bool kBf16, typename DirLayer>
 __device__ __forceinline__ void forward_tile_with(const float* __restrict__ pts,
                                                   const float* __restrict__ params,
                                                   float* __restrict__ out, long long out0,
-                                                  R* res, long long tile0,
+                                                  float* res, long long tile0,
                                                   long long n_points, float* buf_a,
                                                   float* buf_b, DirLayer dir_layer) {
-  R* rt = res == nullptr ? nullptr : res + (tile0 / kTile) * kResRows * kTile;
+  float* rt = res == nullptr ? nullptr : res + (tile0 / kTile) * kResRows * kTile;
   auto row = [rt](int r) { return rt == nullptr ? nullptr : rt + r * kTile; };
 
   // Encoding into buf_a rows 0..62, checkpoint order.
@@ -329,29 +322,29 @@ struct DirLayerRayRow {
 };
 
 // forward_tile_with with DirLayerRayRow (mlp_t.cu, flex_train.cu, stage.cu).
-template <bool kBf16, typename R>
+template <bool kBf16>
 __device__ __forceinline__ void forward_tile_at(const float* __restrict__ pts,
                                                 const float* __restrict__ dc,
                                                 const float* __restrict__ params,
                                                 float* __restrict__ out, long long out0,
-                                                R* res, long long tile0,
+                                                float* res, long long tile0,
                                                 long long n_points, int samples,
                                                 float* buf_a, float* buf_b) {
-  forward_tile_with<kBf16, R>(pts, params, out, out0, res, tile0, n_points, buf_a, buf_b,
-                              DirLayerRayRow<kBf16>{params, dc, tile0, n_points, samples});
+  forward_tile_with<kBf16>(pts, params, out, out0, res, tile0, n_points, buf_a, buf_b,
+                           DirLayerRayRow<kBf16>{params, dc, tile0, n_points, samples});
 }
 
 // The forward over the tile blockIdx.x, into out (n_points, 4).
-template <bool kBf16, typename R>
+template <bool kBf16>
 __device__ __forceinline__ void forward_tile(const float* __restrict__ pts,
                                              const float* __restrict__ dc,
                                              const float* __restrict__ params,
-                                             float* __restrict__ out, R* res,
+                                             float* __restrict__ out, float* res,
                                              long long n_points, int samples,
                                              float* buf_a, float* buf_b) {
-  forward_tile_at<kBf16, R>(pts, dc, params, out, 0, res,
-                            static_cast<long long>(blockIdx.x) * kTile, n_points, samples,
-                            buf_a, buf_b);
+  forward_tile_at<kBf16>(pts, dc, params, out, 0, res,
+                         static_cast<long long>(blockIdx.x) * kTile, n_points, samples, buf_a,
+                         buf_b);
 }
 
 }  // namespace flex

@@ -14,18 +14,26 @@
 //             packed parameter buffer (flex_mlp.cuh's layout) and ddc (N, 64).
 // pts and viewdirs get no gradient (training data), as on the TPU.
 //
-// What bounds it on the card: arithmetic. A point costs ~82k multiply-adds
-// forward and ~156k backward (~74k to carry the gradient back through the
-// layers, ~82k for the weight gradients), against ~1.5 KB (bf16) or ~3 KB
-// (f32) of residuals and ~2.8 KB of f32 deltas moved through device memory,
-// far above the memory roofline. The first design runs f32 FMAs from
-// registers and shared memory; tensor cores (wgmma) are later work.
+// What bounds it on the card: in f32, arithmetic. A point costs ~82k
+// multiply-adds forward and ~156k backward (~74k to carry the gradient back
+// through the layers, ~82k for the weight gradients), against ~1.5 KB (bf16)
+// or ~3 KB (f32) of residuals and ~2.8 KB of f32 deltas moved through device
+// memory. At 1024 x 128 points the f32 FMA peak (67 TFLOP/s) bounds the
+// forward at 0.32 ms and the backward at 0.61 ms. On the bf16 tensor cores
+// (989 TFLOP/s) the arithmetic takes 0.02 + 0.04 ms and the bytes set the
+// pace: the forward's 0.2 GB of residual writes (0.06 ms at 3.35 TB/s), and
+// the backward's 0.37 GB of f32 deltas, written by the layer-gradient pass
+// and read by the weight-gradient pass.
 //
-// Design (right and simple first):
-//   * forward: mlp_t.cu's evaluation (flex_mlp.cuh's forward_tile), one
-//     block of 128 threads per tile of 64 points, given a residual buffer, so
-//     it also copies each layer's tile from shared memory into
-//     res[tile][row][point], coalesced;
+// The f32 instances run the FMA design below; the bf16 instances run the
+// same passes on the tensor cores (flex_tc.cuh: mma.sync m16n8k16, bf16
+// operands, f32 sums), with the tile, the residuals and the deltas
+// point-major, and bf16 weights the wrapper prepares in fragment order
+// (kernels/mlp.py pack_tc_forward, kernels/flex_train.py pack_tc_backward):
+//   * forward: mlp_t.cu's evaluation (flex_mlp.cuh's or flex_tc.cuh's
+//     forward_tile), one block of 128 threads per tile of 64 points, given a
+//     residual buffer, so it also copies each layer's tile from shared memory
+//     into res[tile][row][point] (f32) or res[point][row] (bf16), coalesced;
 //   * backward, four launches on one stream:
 //     1. train_bwd_act: per 64-point tile, carries the cotangent back through
 //        fc_rgb, the direction layer, the fused [fc_feat; fc_alpha] head
@@ -33,21 +41,26 @@
 //        the trunk and down to layer1's output a0 (unmasked: layer1 has no
 //        ReLU). ReLU masks compare the stored (compute-dtype) activation with
 //        0. Every layer's output gradient is written, f32 and unrounded, to a
-//        delta buffer delta[tile][row][point];
+//        delta buffer (delta[tile][row][point] in f32, delta[point][row] in
+//        bf16), and over the tile's shared buffer (rounded, in bf16) as the
+//        next product's operand. The bf16 instance runs drgb . W_rgb and the
+//        fused head as padded products (K 3 -> 16 and 129 -> 144);
 //     2. train_bwd_wgrad: dW = X^T dY and db = sum dY for the eight weight
-//        matrices, as one launch over (64 x 64 output tile, chunk of 16
-//        point tiles). Each block keeps its partial sums in registers and
-//        writes them to its chunk's row of a scratch buffer laid out like the
-//        packed parameters;
+//        matrices, as one launch over (output tile, chunk of 16 point
+//        tiles): 64 x 64 tiles on the FMA pipes (f32), one 128 x 128 tile a
+//        matrix on the tensor cores (bf16, staged by cp.async; the warps of
+//        a narrow matrix's empty rows and columns skip their products). Each
+//        block keeps its partial sums in registers and writes them to its
+//        chunk's row of a scratch buffer laid out like the packed parameters;
 //     3. train_bwd_reduce: sums the chunks' rows in a fixed order. No atomics:
 //        two identical calls give bitwise-equal gradients;
 //     4. train_bwd_ddc: ddc[ray] = sum over the ray's samples of the
 //        direction layer's gradient, one thread per (ray, feature), so rays
 //        that straddle tiles (S not a divisor of 64) are summed whole.
-//   * the backward reads the weights as nn.Linear's (out, in) matrices from a
-//     second packed buffer (kT* offsets below), so that neighbouring threads
-//     read neighbouring weights when they compute neighbouring input
-//     features.
+//   * the f32 backward reads the weights as nn.Linear's (out, in) matrices
+//     from a second packed buffer (kT* offsets below), so that neighbouring
+//     threads read neighbouring weights when they compute neighbouring input
+//     features; the bf16 one reads their fragments (flex_tc.cuh kB*).
 //
 // compute dtype bf16: both operands of every product (forward, dX = dY W^T
 // and dW = X^T dY) are rounded to bf16 and the sums stay f32, as
@@ -61,6 +74,7 @@
 #include <type_traits>
 
 #include "flex_mlp.cuh"
+#include "flex_tc.cuh"
 
 namespace {
 
@@ -96,34 +110,75 @@ constexpr int kWThreads = 256;        // 16 x 16 threads, 4 x 4 outputs each
 constexpr int kTilesPerChunk = 16;    // point tiles summed by one block
 constexpr int kWPad = kWTile + 4;     // shared row length (float4-aligned)
 
+// bf16 weight-gradient tiling: 128 inputs x 128 outputs, 8 warps of 32 x 64.
+constexpr int kGTile = 128;
+constexpr int kGStride = kGTile + 8;   // shared row (bf16): ldmatrix rows on distinct banks
+
+// bf16 layer-gradient tile: rows of the fused head's K (144) + 8.
+constexpr int kBStride = 144 + 8;
+constexpr size_t kActSmemTc = static_cast<size_t>(kBStride) * kTile * sizeof(__nv_bfloat16);
+
+using bf16 = __nv_bfloat16;
+
 template <bool kBf16>
-using Res = std::conditional_t<kBf16, __nv_bfloat16, float>;
+using Res = std::conditional_t<kBf16, bf16, float>;
 
 // ---------------------------------------------------------------------------
 // Forward: mlp_t's evaluation, saving every residual.
 
+// Each kernel below is a template over the compute dtype whose f32 instance
+// keeps the FMA design's launch bounds; the bf16 instance is an explicit
+// specialization with its own: a register budget that fits its blocks on an
+// SM without spills.
+
+template <bool kBf16>
+__device__ __forceinline__ void train_fwd_tile(const float* __restrict__ pts,
+                                               const float* __restrict__ dc,
+                                               const float* __restrict__ params,
+                                               const bf16* __restrict__ wbf,
+                                               float* __restrict__ out,
+                                               Res<kBf16>* __restrict__ res, long long n_points,
+                                               int samples) {
+  extern __shared__ float4 smem[];
+  if constexpr (kBf16) {
+    auto* enc = reinterpret_cast<bf16*>(smem);
+    tc::forward_tile(pts, dc, params, wbf, out, res, n_points, samples, enc,
+                     enc + tc::kEncStride * kTile);
+  } else {
+    float* buf_a = reinterpret_cast<float*>(smem);
+    forward_tile<false>(pts, dc, params, out, res, n_points, samples, buf_a,
+                        buf_a + kHidden * kTile);
+  }
+}
+
 template <bool kBf16>
 __global__ void __launch_bounds__(kThreads)
 train_fwd_kernel(const float* __restrict__ pts, const float* __restrict__ dc,
-                 const float* __restrict__ params, float* __restrict__ out,
-                 Res<kBf16>* __restrict__ res, long long n_points, int samples) {
-  extern __shared__ float4 smem[];
-  float* buf_a = reinterpret_cast<float*>(smem);
-  forward_tile<kBf16, Res<kBf16>>(pts, dc, params, out, res, n_points, samples, buf_a,
-                                  buf_a + kHidden * kTile);
+                 const float* __restrict__ params, const bf16* __restrict__ wbf,
+                 float* __restrict__ out, Res<kBf16>* __restrict__ res, long long n_points,
+                 int samples) {
+  train_fwd_tile<kBf16>(pts, dc, params, wbf, out, res, n_points, samples);
+}
+
+template <>
+__global__ void __launch_bounds__(kThreads, 4)
+train_fwd_kernel<true>(const float* __restrict__ pts, const float* __restrict__ dc,
+                       const float* __restrict__ params, const bf16* __restrict__ wbf,
+                       float* __restrict__ out, bf16* __restrict__ res, long long n_points,
+                       int samples) {
+  train_fwd_tile<true>(pts, dc, params, wbf, out, res, n_points, samples);
 }
 
 // ---------------------------------------------------------------------------
 // Backward 1: the gradient of every layer's output, per tile.
 
-// dX[j][p] = mask(act[j][p] > 0) * sum_k WT[k][j] * dY[k][p], WT (in_dim, OUT)
-// being the (out, in) nn.Linear weight of the forward layer. The unrounded
-// result goes to delta rows (f32), the rounded one to out_s (the next
-// product's operand) unless out_s is null. mask_rows null = no mask.
-template <int OUT, bool kBf16>
+// The f32 instance's layer: dX[j][p] = mask(act[j][p] > 0) * sum_k WT[k][j]
+// * dY[k][p], WT (in_dim, OUT) being the (out, in) nn.Linear weight of the
+// forward layer. The result goes to delta rows and, unless out_s is null, to
+// out_s (the next product's operand). mask_rows null = no mask.
+template <int OUT>
 __device__ __forceinline__ void dense_bwd(const float* __restrict__ WT, int in_dim,
-                                          const float* in,
-                                          const Res<kBf16>* __restrict__ mask_rows,
+                                          const float* in, const float* __restrict__ mask_rows,
                                           float* out_s, float* __restrict__ delta_rows) {
   constexpr int kRun = kTile / (kThreads / OUT);
   const int j = threadIdx.x % OUT;
@@ -132,7 +187,7 @@ __device__ __forceinline__ void dense_bwd(const float* __restrict__ WT, int in_d
 #pragma unroll
   for (int p = 0; p < kRun; ++p) acc[p] = 0.f;
   for (int k = 0; k < in_dim; ++k) {
-    const float w = rnd<kBf16>(__ldg(WT + k * OUT + j));
+    const float w = __ldg(WT + k * OUT + j);
     const float4* a = reinterpret_cast<const float4*>(in + k * kTile + p0);
 #pragma unroll
     for (int q = 0; q < kRun / 4; ++q) {
@@ -144,9 +199,9 @@ __device__ __forceinline__ void dense_bwd(const float* __restrict__ WT, int in_d
     }
   }
   if (mask_rows != nullptr) {
-    const Res<kBf16>* m = mask_rows + j * kTile + p0;
+    const float* m = mask_rows + j * kTile + p0;
 #pragma unroll
-    for (int p = 0; p < kRun; ++p) acc[p] = load(m + p) > 0.f ? acc[p] : 0.f;
+    for (int p = 0; p < kRun; ++p) acc[p] = m[p] > 0.f ? acc[p] : 0.f;
   }
   float4* d = reinterpret_cast<float4*>(delta_rows + j * kTile + p0);
 #pragma unroll
@@ -155,20 +210,19 @@ __device__ __forceinline__ void dense_bwd(const float* __restrict__ WT, int in_d
   }
   if (out_s != nullptr) {
 #pragma unroll
-    for (int p = 0; p < kRun; ++p) out_s[j * kTile + p0 + p] = rnd<kBf16>(acc[p]);
+    for (int p = 0; p < kRun; ++p) out_s[j * kTile + p0 + p] = acc[p];
   }
 }
 
-template <bool kBf16>
-__global__ void __launch_bounds__(kThreads)
-train_bwd_act_kernel(const float* __restrict__ g, const Res<kBf16>* __restrict__ res,
-                     const float* __restrict__ wt, float* __restrict__ delta,
-                     long long n_points) {
-  extern __shared__ float4 smem[];
-  float* buf_a = reinterpret_cast<float*>(smem);   // 129 rows
-  float* buf_b = buf_a + (kHidden + 1) * kTile;    // 128 rows
+// The f32 instance, on the FMA pipes.
+__device__ __forceinline__ void bwd_act_tile_fma(const float* __restrict__ g,
+                                                 const float* __restrict__ res,
+                                                 const float* __restrict__ wt,
+                                                 float* __restrict__ delta, long long n_points,
+                                                 float* buf_a) {
+  float* buf_b = buf_a + (kHidden + 1) * kTile;    // buf_a: 129 rows, buf_b: 128
   const long long tile0 = static_cast<long long>(blockIdx.x) * kTile;
-  const Res<kBf16>* rt = res + static_cast<long long>(blockIdx.x) * kResRows * kTile;
+  const float* rt = res + static_cast<long long>(blockIdx.x) * kResRows * kTile;
   float* dt = delta + static_cast<long long>(blockIdx.x) * kDRows * kTile;
 
   // Cotangent: drgb into buf_a rows 0..2, dsigma into row 128 (the fused
@@ -177,10 +231,10 @@ train_bwd_act_kernel(const float* __restrict__ g, const Res<kBf16>* __restrict__
     const int p = threadIdx.x;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
     if (tile0 + p < n_points) v = reinterpret_cast<const float4*>(g)[tile0 + p];
-    buf_a[0 * kTile + p] = rnd<kBf16>(v.x);
-    buf_a[1 * kTile + p] = rnd<kBf16>(v.y);
-    buf_a[2 * kTile + p] = rnd<kBf16>(v.z);
-    buf_a[kHidden * kTile + p] = rnd<kBf16>(v.w);
+    buf_a[0 * kTile + p] = v.x;
+    buf_a[1 * kTile + p] = v.y;
+    buf_a[2 * kTile + p] = v.z;
+    buf_a[kHidden * kTile + p] = v.w;
     dt[(kDRgb + 0) * kTile + p] = v.x;
     dt[(kDRgb + 1) * kTile + p] = v.y;
     dt[(kDRgb + 2) * kTile + p] = v.z;
@@ -188,26 +242,141 @@ train_bwd_act_kernel(const float* __restrict__ g, const Res<kBf16>* __restrict__
   }
   __syncthreads();
   // dhd = mask(hd) * drgb W_rgb^T
-  dense_bwd<kDirHidden, kBf16>(wt + kTWr, 3, buf_a, rt + kResHd * kTile, buf_b,
-                               dt + kDHd * kTile);
+  dense_bwd<kDirHidden>(wt + kTWr, 3, buf_a, rt + kResHd * kTile, buf_b, dt + kDHd * kTile);
   __syncthreads();
   // dfeat = mask(feat) * dhd W_dir[:128]^T  (buf_a row 128 keeps dsigma)
-  dense_bwd<kHidden, kBf16>(wt + kTWd, kDirHidden, buf_b, rt + kResFeat * kTile, buf_a,
-                            dt + kDFeat * kTile);
+  dense_bwd<kHidden>(wt + kTWd, kDirHidden, buf_b, rt + kResFeat * kTile, buf_a,
+                     dt + kDFeat * kTile);
   __syncthreads();
   // dh3 = mask(h3) * [dfeat; dsigma] [W_feat; W_alpha]^T
-  dense_bwd<kHidden, kBf16>(wt + kTWfa, kHidden + 1, buf_a, rt + kResH3 * kTile, buf_b,
-                            dt + kDH3 * kTile);
+  dense_bwd<kHidden>(wt + kTWfa, kHidden + 1, buf_a, rt + kResH3 * kTile, buf_b,
+                     dt + kDH3 * kTile);
   __syncthreads();
-  dense_bwd<kHidden, kBf16>(wt + kTWx2, kHidden, buf_b, rt + kResH2 * kTile, buf_a,
-                            dt + kDH2 * kTile);
+  dense_bwd<kHidden>(wt + kTWx2, kHidden, buf_b, rt + kResH2 * kTile, buf_a, dt + kDH2 * kTile);
   __syncthreads();
-  dense_bwd<kHidden, kBf16>(wt + kTWx1, kHidden, buf_a, rt + kResH1 * kTile, buf_b,
-                            dt + kDH1 * kTile);
+  dense_bwd<kHidden>(wt + kTWx1, kHidden, buf_a, rt + kResH1 * kTile, buf_b, dt + kDH1 * kTile);
   __syncthreads();
   // da0: layer1 has no ReLU, so no mask.
-  dense_bwd<kHidden, kBf16>(wt + kTWx0, kHidden, buf_b, nullptr, nullptr,
-                            dt + kDA0 * kTile);
+  dense_bwd<kHidden>(wt + kTWx0, kHidden, buf_b, nullptr, nullptr, dt + kDA0 * kTile);
+}
+
+template <int NT>
+using TcAcc = tcmma::Acc<NT, tc::kWarps, kBStride>;
+
+// The bf16 instance: dX = mask(stored activation > 0) * acc, written
+// unrounded to the point's delta rows (f32, point-major) and, unless act is
+// null, rounded over the shared tile as the next product's operand.
+// mask null = no mask.
+template <int NT>
+__device__ __forceinline__ void store_grad_tc(TcAcc<NT>& a, const bf16* __restrict__ mask,
+                                              float* __restrict__ drow, bf16* act) {
+  const int lane = threadIdx.x & 31;
+  const int n0 = (threadIdx.x >> 5) * 8 * NT + 2 * (lane & 3);
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = 16 * m + (lane >> 2) + 8 * h;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        float y0 = a.v[m][n][2 * h];
+        float y1 = a.v[m][n][2 * h + 1];
+        if (mask != nullptr) {
+          const float2 mk = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+              mask + p * tc::kRows + n0 + 8 * n));
+          y0 = mk.x > 0.f ? y0 : 0.f;
+          y1 = mk.y > 0.f ? y1 : 0.f;
+          a.v[m][n][2 * h] = y0;
+          a.v[m][n][2 * h + 1] = y1;
+        }
+        *reinterpret_cast<float2*>(drow + p * kDRows + n0 + 8 * n) = make_float2(y0, y1);
+      }
+    }
+  }
+  if (act != nullptr) a.write(act);
+}
+
+// The bf16 instance, on the tensor cores; act is 64 x kBStride bf16.
+__device__ __forceinline__ void bwd_act_tile_tc(const float* __restrict__ g,
+                                                const bf16* __restrict__ res,
+                                                const bf16* __restrict__ w,
+                                                float* __restrict__ delta, long long n_points,
+                                                bf16* act) {
+  const long long tile0 = static_cast<long long>(blockIdx.x) * kTile;
+  const bf16* rt = res + tile0 * tc::kRows;
+  float* dt = delta + tile0 * kDRows;
+
+  // Cotangent: drgb into act columns 0..2 and dsigma into column 128 (the
+  // fused head's extra row), the two padded products' K pads (3..15,
+  // 129..143) zero; padded points get 0, so they add nothing anywhere.
+  if (threadIdx.x < kTile) {
+    const int p = threadIdx.x;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (tile0 + p < n_points) v = reinterpret_cast<const float4*>(g)[tile0 + p];
+    bf16* r = act + p * kBStride;
+    const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+    reinterpret_cast<uint4*>(r)[0] = zero;
+    reinterpret_cast<uint4*>(r)[1] = zero;
+    reinterpret_cast<uint4*>(r + kHidden)[0] = zero;
+    reinterpret_cast<uint4*>(r + kHidden)[1] = zero;
+    r[0] = __float2bfloat16_rn(v.x);
+    r[1] = __float2bfloat16_rn(v.y);
+    r[2] = __float2bfloat16_rn(v.z);
+    r[kHidden] = __float2bfloat16_rn(v.w);
+    *reinterpret_cast<float4*>(dt + p * kDRows + kDRgb) = v;
+  }
+  __syncthreads();
+  {  // dhd = mask(hd) * drgb W_rgb^T
+    TcAcc<2> a;
+    a.mac(w + tc::kBRgb, act, kBStride, 1);
+    store_grad_tc(a, rt + tc::kRowHd, dt + kDHd, act);
+  }
+  {  // dfeat = mask(feat) * dhd W_dir[:128]^T  (column 128 keeps dsigma)
+    TcAcc<4> a;
+    a.mac(w + tc::kBDir, act, kBStride, kDirHidden / 16);
+    store_grad_tc(a, rt + tc::kRowFeat, dt + kDFeat, act);
+  }
+  {  // dh3 = mask(h3) * [dfeat; dsigma] [W_feat; W_alpha]^T
+    TcAcc<4> a;
+    a.mac(w + tc::kBHead, act, kBStride, 144 / 16);
+    store_grad_tc(a, rt + tc::kRowH3, dt + kDH3, act);
+  }
+  {
+    TcAcc<4> a;
+    a.mac(w + tc::kbx(2), act, kBStride, kHidden / 16);
+    store_grad_tc(a, rt + tc::kRowH2, dt + kDH2, act);
+  }
+  {
+    TcAcc<4> a;
+    a.mac(w + tc::kbx(1), act, kBStride, kHidden / 16);
+    store_grad_tc(a, rt + tc::kRowH1, dt + kDH1, act);
+  }
+  {  // da0: layer1 has no ReLU, so no mask.
+    TcAcc<4> a;
+    a.mac(w + tc::kbx(0), act, kBStride, kHidden / 16);
+    store_grad_tc(a, nullptr, dt + kDA0, nullptr);
+  }
+}
+
+template <bool kBf16>
+__global__ void __launch_bounds__(kThreads)
+train_bwd_act_kernel(const float* __restrict__ g, const Res<kBf16>* __restrict__ res,
+                     const void* __restrict__ weights, float* __restrict__ delta,
+                     long long n_points) {
+  extern __shared__ float4 smem[];
+  bwd_act_tile_fma(g, res, static_cast<const float*>(weights), delta, n_points,
+                   reinterpret_cast<float*>(smem));
+}
+
+// 3 blocks an SM: at 4 (128 registers) the k-step loop spilled.
+template <>
+__global__ void __launch_bounds__(kThreads, 3)
+train_bwd_act_kernel<true>(const float* __restrict__ g, const bf16* __restrict__ res,
+                           const void* __restrict__ weights, float* __restrict__ delta,
+                           long long n_points) {
+  extern __shared__ float4 smem[];
+  bwd_act_tile_tc(g, res, static_cast<const bf16*>(weights), delta, n_points,
+                  reinterpret_cast<bf16*>(smem));
 }
 
 // ---------------------------------------------------------------------------
@@ -217,7 +386,7 @@ struct WJob {
   int x_row, in_dim;    // residual rows X
   int d_row, out_dim;   // delta rows dY
   int w_off, b_off;     // where dW (in, out) and db go in the packed layout
-  int first_tile;       // index of the job's first 64 x 64 output tile
+  int first_tile;       // index of the job's first output tile
 };
 
 constexpr int kNumJobs = 8;
@@ -234,13 +403,35 @@ __constant__ WJob kJobs[kNumJobs] = {
     {kResEnc, kEnc, kDA0, kHidden, kOffW1, kOffB1, 21},                        // layer1: 2
 };
 constexpr int kNumWTiles = 23;
+// The same matrices in the bf16 residual layout, one kGTile square output
+// tile each.
+__constant__ WJob kTcJobs[kNumJobs] = {
+    {tc::kRowHd, kDirHidden, kDRgb, 3, kOffWr, kOffBr, 0},
+    {tc::kRowFeat, kHidden, kDHd, kDirHidden, kOffWd, kOffBd, 1},
+    {tc::kRowH3, kHidden, kDFeat, kHidden, kOffWf, kOffBf, 2},
+    {tc::kRowH3, kHidden, kDSig, 1, kOffWa, kOffBa, 3},
+    {tc::kRowH2, kHidden, kDH3, kHidden, kOffWx + 2 * kLayerX,
+     kOffWx + 2 * kLayerX + kHidden * kHidden, 4},
+    {tc::kRowH1, kHidden, kDH2, kHidden, kOffWx + kLayerX,
+     kOffWx + kLayerX + kHidden * kHidden, 5},
+    {tc::kRowA0, kHidden, kDH1, kHidden, kOffWx, kOffWx + kHidden * kHidden, 6},
+    {tc::kRowEnc, kEnc, kDA0, kHidden, kOffW1, kOffB1, 7},
+};
 
-template <bool kBf16>
-__global__ void __launch_bounds__(kWThreads)
-train_bwd_wgrad_kernel(const Res<kBf16>* __restrict__ res, const float* __restrict__ delta,
-                       float* __restrict__ partial, long long n_tiles) {
+__device__ __forceinline__ float load(const float* p) { return *p; }
+
+// The f32 instance, on the FMA pipes: 16 x 16 threads, 4 x 4 outputs each.
+// Its staging keeps the form of the kernel it came from (load, rnd<false>):
+// the same statements without them compile to 77 registers instead of 80,
+// and the whole f32 backward at 1024 x 128 then ran 3.23-3.32 ms against the
+// parent's 3.19-3.21 in one call; in this form 3.17-3.18 against 3.20-3.23
+// (tools/torch_kernel_check.py, NVIDIA H100 80GB HBM3, 700 W).
+__device__ __forceinline__ void wgrad_fma(const float* __restrict__ res,
+                                          const float* __restrict__ delta,
+                                          float* __restrict__ partial, long long n_tiles) {
+  constexpr bool kBf16 = false;
   __shared__ __align__(16) float xs[kTile * kWPad];   // xs[p][i]
-  __shared__ __align__(16) float ys[kTile * kWPad];   // ys[p][o], rounded
+  __shared__ __align__(16) float ys[kTile * kWPad];   // ys[p][o]
 
   int jb = 0;
   while (jb + 1 < kNumJobs && kJobs[jb + 1].first_tile <= static_cast<int>(blockIdx.x)) ++jb;
@@ -264,7 +455,7 @@ train_bwd_wgrad_kernel(const Res<kBf16>* __restrict__ res, const float* __restri
   const long long t_begin = static_cast<long long>(blockIdx.y) * kTilesPerChunk;
   const long long t_end = min(t_begin + kTilesPerChunk, n_tiles);
   for (long long t = t_begin; t < t_end; ++t) {
-    const Res<kBf16>* xt = res + (t * kResRows + job.x_row) * kTile;
+    const float* xt = res + (t * kResRows + job.x_row) * kTile;
     const float* dtile = delta + (t * kDRows + job.d_row) * kTile;
     for (int e = threadIdx.x; e < kWTile * kTile; e += kWThreads) {
       const int r = e / kTile;
@@ -305,6 +496,180 @@ train_bwd_wgrad_kernel(const Res<kBf16>* __restrict__ res, const float* __restri
   if (bias_block) out[job.b_off + o0 + threadIdx.x] = bsum;
 }
 
+// 16 bytes from device memory to shared memory, asynchronously (cp.async,
+// L2 only); with pred false the destination is zero-filled and src not read.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(pred ? 16 : 0));
+}
+
+constexpr int kDStage = kGTile + 4;   // f32 dY staging row (floats)
+// Dynamic shared memory of a bf16 weight-gradient block: X twice, dY (bf16),
+// the f32 dY staging tile and the bias sums' reduction.
+constexpr size_t kWgradSmem = (2 * kTile * kGStride + kTile * kGStride) * sizeof(bf16) +
+                              (kTile * kDStage + (kWThreads / 32) * kGTile) * sizeof(float);
+
+// The bf16 instance, on the tensor cores: block (job, chunk) owns the job's
+// whole matrix (at most kGTile x kGTile), 8 warps of 32 inputs x 64 outputs
+// (2 x 8 m16n8 tiles); per 64-point tile, X (bf16 residuals) and dY (f32
+// deltas, rounded as they are staged) are staged point-major and read with
+// ldmatrix.trans (K = points). A warp whose outputs lie past the matrix's
+// skips their products (fc_rgb, fc_alpha and layers_dir.0 are narrower than
+// the tile). The staging is asynchronous: cp.async brings the next tile's X
+// (double-buffered) and f32 dY rows while this tile's products run; the dY
+// rows are then rounded into the bf16 tile in shared memory, and the bias
+// sums add the unrounded values as they pass (each thread 4 outputs over 8
+// points of a tile; the 8 warps' sums added in a fixed order at the end).
+// Synchronous staging ran this pass in 0.425 ms at 1024 x 128 points, this in
+// 0.268-0.271 (tools/torch_kernel_check.py, NVIDIA H100 80GB HBM3, 700 W),
+// with bitwise the same sums.
+__device__ __forceinline__ void wgrad_tc(const bf16* __restrict__ res,
+                                         const float* __restrict__ delta,
+                                         float* __restrict__ partial, long long n_tiles) {
+  extern __shared__ float4 smem_w[];
+  bf16* xs = reinterpret_cast<bf16*>(smem_w);          // [2][64][kGStride]
+  bf16* ys = xs + 2 * kTile * kGStride;                 // [64][kGStride]
+  float* dys = reinterpret_cast<float*>(ys + kTile * kGStride);   // [64][kDStage]
+  float* red = dys + kTile * kDStage;                   // [8][kGTile]
+
+  const WJob job = kTcJobs[blockIdx.x];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int wm = warp & 3;
+  const int wn = warp >> 2;
+  const int groups = wm * 32 < job.in_dim ? min(4, (job.out_dim - wn * 64 + 15) / 16) : 0;
+  const int d0 = job.d_row & ~3;            // aligned start of the dY rows
+  const int doff = job.d_row - d0;
+  const int dchunks = (doff + job.out_dim + 3) / 4;
+
+  float acc[2][8][4];
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
+    }
+  }
+  float bs[4] = {0.f, 0.f, 0.f, 0.f};
+
+  const long long t_begin = static_cast<long long>(blockIdx.y) * kTilesPerChunk;
+  const long long t_end = min(t_begin + kTilesPerChunk, n_tiles);
+  auto issue = [&](long long t, bf16* xb) {
+    const bf16* xt = res + t * kTile * tc::kRows + job.x_row;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = threadIdx.x & 15;
+      const int p = (threadIdx.x >> 4) + 16 * j;
+      cp_async16(xb + p * kGStride + 8 * c, xt + p * tc::kRows + 8 * c, 8 * c < job.in_dim);
+    }
+    const float* dt = delta + t * kTile * kDRows + d0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int p = warp + 8 * j;
+      cp_async16(dys + p * kDStage + 4 * lane, dt + p * kDRows + 4 * lane, lane < dchunks);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+  issue(t_begin, xs);
+  for (long long t = t_begin; t < t_end; ++t) {
+    const bf16* xb = xs + ((t - t_begin) & 1) * kTile * kGStride;
+    asm volatile("cp.async.wait_group 0;\n" ::);
+    __syncthreads();
+    // dY: round outputs 4 lane .. + 3 of points warp + 8 j into ys, sum the
+    // unrounded values into the bias.
+    const int o = 4 * lane;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int p = warp + 8 * j;
+      const float* src = dys + p * kDStage + doff + o;
+      float4 v;
+      v.x = o < job.out_dim ? src[0] : 0.f;
+      v.y = o + 1 < job.out_dim ? src[1] : 0.f;
+      v.z = o + 2 < job.out_dim ? src[2] : 0.f;
+      v.w = o + 3 < job.out_dim ? src[3] : 0.f;
+      bs[0] += v.x;
+      bs[1] += v.y;
+      bs[2] += v.z;
+      bs[3] += v.w;
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+      *reinterpret_cast<uint2*>(ys + p * kGStride + 4 * lane) =
+          make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                     *reinterpret_cast<const uint32_t*>(&hi));
+    }
+    __syncthreads();
+    if (t + 1 < t_end) issue(t + 1, xs + ((t + 1 - t_begin) & 1) * kTile * kGStride);
+    if (groups > 0) {
+#pragma unroll
+      for (int ks = 0; ks < kTile / 16; ++ks) {
+        uint32_t af[2][4];
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          tcmma::ldsm4t(af[m], xb + (ks * 16 + (lane & 7) + (lane >> 4) * 8) * kGStride +
+                                   wm * 32 + m * 16 + ((lane >> 3) & 1) * 8);
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          if (q < groups) {
+            uint32_t bf[4];
+            tcmma::ldsm4t(bf, ys + (ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kGStride +
+                                  wn * 64 + q * 16 + (lane >> 4) * 8);
+#pragma unroll
+            for (int m = 0; m < 2; ++m) {
+              tcmma::mma(acc[m][2 * q], af[m], bf[0], bf[1]);
+              tcmma::mma(acc[m][2 * q + 1], af[m], bf[2], bf[3]);
+            }
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  float* out = partial + static_cast<long long>(blockIdx.y) * kParams;
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = wm * 32 + m * 16 + (lane >> 2) + 8 * h;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int oo = wn * 64 + n * 8 + 2 * (lane & 3) + e;
+          if (i < job.in_dim && oo < job.out_dim) {
+            out[job.w_off + i * job.out_dim + oo] = acc[m][n][2 * h + e];
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) red[warp * kGTile + 4 * lane + e] = bs[e];
+  __syncthreads();
+  if (static_cast<int>(threadIdx.x) < job.out_dim) {
+    float sum = 0.f;
+    for (int w = 0; w < kWThreads / 32; ++w) sum += red[w * kGTile + threadIdx.x];
+    out[job.b_off + threadIdx.x] = sum;
+  }
+}
+
+template <bool kBf16>
+__global__ void __launch_bounds__(kWThreads)
+train_bwd_wgrad_kernel(const Res<kBf16>* __restrict__ res, const float* __restrict__ delta,
+                       float* __restrict__ partial, long long n_tiles) {
+  wgrad_fma(res, delta, partial, n_tiles);
+}
+
+template <>
+__global__ void __launch_bounds__(kWThreads, 2)
+train_bwd_wgrad_kernel<true>(const bf16* __restrict__ res, const float* __restrict__ delta,
+                             float* __restrict__ partial, long long n_tiles) {
+  wgrad_tc(res, delta, partial, n_tiles);
+}
+
 // Backward 3: grad[e] = sum over chunks c, in order, of partial[c][e].
 __global__ void train_bwd_reduce_kernel(const float* __restrict__ partial, int n_chunks,
                                         float* __restrict__ grad) {
@@ -315,7 +680,9 @@ __global__ void train_bwd_reduce_kernel(const float* __restrict__ partial, int n
   grad[e] = s;
 }
 
-// Backward 4: ddc[r][c] = sum over s of dhd at point r * samples + s.
+// Backward 4: ddc[r][c] = sum over s of dhd at point r * samples + s; the
+// deltas are point-major in the bf16 instance.
+template <bool kBf16>
 __global__ void train_bwd_ddc_kernel(const float* __restrict__ delta, long long n_rays,
                                      int samples, float* __restrict__ ddc) {
   const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -325,41 +692,53 @@ __global__ void train_bwd_ddc_kernel(const float* __restrict__ delta, long long 
   float s = 0.f;
   for (int k = 0; k < samples; ++k) {
     const long long q = r * samples + k;
-    s += delta[((q / kTile) * kDRows + kDHd + c) * kTile + q % kTile];
+    s += kBf16 ? delta[q * kDRows + kDHd + c]
+               : delta[((q / kTile) * kDRows + kDHd + c) * kTile + q % kTile];
   }
   ddc[idx] = s;
 }
 
 template <bool kBf16>
-cudaError_t launch_fwd(const float* pts, const float* dc, const float* params, float* out,
-                       void* res, long long n_points, int samples, cudaStream_t stream) {
+cudaError_t launch_fwd(const float* pts, const float* dc, const float* params, const bf16* wbf,
+                       float* out, void* res, long long n_points, int samples,
+                       cudaStream_t stream) {
+  const size_t smem = kBf16 ? tc::kFwdSmem : kFwdSmem;
   cudaError_t err = cudaFuncSetAttribute(train_fwd_kernel<kBf16>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(kFwdSmem));
+                                         static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const long long tiles = (n_points + kTile - 1) / kTile;
-  train_fwd_kernel<kBf16><<<static_cast<unsigned int>(tiles), kThreads, kFwdSmem, stream>>>(
-      pts, dc, params, out, static_cast<Res<kBf16>*>(res), n_points, samples);
+  train_fwd_kernel<kBf16><<<static_cast<unsigned int>(tiles), kThreads, smem, stream>>>(
+      pts, dc, params, wbf, out, static_cast<Res<kBf16>*>(res), n_points, samples);
   return cudaGetLastError();
 }
 
 template <bool kBf16>
-cudaError_t launch_bwd(const float* g, const void* res, const float* wt, float* delta,
+cudaError_t launch_bwd(const float* g, const void* res, const void* wt, float* delta,
                        float* partial, float* grad, float* ddc, long long n_points,
                        int samples, cudaStream_t stream) {
   const long long tiles = (n_points + kTile - 1) / kTile;
   const long long chunks = (tiles + kTilesPerChunk - 1) / kTilesPerChunk;
   const Res<kBf16>* r = static_cast<const Res<kBf16>*>(res);
+  const size_t smem = kBf16 ? kActSmemTc : kActSmem;
   cudaError_t err = cudaFuncSetAttribute(train_bwd_act_kernel<kBf16>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(kActSmem));
+                                         static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  train_bwd_act_kernel<kBf16><<<static_cast<unsigned int>(tiles), kThreads, kActSmem,
+  train_bwd_act_kernel<kBf16><<<static_cast<unsigned int>(tiles), kThreads, smem,
                                 stream>>>(g, r, wt, delta, n_points);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  train_bwd_wgrad_kernel<kBf16><<<dim3(kNumWTiles, static_cast<unsigned int>(chunks)),
-                                  kWThreads, 0, stream>>>(r, delta, partial, tiles);
+  if (kBf16) {
+    err = cudaFuncSetAttribute(train_bwd_wgrad_kernel<kBf16>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(kWgradSmem));
+    if (err != cudaSuccess) return err;
+  }
+  train_bwd_wgrad_kernel<kBf16><<<dim3(kBf16 ? kNumJobs : kNumWTiles,
+                                       static_cast<unsigned int>(chunks)),
+                                  kWThreads, kBf16 ? kWgradSmem : 0, stream>>>(r, delta, partial,
+                                                                                tiles);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   train_bwd_reduce_kernel<<<(kParams + 255) / 256, 256, 0, stream>>>(
@@ -368,8 +747,8 @@ cudaError_t launch_bwd(const float* g, const void* res, const float* wt, float* 
   if (err != cudaSuccess) return err;
   const long long n_rays = n_points / samples;
   const long long threads = n_rays * kDirHidden;
-  train_bwd_ddc_kernel<<<static_cast<unsigned int>((threads + 255) / 256), 256, 0, stream>>>(
-      delta, n_rays, samples, ddc);
+  train_bwd_ddc_kernel<kBf16><<<static_cast<unsigned int>((threads + 255) / 256), 256, 0,
+                                stream>>>(delta, n_rays, samples, ddc);
   return cudaGetLastError();
 }
 
@@ -382,9 +761,11 @@ bool bad_shape(long long n_points, int samples) {
 
 }  // namespace
 
-// The layout the Python wrapper allocates for: {rows of residuals per point,
-// rows of f32 deltas per point, floats of the packed forward parameters, of
-// the packed backward weights, points per tile, point tiles per chunk}.
+// The layout the Python wrapper allocates for: {rows of f32 residuals per
+// point, rows of f32 deltas per point, floats of the packed forward
+// parameters, of the packed f32 backward weights, points per tile, point
+// tiles per chunk, rows of bf16 residuals per point, bf16 values of the
+// tensor-core forward weights, of the backward ones}.
 extern "C" void nerf_flex_train_layout(int* out) {
   out[0] = kResRows;
   out[1] = kDRows;
@@ -392,34 +773,44 @@ extern "C" void nerf_flex_train_layout(int* out) {
   out[3] = kTParams;
   out[4] = kTile;
   out[5] = kTilesPerChunk;
+  out[6] = tc::kRows;
+  out[7] = tc::kFwdWeights;
+  out[8] = tc::kBwdWeights;
 }
 
 // pts (n_points, 3), dc (n_points / samples, 64), params (kParams,), out
-// (n_points, 4): contiguous f32 device buffers; res: tiles * kResRows * kTile
-// elements of the compute dtype (bf16 when bf16 != 0, else f32). Returns a
+// (n_points, 4): contiguous f32 device buffers, dc 16-byte aligned; with
+// bf16 != 0 also wbf (tc::kFwdWeights,), the bf16 forward weights in
+// fragment order (16-byte aligned; ignored for f32); res: tiles * kTile *
+// (kResRows f32 or tc::kRows bf16) elements of the compute dtype. Returns a
 // cudaError_t.
 extern "C" int nerf_flex_train_forward(const float* pts, const float* dc, const float* params,
-                                       long long n_params, float* out, void* res,
-                                       long long n_points, int samples, int bf16,
-                                       void* stream) {
-  if (n_params != kParams || bad_shape(n_points, samples)) {
+                                       long long n_params, const void* wbf, long long n_wbf,
+                                       float* out, void* res, long long n_points, int samples,
+                                       int bf16, void* stream) {
+  if (n_params != kParams || bad_shape(n_points, samples) ||
+      (bf16 && (wbf == nullptr || n_wbf != tc::kFwdWeights))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = bf16 ? launch_fwd<true>(pts, dc, params, out, res, n_points, samples, s)
-                               : launch_fwd<false>(pts, dc, params, out, res, n_points, samples, s);
+  const auto* w = static_cast<const __nv_bfloat16*>(wbf);
+  const cudaError_t err =
+      bf16 ? launch_fwd<true>(pts, dc, params, w, out, res, n_points, samples, s)
+           : launch_fwd<false>(pts, dc, params, w, out, res, n_points, samples, s);
   return static_cast<int>(err);
 }
 
-// g (n_points, 4) f32 cotangent; res from the forward; wt (kTParams,) the
-// backward weights; scratch: delta (tiles * kDRows * kTile f32) and partial
-// (chunks * kParams f32); outputs: grad (kParams,) in the packed parameter
-// layout and ddc (n_points / samples, 64). Returns a cudaError_t.
-extern "C" int nerf_flex_train_backward(const float* g, const void* res, const float* wt,
+// g (n_points, 4) f32 cotangent; res from the forward; wt the backward
+// weights: (kTParams,) f32 (out, in) matrices, or with bf16 != 0
+// (tc::kBwdWeights,) bf16 fragments, 16-byte aligned; scratch: delta (tiles *
+// kDRows * kTile f32) and partial (chunks * kParams f32); outputs: grad
+// (kParams,) in the packed parameter layout and ddc (n_points / samples, 64).
+// Returns a cudaError_t.
+extern "C" int nerf_flex_train_backward(const float* g, const void* res, const void* wt,
                                         long long n_wt, float* delta, float* partial,
                                         float* grad, float* ddc, long long n_points,
                                         int samples, int bf16, void* stream) {
-  if (n_wt != kTParams || bad_shape(n_points, samples)) {
+  if (n_wt != (bf16 ? tc::kBwdWeights : kTParams) || bad_shape(n_points, samples)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -96,7 +96,7 @@ flexible_mlp_kernel(const float* __restrict__ pts, const float* __restrict__ dir
   extern __shared__ float4 smem[];
   float* buf_a = reinterpret_cast<float*>(smem);
   const long long tile0 = static_cast<long long>(blockIdx.x) * kTile;
-  forward_tile_with<kBf16, float>(pts, params, out, 0, nullptr, tile0, n_points, buf_a,
+  forward_tile_with<kBf16>(pts, params, out, 0, nullptr, tile0, n_points, buf_a,
                                   buf_a + kHidden * kTile,
                                   DirLayerEncoded<kBf16>{params, dirs, tile0, n_points});
 }
@@ -115,7 +115,7 @@ flexible_mlp_rays_kernel(const float* __restrict__ pts, const float* __restrict_
   const long long last = (tile0 + kTile < n_points ? tile0 + kTile : n_points) - 1;
   const int rays = static_cast<int>(last / samples - ray0) + 1;  // <= kTile
   if (threadIdx.x < kTile) ray_of[threadIdx.x] = (rem + static_cast<int>(threadIdx.x)) / samples;
-  forward_tile_with<kBf16, float>(pts, params, out, 0, nullptr, tile0, n_points, buf_a,
+  forward_tile_with<kBf16>(pts, params, out, 0, nullptr, tile0, n_points, buf_a,
                                   buf_a + kHidden * kTile,
                                   DirLayerStaged<kBf16>{params, dc, ray0, rays, ray_of});
 }

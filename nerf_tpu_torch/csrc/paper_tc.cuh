@@ -8,7 +8,9 @@
 // preferred_element_type=f32 (only the summation order differs from the FMA
 // loop). mma.sync keeps a warp's accumulators in registers, which the
 // in-place design needs: a layer's whole output tile sits in registers, the
-// block synchronises, and the tile is written over its own input.
+// block synchronises, and the tile is written over its own input. The
+// instruction wrappers and that accumulator tile (Acc) are tc_mma.cuh's,
+// shared with the 4x128 kernels' flex_tc.cuh.
 //
 // Forward and layer-gradient pass (one block of 256 threads = 8 warps per
 // tile of kTile = 64 points): activations live in shared memory as bf16,
@@ -57,6 +59,7 @@
 #include <cstdint>
 
 #include "paper_mlp.cuh"
+#include "tc_mma.cuh"
 
 namespace paper {
 namespace tc {
@@ -128,139 +131,14 @@ inline size_t fwd_smem_bytes(int dim) {
 }
 constexpr size_t kActSmem = static_cast<size_t>(kStride) * kTile * sizeof(bf16);
 
-__device__ __forceinline__ void mma(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+using tcmma::ldsm4;
+using tcmma::ldsm4t;
+using tcmma::mma;
 
-__device__ __forceinline__ void ldsm4(uint32_t* r, const bf16* p) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
-__device__ __forceinline__ void ldsm4t(uint32_t* r, const bf16* p) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
-// A warp's share of a layer over the tile: acc[mt][nt] is the m16n8 tile of
-// points 16 mt .. 16 mt + 15 and outputs warp * 8 NT + 8 nt .. + 7.
+// A warp's share of a layer over the tile (tc_mma.cuh): 8 warps, rows of
+// kStride.
 template <int NT>
-struct Acc {
-  float v[4][NT][4];
-
-  __device__ __forceinline__ Acc() {
-#pragma unroll
-    for (int m = 0; m < 4; ++m) {
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) v[m][n][e] = 0.f;
-      }
-    }
-  }
-
-  // v += A (64 points x 16 ksteps, bf16 rows of `a` with `a_stride`) . B
-  // (the fragment-ordered weights at w). kUnroll > 0 unrolls the k-steps
-  // that many times (2 in the forward, whose layers are unrolled too, to
-  // fit 128 registers); 0 leaves it to the compiler (the backward).
-  template <int kUnroll = 0>
-  __device__ __forceinline__ void mac(const bf16* __restrict__ w, const bf16* a, int a_stride,
-                                      int ksteps) {
-    constexpr int kU = NT / 2;                   // uint4 of B per lane a k-step
-    constexpr int kStep = kWarps * 32 * kU;      // uint4 a k-step
-    const int lane = threadIdx.x & 31;
-    const uint4* wp = reinterpret_cast<const uint4*>(w) + ((threadIdx.x >> 5) * 32 + lane) * kU;
-    // ldmatrix x4 rows: lanes 0-15 points 0-15 at k, lanes 16-31 at k + 8.
-    const bf16* ap = a + (lane & 15) * a_stride + (lane >> 4) * 8;
-    uint4 cur[kU];
-#pragma unroll
-    for (int u = 0; u < kU; ++u) cur[u] = __ldg(wp + u);
-    // One k-step: load the next step's B, multiply with this one's.
-    auto step = [&](int ks) {
-      uint4 nxt[kU];
-      const int kn = ks + 1 < ksteps ? ks + 1 : ks;
-#pragma unroll
-      for (int u = 0; u < kU; ++u) nxt[u] = __ldg(wp + kn * kStep + u);
-      const uint32_t* b = reinterpret_cast<const uint32_t*>(cur);
-#pragma unroll
-      for (int m = 0; m < 4; ++m) {
-        uint32_t af[4];
-        ldsm4(af, ap + m * 16 * a_stride + ks * 16);
-#pragma unroll
-        for (int n = 0; n < NT; ++n) mma(v[m][n], af, b[2 * n], b[2 * n + 1]);
-      }
-#pragma unroll
-      for (int u = 0; u < kU; ++u) cur[u] = nxt[u];
-    };
-    if constexpr (kUnroll > 0) {
-#pragma unroll (kUnroll > 0 ? kUnroll : 1)
-      for (int ks = 0; ks < ksteps; ++ks) step(ks);
-    } else {
-      for (int ks = 0; ks < ksteps; ++ks) step(ks);
-    }
-  }
-
-  // The forward epilogue: v = act(v + b[n] (+ dc[ray(p)][n])); dc is (rays,
-  // N) f32, the ray of tile point p is (tile0 + p) / samples.
-  template <bool kRelu>
-  __device__ __forceinline__ void bias_act(const float* __restrict__ bias,
-                                           const float* __restrict__ dc, long long tile0,
-                                           int samples, long long n_points) {
-    constexpr int kN = 8 * NT * kWarps;
-    const int lane = threadIdx.x & 31;
-    const int n0 = (threadIdx.x >> 5) * 8 * NT + 2 * (lane & 3);
-    float2 b[NT];
-#pragma unroll
-    for (int n = 0; n < NT; ++n) b[n] = __ldg(reinterpret_cast<const float2*>(bias + n0 + 8 * n));
-#pragma unroll
-    for (int m = 0; m < 4; ++m) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const long long gp = tile0 + 16 * m + (lane >> 2) + 8 * h;
-        const float* drow = dc != nullptr && gp < n_points ? dc + (gp / samples) * kN : nullptr;
-#pragma unroll
-        for (int n = 0; n < NT; ++n) {
-          float2 d = make_float2(0.f, 0.f);
-          if (drow != nullptr) d = __ldg(reinterpret_cast<const float2*>(drow + n0 + 8 * n));
-          const float y0 = v[m][n][2 * h] + b[n].x + d.x;
-          const float y1 = v[m][n][2 * h + 1] + b[n].y + d.y;
-          v[m][n][2 * h] = kRelu ? fmaxf(y0, 0.f) : y0;
-          v[m][n][2 * h + 1] = kRelu ? fmaxf(y1, 0.f) : y1;
-        }
-      }
-    }
-  }
-
-  // Write v rounded to bf16 over the tile `act` once every thread has
-  // finished reading the layer's inputs (which may be `act` itself); returns
-  // when the new rows are visible to the block.
-  __device__ __forceinline__ void write(bf16* act) {
-    const int lane = threadIdx.x & 31;
-    const int n0 = (threadIdx.x >> 5) * 8 * NT + 2 * (lane & 3);
-    __syncthreads();
-#pragma unroll
-    for (int m = 0; m < 4; ++m) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        bf16* row = act + (16 * m + (lane >> 2) + 8 * h) * kStride + n0;
-#pragma unroll
-        for (int n = 0; n < NT; ++n) {
-          *reinterpret_cast<__nv_bfloat162*>(row + 8 * n) =
-              __floats2bfloat162_rn(v[m][n][2 * h], v[m][n][2 * h + 1]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-};
+using Acc = tcmma::Acc<NT, kWarps, kStride>;
 
 // Copy `cols` (a multiple of 8) bf16 columns of the tile's rows in shared
 // memory to the tile's residual rows res[(tile * kTile + point) * rows + r].

@@ -58,7 +58,7 @@ stage_kernel(const float* __restrict__ pts, const float* __restrict__ z,
   const long long p0 = ray0 * samples;
   const long long p_end = p0 + static_cast<long long>(rays) * samples;
   for (long long tile0 = p0; tile0 < p_end; tile0 += kTile) {
-    forward_tile_at<kBf16, float>(pts, dc, params, field, p0, nullptr, tile0, p_end, samples,
+    forward_tile_at<kBf16>(pts, dc, params, field, p0, nullptr, tile0, p_end, samples,
                                   buf_a, buf_b);
     __syncthreads();
   }

@@ -16,6 +16,13 @@ CUDA kernels for Hopper in ``csrc/flex_train.cu``, behind one
   launches (layer gradients, weight gradients per chunk of points, a
   fixed-order sum over chunks, ddc per ray): deterministic, no atomics.
 
+``compute_dtype="float32"`` runs both on f32 FMAs; ``"bfloat16"`` runs the
+forward, the layer gradients and the weight gradients on the tensor cores
+(``mma.sync``, bf16 operands, f32 sums; ``csrc/flex_tc.cuh``), with bf16
+copies of the weights in the instruction's fragment order
+(``kernels/mlp.pack_tc_forward``, ``pack_tc_backward``) built once per call,
+and bf16 residuals point-major (``residuals_as_plain`` reads either layout).
+
 ``flex_train_plain_fwd`` / ``flex_train_plain_bwd`` are the plain PyTorch
 version: the same residuals and the same gradients from them, by the
 hand-derived backward. CPU tensors take them; CUDA tensors take the kernels
@@ -32,53 +39,39 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Tuple
 
 import torch
 
 from ..ops.encoding import positional_encoding
-from .mlp import (
+from .mlp import (  # noqa: F401  (unpack_params: re-exported for the callers of this module)
     _DIM_XYZ,
+    _DIR_HIDDEN,
     _HIDDEN,
+    _LAYOUT,
     _NUM_FREQ_XYZ,
+    _NUM_PARAMS,
+    _tc_forward_matrices,
     dir_contribution,
     pack_params,
+    pack_tc_forward,
     supports_fused,
+    tc_gather_index,
+    tc_unflatten,
+    unpack_params,
 )
 from .train_vjp import TrainKernelFamily, build_train_vjp
 
-_DIR_HIDDEN = 64
 _TILE = 64                 # points per block (csrc/flex_mlp.cuh kTile)
 _TILES_PER_CHUNK = 16      # point tiles per weight-gradient block
 _RES_ROWS = _DIM_XYZ + 5 * _HIDDEN + _DIR_HIDDEN          # 767 residual rows per point
+_TC_RES_ROWS = 64 + 5 * _HIDDEN + _DIR_HIDDEN             # 768 in bf16, enc padded to 64
 _DELTA_ROWS = 4 + _DIR_HIDDEN + 5 * _HIDDEN               # 708 f32 gradient rows per point
-
-# Packed parameter buffer (kernels/mlp.pack_params, csrc/flex_mlp.cuh):
-# name -> (in, out) of each weight, then its bias (out,).
-_LAYOUT = (
-    ("layer1", _DIM_XYZ, _HIDDEN),
-    ("layers_xyz.0", _HIDDEN, _HIDDEN),
-    ("layers_xyz.1", _HIDDEN, _HIDDEN),
-    ("layers_xyz.2", _HIDDEN, _HIDDEN),
-    ("fc_feat", _HIDDEN, _HIDDEN),
-    ("fc_alpha", _HIDDEN, 1),
-    ("layers_dir.0", _HIDDEN, _DIR_HIDDEN),
-    ("fc_rgb", _DIR_HIDDEN, 3),
-)
-_NUM_PARAMS = sum(i * o + o for _, i, o in _LAYOUT)      # 82820
 # Backward weights (csrc/flex_train.cu kT*): nn.Linear (out, in) matrices.
 _BWD_ORDER = ("fc_rgb", "layers_dir.0", "fc_feat", "fc_alpha",
               "layers_xyz.2", "layers_xyz.1", "layers_xyz.0")
 _NUM_BWD_WEIGHTS = sum(i * o for n, i, o in _LAYOUT if n in _BWD_ORDER)   # 74048
-
-
-def unpack_params(params: torch.Tensor) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
-    """Views of the packed buffer: name -> (weight (in, out), bias (out,))."""
-    out, off = {}, 0
-    for name, i, o in _LAYOUT:
-        out[name] = (params[off:off + i * o].view(i, o), params[off + i * o:off + i * o + o])
-        off += i * o + o
-    return out
+_NUM_TC_FWD_WEIGHTS = 64 * 128 + 4 * 128 * 128 + 128 * 64 + 128 + 3 * 64   # 82240
+_NUM_TC_BWD_WEIGHTS = 16 * 64 + 64 * 128 + 144 * 128 + 3 * 128 * 128     # 76800
 
 
 def pack_backward_weights(params: torch.Tensor) -> torch.Tensor:
@@ -86,6 +79,56 @@ def pack_backward_weights(params: torch.Tensor) -> torch.Tensor:
     order of ``csrc/flex_train.cu``'s kT* offsets."""
     layers = unpack_params(params)
     return torch.cat([layers[name][0].t().reshape(-1) for name in _BWD_ORDER])
+
+
+def _tc_backward_matrices(layers, pad):
+    """The bf16 layer-gradient pass's operands, in ``csrc/flex_tc.cuh``'s
+    kB* order, each (in, out) for dX = dY W: fc_rgb (K 3 -> 16),
+    layers_dir.0's feat rows, [fc_feat; fc_alpha] (K 129 -> 144),
+    layers_xyz.2 .. .0; K pads hold ``pad``."""
+    def w(name):
+        return layers[name][0]
+
+    head = torch.cat([w("fc_feat"), w("fc_alpha")], dim=1)
+    return [("fc_rgb", torch.nn.functional.pad(w("fc_rgb"), (0, 13), value=pad)),
+            ("layers_dir.0", w("layers_dir.0")),
+            ("head", torch.nn.functional.pad(head, (0, 15), value=pad))] + [
+        (f"layers_xyz.{i}", w(f"layers_xyz.{i}")) for i in (2, 1, 0)]
+
+
+def pack_tc_backward(params: torch.Tensor) -> torch.Tensor:
+    """The bf16 backward kernel's weights (``csrc/flex_tc.cuh`` kB*), from
+    the packed parameters: rounded to bf16, fragment order, zero K pads."""
+    from .paper_t import gather_bf16
+
+    return gather_bf16(params, lambda device: tc_gather_index(_tc_backward_matrices, device))
+
+
+def unpack_tc_backward(buf: torch.Tensor):
+    """``pack_tc_backward``'s buffer as f32 operand matrices: name -> (in,
+    out) with its K pads ("head" is [fc_feat; fc_alpha])."""
+    return tc_unflatten(buf, _tc_backward_matrices)
+
+
+def residuals_as_plain(residuals, n_points: int, compute_dtype: str = "float32"):
+    """``flex_train_fwd``'s residuals as views in the plain version's form,
+    (enc, a0, h1, h2, h3, feat, hd), each (n_points, C) in the compute dtype:
+    the plain backward run on the forward kernel's own residuals is the
+    backward kernel's plain version on the same inputs. The kernel's f32
+    buffer is res[tile][row][point], its bf16 one res[point][row] with enc
+    padded to 64; the plain forward's (CPU) residuals are returned as they
+    are."""
+    if len(residuals) != 1:
+        return tuple(residuals)
+    (res,) = residuals
+    if compute_dtype == "bfloat16":
+        table, kin = res.view(-1, _TC_RES_ROWS)[:n_points], 64
+    else:
+        table = res.view(-1, _RES_ROWS, _TILE).transpose(1, 2).reshape(-1, _RES_ROWS)[:n_points]
+        kin = _DIM_XYZ
+    widths = [_DIM_XYZ] + [_HIDDEN] * 5 + [_DIR_HIDDEN]
+    starts = [0] + [kin + _HIDDEN * i for i in range(6)]
+    return tuple(table[:, a:a + w] for a, w in zip(starts, widths))
 
 
 def _rounder(compute_dtype: str):
@@ -166,19 +209,25 @@ def _kernels():
     lib = load_library()
     lib.nerf_flex_train_layout.argtypes = [ctypes.POINTER(ctypes.c_int)]
     lib.nerf_flex_train_layout.restype = None
-    layout = (ctypes.c_int * 6)()
+    layout = (ctypes.c_int * 9)()
     lib.nerf_flex_train_layout(layout)
-    want = (_RES_ROWS, _DELTA_ROWS, _NUM_PARAMS, _NUM_BWD_WEIGHTS, _TILE, _TILES_PER_CHUNK)
+    want = (_RES_ROWS, _DELTA_ROWS, _NUM_PARAMS, _NUM_BWD_WEIGHTS, _TILE, _TILES_PER_CHUNK,
+            _TC_RES_ROWS, tc_forward_weights(), _NUM_TC_BWD_WEIGHTS)
     if tuple(layout) != want:
         raise RuntimeError(f"csrc/flex_train.cu layout {tuple(layout)} != wrapper's {want}")
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     fwd = lib.nerf_flex_train_forward
-    fwd.argtypes = [ptr, ptr, ptr, i64, ptr, ptr, i64, i32, i32, ptr]
+    fwd.argtypes = [ptr, ptr, ptr, i64, ptr, i64, ptr, ptr, i64, i32, i32, ptr]
     fwd.restype = ctypes.c_int
     bwd = lib.nerf_flex_train_backward
     bwd.argtypes = [ptr, ptr, ptr, i64, ptr, ptr, ptr, ptr, i64, i32, i32, ptr]
     bwd.restype = ctypes.c_int
     return fwd, bwd
+
+
+def tc_forward_weights() -> int:
+    """bf16 values of ``pack_tc_forward``'s buffer."""
+    return tc_gather_index(_tc_forward_matrices, "cpu").numel()
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -210,7 +259,7 @@ def flex_train_fwd(pts: torch.Tensor, dc: torch.Tensor, params: torch.Tensor,
     bf16 = compute_dtype == "bfloat16"
     tiles = -(-n * s // _TILE)
     out = torch.empty((n, s, 4), dtype=torch.float32, device=pts.device)
-    res = torch.empty(tiles * _RES_ROWS * _TILE, device=pts.device,
+    res = torch.empty(tiles * (_TC_RES_ROWS if bf16 else _RES_ROWS) * _TILE, device=pts.device,
                       dtype=torch.bfloat16 if bf16 else torch.float32)
     if n * s == 0:
         return out, (res,)
@@ -219,10 +268,12 @@ def flex_train_fwd(pts: torch.Tensor, dc: torch.Tensor, params: torch.Tensor,
     # this stream's order, after the kernel.
     with torch.cuda.device(pts.device):
         pts_c, dc_c, params_c = (_aligned(t) for t in (pts, dc, params))
+        wbf = pack_tc_forward(params_c) if bf16 else None
         stream = torch.cuda.current_stream(pts.device).cuda_stream
         rc = _kernels()[0](pts_c.data_ptr(), dc_c.data_ptr(), params_c.data_ptr(),
-                           params_c.numel(), out.data_ptr(), res.data_ptr(), n * s, s,
-                           int(bf16), stream)
+                           params_c.numel(), None if wbf is None else wbf.data_ptr(),
+                           0 if wbf is None else wbf.numel(), out.data_ptr(), res.data_ptr(),
+                           n * s, s, int(bf16), stream)
     if rc != 0:
         raise RuntimeError(f"{what}: kernel launch failed with CUDA error {rc}")
     fused_flex_mlp_train.fwd_launches += 1
@@ -252,7 +303,8 @@ def flex_train_bwd(g: torch.Tensor, residuals, params: torch.Tensor, n: int, s: 
     partial = torch.empty(chunks * _NUM_PARAMS, dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         g_c = _aligned(g)
-        wt = _aligned(pack_backward_weights(params.detach()))
+        wt = (pack_tc_backward(params) if compute_dtype == "bfloat16"
+              else _aligned(pack_backward_weights(params.detach())))
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = _kernels()[1](g_c.data_ptr(), res.data_ptr(), wt.data_ptr(), wt.numel(),
                            delta.data_ptr(), partial.data_ptr(), grad.data_ptr(),

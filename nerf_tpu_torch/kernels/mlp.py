@@ -20,7 +20,9 @@ the kernel with one matmul, from a copy in shared memory: it computes what
 
 This module also holds what the family's kernels share, as the JAX
 package's ``mlp.py`` does: the shape gate ``supports_fused``, the packed
-parameter layout and the per-ray direction contribution.
+parameter layout, the per-ray direction contribution, and the bf16 forward
+weights of the tensor-core kernels (``pack_tc_forward``: ``fused_mlp_t``'s
+and the training forward's bf16 instances run ``csrc/flex_tc.cuh``).
 
 ``compute_dtype="bfloat16"`` rounds both operands of every matmul to bf16
 and keeps f32 sums (``preferred_element_type=f32``). The point-major kernel
@@ -35,6 +37,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
+from typing import Dict, Tuple
 
 import torch
 
@@ -45,7 +48,23 @@ _NUM_FREQ_XYZ = 10
 _NUM_FREQ_DIR = 4
 _DIM_XYZ = 3 + 6 * _NUM_FREQ_XYZ   # 63
 _HIDDEN = 128
+_DIR_HIDDEN = 64
 _COMPUTE_DTYPES = ("float32", "bfloat16")
+_TC_WARPS = 4              # warps of a tensor-core block (csrc/flex_tc.cuh kWarps)
+
+# Packed parameter buffer (pack_params, csrc/flex_mlp.cuh): name -> (in, out)
+# of each weight, then its bias (out,).
+_LAYOUT = (
+    ("layer1", _DIM_XYZ, _HIDDEN),
+    ("layers_xyz.0", _HIDDEN, _HIDDEN),
+    ("layers_xyz.1", _HIDDEN, _HIDDEN),
+    ("layers_xyz.2", _HIDDEN, _HIDDEN),
+    ("fc_feat", _HIDDEN, _HIDDEN),
+    ("fc_alpha", _HIDDEN, 1),
+    ("layers_dir.0", _HIDDEN, _DIR_HIDDEN),
+    ("fc_rgb", _DIR_HIDDEN, 3),
+)
+_NUM_PARAMS = sum(i * o + o for _, i, o in _LAYOUT)      # 82820
 
 
 def supports_fused(model) -> bool:
@@ -128,6 +147,63 @@ def pack_params_points(model: FlexibleNeRFModel) -> torch.Tensor:
     layers_dir.0's direction rows (27, 64)."""
     w_dir = model.layers_dir[0].weight[:, _HIDDEN:].t()
     return torch.cat([pack_params(model), w_dir.float().reshape(-1)])
+
+
+def unpack_params(params: torch.Tensor) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
+    """Views of the packed buffer: name -> (weight (in, out), bias (out,))."""
+    out, off = {}, 0
+    for name, i, o in _LAYOUT:
+        out[name] = (params[off:off + i * o].view(i, o), params[off + i * o:off + i * o + o])
+        off += i * o + o
+    return out
+
+
+def _tc_forward_matrices(layers, pad):
+    """The tensor-core forward's operands, in ``csrc/flex_tc.cuh``'s kW*
+    order, each (out, in): layer1 with K 63 -> 64 (the pad holds ``pad``),
+    layers_xyz.0 .. .2, fc_feat, layers_dir.0's feat rows, then fc_alpha
+    (1, 128) and fc_rgb (3, 64), read plain."""
+    def w(name):
+        return layers[name][0].t()
+
+    return [("layer1", torch.nn.functional.pad(w("layer1"), (0, 1), value=pad))] + [
+        (name, w(name)) for name in ("layers_xyz.0", "layers_xyz.1", "layers_xyz.2", "fc_feat",
+                                     "layers_dir.0", "fc_alpha", "fc_rgb")]
+
+
+@functools.lru_cache(maxsize=None)
+def tc_gather_index(matrices, device: str) -> torch.Tensor:
+    """Where each value of a 4x128 bf16 weight buffer comes from in the
+    packed parameters (82820 for a zero pad), on ``device``: ``matrices``
+    run on the positions themselves, flattened for 4-warp blocks."""
+    from .paper_t import _flatten
+
+    ref = torch.arange(_NUM_PARAMS + 1, dtype=torch.float64)
+    return _flatten(matrices(unpack_params(ref), float(_NUM_PARAMS)), _TC_WARPS).long().to(device)
+
+
+def tc_unflatten(buf: torch.Tensor, matrices) -> Dict[str, torch.Tensor]:
+    """A 4x128 bf16 weight buffer as f32 operand matrices: name -> (N, K)
+    with its K pads."""
+    from .paper_t import _unflatten
+
+    return _unflatten(buf, matrices(unpack_params(torch.zeros(_NUM_PARAMS)), 0.0), _TC_WARPS)
+
+
+def pack_tc_forward(params: torch.Tensor) -> torch.Tensor:
+    """The bf16 forward kernels' weights (``csrc/flex_tc.cuh`` kW*), from
+    the packed parameters: every weight rounded to bf16, the wide ones in
+    fragment order with zero K pads (``kernels/paper_t.fragment_order`` at 4
+    warps)."""
+    from .paper_t import gather_bf16
+
+    return gather_bf16(params, lambda device: tc_gather_index(_tc_forward_matrices, device))
+
+
+def unpack_tc_forward(buf: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """``pack_tc_forward``'s buffer as f32 operand matrices: name -> (out,
+    in) with its K pads."""
+    return tc_unflatten(buf, _tc_forward_matrices)
 
 
 def _rounding(compute_dtype: str):

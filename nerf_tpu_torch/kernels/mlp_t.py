@@ -7,10 +7,14 @@ encoding, the trunk, fc_feat/fc_alpha, the direction layer and fc_rgb in one
 launch whose activations stay in shared memory and registers.
 
 What bounds it on the card is arithmetic: ~82k multiply-adds per point
-against 28 B of point traffic. The first design keeps every activation of a
-64-point tile on chip and runs f32 FMAs from registers (the source note in
-``csrc/mlp_t.cu`` has the details): ~24 TFLOP/s on an H100 SXM at 700 W,
-about 35% of the f32 FMA peak. Tensor cores are later work.
+against 28 B of point traffic. Both instances keep every activation of a
+64-point tile on chip (the source note in ``csrc/mlp_t.cu`` has the
+details). ``compute_dtype="float32"`` runs f32 FMAs from registers (~24
+TFLOP/s on an H100 SXM at 700 W, about 35% of the f32 FMA peak);
+``"bfloat16"`` runs every wide product on the tensor cores (``mma.sync``,
+bf16 operands, f32 sums; ``csrc/flex_tc.cuh``), its weights handed over as a
+bf16 copy in the instruction's fragment order (``kernels/mlp.pack_tc_forward``),
+built once per call.
 
 Like the TPU version, the per-ray direction contribution
 ``enc(viewdirs) @ W_dir[128:]`` (N, 64) is computed outside the kernel with
@@ -38,6 +42,7 @@ from .mlp import (  # noqa: F401
     dir_contribution,
     flexible_mlp_rays_plain,
     pack_params,
+    pack_tc_forward,
     supports_fused,
 )
 
@@ -51,11 +56,8 @@ def _kernel():
 
     lib = load_library()
     fn = lib.nerf_mlp_t_forward
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p,
-    ]
+    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    fn.argtypes = [ptr, ptr, ptr, i64, ptr, i64, ptr, i64, i32, i32, ptr]
     fn.restype = ctypes.c_int
     return fn
 
@@ -95,17 +97,19 @@ def fused_mlp_t(
     out = torch.empty((n, s, 4), dtype=torch.float32, device=pts.device)
     if n * s == 0:
         return out
-    # dc and params are freed when this returns, before the kernel may have
-    # run: the caching allocator hands their blocks out again only in this
-    # stream's order, after the kernel.
+    # dc, params and wbf are freed when this returns, before the kernel may
+    # have run: the caching allocator hands their blocks out again only in
+    # this stream's order, after the kernel.
     with torch.no_grad(), torch.cuda.device(pts.device):
         pts_c = pts.contiguous()
         dc = dir_contribution(model, viewdirs).contiguous()
         params = pack_params(model).contiguous()
+        wbf = pack_tc_forward(params) if compute_dtype == "bfloat16" else None
         stream = torch.cuda.current_stream(pts.device).cuda_stream
         rc = _kernel()(
             pts_c.data_ptr(), dc.data_ptr(), params.data_ptr(), params.numel(),
-            out.data_ptr(), n * s, s, int(compute_dtype == "bfloat16"), stream,
+            None if wbf is None else wbf.data_ptr(), 0 if wbf is None else wbf.numel(),
+            out.data_ptr(), n * s, s, int(wbf is not None), stream,
         )
     if rc != 0:
         raise RuntimeError(f"fused_mlp_t: kernel launch failed with CUDA error {rc}")

@@ -122,21 +122,22 @@ def _pad16(n: int) -> int:
     return -(-n // 16) * 16
 
 
-def fragment_order(m: torch.Tensor) -> torch.Tensor:
-    """An (N, K) operand matrix (N a multiple of 64, K of 16) flattened in the
-    order the tensor-core kernels read it (``csrc/paper_tc.cuh``): for each
-    16-deep k-step, for each of the 8 warps (N / 8 consecutive outputs), for
-    each lane l, the NT = N / 64 m16n8k16 B fragments that lane holds:
-    ``m[n][k]`` for n = (warp * NT + j) * 8 + l // 4 and k = 16 ks + 8 h +
-    2 (l % 4) + e, in (j, h, e) order."""
+def fragment_order(m: torch.Tensor, warps: int = 8) -> torch.Tensor:
+    """An (N, K) operand matrix (N a multiple of 16 ``warps``, K of 16)
+    flattened in the order the tensor-core kernels read it
+    (``csrc/tc_mma.cuh``): for each 16-deep k-step, for each of the ``warps``
+    warps (N / warps consecutive outputs; 8 in the PaperNeRF kernels, 4 in the
+    4x128 ones), for each lane l, the NT = N / (8 warps) m16n8k16 B fragments
+    that lane holds: ``m[n][k]`` for n = (warp * NT + j) * 8 + l // 4 and
+    k = 16 ks + 8 h + 2 (l % 4) + e, in (j, h, e) order."""
     n, k = m.shape
-    x = m.reshape(8, n // 64, 8, k // 16, 2, 4, 2)    # warp, j, l // 4, ks, h, l % 4, e
+    x = m.reshape(warps, n // (8 * warps), 8, k // 16, 2, 4, 2)   # warp, j, l // 4, ks, h, l % 4, e
     return x.permute(3, 0, 2, 5, 1, 4, 6).reshape(-1)
 
 
-def fragment_matrix(flat: torch.Tensor, n: int, k: int) -> torch.Tensor:
+def fragment_matrix(flat: torch.Tensor, n: int, k: int, warps: int = 8) -> torch.Tensor:
     """The inverse of ``fragment_order``: the (N, K) matrix."""
-    x = flat.reshape(k // 16, 8, 8, 4, n // 64, 2, 2)
+    x = flat.reshape(k // 16, warps, 8, 4, n // (8 * warps), 2, 2)
     return x.permute(1, 4, 2, 0, 5, 3, 6).reshape(n, k)
 
 
@@ -159,8 +160,10 @@ def _tc_forward_matrices(layers, dim: int, pad) -> List[Tuple[str, torch.Tensor]
         "fc_feat", "layers_dir.0", "layers_dir.1", "layers_dir.2", "fc_alpha", "fc_rgb")]
 
 
-def _flatten(mats) -> torch.Tensor:
-    return torch.cat([fragment_order(m) if m.shape[0] >= 64 else m.reshape(-1)
+def _flatten(mats, warps: int = 8) -> torch.Tensor:
+    """The operand matrices (name, (N, K)) as one buffer: the wide ones (N of
+    8 ``warps`` or more) in fragment order, the narrow heads row by row."""
+    return torch.cat([fragment_order(m, warps) if m.shape[0] >= 8 * warps else m.reshape(-1)
                       for _, m in mats])
 
 
@@ -175,13 +178,19 @@ def _gather_index(matrices, num_freq: int, device: str) -> torch.Tensor:
     return flat.long().to(device)
 
 
-def _gather_bf16(params: torch.Tensor, matrices, num_freq: int) -> torch.Tensor:
-    """The bf16 weight buffer that ``matrices`` lays out, from the packed f32
-    parameters: one gather and one rounding, 16-byte aligned."""
+def gather_bf16(params: torch.Tensor, index) -> torch.Tensor:
+    """A bf16 weight buffer from the packed f32 parameters: ``index(device)``
+    gives where each value comes from (``params.numel()`` for a zero pad).
+    One gather and one rounding, 16-byte aligned."""
     params = params.detach().float().reshape(-1)
     ext = torch.cat([params, params.new_zeros(1)])
-    out = ext[_gather_index(matrices, num_freq, str(params.device))].to(torch.bfloat16)
+    out = ext[index(str(params.device))].to(torch.bfloat16)
     return out if out.data_ptr() % 16 == 0 else out.clone()
+
+
+def _gather_bf16(params: torch.Tensor, matrices, num_freq: int) -> torch.Tensor:
+    """The bf16 weight buffer that ``matrices`` lays out at ``num_freq``."""
+    return gather_bf16(params, lambda device: _gather_index(matrices, num_freq, device))
 
 
 def pack_tc_forward(params: torch.Tensor, num_freq: int) -> torch.Tensor:
@@ -198,12 +207,13 @@ def unpack_tc_forward(buf: torch.Tensor, num_freq: int) -> Dict[str, torch.Tenso
         unpack_params(torch.zeros(num_params(num_freq)), num_freq), 3 + 6 * num_freq, 0.0))
 
 
-def _unflatten(buf: torch.Tensor, mats) -> Dict[str, torch.Tensor]:
+def _unflatten(buf: torch.Tensor, mats, warps: int = 8) -> Dict[str, torch.Tensor]:
+    """The inverse of ``_flatten``: name -> the f32 (N, K) matrix."""
     out, off = {}, 0
     for name, m in mats:
         n, k = m.shape
         part = buf[off:off + n * k].float()
-        out[name] = fragment_matrix(part, n, k) if n >= 64 else part.view(n, k)
+        out[name] = fragment_matrix(part, n, k, warps) if n >= 8 * warps else part.view(n, k)
         off += n * k
     if off != buf.numel():
         raise ValueError(f"a buffer of {buf.numel()} values for a layout of {off}")

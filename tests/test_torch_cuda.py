@@ -5,7 +5,11 @@ without the suite's conftest (it imports JAX):
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
-This file imports torch and the port only.
+This file imports torch and the port only. The bf16 instances of #1, #4 and
+the #8 and #9 pairs run on the tensor cores: their forwards are held to
+TC_FWD_TOL, the bf16 backwards against the plain backward on the forward
+kernel's own residuals (a bf16 sum in another order flips roundings and ReLU
+masks that an end-to-end comparison would follow).
 """
 
 import dataclasses
@@ -20,6 +24,7 @@ from nerf_tpu_torch.kernels.flex_train import (
     flex_train_plain_bwd,
     flex_train_plain_fwd,
     fused_flex_mlp_train,
+    residuals_as_plain,
     unpack_params,
 )
 from nerf_tpu_torch.kernels import composite, mlp, paper_t, paper_train, resample, stage
@@ -28,6 +33,9 @@ from nerf_tpu_torch.models import FlexibleNeRFModel, PaperNeRFModel
 
 pytestmark = pytest.mark.cuda
 torch.set_num_threads(1)
+# The tensor-core forwards against their bf16-emulating plain versions: a sum
+# in another order flips a rounding and moves the output by ~5e-4.
+TC_FWD_TOL = 2e-3
 
 
 @pytest.fixture
@@ -47,7 +55,7 @@ def _inputs(n, s, seed):
     return pts, vd / torch.linalg.norm(vd, dim=-1, keepdim=True)
 
 
-@pytest.mark.parametrize("compute_dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("compute_dtype,tol", [("float32", 1e-4), ("bfloat16", TC_FWD_TOL)])
 @pytest.mark.parametrize("n,s", [(1, 1), (33, 64), (1000, 128), (7, 61)])
 def test_kernel_matches_plain(model, n, s, compute_dtype, tol):
     pts, vd = _inputs(n, s, seed=n * s)
@@ -103,7 +111,8 @@ def test_renderer_goes_through_the_kernel(model):
 @pytest.mark.parametrize("n,s", [(1, 1), (1000, 128), (7, 61)])
 def test_flexible_kernels_match_plain(model, n, s, compute_dtype, tol):
     """#3 (ray-major) and #2 (point-major, on the flattened points with each
-    ray's direction) against their plain versions; #3 bitwise equal to #1."""
+    ray's direction) against their plain versions; #3 bitwise equal to #1 in
+    f32 (in bf16 #1 runs on the tensor cores, #3 on the FMA pipes)."""
     pts, vd = _inputs(n, s, seed=n + s)
     flat_pts, flat_vd = pts.reshape(-1, 3), vd[:, None, :].expand(n, s, 3).reshape(-1, 3)
     before = (mlp.fused_flexible_mlp.launches, mlp.fused_flexible_mlp_rays.launches)
@@ -119,7 +128,10 @@ def test_flexible_kernels_match_plain(model, n, s, compute_dtype, tol):
     assert rays.shape == (n, s, 4) and points.shape == (n * s, 4) and points.is_cuda
     assert float((rays - want_rays).abs().max()) <= tol
     assert float((points - want_points).abs().max()) <= tol
-    assert torch.equal(rays, one)
+    if compute_dtype == "float32":
+        assert torch.equal(rays, one)
+    else:
+        assert float((rays - one).abs().max()) <= TC_FWD_TOL
 
 
 def test_flexible_kernels_refuse_what_they_do_not_take(model):
@@ -151,9 +163,10 @@ def _scaled_err(got, want):
 @pytest.mark.parametrize("compute_dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2)])
 @pytest.mark.parametrize("n,s", [(1, 1), (33, 64), (1024, 128), (7, 61)])
 def test_train_kernels_match_plain(model, n, s, compute_dtype, tol):
-    """Forward, every parameter gradient and ddc of the kernel pair against
-    the plain pair on the same inputs; gradients scaled by the plain one's
-    largest entry."""
+    """The forward and its residuals against the plain forward's (residuals
+    scaled by the plain one's largest entry), every parameter gradient and
+    ddc against the plain backward on the forward kernel's own residuals
+    (scaled likewise)."""
     pts, dc, params, g = _train_case(model, n, s, compute_dtype, seed=n * s)
     fwd0, bwd0 = fused_flex_mlp_train.fwd_launches, fused_flex_mlp_train.bwd_launches
     out, res = flex_train_fwd(pts, dc, params, compute_dtype)
@@ -162,9 +175,12 @@ def test_train_kernels_match_plain(model, n, s, compute_dtype, tol):
     assert (fused_flex_mlp_train.fwd_launches, fused_flex_mlp_train.bwd_launches) == (
         fwd0 + 1, bwd0 + 1)
     want, want_res = flex_train_plain_fwd(pts, dc, params, compute_dtype)
-    want_grad, want_ddc = flex_train_plain_bwd(g, want_res, params, n, s, compute_dtype)
+    kernel_res = residuals_as_plain(res, n * s, compute_dtype)
+    want_grad, want_ddc = flex_train_plain_bwd(g, kernel_res, params, n, s, compute_dtype)
     assert out.shape == (n, s, 4) and bool(torch.isfinite(out).all())
-    assert float((out - want).abs().max()) <= tol
+    assert float((out - want).abs().max()) <= min(tol, TC_FWD_TOL)
+    for got_r, want_r in zip(kernel_res, want_res, strict=True):
+        assert got_r.dtype == want_r.dtype and _scaled_err(got_r.float(), want_r.float()) <= tol
     got_layers, want_layers = unpack_params(grad), unpack_params(want_grad)
     for name, (w, b) in want_layers.items():
         assert _scaled_err(got_layers[name][0], w) <= tol, name
@@ -210,7 +226,7 @@ def paper_model():
                           ).cuda().eval()
 
 
-@pytest.mark.parametrize("compute_dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("compute_dtype,tol", [("float32", 1e-4), ("bfloat16", TC_FWD_TOL)])
 @pytest.mark.parametrize("n,s", [(1, 1), (33, 64), (1000, 128), (7, 61)])
 def test_paper_kernel_matches_plain(paper_model, n, s, compute_dtype, tol):
     pts, vd = _inputs(n, s, seed=n * s)
@@ -258,7 +274,7 @@ def _check_paper_train_pair(model, n, s, compute_dtype, tol, f=10):
     kernel_res = paper_train.residuals_as_plain(res, n * s, f, compute_dtype)
     want_grad, want_ddc = paper_train.paper_train_plain_bwd(g, kernel_res, params, n, s,
                                                             compute_dtype, f)
-    assert float((out - want).abs().max()) <= tol
+    assert float((out - want).abs().max()) <= min(tol, TC_FWD_TOL)
     for got_r, want_r in zip(kernel_res, want_res, strict=True):
         assert got_r.dtype == want_r.dtype and _scaled_err(got_r.float(), want_r.float()) <= tol
     got_layers = paper_t.unpack_params(grad, f)
@@ -286,7 +302,7 @@ def test_paper_bf16_kernels_match_plain_at_any_depth(paper_model, f, n, s):
         got = paper_t.fused_paper_mlp_t(model, pts, vd, "bfloat16")
         torch.cuda.synchronize()
         want = paper_t.paper_t_plain(model, pts, vd, "bfloat16")
-    assert float((got - want).abs().max()) <= 2e-2
+    assert float((got - want).abs().max()) <= TC_FWD_TOL
     with torch.no_grad():
         _check_paper_train_pair(model, n, s, "bfloat16", 2e-2, f)
 

@@ -25,10 +25,10 @@ main path's shapes included. A short first call for a new kernel;
 """
 
 import argparse
-import ctypes
 import importlib
 import importlib.util
 import os
+import re
 import subprocess
 import sys
 import time
@@ -39,8 +39,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
-from nerf_tpu_torch.kernels import _build, flex_train, mlp, mlp_t  # noqa: E402
-from nerf_tpu_torch.kernels import paper_t, paper_train, stage  # noqa: E402
+from nerf_tpu_torch.kernels import _build, mlp, mlp_t, paper_t, paper_train  # noqa: E402
 from nerf_tpu_torch.models import PaperNeRFModel  # noqa: E402
 
 PAPER_FREQS = (0, 6, 10, 16)
@@ -48,7 +47,8 @@ PAPER_FREQS = (0, 6, 10, 16)
 
 def check_new_kernels(model, dev) -> bool:
     """#2 and #3 against their plain versions (True when both are within
-    chip_smoke.py's tolerances) and #3 against #1."""
+    chip_smoke.py's tolerances) and #3 against #1 (bitwise in f32, within
+    TC_BF16_FWD_TOL in bf16, where #1 runs on the tensor cores)."""
     worst = 0.0
     with torch.inference_mode():
         for n, s in ((2048, 64), (2048, 128), (333, 61), (1, 1), (5, 33), (131072, 128)):
@@ -65,6 +65,10 @@ def check_new_kernels(model, dev) -> bool:
                 e31 = float((rays - one).abs().max())
                 print(f"({n}, {s}) {dt}: #3 vs plain {e3:.3e}, #2 vs plain {e2:.3e}, "
                       f"#3 vs #1 {e31:.3e} bitwise {torch.equal(rays, one)}", flush=True)
+                if dt == "bfloat16":
+                    worst = max(worst, e31 / cs.TC_BF16_FWD_TOL)
+                elif not torch.equal(rays, one):
+                    worst = float("inf")
                 worst = max(worst, e3 / tol, e2 / tol)
         n, s = cs.KERNEL_CHUNK
         pts, vd = cs.orbit_points(n, s, dev, 1)
@@ -90,12 +94,12 @@ def check_paper_kernels(dev) -> bool:
     chip_smoke.py's phase 9 shapes (F = 10) and a few ragged ones at each
     depth (the backward against the plain backward on the forward kernel's
     residuals, as phase 9 holds it); two backward calls bitwise equal. True
-    when all are within chip_smoke.py's tolerances (PAPER_BF16_FWD_TOL for
+    when all are within chip_smoke.py's tolerances (TC_BF16_FWD_TOL for
     the bf16 forwards)."""
     models = paper_models(dev)
     ok = True
     tols = (("float32", cs.F32_TOL), ("bfloat16", cs.BF16_TOL))
-    fwd_tols = {"float32": cs.F32_TOL, "bfloat16": cs.PAPER_BF16_FWD_TOL}
+    fwd_tols = {"float32": cs.F32_TOL, "bfloat16": cs.TC_BF16_FWD_TOL}
     cases = [(10, shape) for shape in cs.PAPER_CHECK_SHAPES] + [
         (f, shape) for f in PAPER_FREQS for shape in ((1, 1), (5, 33), (333, 61))]
     with torch.inference_mode():
@@ -134,125 +138,168 @@ def check_paper_kernels(dev) -> bool:
     return ok
 
 
-def use_library(lib) -> None:
-    """Make the kernel wrappers launch from ``lib``."""
-    _build.load_library = lambda: lib
-    for cached in (mlp_t._kernel, flex_train._kernels, stage._kernel, paper_t._kernel,
-                   paper_train._kernels):
-        cached.cache_clear()
+def check_flex_tc_kernels(dev) -> bool:
+    """The bf16 tensor-core instances of #1 and the #8 pair against their
+    plain versions: #1 at chip_smoke.py's phase 3 shapes and ragged ones, the
+    pair at its phase 6 shapes and ragged ones (the forward and its
+    residuals against the plain forward's, the backward against the plain
+    backward on the forward kernel's residuals), two backward calls bitwise
+    equal. True when all are within chip_smoke.py's tolerances."""
+    model = cs.seeded_model(cs.SEED, opacify=False).to(dev)
+    ok = True
+    with torch.inference_mode():
+        for n, s in cs.CHECK_SHAPES + ((1, 1), (5, 33)):
+            pts, vd = cs.orbit_points(n, s, dev, n + s)
+            got = mlp_t.fused_mlp_t(model, pts, vd, "bfloat16")
+            torch.cuda.synchronize()
+            err = float((got - mlp_t.mlp_t_plain(model, pts, vd, "bfloat16")).abs().max())
+            ok &= bool(torch.isfinite(got).all()) and err <= cs.TC_BF16_FWD_TOL
+            print(f"#1 bf16 ({n}, {s}): {err:.3e}", flush=True)
+    with torch.no_grad():
+        for n, s in cs.TRAIN_CHECK_SHAPES + ((1, 1), (5, 33)):
+            pts, dc, params, g = cs.train_case(n, s, model, dev, seed=n * s)
+            errs = cs.flex_pair_errors(pts, dc, params, g, n, s, "bfloat16")
+            ok &= (errs["repeatable"] and errs["fwd"] <= cs.TC_BF16_FWD_TOL
+                   and errs["res"] <= cs.BF16_TOL and errs["bwd"] <= cs.BF16_TOL)
+            print(f"#8 bf16 ({n}, {s}): forward {errs['fwd']:.3e}, residuals {errs['res']:.3e}, "
+                  f"gradients {errs['bwd']:.3e} at {errs['bwd_at']}, repeatable "
+                  f"{errs['repeatable']}", flush=True)
+    return ok
 
 
-def import_package(pkg_dir: Path, name: str):
+_MODULES = ("kernels.mlp_t", "kernels.mlp", "kernels.flex_train", "kernels.stage",
+            "kernels.paper_t", "kernels.paper_train", "models")
+
+
+def import_package(pkg_dir: Path, name: str) -> dict:
     """The package at ``pkg_dir`` imported as ``name`` (another tree's
-    ``nerf_tpu_torch`` beside this one's); returns its paper_t, paper_train
-    and models modules."""
+    ``nerf_tpu_torch`` beside this one's): its kernel wrappers and models,
+    by module name; they build and load that tree's library."""
     spec = importlib.util.spec_from_file_location(name, pkg_dir / "__init__.py",
                                                   submodule_search_locations=[str(pkg_dir)])
     module = importlib.util.module_from_spec(spec)
     sys.modules[name] = module
     spec.loader.exec_module(module)
-    return tuple(importlib.import_module(f"{name}.{sub}")
-                 for sub in ("kernels.paper_t", "kernels.paper_train", "models"))
+    return {sub.split(".")[-1]: importlib.import_module(f"{name}.{sub}") for sub in _MODULES}
 
 
-def paper_calls(pt, ptr, model, dev):
-    """#4 at KERNEL_CHUNK and the #9 pair at TRAIN_SHAPE through one tree's
-    wrappers (``pt``, ``ptr``: its paper_t and paper_train): name -> (fn,
-    reps) at bf16, and the f32 results at two shapes for the bitwise check."""
-    results = []
+def tree_models(mods: dict, dev):
+    """chip_smoke.py's opacified flagship and Paper check models as the
+    tree's own classes (their wrappers check the model's class)."""
+    flex = mods["models"].FlexibleNeRFModel(num_encoding_fn_xyz=10, num_encoding_fn_dir=4)
+    flex.load_state_dict(cs.seeded_model(cs.SEED, opacify=True).state_dict())
+    paper = mods["models"].PaperNeRFModel(num_encoding_fn_xyz=10, num_encoding_fn_dir=4)
+    paper.load_state_dict(cs.seeded_model(cs.SEED, opacify=False,
+                                          family="PaperNeRFModel").state_dict())
+    return flex.to(dev).eval(), paper.to(dev).eval()
+
+
+def bitwise_results(m: dict, dev) -> list:
+    """Through one tree's wrappers: the f32 outputs of #1, #2, #3, #7 and the
+    #8 pair, and the bf16 outputs of #2, #3, #4, #7 and the #9 pair, at a
+    render shape and a ragged one."""
+    flex, paper = tree_models(m, dev)
+    out = []
     with torch.no_grad():
         for n, s in ((2048, 128), (333, 61)):
-            pts, vd, dc, params, g = cs.paper_case(n, s, model, dev, seed=n)
-            results.append(pt.fused_paper_mlp_t(model, pts, vd, "float32"))
-            out, res = ptr.paper_train_fwd(pts, dc, params, "float32", 10)
-            results += [out, res[0], *ptr.paper_train_bwd(g, res, params, n, s, "float32", 10)]
-    n, s = cs.KERNEL_CHUNK
-    pts, vd, _, _, _ = cs.paper_case(n, s, model, dev, seed=1)
-    tp, _, dc, params, g = cs.paper_case(*cs.TRAIN_SHAPE, model, dev, seed=3)
-    res = ptr.paper_train_fwd(tp, dc, params, "bfloat16", 10)[1]
-    fns = {
-        "#4 bf16": (lambda: pt.fused_paper_mlp_t(model, pts, vd, "bfloat16"), 2),
-        "#9 fwd bf16": (lambda: ptr.paper_train_fwd(tp, dc, params, "bfloat16", 10), 10),
-        "#9 bwd bf16": (lambda: ptr.paper_train_bwd(g, res, params, *cs.TRAIN_SHAPE,
-                                                    "bfloat16", 10), 10),
-    }
-    return results, fns
+            pts, vd = cs.orbit_points(n, s, dev, n)
+            flat_pts, flat_vd = pts.reshape(-1, 3), vd[:, None, :].expand(n, s, 3).reshape(-1, 3)
+            g = torch.randn(n, s, 4, generator=torch.Generator(device=dev).manual_seed(1),
+                            device=dev)
+            z = torch.sort(2.0 + 4.0 * torch.rand(n, s, device=dev, generator=torch.Generator(
+                device=dev).manual_seed(2)), dim=-1)[0]
+            out.append(m["mlp_t"].fused_mlp_t(flex, pts, vd, "float32"))
+            params = m["mlp"].pack_params(flex)
+            fo, r = m["flex_train"].flex_train_fwd(pts, m["mlp"].dir_contribution(flex, vd),
+                                                   params, "float32")
+            out += [fo, r[0], *m["flex_train"].flex_train_bwd(g, r, params, n, s, "float32")]
+            for dt in ("float32", "bfloat16"):
+                out.append(m["mlp"].fused_flexible_mlp(flex, flat_pts, flat_vd, dt))
+                out.append(m["mlp"].fused_flexible_mlp_rays(flex, pts, vd, dt))
+                maps = m["stage"].fused_render_stage(flex, pts, vd, z, vd, True, dt)
+                out += [maps[k] for k in sorted(maps)]
+            out.append(m["paper_t"].fused_paper_mlp_t(paper, pts, vd, "bfloat16"))
+            dc, pp = m["paper_t"].dir_contribution(paper, vd), m["paper_t"].pack_params(paper)
+            po, r = m["paper_train"].paper_train_fwd(pts, dc, pp, "bfloat16", 10)
+            out += [po, r[0], *m["paper_train"].paper_train_bwd(g, r, pp, n, s, "bfloat16", 10)]
+    torch.cuda.synchronize()
+    return out
 
 
-def check_bitwise_against(parent_csrc: Path, lib_path: Path, model, dev):
-    """fused_mlp_t, the training pair, the render stage and the f32 Paper
-    kernels from both trees, bitwise; then their times at the main paths'
-    shapes from both in turns (parent, this tree, this tree, parent)."""
-    load = _build.load_library
-    parent = import_package(parent_csrc.resolve().parent, "parent_nerf_tpu_torch")
-    parent_build = importlib.import_module("parent_nerf_tpu_torch.kernels._build")
-    parent_path = parent_build.build_library()
+def timed_calls(m: dict, dev) -> dict:
+    """Through one tree's wrappers, at the main path's shapes: name -> (fn,
+    reps) for #1 bf16 (one fine-pass chunk) and the #8 pair in bf16 and f32
+    (one training pass)."""
+    flex, _ = tree_models(m, dev)
+    pts, vd = cs.orbit_points(*cs.KERNEL_CHUNK, dev, 1)
+    tp, tvd = cs.orbit_points(*cs.TRAIN_SHAPE, dev, 3)
+    params, dc = m["mlp"].pack_params(flex).detach(), m["mlp"].dir_contribution(flex, tvd).detach()
+    g = torch.randn(*cs.TRAIN_SHAPE, 4, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(4))
+    res = {dt: m["flex_train"].flex_train_fwd(tp, dc, params, dt)[1]
+           for dt in ("bfloat16", "float32")}
+    calls = {"#1 bf16": (lambda: m["mlp_t"].fused_mlp_t(flex, pts, vd, "bfloat16"), 3)}
+    for dt, short in (("bfloat16", "bf16"), ("float32", "f32")):
+        calls[f"#8 fwd {short}"] = (
+            lambda dt=dt: m["flex_train"].flex_train_fwd(tp, dc, params, dt), 10)
+        calls[f"#8 bwd {short}"] = (
+            lambda dt=dt: m["flex_train"].flex_train_bwd(g, res[dt], params, *cs.TRAIN_SHAPE,
+                                                         dt), 10)
+    return calls
+
+
+def kernel_device_ms(fn, reps: int) -> dict:
+    """Device milliseconds per call of each training-backward kernel ``fn``
+    launches, and of the rest of its device work ("other": the weight
+    packing), by torch.profiler over ``reps`` calls after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {"other": 0.0}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+        if e.device_type != torch.autograd.DeviceType.CUDA or not t:
+            continue
+        name = re.search(r"train_bwd_\w+?_kernel", e.key)
+        label = name.group(0) if name else "other"
+        out[label] = out.get(label, 0.0) + t / 1e3 / reps
+    return out
+
+
+def check_bitwise_against(parent_csrc: Path, dev) -> bool:
+    """The outputs ``bitwise_results`` lists, from both trees, bitwise; the
+    parent's ptxas report; then #1 bf16 and the #8 bf16 pair timed from both
+    in turns (parent, this tree, this tree, parent), and each launch of #8's
+    bf16 backward by the profiler."""
+    trees = {"parent": import_package(parent_csrc.resolve().parent, "parent_nerf_tpu_torch"),
+             "this tree": {sub.split(".")[-1]: importlib.import_module(f"nerf_tpu_torch.{sub}")
+                           for sub in _MODULES}}
+    parent_path = importlib.import_module("parent_nerf_tpu_torch.kernels._build").build_library()
     print("parent", cs.ptxas_summary(parent_path.with_suffix(".log").read_text(), frames=True),
           flush=True)
-    libs = {"parent": ctypes.CDLL(str(parent_path)), "this tree": ctypes.CDLL(str(lib_path))}
-    paper = cs.seeded_model(cs.SEED, opacify=False, family="PaperNeRFModel").to(dev)
-    parent_paper = parent[2].PaperNeRFModel(num_encoding_fn_xyz=10, num_encoding_fn_dir=4)
-    parent_paper.load_state_dict(paper.state_dict())
-    parent_paper = parent_paper.to(dev).eval()
-    paper_trees = {"parent": (parent[0], parent[1], parent_paper),
-                   "this tree": (paper_t, paper_train, paper)}
-    paper_fns = {}
-    outs = {}
-    for label, lib in libs.items():
-        use_library(lib)
-        res = []
-        with torch.no_grad():
-            for n, s in ((2048, 128), (333, 61)):
-                pts, vd = cs.orbit_points(n, s, dev, n)
-                g = torch.randn(n, s, 4, generator=torch.Generator(device=dev).manual_seed(1),
-                                device=dev)
-                for dt in ("float32", "bfloat16"):
-                    res.append(mlp_t.fused_mlp_t(model, pts, vd, dt))
-                    params = mlp_t.pack_params(model)
-                    out, r = flex_train.flex_train_fwd(pts, mlp_t.dir_contribution(model, vd),
-                                                       params, dt)
-                    grad, ddc = flex_train.flex_train_bwd(g, r, params, n, s, dt)
-                    res += [out, r[0], grad, ddc]
-                    z = torch.sort(2.0 + 4.0 * torch.rand(n, s, device=dev,
-                                                          generator=torch.Generator(
-                                                              device=dev).manual_seed(2)),
-                                   dim=-1)[0]
-                    maps = stage.fused_render_stage(model, pts, vd, z, vd, True, dt)
-                    res += [maps[k] for k in sorted(maps)]
-        paper_res, paper_fns[label] = paper_calls(*paper_trees[label], dev)
-        torch.cuda.synchronize()
-        outs[label] = res + paper_res
-    same = all(torch.equal(a, b) for a, b in zip(outs["parent"], outs["this tree"]))
-    print("bitwise equal to parent:", same, len(outs["this tree"]), flush=True)
+    outs = {label: bitwise_results(m, dev) for label, m in trees.items()}
+    same = [torch.equal(a, b) for a, b in zip(outs["parent"], outs["this tree"])]
+    print(f"bitwise equal to parent: {all(same)} ({sum(same)} of {len(same)} outputs)",
+          flush=True)
 
+    calls = {label: timed_calls(m, dev) for label, m in trees.items()}
+    times = {}
     with torch.no_grad():
-        n, s = cs.KERNEL_CHUNK
-        pts, vd = cs.orbit_points(n, s, dev, 1)
-        z = torch.sort(2.0 + 4.0 * torch.rand(n, s, device=dev), dim=-1)[0]
-        tp, tvd = cs.orbit_points(*cs.TRAIN_SHAPE, dev, 3)
-        params, dc = mlp_t.pack_params(model), mlp_t.dir_contribution(model, tvd)
-        g = torch.randn(*cs.TRAIN_SHAPE, 4, device=dev)
-        fns = {
-            "#1 f32": (lambda: mlp_t.fused_mlp_t(model, pts, vd), 2),
-            "#7 f32": (lambda: stage.fused_render_stage(model, pts, vd, z, vd, True), 2),
-            "#7 bf16": (lambda: stage.fused_render_stage(model, pts, vd, z, vd, True,
-                                                         "bfloat16"), 2),
-            "#8 fwd f32": (lambda: flex_train.flex_train_fwd(tp, dc, params, "float32"), 10),
-        }
-        times = {}
         for label in ("parent", "this tree", "this tree", "parent"):
-            use_library(libs[label])
-            _, res = flex_train.flex_train_fwd(tp, dc, params, "float32")
-            fns["#8 bwd f32"] = (lambda: flex_train.flex_train_bwd(g, res, params,
-                                                                   *cs.TRAIN_SHAPE, "float32"), 10)
-            for name, (fn, reps) in {**fns, **paper_fns[label]}.items():
+            for name, (fn, reps) in calls[label].items():
                 times.setdefault(name, {}).setdefault(label, []).append(cs.cuda_ms(fn, reps))
         for name, by in times.items():
             print(f"ms {name}: " + "; ".join(f"{k} {' / '.join(f'{t:.3f}' for t in v)}"
                                             for k, v in by.items()), flush=True)
-    use_library(libs["this tree"])
-    _build.load_library = load
-    return same
+        for label in ("parent", "this tree"):
+            per = kernel_device_ms(calls[label]["#8 bwd bf16"][0], 10)
+            print(f"ms #8 bwd bf16 by launch, {label}: "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in per.items()), flush=True)
+    return all(same)
 
 
 def main() -> int:
@@ -271,19 +318,18 @@ def main() -> int:
     print(cs.ptxas_summary(lib_path.with_suffix(".log").read_text(), frames=True))
     mma = cs.sass_mma_counts(lib_path)
     print("HMMA/HGMMA (cuobjdump -sass): "
-          + ", ".join(f"{k} {v}" for k, v in mma.items() if k.startswith("paper")), flush=True)
+          + ", ".join(f"{k} {v}" for k, v in mma.items() if v), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
+    tc_ok = check_flex_tc_kernels(dev)
+    print("#1 and #8 bf16 within tolerance of plain, backward repeatable:", tc_ok, flush=True)
     paper_ok = check_paper_kernels(dev)
     print("#4 and #9 within tolerance of plain, backward repeatable:", paper_ok, flush=True)
-    # #2 and #3 on chip_smoke.py's phase 14 model; the bitwise check on the
-    # opacified one, whose fields are dense.
+    # #2 and #3 on chip_smoke.py's phase 14 model.
     flex_ok = check_new_kernels(cs.seeded_model(0, opacify=False).to(dev), dev)
-    model = cs.seeded_model(0, opacify=True).to(dev)
     print("#2 and #3 within tolerance of plain:", flex_ok, flush=True)
-    ok = flex_ok and paper_ok
-    if args.parent_csrc is not None and not check_bitwise_against(args.parent_csrc, lib_path,
-                                                                   model, dev):
+    ok = tc_ok and flex_ok and paper_ok
+    if args.parent_csrc is not None and not check_bitwise_against(args.parent_csrc, dev):
         return 1
     return 0 if ok else 1
 

@@ -1,0 +1,192 @@
+#!/usr/bin/env python3
+"""Time variants of the flagship's bf16 kernels (#1, #8) against this tree's, on one NVIDIA GPU.
+
+Run from the root of a checkout, with one card:
+
+    python3 tools/torch_kernel_variants.py [--probe NAME ...] [--csrc NAME=DIR ...]
+
+Builds this tree's ``nerf_tpu_torch/csrc`` ("base"), each ``--csrc`` tree (the
+``csrc`` of another checkout or of an earlier state, with the same C
+interface) and each ``--probe``: a copy of this tree's ``csrc`` with one
+named edit (PROBES below; the probes marked so compute wrong results on
+purpose, to show what one part of a kernel costs). Each library is loaded in
+turn under this tree's wrappers. For each it prints the flagship kernels'
+registers, #1 bf16 and the #8 bf16 pair against their plain versions
+(``chip_smoke.flex_pair_errors``) and whether its outputs equal base's
+bitwise; then it times #1 bf16 at one fine-pass chunk and the #8 pair in
+bf16 and f32 at one training pass, in turns (base, variants, the variants
+again in reverse, base), and each launch of #8's bf16 backward by the
+profiler. Builds go under ``build/variants/``.
+"""
+
+import argparse
+import ctypes
+import importlib
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import torch  # noqa: E402
+
+import chip_smoke as cs  # noqa: E402
+from nerf_tpu_torch.kernels import _build, flex_train, mlp_t  # noqa: E402
+from torch_kernel_check import kernel_device_ms, timed_calls  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+OUT = ROOT / "build" / "variants"
+
+# name -> [(file in csrc, text, replacement)].
+PROBES = {
+    # Wrong results: every B fragment read from k-step 0, so L1-resident.
+    "l1_weights": [("tc_mma.cuh",
+                    "for (int u = 0; u < kU; ++u) nxt[u] = __ldg(wp + kn * kStep + u);",
+                    "for (int u = 0; u < kU; ++u) nxt[u] = __ldg(wp + (kn & 0) * kStep + u);")],
+    # Wrong results: the encoding without sincosf.
+    "no_sincos": [("flex_tc.cuh", "      sincosf(x * scale, &s, &co);",
+                   "      s = x * scale;\n      co = s + 1.f;")],
+    # #1 at 3 blocks an SM instead of 4.
+    "three_blocks": [("mlp_t.cu", "__launch_bounds__(kThreads, 4)\nmlp_t_kernel<true>",
+                      "__launch_bounds__(kThreads, 3)\nmlp_t_kernel<true>")],
+    # The trunk's k-steps unrolled by 4 instead of 2.
+    "unroll4": [("flex_tc.cuh",
+                 "a.mac<2>(w + kWx0 + i * kHidden * kHidden, act, kStride, kHidden / 16);",
+                 "a.mac<4>(w + kWx0 + i * kHidden * kHidden, act, kStride, kHidden / 16);")],
+    # The layer-gradient pass with each layer's ReLU-mask rows brought into
+    # shared memory by cp.async while its product runs.
+    "mask_prefetch": [
+        ("flex_train.cu",
+         "constexpr size_t kActSmemTc = static_cast<size_t>(kBStride) * kTile * "
+         "sizeof(__nv_bfloat16);",
+         "constexpr size_t kActSmemTc =\n"
+         "    static_cast<size_t>(kBStride + tc::kStride) * kTile * sizeof(__nv_bfloat16);"),
+        ("flex_train.cu", "              mask + p * tc::kRows + n0 + 8 * n));",
+         "              mask + p * tc::kStride + n0 + 8 * n));"),
+        ("flex_train.cu",
+         "                                              float* __restrict__ drow, bf16* act) {\n"
+         "  const int lane = threadIdx.x & 31;",
+         "                                              float* __restrict__ drow, bf16* act) {\n"
+         "  if (mask != nullptr) {\n"
+         "    asm volatile(\"cp.async.wait_group 0;\\n\" ::);\n"
+         "    __syncthreads();\n"
+         "  }\n"
+         "  const int lane = threadIdx.x & 31;"),
+        ("flex_train.cu",
+         "  float* dt = delta + tile0 * kDRows;\n\n  // Cotangent: drgb into act columns",
+         "  float* dt = delta + tile0 * kDRows;\n"
+         "  bf16* mk = act + kTile * kBStride;\n"
+         "  auto fetch = [&](int row, int cols) {\n"
+         "    for (int i = threadIdx.x; i < kTile * (cols / 8); i += kThreads) {\n"
+         "      const int p = i / (cols / 8), c = i % (cols / 8);\n"
+         "      const uint32_t s = static_cast<uint32_t>(\n"
+         "          __cvta_generic_to_shared(mk + p * tc::kStride + 8 * c));\n"
+         "      asm volatile(\"cp.async.cg.shared.global [%0], [%1], 16;\\n\" ::\"r\"(s),\n"
+         "                   \"l\"(rt + p * tc::kRows + row + 8 * c));\n"
+         "    }\n"
+         "    asm volatile(\"cp.async.commit_group;\\n\" ::);\n"
+         "  };\n\n  // Cotangent: drgb into act columns"),
+    ] + [
+        ("flex_train.cu", f"    a.mac(w + {b}, act, kBStride, {k});\n"
+                          f"    store_grad_tc(a, rt + tc::{row}, dt + {d}, act);",
+         f"    fetch(tc::{row}, {cols});\n    a.mac(w + {b}, act, kBStride, {k});\n"
+         f"    store_grad_tc(a, mk, dt + {d}, act);")
+        for b, k, row, d, cols in (
+            ("tc::kBRgb", "1", "kRowHd", "kDHd", "kDirHidden"),
+            ("tc::kBDir", "kDirHidden / 16", "kRowFeat", "kDFeat", "kHidden"),
+            ("tc::kBHead", "144 / 16", "kRowH3", "kDH3", "kHidden"),
+            ("tc::kbx(2)", "kHidden / 16", "kRowH2", "kDH2", "kHidden"),
+            ("tc::kbx(1)", "kHidden / 16", "kRowH1", "kDH1", "kHidden"))],
+}
+
+
+def probe_csrc(name: str) -> Path:
+    """A copy of this tree's csrc with the probe's edits."""
+    d = OUT / name / "csrc"
+    shutil.rmtree(d, ignore_errors=True)
+    shutil.copytree(ROOT / "nerf_tpu_torch" / "csrc", d)
+    for fname, old, new in PROBES[name]:
+        path = d / fname
+        text = path.read_text()
+        if text.count(old) != 1:
+            raise SystemExit(f"probe {name}: {fname} holds {text.count(old)} of {old!r}")
+        path.write_text(text.replace(old, new))
+    return d
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--probe", action="append", default=[], choices=sorted(PROBES))
+    ap.add_argument("--csrc", action="append", default=[], metavar="NAME=DIR",
+                    help="another tree's nerf_tpu_torch/csrc with this tree's C interface")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_kernel_variants: no CUDA device", file=sys.stderr)
+        return 2
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip(), flush=True)
+    trees = {"base": ROOT / "nerf_tpu_torch" / "csrc"}
+    trees.update({name: probe_csrc(name) for name in args.probe})
+    trees.update(dict((n, Path(d)) for n, d in (a.split("=", 1) for a in args.csrc)))
+    libs = {}
+    for name, csrc in trees.items():
+        _build.CSRC, _build.BUILD_DIR = csrc, OUT / name / "lib"
+        path = _build.build_library()
+        libs[name] = ctypes.CDLL(str(path))
+        regs = cs.ptxas_summary(path.with_suffix(".log").read_text()).split(", ")
+        print(name, ", ".join(r for r in regs if r.startswith(("mlp_t:", "flex_train:"))),
+              flush=True)
+
+    def use(name):
+        _build.load_library = lambda: libs[name]
+        mlp_t._kernel.cache_clear()
+        flex_train._kernels.cache_clear()
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    model = cs.seeded_model(cs.SEED, opacify=False).to(dev)
+    mods = {m.split(".")[-1]: importlib.import_module(f"nerf_tpu_torch.{m}")
+            for m in ("kernels.mlp_t", "kernels.mlp", "kernels.flex_train", "models")}
+    outs = {}
+    with torch.no_grad():
+        for name in trees:
+            use(name)
+            res = []
+            for n, s in ((1024, 128), (333, 61)):
+                pts, dc, params, g = cs.train_case(n, s, model, dev, seed=n * s)
+                e = cs.flex_pair_errors(pts, dc, params, g, n, s, "bfloat16")
+                out, r = flex_train.flex_train_fwd(pts, dc, params, "bfloat16")
+                res += [out, r[0], *flex_train.flex_train_bwd(g, r, params, n, s, "bfloat16")]
+                pv, vd = cs.orbit_points(n, s, dev, n + s)
+                res.append(mlp_t.fused_mlp_t(model, pv, vd, "bfloat16"))
+                err = float((res[-1] - mlp_t.mlp_t_plain(model, pv, vd, "bfloat16")).abs().max())
+                print(f"{name} ({n}, {s}) bf16: #1 {err:.3e}; #8 forward {e['fwd']:.3e}, "
+                      f"residuals {e['res']:.3e}, gradients {e['bwd']:.3e}", flush=True)
+            outs[name] = res
+        for name in list(trees)[1:]:
+            same = all(torch.equal(a, b) for a, b in zip(outs["base"], outs[name]))
+            print(f"{name} bitwise equal to base: {same}", flush=True)
+        calls = {}
+        for name in trees:
+            use(name)
+            calls[name] = timed_calls(mods, dev)
+        times = {}
+        for name in list(trees) + list(trees)[::-1]:
+            use(name)
+            for what, (fn, reps) in calls[name].items():
+                times.setdefault(what, {}).setdefault(name, []).append(cs.cuda_ms(fn, reps))
+        for what, by in times.items():
+            print(f"ms {what}: " + "; ".join(f"{k} {' / '.join(f'{t:.4f}' for t in v)}"
+                                            for k, v in by.items()), flush=True)
+        for name in trees:
+            use(name)
+            per = kernel_device_ms(calls[name]["#8 bwd bf16"][0], 20)
+            print(f"ms #8 bwd bf16 by launch, {name}: "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in per.items()), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
