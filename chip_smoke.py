@@ -8,8 +8,8 @@ Run from the root of a checkout, with one card:
 Phases, one or more lines each:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
   2. build: compile ``nerf_tpu_torch/csrc`` with nvcc for sm_90a; the bf16
-     instances of #1, #4, #8 and #9 must hold tensor-core instructions
-     (TENSOR_CORE_KERNELS);
+     instances of #1, #2, #4, #7, #8 and #9 must hold tensor-core
+     instructions (TENSOR_CORE_KERNELS);
   3. kernel vs plain: the fused encode+MLP kernel against its plain PyTorch
      version at the render path's shapes, float32 and bfloat16 (the bf16
      instance on the tensor cores, to TC_BF16_FWD_TOL);
@@ -62,7 +62,8 @@ Phases, one or more lines each:
      fields the encode+MLP kernel makes at orbit points (and a random one);
      #6 on those composited weights, det and with uniforms that include 1.0,
      each sample within RESAMPLE_TOL in depth or RESAMPLE_CDF_TOL in CDF
-     space; #7 in float32 and bfloat16;
+     space; #7 in float32 and bfloat16, and its bf16 maps bitwise equal to
+     #5 on #1's bf16 field (the same tensor-core tile and scan);
  13. the flagship render path with these kernels: chain A (#1 -> #5 -> #6 ->
      sort -> #1 -> #5) and chain B (#7 -> #6 -> sort -> #7) render a 400x400
      frame of ``configs/lego_fused.yml`` at chunk 131072 with their expected
@@ -71,15 +72,18 @@ Phases, one or more lines each:
      plain compositing) and seconds per frame of the renderer's kernel path
      and of both chains;
  14. the point-major (#2) and ray-major (#3) 4x128 forwards vs their plain
-     versions at the render path's shapes, float32 and bfloat16, and #3 vs
-     #1 (bitwise in float32; in bfloat16, where #1 runs on the tensor cores
+     versions at the render path's shapes, float32 and bfloat16 (#2's bf16
+     instance on the tensor cores, to TC_BF16_FWD_TOL), and #3 vs #1
+     (bitwise in float32; in bfloat16, where #1 runs on the tensor cores
      and #3 on the FMA pipes, to TC_BF16_FWD_TOL); chain C (#3 -> plain
      compositing -> sample_pdf -> sort -> #3) and chain D (the same with #2
      on the flattened points) render the flagship frame (4 launches each)
      against the renderer's kernel path;
  15. times: #2 and #3 vs plain with #1 in the same turns at one fine-pass
      chunk, float32 and bfloat16; frames of chains C and D beside the
-     renderer's kernel path;
+     renderer's kernel path, then bf16 frames of chains B and D beside the
+     renderer's bf16 kernel path, each with its launches and at least
+     PSNR_FLOOR_DB against the renderer's float32 frame;
  16. the render server: phase 7's checkpoint written as a native .ntc and
      served at bf16 by ``nerf_tpu_torch.serve_nerf`` over HTTP from a thread
      (/health, /, GET and POST renders whose PNGs must be bitwise equal to
@@ -412,6 +416,7 @@ def sass_mma_counts(lib) -> dict:
 # The kernels that must run on the tensor cores.
 TENSOR_CORE_KERNELS = ("mlp_t:mlp_t<1>", "flex_train:train_fwd<1>",
                        "flex_train:train_bwd_act<1>", "flex_train:train_bwd_wgrad<1>",
+                       "mlp:flexible_mlp<1>", "stage:stage<1>",
                        "paper_t:paper_t<1>", "paper_train:train_fwd<1>",
                        "paper_train:train_bwd_act<1>", "paper_train:train_bwd_wgrad<1>")
 
@@ -566,6 +571,8 @@ def check_training_kernels(model, dev) -> dict:
     (gradients scaled by the plain gradient's largest entry, per leaf)."""
     worst = {(k, d): 0.0 for k in ("fwd", "bwd") for d in ("float32", "bfloat16")}
     fwd_tols = {"float32": F32_TOL, "bfloat16": TC_BF16_FWD_TOL}
+    print(f"[train-kernel] forward/residuals/gradients vs plain (tol {F32_TOL:g}, bf16 "
+          f"{TC_BF16_FWD_TOL:g}/{BF16_TOL:g}/{BF16_TOL:g}), backward repeatable:")
     for n, s in TRAIN_CHECK_SHAPES:
         pts, dc, params, g = train_case(n, s, model, dev, seed=n * s)
         parts = []
@@ -578,9 +585,7 @@ def check_training_kernels(model, dev) -> dict:
             check(e["repeatable"], f"training backward at ({n}, {s}) {dtype} not repeatable")
             check(e["fwd"] <= fwd_tols[dtype], f"training forward at ({n}, {s}) {dtype}: {e}")
             check(e["res"] <= tol and e["bwd"] <= tol, f"training pair at ({n}, {s}) {dtype}: {e}")
-        print(f"[train-kernel] ({n}, {s}) forward/residuals/gradients vs plain (tol "
-              f"{F32_TOL:g}, bf16 {TC_BF16_FWD_TOL:g}/{BF16_TOL:g}/{BF16_TOL:g}), backward "
-              f"repeatable: {'; '.join(parts)}")
+        print(f"[train-kernel] ({n}, {s}): {'; '.join(parts)}")
     return worst
 
 
@@ -856,8 +861,7 @@ def check_paper_kernels(dev) -> dict:
                 check(r_err <= tol, f"paper training residuals ({n}, {s}) {dtype}: {r_err}")
                 check(b_err <= tol, f"paper gradient {b_name} ({n}, {s}) {dtype}: {b_err}")
                 del res, want_res, kernel_res
-            print(f"[paper-train-kernel] ({n}, {s}) F={f} forward/13 residuals/28 leaves' and "
-                  f"ddc's gradients, scaled: {'; '.join(parts)}")
+            print(f"[paper-train-kernel] ({n}, {s}) F={f}: {'; '.join(parts)}")
     # Through the autograd entry point: layers_dir.3 ends with a zero gradient.
     model = models[10]
     pts, vd, _, _, _ = paper_case(1024, 64, model, dev, seed=9)
@@ -866,7 +870,8 @@ def check_paper_kernels(dev) -> dict:
     fused_paper_mlp_train(model, pts, vd, "bfloat16").square().sum().backward()
     dead = float(model.layers_dir[3].weight.grad.abs().max()
                  + model.layers_dir[3].bias.grad.abs().max())
-    print(f"[paper-train-kernel] tol f32 {F32_TOL:g}, bf16 {TC_BF16_FWD_TOL:g}/{BF16_TOL:g}/"
+    print(f"[paper-train-kernel] above: forward/13 residuals/28 leaves' and ddc's gradients, "
+          f"scaled; tol f32 {F32_TOL:g}, bf16 {TC_BF16_FWD_TOL:g}/{BF16_TOL:g}/"
           f"{BF16_TOL:g}; two backward calls bitwise equal at every shape; layers_dir.3 "
           f"gradient after a backward through the kernels: max |g| = {dead} (must be 0)")
     check(dead == 0.0, "layers_dir.3 got a gradient")
@@ -1115,7 +1120,8 @@ def profile_steps(run, steps: int, what: str, on: str) -> None:
     busy = sum(t for _, t, _ in rows) / 1e3          # ms
     launches = sum(c for _, _, c in rows)
     rows.sort(key=lambda r: -r[1])
-    top = "; ".join(f"{k[:40]} {t / 1e3 / steps:.2f}" for k, t, _ in rows[:4])
+    top = "; ".join(f"{k.removeprefix('void ').replace('(anonymous namespace)::', '')[:24]} "
+                    f"{t / 1e3 / steps:.2f}" for k, t, _ in rows[:4])
     print(f"[profile] {what}: {1e3 * wall / steps:.2f} ms/step wall under the profiler, device "
           f"busy {busy / steps:.2f} ms/step ({100 * busy / (1e3 * wall):.1f}%), "
           f"{launches / steps:.0f} launches/step; top ms/step: {top} {on}")
@@ -1207,8 +1213,9 @@ def check_render_stage_kernels(dev) -> dict:
     STAGE_CHECK_SHAPES, on the flagship's field: #1's output of the opacified
     seeded model at orbit points (and a random field for #5); #6 resamples the
     composited weights of the coarse shape and of the ragged one, det and
-    with uniforms that include exactly 1.0, one ray with all-zero weights.
-    Returns the worst error of each kernel."""
+    with uniforms that include exactly 1.0, one ray with all-zero weights;
+    #7's bf16 maps must equal #5's on #1's bf16 field bitwise. Returns the
+    worst error of each kernel and whether every shape was bitwise."""
     import torch
 
     from nerf_tpu_torch.kernels.composite import fused_volume_render, volume_render_plain
@@ -1231,8 +1238,8 @@ def check_render_stage_kernels(dev) -> dict:
                     torch.cuda.synchronize()
                     errs.append(map_errors(got, volume_render_plain(rf, z, rd, white)))
             e = {k: max(x[k] for x in errs) for k in errs[0]}
-            print(f"[stage-kernel] fused_volume_render ({n}, {s}), #1's and a random field, "
-                  f"both backgrounds: max |kernel - plain| {fmt_errors(e)}")
+            print(f"[stage-kernel] fused_volume_render ({n}, {s}), #1's and a random field: max "
+                  f"|kernel - plain| {fmt_errors(e)}")
             check(all(e[k] <= MAP_TOLS[k] for k in e), f"fused_volume_render ({n}, {s}): {e}")
             worst["composite"]["float32"] = max(worst["composite"]["float32"], e["rgb"], e["acc"],
                                                 e["weights"], e["depth"])
@@ -1246,8 +1253,13 @@ def check_render_stage_kernels(dev) -> dict:
                       f"fused_render_stage ({n}, {s}) {dtype}: {e}")
                 worst["stage"][dtype] = max(worst["stage"][dtype], e["rgb"], e["acc"],
                                             e["weights"], e["depth"])
+            # bf16: #1's tensor-core tile per point and #5's scan per ray.
+            want = fused_volume_render(fused_mlp_t(model, pts, vd, "bfloat16"), z, rd, True)
+            same = all(torch.equal(got[k], want[k]) for k in want)
+            worst["stage bitwise"] = worst.get("stage bitwise", True) and same
             print(f"[stage-kernel] fused_render_stage ({n}, {s}): max |kernel - plain| over the "
-                  f"maps (disp relative) {'; '.join(parts)}")
+                  f"maps (disp relative) {'; '.join(parts)}; bf16 bitwise #5 on #1's field {same}")
+            check(same, f"fused_render_stage ({n}, {s}) bf16 differs from #5 on #1's bf16 field")
             if s == 128:
                 continue
             # Resample the composited coarse weights' inner bins, as the
@@ -1259,7 +1271,8 @@ def check_render_stage_kernels(dev) -> dict:
             r = check_resample(0.5 * (z[:, 1:] + z[:, :-1]), weights, s, u)
             resample = {"err": max(resample["err"], r["err"]), "over": resample["over"] + r["over"],
                         "cdf_err": max(resample["cdf_err"], r["cdf_err"])}
-    return {"composite": worst["composite"], "stage": worst["stage"], "resample": resample}
+    return {"composite": worst["composite"], "stage": worst["stage"], "resample": resample,
+            "stage bitwise": worst["stage bitwise"]}
 
 
 def stage_a(model, pts, vd, z, rd, s):
@@ -1442,9 +1455,12 @@ def render_chains(cfg, dev, names) -> dict:
     return launches
 
 
-def chain_frame_seconds(cfg, dev, names, on: str) -> dict:
-    """Seconds per 400x400 frame (f32) of the renderer's kernel path and of
-    the chains ``names``, in turns (the renderer first and last)."""
+def chain_frame_seconds(cfg, dev, names, on: str, dtype: str = "float32") -> dict:
+    """Seconds per 400x400 frame of the renderer's kernel path and of the
+    chains ``names`` at compute dtype ``dtype``, in turns (the renderer first
+    and last). In bfloat16 each frame is also rendered once with its launches
+    counted (each chain's expected ones) and must clear PSNR_FLOOR_DB
+    against the renderer's float32 frame."""
     import torch
 
     from nerf_tpu_torch.config import render_settings_from_config
@@ -1456,7 +1472,7 @@ def chain_frame_seconds(cfg, dev, names, on: str) -> dict:
     poses, h, w, focal = resolve_render_poses(cfg)
     pose = torch.as_tensor(poses[1], device=dev)
     base = dataclasses.replace(render_settings_from_config(cfg, "validation", hwf=(h, w, focal)),
-                               use_pallas=True)
+                               use_pallas=True, compute_dtype=dtype)
     renders = {"renderer kernel path": make_pose_render_fn(mc, mf, base, h, w, focal)}
     renders.update({f"chain {name}": chain_render_fn(name, mc, mf, base, h, w, focal)
                     for name in names})
@@ -1470,9 +1486,27 @@ def chain_frame_seconds(cfg, dev, names, on: str) -> dict:
     times = {}
     for label, secs in frame.items():
         times["frame", label] = sum(secs) / len(secs)
-    print(f"[time] {h}x{w} frame, {base.num_coarse}+{base.num_fine} samples, f32, s/frame: "
+    short = {"float32": "f32", "bfloat16": "bf16"}[dtype]
+    print(f"[time] {h}x{w} frame, {base.num_coarse}+{base.num_fine} samples, {short}, s/frame: "
           + "; ".join(f"{label} {' / '.join(f'{x:.4f}' for x in secs)}"
                       for label, secs in frame.items()) + f" {on}")
+    if dtype == "bfloat16":
+        with torch.inference_mode():
+            ref = make_pose_render_fn(mc, mf, dataclasses.replace(base, compute_dtype="float32"),
+                                      h, w, focal)(pose)["rgb_fine"]
+            chunks = math.ceil(h * w / base.chunksize)
+            parts = []
+            for label, render in renders.items():
+                reset_launches()
+                db = times["psnr", label] = psnr(render(pose)["rgb_fine"], ref)
+                counts = {k: v for k, v in read_launches().items() if v}
+                parts.append(f"{label} {db:.2f} dB, launches {counts}")
+                check(db >= PSNR_FLOOR_DB, f"{label} bf16 frame: PSNR {db} < {PSNR_FLOOR_DB}")
+                if label != "renderer kernel path":
+                    want = {k: n * chunks for k, n in CHAINS[label.split()[-1]][2].items()}
+                    check(counts == want, f"{label} bf16 launches {counts} != {want}")
+        print(f"[chain] bf16 frames vs the renderer's f32 frame (floor {PSNR_FLOOR_DB}): "
+              + "; ".join(parts))
     return times
 
 
@@ -1554,7 +1588,9 @@ def check_flexible_kernels(model, dev) -> dict:
     )
     from nerf_tpu_torch.kernels.mlp_t import fused_mlp_t
 
-    tols = {"float32": F32_TOL, "bfloat16": BF16_TOL}
+    # #2's bf16 instance runs on the tensor cores, #3's on the FMA pipes.
+    tols = {"float32": {"rays": F32_TOL, "points": F32_TOL},
+            "bfloat16": {"rays": BF16_TOL, "points": TC_BF16_FWD_TOL}}
     worst = {(k, d): 0.0 for k in ("rays", "points", "rays vs #1") for d in tols}
     bitwise = True     # #3 vs #1 in f32; in bf16 #1 runs on the tensor cores
     with torch.inference_mode():
@@ -1581,18 +1617,19 @@ def check_flexible_kernels(model, dev) -> dict:
                     check(errs["rays vs #1", dtype] <= TC_BF16_FWD_TOL,
                           f"#3 vs #1 ({n}, {s}) bf16: {errs['rays vs #1', dtype]}")
                 for k in ("rays", "points"):
-                    check(errs[k, dtype] <= tol,
+                    check(errs[k, dtype] <= tol[k],
                           f"fused_flexible_mlp{'_rays' * (k == 'rays')} ({n}, {s}) {dtype}: "
-                          f"{errs[k, dtype]} > {tol}")
+                          f"{errs[k, dtype]} > {tol[k]}")
             for key, err in errs.items():
                 worst[key] = max(worst[key], err)
             print(f"[flex-kernel] ({n}, {s}): max |kernel - plain| f32 / bf16: #3 "
                   f"{errs['rays', 'float32']:.2e} / {errs['rays', 'bfloat16']:.2e}, #2 "
-                  f"{errs['points', 'float32']:.2e} / {errs['points', 'bfloat16']:.2e} (tol "
-                  f"{F32_TOL:g} / {BF16_TOL:g}); |#3 - #1| {errs['rays vs #1', 'float32']:.2e} / "
+                  f"{errs['points', 'float32']:.2e} / {errs['points', 'bfloat16']:.2e}; "
+                  f"|#3 - #1| {errs['rays vs #1', 'float32']:.2e} / "
                   f"{errs['rays vs #1', 'bfloat16']:.2e}")
-    print(f"[flex-kernel] #3 bitwise equal to #1 in f32 at every shape: {bitwise}; in bf16 "
-          f"within {TC_BF16_FWD_TOL:g}")
+    print(f"[flex-kernel] tol #3 {F32_TOL:g} / {BF16_TOL:g}, #2 {F32_TOL:g} / "
+          f"{TC_BF16_FWD_TOL:g}; #3 bitwise equal to #1 in f32 at every shape: {bitwise}; in "
+          f"bf16 within {TC_BF16_FWD_TOL:g}")
     check(bitwise, "#3 and #1 differ in f32")
     worst["bitwise"] = bitwise
     return worst
@@ -2019,9 +2056,12 @@ def main() -> int:
     flex_worst = check_flexible_kernels(model, dev)
     chains.update(render_chains(cfg, dev, ("C", "D")))
 
-    # Phase 15: their times, and the chains' frames beside the renderer's.
+    # Phase 15: their times, and the chains' frames beside the renderer's:
+    # C and D in f32, then B and D in bf16, where #7 and #2 run on the
+    # tensor cores.
     flex_times = time_flexible(model, dev, on)
     chain_frame_seconds(cfg, dev, ("C", "D"), on)
+    bf16_frames = chain_frame_seconds(cfg, dev, ("B", "D"), on, "bfloat16")
 
     # Phase 16: the render server on the card, from phase 7's checkpoint.
     served = serve_main_path(cfg, served_state, dev, on)
@@ -2104,12 +2144,17 @@ def main() -> int:
           4 * (n * m + n * (m - 1) + s6 + n * s6),
           samples_over_tol=stage_worst["resample"]["over"],
           max_cdf_err=stage_worst["resample"]["cdf_err"])
+    # The bf16 instances of #7 and #2 read bf16 weights (82,240 and 84,288
+    # values) and the f32 biases (708 values).
     entry("fused_render_stage", "stage.cu", "stage.py:132", chains["B"]["fused_render_stage"],
           stage_worst["stage"], stage_times["stage"],
           2 * p * MACS_PER_POINT + COMPOSITE_OPS_PER_SAMPLE * p,
-          4 * (5 * p + 73 * n + 82820),
+          4 * (5 * p + 73 * n + 82820), 4 * (5 * p + 73 * n + 708) + 2 * 82240,
           unfused_ms=stage_times["stage unfused", "float32"],
-          unfused_ms_bf16=stage_times["stage unfused", "bfloat16"])
+          unfused_ms_bf16=stage_times["stage unfused", "bfloat16"],
+          bitwise_bf16_vs_composite_of_fused_mlp_t=stage_worst["stage bitwise"],
+          chain_b_frame_s_bf16=bf16_frames["frame", "chain B"],
+          renderer_frame_s_bf16=bf16_frames["frame", "renderer kernel path"])
     # Phase 14-15's kernels at KERNEL_CHUNK; launches from chains C and D. #2
     # reads a direction a point and holds the 27 direction rows of W_dir.
     n, s = KERNEL_CHUNK
@@ -2117,7 +2162,9 @@ def main() -> int:
     entry("fused_flexible_mlp", "mlp.cu", "mlp.py:322", chains["D"]["fused_flexible_mlp"],
           {d: flex_worst["points", d] for d in ("float32", "bfloat16")},
           {d: flex_times["points", d] for d in ("float32", "bfloat16")},
-          2 * p * (MACS_PER_POINT + 27 * 64), 4 * (3 * p + 3 * p + 84548 + 4 * p))
+          2 * p * (MACS_PER_POINT + 27 * 64), 4 * (3 * p + 3 * p + 84548 + 4 * p),
+          4 * (10 * p + 708) + 2 * 84288,
+          chain_d_frame_s_bf16=bf16_frames["frame", "chain D"])
     entry("fused_flexible_mlp_rays", "mlp.cu", "mlp.py:257",
           chains["C"]["fused_flexible_mlp_rays"],
           {d: flex_worst["rays", d] for d in ("float32", "bfloat16")},

@@ -5,8 +5,8 @@
 // the packed parameter layout, the bf16 rounding, the positional encoding of
 // a point tile, the feature-major dense layer over a tile in shared memory,
 // and the whole forward over a tile, which saves the f32 training residuals
-// when it is given a buffer for them (the bf16 training forward runs
-// flex_tc.cuh's tensor-core tile instead).
+// when it is given a buffer for them (the bf16 instances of every kernel
+// but mlp.cu's ray-major one run flex_tc.cuh's tensor-core tile instead).
 //
 // A tile is kTile = 64 consecutive points of the public (N*S) point order,
 // held feature-major in shared memory: act[feature][point].

@@ -1,8 +1,8 @@
 // Tensor-core device code of the bf16 4x128 FlexibleNeRF kernels: mlp_t.cu's
-// render forward and flex_train.cu's training forward, layer-gradient pass
-// and weight-gradient pass, at compute dtype bf16. The f32 instances, and
-// both instances of mlp.cu's and stage.cu's kernels, keep flex_mlp.cuh's FMA
-// design.
+// render forward, flex_train.cu's training forward, layer-gradient pass and
+// weight-gradient pass, mlp.cu's point-major forward and stage.cu's whole
+// render stage, at compute dtype bf16. The f32 instances, and both instances
+// of mlp.cu's ray-major kernel, keep flex_mlp.cuh's FMA design.
 //
 // paper_tc.cuh's design at the flagship's widths. Every wide product is
 // mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 (tc_mma.cuh): bf16
@@ -17,9 +17,17 @@
 // layer), its A fragments read with ldmatrix from the shared tile, its B
 // fragments from device memory (the whole bf16 weight set is 164 KB and
 // stays L2-resident) in fragment order, one k-step ahead. The wrapper packs
-// the weights once per call (kernels/mlp.py pack_tc_forward,
+// the weights once per call (kernels/mlp.py pack_tc_forward and, with the
+// point-major forward's direction rows, pack_tc_forward_points;
 // kernels/flex_train.py pack_tc_backward). Layer 1's K is padded 63 -> 64
 // with a zero column in the encoding tile and a zero row in the weights.
+//
+// The forwards share one tile body, forward_tile_with: its caller gives the
+// tile's first point, the end of its points and the first row of its output
+// (stage.cu runs several tiles a block into a field in shared memory), and
+// the direction layer as a policy: DirRayRow adds the ray's row of the
+// wrapper's dc (#1, #8, #7); mlp.cu's encodes each point's direction into
+// the free encoding tile and sums its 27 rows into the same accumulator (#2).
 //
 // In place: a layer's output tile sits in f32 registers, the block
 // synchronises, and the tile is written over its own input (Acc::write).
@@ -85,6 +93,11 @@ constexpr int kWd = kWf + kHidden * kHidden;               // layers_dir.0 feat 
 constexpr int kWa = kWd + kHidden * kDirHidden;            // fc_alpha
 constexpr int kWr = kWa + kHidden;                         // fc_rgb
 constexpr int kFwdWeights = kWr + 3 * kDirHidden;          // 82240
+// The point-major forward (mlp.cu) appends layers_dir.0's direction rows,
+// K 27 -> 32 (zero rows), in fragment order.
+constexpr int kDirK = 32;
+constexpr int kWdDir = kFwdWeights;
+constexpr int kFwdWeightsPoints = kWdDir + kDirK * kDirHidden;   // 84288
 
 // Offsets (bf16 elements) of the backward weights, fragment order, for
 // dX = dY W (N = the layer's inputs, K = its outputs): fc_rgb (K 3 -> 16),
@@ -103,11 +116,11 @@ constexpr int kBwdWeights = kbx(0) + kHidden * kHidden;    // 76800
 constexpr size_t kFwdSmem = static_cast<size_t>(kEncStride + kStride) * kTile * sizeof(bf16);
 
 // Copy `cols` (a multiple of 8) bf16 columns of the tile's rows in shared
-// memory to the tile's residual rows res[(tile * kTile + point) * kRows + r].
+// memory to the tile's residual rows res[(tile0 + point) * kRows + r].
 __device__ __forceinline__ void save_rows(const bf16* src, int stride, int cols, bf16* res,
-                                          int r) {
+                                          long long tile0, int r) {
   if (res == nullptr) return;
-  bf16* dst = res + static_cast<long long>(blockIdx.x) * kTile * kRows + r;
+  bf16* dst = res + tile0 * kRows + r;
   const int chunks = cols / 8;
   for (int i = threadIdx.x; i < kTile * chunks; i += kThreads) {
     const int p = i / chunks;
@@ -133,23 +146,45 @@ __device__ __forceinline__ float head_dot(const bf16* act, const bf16* __restric
   return s + __shfl_xor_sync(0xffffffffu, s, 1);
 }
 
-// The bf16 forward over the tile blockIdx.x, flex_mlp.cuh's forward_tile on
-// the tensor cores: encoding into `enc` (64 x kEncStride), layer1 (no
-// activation), the ReLU trunk, fc_feat (ReLU) and sigma (from h3), the
-// direction layer (+ dc, ReLU) and fc_rgb over `act` (64 x kStride) -> out
-// (n_points, 4) [r, g, b, sigma]. Biases come from the f32 parameters
-// (flex_mlp.cuh's layout), weights from the bf16 fragments (kW* above). With
-// res non-null every layer's stored output is also written to the tile's
-// residual rows.
-__device__ __forceinline__ void forward_tile(const float* __restrict__ pts,
-                                             const float* __restrict__ dc,
-                                             const float* __restrict__ params,
-                                             const bf16* __restrict__ w,
-                                             float* __restrict__ out, bf16* res,
-                                             long long n_points, int samples, bf16* enc,
-                                             bf16* act) {
-  const long long tile0 = static_cast<long long>(blockIdx.x) * kTile;
+// The direction layer whose term is the ray's row of dc (rays, 64) f32, the
+// ray of point gp being gp / samples (mlp_t.cu, flex_train.cu, stage.cu):
+// hd = relu(feat . W_dir[:128] + b + dc[ray]) written over feat in `act`.
+struct DirRayRow {
+  const float* dc;
+  int samples;
+  __device__ __forceinline__ void operator()(const float* __restrict__ params,
+                                             const bf16* __restrict__ w, bf16* /*enc*/,
+                                             bf16* act, long long tile0,
+                                             long long n_points) const {
+    Acc64 a;
+    a.mac<2>(w + kWd, act, kStride, kHidden / 16);
+    a.bias_act<true>(params + kOffBd, dc, tile0, samples, n_points);
+    a.write(act);
+  }
+};
 
+// The bf16 forward over the tile of points tile0 .. tile0 + kTile - 1,
+// flex_mlp.cuh's forward_tile_with on the tensor cores: encoding into `enc`
+// (64 x kEncStride), layer1 (no activation), the ReLU trunk, fc_feat (ReLU)
+// and sigma (from h3), the direction layer and fc_rgb over `act` (64 x
+// kStride) -> row (point - out0) of out (.., 4) [r, g, b, sigma], for the
+// points below n_points. Biases come from the f32 parameters (flex_mlp.cuh's
+// layout), weights from the bf16 fragments (kW* above). With res non-null
+// every layer's stored output is also written to the tile's residual rows.
+// It ends without a barrier: a caller that reads `out` from other threads
+// syncs first.
+//
+// dir_layer(params, w, enc, act, tile0, n_points), a struct as DirRayRow,
+// writes hd (64 wide) over feat in `act` and returns when it is visible to
+// the block. `enc` is free by then (layer1 read it before its output's
+// barrier), so the layer may use it.
+template <typename DirLayer>
+__device__ __forceinline__ void forward_tile_with(const float* __restrict__ pts,
+                                                  const float* __restrict__ params,
+                                                  const bf16* __restrict__ w,
+                                                  float* __restrict__ out, long long out0,
+                                                  bf16* res, long long tile0, long long n_points,
+                                                  bf16* enc, bf16* act, DirLayer dir_layer) {
   // Encoding, point-major, in the checkpoint's order [x | sin f0 | cos f0 |
   // ...]; points past n_points encode x = 0; column 63 is zero.
   for (int i = threadIdx.x; i < kTile * 3; i += kThreads) {
@@ -170,47 +205,59 @@ __device__ __forceinline__ void forward_tile(const float* __restrict__ pts,
   }
   if (threadIdx.x < kTile) enc[threadIdx.x * kEncStride + kEnc] = __float2bfloat16_rn(0.f);
   __syncthreads();
-  save_rows(enc, kEncStride, kEncK, res, kRowEnc);
+  save_rows(enc, kEncStride, kEncK, res, tile0, kRowEnc);
 
   {  // a0 = layer1(enc), not ReLU'd.
     Acc128 a;
     a.mac<2>(w + kW1, enc, kEncStride, kEncK / 16);
-    a.bias_act<false>(params + kOffB1, nullptr, tile0, samples, n_points);
+    a.bias_act<false>(params + kOffB1, nullptr, tile0, 1, n_points);
     a.write(act);
-    save_rows(act, kStride, kHidden, res, kRowA0);
+    save_rows(act, kStride, kHidden, res, tile0, kRowA0);
   }
 #pragma unroll
   for (int i = 0; i < 3; ++i) {  // h1..h3 = relu(layers_xyz.i(...))
     Acc128 a;
     a.mac<2>(w + kWx0 + i * kHidden * kHidden, act, kStride, kHidden / 16);
-    a.bias_act<true>(params + kOffWx + i * kLayerX + kHidden * kHidden, nullptr, tile0, samples,
+    a.bias_act<true>(params + kOffWx + i * kLayerX + kHidden * kHidden, nullptr, tile0, 1,
                      n_points);
     a.write(act);
-    save_rows(act, kStride, kHidden, res, kRowH1 + i * kHidden);
+    save_rows(act, kStride, kHidden, res, tile0, kRowH1 + i * kHidden);
   }
   {  // feat = relu(fc_feat(h3)); sigma = fc_alpha(h3) before feat replaces h3.
     Acc128 a;
     a.mac<2>(w + kWf, act, kStride, kHidden / 16);
-    a.bias_act<true>(params + kOffBf, nullptr, tile0, samples, n_points);
+    a.bias_act<true>(params + kOffBf, nullptr, tile0, 1, n_points);
     const float s = head_dot(act, w + kWa, kHidden);
     const long long gp = tile0 + (threadIdx.x >> 1);
-    if ((threadIdx.x & 1) == 0 && gp < n_points) out[gp * 4 + 3] = s + __ldg(params + kOffBa);
+    if ((threadIdx.x & 1) == 0 && gp < n_points) {
+      out[(gp - out0) * 4 + 3] = s + __ldg(params + kOffBa);
+    }
     a.write(act);
-    save_rows(act, kStride, kHidden, res, kRowFeat);
+    save_rows(act, kStride, kHidden, res, tile0, kRowFeat);
   }
-  {  // hd = relu(layers_dir.0(feat) + dc[ray]).
-    Acc64 a;
-    a.mac<2>(w + kWd, act, kStride, kHidden / 16);
-    a.bias_act<true>(params + kOffBd, dc, tile0, samples, n_points);
-    a.write(act);
-    save_rows(act, kStride, kDirHidden, res, kRowHd);
-  }
+  dir_layer(params, w, enc, act, tile0, n_points);
+  save_rows(act, kStride, kDirHidden, res, tile0, kRowHd);
   const long long gp = tile0 + (threadIdx.x >> 1);
 #pragma unroll
   for (int c = 0; c < 3; ++c) {  // fc_rgb
     const float s = head_dot(act, w + kWr + c * kDirHidden, kDirHidden);
-    if ((threadIdx.x & 1) == 0 && gp < n_points) out[gp * 4 + c] = s + __ldg(params + kOffBr + c);
+    if ((threadIdx.x & 1) == 0 && gp < n_points) {
+      out[(gp - out0) * 4 + c] = s + __ldg(params + kOffBr + c);
+    }
   }
+}
+
+// The forward over the tile blockIdx.x with DirRayRow, into out (n_points,
+// 4) (mlp_t.cu, flex_train.cu).
+__device__ __forceinline__ void forward_tile(const float* __restrict__ pts,
+                                             const float* __restrict__ dc,
+                                             const float* __restrict__ params,
+                                             const bf16* __restrict__ w,
+                                             float* __restrict__ out, bf16* res,
+                                             long long n_points, int samples, bf16* enc,
+                                             bf16* act) {
+  forward_tile_with(pts, params, w, out, 0, res, static_cast<long long>(blockIdx.x) * kTile,
+                    n_points, enc, act, DirRayRow{dc, samples});
 }
 
 }  // namespace tc

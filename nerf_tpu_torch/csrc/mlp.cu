@@ -19,14 +19,24 @@
 //
 // What bounds them on the card: arithmetic, as for mlp_t.cu. A point costs
 // ~82k multiply-adds (the point-major one 27 x 64 more, and 24 sinusoids)
-// against 24-28 B of point traffic. Both run flex_mlp.cuh's forward over
-// 64-point tiles, one block of 128 threads a tile, activations in two
-// feature-major shared buffers of 128 x 64 f32 (64 KB, dynamic shared
+// against 24-28 B of point traffic.
+//
+// compute dtype f32, and the ray-major kernel in bf16: flex_mlp.cuh's
+// forward over 64-point tiles, one block of 128 threads a tile, activations
+// in two feature-major shared buffers of 128 x 64 f32 (64 KB, dynamic shared
 // memory), f32 FMAs from registers; only the direction layer differs
 // (flex_mlp.cuh's forward_tile_with takes it as a callback). After the trunk
 // buf_a's rows 64..127 are free: the point-major kernel encodes the
-// directions there, the ray-major one stages its dc rows there. Tensor cores
-// are later work.
+// directions there, the ray-major one stages its dc rows there.
+//
+// compute dtype bf16, point-major: flex_tc.cuh's forward_tile_with on the
+// tensor cores (mma.sync m16n8k16, 17 KB bf16 point-major tiles, 4 blocks an
+// SM), the trunk of mlp_t.cu's bf16 kernel with its L2-streamed weight
+// fragments (kernels/mlp.py pack_tc_forward_points: pack_tc_forward's
+// buffer, then the 27 direction rows of layers_dir.0 padded to K 32 with zero
+// rows). Its direction layer (DirEncodedTc) encodes the tile's directions
+// into the encoding tile, free since layer 1, and accumulates feat (K 128)
+// and the encoding (K 32) into one f32 tile before the bias and the ReLU.
 //
 // compute dtype bf16: both matmul operands are rounded to bf16 and the sums
 // stay f32, as on the TPU (preferred_element_type=f32). The point-major
@@ -34,6 +44,7 @@
 // as the TPU kernel does (mlp.py:130-136); the ray-major dc stays f32.
 
 #include "flex_mlp.cuh"
+#include "flex_tc.cuh"
 
 namespace {
 
@@ -43,9 +54,8 @@ constexpr size_t kBufBytes = 2 * kHidden * kTile * sizeof(float);
 // The ray-major kernel's table of each point's ray within the tile's stage.
 constexpr size_t kRaysSmemBytes = kBufBytes + kTile * sizeof(int);
 
-// #2's direction layer: the tile's direction encoding into buf_a rows
+// #2's f32 direction layer: the tile's direction encoding into buf_a rows
 // 64..90, then one sum over the feat rows and the 27 direction rows.
-template <bool kBf16>
 struct DirLayerEncoded {
   const float* params;
   const float* dirs;
@@ -53,9 +63,9 @@ struct DirLayerEncoded {
   long long n_points;
   __device__ __forceinline__ void operator()(const float* feat, float* hd) const {
     float* denc = hd + kDirHidden * kTile;
-    encode_tile<kBf16, kFreqDir>(dirs, tile0, n_points, denc);
+    encode_tile<false, kFreqDir>(dirs, tile0, n_points, denc);
     __syncthreads();
-    dense2<kDirHidden, true, kBf16>(params + kOffWd, kHidden, feat, params + kOffWdDir, kEncDir,
+    dense2<kDirHidden, true, false>(params + kOffWd, kHidden, feat, params + kOffWdDir, kEncDir,
                                     denc, params + kOffBd, hd);
   }
 };
@@ -88,17 +98,75 @@ struct DirLayerStaged {
   }
 };
 
+// #2's bf16 direction layer: the tile's view directions encoded into `enc`
+// in the checkpoint's order [d | sin f0 | cos f0 | ... f3] (sincosf of
+// d * 2^f in f32, rounded to bf16 once where stored; points past n_points
+// encode d = 0), columns 27..31 zero, then one f32 sum over feat (K 128) and
+// the encoding (K 32) with layers_dir.0's feat and direction rows, the bias
+// and the ReLU; hd is written over feat in `act`.
+struct DirEncodedTc {
+  const float* dirs;
+  __device__ __forceinline__ void operator()(const float* __restrict__ params,
+                                             const __nv_bfloat16* __restrict__ w,
+                                             __nv_bfloat16* enc, __nv_bfloat16* act,
+                                             long long tile0, long long n_points) const {
+    for (int i = threadIdx.x; i < kTile * 3; i += kThreads) {
+      const int p = i / 3;
+      const int c = i % 3;
+      const float x = tile0 + p < n_points ? dirs[tile0 * 3 + i] : 0.f;
+      __nv_bfloat16* e = enc + p * tc::kEncStride;
+      e[c] = __float2bfloat16_rn(x);
+      float scale = 1.f;
+#pragma unroll
+      for (int f = 0; f < kFreqDir; ++f) {
+        float s, co;
+        sincosf(x * scale, &s, &co);
+        e[3 + 6 * f + c] = __float2bfloat16_rn(s);
+        e[6 + 6 * f + c] = __float2bfloat16_rn(co);
+        scale *= 2.f;
+      }
+    }
+    constexpr int kPad = tc::kDirK - kEncDir;   // 5 zero columns: NaN . 0 is NaN
+    for (int i = threadIdx.x; i < kTile * kPad; i += kThreads) {
+      enc[(i / kPad) * tc::kEncStride + kEncDir + i % kPad] = __float2bfloat16_rn(0.f);
+    }
+    __syncthreads();
+    tc::Acc64 a;
+    a.mac<2>(w + tc::kWd, act, tc::kStride, kHidden / 16);
+    a.mac<2>(w + tc::kWdDir, enc, tc::kEncStride, tc::kDirK / 16);
+    a.bias_act<true>(params + kOffBd, nullptr, tile0, 1, n_points);
+    a.write(act);
+  }
+};
+
+// The primary template is the f32 instance, on the FMA design with its
+// bounds (wbf unused); the bf16 one, specialized below, runs on the tensor
+// cores, held to 128 registers so that 4 blocks share an SM.
 template <bool kBf16>
 __global__ void __launch_bounds__(kThreads)
 flexible_mlp_kernel(const float* __restrict__ pts, const float* __restrict__ dirs,
-                    const float* __restrict__ params, float* __restrict__ out,
-                    long long n_points) {
+                    const float* __restrict__ params, const __nv_bfloat16* __restrict__ wbf,
+                    float* __restrict__ out, long long n_points) {
+  static_assert(!kBf16, "the bf16 instance is the specialization below");
   extern __shared__ float4 smem[];
   float* buf_a = reinterpret_cast<float*>(smem);
   const long long tile0 = static_cast<long long>(blockIdx.x) * kTile;
-  forward_tile_with<kBf16>(pts, params, out, 0, nullptr, tile0, n_points, buf_a,
-                                  buf_a + kHidden * kTile,
-                                  DirLayerEncoded<kBf16>{params, dirs, tile0, n_points});
+  forward_tile_with<false>(pts, params, out, 0, nullptr, tile0, n_points, buf_a,
+                           buf_a + kHidden * kTile,
+                           DirLayerEncoded{params, dirs, tile0, n_points});
+}
+
+template <>
+__global__ void __launch_bounds__(kThreads, 4)
+flexible_mlp_kernel<true>(const float* __restrict__ pts, const float* __restrict__ dirs,
+                          const float* __restrict__ params,
+                          const __nv_bfloat16* __restrict__ wbf, float* __restrict__ out,
+                          long long n_points) {
+  extern __shared__ float4 smem[];
+  auto* enc = reinterpret_cast<__nv_bfloat16*>(smem);
+  tc::forward_tile_with(pts, params, wbf, out, 0, nullptr,
+                        static_cast<long long>(blockIdx.x) * kTile, n_points, enc,
+                        enc + tc::kEncStride * kTile, DirEncodedTc{dirs});
 }
 
 template <bool kBf16>
@@ -125,15 +193,17 @@ bool bad_launch(long long n_points) {
 }
 
 template <bool kBf16>
-cudaError_t launch_points(const float* pts, const float* dirs, const float* params, float* out,
-                          long long n_points, cudaStream_t stream) {
+cudaError_t launch_points(const float* pts, const float* dirs, const float* params,
+                          const __nv_bfloat16* wbf, float* out, long long n_points,
+                          cudaStream_t stream) {
+  const size_t smem = kBf16 ? tc::kFwdSmem : kBufBytes;
   cudaError_t err = cudaFuncSetAttribute(flexible_mlp_kernel<kBf16>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(kBufBytes));
+                                         static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const long long tiles = (n_points + kTile - 1) / kTile;
-  flexible_mlp_kernel<kBf16><<<static_cast<unsigned int>(tiles), kThreads, kBufBytes, stream>>>(
-      pts, dirs, params, out, n_points);
+  flexible_mlp_kernel<kBf16><<<static_cast<unsigned int>(tiles), kThreads, smem, stream>>>(
+      pts, dirs, params, wbf, out, n_points);
   return cudaGetLastError();
 }
 
@@ -154,20 +224,27 @@ cudaError_t launch_rays(const float* pts, const float* dc, const float* params, 
 }  // namespace
 
 // Number of floats the point-major kernel's packed parameter buffer must
-// hold (the ray-major one takes mlp_t.cu's, nerf_mlp_t_num_params()).
+// hold (the ray-major one takes mlp_t.cu's, nerf_mlp_t_num_params()), and of
+// bf16 values in its tensor-core weights.
 extern "C" int nerf_flexible_mlp_num_params() { return kParamsDir; }
+extern "C" int nerf_flexible_mlp_tc_weights() { return tc::kFwdWeightsPoints; }
 
 // pts (n_points, 3), dirs (n_points, 3), params (kParamsDir,), out
-// (n_points, 4): contiguous f32 device buffers. Returns a cudaError_t.
+// (n_points, 4): contiguous f32 device buffers; with bf16 != 0 also wbf
+// (tc::kFwdWeightsPoints,), the bf16 weights in fragment order, 16-byte
+// aligned (ignored for f32). Returns a cudaError_t.
 extern "C" int nerf_flexible_mlp_forward(const float* pts, const float* dirs,
-                                         const float* params, long long n_params, float* out,
+                                         const float* params, long long n_params,
+                                         const void* wbf, long long n_wbf, float* out,
                                          long long n_points, int bf16, void* stream) {
-  if (n_params != kParamsDir || bad_launch(n_points)) {
+  if (n_params != kParamsDir || bad_launch(n_points) ||
+      (bf16 && (wbf == nullptr || n_wbf != tc::kFwdWeightsPoints))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = bf16 ? launch_points<true>(pts, dirs, params, out, n_points, s)
-                               : launch_points<false>(pts, dirs, params, out, n_points, s);
+  const auto* w = static_cast<const __nv_bfloat16*>(wbf);
+  const cudaError_t err = bf16 ? launch_points<true>(pts, dirs, params, w, out, n_points, s)
+                               : launch_points<false>(pts, dirs, params, w, out, n_points, s);
   return static_cast<int>(err);
 }
 

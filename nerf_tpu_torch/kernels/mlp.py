@@ -9,20 +9,24 @@ the direction layer and fc_rgb in one launch whose activations stay in
 shared memory and registers.
 
 What bounds them on the card is arithmetic: ~82k multiply-adds per point
-(the point-major one 27 x 64 more) against 24-28 B of point traffic. Both
-run ``csrc/flex_mlp.cuh``'s forward, the one ``kernels/mlp_t.py``'s kernel
-runs, on f32 FMAs; only the direction layer differs. The point-major kernel
-encodes each point's direction itself and sums its 27 direction rows into
-the direction layer, as the TPU kernel does. The ray-major one adds the
+(the point-major one 27 x 64 more) against 24-28 B of point traffic. In f32
+both run ``csrc/flex_mlp.cuh``'s forward, the one ``kernels/mlp_t.py``'s
+kernel runs, on f32 FMAs; only the direction layer differs. The point-major
+kernel encodes each point's direction itself and sums its 27 direction rows
+into the direction layer, as the TPU kernel does. The ray-major one adds the
 per-ray contribution ``enc(viewdirs) @ W_dir[128:]`` (R, 64), made outside
 the kernel with one matmul, from a copy in shared memory: it computes what
-``fused_mlp_t`` computes, bit for bit.
+``fused_mlp_t`` computes, bit for bit. In bf16 the point-major kernel runs
+``csrc/flex_tc.cuh``'s tensor-core forward (``fused_mlp_t``'s bf16 body)
+with its own direction layer, on the weights ``pack_tc_forward_points``
+builds; the ray-major one still runs the FMA loop in bf16.
 
 This module also holds what the family's kernels share, as the JAX
 package's ``mlp.py`` does: the shape gate ``supports_fused``, the packed
 parameter layout, the per-ray direction contribution, and the bf16 forward
-weights of the tensor-core kernels (``pack_tc_forward``: ``fused_mlp_t``'s
-and the training forward's bf16 instances run ``csrc/flex_tc.cuh``).
+weights of the tensor-core kernels (``pack_tc_forward``: the bf16 instances
+of ``fused_mlp_t``, the training forward and ``fused_render_stage`` run
+``csrc/flex_tc.cuh``; ``pack_tc_forward_points`` for the point-major one).
 
 ``compute_dtype="bfloat16"`` rounds both operands of every matmul to bf16
 and keeps f32 sums (``preferred_element_type=f32``). The point-major kernel
@@ -47,6 +51,8 @@ from ..ops.encoding import positional_encoding
 _NUM_FREQ_XYZ = 10
 _NUM_FREQ_DIR = 4
 _DIM_XYZ = 3 + 6 * _NUM_FREQ_XYZ   # 63
+_DIM_DIR = 3 + 6 * _NUM_FREQ_DIR   # 27
+_DIR_K = 32                        # _DIM_DIR padded to a k-step of the tensor cores
 _HIDDEN = 128
 _DIR_HIDDEN = 64
 _COMPUTE_DTYPES = ("float32", "bfloat16")
@@ -65,6 +71,7 @@ _LAYOUT = (
     ("fc_rgb", _DIR_HIDDEN, 3),
 )
 _NUM_PARAMS = sum(i * o + o for _, i, o in _LAYOUT)      # 82820
+_NUM_PARAMS_POINTS = _NUM_PARAMS + _DIM_DIR * _DIR_HIDDEN  # 84548, pack_params_points
 
 
 def supports_fused(model) -> bool:
@@ -158,6 +165,14 @@ def unpack_params(params: torch.Tensor) -> Dict[str, Tuple[torch.Tensor, torch.T
     return out
 
 
+def unpack_params_points(params: torch.Tensor) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
+    """Views of ``pack_params_points``' buffer: ``unpack_params``' layers and
+    "dir_rows" -> (layers_dir.0's direction rows (27, 64), None)."""
+    out = unpack_params(params)
+    out["dir_rows"] = (params[_NUM_PARAMS:_NUM_PARAMS_POINTS].view(_DIM_DIR, _DIR_HIDDEN), None)
+    return out
+
+
 def _tc_forward_matrices(layers, pad):
     """The tensor-core forward's operands, in ``csrc/flex_tc.cuh``'s kW*
     order, each (out, in): layer1 with K 63 -> 64 (the pad holds ``pad``),
@@ -171,23 +186,41 @@ def _tc_forward_matrices(layers, pad):
                                      "layers_dir.0", "fc_alpha", "fc_rgb")]
 
 
+def _tc_forward_points_matrices(layers, pad):
+    """``_tc_forward_matrices``, then layers_dir.0's direction rows as (64,
+    in) with K 27 -> 32 (the pads hold ``pad``): the point-major kernel's
+    operands (``csrc/flex_tc.cuh`` kWdDir)."""
+    dirs = torch.nn.functional.pad(layers["dir_rows"][0].t(), (0, _DIR_K - _DIM_DIR), value=pad)
+    return _tc_forward_matrices(layers, pad) + [("dir_rows", dirs)]
+
+
+def _unpacker(points: bool):
+    """(unpack, number of values) of the packed parameters: ``pack_params``'
+    layout, or with ``points`` ``pack_params_points``'."""
+    return (unpack_params_points, _NUM_PARAMS_POINTS) if points else (unpack_params, _NUM_PARAMS)
+
+
 @functools.lru_cache(maxsize=None)
-def tc_gather_index(matrices, device: str) -> torch.Tensor:
+def tc_gather_index(matrices, device: str, points: bool = False) -> torch.Tensor:
     """Where each value of a 4x128 bf16 weight buffer comes from in the
-    packed parameters (82820 for a zero pad), on ``device``: ``matrices``
-    run on the positions themselves, flattened for 4-warp blocks."""
+    packed parameters (``pack_params``', or with ``points``
+    ``pack_params_points``'; one past their last value for a zero pad), on
+    ``device``: ``matrices`` run on the positions themselves, flattened for
+    4-warp blocks."""
     from .paper_t import _flatten
 
-    ref = torch.arange(_NUM_PARAMS + 1, dtype=torch.float64)
-    return _flatten(matrices(unpack_params(ref), float(_NUM_PARAMS)), _TC_WARPS).long().to(device)
+    unpack, n = _unpacker(points)
+    ref = torch.arange(n + 1, dtype=torch.float64)
+    return _flatten(matrices(unpack(ref), float(n)), _TC_WARPS).long().to(device)
 
 
-def tc_unflatten(buf: torch.Tensor, matrices) -> Dict[str, torch.Tensor]:
+def tc_unflatten(buf: torch.Tensor, matrices, points: bool = False) -> Dict[str, torch.Tensor]:
     """A 4x128 bf16 weight buffer as f32 operand matrices: name -> (N, K)
-    with its K pads."""
+    with its K pads (``points``: the layout ``tc_gather_index`` takes)."""
     from .paper_t import _unflatten
 
-    return _unflatten(buf, matrices(unpack_params(torch.zeros(_NUM_PARAMS)), 0.0), _TC_WARPS)
+    unpack, n = _unpacker(points)
+    return _unflatten(buf, matrices(unpack(torch.zeros(n)), 0.0), _TC_WARPS)
 
 
 def pack_tc_forward(params: torch.Tensor) -> torch.Tensor:
@@ -204,6 +237,22 @@ def unpack_tc_forward(buf: torch.Tensor) -> Dict[str, torch.Tensor]:
     """``pack_tc_forward``'s buffer as f32 operand matrices: name -> (out,
     in) with its K pads."""
     return tc_unflatten(buf, _tc_forward_matrices)
+
+
+def pack_tc_forward_points(params: torch.Tensor) -> torch.Tensor:
+    """The bf16 point-major kernel's weights, from ``pack_params_points``'
+    buffer: ``pack_tc_forward``'s buffer, then layers_dir.0's 27 direction
+    rows padded with zero rows to 32, in fragment order."""
+    from .paper_t import gather_bf16
+
+    return gather_bf16(params, lambda device: tc_gather_index(_tc_forward_points_matrices,
+                                                              device, points=True))
+
+
+def unpack_tc_forward_points(buf: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """``pack_tc_forward_points``' buffer as f32 operand matrices:
+    ``unpack_tc_forward``'s and "dir_rows" (64, 32)."""
+    return tc_unflatten(buf, _tc_forward_points_matrices, points=True)
 
 
 def _rounding(compute_dtype: str):
@@ -271,6 +320,7 @@ def _kernels():
     lib = load_library()
     points = lib.nerf_flexible_mlp_forward
     points.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_void_p,
+                                               ctypes.c_longlong, ctypes.c_void_p,
                                                ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
     rays = lib.nerf_flexible_mlp_rays_forward
     rays.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_void_p,
@@ -323,16 +373,18 @@ def fused_flexible_mlp(
     out = torch.empty((n, 4), dtype=torch.float32, device=pts.device)
     if n == 0:
         return out
-    # params is freed when this returns, before the kernel may have run: the
-    # caching allocator hands its block out again only in this stream's
-    # order, after the kernel.
+    # params and wbf are freed when this returns, before the kernel may have
+    # run: the caching allocator hands their blocks out again only in this
+    # stream's order, after the kernel.
     with torch.no_grad(), torch.cuda.device(pts.device):
         pts_c, vd_c = pts.contiguous(), viewdirs.contiguous()
         params = pack_params_points(model).contiguous()
+        wbf = pack_tc_forward_points(params) if compute_dtype == "bfloat16" else None
         stream = torch.cuda.current_stream(pts.device).cuda_stream
         rc = _kernels()[0](
             pts_c.data_ptr(), vd_c.data_ptr(), params.data_ptr(), params.numel(),
-            out.data_ptr(), n, int(compute_dtype == "bfloat16"), stream,
+            None if wbf is None else wbf.data_ptr(), 0 if wbf is None else wbf.numel(),
+            out.data_ptr(), n, int(wbf is not None), stream,
         )
     if rc != 0:
         raise RuntimeError(f"fused_flexible_mlp: kernel launch failed with CUDA error {rc}")

@@ -8,11 +8,14 @@ directions (N, 3) -> the five maps of ``kernels/composite.py`` (``rgb``,
 white background. The (N, S, 4) radiance field never reaches device memory.
 
 What bounds it on the card is the MLP's arithmetic (that of
-``kernels/mlp_t.py``); the kernel runs ``csrc/flex_mlp.cuh``'s forward over
-the tiles of a block's rays into shared memory, then ``csrc/composite.cuh``'s
-scan over them. The per-ray direction contribution and the packed parameters
-are ``mlp.dir_contribution`` and ``mlp.pack_params``, and the shape gate
-is ``mlp.supports_fused``, 10 encoding frequencies included.
+``kernels/mlp_t.py``); the kernel runs the forward of ``fused_mlp_t`` over
+the tiles of a block's rays into shared memory (f32: ``csrc/flex_mlp.cuh``'s
+FMA tile; bf16: ``csrc/flex_tc.cuh``'s tensor-core tile on the weights
+``mlp.pack_tc_forward`` builds), then ``csrc/composite.cuh``'s scan over
+them. The per-ray direction contribution and the packed parameters are
+``mlp.dir_contribution`` and ``mlp.pack_params``, and the shape gate is
+``mlp.supports_fused``, 10 encoding frequencies included. The bf16 maps are
+bitwise those of ``fused_volume_render`` on ``fused_mlp_t``'s bf16 field.
 
 The plain version ``render_stage_plain`` is ``mlp_t_plain`` followed by
 ``volume_render_plain``; ``compute_dtype="bfloat16"`` rounds the MLP's
@@ -28,7 +31,7 @@ from typing import Dict
 import torch
 
 from .composite import MAP_NAMES, check_ray_inputs, empty_maps, volume_render_plain
-from .mlp import _COMPUTE_DTYPES, dir_contribution, pack_params, supports_fused
+from .mlp import _COMPUTE_DTYPES, dir_contribution, pack_params, pack_tc_forward, supports_fused
 from .mlp_t import mlp_t_plain
 
 
@@ -52,8 +55,8 @@ def _kernel():
 
     lib = load_library()
     fn = lib.nerf_stage_forward
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_void_p] * 5 + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    fn.argtypes = [ptr] * 5 + [i64, ptr, i64] + [ptr] * 5 + [i64, i32, i32, i32, ptr]
     fn.restype = ctypes.c_int
     return fn, lib.nerf_stage_max_samples()
 
@@ -99,9 +102,9 @@ def fused_render_stage(
     out = empty_maps(n, s, pts.device)
     if n == 0:
         return out
-    # dc and params are freed when this returns, before the kernel may have
-    # run: the caching allocator hands their blocks out again only in this
-    # stream's order, after the kernel.
+    # dc, params and wbf are freed when this returns, before the kernel may
+    # have run: the caching allocator hands their blocks out again only in
+    # this stream's order, after the kernel.
     with torch.no_grad(), torch.cuda.device(pts.device):
         fn, max_samples = _kernel()
         if s > max_samples:
@@ -110,11 +113,13 @@ def fused_render_stage(
         pts_c, z_c, rd_c = (t.contiguous() for t in (pts, z_vals, ray_directions))
         dc = dir_contribution(model, viewdirs).contiguous()
         params = pack_params(model).contiguous()
+        wbf = pack_tc_forward(params) if compute_dtype == "bfloat16" else None
         stream = torch.cuda.current_stream(pts.device).cuda_stream
         rc = fn(
             pts_c.data_ptr(), z_c.data_ptr(), rd_c.data_ptr(), dc.data_ptr(), params.data_ptr(),
-            params.numel(), *(out[name].data_ptr() for name in MAP_NAMES),
-            n, s, int(white_background), int(compute_dtype == "bfloat16"), stream,
+            params.numel(), None if wbf is None else wbf.data_ptr(),
+            0 if wbf is None else wbf.numel(), *(out[name].data_ptr() for name in MAP_NAMES),
+            n, s, int(white_background), int(wbf is not None), stream,
         )
     if rc != 0:
         raise RuntimeError(f"fused_render_stage: kernel launch failed with CUDA error {rc}")

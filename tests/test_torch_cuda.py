@@ -5,11 +5,12 @@ without the suite's conftest (it imports JAX):
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
-This file imports torch and the port only. The bf16 instances of #1, #4 and
-the #8 and #9 pairs run on the tensor cores: their forwards are held to
-TC_FWD_TOL, the bf16 backwards against the plain backward on the forward
+This file imports torch and the port only. The bf16 instances of #1, #2, #4,
+#7 and the #8 and #9 pairs run on the tensor cores: their forwards are held
+to TC_FWD_TOL, the bf16 backwards against the plain backward on the forward
 kernel's own residuals (a bf16 sum in another order flips roundings and ReLU
-masks that an end-to-end comparison would follow).
+masks that an end-to-end comparison would follow), and #7's bf16 maps
+bitwise against #5 on #1's bf16 field, the same arithmetic.
 """
 
 import dataclasses
@@ -111,8 +112,9 @@ def test_renderer_goes_through_the_kernel(model):
 @pytest.mark.parametrize("n,s", [(1, 1), (1000, 128), (7, 61)])
 def test_flexible_kernels_match_plain(model, n, s, compute_dtype, tol):
     """#3 (ray-major) and #2 (point-major, on the flattened points with each
-    ray's direction) against their plain versions; #3 bitwise equal to #1 in
-    f32 (in bf16 #1 runs on the tensor cores, #3 on the FMA pipes)."""
+    ray's direction) against their plain versions, #2's bf16 instance on the
+    tensor cores to TC_FWD_TOL; #3 bitwise equal to #1 in f32 (in bf16 #1
+    runs on the tensor cores, #3 on the FMA pipes)."""
     pts, vd = _inputs(n, s, seed=n + s)
     flat_pts, flat_vd = pts.reshape(-1, 3), vd[:, None, :].expand(n, s, 3).reshape(-1, 3)
     before = (mlp.fused_flexible_mlp.launches, mlp.fused_flexible_mlp_rays.launches)
@@ -127,7 +129,7 @@ def test_flexible_kernels_match_plain(model, n, s, compute_dtype, tol):
         before[0] + 1, before[1] + 1)
     assert rays.shape == (n, s, 4) and points.shape == (n * s, 4) and points.is_cuda
     assert float((rays - want_rays).abs().max()) <= tol
-    assert float((points - want_points).abs().max()) <= tol
+    assert float((points - want_points).abs().max()) <= min(tol, TC_FWD_TOL)
     if compute_dtype == "float32":
         assert torch.equal(rays, one)
     else:
@@ -412,6 +414,21 @@ def test_stage_kernel_matches_plain(model, compute_dtype, tol):
     assert all(torch.equal(got[k], again[k]) for k in got)
     errs = _map_errs(got, want)
     assert max(errs["rgb"], errs["acc"], errs["weights"]) <= tol, errs
+
+
+@pytest.mark.parametrize("white_background", [False, True])
+@pytest.mark.parametrize("n,s", [(1, 1), (64, 64), (333, 61), (9, 600)])
+def test_stage_bf16_is_composite_of_the_tensor_core_field(model, n, s, white_background):
+    """#7's bf16 instance runs #1's tensor-core tile per point and #5's scan
+    per ray, at any S (a block's tiles straddle rays at S = 61): its maps are
+    bitwise those of #5 on #1's bf16 field."""
+    pts, vd, z, rd = _ray_case(n, s, seed=n + s)
+    with torch.inference_mode():
+        got = stage.fused_render_stage(model, pts, vd, z, rd, white_background, "bfloat16")
+        want = composite.fused_volume_render(fused_mlp_t(model, pts, vd, "bfloat16"), z, rd,
+                                             white_background)
+        torch.cuda.synchronize()
+    assert all(torch.equal(got[k], want[k]) for k in want)
 
 
 def test_new_kernels_refuse_what_they_do_not_take(model):

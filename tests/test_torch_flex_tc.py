@@ -1,23 +1,26 @@
-"""The bf16 weight buffers and residual layouts of the tensor-core 4x128 kernels (#1, #8).
+"""The bf16 weight buffers and residual layouts of the tensor-core 4x128 kernels (#1, #2, #7, #8).
 
-The bf16 instances of ``fused_mlp_t`` and ``fused_flex_mlp_train`` read
-their weights as bf16 copies that the wrappers build once per call
-(``kernels/mlp.pack_tc_forward``, ``kernels/flex_train.pack_tc_backward``)
-in the order of the ``mma.sync`` m16n8k16 B fragments of a 4-warp block,
-each K padded to a multiple of 16 with zero rows (layer 1's 63 -> 64,
-drgb . W_rgb's 3 -> 16, the fused head's 129 -> 144). The kernels run only on
-the card (tests/test_torch_cuda.py); here:
+The bf16 instances of ``fused_mlp_t``, ``fused_render_stage``,
+``fused_flexible_mlp`` and ``fused_flex_mlp_train`` read their weights as
+bf16 copies that the wrappers build once per call
+(``kernels/mlp.pack_tc_forward``, ``pack_tc_forward_points`` for the
+point-major kernel, ``kernels/flex_train.pack_tc_backward``) in the order of
+the ``mma.sync`` m16n8k16 B fragments of a 4-warp block, each K padded to a
+multiple of 16 with zero rows (layer 1's 63 -> 64, the direction rows' 27 ->
+32, drgb . W_rgb's 3 -> 16, the fused head's 129 -> 144). The kernels run
+only on the card (tests/test_torch_cuda.py); here:
 
 - the 4-warp fragment order is the PTX layout of the B operand, element by
   element;
 - each buffer unpacks to round_bf16(W) of the model's nn.Linear weights
-  exactly, its pads zero;
+  exactly, its pads zero; the point-major buffer is the forward buffer
+  followed by layers_dir.0's direction rows;
 - the plain forward and backward computed from the unpacked weights equal
   the bf16 plain passes (``flex_train_plain_fwd`` / ``_bwd``,
-  ``mlp_t_plain``) bitwise;
+  ``mlp_t_plain``, ``flexible_mlp_plain``) bitwise;
 - at a small shape, the plain forward in f32 from those weights against the
-  JAX package's ``fused_mlp_t`` and ``fused_flex_mlp_train`` in Pallas
-  interpret mode on the JAX parameters rounded to bf16, with
+  JAX package's ``fused_mlp_t``, ``fused_flex_mlp_train`` and
+  ``fused_flexible_mlp`` in Pallas interpret mode on the JAX parameters rounded to bf16, with
   tests/test_torch_flex_train.py's tolerance (2e-4: the JAX kernels'
   double-angle sinusoids), and the plain backward in f32 from the backward
   buffer's weights against JAX's XLA autodiff of the rounded model, each of
@@ -41,6 +44,7 @@ import torch
 from nerf_tpu.engine import renderer as jrend
 from nerf_tpu.models import FlexibleNeRFModel as JaxFlexible
 from nerf_tpu.ops.pallas.flex_train import fused_flex_mlp_train as jax_flex_train
+from nerf_tpu.ops.pallas.mlp import fused_flexible_mlp as jax_flexible_mlp
 from nerf_tpu.ops.pallas.mlp_t import fused_mlp_t as jax_mlp_t
 from nerf_tpu_torch.engine.checkpoint import load_jax_params
 from nerf_tpu_torch.kernels.flex_train import (
@@ -54,10 +58,14 @@ from nerf_tpu_torch.kernels.flex_train import (
 )
 from nerf_tpu_torch.kernels.mlp import (
     dir_contribution,
+    flexible_mlp_plain,
     flexible_mlp_rays_plain,
     pack_params,
+    pack_params_points,
     pack_tc_forward,
+    pack_tc_forward_points,
     unpack_tc_forward,
+    unpack_tc_forward_points,
 )
 from nerf_tpu_torch.kernels.paper_t import fragment_matrix, fragment_order
 from nerf_tpu_torch.models import FlexibleNeRFModel
@@ -144,6 +152,24 @@ def test_backward_buffer_unpacks_to_the_rounded_weights(seed):
         assert torch.equal(mats[f"layers_xyz.{i}"], _r(model.layers_xyz[i].weight.t()))
 
 
+@pytest.mark.parametrize("seed", [0, 1])
+def test_points_buffer_is_the_forward_buffer_then_the_rounded_direction_rows(seed):
+    model = _model(seed)
+    params = pack_params_points(model)
+    assert params.numel() == 84548
+    buf = pack_tc_forward_points(params)
+    assert buf.dtype == torch.bfloat16 and buf.numel() == 82240 + 64 * 32
+    assert torch.equal(buf[:82240], pack_tc_forward(pack_params(model)))
+    mats = unpack_tc_forward_points(buf)
+    assert list(mats)[-1] == "dir_rows"
+    dirs = mats["dir_rows"]
+    assert dirs.shape == (64, 32)
+    assert torch.equal(dirs[:, :27], _r(model.layers_dir[0].weight[:, 128:]))
+    assert not dirs[:, 27:].any()
+    rest = unpack_tc_forward(buf[:82240])
+    assert all(torch.equal(mats[k], v) for k, v in rest.items())
+
+
 def _with_forward_weights(model):
     """A copy of ``model`` whose forward weights are those of its bf16
     forward buffer."""
@@ -157,6 +183,16 @@ def _with_forward_weights(model):
         out.layers_dir[0].weight[:, :128] = mats["layers_dir.0"]
         out.fc_alpha.weight.copy_(mats["fc_alpha"])
         out.fc_rgb.weight.copy_(mats["fc_rgb"])
+    return out
+
+
+def _with_points_weights(model):
+    """``_with_forward_weights`` with layers_dir.0's direction rows those of
+    the point-major buffer too."""
+    mats = unpack_tc_forward_points(pack_tc_forward_points(pack_params_points(model)))
+    out = _with_forward_weights(model)
+    with torch.no_grad():
+        out.layers_dir[0].weight[:, 128:] = mats["dir_rows"][:, :27]
     return out
 
 
@@ -195,6 +231,19 @@ def test_plain_pass_from_the_buffers_is_bitwise_the_bf16_plain_pass(n, s):
     assert torch.equal(got_grad, want_grad) and torch.equal(got_ddc, want_ddc)
 
 
+@pytest.mark.parametrize("n", [1, 65, 300])
+def test_point_major_plain_pass_from_the_points_buffer_is_bitwise_the_bf16_plain_pass(n):
+    model = _model(n)
+    rng = np.random.default_rng(n)
+    pts = torch.from_numpy(rng.uniform(-1.3, 1.3, (n, 3)).astype(np.float32))
+    vd = torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32))
+    vd = vd / torch.linalg.norm(vd, dim=-1, keepdim=True)
+    with torch.no_grad():
+        got = flexible_mlp_plain(_with_points_weights(model), pts, vd, "bfloat16")
+        want = flexible_mlp_plain(model, pts, vd, "bfloat16")
+    assert torch.equal(got, want)
+
+
 def _rounded(tree):
     """JAX params with every kernel rounded to bf16 (biases kept)."""
     if isinstance(tree, dict):
@@ -218,12 +267,11 @@ def jax_pair():
     # The rounded model with its weights replaced by the buffers' own: if a
     # buffer held a wrong weight, this model would no longer be JAX's.
     base = load_jax_params(_flagship(), rounded)
-    fwd, bwd = _with_forward_weights(tmodel), _with_backward_weights(tmodel)
+    fwd, bwd = _with_points_weights(tmodel), _with_backward_weights(tmodel)
     with torch.no_grad():
         for (name, p), q in zip(base.named_parameters(), fwd.parameters()):
-            if "weight" in name and "layers_dir.0" not in name:
+            if "weight" in name:
                 p.copy_(q)
-        base.layers_dir[0].weight[:, :128] = fwd.layers_dir[0].weight[:, :128]
     return jmodel, rounded, base, bwd
 
 
@@ -239,6 +287,23 @@ def test_forward_from_the_buffer_matches_the_jax_kernel(jax_pair):
     pts, vd, _ = _inputs(33, 8, seed=11)
     want = np.asarray(jax_mlp_t(rounded, jnp.asarray(pts), jnp.asarray(vd), interpret=True))
     got = _plain_forward(base, pts, vd)[0]
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
+
+
+def test_point_major_forward_from_the_points_buffer_matches_the_jax_kernel(jax_pair):
+    """flexible_mlp_plain in f32 on the rounded model whose weights, the 27
+    direction rows included, are the points buffer's own, against JAX's
+    point-major kernel in interpret mode on the rounded parameters."""
+    _, rounded, base, _ = jax_pair
+    rng = np.random.default_rng(17)
+    n = 300                                           # not a multiple of the JAX tile (256)
+    pts = rng.uniform(-1.3, 1.3, (n, 3)).astype(np.float32)
+    vd = rng.normal(size=(n, 3)).astype(np.float32)
+    vd /= np.linalg.norm(vd, axis=-1, keepdims=True)
+    want = np.asarray(jax_flexible_mlp(rounded, jnp.asarray(pts), jnp.asarray(vd), tile=256,
+                                       interpret=True))
+    with torch.no_grad():
+        got = flexible_mlp_plain(base, torch.from_numpy(pts), torch.from_numpy(vd), "float32")
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
 
 

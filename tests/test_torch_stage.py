@@ -16,6 +16,10 @@ JAX package's bf16 evaluator (``model.apply`` on a bf16 encoding) composited
 by its XLA volume renderer, to 2e-2, as tests/test_torch_mlp_t.py does for
 the field alone.
 
+The bf16 kernel runs #1's tensor-core tile and #5's scan, so on the card its
+maps are bitwise those of ``fused_volume_render`` on ``fused_mlp_t``'s bf16
+field; here the plain versions are held to that same identity.
+
 The kernel itself runs only on the card: tests/test_torch_cuda.py.
 """
 
@@ -32,6 +36,8 @@ from nerf_tpu.ops.pallas.resample import fused_sample_pdf as jax_fused_sample_pd
 from nerf_tpu.ops.pallas.stage import fused_render_stage as jax_fused_render_stage
 from nerf_tpu_torch.engine.checkpoint import load_jax_params
 from nerf_tpu_torch.kernels import fused_render_stage, fused_sample_pdf, render_stage_plain
+from nerf_tpu_torch.kernels.composite import volume_render_plain
+from nerf_tpu_torch.kernels.mlp_t import mlp_t_plain
 from nerf_tpu_torch.models import FlexibleNeRFModel
 from nerf_tpu_torch.ops import coarse_z_values
 
@@ -189,3 +195,16 @@ def test_wrapper_raises_instead_of_falling_back(flagship):
         fused_render_stage(tmodel, pts.to("meta"), vd.to("meta"), z.to("meta"), rd.to("meta"))
     with pytest.raises(ValueError, match="compute_dtype"):
         fused_render_stage(tmodel, pts, vd, z, rd, compute_dtype="float16")
+
+
+@pytest.mark.parametrize("white_background", [False, True])
+@pytest.mark.parametrize("r,s", [(1, 1), (9, 64), (5, 61)])
+def test_bf16_plain_stage_is_the_bf16_field_composited(flagship, r, s, white_background):
+    _, tmodel = flagship
+    pts, vd, z, rd = (torch.from_numpy(a) for a in _inputs(r, s, seed=r + s))
+    with torch.no_grad():
+        got = render_stage_plain(tmodel, pts, vd, z, rd, white_background, "bfloat16")
+        want = volume_render_plain(mlp_t_plain(tmodel, pts, vd, "bfloat16"), z, rd,
+                                   white_background)
+    assert sorted(got) == sorted(want)
+    assert all(torch.equal(got[k], want[k]) for k in want)

@@ -9,19 +9,20 @@ Builds ``nerf_tpu_torch/csrc`` (printing each kernel's registers and spills,
 and the tensor-core instructions of each kernel by ``cuobjdump -sass``),
 holds the point-major (#2) and ray-major (#3) 4x128 forwards against their
 plain versions at the render path's shapes and a few ragged ones, #3 against
-``fused_mlp_t`` (#1, the same function: bitwise), and times each once beside
-its plain version and #1; then holds the 8x256 PaperNeRF kernels, #4
-``fused_paper_mlp_t`` and the #9 training pair, against their plain versions
-in f32 and bf16 at chip_smoke.py's phase 9 shapes, points ending mid-tile,
-and 0, 6, 10 and 16 encoding frequencies. With ``--parent-csrc`` (another
-tree's ``nerf_tpu_torch/csrc``, e.g. unpacked with ``git archive``) it also
-builds that tree and checks that ``fused_mlp_t``, the 4x128 training pair,
-the whole render stage and the f32 Paper kernels give bitwise the same
-results from both, the Paper ones through that tree's own wrappers (its
-package, imported under another name); then it times them from both in
-turns (parent, this tree, this tree, parent), the bf16 Paper kernels at the
-main path's shapes included. A short first call for a new kernel;
-``chip_smoke.py`` is the full check.
+``fused_mlp_t`` (#1, the same function: bitwise in f32), the whole render
+stage (#7) against its plain version and, in bf16, bitwise against #5 on
+#1's bf16 field, and times #1-#3 once; then holds the 8x256 PaperNeRF
+kernels, #4 ``fused_paper_mlp_t`` and the #9 training pair, against their
+plain versions in f32 and bf16 at chip_smoke.py's phase 9 shapes, points
+ending mid-tile, and 0, 6, 10 and 16 encoding frequencies. With
+``--parent-csrc`` (another tree's ``nerf_tpu_torch/csrc``, e.g. unpacked with
+``git archive``) it also builds that tree, prints both trees' registers and
+spills of the tensor-core instances, checks that the outputs
+``bitwise_results`` lists are bitwise the same from both, each tree through
+its own wrappers (its package, imported under another name), and times #1,
+#2, #7 and the #8 pair in bf16 from both in turns (parent, this tree, this
+tree, parent). A short first call for a new kernel; ``chip_smoke.py`` is the
+full check.
 """
 
 import argparse
@@ -39,7 +40,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
-from nerf_tpu_torch.kernels import _build, mlp, mlp_t, paper_t, paper_train  # noqa: E402
+from nerf_tpu_torch.kernels import (  # noqa: E402
+    _build, composite, mlp, mlp_t, paper_t, paper_train, stage,
+)
 from nerf_tpu_torch.models import PaperNeRFModel  # noqa: E402
 
 PAPER_FREQS = (0, 6, 10, 16)
@@ -47,14 +50,17 @@ PAPER_FREQS = (0, 6, 10, 16)
 
 def check_new_kernels(model, dev) -> bool:
     """#2 and #3 against their plain versions (True when both are within
-    chip_smoke.py's tolerances) and #3 against #1 (bitwise in f32, within
-    TC_BF16_FWD_TOL in bf16, where #1 runs on the tensor cores)."""
+    chip_smoke.py's tolerances: #2 bf16 on the tensor cores to
+    TC_BF16_FWD_TOL, #3 bf16 on the FMA pipes to BF16_TOL) and #3 against #1
+    (bitwise in f32, within TC_BF16_FWD_TOL in bf16, where #1 runs on the
+    tensor cores)."""
     worst = 0.0
     with torch.inference_mode():
         for n, s in ((2048, 64), (2048, 128), (333, 61), (1, 1), (5, 33), (131072, 128)):
             pts, vd = cs.orbit_points(n, s, dev, n + s)
             flat_vd = vd[:, None, :].expand(n, s, 3).reshape(-1, 3)
             for dt, tol in (("float32", cs.F32_TOL), ("bfloat16", cs.BF16_TOL)):
+                tol2 = cs.TC_BF16_FWD_TOL if dt == "bfloat16" else tol
                 rays = mlp.fused_flexible_mlp_rays(model, pts, vd, dt)
                 points = mlp.fused_flexible_mlp(model, pts.reshape(-1, 3), flat_vd, dt)
                 one = mlp_t.fused_mlp_t(model, pts, vd, dt)
@@ -63,13 +69,14 @@ def check_new_kernels(model, dev) -> bool:
                 e2 = float((points - mlp.flexible_mlp_plain(model, pts.reshape(-1, 3), flat_vd,
                                                             dt)).abs().max())
                 e31 = float((rays - one).abs().max())
-                print(f"({n}, {s}) {dt}: #3 vs plain {e3:.3e}, #2 vs plain {e2:.3e}, "
-                      f"#3 vs #1 {e31:.3e} bitwise {torch.equal(rays, one)}", flush=True)
+                print(f"({n}, {s}) {dt}: #3 vs plain {e3:.3e}, #2 vs plain {e2:.3e} (tol "
+                      f"{tol2:g}), #3 vs #1 {e31:.3e} bitwise {torch.equal(rays, one)}",
+                      flush=True)
                 if dt == "bfloat16":
                     worst = max(worst, e31 / cs.TC_BF16_FWD_TOL)
                 elif not torch.equal(rays, one):
                     worst = float("inf")
-                worst = max(worst, e3 / tol, e2 / tol)
+                worst = max(worst, e3 / tol, e2 / tol2)
         n, s = cs.KERNEL_CHUNK
         pts, vd = cs.orbit_points(n, s, dev, 1)
         flat_pts, flat_vd = pts.reshape(-1, 3), vd[:, None, :].expand(n, s, 3).reshape(-1, 3)
@@ -80,6 +87,36 @@ def check_new_kernels(model, dev) -> bool:
             print(f"ms {dt}: " + " ".join(f"{k} {cs.cuda_ms(fn, 2):.2f}" for k, fn in fns.items()),
                   flush=True)
     return worst <= 1.0
+
+
+def check_stage_kernel(dev) -> bool:
+    """#7 against its plain version (chip_smoke.py's phase 12 tolerances) on
+    its opacified model, and in bf16 bitwise against #5 on #1's bf16 field,
+    at the render path's chunks, ragged shapes and both backgrounds. True
+    when all hold."""
+    model = cs.seeded_model(cs.SEED, opacify=True).to(dev)
+    tols = {"float32": cs.MAP_TOLS, "bfloat16": {k: cs.BF16_TOL for k in cs.MAP_TOLS}}
+    ok = True
+    with torch.inference_mode():
+        for n, s in cs.STAGE_CHECK_SHAPES + ((1, 1), (5, 33), (77, 200)):
+            pts, vd, z, rd = cs.orbit_rays(n, s, dev, seed=n + s)
+            parts = []
+            for white in (False, True):
+                got = {}
+                for dt in ("float32", "bfloat16"):
+                    got[dt] = stage.fused_render_stage(model, pts, vd, z, rd, white, dt)
+                    torch.cuda.synchronize()
+                    e = cs.map_errors(got[dt], stage.render_stage_plain(model, pts, vd, z, rd,
+                                                                         white, dt))
+                    ok &= all(e[k] <= tols[dt][k] for k in e)
+                    parts.append(f"{dt} {max(e.values()):.2e}")
+                want = composite.fused_volume_render(mlp_t.fused_mlp_t(model, pts, vd, "bfloat16"),
+                                                     z, rd, white)
+                same = all(torch.equal(got["bfloat16"][k], want[k]) for k in want)
+                ok &= same
+                parts.append(f"bf16 bitwise #5(#1) {same}")
+            print(f"#7 ({n}, {s}) vs plain, black / white: {'; '.join(parts)}", flush=True)
+    return ok
 
 
 def paper_models(dev) -> dict:
@@ -196,8 +233,8 @@ def tree_models(mods: dict, dev):
 
 def bitwise_results(m: dict, dev) -> list:
     """Through one tree's wrappers: the f32 outputs of #1, #2, #3, #7 and the
-    #8 pair, and the bf16 outputs of #2, #3, #4, #7 and the #9 pair, at a
-    render shape and a ragged one."""
+    #8 pair, and the bf16 outputs of #1, #3, #4, the #8 pair and the #9 pair,
+    at a render shape and a ragged one."""
     flex, paper = tree_models(m, dev)
     out = []
     with torch.no_grad():
@@ -208,16 +245,16 @@ def bitwise_results(m: dict, dev) -> list:
                             device=dev)
             z = torch.sort(2.0 + 4.0 * torch.rand(n, s, device=dev, generator=torch.Generator(
                 device=dev).manual_seed(2)), dim=-1)[0]
-            out.append(m["mlp_t"].fused_mlp_t(flex, pts, vd, "float32"))
             params = m["mlp"].pack_params(flex)
-            fo, r = m["flex_train"].flex_train_fwd(pts, m["mlp"].dir_contribution(flex, vd),
-                                                   params, "float32")
-            out += [fo, r[0], *m["flex_train"].flex_train_bwd(g, r, params, n, s, "float32")]
+            dc = m["mlp"].dir_contribution(flex, vd)
             for dt in ("float32", "bfloat16"):
-                out.append(m["mlp"].fused_flexible_mlp(flex, flat_pts, flat_vd, dt))
+                out.append(m["mlp_t"].fused_mlp_t(flex, pts, vd, dt))
                 out.append(m["mlp"].fused_flexible_mlp_rays(flex, pts, vd, dt))
-                maps = m["stage"].fused_render_stage(flex, pts, vd, z, vd, True, dt)
-                out += [maps[k] for k in sorted(maps)]
+                fo, r = m["flex_train"].flex_train_fwd(pts, dc, params, dt)
+                out += [fo, r[0], *m["flex_train"].flex_train_bwd(g, r, params, n, s, dt)]
+            out.append(m["mlp"].fused_flexible_mlp(flex, flat_pts, flat_vd, "float32"))
+            maps = m["stage"].fused_render_stage(flex, pts, vd, z, vd, True, "float32")
+            out += [maps[k] for k in sorted(maps)]
             out.append(m["paper_t"].fused_paper_mlp_t(paper, pts, vd, "bfloat16"))
             dc, pp = m["paper_t"].dir_contribution(paper, vd), m["paper_t"].pack_params(paper)
             po, r = m["paper_train"].paper_train_fwd(pts, dc, pp, "bfloat16", 10)
@@ -227,25 +264,26 @@ def bitwise_results(m: dict, dev) -> list:
 
 
 def timed_calls(m: dict, dev) -> dict:
-    """Through one tree's wrappers, at the main path's shapes: name -> (fn,
-    reps) for #1 bf16 (one fine-pass chunk) and the #8 pair in bf16 and f32
+    """Through one tree's wrappers, at the main path's shapes, in bf16: name
+    -> (fn, reps) for #1, #2 and #7 (one fine-pass chunk) and the #8 pair
     (one training pass)."""
     flex, _ = tree_models(m, dev)
-    pts, vd = cs.orbit_points(*cs.KERNEL_CHUNK, dev, 1)
+    pts, vd, z, rd = cs.orbit_rays(*cs.KERNEL_CHUNK, dev, 1)
+    flat_pts, flat_vd = pts.reshape(-1, 3), vd[:, None, :].expand(*pts.shape).reshape(-1, 3)
     tp, tvd = cs.orbit_points(*cs.TRAIN_SHAPE, dev, 3)
     params, dc = m["mlp"].pack_params(flex).detach(), m["mlp"].dir_contribution(flex, tvd).detach()
     g = torch.randn(*cs.TRAIN_SHAPE, 4, device=dev, generator=torch.Generator(
         device=dev).manual_seed(4))
-    res = {dt: m["flex_train"].flex_train_fwd(tp, dc, params, dt)[1]
-           for dt in ("bfloat16", "float32")}
-    calls = {"#1 bf16": (lambda: m["mlp_t"].fused_mlp_t(flex, pts, vd, "bfloat16"), 3)}
-    for dt, short in (("bfloat16", "bf16"), ("float32", "f32")):
-        calls[f"#8 fwd {short}"] = (
-            lambda dt=dt: m["flex_train"].flex_train_fwd(tp, dc, params, dt), 10)
-        calls[f"#8 bwd {short}"] = (
-            lambda dt=dt: m["flex_train"].flex_train_bwd(g, res[dt], params, *cs.TRAIN_SHAPE,
-                                                         dt), 10)
-    return calls
+    res = m["flex_train"].flex_train_fwd(tp, dc, params, "bfloat16")[1]
+    return {
+        "#1 bf16": (lambda: m["mlp_t"].fused_mlp_t(flex, pts, vd, "bfloat16"), 3),
+        "#2 bf16": (lambda: m["mlp"].fused_flexible_mlp(flex, flat_pts, flat_vd, "bfloat16"), 3),
+        "#7 bf16": (lambda: m["stage"].fused_render_stage(flex, pts, vd, z, rd, True,
+                                                           "bfloat16"), 3),
+        "#8 fwd bf16": (lambda: m["flex_train"].flex_train_fwd(tp, dc, params, "bfloat16"), 10),
+        "#8 bwd bf16": (lambda: m["flex_train"].flex_train_bwd(g, res, params, *cs.TRAIN_SHAPE,
+                                                               "bfloat16"), 10),
+    }
 
 
 def kernel_device_ms(fn, reps: int) -> dict:
@@ -281,6 +319,12 @@ def check_bitwise_against(parent_csrc: Path, dev) -> bool:
     parent_path = importlib.import_module("parent_nerf_tpu_torch.kernels._build").build_library()
     print("parent", cs.ptxas_summary(parent_path.with_suffix(".log").read_text(), frames=True),
           flush=True)
+    watched = cs.TENSOR_CORE_KERNELS + ("mlp:flexible_mlp<0>", "stage:stage<0>")
+    for label, path in (("parent", parent_path), ("this tree", _build.build_library())):
+        regs = cs.ptxas_summary(path.with_suffix(".log").read_text()).split(", ")
+        print(f"registers (spills) of the tensor-core instances and #2/#7 f32, {label}: "
+              + ", ".join(r for r in regs if r.rsplit(" ", 1)[0].split(" (")[0] in watched),
+              flush=True)
     outs = {label: bitwise_results(m, dev) for label, m in trees.items()}
     same = [torch.equal(a, b) for a, b in zip(outs["parent"], outs["this tree"])]
     print(f"bitwise equal to parent: {all(same)} ({sum(same)} of {len(same)} outputs)",
@@ -328,7 +372,9 @@ def main() -> int:
     # #2 and #3 on chip_smoke.py's phase 14 model.
     flex_ok = check_new_kernels(cs.seeded_model(0, opacify=False).to(dev), dev)
     print("#2 and #3 within tolerance of plain:", flex_ok, flush=True)
-    ok = tc_ok and flex_ok and paper_ok
+    stage_ok = check_stage_kernel(dev)
+    print("#7 within tolerance of plain, bf16 bitwise #5 on #1's field:", stage_ok, flush=True)
+    ok = tc_ok and flex_ok and paper_ok and stage_ok
     if args.parent_csrc is not None and not check_bitwise_against(args.parent_csrc, dev):
         return 1
     return 0 if ok else 1
