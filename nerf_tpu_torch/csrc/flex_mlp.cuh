@@ -6,7 +6,8 @@
 // a point tile, the feature-major dense layer over a tile in shared memory,
 // and the whole forward over a tile, which saves the f32 training residuals
 // when it is given a buffer for them (the bf16 instances of every kernel
-// but mlp.cu's ray-major one run flex_tc.cuh's tensor-core tile instead).
+// run flex_tc.cuh's tensor-core tile instead; the kBf16 rounding here has
+// no instance left).
 //
 // A tile is kTile = 64 consecutive points of the public (N*S) point order,
 // held feature-major in shared memory: act[feature][point].

@@ -1,8 +1,8 @@
 // Tensor-core device code of the bf16 4x128 FlexibleNeRF kernels: mlp_t.cu's
 // render forward, flex_train.cu's training forward, layer-gradient pass and
-// weight-gradient pass, mlp.cu's point-major forward and stage.cu's whole
-// render stage, at compute dtype bf16. The f32 instances, and both instances
-// of mlp.cu's ray-major kernel, keep flex_mlp.cuh's FMA design.
+// weight-gradient pass, mlp.cu's point-major and ray-major forwards and
+// stage.cu's whole render stage, at compute dtype bf16. The f32 instances
+// keep flex_mlp.cuh's FMA design.
 //
 // paper_tc.cuh's design at the flagship's widths. Every wide product is
 // mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 (tc_mma.cuh): bf16
@@ -26,8 +26,9 @@
 // tile's first point, the end of its points and the first row of its output
 // (stage.cu runs several tiles a block into a field in shared memory), and
 // the direction layer as a policy: DirRayRow adds the ray's row of the
-// wrapper's dc (#1, #8, #7); mlp.cu's encodes each point's direction into
-// the free encoding tile and sums its 27 rows into the same accumulator (#2).
+// wrapper's dc (#1, #3, #8, #7); mlp.cu's encodes each point's direction
+// into the free encoding tile and sums its 27 rows into the same
+// accumulator (#2).
 //
 // In place: a layer's output tile sits in f32 registers, the block
 // synchronises, and the tile is written over its own input (Acc::write).
@@ -147,7 +148,8 @@ __device__ __forceinline__ float head_dot(const bf16* act, const bf16* __restric
 }
 
 // The direction layer whose term is the ray's row of dc (rays, 64) f32, the
-// ray of point gp being gp / samples (mlp_t.cu, flex_train.cu, stage.cu):
+// ray of point gp being gp / samples (mlp_t.cu, mlp.cu's ray-major kernel,
+// flex_train.cu, stage.cu):
 // hd = relu(feat . W_dir[:128] + b + dc[ray]) written over feat in `act`.
 struct DirRayRow {
   const float* dc;

@@ -10,33 +10,40 @@
 //   * fused_flexible_mlp_rays (ray-major): pts (R, S, 3) f32 and the per-ray
 //     direction contribution dc = enc(dirs) @ W_dir[128:] (R, 64) f32, made
 //     by the wrapper as the TPU version makes it outside its kernel -> raw
-//     (R, S, 4) f32. The function of mlp_t.cu's kernel, with a ray-major dc:
-//     a tile's block stages the dc rows of the rays it touches (at most
-//     ceil(63 / S) + 1 <= 64) in shared memory once, and each point's row in
-//     that stage is a 32-bit division once per point, where mlp_t.cu reads
-//     dc[point / S] from device memory once per (point, feature) after a
-//     64-bit division.
+//     (R, S, 4) f32. The function of mlp_t.cu's kernel, with a ray-major dc.
 //
 // What bounds them on the card: arithmetic, as for mlp_t.cu. A point costs
 // ~82k multiply-adds (the point-major one 27 x 64 more, and 24 sinusoids)
 // against 24-28 B of point traffic.
 //
-// compute dtype f32, and the ray-major kernel in bf16: flex_mlp.cuh's
-// forward over 64-point tiles, one block of 128 threads a tile, activations
-// in two feature-major shared buffers of 128 x 64 f32 (64 KB, dynamic shared
-// memory), f32 FMAs from registers; only the direction layer differs
-// (flex_mlp.cuh's forward_tile_with takes it as a callback). After the trunk
-// buf_a's rows 64..127 are free: the point-major kernel encodes the
-// directions there, the ray-major one stages its dc rows there.
+// compute dtype f32: flex_mlp.cuh's forward over 64-point tiles, one block
+// of 128 threads a tile, activations in two feature-major shared buffers of
+// 128 x 64 f32 (64 KB, dynamic shared memory), f32 FMAs from registers; only
+// the direction layer differs (flex_mlp.cuh's forward_tile_with takes it as
+// a callback). After the trunk buf_a's rows 64..127 are free: the
+// point-major kernel encodes the directions there; the ray-major one stages
+// the dc rows of the rays its tile touches (at most ceil(63 / S) + 1 <= 64)
+// there once, and each point's row in that stage is a 32-bit division once
+// per point. Its output is bitwise mlp_t.cu's f32 output. The f32 instances
+// stay on the FMA pipes: a product on the tensor cores at f32 accuracy
+// (3xTF32) is a change for the whole family, and #3 alone on it would no
+// longer be bitwise #1.
 //
-// compute dtype bf16, point-major: flex_tc.cuh's forward_tile_with on the
-// tensor cores (mma.sync m16n8k16, 17 KB bf16 point-major tiles, 4 blocks an
-// SM), the trunk of mlp_t.cu's bf16 kernel with its L2-streamed weight
-// fragments (kernels/mlp.py pack_tc_forward_points: pack_tc_forward's
-// buffer, then the 27 direction rows of layers_dir.0 padded to K 32 with zero
-// rows). Its direction layer (DirEncodedTc) encodes the tile's directions
-// into the encoding tile, free since layer 1, and accumulates feat (K 128)
-// and the encoding (K 32) into one f32 tile before the bias and the ReLU.
+// compute dtype bf16: flex_tc.cuh's forward_tile_with on the tensor cores
+// (mma.sync m16n8k16, 17 KB bf16 point-major tiles, 4 blocks an SM at 128
+// registers), the trunk of mlp_t.cu's bf16 kernel with its L2-streamed
+// weight fragments.
+//   * ray-major: mlp_t.cu's bf16 kernel itself, on the weights
+//     kernels/mlp.py pack_tc_forward packs, with DirRayRow (each point's ray
+//     is point / S, its dc row read in the direction layer's epilogue): the
+//     same tiles, the same tile body and the same dc rows, so its output is
+//     bitwise mlp_t.cu's bf16 output;
+//   * point-major: on pack_tc_forward_points' weights (pack_tc_forward's
+//     buffer, then the 27 direction rows of layers_dir.0 padded to K 32 with
+//     zero rows). Its direction layer (DirEncodedTc) encodes the tile's
+//     directions into the encoding tile, free since layer 1, and accumulates
+//     feat (K 128) and the encoding (K 32) into one f32 tile before the bias
+//     and the ReLU.
 //
 // compute dtype bf16: both matmul operands are rounded to bf16 and the sums
 // stay f32, as on the TPU (preferred_element_type=f32). The point-major
@@ -79,9 +86,9 @@ struct AddStagedRow {
   }
 };
 
-// #3's direction layer: the dc rows of the tile's rays (one contiguous run of
-// rays * 64 floats from ray0) staged into buf_a rows 64..127, then added.
-template <bool kBf16>
+// #3's f32 direction layer: the dc rows of the tile's rays (one contiguous
+// run of rays * 64 floats from ray0) staged into buf_a rows 64..127, then
+// added.
 struct DirLayerStaged {
   const float* params;
   const float* dc;
@@ -93,7 +100,7 @@ struct DirLayerStaged {
     const float* src = dc + ray0 * kDirHidden;
     for (int i = threadIdx.x; i < rays * kDirHidden; i += kThreads) dc_s[i] = __ldg(src + i);
     __syncthreads();
-    dense_with<kDirHidden, true, kBf16>(params + kOffWd, params + kOffBd, kHidden, feat, hd,
+    dense_with<kDirHidden, true, false>(params + kOffWd, params + kOffBd, kHidden, feat, hd,
                                         AddStagedRow{dc_s, ray_of});
   }
 };
@@ -169,11 +176,15 @@ flexible_mlp_kernel<true>(const float* __restrict__ pts, const float* __restrict
                         enc + tc::kEncStride * kTile, DirEncodedTc{dirs});
 }
 
+// As flexible_mlp_kernel: the primary template is the f32 instance on the
+// FMA design (wbf unused), the bf16 one the specialization below.
 template <bool kBf16>
 __global__ void __launch_bounds__(kThreads)
 flexible_mlp_rays_kernel(const float* __restrict__ pts, const float* __restrict__ dc,
-                         const float* __restrict__ params, float* __restrict__ out,
+                         const float* __restrict__ params,
+                         const __nv_bfloat16* __restrict__ wbf, float* __restrict__ out,
                          long long n_points, int samples) {
+  static_assert(!kBf16, "the bf16 instance is the specialization below");
   extern __shared__ float4 smem[];
   float* buf_a = reinterpret_cast<float*>(smem);
   int* ray_of = reinterpret_cast<int*>(buf_a + 2 * kHidden * kTile);
@@ -183,9 +194,22 @@ flexible_mlp_rays_kernel(const float* __restrict__ pts, const float* __restrict_
   const long long last = (tile0 + kTile < n_points ? tile0 + kTile : n_points) - 1;
   const int rays = static_cast<int>(last / samples - ray0) + 1;  // <= kTile
   if (threadIdx.x < kTile) ray_of[threadIdx.x] = (rem + static_cast<int>(threadIdx.x)) / samples;
-  forward_tile_with<kBf16>(pts, params, out, 0, nullptr, tile0, n_points, buf_a,
-                                  buf_a + kHidden * kTile,
-                                  DirLayerStaged<kBf16>{params, dc, ray0, rays, ray_of});
+  forward_tile_with<false>(pts, params, out, 0, nullptr, tile0, n_points, buf_a,
+                           buf_a + kHidden * kTile,
+                           DirLayerStaged{params, dc, ray0, rays, ray_of});
+}
+
+template <>
+__global__ void __launch_bounds__(kThreads, 4)
+flexible_mlp_rays_kernel<true>(const float* __restrict__ pts, const float* __restrict__ dc,
+                               const float* __restrict__ params,
+                               const __nv_bfloat16* __restrict__ wbf, float* __restrict__ out,
+                               long long n_points, int samples) {
+  extern __shared__ float4 smem[];
+  auto* enc = reinterpret_cast<__nv_bfloat16*>(smem);
+  tc::forward_tile_with(pts, params, wbf, out, 0, nullptr,
+                        static_cast<long long>(blockIdx.x) * kTile, n_points, enc,
+                        enc + tc::kEncStride * kTile, tc::DirRayRow{dc, samples});
 }
 
 bool bad_launch(long long n_points) {
@@ -208,16 +232,17 @@ cudaError_t launch_points(const float* pts, const float* dirs, const float* para
 }
 
 template <bool kBf16>
-cudaError_t launch_rays(const float* pts, const float* dc, const float* params, float* out,
-                        long long n_points, int samples, cudaStream_t stream) {
+cudaError_t launch_rays(const float* pts, const float* dc, const float* params,
+                        const __nv_bfloat16* wbf, float* out, long long n_points, int samples,
+                        cudaStream_t stream) {
+  const size_t smem = kBf16 ? tc::kFwdSmem : kRaysSmemBytes;
   cudaError_t err = cudaFuncSetAttribute(flexible_mlp_rays_kernel<kBf16>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(kRaysSmemBytes));
+                                         static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const long long tiles = (n_points + kTile - 1) / kTile;
-  flexible_mlp_rays_kernel<kBf16>
-      <<<static_cast<unsigned int>(tiles), kThreads, kRaysSmemBytes, stream>>>(
-          pts, dc, params, out, n_points, samples);
+  flexible_mlp_rays_kernel<kBf16><<<static_cast<unsigned int>(tiles), kThreads, smem, stream>>>(
+      pts, dc, params, wbf, out, n_points, samples);
   return cudaGetLastError();
 }
 
@@ -249,18 +274,22 @@ extern "C" int nerf_flexible_mlp_forward(const float* pts, const float* dirs,
 }
 
 // pts (n_points, 3), dc (n_points / samples, 64), params (kParams,), out
-// (n_points, 4): contiguous f32 device buffers. Returns a cudaError_t.
+// (n_points, 4): contiguous f32 device buffers, dc 8-byte aligned; with
+// bf16 != 0 also wbf (tc::kFwdWeights,), mlp_t.cu's bf16 weights in fragment
+// order, 16-byte aligned (ignored for f32). Returns a cudaError_t.
 extern "C" int nerf_flexible_mlp_rays_forward(const float* pts, const float* dc,
                                               const float* params, long long n_params,
-                                              float* out, long long n_points, int samples,
-                                              int bf16, void* stream) {
+                                              const void* wbf, long long n_wbf, float* out,
+                                              long long n_points, int samples, int bf16,
+                                              void* stream) {
   if (n_params != kParams || samples <= 0 || bad_launch(n_points) ||
-      n_points % samples != 0) {
+      n_points % samples != 0 || (bf16 && (wbf == nullptr || n_wbf != tc::kFwdWeights))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* w = static_cast<const __nv_bfloat16*>(wbf);
   const cudaError_t err =
-      bf16 ? launch_rays<true>(pts, dc, params, out, n_points, samples, s)
-           : launch_rays<false>(pts, dc, params, out, n_points, samples, s);
+      bf16 ? launch_rays<true>(pts, dc, params, w, out, n_points, samples, s)
+           : launch_rays<false>(pts, dc, params, w, out, n_points, samples, s);
   return static_cast<int>(err);
 }

@@ -16,17 +16,19 @@ kernel encodes each point's direction itself and sums its 27 direction rows
 into the direction layer, as the TPU kernel does. The ray-major one adds the
 per-ray contribution ``enc(viewdirs) @ W_dir[128:]`` (R, 64), made outside
 the kernel with one matmul, from a copy in shared memory: it computes what
-``fused_mlp_t`` computes, bit for bit. In bf16 the point-major kernel runs
-``csrc/flex_tc.cuh``'s tensor-core forward (``fused_mlp_t``'s bf16 body)
-with its own direction layer, on the weights ``pack_tc_forward_points``
-builds; the ray-major one still runs the FMA loop in bf16.
+``fused_mlp_t`` computes, bit for bit. In bf16 both run
+``csrc/flex_tc.cuh``'s tensor-core forward (``fused_mlp_t``'s bf16 body):
+the ray-major one exactly as ``fused_mlp_t`` runs it, on the weights
+``pack_tc_forward`` builds, so again bit for bit; the point-major one with
+its own direction layer, on the weights ``pack_tc_forward_points`` builds.
 
 This module also holds what the family's kernels share, as the JAX
 package's ``mlp.py`` does: the shape gate ``supports_fused``, the packed
 parameter layout, the per-ray direction contribution, and the bf16 forward
 weights of the tensor-core kernels (``pack_tc_forward``: the bf16 instances
-of ``fused_mlp_t``, the training forward and ``fused_render_stage`` run
-``csrc/flex_tc.cuh``; ``pack_tc_forward_points`` for the point-major one).
+of ``fused_mlp_t``, the training forward, ``fused_render_stage`` and the
+ray-major forward run ``csrc/flex_tc.cuh``; ``pack_tc_forward_points`` for
+the point-major one).
 
 ``compute_dtype="bfloat16"`` rounds both operands of every matmul to bf16
 and keeps f32 sums (``preferred_element_type=f32``). The point-major kernel
@@ -324,6 +326,7 @@ def _kernels():
                                                ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
     rays = lib.nerf_flexible_mlp_rays_forward
     rays.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_void_p,
+                                             ctypes.c_longlong, ctypes.c_void_p,
                                              ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                                              ctypes.c_void_p]
     points.restype = rays.restype = ctypes.c_int
@@ -421,16 +424,18 @@ def fused_flexible_mlp_rays(
     out = torch.empty((r, s, 4), dtype=torch.float32, device=pts.device)
     if r * s == 0:
         return out
-    # dc and params are freed when this returns, before the kernel may have
-    # run: see fused_flexible_mlp.
+    # dc, params and wbf are freed when this returns, before the kernel may
+    # have run: see fused_flexible_mlp.
     with torch.no_grad(), torch.cuda.device(pts.device):
         pts_c = pts.contiguous()
         dc = dir_contribution(model, viewdirs).contiguous()
         params = pack_params(model).contiguous()
+        wbf = pack_tc_forward(params) if compute_dtype == "bfloat16" else None
         stream = torch.cuda.current_stream(pts.device).cuda_stream
         rc = _kernels()[1](
             pts_c.data_ptr(), dc.data_ptr(), params.data_ptr(), params.numel(),
-            out.data_ptr(), r * s, s, int(compute_dtype == "bfloat16"), stream,
+            None if wbf is None else wbf.data_ptr(), 0 if wbf is None else wbf.numel(),
+            out.data_ptr(), r * s, s, int(wbf is not None), stream,
         )
     if rc != 0:
         raise RuntimeError(f"fused_flexible_mlp_rays: kernel launch failed with CUDA error {rc}")

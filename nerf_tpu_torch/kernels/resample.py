@@ -8,11 +8,13 @@ rank, index clamps, denom guard, interpolation) in one launch whose pdf and
 CDF stay in shared memory.
 
 What bounds it on the card is memory traffic: each edge, weight, uniform and
-output crosses it once. The kernel takes one warp a ray; the CDF is a
-prefix sum accumulated in f64 and rounded once an entry to f32 (so
-non-decreasing, as the binary search for the rank needs, and what
-``torch.cumsum`` gives on the CPU) where the TPU kernel used a triangular
-matmul. A float32 ``torch.cumsum`` on the card rounds otherwise, which moves
+output crosses it once. The kernel takes one warp a ray and reads its
+weights once, into registers; the CDF is an f64 warp scan (Kogge-Stone over
+the lanes' pairs of terms) rounded once an entry to f32, where the TPU
+kernel used a triangular matmul. Its f64 partial sums are exact for any
+weights a compositing pass gives, so it is the CDF a serial f64 prefix sum
+gives, bit for bit: non-decreasing, as the binary search for the rank
+needs, and what ``torch.cumsum`` gives on the CPU. A float32 ``torch.cumsum`` on the card rounds otherwise, which moves
 samples of bins of small pdf (``chip_smoke.check_resample`` holds those in
 CDF space).
 

@@ -1,7 +1,8 @@
-"""The bf16 weight buffers and residual layouts of the tensor-core 4x128 kernels (#1, #2, #7, #8).
+"""The bf16 weight buffers and residual layouts of the tensor-core 4x128 kernels (#1-#3, #7, #8).
 
 The bf16 instances of ``fused_mlp_t``, ``fused_render_stage``,
-``fused_flexible_mlp`` and ``fused_flex_mlp_train`` read their weights as
+``fused_flexible_mlp``, ``fused_flexible_mlp_rays`` and
+``fused_flex_mlp_train`` read their weights as
 bf16 copies that the wrappers build once per call
 (``kernels/mlp.pack_tc_forward``, ``pack_tc_forward_points`` for the
 point-major kernel, ``kernels/flex_train.pack_tc_backward``) in the order of
@@ -17,12 +18,15 @@ only on the card (tests/test_torch_cuda.py); here:
   followed by layers_dir.0's direction rows;
 - the plain forward and backward computed from the unpacked weights equal
   the bf16 plain passes (``flex_train_plain_fwd`` / ``_bwd``,
-  ``mlp_t_plain``, ``flexible_mlp_plain``) bitwise;
+  ``mlp_t_plain``, ``flexible_mlp_plain``) bitwise; the ray-major pass from
+  the forward buffer (the ray-major kernel's bf16 weights since it runs
+  #1's tile) is ``mlp_t_plain``'s bf16 pass bitwise;
 - at a small shape, the plain forward in f32 from those weights against the
   JAX package's ``fused_mlp_t``, ``fused_flex_mlp_train`` and
   ``fused_flexible_mlp`` in Pallas interpret mode on the JAX parameters rounded to bf16, with
   tests/test_torch_flex_train.py's tolerance (2e-4: the JAX kernels'
-  double-angle sinusoids), and the plain backward in f32 from the backward
+  double-angle sinusoids), against ``fused_flexible_mlp_rays`` with
+  tests/test_torch_mlp.py's (1e-4), and the plain backward in f32 from the backward
   buffer's weights against JAX's XLA autodiff of the rounded model, each of
   the 16 leaves to 2e-5 of its largest entry (tests/test_torch_paper_tc.py's
   tolerance: fc_alpha's bias gradient is one sum of 520 cotangents, 1.5e-5
@@ -45,6 +49,7 @@ from nerf_tpu.engine import renderer as jrend
 from nerf_tpu.models import FlexibleNeRFModel as JaxFlexible
 from nerf_tpu.ops.pallas.flex_train import fused_flex_mlp_train as jax_flex_train
 from nerf_tpu.ops.pallas.mlp import fused_flexible_mlp as jax_flexible_mlp
+from nerf_tpu.ops.pallas.mlp import fused_flexible_mlp_rays as jax_flexible_mlp_rays
 from nerf_tpu.ops.pallas.mlp_t import fused_mlp_t as jax_mlp_t
 from nerf_tpu_torch.engine.checkpoint import load_jax_params
 from nerf_tpu_torch.kernels.flex_train import (
@@ -67,6 +72,7 @@ from nerf_tpu_torch.kernels.mlp import (
     unpack_tc_forward,
     unpack_tc_forward_points,
 )
+from nerf_tpu_torch.kernels.mlp_t import mlp_t_plain
 from nerf_tpu_torch.kernels.paper_t import fragment_matrix, fragment_order
 from nerf_tpu_torch.models import FlexibleNeRFModel
 
@@ -244,6 +250,20 @@ def test_point_major_plain_pass_from_the_points_buffer_is_bitwise_the_bf16_plain
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("s", [1, 61, 128])
+def test_ray_major_plain_pass_from_the_forward_buffer_is_bitwise_mlp_t(s):
+    """#3's bf16 kernel runs #1's tile on #1's buffer: the ray-major plain
+    pass on the buffer's weights is mlp_t's plain bf16 pass, bit for bit, at
+    a ray-major layout (R, S) whose tiles start mid-ray."""
+    model = _model(s)
+    pts, vd, _ = (torch.from_numpy(a) for a in _inputs(7, s, seed=s))
+    with torch.no_grad():
+        got = flexible_mlp_rays_plain(_with_forward_weights(model), pts, vd, "bfloat16")
+        want = mlp_t_plain(model, pts, vd, "bfloat16")
+    assert got.shape == (7, s, 4)
+    assert torch.equal(got, want)
+
+
 def _rounded(tree):
     """JAX params with every kernel rounded to bf16 (biases kept)."""
     if isinstance(tree, dict):
@@ -305,6 +325,21 @@ def test_point_major_forward_from_the_points_buffer_matches_the_jax_kernel(jax_p
     with torch.no_grad():
         got = flexible_mlp_plain(base, torch.from_numpy(pts), torch.from_numpy(vd), "float32")
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("s", [1, 61, 128])
+def test_ray_major_forward_from_the_buffer_matches_the_jax_kernel(jax_pair, s):
+    """flexible_mlp_rays_plain in f32 on the rounded model whose weights are
+    the forward buffer's own, against JAX's ray-major kernel in interpret
+    mode on the rounded parameters; 20 rays, not a multiple of 16 a tile."""
+    _, rounded, base, _ = jax_pair
+    pts, vd, _ = _inputs(20, s, seed=19 + s)
+    want = np.asarray(jax_flexible_mlp_rays(rounded, jnp.asarray(pts), jnp.asarray(vd),
+                                            rays_per_tile=16, interpret=True))
+    with torch.no_grad():
+        got = flexible_mlp_rays_plain(base, torch.from_numpy(pts), torch.from_numpy(vd),
+                                      "float32")
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
 
 
 def test_forward_from_the_buffer_matches_the_jax_training_kernel(jax_pair):

@@ -9,7 +9,7 @@ Builds ``nerf_tpu_torch/csrc`` (printing each kernel's registers and spills,
 and the tensor-core instructions of each kernel by ``cuobjdump -sass``),
 holds the point-major (#2) and ray-major (#3) 4x128 forwards against their
 plain versions at the render path's shapes and a few ragged ones, #3 against
-``fused_mlp_t`` (#1, the same function: bitwise in f32), the whole render
+``fused_mlp_t`` (#1, the same function: bitwise in f32 and bf16), the whole render
 stage (#7) against its plain version and, in bf16, bitwise against #5 on
 #1's bf16 field, and times #1-#3 once; then holds the 8x256 PaperNeRF
 kernels, #4 ``fused_paper_mlp_t`` and the #9 training pair, against their
@@ -20,16 +20,15 @@ ending mid-tile, and 0, 6, 10 and 16 encoding frequencies. With
 spills of the tensor-core instances, checks that the outputs
 ``bitwise_results`` lists are bitwise the same from both, each tree through
 its own wrappers (its package, imported under another name), and times #1,
-#2, #7 and the #8 pair in bf16 from both in turns (parent, this tree, this
-tree, parent). A short first call for a new kernel; ``chip_smoke.py`` is the
-full check.
+#2, #3, #7 and the #8 pair in bf16 and #6 (det, by the profiler's device
+time too) from both in turns (parent, this tree, this tree, parent). A short
+first call for a new kernel; ``chip_smoke.py`` is the full check.
 """
 
 import argparse
 import importlib
 import importlib.util
 import os
-import re
 import subprocess
 import sys
 import time
@@ -49,18 +48,16 @@ PAPER_FREQS = (0, 6, 10, 16)
 
 
 def check_new_kernels(model, dev) -> bool:
-    """#2 and #3 against their plain versions (True when both are within
-    chip_smoke.py's tolerances: #2 bf16 on the tensor cores to
-    TC_BF16_FWD_TOL, #3 bf16 on the FMA pipes to BF16_TOL) and #3 against #1
-    (bitwise in f32, within TC_BF16_FWD_TOL in bf16, where #1 runs on the
-    tensor cores)."""
+    """#2 and #3 against their plain versions and #3 against #1 (True when
+    both are within chip_smoke.py's tolerances, the bf16 instances on the
+    tensor cores to TC_BF16_FWD_TOL, and #3 is bitwise #1 in f32 and
+    bf16)."""
     worst = 0.0
     with torch.inference_mode():
         for n, s in ((2048, 64), (2048, 128), (333, 61), (1, 1), (5, 33), (131072, 128)):
             pts, vd = cs.orbit_points(n, s, dev, n + s)
             flat_vd = vd[:, None, :].expand(n, s, 3).reshape(-1, 3)
-            for dt, tol in (("float32", cs.F32_TOL), ("bfloat16", cs.BF16_TOL)):
-                tol2 = cs.TC_BF16_FWD_TOL if dt == "bfloat16" else tol
+            for dt, tol in (("float32", cs.F32_TOL), ("bfloat16", cs.TC_BF16_FWD_TOL)):
                 rays = mlp.fused_flexible_mlp_rays(model, pts, vd, dt)
                 points = mlp.fused_flexible_mlp(model, pts.reshape(-1, 3), flat_vd, dt)
                 one = mlp_t.fused_mlp_t(model, pts, vd, dt)
@@ -70,13 +67,11 @@ def check_new_kernels(model, dev) -> bool:
                                                             dt)).abs().max())
                 e31 = float((rays - one).abs().max())
                 print(f"({n}, {s}) {dt}: #3 vs plain {e3:.3e}, #2 vs plain {e2:.3e} (tol "
-                      f"{tol2:g}), #3 vs #1 {e31:.3e} bitwise {torch.equal(rays, one)}",
+                      f"{tol:g}), #3 vs #1 {e31:.3e} bitwise {torch.equal(rays, one)}",
                       flush=True)
-                if dt == "bfloat16":
-                    worst = max(worst, e31 / cs.TC_BF16_FWD_TOL)
-                elif not torch.equal(rays, one):
+                if not torch.equal(rays, one):
                     worst = float("inf")
-                worst = max(worst, e3 / tol, e2 / tol2)
+                worst = max(worst, e3 / tol, e2 / tol)
         n, s = cs.KERNEL_CHUNK
         pts, vd = cs.orbit_points(n, s, dev, 1)
         flat_pts, flat_vd = pts.reshape(-1, 3), vd[:, None, :].expand(n, s, 3).reshape(-1, 3)
@@ -205,7 +200,9 @@ def check_flex_tc_kernels(dev) -> bool:
 
 
 _MODULES = ("kernels.mlp_t", "kernels.mlp", "kernels.flex_train", "kernels.stage",
-            "kernels.paper_t", "kernels.paper_train", "models")
+            "kernels.paper_t", "kernels.paper_train", "kernels.resample", "models")
+# #6's cases: bin edges M, stochastic u of each shape's S; det takes S = 64.
+RESAMPLE_CASES = ((131072, 63, 64), (1000, 129, 128), (333, 768, 61))
 
 
 def import_package(pkg_dir: Path, name: str) -> dict:
@@ -231,10 +228,23 @@ def tree_models(mods: dict, dev):
     return flex.to(dev).eval(), paper.to(dev).eval()
 
 
+def resample_case(n: int, m: int, s: int, dev):
+    """#6's inputs: sorted bin edges (n, m), peaked weights (n, m - 1)
+    (rand**4, one all-zero ray) and uniforms (n, s) with 1.0 and 0.0."""
+    gen = torch.Generator(device=dev).manual_seed(n + m)
+    bins = torch.sort(2.0 + 4.0 * torch.rand(n, m, generator=gen, device=dev), dim=-1)[0]
+    w = torch.rand(n, m - 1, generator=gen, device=dev) ** 4
+    w[0] = 0.0
+    u = torch.rand(n, s, generator=gen, device=dev)
+    u[:, 0], u[:, 1] = 1.0, 0.0
+    return bins, w, u
+
+
 def bitwise_results(m: dict, dev) -> list:
     """Through one tree's wrappers: the f32 outputs of #1, #2, #3, #7 and the
-    #8 pair, and the bf16 outputs of #1, #3, #4, the #8 pair and the #9 pair,
-    at a render shape and a ragged one."""
+    #8 pair, and the bf16 outputs of #1, #4, the #8 pair and the #9 pair, at
+    a render shape and a ragged one; #6's det and stochastic outputs at
+    RESAMPLE_CASES."""
     flex, paper = tree_models(m, dev)
     out = []
     with torch.no_grad():
@@ -247,9 +257,9 @@ def bitwise_results(m: dict, dev) -> list:
                 device=dev).manual_seed(2)), dim=-1)[0]
             params = m["mlp"].pack_params(flex)
             dc = m["mlp"].dir_contribution(flex, vd)
+            out.append(m["mlp"].fused_flexible_mlp_rays(flex, pts, vd, "float32"))
             for dt in ("float32", "bfloat16"):
                 out.append(m["mlp_t"].fused_mlp_t(flex, pts, vd, dt))
-                out.append(m["mlp"].fused_flexible_mlp_rays(flex, pts, vd, dt))
                 fo, r = m["flex_train"].flex_train_fwd(pts, dc, params, dt)
                 out += [fo, r[0], *m["flex_train"].flex_train_bwd(g, r, params, n, s, dt)]
             out.append(m["mlp"].fused_flexible_mlp(flex, flat_pts, flat_vd, "float32"))
@@ -259,14 +269,19 @@ def bitwise_results(m: dict, dev) -> list:
             dc, pp = m["paper_t"].dir_contribution(paper, vd), m["paper_t"].pack_params(paper)
             po, r = m["paper_train"].paper_train_fwd(pts, dc, pp, "bfloat16", 10)
             out += [po, r[0], *m["paper_train"].paper_train_bwd(g, r, pp, n, s, "bfloat16", 10)]
+        for n, mb, s in RESAMPLE_CASES:
+            bins, w, u = resample_case(n, mb, s, dev)
+            out.append(m["resample"].fused_sample_pdf(bins, w, 64, det=True))
+            out.append(m["resample"].fused_sample_pdf(bins, w, s, u=u))
     torch.cuda.synchronize()
     return out
 
 
 def timed_calls(m: dict, dev) -> dict:
-    """Through one tree's wrappers, at the main path's shapes, in bf16: name
-    -> (fn, reps) for #1, #2 and #7 (one fine-pass chunk) and the #8 pair
-    (one training pass)."""
+    """Through one tree's wrappers, at the main path's shapes: name -> (fn,
+    reps) for #1, #2, #3 and #7 in bf16 (one fine-pass chunk), #6 det (one
+    coarse chunk's resample, M 63 -> 64) and the #8 pair in bf16 (one
+    training pass)."""
     flex, _ = tree_models(m, dev)
     pts, vd, z, rd = cs.orbit_rays(*cs.KERNEL_CHUNK, dev, 1)
     flat_pts, flat_vd = pts.reshape(-1, 3), vd[:, None, :].expand(*pts.shape).reshape(-1, 3)
@@ -275,9 +290,12 @@ def timed_calls(m: dict, dev) -> dict:
     g = torch.randn(*cs.TRAIN_SHAPE, 4, device=dev, generator=torch.Generator(
         device=dev).manual_seed(4))
     res = m["flex_train"].flex_train_fwd(tp, dc, params, "bfloat16")[1]
+    bins, w, _ = resample_case(cs.KERNEL_CHUNK[0], 63, 64, dev)
     return {
         "#1 bf16": (lambda: m["mlp_t"].fused_mlp_t(flex, pts, vd, "bfloat16"), 3),
         "#2 bf16": (lambda: m["mlp"].fused_flexible_mlp(flex, flat_pts, flat_vd, "bfloat16"), 3),
+        "#3 bf16": (lambda: m["mlp"].fused_flexible_mlp_rays(flex, pts, vd, "bfloat16"), 3),
+        "#6 det": (lambda: m["resample"].fused_sample_pdf(bins, w, 64, det=True), 50),
         "#7 bf16": (lambda: m["stage"].fused_render_stage(flex, pts, vd, z, rd, True,
                                                            "bfloat16"), 3),
         "#8 fwd bf16": (lambda: m["flex_train"].flex_train_fwd(tp, dc, params, "bfloat16"), 10),
@@ -286,43 +304,40 @@ def timed_calls(m: dict, dev) -> dict:
     }
 
 
-def kernel_device_ms(fn, reps: int) -> dict:
-    """Device milliseconds per call of each training-backward kernel ``fn``
-    launches, and of the rest of its device work ("other": the weight
-    packing), by torch.profiler over ``reps`` calls after a warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    out = {"other": 0.0}
-    for e in prof.key_averages():
-        t = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
-        if e.device_type != torch.autograd.DeviceType.CUDA or not t:
-            continue
-        name = re.search(r"train_bwd_\w+?_kernel", e.key)
-        label = name.group(0) if name else "other"
-        out[label] = out.get(label, 0.0) + t / 1e3 / reps
-    return out
+def time_in_turns(calls: dict, order, use=lambda label: None) -> None:
+    """Print the time of each of ``calls[label]`` (``timed_calls``) by CUDA
+    events, and #6's kernel by the profiler's device time too, for each
+    label in the turns ``order``; ``use(label)`` runs before each turn."""
+    times = {}
+    for label in order:
+        use(label)
+        for name, (fn, reps) in calls[label].items():
+            times.setdefault(name, {}).setdefault(label, []).append(cs.cuda_ms(fn, reps))
+        fn, reps = calls[label]["#6 det"]
+        times.setdefault("#6 det, device", {}).setdefault(label, []).append(
+            cs.kernel_device_ms(fn, reps, "resample_kernel").get("resample_kernel", 0.0))
+    for name, by in times.items():
+        print(f"ms {name}: " + "; ".join(f"{k} {' / '.join(f'{t:.4f}' for t in v)}"
+                                        for k, v in by.items()), flush=True)
 
 
 def check_bitwise_against(parent_csrc: Path, dev) -> bool:
     """The outputs ``bitwise_results`` lists, from both trees, bitwise; the
-    parent's ptxas report; then #1 bf16 and the #8 bf16 pair timed from both
-    in turns (parent, this tree, this tree, parent), and each launch of #8's
-    bf16 backward by the profiler."""
+    parent's ptxas report; then ``timed_calls`` from both in turns (parent,
+    this tree, this tree, parent) by CUDA events, #6's kernel by the
+    profiler's device time in the same turns, and each launch of #8's bf16
+    backward by the profiler."""
     trees = {"parent": import_package(parent_csrc.resolve().parent, "parent_nerf_tpu_torch"),
              "this tree": {sub.split(".")[-1]: importlib.import_module(f"nerf_tpu_torch.{sub}")
                            for sub in _MODULES}}
     parent_path = importlib.import_module("parent_nerf_tpu_torch.kernels._build").build_library()
     print("parent", cs.ptxas_summary(parent_path.with_suffix(".log").read_text(), frames=True),
           flush=True)
-    watched = cs.TENSOR_CORE_KERNELS + ("mlp:flexible_mlp<0>", "stage:stage<0>")
+    watched = cs.TENSOR_CORE_KERNELS + ("mlp:flexible_mlp<0>", "mlp:flexible_mlp_rays<0>",
+                                        "stage:stage<0>")
     for label, path in (("parent", parent_path), ("this tree", _build.build_library())):
         regs = cs.ptxas_summary(path.with_suffix(".log").read_text()).split(", ")
-        print(f"registers (spills) of the tensor-core instances and #2/#7 f32, {label}: "
+        print(f"registers (spills) of the tensor-core instances and #2/#3/#7 f32, {label}: "
               + ", ".join(r for r in regs if r.rsplit(" ", 1)[0].split(" (")[0] in watched),
               flush=True)
     outs = {label: bitwise_results(m, dev) for label, m in trees.items()}
@@ -331,16 +346,11 @@ def check_bitwise_against(parent_csrc: Path, dev) -> bool:
           flush=True)
 
     calls = {label: timed_calls(m, dev) for label, m in trees.items()}
-    times = {}
     with torch.no_grad():
-        for label in ("parent", "this tree", "this tree", "parent"):
-            for name, (fn, reps) in calls[label].items():
-                times.setdefault(name, {}).setdefault(label, []).append(cs.cuda_ms(fn, reps))
-        for name, by in times.items():
-            print(f"ms {name}: " + "; ".join(f"{k} {' / '.join(f'{t:.3f}' for t in v)}"
-                                            for k, v in by.items()), flush=True)
+        time_in_turns(calls, ("parent", "this tree", "this tree", "parent"))
         for label in ("parent", "this tree"):
-            per = kernel_device_ms(calls[label]["#8 bwd bf16"][0], 10)
+            per = cs.kernel_device_ms(calls[label]["#8 bwd bf16"][0], 10,
+                                      r"train_bwd_\w+?_kernel")
             print(f"ms #8 bwd bf16 by launch, {label}: "
                   + ", ".join(f"{k} {v:.4f}" for k, v in per.items()), flush=True)
     return all(same)

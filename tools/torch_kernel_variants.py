@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time variants of the flagship's bf16 kernels (#1, #8) against this tree's, on one NVIDIA GPU.
+"""Time variants of the flagship's kernels against this tree's, on one NVIDIA GPU.
 
 Run from the root of a checkout, with one card:
 
@@ -11,12 +11,14 @@ interface) and each ``--probe``: a copy of this tree's ``csrc`` with one
 named edit (PROBES below; the probes marked so compute wrong results on
 purpose, to show what one part of a kernel costs). Each library is loaded in
 turn under this tree's wrappers. For each it prints the flagship kernels'
-registers, #1 bf16 and the #8 bf16 pair against their plain versions
-(``chip_smoke.flex_pair_errors``) and whether its outputs equal base's
-bitwise; then it times #1 bf16 at one fine-pass chunk and the #8 pair in
-bf16 and f32 at one training pass, in turns (base, variants, the variants
-again in reverse, base), and each launch of #8's bf16 backward by the
-profiler. Builds go under ``build/variants/``.
+registers, #1 and #3 bf16 and the #8 bf16 pair against their plain versions
+(``chip_smoke.flex_pair_errors``), whether #3 bf16 is bitwise #1 bf16, and
+whether its outputs (#6's at ``torch_kernel_check.RESAMPLE_CASES`` too)
+equal base's bitwise; then it times
+``torch_kernel_check.timed_calls`` (#1, #2, #3 and #7 bf16 at one fine-pass
+chunk, #6 det also by the profiler's device time, the #8 bf16 pair at one
+training pass) in turns (base, variants, the variants again in reverse,
+base), and each launch of #8's bf16 backward by the profiler. Builds go under ``build/variants/``.
 """
 
 import argparse
@@ -33,8 +35,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
-from nerf_tpu_torch.kernels import _build, flex_train, mlp_t  # noqa: E402
-from torch_kernel_check import kernel_device_ms, timed_calls  # noqa: E402
+from nerf_tpu_torch.kernels import _build, flex_train, mlp, mlp_t, resample  # noqa: E402
+from torch_kernel_check import (  # noqa: E402
+    _MODULES, RESAMPLE_CASES, resample_case, time_in_turns, timed_calls,
+)
 
 ROOT = Path(__file__).resolve().parents[1]
 OUT = ROOT / "build" / "variants"
@@ -55,6 +59,42 @@ PROBES = {
     "unroll4": [("flex_tc.cuh",
                  "a.mac<2>(w + kWx0 + i * kHidden * kHidden, act, kStride, kHidden / 16);",
                  "a.mac<4>(w + kWx0 + i * kHidden * kHidden, act, kStride, kHidden / 16);")],
+    # The direction layer's dc rows (DirRayRow: #1, #3, #7, #8 bf16) found by
+    # a 32-bit division a row, (tile0 % S + p) / S past tile0 / S, instead
+    # of a 64-bit one: the same rows, so the same results.
+    "ray_div32": [("tc_mma.cuh",
+                   "    float2 b[NT];\n#pragma unroll\n    for (int n = 0; n < NT; ++n) {\n"
+                   "      b[n] = make_float2(",
+                   "    const long long ray0 = tile0 / samples;\n"
+                   "    const int rem = static_cast<int>(tile0 - ray0 * samples);\n"
+                   "    float2 b[NT];\n#pragma unroll\n    for (int n = 0; n < NT; ++n) {\n"
+                   "      b[n] = make_float2("),
+                  ("tc_mma.cuh", "dc + (gp / samples) * kN : nullptr;",
+                   "dc + (ray0 + (rem + static_cast<int>(gp - tile0)) / samples) * kN\n"
+                   "                                                       : nullptr;")],
+    # Wrong results: no dc term at all, neither its division nor its reads.
+    "no_dc_rows": [("tc_mma.cuh", "dc + (gp / samples) * kN : nullptr;",
+                    "nullptr : nullptr;")],
+    # #6's edge copies unrolled by the segment count, not a loop over m.
+    "rs_unrolled_edges": [
+        ("resample.cu",
+         "  for (int i = lane; i < m; i += 32) {\n"
+         "    const auto dst = static_cast<unsigned>(__cvta_generic_to_shared(edge + i));\n"
+         "    asm volatile(\"cp.async.ca.shared.global [%0], [%1], 4;\\n\" ::\"r\"(dst), "
+         "\"l\"(bins + ray * m + i));\n  }",
+         "#pragma unroll\n  for (int k = 0; k < 2 * kSegs + 1; ++k) {\n"
+         "    const int i = lane + 32 * k;\n    if (i < m) {\n"
+         "      const auto dst = static_cast<unsigned>(__cvta_generic_to_shared(edge + i));\n"
+         "      asm volatile(\"cp.async.ca.shared.global [%0], [%1], 4;\\n\" ::\"r\"(dst), "
+         "\"l\"(bins + ray * m + i));\n    }\n  }")],
+    # Wrong results: #6 without its search (one compare), without its scan's
+    # shuffles, or without the sum's butterfly.
+    "rs_no_search": [("resample.cu", "for (int len = m; len > 1;) {",
+                      "for (int len = 1; len > 1;) {")],
+    "rs_no_scan": [("resample.cu", "for (int o = 1; o < 32; o <<= 1) {",
+                    "for (int o = 32; o < 32; o <<= 1) {")],
+    "rs_no_sum": [("resample.cu", "for (int o = 16; o > 0; o >>= 1) sum +=",
+                   "for (int o = 0; o > 0; o >>= 1) sum +=")],
     # The layer-gradient pass with each layer's ReLU-mask rows brought into
     # shared memory by cp.async while its product runs.
     "mask_prefetch": [
@@ -141,14 +181,17 @@ def main() -> int:
 
     def use(name):
         _build.load_library = lambda: libs[name]
-        mlp_t._kernel.cache_clear()
-        flex_train._kernels.cache_clear()
+        for sub in _MODULES:
+            mod = importlib.import_module(f"nerf_tpu_torch.{sub}")
+            for attr in ("_kernel", "_kernels"):
+                if hasattr(mod, attr):
+                    getattr(mod, attr).cache_clear()
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     model = cs.seeded_model(cs.SEED, opacify=False).to(dev)
-    mods = {m.split(".")[-1]: importlib.import_module(f"nerf_tpu_torch.{m}")
-            for m in ("kernels.mlp_t", "kernels.mlp", "kernels.flex_train", "models")}
+    mods = {sub.split(".")[-1]: importlib.import_module(f"nerf_tpu_torch.{sub}")
+            for sub in _MODULES}
     outs = {}
     with torch.no_grad():
         for name in trees:
@@ -161,9 +204,16 @@ def main() -> int:
                 res += [out, r[0], *flex_train.flex_train_bwd(g, r, params, n, s, "bfloat16")]
                 pv, vd = cs.orbit_points(n, s, dev, n + s)
                 res.append(mlp_t.fused_mlp_t(model, pv, vd, "bfloat16"))
-                err = float((res[-1] - mlp_t.mlp_t_plain(model, pv, vd, "bfloat16")).abs().max())
-                print(f"{name} ({n}, {s}) bf16: #1 {err:.3e}; #8 forward {e['fwd']:.3e}, "
+                res.append(mlp.fused_flexible_mlp_rays(model, pv, vd, "bfloat16"))
+                want = mlp_t.mlp_t_plain(model, pv, vd, "bfloat16")
+                err, err3 = (float((r - want).abs().max()) for r in res[-2:])
+                print(f"{name} ({n}, {s}) bf16: #1 {err:.3e}; #3 {err3:.3e}, bitwise #1 "
+                      f"{torch.equal(res[-1], res[-2])}; #8 forward {e['fwd']:.3e}, "
                       f"residuals {e['res']:.3e}, gradients {e['bwd']:.3e}", flush=True)
+            for n, mb, s in RESAMPLE_CASES:
+                bins, w, u = resample_case(n, mb, s, dev)
+                res += [resample.fused_sample_pdf(bins, w, 64, det=True),
+                        resample.fused_sample_pdf(bins, w, s, u=u)]
             outs[name] = res
         for name in list(trees)[1:]:
             same = all(torch.equal(a, b) for a, b in zip(outs["base"], outs[name]))
@@ -172,17 +222,11 @@ def main() -> int:
         for name in trees:
             use(name)
             calls[name] = timed_calls(mods, dev)
-        times = {}
-        for name in list(trees) + list(trees)[::-1]:
-            use(name)
-            for what, (fn, reps) in calls[name].items():
-                times.setdefault(what, {}).setdefault(name, []).append(cs.cuda_ms(fn, reps))
-        for what, by in times.items():
-            print(f"ms {what}: " + "; ".join(f"{k} {' / '.join(f'{t:.4f}' for t in v)}"
-                                            for k, v in by.items()), flush=True)
+        time_in_turns(calls, list(trees) + list(trees)[::-1], use)
         for name in trees:
             use(name)
-            per = kernel_device_ms(calls[name]["#8 bwd bf16"][0], 20)
+            per = cs.kernel_device_ms(calls[name]["#8 bwd bf16"][0], 20,
+                                      r"train_bwd_\w+?_kernel")
             print(f"ms #8 bwd bf16 by launch, {name}: "
                   + ", ".join(f"{k} {v:.4f}" for k, v in per.items()), flush=True)
     return 0
