@@ -89,7 +89,20 @@ Phases, one or more lines each:
      (/health, /, GET and POST renders whose PNGs must be bitwise equal to
      the renderer's u8 frames, 4 launches of #1 a frame, a 400 and a 404),
      the median request latency, then a --logdir service that must pick up
-     a newer .ntc of other weights.
+     a newer .ntc of other weights;
+ 17. the flagship protocol from a dataset on disk: the analytic scene written
+     as a blender dataset (DISK_VIEWS views of 800x800 RGBA PNGs, lego's size
+     and camera angle, row filters cycling through all five); ``train_nerf.
+     main`` on it at the lego_fused protocol (half_res: a native-built store
+     of 6.4M rays, #8 2 + 2 launches a step, the loss falling); a resume from
+     its step-DISK_RESUME_AT ``.ntc`` whose losses must be bitwise the
+     uninterrupted run's; ``cache_dataset --format binary`` to a ``.nrc``
+     holding the same store bitwise, and training from it to the same first
+     losses; ``eval_nerf --split test --gif`` through #1 (its launches, each
+     frame's PSNR over DISK_PSNR_FLOOR_DB, the GIF's frame count); the fern
+     protocol on an LLFF scene written with ``images/`` only (minified at
+     load), in NDC on the plain path, and its test split rendered; then the
+     decode, store-build, training and eval times.
 
 Then one JSON line of per-kernel results (each kernel's launches on its main
 path, error, time, plain time and the least time the card could take for the
@@ -163,6 +176,20 @@ HBM_BYTES_PER_S = 3.35e12
 # The render path's shapes, and one whose points end mid-tile.
 CHECK_SHAPES = ((2048, 64), (2048, 128), (1000, 128), (333, 61))
 SERVE_RENDERS = 5              # renders over HTTP whose median latency phase 16 reports
+# Phase 17: the flagship protocol from a dataset on disk.
+DISK_SIZE = 800                 # lego's images: 800x800 RGBA, half_res to 400x400
+DISK_VIEWS = (("train", 40), ("val", 8), ("test", 8))   # lego: 100 / 100 / 200
+DISK_FILTERS = (0, 1, 2, 3, 4)  # PNG row filters, cycled: None, Sub, Up, Average, Paeth
+DISK_STEPS = 300
+DISK_RESUME_AT = 200            # the .ntc the resumed run starts from
+DISK_CACHE_STEPS = 20
+# The test views after DISK_STEPS steps, against their PNGs composited on
+# white: phase 7's protocol reached 37.6 dB on a novel view of the analytic
+# scene; the empty white scene a failed run collapses to reads ~11 dB.
+DISK_PSNR_FLOOR_DB = 30.0
+LLFF_VIEWS = 20                 # fern has 20 views (llffhold 8: 3 held out)
+LLFF_SIZE = (48, 64)            # images_8's (height, width); images/ is 8x that
+LLFF_STEPS = 20
 DEVICE = "cuda"
 # Multiply-adds per point of the 4x128 10/4 FlexibleNeRF forward, dir
 # contribution excluded: 63x128 + 3x128x128 + 128x129 + 128x64 + 64x3; of its
@@ -1881,6 +1908,292 @@ def serve_main_path(cfg, state: dict, dev, on: str) -> dict:
     return out
 
 
+def fern_config():
+    """``configs/fern.yml``'s values merged over the defaults, in code: the
+    LLFF protocol (4x64 FlexibleNeRF, 6/4 encoding, NDC, 4096 rays, 64 + 128
+    samples, sigma noise 1, lr 5e-3)."""
+    from nerf_tpu_torch.config import get_default_config
+
+    cfg = get_default_config()
+    cfg.set_new_allowed(True)
+    model = {"type": "FlexibleNeRFModel", "num_layers": 4, "hidden_size": 64,
+             "skip_connect_every": 3, "num_encoding_fn_xyz": 6, "num_encoding_fn_dir": 4,
+             "use_viewdirs": True}
+    pairs = ["dataset.type", "llff", "dataset.basedir", "cache/nerf_llff_data/fern",
+             "dataset.no_ndc", False, "dataset.near", 0, "dataset.far", 1,
+             "dataset.downsample_factor", 8, "dataset.llffhold", 8]
+    for which in ("coarse", "fine"):
+        for key, value in model.items():
+            pairs += [f"models.{which}.{key}", value]
+    validation = {"chunksize": 16384, "perturb": False, "num_coarse": 64, "num_fine": 128,
+                  "white_background": False, "radiance_field_noise_std": 0.0, "lindisp": False}
+    for key, value in validation.items():
+        pairs += [f"nerf.validation.{key}", value]
+    train = dict(validation, num_random_rays=4096, perturb=True, radiance_field_noise_std=1.0)
+    for key, value in train.items():
+        pairs += [f"nerf.train.{key}", value]
+    pairs += [
+        "experiment.id", "fern", "experiment.logdir", "logs", "experiment.randomseed", 34,
+        "experiment.train_iters", 250000, "experiment.validate_every", 1000,
+        "experiment.save_every", 5000, "experiment.print_every", 100,
+        "optimizer.type", "Adam", "optimizer.lr", 5.0e-3,
+        "scheduler.lr_decay", 250, "scheduler.lr_decay_factor", 0.1,
+    ]
+    cfg.merge_from_list(pairs)
+    return cfg
+
+
+def write_py_config(cfg, path: str) -> str:
+    """``cfg`` as a Python config file (the card has no YAML reader)."""
+    with open(path, "w") as f:
+        f.write(f"cfg = {cfg.to_dict()!r}\n")
+    return path
+
+
+def analytic_rgba(h: int, w: int, focal: float, pose, dev):
+    """The analytic scene at one pose as a u8 (H, W, 4) RGBA image: colour
+    un-premultiplied by the opacity, which is the alpha, so that compositing
+    onto white gives the white-background render."""
+    import numpy as np
+    import torch
+
+    from nerf_tpu_torch.data import analytic_radiance_field
+    from nerf_tpu_torch.ops import get_ray_bundle
+    from nerf_tpu_torch.ops.sampling import coarse_z_values
+    from nerf_tpu_torch.ops.volume import volume_render_radiance_field
+
+    with torch.no_grad():
+        c2w = torch.as_tensor(np.asarray(pose, np.float32)[:3, :4], device=dev)
+        ro, rd = get_ray_bundle(h, w, focal, c2w)
+        ro, rd = ro.reshape(-1, 3), rd.reshape(-1, 3)
+        rgb, acc = [], []
+        for i in range(0, ro.shape[0], 1 << 17):
+            o, d = ro[i:i + (1 << 17)], rd[i:i + (1 << 17)]
+            z = coarse_z_values(torch.full(o.shape[:1], 2.0, device=dev),
+                                torch.full(o.shape[:1], 6.0, device=dev), 128)
+            out = volume_render_radiance_field(
+                analytic_radiance_field(o[:, None] + d[:, None] * z[..., None]), z, d,
+                white_background=False)
+            rgb.append(out.rgb)
+            acc.append(out.acc)
+        rgb, acc = torch.cat(rgb), torch.cat(acc)[:, None]
+        color = torch.where(acc > 0, rgb / acc.clamp(min=1e-12), torch.zeros_like(rgb))
+        rgba = torch.cat([color.clamp(0, 1), acc.clamp(0, 1)], dim=1)
+        return (rgba * 255 + 0.5).to(torch.uint8).reshape(h, w, 4).cpu().numpy()
+
+
+def write_blender_scene(root: str, dev) -> float:
+    """The analytic scene as a blender dataset: ``transforms_{split}.json``
+    at lego's camera angle and DISK_SIZE RGBA PNGs whose rows cycle through
+    DISK_FILTERS. Returns the seconds it took."""
+    import numpy as np
+
+    from nerf_tpu_torch.data import pose_spherical
+    from nerf_tpu_torch.utils.png import png_bytes
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    angle = 0.6911112070083618
+    focal = 0.5 * DISK_SIZE / math.tan(0.5 * angle)
+    for s, (split, n) in enumerate(DISK_VIEWS):
+        os.makedirs(os.path.join(root, split), exist_ok=True)
+        frames = []
+        for i in range(n):
+            pose = pose_spherical(-180.0 + 360.0 * (i + s / 3) / n, rng.uniform(-45.0, -15.0), 4.0)
+            with open(os.path.join(root, split, f"r_{i}.png"), "wb") as f:
+                f.write(png_bytes(analytic_rgba(DISK_SIZE, DISK_SIZE, focal, pose, dev),
+                                  filters=DISK_FILTERS))
+            frames.append({"file_path": f"./{split}/r_{i}", "transform_matrix": pose.tolist()})
+        with open(os.path.join(root, f"transforms_{split}.json"), "w") as f:
+            json.dump({"camera_angle_x": angle, "frames": frames}, f)
+    return time.perf_counter() - t0
+
+
+def write_llff_scene(root: str, dev) -> None:
+    """A forward-facing LLFF scene of the analytic sphere: LLFF_VIEWS RGB
+    PNGs under ``images/`` at 8 times LLFF_SIZE (no ``images_8/``, so the
+    loader minifies) and ``poses_bounds.npy`` in LLFF's raw [down, right,
+    back] layout."""
+    import numpy as np
+
+    from nerf_tpu_torch.data import pose_spherical, render_analytic_image
+    from nerf_tpu_torch.utils.png import write_png
+
+    h, w = 8 * LLFF_SIZE[0], 8 * LLFF_SIZE[1]
+    focal = 0.8 * w
+    os.makedirs(os.path.join(root, "images"), exist_ok=True)
+    rng = np.random.default_rng(SEED + 1)
+    rows = []
+    for i in range(LLFF_VIEWS):
+        c2w = pose_spherical(rng.uniform(-8.0, 8.0), rng.uniform(-8.0, 8.0), 4.0)[:3, :4]
+        img = render_analytic_image(h, w, focal, c2w, device=dev)
+        write_png(os.path.join(root, "images", f"IMG_{i:04d}.png"),
+                  (np.clip(img, 0, 1) * 255 + 0.5).astype(np.uint8))
+        raw = np.concatenate([-c2w[:, 1:2], c2w[:, 0:1], c2w[:, 2:4],
+                              np.array([[h], [w], [focal]])], 1)
+        rows.append(np.concatenate([raw.reshape(-1), [2.0, 6.0]]))
+    np.save(os.path.join(root, "poses_bounds.npy"), np.stack(rows).astype(np.float64))
+
+
+def disk_main_path(dev, on: str, synthetic_rays_per_sec: float) -> dict:
+    """Phase 17: the flagship protocol from a dataset on disk, through the
+    entry points a user calls: ``train_nerf.main`` on a blender dataset
+    (native store, #8 on every step, the loss falling), a resume from its
+    step-DISK_RESUME_AT ``.ntc`` that must retrace its last steps,
+    ``cache_dataset`` to a ``.nrc`` that must hold the same store and give
+    the same losses, ``eval_nerf --split test --gif`` through #1, and a short
+    LLFF run on the fern protocol. Returns the launches and numbers."""
+    import numpy as np
+    import torch
+
+    from nerf_tpu_torch import cache_dataset, eval_nerf, native, train_nerf
+    from nerf_tpu_torch.utils.gif import gif_frame_count
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        scene = os.path.join(tmp, "lego")
+        write_s = write_blender_scene(scene, dev)
+        n_images = sum(n for _, n in DISK_VIEWS)
+        cfg = lego_fused_config()
+        cfg.merge_from_list(["dataset.basedir", scene, "experiment.logdir", tmp,
+                             "experiment.train_iters", DISK_STEPS,
+                             "experiment.save_every", DISK_RESUME_AT // 2])
+        cfg_py = write_py_config(cfg, os.path.join(tmp, "lego_disk.py"))
+        print(f"[disk] wrote {n_images} {DISK_SIZE}x{DISK_SIZE} RGBA PNGs (row filters "
+              f"{DISK_FILTERS} cycled) in {write_s:.1f} s")
+
+        captured = {}
+        load_dataset = train_nerf.load_dataset
+
+        def capture(*args, **kwargs):
+            captured["data"] = load_dataset(*args, **kwargs)
+            return captured["data"]
+
+        train_nerf.load_dataset = capture
+        reset_launches()
+        try:
+            with quiet():
+                run = train_nerf.main(["--config", cfg_py, "--device", DEVICE, "--overrides",
+                                       "experiment.id", "whole"])
+        finally:
+            train_nerf.load_dataset = load_dataset
+        counts = read_launches()
+        launches = {"fwd": counts["fused_flex_mlp_train_fwd"],
+                    "bwd": counts["fused_flex_mlp_train_bwd"]}
+        h = DISK_SIZE // 2
+        want_rays = DISK_VIEWS[0][1] * h * h
+        steps = len(run.losses)
+        print(f"[disk] train_nerf on the blender dataset: {run.store_rays:,} rays from the "
+              f"{run.store_builder} builder, {steps} steps, {launches['fwd']} forward and "
+              f"{launches['bwd']} backward launches of #8 (expected {2 * steps} each)")
+        check(run.store_builder == "native", f"store built by {run.store_builder}")
+        check(run.store_rays == want_rays, f"store of {run.store_rays} rays != {want_rays}")
+        check(steps == DISK_STEPS and launches["fwd"] == 2 * steps
+              and launches["bwd"] == 2 * steps, f"{steps} steps, launches {launches}")
+        losses = torch.tensor(run.losses)
+        first, last = float(losses[:20].mean()), float(losses[-20:].mean())
+        check(bool(torch.isfinite(losses).all()) and last < first,
+              f"blender loss did not fall: {first} -> {last}")
+        print(f"[disk] mean loss of the first 20 steps {first:.5f}, of the last 20 {last:.5f}; "
+              f"validation PSNR {run.val_psnrs[-1]:.2f} dB")
+        out.update(launches=launches, rays_per_sec=run.rays_per_sec,
+                   load_s_per_image=run.load_seconds / n_images, store_s=run.store_seconds)
+
+        ntc = os.path.join(run.logdir, f"checkpoint{DISK_RESUME_AT:05d}.ntc")
+        reset_launches()
+        with quiet():
+            rest = train_nerf.main(["--config", cfg_py, "--device", DEVICE, "--load-checkpoint",
+                                    ntc, "--overrides", "experiment.id", "resumed"])
+        counts = read_launches()
+        whole_tail = torch.tensor(run.losses[DISK_RESUME_AT:])
+        rest_losses = torch.tensor(rest.losses)
+        diff = float((rest_losses - whole_tail).abs().max()) if len(rest.losses) else math.inf
+        same = bool(torch.equal(rest_losses, whole_tail))
+        print(f"[disk] resumed from {os.path.basename(ntc)}: steps {rest.start_step + 1}-"
+              f"{rest.start_step + len(rest.losses)}, {counts['fused_flex_mlp_train_fwd']} + "
+              f"{counts['fused_flex_mlp_train_bwd']} launches; losses "
+              f"{'bitwise' if same else 'NOT bitwise'} the uninterrupted run's (max |diff| "
+              f"{diff:.3e})")
+        check(rest.start_step == DISK_RESUME_AT and len(rest.losses) == DISK_STEPS - DISK_RESUME_AT,
+              f"resume ran {rest.start_step} + {len(rest.losses)} steps")
+        check(same, f"resumed losses differ from the uninterrupted run's by up to {diff}")
+
+        cache = os.path.join(tmp, "cache")
+        with quiet():
+            nrc = cache_dataset.main(["--datapath", scene, "--type", "blender", "--savedir",
+                                      cache, "--half-res", "--blender-white-background",
+                                      "--format", "binary"])
+        stored = native.load_ray_cache_native(nrc)[:3]
+        live = captured["data"]["rays"]
+        same_store = all(np.array_equal(a, b) for a, b in zip(stored, live))
+        with quiet():
+            cached = train_nerf.main(["--config", cfg_py, "--device", DEVICE, "--overrides",
+                                      "experiment.id", "cached", "dataset.cachedir", cache,
+                                      "experiment.train_iters", str(DISK_CACHE_STEPS)])
+        same_losses = cached.losses == run.losses[:DISK_CACHE_STEPS]
+        print(f"[disk] cache_dataset --format binary: {os.path.getsize(nrc):,} bytes, store "
+              f"{'bitwise' if same_store else 'NOT bitwise'} the live one; the first "
+              f"{DISK_CACHE_STEPS} losses from it {'equal' if same_losses else 'DIFFER from'} "
+              f"the live run's")
+        check(same_store and same_losses and cached.store_builder == "cache",
+              "the .nrc store or its losses differ from the live run's")
+
+        final = os.path.join(run.logdir, f"checkpoint{DISK_STEPS:05d}.ntc")
+        gif = os.path.join(tmp, "test.gif")
+        reset_launches()
+        with quiet():
+            ev = eval_nerf.main(["--config", cfg_py, "--checkpoint", final, "--savedir",
+                                 os.path.join(tmp, "test"), "--split", "test", "--gif", gif,
+                                 "--device", DEVICE])
+        n_test = DISK_VIEWS[2][1]
+        frame_launches = read_launches()["fused_mlp_t"]
+        expected = 2 * math.ceil(h * h / int(cfg.nerf.validation.chunksize)) * n_test
+        frames = gif_frame_count(open(gif, "rb").read())
+        db = min(ev.psnrs)
+        print(f"[disk] eval_nerf --split test --gif: {len(ev.psnrs)} frames through #1 "
+              f"({frame_launches} launches, expected {expected}), PSNR against the test PNGs "
+              f"on white {', '.join(f'{p:.2f}' for p in ev.psnrs)} dB (floor "
+              f"{DISK_PSNR_FLOOR_DB}); the GIF holds {frames} frames")
+        check(frame_launches == expected, f"eval launches {frame_launches} != {expected}")
+        check(all(ev.finite) and len(ev.psnrs) == n_test and frames == n_test, "eval frames")
+        check(db >= DISK_PSNR_FLOOR_DB, f"test-split PSNR {db} < {DISK_PSNR_FLOOR_DB}")
+        out.update(render_launches=frame_launches, psnr=db, eval_s=ev.steady_seconds)
+
+        fern = os.path.join(tmp, "fern")
+        write_llff_scene(fern, dev)
+        fcfg = fern_config()
+        fcfg.merge_from_list(["dataset.basedir", fern, "experiment.logdir", tmp,
+                              "experiment.train_iters", LLFF_STEPS,
+                              "experiment.save_every", LLFF_STEPS])
+        fern_py = write_py_config(fcfg, os.path.join(tmp, "fern.py"))
+        reset_launches()
+        with quiet():
+            frun = train_nerf.main(["--config", fern_py, "--device", DEVICE])
+            fev = eval_nerf.main(["--config", fern_py, "--checkpoint", os.path.join(
+                frun.logdir, f"checkpoint{LLFF_STEPS:05d}.ntc"), "--savedir",
+                os.path.join(tmp, "fern_test"), "--split", "test", "--device", DEVICE])
+        counts = read_launches()
+        flosses = torch.tensor(frun.losses)
+        print(f"[disk] fern protocol on an LLFF scene ({LLFF_VIEWS} views minified to "
+              f"{LLFF_SIZE[1]}x{LLFF_SIZE[0]}, NDC): {len(frun.losses)} steps on the plain path "
+              f"(#8 launches {counts['fused_flex_mlp_train_fwd']}), loss "
+              f"{float(flosses[0]):.5f} -> {float(flosses[-1]):.5f}; --split test "
+              f"{len(fev.psnrs)} frames, PSNR {', '.join(f'{p:.2f}' for p in fev.psnrs)} dB")
+        check(os.path.isdir(os.path.join(fern, "images_8")), "no images_8/ minified")
+        check(len(frun.losses) == LLFF_STEPS and bool(torch.isfinite(flosses).all()),
+              "LLFF losses")
+        check(counts["fused_flex_mlp_train_fwd"] == 0, "the 4x64 fern model reached #8")
+        check(all(fev.finite) and len(fev.psnrs) == len(range(0, LLFF_VIEWS, 8)),
+              "LLFF test frames")
+
+    print(f"[time] phase 17: decode + resize {1e3 * out['load_s_per_image']:.1f} ms an "
+          f"{DISK_SIZE}x{DISK_SIZE} RGBA image, store build {out['store_s']:.2f} s "
+          f"({want_rays:,} rays); training {out['rays_per_sec']:,.0f} rays/s on the blender "
+          f"store against {synthetic_rays_per_sec:,.0f} on phase 7's synthetic store; eval "
+          f"{out['eval_s']:.4f} s a {h}x{h} test frame (f32) {on}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2096,6 +2409,9 @@ def main() -> int:
           f"{served['last_render_s']} s against phase 5's bf16 kernel frame "
           f"{frame_s['kernel bf16']:.4f} s {on}")
 
+    # Phase 17: the flagship protocol from a dataset on disk.
+    disk = disk_main_path(dev, on, trained["rays_per_sec"])
+
     entries = []
 
     def entry(name, source, replaces, launches, worst, ms, flops, nbytes, nbytes_bf16=None,
@@ -2124,7 +2440,8 @@ def main() -> int:
     n, s = KERNEL_CHUNK
     p = n * s
     entry("fused_mlp_t", "mlp_t.cu", "mlp_t.py:164", launches, worst, times,
-          2 * p * MACS_PER_POINT, 4 * (3 * p + 64 * n + 82820 + 4 * p))
+          2 * p * MACS_PER_POINT, 4 * (3 * p + 64 * n + 82820 + 4 * p),
+          disk_launches=disk["render_launches"])
     entry("fused_paper_mlp_t", "paper_t.cu", "paper_t.py:177", paper["render_launches"],
           {d: paper_worst["t", d] for d in ("float32", "bfloat16")},
           {d: paper_times["t", d] for d in ("float32", "bfloat16")},
@@ -2143,7 +2460,8 @@ def main() -> int:
               4 * (3 * p + 64 * n + 82820 + 4 * p + 767 * p) if which == "fwd"
               else 4 * (4 * p + 767 * p + 74048 + 82820 + 64 * n),
               4 * (3 * p + 64 * n + 82820 + 4 * p) + 2 * (82240 + 768 * p) if which == "fwd"
-              else 4 * (4 * p + 82820 + 64 * n) + 2 * (768 * p + 76800))
+              else 4 * (4 * p + 82820 + 64 * n) + 2 * (768 * p + 76800),
+              disk_launches=disk["launches"][which])
     # The bf16 instances keep bf16 residuals (2,752 rows a point) and read
     # bf16 weights (623,232 forward, 595,968 backward values at F = 10).
     for which, line in (("fwd", 197), ("bwd", 241)):

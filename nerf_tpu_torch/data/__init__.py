@@ -1,12 +1,16 @@
-"""Camera poses, the procedural synthetic scene and flat ray stores."""
+"""Camera poses, the dataset loaders, the procedural synthetic scene and flat
+ray stores."""
 
-from .eval_poses import resolve_render_poses
+from .blender import composite_white_background, load_blender_data
+from .eval_poses import RenderSplit, load_render_split, resolve_render_poses
+from .llff import ImageReaderMissing, llff_holdout_split, load_llff_data
 from .poses import pose_spherical, spherical_render_poses
 from .rays_store import (
     build_ray_store,
     is_reference_cache_dir,
     load_ray_cache,
     load_reference_cache_dir,
+    ray_store_builder,
     save_ray_cache,
     shuffle_ray_store,
 )
@@ -19,13 +23,21 @@ from .synthetic import (
 )
 
 __all__ = [
+    "composite_white_background",
+    "load_blender_data",
+    "RenderSplit",
+    "load_render_split",
     "resolve_render_poses",
+    "ImageReaderMissing",
+    "llff_holdout_split",
+    "load_llff_data",
     "pose_spherical",
     "spherical_render_poses",
     "build_ray_store",
     "is_reference_cache_dir",
     "load_ray_cache",
     "load_reference_cache_dir",
+    "ray_store_builder",
     "save_ray_cache",
     "shuffle_ray_store",
     "SyntheticDataset",

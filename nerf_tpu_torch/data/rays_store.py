@@ -9,9 +9,9 @@ focal, near, far), and optionally validation images with their poses. A
 reference-format cache directory (``train/*.data`` ``torch.save`` files) is
 read with ``torch.load(..., weights_only=True)``.
 
-The JAX package's threaded C++ builder (``nerf_tpu/native/raystore.cpp``) is
-not ported yet (ROADMAP.md, open items §1 item 6): ``build_ray_store`` runs
-the ray generation in PyTorch on the device given.
+``build_ray_store`` takes the threaded C++ builder (``native/raystore.cpp``)
+first, as the JAX package does, and runs the ray generation in PyTorch on the
+device given where that library does not build.
 """
 
 from __future__ import annotations
@@ -26,11 +26,30 @@ import torch
 from ..ops.rays import get_ray_bundle
 
 
+def ray_store_builder(use_native: bool = True) -> str:
+    """Which builder ``build_ray_store(..., use_native)`` runs here:
+    ``"native"`` (the C++ library, built at first use) or ``"torch"``."""
+    from .. import native
+
+    return "native" if use_native and native.available() else "torch"
+
+
 @torch.no_grad()
 def build_ray_store(images: np.ndarray, poses: np.ndarray, height: int, width: int,
-                    focal: float, device="cpu") -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+                    focal: float, device="cpu", use_native: bool = True
+                    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Expand (N, H, W, 3+) images and (N, 3+, 4) poses into flat ray arrays:
-    (ray_origins, ray_directions, targets), each (N*H*W, 3) float32 numpy."""
+    (ray_origins, ray_directions, targets), each (N*H*W, 3) float32 numpy.
+
+    The C++ builder (``ray_store_builder``) computes the directions as
+    ``x * (1 / focal)`` in another order of sums than the PyTorch path below,
+    its executable spec: they agree to 1.2e-7.
+    """
+    if ray_store_builder(use_native) == "native":
+        from .. import native
+
+        return native.build_ray_store_native(np.asarray(poses), np.asarray(images),
+                                             height, width, focal)
     origins, directions, targets = [], [], []
     for img, pose in zip(images, poses):
         c2w = torch.as_tensor(np.asarray(pose)[:3, :4], dtype=torch.float32, device=device)

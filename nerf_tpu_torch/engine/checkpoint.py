@@ -15,8 +15,14 @@ Native ``.ntc`` checkpoints are the JAX package's: flax msgpack of a plain
 dict (``step``, ``params_coarse``, ``params_fine``, and from its trainer
 ``opt_state``, ``loss`` and ``psnr``), read and written here by
 ``utils/msgpack.py`` without flax. Their params render here
-(``load_models_and_params``); resuming training from one, with its optax
-Adam state, is not ported yet (ROADMAP.md, open items §1 item 7).
+(``load_models_and_params``) and training resumes from them with their optax
+state (``load_train_checkpoint``); the trainer writes them with its own
+state in the same layout (``ntc_train_state``), so either package resumes
+the other's run. The JAX optimizer is ``optax.flatten`` of its rule: Adam's
+``mu`` and ``nu`` are each one vector, the ``jax.flatten_util.ravel_pytree``
+of ``{"coarse": params, "fine": params}`` (dict keys sorted, ``bias`` before
+``kernel``, list entries in order, kernels (in, out)), and tuples of states
+are lists in the file.
 
 The JAX package's params layout (nested dicts of ``{"kernel": (in, out),
 "bias": (out,)}``, lists for ``layers_xyz``/``layers_dir``) is kept as the
@@ -210,38 +216,170 @@ def export_reference_checkpoint(path: str, step: int, model_coarse: torch.nn.Mod
     os.replace(tmp, path)
 
 
-def latest_checkpoint(logdir: str, prefix: str = "checkpoint", suffix: str = ".ckpt"
-                      ) -> Optional[str]:
-    """The highest-step ``<prefix>NNNNN<suffix>`` file in ``logdir``, or None."""
+def latest_checkpoint(logdir: str, prefix: str = "checkpoint",
+                      suffix: Optional[str] = None) -> Optional[str]:
+    """The highest-step ``<prefix>NNNNN<suffix>`` file in ``logdir``, or
+    None. ``suffix`` None takes ``.ntc`` and ``.ckpt`` files alike, the
+    ``.ntc`` at a step that has both."""
     if not os.path.isdir(logdir):
         return None
-    best, best_step = None, -1
+    suffixes = (suffix,) if suffix else (".ckpt", ".ntc")
+    best, best_key = None, None
     for name in os.listdir(logdir):
-        if name.startswith(prefix) and name.endswith(suffix):
-            digits = "".join(ch for ch in name[len(prefix):-len(suffix)] if ch.isdigit())
-            step = int(digits) if digits else 0
-            if step > best_step:
-                best, best_step = os.path.join(logdir, name), step
+        for rank, sfx in enumerate(suffixes):
+            if name.startswith(prefix) and name.endswith(sfx):
+                digits = "".join(ch for ch in name[len(prefix):-len(sfx)] if ch.isdigit())
+                key = (int(digits) if digits else 0, rank)
+                if best_key is None or key > best_key:
+                    best, best_key = os.path.join(logdir, name), key
     return best
+
+
+def _leaves(tree: Any) -> list:
+    """The array leaves of an optax state in its list form, in
+    ``jax.tree.leaves`` order."""
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in _leaves(v)]
+    return [] if tree is None else [tree]
+
+
+def ravel_order(model_coarse: torch.nn.Module, model_fine: Optional[torch.nn.Module]) -> list:
+    """The parameters in the order ``ravel_pytree`` lays out the JAX params
+    ``{"coarse": ..., "fine": ...}``: ``[(parameter, is_weight)]``, a weight
+    raveled as its (in, out) transpose."""
+    out = []
+    for model in (model_coarse, model_fine):     # "coarse" sorts before "fine"
+        if model is None:
+            continue
+        named = dict(model.named_parameters())
+
+        def key(name: str):
+            parts = name.split(".")
+            return (parts[0], int(parts[1]) if len(parts) == 3 else -1,
+                    "kernel" if parts[-1] == "weight" else "bias")
+
+        out += [(named[name], name.endswith(".weight")) for name in sorted(named, key=key)]
+    return out
+
+
+def _optax_state(spec, count: np.ndarray, mu: np.ndarray, nu: np.ndarray) -> list:
+    """The JAX trainer's ``optax.flatten(make_optimizer(...))`` state for
+    ``spec`` (an ``engine.train.OptimizerSpec``) in its list form: the rule's
+    state, then the schedule's count (an empty state for a constant rate),
+    behind the clipping's empty state when clipping is on."""
+    schedule = [count] if spec.lr_decay and spec.lr_decay_factor else []
+    if spec.name == "adam":
+        inner = [[count, mu, nu], schedule]
+    elif spec.name == "adamw":
+        inner = [[count, mu, nu], [], schedule]
+    else:                                        # sgd without momentum
+        inner = [[], schedule]
+    return [[], inner] if spec.grad_clip_norm else inner
+
+
+def ntc_train_state(step: int, model_coarse: torch.nn.Module,
+                    model_fine: Optional[torch.nn.Module], optimizer: torch.optim.Optimizer,
+                    spec, count: int, loss: float, psnr: float) -> Dict[str, Any]:
+    """The dict the JAX trainer saves as ``checkpointNNNNN.ntc``, of this
+    package's training state: params in the JAX layout and ``opt_state`` as
+    the optax state of ``spec`` after ``count`` updates, ``mu``/``nu`` raveled
+    from the Adam moments (zeros before the first update)."""
+    moments = {"exp_avg": [], "exp_avg_sq": []}
+    for p, is_weight in ravel_order(model_coarse, model_fine):
+        state = optimizer.state.get(p, {})
+        for name, parts in moments.items():
+            m = state.get(name)
+            m = torch.zeros_like(p) if m is None else m
+            parts.append((m.t() if is_weight else m).detach().reshape(-1).cpu())
+    mu, nu = (torch.cat(parts).numpy().astype(np.float32) for parts in moments.values())
+    return {
+        "step": np.asarray(int(step)),
+        "params_coarse": convert_torch_state_dict(model_coarse.state_dict()),
+        "params_fine": (convert_torch_state_dict(model_fine.state_dict())
+                        if model_fine is not None else None),
+        "opt_state": _optax_state(spec, np.asarray(int(count), np.int32), mu, nu),
+        "loss": np.asarray(float(loss)),
+        "psnr": np.asarray(float(psnr)),
+    }
+
+
+def _ntc_optimizer_state_dict(ckpt: Dict[str, Any], model_coarse, model_fine,
+                              optimizer: torch.optim.Optimizer, spec) -> Optional[Dict[str, Any]]:
+    """A ``.ntc``'s optax state as an ``optimizer.state_dict()`` to load, or
+    None (with the JAX trainer's message) when it has none or its layout is
+    not this optimizer's."""
+    restored = _leaves(ckpt.get("opt_state"))
+    order = ravel_order(model_coarse, model_fine)
+    size = sum(p.numel() for p, _ in order)
+    template = _leaves(_optax_state(spec, np.zeros((), np.int32), np.zeros(size, np.float32),
+                                    np.zeros(size, np.float32)))
+    if not restored:
+        print("checkpoint has no optimizer state; starting Adam fresh", flush=True)
+        return None
+    if len(restored) != len(template) or any(
+            np.shape(a) != np.shape(b) for a, b in zip(restored, template)):
+        print("checkpoint optimizer layout differs; starting Adam fresh", flush=True)
+        return None
+    sd = optimizer.state_dict()
+    if spec.name == "sgd":
+        # No moments: the leaves are the schedule's count alone.
+        return {"state": {}, "param_groups": sd["param_groups"], "count": int(restored[0])}
+    # The layout is the template's, so its first three leaves are Adam's.
+    count, mu, nu = (np.asarray(x) for x in restored[:3])
+    index = {id(p): i for i, p in enumerate(optimizer.param_groups[0]["params"])}
+    state: Dict[int, Dict[str, Any]] = {}
+    offset = 0
+    for p, is_weight in order:
+        n = p.numel()
+        shape = tuple(reversed(p.shape)) if is_weight else tuple(p.shape)
+
+        def take(flat):
+            leaf = torch.from_numpy(np.array(flat[offset:offset + n], np.float32)).reshape(shape)
+            return leaf.t().contiguous() if is_weight else leaf
+
+        state[index[id(p)]] = {"step": torch.tensor(float(count)),
+                               "exp_avg": take(mu), "exp_avg_sq": take(nu)}
+        offset += n
+    return {"state": state, "param_groups": sd["param_groups"], "count": int(count)}
 
 
 def load_train_checkpoint(path: str, model_coarse: torch.nn.Module,
                           model_fine: Optional[torch.nn.Module],
-                          optimizer: torch.optim.Optimizer) -> Dict[str, Any]:
-    """Restore a reference ``.ckpt`` into the modules and, when its
-    ``optimizer_state_dict`` holds moments shaped like ``optimizer``'s
-    parameters, into ``optimizer``.
+                          optimizer: torch.optim.Optimizer, spec=None) -> Dict[str, Any]:
+    """Restore a checkpoint into the modules and, where it holds them and
+    they fit, the optimizer's moments.
 
-    Returns ``{"step": iter, "count": updates the restored moments have
-    seen (0 when they restart fresh), "moments": whether they were
-    restored}``.
+    A reference ``.ckpt``: its ``optimizer_state_dict`` when it holds
+    moments shaped like ``optimizer``'s parameters. A native ``.ntc``: its
+    params (the JAX layout) and its optax state, whose layout must be the one
+    ``spec`` (the ``OptimizerSpec`` that built ``optimizer``) gives, as the
+    JAX trainer checks; otherwise the moments start fresh.
+
+    Every parameter gets its own ``step`` tensor: ``torch.optim.Adam`` adds
+    to it in place, so one tensor shared by all would count each update once
+    per parameter. Returns ``{"step": steps taken, "count": updates the
+    restored moments (or schedule) have seen, 0 when they restart fresh,
+    "moments": whether moments were restored}``.
     """
+    if path.endswith(".ntc"):
+        ckpt = load_checkpoint(path)
+        load_jax_params(model_coarse, ckpt["params_coarse"])
+        if model_fine is not None:
+            if ckpt.get("params_fine") is None:
+                raise ValueError(f"{path} has no fine model, but a fine model is configured")
+            load_jax_params(model_fine, ckpt["params_fine"])
+        step = int(np.asarray(ckpt.get("step", 0)))
+        if spec is None:
+            raise ValueError("resuming from a .ntc needs the OptimizerSpec of the optimizer")
+        sd = _ntc_optimizer_state_dict(ckpt, model_coarse, model_fine, optimizer, spec)
+        if sd is None:
+            return {"step": step, "count": 0, "moments": False}
+        count = sd.pop("count")
+        if sd["state"]:
+            _load_optimizer_state(optimizer, sd)
+        return {"step": step, "count": count, "moments": bool(sd["state"])}
     if not path.endswith(".ckpt"):
-        raise NotImplementedError(
-            f"{path}: training resumes from reference .ckpt files only; resuming from a "
-            "native .ntc with its optax Adam state is not ported yet (ROADMAP.md, open "
-            "items §1 item 7)"
-        )
+        raise ValueError(f"{path}: want a native .ntc or a reference .ckpt")
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     model_coarse.load_state_dict(ckpt["model_coarse_state_dict"])
     if model_fine is not None:
@@ -256,16 +394,18 @@ def load_train_checkpoint(path: str, model_coarse: torch.nn.Module,
     )
     count = 0
     if fits:
-        # The moments come from the file; the hyperparameters stay this
-        # optimizer's own (the file's are the exporter's).
-        own = [{k: v for k, v in g.items() if k != "params"} for g in optimizer.param_groups]
-        # The JAX package's exporter writes one `step` tensor shared by every
-        # parameter's state; torch's Adam adds to each state's `step` in
-        # place, so a shared one would count every update once per parameter.
-        for entry in moments.values():
-            entry["step"] = torch.as_tensor(entry["step"], dtype=torch.float32).clone()
-        optimizer.load_state_dict(ckpt["optimizer_state_dict"])
-        for group, hyper in zip(optimizer.param_groups, own):
-            group.update(hyper)
+        _load_optimizer_state(optimizer, ckpt["optimizer_state_dict"])
         count = int(float(moments[0]["step"]))
     return {"step": int(ckpt.get("iter", 0)), "count": count, "moments": fits}
+
+
+def _load_optimizer_state(optimizer: torch.optim.Optimizer, state_dict: Dict[str, Any]) -> None:
+    """Load the moments of ``state_dict`` into ``optimizer``, each with its
+    own ``step`` tensor; the hyperparameters stay the optimizer's own (the
+    file's are its writer's)."""
+    own = [{k: v for k, v in g.items() if k != "params"} for g in optimizer.param_groups]
+    for entry in state_dict["state"].values():
+        entry["step"] = torch.as_tensor(entry["step"], dtype=torch.float32).clone()
+    optimizer.load_state_dict(state_dict)
+    for group, hyper in zip(optimizer.param_groups, own):
+        group.update(hyper)

@@ -1,11 +1,14 @@
 """Render novel views from a trained NeRF checkpoint (port of ``eval_nerf.py``).
 
 Loads a native ``.ntc`` (the JAX trainer's) or a reference ``.ckpt``,
-renders the dataset's render-pose trajectory to PNGs (optionally with
-disparity maps) and reports the time per frame.
+renders the dataset's render-pose trajectory (``--split render``) or the
+camera poses of one of its splits (``--split train|val|test``) to PNGs,
+optionally with disparity maps and a GIF of the frames, and reports the time
+per frame; on a split, also each frame's PSNR against its ground-truth image.
 
 Usage:
-  python -m nerf_tpu_torch.eval_nerf --config cfg.yml --checkpoint ckpt --savedir out/
+  python -m nerf_tpu_torch.eval_nerf --config cfg.yml --checkpoint ckpt --savedir out/ \
+      [--split test] [--gif out.gif]
 
 ``--renderer kernel`` (the default) evaluates the radiance field with the
 hand-written CUDA kernel of the model's family, FlexibleNeRF or PaperNeRF
@@ -27,9 +30,10 @@ import numpy as np
 import torch
 
 from .config import load_config, render_settings_from_config
-from .data.eval_poses import resolve_render_poses
+from .data.eval_poses import load_render_split
 from .engine.checkpoint import load_models_and_params
 from .engine.renderer import make_pose_render_fn
+from .utils.gif import write_gif
 from .utils.png import write_png
 
 
@@ -50,6 +54,7 @@ class EvalResult:
     seconds: List[float]        # per frame: render + fetch to the host
     finite: List[bool]          # per frame: every map finite
     first_maps: Dict[str, torch.Tensor]  # frame 0's maps, on the CPU
+    psnrs: List[float] = dataclasses.field(default_factory=list)  # per frame, on a split
 
     @property
     def steady_seconds(self) -> float:
@@ -67,11 +72,15 @@ def render_trajectory(
     renderer: str = "kernel",
     device: str = "cuda",
     save_disparity_image: bool = False,
+    split: str = "render",
+    gif: str = "",
 ) -> EvalResult:
-    """Render the config's trajectory from ``checkpoint`` into ``savedir``."""
+    """Render the config's trajectory, or the poses of dataset split
+    ``split``, from ``checkpoint`` into ``savedir`` (and ``gif``)."""
     if renderer not in ("kernel", "plain"):
         raise ValueError(f"renderer must be 'kernel' or 'plain', got {renderer!r}")
-    render_poses, h, w, focal = resolve_render_poses(cfg, "render")
+    render_poses, h, w, focal, truth = load_render_split(
+        cfg, split, white_background=bool(cfg.nerf.validation.white_background))
     model_coarse, model_fine, ckpt = load_models_and_params(checkpoint, cfg, device)
     if "height" in ckpt:
         # Optional intrinsics stored in a reference checkpoint win.
@@ -89,6 +98,7 @@ def render_trajectory(
     poses = render_poses[:num_poses] if num_poses > 0 else render_poses
 
     result = EvalResult(h, w, focal, [], [], {})
+    frames = []
     for i, pose in enumerate(poses):
         t0 = time.perf_counter()
         maps = render(torch.as_tensor(pose, dtype=torch.float32, device=device))
@@ -98,11 +108,21 @@ def render_trajectory(
         if i == 0:
             result.first_maps = maps
         write_png(os.path.join(savedir, f"{i:04d}.png"), maps["rgb_u8"].numpy())
+        if gif:
+            frames.append(maps["rgb_u8"].numpy())
+        if truth is not None:
+            rgb = maps.get("rgb_fine", maps["rgb_coarse"]).double()
+            mse = float(((rgb - torch.from_numpy(truth[i]).double()) ** 2).mean())
+            result.psnrs.append(-10.0 * float(np.log10(max(mse, 1e-20))))
         if save_disparity_image:
             disp = maps.get("disp_fine", maps["disp_coarse"])
             write_png(os.path.join(savedir, "disparity", f"{i:04d}.png"),
                       cast_to_disparity_image(disp.numpy()))
-        print(f"[{i:04d}] done ({result.seconds[-1]:.3f}s)", flush=True)
+        print(f"[{i:04d}] done ({result.seconds[-1]:.3f}s"
+              + (f", PSNR {result.psnrs[-1]:.2f} dB)" if truth is not None else ")"), flush=True)
+    if gif:
+        write_gif(gif, frames, delay_cs=5, loop=0)
+        print(f"wrote {gif} ({len(frames)} frames)", flush=True)
     return result
 
 
@@ -115,10 +135,11 @@ def main(argv: Optional[List[str]] = None) -> EvalResult:
     parser.add_argument("--num-poses", type=int, default=0,
                         help="Render only the first N poses (0 = all).")
     parser.add_argument("--gif", type=str, default="",
-                        help="Also write the frames as a GIF (not ported yet).")
+                        help="Also write the frames as a GIF at this path (50 ms a frame, "
+                             "looping).")
     parser.add_argument("--split", choices=["render", "train", "val", "test"], default="render",
-                        help="'render' = the orbit/spiral trajectory; train/val/test "
-                             "need the dataset loaders (not ported yet).")
+                        help="'render' = the orbit/spiral trajectory; train/val/test = that "
+                             "split's camera poses, each frame's PSNR reported.")
     parser.add_argument("--overrides", type=str, nargs="*", default=None,
                         help="Dotted-key value pairs, e.g. dataset.basedir /tmp/x")
     parser.add_argument("--precision", choices=["float32", "bfloat16"], default="float32",
@@ -136,17 +157,10 @@ def main(argv: Optional[List[str]] = None) -> EvalResult:
     parser.add_argument("--device", type=str, default="cuda")
     args = parser.parse_args(argv)
 
-    if args.gif:
-        raise NotImplementedError("--gif is not ported yet (ROADMAP.md, open items §1 item 8)")
     if args.tighten_aabb is not None:
         raise NotImplementedError(
             "--tighten-aabb needs engine/geometry.py, not ported yet "
             "(ROADMAP.md, open items §1 item 11)"
-        )
-    if args.split != "render":
-        raise NotImplementedError(
-            f"--split {args.split} needs the dataset loaders, not ported yet "
-            "(ROADMAP.md, open items §1 item 6)"
         )
 
     cfg = load_config(args.config, args.overrides)
@@ -154,12 +168,14 @@ def main(argv: Optional[List[str]] = None) -> EvalResult:
         cfg, args.checkpoint, args.savedir,
         num_poses=args.num_poses, precision=args.precision, renderer=args.renderer,
         device=args.device, save_disparity_image=args.save_disparity_image,
+        split=args.split, gif=args.gif,
     )
     n = len(result.seconds)
     rays = result.height * result.width
     print(f"rendered {n} poses at {result.height}x{result.width} on {args.device} in "
           f"{sum(result.seconds):.3f}s; steady-state {result.steady_seconds:.4f}s/img = "
-          f"{rays / result.steady_seconds:,.0f} rays/s")
+          f"{rays / result.steady_seconds:,.0f} rays/s"
+          + (f"; mean PSNR {np.mean(result.psnrs):.3f} dB" if result.psnrs else ""))
     if not all(result.finite):
         raise SystemExit(f"non-finite maps in frames {[i for i, ok in enumerate(result.finite) if not ok]}")
     return result

@@ -28,9 +28,10 @@ sharding of a frame over a mesh of devices is not ported (ROADMAP.md, open
 items §1 item 11), and ``/health`` reports ``"devices": 1``.
 
 ``--logdir`` (instead of ``--checkpoint``) watches a training run: each
-request renders the run's newest ``checkpoint*.ntc`` (a JAX run's), or, in a
-logdir that holds none, its newest ``checkpoint*.ckpt`` (what this package's
-trainer writes), loading new weights into the live modules when one lands.
+request renders the run's newest ``checkpoint*.ntc`` (what either package's
+trainer writes), or, in a logdir that holds none, its newest
+``checkpoint*.ckpt``, loading new weights into the live modules when one
+lands.
 
 Usage:
   python -m nerf_tpu_torch.serve_nerf --config cfg.yml --checkpoint ckpt.ntc

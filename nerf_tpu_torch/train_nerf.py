@@ -5,8 +5,17 @@ training rays live on the device as one flat store; each loop call takes
 ``steps_per_call`` steps (ray batch drawn on the device, coarse + fine
 render, MSE(coarse) + MSE(fine), backward, update, LR decay) and fetches
 their metrics once; validation renders ``val_poses[0]`` at
-``validate_every``; checkpoints are reference ``.ckpt`` files with the
-optimizer's state, ``checkpointNNNNN.ckpt`` at ``save_every`` and at the end.
+``validate_every``; at ``save_every`` and at the end it writes
+``checkpointNNNNN.ckpt`` (reference format, with the optimizer's state) and
+``checkpointNNNNN.ntc`` (the JAX trainer's, with the optax state), and it
+resumes from either.
+
+Datasets: blender and LLFF scenes on disk (``data/blender.py``,
+``data/llff.py``; RGBA composited onto white at load when
+``nerf.train.white_background``; LLFF's ``llffhold`` split), the procedural
+synthetic scene, and ray caches (``.npz``, the native ``.nrc``, a reference
+cache directory). A scene's training views become one flat ray store
+(``build_ray_store``: the C++ builder when it builds).
 With ``nerf.train.use_pallas_train`` the radiance field and its gradient go
 through the hand-written training kernels of the model's family: the 4x128
 10/4 FlexibleNeRF's (``kernels/flex_train.py``) or the 8x256 PaperNeRF's
@@ -19,10 +28,8 @@ Usage:
 ``main(argv)`` parses the flags; ``train(cfg, ...)`` does the work and takes a
 ``CfgNode``, so a caller can drive it without a YAML file.
 
-Not ported yet, and raising: the blender and LLFF loaders and the native
-``.nrc`` ray cache (ROADMAP.md, open items §1 item 6), resuming
-from a native ``.ntc`` checkpoint with its optax state (§1 item 7), more
-than one device and ``--tighten-aabb`` (§1 item 11).
+Not ported yet, and raising: more than one device and ``--tighten-aabb``
+(ROADMAP.md, open items §1 item 11).
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from . import native
 from .config import (
     load_config,
     model_from_config,
@@ -44,59 +52,96 @@ from .config import (
     render_settings_from_config,
 )
 from .data import (
+    build_ray_store,
+    composite_white_background,
     flatten_rays,
     is_reference_cache_dir,
+    llff_holdout_split,
+    load_blender_data,
+    load_llff_data,
     load_ray_cache,
     load_reference_cache_dir,
     make_synthetic_dataset,
+    ray_store_builder,
     shuffle_ray_store,
 )
-from .engine.checkpoint import export_reference_checkpoint, latest_checkpoint, load_train_checkpoint
+from .engine.checkpoint import (
+    export_reference_checkpoint,
+    latest_checkpoint,
+    load_train_checkpoint,
+    ntc_train_state,
+    save_checkpoint,
+)
 from .engine.renderer import make_image_render_fn
 from .engine.train import create_train_state, make_train_loop, steps_per_call
 from .ops import get_ray_bundle, img2mse, mse2psnr
 from .utils import MetricWriter, RateMeter
 
-_SLICE_3 = "(ROADMAP.md, open items §1 item 6)"
+
+def _cached(rays, meta: dict, ds, extras: dict, builder: str) -> dict:
+    return {"rays": rays, "hwf": (meta["height"], meta["width"], meta["focal"]),
+            "near": meta.get("near", ds.near), "far": meta.get("far", ds.far),
+            "val_images": extras.get("val_images"), "val_poses": extras.get("val_poses"),
+            "store_builder": builder, "load_seconds": 0.0, "store_seconds": 0.0}
 
 
 def load_dataset(cfg, device="cpu") -> dict:
     """The training rays and the validation views of ``cfg.dataset``: a dict
     of host arrays (``rays`` = (origins, directions, targets), ``hwf``,
-    ``near``, ``far``, ``val_images``, ``val_poses``)."""
+    ``near``, ``far``, ``val_images``, ``val_poses``), which builder made the
+    store (``store_builder``: ``native``, ``torch`` or ``cache``), and the
+    seconds spent reading the images (``load_seconds``, decode and resize)
+    and building the store (``store_seconds``)."""
     ds = cfg.dataset
     if getattr(ds, "cachedir", None):
         path = ds.cachedir
         if os.path.isdir(path):
             if is_reference_cache_dir(path):
                 ro, rd, targets, meta, _ = load_reference_cache_dir(path)
-                return {"rays": (ro, rd, targets),
-                        "hwf": (meta["height"], meta["width"], meta["focal"]),
-                        "near": ds.near, "far": ds.far, "val_images": None, "val_poses": None}
+                return _cached((ro, rd, targets), meta, ds, {}, "cache")
             for name in ("rays.npz", "rays.nrc"):
                 if os.path.exists(os.path.join(path, name)):
                     path = os.path.join(path, name)
                     break
         if path.endswith(".nrc"):
-            raise NotImplementedError(
-                f"{path}: the native .nrc ray cache needs the C++ store builder, not "
-                f"ported yet {_SLICE_3}")
-        ro, rd, targets, meta, extras = load_ray_cache(path)
-        return {"rays": (ro, rd, targets), "hwf": (meta["height"], meta["width"], meta["focal"]),
-                "near": meta.get("near", ds.near), "far": meta.get("far", ds.far),
-                "val_images": extras.get("val_images"), "val_poses": extras.get("val_poses")}
-    if ds.type in ("blender", "llff"):
-        raise NotImplementedError(
-            f"dataset.type {ds.type!r}: the loader (data/{ds.type}.py) is not ported yet "
-            f"{_SLICE_3}; use dataset.type synthetic or a ray cache")
+            ro, rd, targets, meta = native.load_ray_cache_native(path)
+            extras = {}
+        else:
+            ro, rd, targets, meta, extras = load_ray_cache(path)
+        return _cached((ro, rd, targets), meta, ds, extras, "cache")
     if ds.type == "synthetic":
         dataset = make_synthetic_dataset(num_views=int(getattr(ds, "num_views", 20)),
                                          height=int(getattr(ds, "image_size", 64)),
                                          width=int(getattr(ds, "image_size", 64)), device=device)
         return {"rays": flatten_rays(dataset, device), "hwf": dataset.hwf,
                 "near": dataset.near, "far": dataset.far,
-                "val_images": dataset.images[:2], "val_poses": dataset.poses[:2]}
-    raise ValueError(f"Unknown dataset type {ds.type!r}")
+                "val_images": dataset.images[:2], "val_poses": dataset.poses[:2],
+                "store_builder": ray_store_builder(), "load_seconds": 0.0,
+                "store_seconds": 0.0}
+    t0 = time.perf_counter()
+    if ds.type == "blender":
+        images, poses, _, hwf, (i_train, i_val, _) = load_blender_data(
+            ds.basedir, half_res=ds.half_res, testskip=ds.testskip)
+        images = (composite_white_background(images) if cfg.nerf.train.white_background
+                  else images[..., :3])
+    elif ds.type == "llff":
+        images, poses, _, _, i_holdout = load_llff_data(
+            ds.basedir, factor=getattr(ds, "downsample_factor", 8),
+            spherify=bool(getattr(ds, "spherify", False)),
+            path_zflat=bool(getattr(ds, "path_zflat", False)))
+        hwf = poses[0, :3, -1]
+        i_train, i_val = llff_holdout_split(images.shape[0], int(getattr(ds, "llffhold", 8)),
+                                            i_holdout)
+    else:
+        raise ValueError(f"Unknown dataset type {ds.type!r}")
+    poses = poses[:, :3, :4]
+    h, w, focal = int(hwf[0]), int(hwf[1]), float(hwf[2])
+    t1 = time.perf_counter()
+    rays = build_ray_store(images[i_train], poses[i_train], h, w, focal, device=device)
+    return {"rays": rays, "hwf": (h, w, focal), "near": ds.near, "far": ds.far,
+            "val_images": images[i_val[:1]], "val_poses": poses[i_val[:1]],
+            "store_builder": ray_store_builder(), "load_seconds": t1 - t0,
+            "store_seconds": time.perf_counter() - t1}
 
 
 @dataclasses.dataclass
@@ -113,7 +158,11 @@ class TrainResult:
     val_psnrs: List[float] = dataclasses.field(default_factory=list)
     seconds: float = 0.0        # host seconds in loop calls, each ending in its fetch
     rays_per_sec: float = 0.0   # rays trained / seconds
-    checkpoint: Optional[str] = None
+    checkpoint: Optional[str] = None        # the last .ckpt written (a .ntc beside it)
+    store_rays: int = 0                     # rays in the training store
+    store_builder: str = ""                 # native, torch or cache
+    load_seconds: float = 0.0               # reading the dataset's images
+    store_seconds: float = 0.0              # building the store from them
 
 
 def train(cfg, logdir: Optional[str] = None, device="cuda", load_checkpoint: str = "",
@@ -144,7 +193,8 @@ def train(cfg, logdir: Optional[str] = None, device="cuda", load_checkpoint: str
         ro_store, rd_store, tgt_store = shuffle_ray_store(ro_store, rd_store, tgt_store, seed=seed)
     ro_store, rd_store, tgt_store = (torch.as_tensor(np.ascontiguousarray(a), device=device)
                                      for a in (ro_store, rd_store, tgt_store))
-    print(f"ray store: {ro_store.shape[0]:,} rays on {device} ({sampling} sampling)", flush=True)
+    print(f"ray store: {ro_store.shape[0]:,} rays on {device} ({sampling} sampling, "
+          f"{data['store_builder']} builder)", flush=True)
 
     settings = render_settings_from_config(cfg, "train", hwf=(h, w, focal))
     val_settings = render_settings_from_config(cfg, "validation", hwf=(h, w, focal))
@@ -166,13 +216,15 @@ def train(cfg, logdir: Optional[str] = None, device="cuda", load_checkpoint: str
         json.dump(cfg.to_dict(), f, indent=2, sort_keys=True)
     ckpt_path = load_checkpoint or latest_checkpoint(logdir)
     if ckpt_path:
-        info = load_train_checkpoint(ckpt_path, model_coarse, model_fine, state.optimizer)
+        info = load_train_checkpoint(ckpt_path, model_coarse, model_fine, state.optimizer, spec)
         state.step = info["step"]
         state.scheduler = spec.make_scheduler(state.optimizer, info["count"])
         print(f"resumed from {ckpt_path} at step {state.step} "
               f"({'with' if info['moments'] else 'without'} optimizer moments)", flush=True)
 
-    result = TrainResult(logdir=logdir, start_step=state.step)
+    result = TrainResult(logdir=logdir, start_step=state.step, store_rays=ro_store.shape[0],
+                         store_builder=data["store_builder"],
+                         load_seconds=data["load_seconds"], store_seconds=data["store_seconds"])
     writer = MetricWriter(logdir)
     rate = RateMeter()
     batch = int(cfg.nerf.train.num_random_rays)
@@ -242,6 +294,9 @@ def train(cfg, logdir: Optional[str] = None, device="cuda", load_checkpoint: str
             result.checkpoint = os.path.join(logdir, f"checkpoint{done:05d}.ckpt")
             export_reference_checkpoint(result.checkpoint, done, model_coarse, model_fine,
                                         loss, psnr, state.optimizer, hwf=(h, w, focal))
+            save_checkpoint(os.path.join(logdir, f"checkpoint{done:05d}.ntc"),
+                            ntc_train_state(done, model_coarse, model_fine, state.optimizer,
+                                            spec, state.scheduler.last_epoch, loss, psnr))
         writer.flush()
 
     writer.close()
@@ -255,7 +310,7 @@ def main(argv: Optional[List[str]] = None) -> TrainResult:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--config", type=str, required=True, help="YAML or .py config.")
     parser.add_argument("--load-checkpoint", type=str, default="",
-                        help="Reference .ckpt to resume from.")
+                        help="Checkpoint to resume from: a reference .ckpt or a native .ntc.")
     parser.add_argument("--overrides", type=str, nargs="*", default=None,
                         help="Dotted-key value pairs, e.g. optimizer.lr 1e-3")
     parser.add_argument("--device", type=str, default="cuda")

@@ -97,11 +97,17 @@ def test_eval_cli_matches_jax(tiny, capsys):
     assert np.abs(png.astype(int) - np.asarray(want["rgb_u8"]).astype(int)).max() <= 1
 
 
-@pytest.mark.parametrize("flag", [["--gif", "x.gif"], ["--tighten-aabb", "1.0"],
-                                  ["--split", "val"]])
-def test_eval_cli_unported_flags_raise(tiny, flag):
+@pytest.mark.parametrize("flag,error", [
+    (["--gif", "x.gif", "--split", "test"], (ValueError, "on-disk dataset")),
+    (["--tighten-aabb", "1.0"], (NotImplementedError, "ROADMAP.md")),
+    (["--split", "val"], (ValueError, "on-disk dataset")),
+])
+def test_eval_cli_unported_flags_raise(tiny, flag, error):
+    """--tighten-aabb is not ported; --gif and --split are
+    (tests/test_torch_eval_split_gif.py), and a dataset split of a config
+    without a dataset on disk raises as the JAX CLI does."""
     cfg_path, ckpt, d = tiny
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(error[0], match=error[1]):
         eval_nerf.main(["--config", cfg_path, "--checkpoint", ckpt, "--savedir",
                         str(d / "x"), "--device", "cpu", *flag])
 
@@ -155,10 +161,14 @@ def test_render_poses_match_jax(tiny):
         want = jax_resolve_render_poses(jax_load_config(cfg_path, overrides), "render")
         np.testing.assert_allclose(got[0], want[0], rtol=1e-6, atol=1e-6)
         assert got[1:] == want[1:]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        resolve_render_poses(load_config(cfg_path, ["dataset.basedir", str(d)]))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        resolve_render_poses(load_config(cfg_path, ["dataset.type", "llff"]))
+    # A directory that holds no blender dataset, and an LLFF scene that is
+    # not there, fail in both packages alike (the loaders, held to the JAX
+    # ones in tests/test_torch_llff_blender.py).
+    for overrides in (["dataset.basedir", str(d)], ["dataset.type", "llff"]):
+        with pytest.raises(FileNotFoundError):
+            jax_resolve_render_poses(jax_load_config(cfg_path, overrides), "render")
+        with pytest.raises(FileNotFoundError):
+            resolve_render_poses(load_config(cfg_path, overrides))
 
 
 def test_package_imports_no_jax():

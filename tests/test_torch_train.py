@@ -35,6 +35,7 @@ from nerf_tpu_torch.engine.checkpoint import (
     latest_checkpoint,
     load_jax_params,
     load_train_checkpoint,
+    save_checkpoint,
 )
 from nerf_tpu_torch.models import FlexibleNeRFModel
 
@@ -319,8 +320,16 @@ def test_weights_only_checkpoint_restarts_the_optimizer(tmp_path):
     assert info == {"step": 7, "count": 0, "moments": False}
     np.testing.assert_array_equal(state.model_fine.layer1.weight.detach().numpy(),
                                   np.asarray(pf["layer1"]["kernel"]).T)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        load_train_checkpoint(str(tmp_path / "x.ntc"), state.model_coarse, None, state.optimizer)
+    # A weights-only .ntc (convert_checkpoint.py's) restarts the optimizer too.
+    ntc = str(tmp_path / "w.ntc")
+    save_checkpoint(ntc, {"step": 7, "params_coarse": jax.tree.map(np.asarray, pc),
+                          "params_fine": jax.tree.map(np.asarray, pf)})
+    spec = ttrain.make_optimizer("Adam", 5e-3)
+    state = ttrain.create_train_state(FlexibleNeRFModel(**ENC), FlexibleNeRFModel(**ENC), spec)
+    info = load_train_checkpoint(ntc, state.model_coarse, state.model_fine, state.optimizer, spec)
+    assert info == {"step": 7, "count": 0, "moments": False}
+    np.testing.assert_array_equal(state.model_coarse.fc_rgb.weight.detach().numpy(),
+                                  np.asarray(pc["fc_rgb"]["kernel"]).T)
 
 
 def test_train_loop_is_deterministic_whatever_the_steps_per_call():

@@ -98,17 +98,25 @@ def test_cli_resumes_from_its_checkpoint(trained, tmp_path):
     assert run.rays_per_sec > 0 and len(run.val_psnrs) == 1
 
 
-@pytest.mark.parametrize("argv", [
-    ["--tighten-aabb", "2.0"],
-    ["--num-devices", "2"],
-    ["--overrides", "dataset.type", "blender"],
-    ["--overrides", "dataset.type", "llff"],
-    ["--overrides", "dataset.cachedir", "rays.nrc"],
-    ["--load-checkpoint", "{tmp}/checkpoint00003.ntc"],
+@pytest.mark.parametrize("argv,error", [
+    (["--tighten-aabb", "2.0"], (NotImplementedError, "ROADMAP.md")),
+    (["--num-devices", "2"], (NotImplementedError, "ROADMAP.md")),
+    (["--overrides", "dataset.type", "blender", "dataset.basedir", "{tmp}/none"],
+     (FileNotFoundError, "transforms_train.json")),
+    (["--overrides", "dataset.type", "llff", "dataset.basedir", "{tmp}/none"],
+     (FileNotFoundError, "poses_bounds.npy")),
+    (["--overrides", "dataset.cachedir", "{tmp}/rays.nrc"], (OSError, "invalid ray cache")),
+    (["--load-checkpoint", "{tmp}/checkpoint00003.ntc"], (ValueError, "truncated msgpack")),
 ], ids=["tighten-aabb", "num-devices", "blender", "llff", "nrc-cache", "ntc-resume"])
-def test_unported_options_raise_naming_the_roadmap(trained, tmp_path, argv):
+def test_unported_options_raise_naming_the_roadmap(trained, tmp_path, argv, error):
+    """What is not ported raises naming its ROADMAP.md item. The dataset
+    loaders, the .nrc cache and .ntc resume are ported
+    (tests/test_torch_train_disk.py, tests/test_torch_ntc_resume.py): on a
+    missing dataset, an empty .nrc or an empty .ntc they raise for the
+    file."""
     cfg_path, _, _ = trained
     argv = [a.format(tmp=tmp_path) for a in argv]
     (tmp_path / "checkpoint00003.ntc").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    (tmp_path / "rays.nrc").write_bytes(b"")
+    with pytest.raises(error[0], match=error[1]):
         train_nerf.main(["--config", cfg_path, "--device", "cpu", *argv])
