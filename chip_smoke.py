@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's render, training and serving paths on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's render, training, serving, geometry and pose
+paths on one NVIDIA GPU and check them.
 
 Run from the root of a checkout, with one card:
 
@@ -102,7 +103,22 @@ Phases, one or more lines each:
      frame's PSNR over DISK_PSNR_FLOOR_DB, the GIF's frame count); the fern
      protocol on an LLFF scene written with ``images/`` only (minified at
      load), in NDC on the plain path, and its test split rendered; then the
-     decode, store-build, training and eval times.
+     decode, store-build, training and eval times;
+ 18. geometry and camera-pose refinement on phase 17's field and dataset:
+     ``train_nerf --tighten-aabb`` resumed for GEO_TIGHT_STEPS bf16 steps
+     (the 64^3 sweep's box strictly inside the sweep cube and holding the
+     analytic sigma > GEO_TAU ball less a voxel, #8 2 + 2 launches a step);
+     ``eval_nerf --tighten-aabb --split test`` in f32 and bf16 through #1
+     (its launches, PSNR over DISK_PSNR_FLOOR_DB), every tightened f32 frame
+     held against the plain path's with phase 4's gates, and a covering box
+     against no box; ``extract_geometry`` at 256^3 (a watertight mesh, its
+     vertex radii in GEO_RADII, the card's 64^3 grid and baked normals equal
+     to the CPU's) and the analytic field's own mesh (watertight, normals
+     outward, on the shell); ``optimize_poses`` lowering the photometric loss of
+     perturbed cameras, the JAX test's pose recovery through
+     ``make_pose_opt_loop``, and a short ``--joint-train`` whose ``.ntc``
+     ``eval_nerf`` renders; then the sweep, query, frame and per-iteration
+     times.
 
 Then one JSON line of per-kernel results (each kernel's launches on its main
 path, error, time, plain time and the least time the card could take for the
@@ -115,6 +131,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
@@ -190,6 +207,50 @@ DISK_PSNR_FLOOR_DB = 30.0
 LLFF_VIEWS = 20                 # fern has 20 views (llffhold 8: 3 held out)
 LLFF_SIZE = (48, 64)            # images_8's (height, width); images/ is 8x that
 LLFF_STEPS = 20
+# Phase 18: geometry and pose refinement on phase 17's field. The scene is
+# data/synthetic.py's soft sphere, sigma = 40 (0.8 - r): every gate below is
+# written from that field.
+GEO_TAU = 1.0                   # --tighten-aabb: bound sigma > 1, the ball r < 0.775
+GEO_BALL = 0.8 - GEO_TAU / 40.0
+GEO_VOXEL = 3.0 / 63.0          # the 64^3 sweep's step over [-1.5, 1.5]^3
+GEO_TIGHT_STEPS = 20            # bf16 steps resumed on the tightened intervals
+GEO_RESOLUTION = 256            # extract_geometry's default grid and chunk (262144)
+# extract_geometry --iso, from the analytic field: the level set the images
+# pin down is where the transmittance from the surface is still high,
+# exp(-20 d^2) >= 0.8 at depth d <= 0.106, i.e. sigma = 40 d <= 4.2. Deeper
+# the trained interior is free (on the card it levels off near
+# sigma 11 with ripples, and the sigma = 8 level set meshed them).
+GEO_ISO = 4.0                   # the analytic sigma = 4 shell: r = 0.7
+# The 1st-99th percentiles of the mesh's vertex radii: between the analytic
+# sigma = 8 shell (r = 0.6) and the surface r = 0.8 plus 0.05 of blur.
+GEO_RADII = (0.6, 0.85)
+# The orientation gate runs on the analytic field itself (sigma = 40 (0.8 -
+# r), exact gradients): the share of vertex normals, baked and the mesh's
+# own winding, with n . v > 0, and every vertex within a voxel diagonal of
+# r = 0.7. On the trained field the iso 4 level set is corrugated at the
+# voxel scale (on the card: 537,042 vertices where the sphere needs ~150k,
+# 78.67% of the winding and 69.96% of the baked normals outward): its
+# density ripples at the 10th encoding frequency (a 0.012 period), which
+# renders the same images, so there the mesh is held to the band and the
+# card's normals to the CPU's.
+GEO_OUTWARD = 0.95
+GEO_NORMALS_CHECK = 4096        # vertices whose normals the card and the CPU compute
+GEO_GRID_CHECK = 64             # the card's grid against the CPU's, at 64^3
+GEO_GRID_TOL = 1e-4             # of the grid's maximum: TF32 in the plain matmuls would miss it
+POSE_ARGS = ["--max-images", "8", "--perturb-rot-deg", "2", "--perturb-trans", "0.05"]
+# On phase 17's sphere the orbit about its centre changes the images only
+# through the slow colour pattern (on the card the loss fell 26x while the
+# cameras drifted along it), so there the gate is the photometric loss:
+# cameras misplaced by 2 degrees and 0.05 misalign the sphere by ~17% of
+# its radius, and a working refinement at least halves that loss.
+POSE_LOSS_GAIN = 0.5
+# tests/test_pose_refinement.py:126-175 on the card: its narrow field (2 x
+# 32, 4/2 encoding, weights x3 and a +2 density bias, here from a torch
+# seed), its own renders as targets, 2 degrees / 0.04 recovered by Adam 3e-3
+# in 4 x 40 steps of 48 rays: mean rotation error after < 0.6 x before, and
+# the translation error falls.
+POSE_GAIN = 0.6
+JOINT_ITERS = 10
 DEVICE = "cuda"
 # Multiply-adds per point of the 4x128 10/4 FlexibleNeRF forward, dir
 # contribution excluded: 63x128 + 3x128x128 + 128x129 + 128x64 + 64x3; of its
@@ -2035,162 +2096,584 @@ def write_llff_scene(root: str, dev) -> None:
     np.save(os.path.join(root, "poses_bounds.npy"), np.stack(rows).astype(np.float64))
 
 
-def disk_main_path(dev, on: str, synthetic_rays_per_sec: float) -> dict:
+def disk_main_path(dev, on: str, synthetic_rays_per_sec: float, tmp: str = "") -> dict:
     """Phase 17: the flagship protocol from a dataset on disk, through the
     entry points a user calls: ``train_nerf.main`` on a blender dataset
     (native store, #8 on every step, the loss falling), a resume from its
     step-DISK_RESUME_AT ``.ntc`` that must retrace its last steps,
     ``cache_dataset`` to a ``.nrc`` that must hold the same store and give
     the same losses, ``eval_nerf --split test --gif`` through #1, and a short
-    LLFF run on the fern protocol. Returns the launches and numbers."""
+    LLFF run on the fern protocol. Returns the launches and numbers, and the
+    dataset, config and final checkpoint it wrote under ``tmp`` (a temporary
+    directory of its own when empty, removed on return)."""
     import numpy as np
     import torch
 
     from nerf_tpu_torch import cache_dataset, eval_nerf, native, train_nerf
     from nerf_tpu_torch.utils.gif import gif_frame_count
 
+    if not tmp:
+        with tempfile.TemporaryDirectory() as tmp:
+            return disk_main_path(dev, on, synthetic_rays_per_sec, tmp)
     out = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        scene = os.path.join(tmp, "lego")
-        write_s = write_blender_scene(scene, dev)
-        n_images = sum(n for _, n in DISK_VIEWS)
-        cfg = lego_fused_config()
-        cfg.merge_from_list(["dataset.basedir", scene, "experiment.logdir", tmp,
-                             "experiment.train_iters", DISK_STEPS,
-                             "experiment.save_every", DISK_RESUME_AT // 2])
-        cfg_py = write_py_config(cfg, os.path.join(tmp, "lego_disk.py"))
-        print(f"[disk] wrote {n_images} {DISK_SIZE}x{DISK_SIZE} RGBA PNGs (row filters "
-              f"{DISK_FILTERS} cycled) in {write_s:.1f} s")
+    scene = os.path.join(tmp, "lego")
+    write_s = write_blender_scene(scene, dev)
+    n_images = sum(n for _, n in DISK_VIEWS)
+    cfg = lego_fused_config()
+    cfg.merge_from_list(["dataset.basedir", scene, "experiment.logdir", tmp,
+                         "experiment.train_iters", DISK_STEPS,
+                         "experiment.save_every", DISK_RESUME_AT // 2])
+    cfg_py = write_py_config(cfg, os.path.join(tmp, "lego_disk.py"))
+    print(f"[disk] wrote {n_images} {DISK_SIZE}x{DISK_SIZE} RGBA PNGs (row filters "
+          f"{DISK_FILTERS} cycled) in {write_s:.1f} s")
 
-        captured = {}
-        load_dataset = train_nerf.load_dataset
+    captured = {}
+    load_dataset = train_nerf.load_dataset
 
-        def capture(*args, **kwargs):
-            captured["data"] = load_dataset(*args, **kwargs)
-            return captured["data"]
+    def capture(*args, **kwargs):
+        captured["data"] = load_dataset(*args, **kwargs)
+        return captured["data"]
 
-        train_nerf.load_dataset = capture
-        reset_launches()
-        try:
-            with quiet():
-                run = train_nerf.main(["--config", cfg_py, "--device", DEVICE, "--overrides",
-                                       "experiment.id", "whole"])
-        finally:
-            train_nerf.load_dataset = load_dataset
-        counts = read_launches()
-        launches = {"fwd": counts["fused_flex_mlp_train_fwd"],
-                    "bwd": counts["fused_flex_mlp_train_bwd"]}
-        h = DISK_SIZE // 2
-        want_rays = DISK_VIEWS[0][1] * h * h
-        steps = len(run.losses)
-        print(f"[disk] train_nerf on the blender dataset: {run.store_rays:,} rays from the "
-              f"{run.store_builder} builder, {steps} steps, {launches['fwd']} forward and "
-              f"{launches['bwd']} backward launches of #8 (expected {2 * steps} each)")
-        check(run.store_builder == "native", f"store built by {run.store_builder}")
-        check(run.store_rays == want_rays, f"store of {run.store_rays} rays != {want_rays}")
-        check(steps == DISK_STEPS and launches["fwd"] == 2 * steps
-              and launches["bwd"] == 2 * steps, f"{steps} steps, launches {launches}")
-        losses = torch.tensor(run.losses)
-        first, last = float(losses[:20].mean()), float(losses[-20:].mean())
-        check(bool(torch.isfinite(losses).all()) and last < first,
-              f"blender loss did not fall: {first} -> {last}")
-        print(f"[disk] mean loss of the first 20 steps {first:.5f}, of the last 20 {last:.5f}; "
-              f"validation PSNR {run.val_psnrs[-1]:.2f} dB")
-        out.update(launches=launches, rays_per_sec=run.rays_per_sec,
-                   load_s_per_image=run.load_seconds / n_images, store_s=run.store_seconds)
-
-        ntc = os.path.join(run.logdir, f"checkpoint{DISK_RESUME_AT:05d}.ntc")
-        reset_launches()
+    train_nerf.load_dataset = capture
+    reset_launches()
+    try:
         with quiet():
-            rest = train_nerf.main(["--config", cfg_py, "--device", DEVICE, "--load-checkpoint",
-                                    ntc, "--overrides", "experiment.id", "resumed"])
-        counts = read_launches()
-        whole_tail = torch.tensor(run.losses[DISK_RESUME_AT:])
-        rest_losses = torch.tensor(rest.losses)
-        diff = float((rest_losses - whole_tail).abs().max()) if len(rest.losses) else math.inf
-        same = bool(torch.equal(rest_losses, whole_tail))
-        print(f"[disk] resumed from {os.path.basename(ntc)}: steps {rest.start_step + 1}-"
-              f"{rest.start_step + len(rest.losses)}, {counts['fused_flex_mlp_train_fwd']} + "
-              f"{counts['fused_flex_mlp_train_bwd']} launches; losses "
-              f"{'bitwise' if same else 'NOT bitwise'} the uninterrupted run's (max |diff| "
-              f"{diff:.3e})")
-        check(rest.start_step == DISK_RESUME_AT and len(rest.losses) == DISK_STEPS - DISK_RESUME_AT,
-              f"resume ran {rest.start_step} + {len(rest.losses)} steps")
-        check(same, f"resumed losses differ from the uninterrupted run's by up to {diff}")
+            run = train_nerf.main(["--config", cfg_py, "--device", DEVICE, "--overrides",
+                                   "experiment.id", "whole"])
+    finally:
+        train_nerf.load_dataset = load_dataset
+    counts = read_launches()
+    launches = {"fwd": counts["fused_flex_mlp_train_fwd"],
+                "bwd": counts["fused_flex_mlp_train_bwd"]}
+    h = DISK_SIZE // 2
+    want_rays = DISK_VIEWS[0][1] * h * h
+    steps = len(run.losses)
+    print(f"[disk] train_nerf on the blender dataset: {run.store_rays:,} rays from the "
+          f"{run.store_builder} builder, {steps} steps, {launches['fwd']} forward and "
+          f"{launches['bwd']} backward launches of #8 (expected {2 * steps} each)")
+    check(run.store_builder == "native", f"store built by {run.store_builder}")
+    check(run.store_rays == want_rays, f"store of {run.store_rays} rays != {want_rays}")
+    check(steps == DISK_STEPS and launches["fwd"] == 2 * steps
+          and launches["bwd"] == 2 * steps, f"{steps} steps, launches {launches}")
+    losses = torch.tensor(run.losses)
+    first, last = float(losses[:20].mean()), float(losses[-20:].mean())
+    check(bool(torch.isfinite(losses).all()) and last < first,
+          f"blender loss did not fall: {first} -> {last}")
+    print(f"[disk] mean loss of the first 20 steps {first:.5f}, of the last 20 {last:.5f}; "
+          f"validation PSNR {run.val_psnrs[-1]:.2f} dB")
+    out.update(launches=launches, rays_per_sec=run.rays_per_sec,
+               load_s_per_image=run.load_seconds / n_images, store_s=run.store_seconds)
 
-        cache = os.path.join(tmp, "cache")
-        with quiet():
-            nrc = cache_dataset.main(["--datapath", scene, "--type", "blender", "--savedir",
-                                      cache, "--half-res", "--blender-white-background",
-                                      "--format", "binary"])
-        stored = native.load_ray_cache_native(nrc)[:3]
-        live = captured["data"]["rays"]
-        same_store = all(np.array_equal(a, b) for a, b in zip(stored, live))
-        with quiet():
-            cached = train_nerf.main(["--config", cfg_py, "--device", DEVICE, "--overrides",
-                                      "experiment.id", "cached", "dataset.cachedir", cache,
-                                      "experiment.train_iters", str(DISK_CACHE_STEPS)])
-        same_losses = cached.losses == run.losses[:DISK_CACHE_STEPS]
-        print(f"[disk] cache_dataset --format binary: {os.path.getsize(nrc):,} bytes, store "
-              f"{'bitwise' if same_store else 'NOT bitwise'} the live one; the first "
-              f"{DISK_CACHE_STEPS} losses from it {'equal' if same_losses else 'DIFFER from'} "
-              f"the live run's")
-        check(same_store and same_losses and cached.store_builder == "cache",
-              "the .nrc store or its losses differ from the live run's")
+    ntc = os.path.join(run.logdir, f"checkpoint{DISK_RESUME_AT:05d}.ntc")
+    reset_launches()
+    with quiet():
+        rest = train_nerf.main(["--config", cfg_py, "--device", DEVICE, "--load-checkpoint",
+                                ntc, "--overrides", "experiment.id", "resumed"])
+    counts = read_launches()
+    whole_tail = torch.tensor(run.losses[DISK_RESUME_AT:])
+    rest_losses = torch.tensor(rest.losses)
+    diff = float((rest_losses - whole_tail).abs().max()) if len(rest.losses) else math.inf
+    same = bool(torch.equal(rest_losses, whole_tail))
+    print(f"[disk] resumed from {os.path.basename(ntc)}: steps {rest.start_step + 1}-"
+          f"{rest.start_step + len(rest.losses)}, {counts['fused_flex_mlp_train_fwd']} + "
+          f"{counts['fused_flex_mlp_train_bwd']} launches; losses "
+          f"{'bitwise' if same else 'NOT bitwise'} the uninterrupted run's (max |diff| "
+          f"{diff:.3e})")
+    check(rest.start_step == DISK_RESUME_AT and len(rest.losses) == DISK_STEPS - DISK_RESUME_AT,
+          f"resume ran {rest.start_step} + {len(rest.losses)} steps")
+    check(same, f"resumed losses differ from the uninterrupted run's by up to {diff}")
 
-        final = os.path.join(run.logdir, f"checkpoint{DISK_STEPS:05d}.ntc")
-        gif = os.path.join(tmp, "test.gif")
-        reset_launches()
-        with quiet():
-            ev = eval_nerf.main(["--config", cfg_py, "--checkpoint", final, "--savedir",
-                                 os.path.join(tmp, "test"), "--split", "test", "--gif", gif,
-                                 "--device", DEVICE])
-        n_test = DISK_VIEWS[2][1]
-        frame_launches = read_launches()["fused_mlp_t"]
-        expected = 2 * math.ceil(h * h / int(cfg.nerf.validation.chunksize)) * n_test
-        frames = gif_frame_count(open(gif, "rb").read())
-        db = min(ev.psnrs)
-        print(f"[disk] eval_nerf --split test --gif: {len(ev.psnrs)} frames through #1 "
-              f"({frame_launches} launches, expected {expected}), PSNR against the test PNGs "
-              f"on white {', '.join(f'{p:.2f}' for p in ev.psnrs)} dB (floor "
-              f"{DISK_PSNR_FLOOR_DB}); the GIF holds {frames} frames")
-        check(frame_launches == expected, f"eval launches {frame_launches} != {expected}")
-        check(all(ev.finite) and len(ev.psnrs) == n_test and frames == n_test, "eval frames")
-        check(db >= DISK_PSNR_FLOOR_DB, f"test-split PSNR {db} < {DISK_PSNR_FLOOR_DB}")
-        out.update(render_launches=frame_launches, psnr=db, eval_s=ev.steady_seconds)
+    cache = os.path.join(tmp, "cache")
+    with quiet():
+        nrc = cache_dataset.main(["--datapath", scene, "--type", "blender", "--savedir",
+                                  cache, "--half-res", "--blender-white-background",
+                                  "--format", "binary"])
+    stored = native.load_ray_cache_native(nrc)[:3]
+    live = captured["data"]["rays"]
+    same_store = all(np.array_equal(a, b) for a, b in zip(stored, live))
+    with quiet():
+        cached = train_nerf.main(["--config", cfg_py, "--device", DEVICE, "--overrides",
+                                  "experiment.id", "cached", "dataset.cachedir", cache,
+                                  "experiment.train_iters", str(DISK_CACHE_STEPS)])
+    same_losses = cached.losses == run.losses[:DISK_CACHE_STEPS]
+    print(f"[disk] cache_dataset --format binary: {os.path.getsize(nrc):,} bytes, store "
+          f"{'bitwise' if same_store else 'NOT bitwise'} the live one; the first "
+          f"{DISK_CACHE_STEPS} losses from it {'equal' if same_losses else 'DIFFER from'} "
+          f"the live run's")
+    check(same_store and same_losses and cached.store_builder == "cache",
+          "the .nrc store or its losses differ from the live run's")
 
-        fern = os.path.join(tmp, "fern")
-        write_llff_scene(fern, dev)
-        fcfg = fern_config()
-        fcfg.merge_from_list(["dataset.basedir", fern, "experiment.logdir", tmp,
-                              "experiment.train_iters", LLFF_STEPS,
-                              "experiment.save_every", LLFF_STEPS])
-        fern_py = write_py_config(fcfg, os.path.join(tmp, "fern.py"))
-        reset_launches()
-        with quiet():
-            frun = train_nerf.main(["--config", fern_py, "--device", DEVICE])
-            fev = eval_nerf.main(["--config", fern_py, "--checkpoint", os.path.join(
-                frun.logdir, f"checkpoint{LLFF_STEPS:05d}.ntc"), "--savedir",
-                os.path.join(tmp, "fern_test"), "--split", "test", "--device", DEVICE])
-        counts = read_launches()
-        flosses = torch.tensor(frun.losses)
-        print(f"[disk] fern protocol on an LLFF scene ({LLFF_VIEWS} views minified to "
-              f"{LLFF_SIZE[1]}x{LLFF_SIZE[0]}, NDC): {len(frun.losses)} steps on the plain path "
-              f"(#8 launches {counts['fused_flex_mlp_train_fwd']}), loss "
-              f"{float(flosses[0]):.5f} -> {float(flosses[-1]):.5f}; --split test "
-              f"{len(fev.psnrs)} frames, PSNR {', '.join(f'{p:.2f}' for p in fev.psnrs)} dB")
-        check(os.path.isdir(os.path.join(fern, "images_8")), "no images_8/ minified")
-        check(len(frun.losses) == LLFF_STEPS and bool(torch.isfinite(flosses).all()),
-              "LLFF losses")
-        check(counts["fused_flex_mlp_train_fwd"] == 0, "the 4x64 fern model reached #8")
-        check(all(fev.finite) and len(fev.psnrs) == len(range(0, LLFF_VIEWS, 8)),
-              "LLFF test frames")
+    final = os.path.join(run.logdir, f"checkpoint{DISK_STEPS:05d}.ntc")
+    gif = os.path.join(tmp, "test.gif")
+    reset_launches()
+    with quiet():
+        ev = eval_nerf.main(["--config", cfg_py, "--checkpoint", final, "--savedir",
+                             os.path.join(tmp, "test"), "--split", "test", "--gif", gif,
+                             "--device", DEVICE])
+    n_test = DISK_VIEWS[2][1]
+    frame_launches = read_launches()["fused_mlp_t"]
+    expected = 2 * math.ceil(h * h / int(cfg.nerf.validation.chunksize)) * n_test
+    frames = gif_frame_count(open(gif, "rb").read())
+    db = min(ev.psnrs)
+    print(f"[disk] eval_nerf --split test --gif: {len(ev.psnrs)} frames through #1 "
+          f"({frame_launches} launches, expected {expected}), PSNR against the test PNGs "
+          f"on white {', '.join(f'{p:.2f}' for p in ev.psnrs)} dB (floor "
+          f"{DISK_PSNR_FLOOR_DB}); the GIF holds {frames} frames")
+    check(frame_launches == expected, f"eval launches {frame_launches} != {expected}")
+    check(all(ev.finite) and len(ev.psnrs) == n_test and frames == n_test, "eval frames")
+    check(db >= DISK_PSNR_FLOOR_DB, f"test-split PSNR {db} < {DISK_PSNR_FLOOR_DB}")
+    out.update(render_launches=frame_launches, psnr=db, eval_s=ev.steady_seconds,
+               scene=scene, cfg_py=cfg_py, checkpoint=final)
+
+    fern = os.path.join(tmp, "fern")
+    write_llff_scene(fern, dev)
+    fcfg = fern_config()
+    fcfg.merge_from_list(["dataset.basedir", fern, "experiment.logdir", tmp,
+                          "experiment.train_iters", LLFF_STEPS,
+                          "experiment.save_every", LLFF_STEPS])
+    fern_py = write_py_config(fcfg, os.path.join(tmp, "fern.py"))
+    reset_launches()
+    with quiet():
+        frun = train_nerf.main(["--config", fern_py, "--device", DEVICE])
+        fev = eval_nerf.main(["--config", fern_py, "--checkpoint", os.path.join(
+            frun.logdir, f"checkpoint{LLFF_STEPS:05d}.ntc"), "--savedir",
+            os.path.join(tmp, "fern_test"), "--split", "test", "--device", DEVICE])
+    counts = read_launches()
+    flosses = torch.tensor(frun.losses)
+    print(f"[disk] fern protocol on an LLFF scene ({LLFF_VIEWS} views minified to "
+          f"{LLFF_SIZE[1]}x{LLFF_SIZE[0]}, NDC): {len(frun.losses)} steps on the plain path "
+          f"(#8 launches {counts['fused_flex_mlp_train_fwd']}), loss "
+          f"{float(flosses[0]):.5f} -> {float(flosses[-1]):.5f}; --split test "
+          f"{len(fev.psnrs)} frames, PSNR {', '.join(f'{p:.2f}' for p in fev.psnrs)} dB")
+    check(os.path.isdir(os.path.join(fern, "images_8")), "no images_8/ minified")
+    check(len(frun.losses) == LLFF_STEPS and bool(torch.isfinite(flosses).all()),
+          "LLFF losses")
+    check(counts["fused_flex_mlp_train_fwd"] == 0, "the 4x64 fern model reached #8")
+    check(all(fev.finite) and len(fev.psnrs) == len(range(0, LLFF_VIEWS, 8)),
+          "LLFF test frames")
 
     print(f"[time] phase 17: decode + resize {1e3 * out['load_s_per_image']:.1f} ms an "
           f"{DISK_SIZE}x{DISK_SIZE} RGBA image, store build {out['store_s']:.2f} s "
           f"({want_rays:,} rays); training {out['rays_per_sec']:,.0f} rays/s on the blender "
           f"store against {synthetic_rays_per_sec:,.0f} on phase 7's synthetic store; eval "
           f"{out['eval_s']:.4f} s a {h}x{h} test frame (f32) {on}")
+    return out
+
+
+@contextlib.contextmanager
+def cached_blender_loads():
+    """Decode the blender dataset once for phase 18's entry points (phase 17
+    measures the decode): ``load_blender_data`` memoized by its arguments in
+    the modules that call it."""
+    from nerf_tpu_torch import optimize_poses, train_nerf
+    from nerf_tpu_torch.data import eval_poses
+
+    modules = (eval_poses, train_nerf, optimize_poses)
+    real = eval_poses.load_blender_data
+    memo = {}
+
+    def cached(*args, **kwargs):
+        key = (args, tuple(sorted(kwargs.items())))
+        if key not in memo:
+            memo[key] = real(*args, **kwargs)
+        return memo[key]
+
+    for m in modules:
+        m.load_blender_data = cached
+    try:
+        yield
+    finally:
+        for m in modules:
+            m.load_blender_data = real
+
+
+def fine_on_common_depths(mc, mf, ro, rd, s):
+    """rgb_fine of the kernel and the plain path at rays (ro, rd), both fine
+    passes on the kernel path's resampled depths: the renderer's
+    ``sample_pdf`` recorded on the kernel path and replayed on the plain
+    one, so the box, the sentinel and the compositing are the renderer's
+    own."""
+    import torch
+
+    from nerf_tpu_torch.engine import renderer
+
+    real = renderer.sample_pdf
+    taken = []
+
+    def record(*args, **kwargs):
+        taken.append(real(*args, **kwargs))
+        return taken[-1]
+
+    try:
+        with torch.inference_mode():
+            renderer.sample_pdf = record
+            kernel = renderer.render_rays(mc, mf, ro, rd, dataclasses.replace(s, use_pallas=True))
+            renderer.sample_pdf = lambda *args, **kwargs: taken.pop(0)
+            plain = renderer.render_rays(mc, mf, ro, rd, dataclasses.replace(s, use_pallas=False))
+    finally:
+        renderer.sample_pdf = real
+    return kernel.fine.rgb, plain.fine.rgb
+
+
+def check_frames(mc, mf, s, poses, hwf, what: str) -> dict:
+    """Phase 5's gates on each pose's frame, kernel path against plain path
+    at settings ``s``: coarse rgb within RENDER_RGB_TOL, fine rgb too but at
+    up to MAX_RESAMPLE_PIXELS pixels, each of which must agree on common
+    depths. Returns the kernel frames' maps and the worst errors."""
+    import torch
+
+    from nerf_tpu_torch.engine.renderer import make_pose_render_fn
+    from nerf_tpu_torch.ops import get_ray_bundle
+
+    h, w, focal = hwf
+    kernel = make_pose_render_fn(mc, mf, dataclasses.replace(s, use_pallas=True), h, w, focal)
+    plain = make_pose_render_fn(mc, mf, dataclasses.replace(s, use_pallas=False), h, w, focal)
+    worst = {"coarse": 0.0, "fine": 0.0, "outliers": 0, "common": 0.0, "frames": []}
+    for pose in poses:
+        c2w = torch.as_tensor(pose[:3, :4], dtype=torch.float32, device=DEVICE)
+        k, p = kernel(c2w), plain(c2w)
+        coarse = float((k["rgb_coarse"] - p["rgb_coarse"]).abs().max())
+        fine_err = (k["rgb_fine"] - p["rgb_fine"]).abs().amax(dim=-1).reshape(-1)
+        outliers = torch.nonzero(fine_err > RENDER_RGB_TOL).flatten()
+        check(coarse <= RENDER_RGB_TOL, f"{what}: rgb_coarse kernel vs plain {coarse}")
+        check(len(outliers) <= MAX_RESAMPLE_PIXELS, f"{what}: {len(outliers)} rgb_fine outliers")
+        if len(outliers):
+            ro, rd = get_ray_bundle(h, w, focal, c2w)
+            kf, pf = fine_on_common_depths(mc, mf, ro.reshape(-1, 3)[outliers],
+                                           rd.reshape(-1, 3)[outliers], s)
+            common = float((kf - pf).abs().max())
+            check(common <= RENDER_RGB_TOL, f"{what}: rgb_fine on common depths {common}")
+            worst["common"] = max(worst["common"], common)
+        worst["coarse"] = max(worst["coarse"], coarse)
+        worst["fine"] = max(worst["fine"], float(fine_err.max()))
+        worst["outliers"] = max(worst["outliers"], len(outliers))
+        worst["frames"].append(k)
+    print(f"[geometry] {what}: {len(poses)} frames, kernel vs plain: rgb_coarse "
+          f"{worst['coarse']:.3e}, rgb_fine {worst['fine']:.3e}, {worst['outliers']} pixels a "
+          f"frame over {RENDER_RGB_TOL:g} (<= {MAX_RESAMPLE_PIXELS}), {worst['common']:.3e} on "
+          f"common depths")
+    return worst
+
+
+def faces_per_edge(faces):
+    """How many faces hold each edge of a triangle mesh (2 everywhere on a
+    closed one)."""
+    import numpy as np
+
+    edges = np.sort(np.concatenate([faces[:, [0, 1]], faces[:, [1, 2]], faces[:, [2, 0]]]),
+                    axis=1)
+    return np.unique(edges, axis=0, return_counts=True)[1]
+
+
+def mesh_normals(verts, faces):
+    """Each vertex's area-weighted sum of its faces' winding normals."""
+    import numpy as np
+
+    p0, p1, p2 = (verts[faces[:, k]].astype(np.float64) for k in range(3))
+    out = np.zeros((verts.shape[0], 3))
+    for k in range(3):
+        np.add.at(out, faces[:, k], np.cross(p1 - p0, p2 - p0))
+    return out
+
+
+def analytic_sphere_mesh(dev) -> None:
+    """The mesh of the analytic scene's own field (``data/synthetic.py``,
+    sigma = 40 (0.8 - r)) at GEO_ISO, through ``engine/geometry.extract_mesh``
+    on the card at 256^3: watertight, the baked and the winding normals
+    outward, every vertex within a voxel diagonal of the analytic shell."""
+    import numpy as np
+    import torch
+
+    from nerf_tpu_torch.data import analytic_radiance_field
+    from nerf_tpu_torch.engine import geometry
+
+    class AnalyticField(torch.nn.Module):
+        use_viewdirs = False
+        dim_dir = 0
+
+        def __init__(self):
+            super().__init__()
+            self.anchor = torch.nn.Parameter(torch.zeros((), device=dev))   # its device
+
+        def forward(self, enc):
+            return analytic_radiance_field(enc[..., :3])
+
+    s = geometry.RenderSettings(num_encoding_fn_xyz=0, use_viewdirs=False)
+    verts, faces, _, normals = geometry.extract_mesh(AnalyticField(), s, resolution=GEO_RESOLUTION,
+                                                     iso=GEO_ISO, chunk=262144,
+                                                     with_colors=False)
+    per_edge = faces_per_edge(faces)
+    baked = float(((normals * verts).sum(axis=1) > 0).mean())
+    winding = float(((mesh_normals(verts, faces) * verts).sum(axis=1) > 0).mean())
+    r_iso = 0.8 - GEO_ISO / 40.0
+    off = float(np.abs(np.linalg.norm(verts, axis=1) - r_iso).max())
+    diagonal = 3.0 * math.sqrt(3.0) / (GEO_RESOLUTION - 1)
+    print(f"[geometry] the analytic field's mesh at iso {GEO_ISO:g}: {verts.shape[0]:,} "
+          f"vertices, every edge in {per_edge.min()}..{per_edge.max()} faces, normals outward "
+          f"{100 * baked:.2f}% baked and {100 * winding:.2f}% by the winding (at least "
+          f"{100 * GEO_OUTWARD:g}%), vertices at most {off:.2e} off r = {r_iso:.2f} (a voxel "
+          f"diagonal {diagonal:.2e})")
+    check(verts.shape[0] > 0 and int(per_edge.min()) == 2 == int(per_edge.max()),
+          "the analytic mesh is not watertight")
+    check(min(baked, winding) >= GEO_OUTWARD, f"analytic mesh normals outward {baked}, {winding}")
+    check(off <= diagonal, f"analytic mesh vertices {off} off the shell")
+
+
+def pose_recovery(dev) -> dict:
+    """``tests/test_pose_refinement.py:126-175`` on the card (POSE_GAIN's
+    setup): a narrow opacified field renders two cameras, which are
+    perturbed by 2 degrees / 0.04 and recovered through
+    ``make_pose_opt_loop``. Returns the errors before and after."""
+    import numpy as np
+    import torch
+
+    from nerf_tpu_torch.data import pose_spherical
+    from nerf_tpu_torch.engine import pose_opt
+    from nerf_tpu_torch.engine.renderer import RenderSettings, make_pose_render_fn
+    from nerf_tpu_torch.models import FlexibleNeRFModel
+
+    h = w = 20
+    focal = 18.0
+    s = RenderSettings(num_coarse=12, num_fine=12, perturb=False, radiance_field_noise_std=0.0,
+                       white_background=False, num_encoding_fn_xyz=4, num_encoding_fn_dir=2)
+    model = FlexibleNeRFModel(num_layers=2, hidden_size=32, num_encoding_fn_xyz=4,
+                              num_encoding_fn_dir=2, generator=torch.Generator().manual_seed(SEED))
+    with torch.no_grad():
+        for p in model.parameters():
+            p.mul_(3.0)
+        model.fc_alpha.bias.add_(2.0)
+    model.to(dev)
+    true = torch.tensor(np.stack([pose_spherical(30.0 + 140.0 * i, -30.0, 4.0)[:3, :4]
+                                  for i in range(2)]), dtype=torch.float32, device=dev)
+    render = make_pose_render_fn(model, model, s, h, w, focal, output="f32")
+    images = torch.stack([render(pose) for pose in true])
+    noisy = pose_opt.perturb_poses(true, SEED, 2.0, 0.04)
+    base = pose_opt.as_homogeneous(noisy)
+    state = pose_opt.init_pose_opt_state(2, pose_opt.pose_optimizer(3e-3), dev)
+    loop = pose_opt.make_pose_opt_loop(model, model, s, h, w, focal, 48, 40)
+    for i in range(4):
+        state, losses = loop(state, base, images, i)
+    before = pose_opt.pose_errors(noisy, true)
+    with torch.no_grad():
+        after = pose_opt.pose_errors(pose_opt.twists_to_poses(state.xi, base), true)
+    out = {f"{when}_{name}": float(err[name].mean())
+           for when, err in (("before", before), ("after", after)) for name in ("rot_deg", "trans")}
+    print(f"[geometry] the JAX test's refinement (2 x 32 field, 2 cameras, 160 steps): rotation "
+          f"error {out['before_rot_deg']:.4f} -> {out['after_rot_deg']:.4f} deg (gate < "
+          f"{POSE_GAIN} x), translation {out['before_trans']:.5f} -> {out['after_trans']:.5f}")
+    check(bool(torch.isfinite(losses).all())
+          and out["after_rot_deg"] < POSE_GAIN * out["before_rot_deg"]
+          and out["after_trans"] < out["before_trans"], "pose refinement did not recover the poses")
+    return out
+
+
+def geometry_main_path(dev, on: str, disk: dict) -> dict:
+    """Phase 18: geometry and camera-pose refinement on phase 17's trained
+    field and dataset, through the entry points a user calls:
+    ``train_nerf --tighten-aabb`` resumed (#8 on the tightened intervals),
+    ``eval_nerf --tighten-aabb --split test`` in f32 and bf16 (#1), a
+    covering box against no box, ``extract_geometry`` at its defaults, and
+    ``optimize_poses``, frozen and ``--joint-train``. Returns the launches
+    and times."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from nerf_tpu_torch import eval_nerf, extract_geometry, optimize_poses, train_nerf
+    from nerf_tpu_torch.config import load_config, render_settings_from_config
+    from nerf_tpu_torch.data import load_render_split
+    from nerf_tpu_torch.engine import geometry
+    from nerf_tpu_torch.engine.checkpoint import load_models_and_params
+
+    tmp = os.path.dirname(disk["scene"])
+    cfg_py, ckpt = disk["cfg_py"], disk["checkpoint"]
+    cfg = load_config(cfg_py)
+    tau = str(GEO_TAU)
+    out = {}
+    with cached_blender_loads():
+        reset_launches()
+        with quiet():
+            run = train_nerf.main(["--config", cfg_py, "--device", DEVICE, "--load-checkpoint",
+                                   ckpt, "--tighten-aabb", tau, "--overrides", "experiment.id",
+                                   "tight", "experiment.train_iters",
+                                   str(DISK_STEPS + GEO_TIGHT_STEPS)])
+        counts = read_launches()
+        launches = {"fwd": counts["fused_flex_mlp_train_fwd"],
+                    "bwd": counts["fused_flex_mlp_train_bwd"]}
+        box = run.aabb
+        steps = len(run.losses)
+        losses = torch.tensor(run.losses)
+        print(f"[geometry] train_nerf --tighten-aabb {tau} from {os.path.basename(ckpt)}: box "
+              f"({', '.join(f'{v:.4f}' for v in box)}) by a 64^3 sweep in "
+              f"{run.aabb_seconds:.3f} s; {steps} bf16 steps, {launches['fwd']} + "
+              f"{launches['bwd']} launches of #8 (expected {2 * steps} each), loss "
+              f"{float(losses[0]):.5f} -> {float(losses[-1]):.5f}")
+        check(run.start_step == DISK_STEPS and steps == GEO_TIGHT_STEPS
+              and launches["fwd"] == 2 * steps and launches["bwd"] == 2 * steps,
+              f"tightened training: {run.start_step} + {steps} steps, launches {launches}")
+        check(bool(torch.isfinite(losses).all()), "tightened training loss not finite")
+        lo, hi = np.asarray(box[:3]), np.asarray(box[3:])
+        ball = GEO_BALL - GEO_VOXEL
+        check(bool(np.all(lo > -1.5) and np.all(hi < 1.5)),
+              f"box {box} not strictly inside the sweep cube")
+        check(bool(np.all(lo <= -ball) and np.all(hi >= ball)),
+              f"box {box} does not hold the sigma > {GEO_TAU} ball less a voxel (r {ball:.4f})")
+        out.update(train_launches=launches, sweep64_s=run.aabb_seconds, box=box)
+
+        split = load_render_split(cfg, "test", white_background=True)
+        hwf = (split.height, split.width, split.focal)
+        n_test = len(split.poses)
+        expected = 2 * math.ceil(split.height * split.width
+                                 / int(cfg.nerf.validation.chunksize)) * n_test
+        evals = {}
+        for precision in ("float32", "bfloat16"):
+            reset_launches()
+            with quiet():
+                ev = evals[precision] = eval_nerf.main([
+                    "--config", cfg_py, "--checkpoint", ckpt, "--savedir",
+                    os.path.join(tmp, f"tight_{precision}"), "--split", "test", "--precision",
+                    precision, "--tighten-aabb", tau, "--device", DEVICE])
+            frame_launches = read_launches()["fused_mlp_t"]
+            print(f"[geometry] eval_nerf --tighten-aabb {tau} --split test --precision "
+                  f"{precision}: {frame_launches} launches of #1 (expected {expected}), PSNR "
+                  f"{', '.join(f'{p:.2f}' for p in ev.psnrs)} dB (floor {DISK_PSNR_FLOOR_DB}), "
+                  f"{ev.steady_seconds:.4f} s a frame against phase 17's untightened f32 "
+                  f"{disk['eval_s']:.4f} s {on}")
+            check(frame_launches == expected, f"eval launches {frame_launches} != {expected}")
+            check(all(ev.finite) and len(ev.psnrs) == n_test
+                  and min(ev.psnrs) >= DISK_PSNR_FLOOR_DB, f"tightened {precision} frames")
+            out[f"render_launches_{precision}"] = frame_launches
+            out[f"frame_s_{precision}"] = ev.steady_seconds
+        check(evals["float32"].aabb == box, f"eval's box {evals['float32'].aabb} != train's")
+
+        mc, mf, _ = load_models_and_params(ckpt, cfg, DEVICE)
+        s = render_settings_from_config(cfg, "validation", hwf=hwf)
+        tight = check_frames(mc, mf, dataclasses.replace(s, aabb=box), split.poses, hwf,
+                             f"tightened f32 (box {', '.join(f'{v:.3f}' for v in box)})")
+        cli_first = evals["float32"].first_maps["rgb_fine"]
+        check(torch.equal(cli_first, tight["frames"][0]["rgb_fine"].cpu()),
+              "eval_nerf's first tightened frame differs from the kernel path's")
+
+        cover = geometry.density_aabb(mc, s, tau=1e9, bbox_min=(-10.0,) * 3,
+                                      bbox_max=(10.0,) * 3)
+        check(cover == (-10.0,) * 3 + (10.0,) * 3, f"covering box {cover}")
+        covered = check_frames(mc, mf, dataclasses.replace(s, aabb=cover), split.poses[:1], hwf,
+                               "covering box (the sweep bounds [-10, 10]^3), f32")
+        free = check_frames(mc, mf, s, split.poses[:1], hwf, "no box, f32")
+        diff = {k: float((covered["frames"][0][k] - free["frames"][0][k]).abs().max())
+                for k in ("rgb_coarse", "rgb_fine", "depth_fine")}
+        print(f"[geometry] covering box vs no box, kernel path: max |diff| "
+              + ", ".join(f"{k} {v:.3e}" for k, v in diff.items()))
+        check(diff["rgb_coarse"] <= RENDER_RGB_TOL and diff["rgb_fine"] <= RENDER_RGB_TOL,
+              f"a covering box changed the frame: {diff}")
+
+        mesh = os.path.join(tmp, "lego_mesh.ply")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            extract_geometry.main(["--config", cfg_py, "--checkpoint", ckpt, "--output", mesh,
+                                   "--iso", str(GEO_ISO), "--resolution", str(GEO_RESOLUTION),
+                                   "--chunk", "262144", "--device", DEVICE])
+        for line in buf.getvalue().splitlines():
+            print(f"[geometry] extract_geometry: {line.replace(tmp, '<tmp>')} {on}")
+        verts, faces, colors, normals = geometry.load_ply(mesh)
+        per_edge = faces_per_edge(faces)
+        winding = mesh_normals(verts, faces)
+        outward = float(((winding * verts).sum(axis=1) > 0).mean())
+        baked_out = float(((normals * verts).sum(axis=1) > 0).mean())
+        agree = float(((winding * normals).sum(axis=1) > 0).mean())
+        radii = np.linalg.norm(verts, axis=1)
+        r_lo, r_hi = np.percentile(radii, [1, 99])
+        print(f"[geometry] mesh at iso {GEO_ISO:g}: {verts.shape[0]:,} vertices, "
+              f"{faces.shape[0]:,} faces, every edge in {per_edge.min()}..{per_edge.max()} "
+              f"faces; mesh normals outward (n . v > 0) {100 * outward:.2f}%, baked normals "
+              f"{100 * baked_out:.2f}%, agreeing with the mesh's {100 * agree:.2f}%; vertex "
+              f"radii {radii.min():.4f} .. {radii.max():.4f}, 1st-99th percentile "
+              f"{r_lo:.4f} .. {r_hi:.4f} (band {GEO_RADII[0]} .. {GEO_RADII[1]}; the analytic "
+              f"shell r = {0.8 - GEO_ISO / 40.0:.2f})")
+        check(verts.shape[0] > 0 and colors is not None and normals is not None, "mesh parts")
+        check(int(per_edge.min()) == 2 == int(per_edge.max()), "the mesh is not watertight")
+        check(GEO_RADII[0] <= r_lo and r_hi <= GEO_RADII[1], f"vertex radii {r_lo}..{r_hi}")
+        analytic_sphere_mesh(dev)
+
+        model = mf if mf is not None else mc
+        timed = {}
+        for name, make in (("colours", geometry.make_rgb_query_fn),
+                           ("normals", geometry.make_normals_query_fn)):
+            query = make(model, s, 262144)
+            query(verts)   # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            query(verts)
+            timed[name] = time.perf_counter() - t0
+        grid_fn = {d: geometry.make_sigma_grid_fn(m, s, GEO_GRID_CHECK, (-1.5,) * 3, (1.5,) * 3,
+                                                  262144)
+                   for d, m in (("cuda", model), ("cpu", copy.deepcopy(model).cpu()))}
+        grids = {d: fn() for d, fn in grid_fn.items()}
+        some = verts[:GEO_NORMALS_CHECK]
+        cpu_normals = geometry.make_normals_query_fn(copy.deepcopy(model).cpu(), s, 262144)(some)
+        normal_err = np.abs(normals[:GEO_NORMALS_CHECK] - cpu_normals).max(axis=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        full = geometry.make_sigma_grid_fn(model, s, GEO_RESOLUTION, (-1.5,) * 3, (1.5,) * 3,
+                                           262144)()
+        sweep_s = time.perf_counter() - t0
+        axis = np.linspace(-1.5, 1.5, GEO_RESOLUTION)
+        shell = np.sqrt(axis[:, None, None] ** 2 + axis[None, :, None] ** 2
+                        + axis[None, None, :] ** 2)
+        profile = [float(full[(shell >= r) & (shell < r + 0.1)].mean())
+                   for r in np.arange(0.0, 1.0, 0.1)]
+        print("[geometry] mean sigma on shells r = 0.0-0.1, ..., 0.9-1.0: "
+              + ", ".join(f"{v:.2f}" for v in profile) + " (analytic 40 (0.8 - r))")
+        grid_err = float(np.abs(grids["cuda"] - grids["cpu"]).max())
+        grid_max = float(grids["cpu"].max())
+        print(f"[geometry] the card's {GEO_GRID_CHECK}^3 grid against the CPU's: max |diff| "
+              f"{grid_err:.3e} (tol {GEO_GRID_TOL:g} x the max {grid_max:.2f}); "
+              f"{GEO_RESOLUTION}^3 sweep again {sweep_s:.3f} s "
+              f"({GEO_RESOLUTION ** 3 / sweep_s / 1e6:.1f} M points/s), max sigma "
+              f"{float(full.max()):.2f}; vertex queries on {verts.shape[0]:,} points: colours "
+              f"{timed['colours']:.4f} s, normals {timed['normals']:.4f} s {on}")
+        print(f"[geometry] the card's baked normals against the CPU's at {len(some):,} "
+              f"vertices: max |diff| {float(normal_err.max()):.3e}, 99th percentile "
+              f"{float(np.percentile(normal_err, 99)):.3e} (tol {GEO_GRID_TOL:g})")
+        check(grid_err <= GEO_GRID_TOL * grid_max, f"card grid vs CPU grid {grid_err}")
+        check(float(np.percentile(normal_err, 99)) <= GEO_GRID_TOL,
+              f"card normals vs CPU normals {np.percentile(normal_err, 99)}")
+        out.update(sweep256_s=sweep_s, queries_s=timed, vertices=verts.shape[0])
+
+        with quiet():
+            rep = optimize_poses.main(["--config", cfg_py, "--checkpoint", ckpt, "--device",
+                                       DEVICE, *POSE_ARGS])
+        per_iter = rep["wall_s"] / rep["iters"]
+        print(f"[geometry] optimize_poses {' '.join(POSE_ARGS)}: {rep['iters']} iterations, "
+              f"loss {rep['initial_loss']:.6f} -> {rep['final_loss']:.6f} (gate < "
+              f"{POSE_LOSS_GAIN} x), rotation error {rep['initial_rot_deg_mean']:.4f} -> "
+              f"{rep['final_rot_deg_mean']:.4f} deg, translation {rep['initial_trans_mean']:.5f}"
+              f" -> {rep['final_trans_mean']:.5f}; {rep['wall_s']} s, {per_iter:.4f} s an "
+              f"iteration {on}")
+        check(all(math.isfinite(rep[k]) for k in ("final_loss", "final_rot_deg_mean",
+                                                  "final_trans_mean"))
+              and rep["final_loss"] < POSE_LOSS_GAIN * rep["initial_loss"],
+              "pose refinement did not lower the photometric loss")
+        recovery = pose_recovery(dev)
+        joint = os.path.join(tmp, "joint.ntc")
+        with quiet():
+            jrep = optimize_poses.main(["--config", cfg_py, "--checkpoint", ckpt, "--device",
+                                        DEVICE, "--joint-train", "--iters", str(JOINT_ITERS),
+                                        "--steps-per-loop", "5", "--save-checkpoint", joint,
+                                        *POSE_ARGS])
+            jev = eval_nerf.main(["--config", cfg_py, "--checkpoint", joint, "--savedir",
+                                  os.path.join(tmp, "joint_eval"), "--split", "test",
+                                  "--num-poses", "1", "--device", DEVICE])
+        print(f"[geometry] optimize_poses --joint-train, {jrep['iters']} iterations: loss "
+              f"{jrep['initial_loss']:.6f} -> {jrep['final_loss']:.6f}, aligned rotation error "
+              f"{jrep['aligned_rot_deg_mean']:.4f} deg; eval_nerf renders its .ntc: PSNR "
+              f"{jev.psnrs[0]:.2f} dB")
+        check(all(math.isfinite(jrep[k]) for k in ("initial_loss", "final_loss",
+                                                   "aligned_rot_deg_mean")),
+              "joint training not finite")
+        check(jrep.get("saved_checkpoint") == joint and all(jev.finite), "joint checkpoint")
+        out.update(pose_s_per_iter=per_iter, pose_wall_s=rep["wall_s"], recovery=recovery)
     return out
 
 
@@ -2409,8 +2892,11 @@ def main() -> int:
           f"{served['last_render_s']} s against phase 5's bf16 kernel frame "
           f"{frame_s['kernel bf16']:.4f} s {on}")
 
-    # Phase 17: the flagship protocol from a dataset on disk.
-    disk = disk_main_path(dev, on, trained["rays_per_sec"])
+    # Phase 17: the flagship protocol from a dataset on disk; phase 18:
+    # geometry and pose refinement on its field and dataset.
+    with tempfile.TemporaryDirectory() as tmp:
+        disk = disk_main_path(dev, on, trained["rays_per_sec"], tmp)
+        geo = geometry_main_path(dev, on, disk)
 
     entries = []
 
@@ -2441,7 +2927,9 @@ def main() -> int:
     p = n * s
     entry("fused_mlp_t", "mlp_t.cu", "mlp_t.py:164", launches, worst, times,
           2 * p * MACS_PER_POINT, 4 * (3 * p + 64 * n + 82820 + 4 * p),
-          disk_launches=disk["render_launches"])
+          disk_launches=disk["render_launches"],
+          tightened_launches=geo["render_launches_float32"],
+          tightened_launches_bf16=geo["render_launches_bfloat16"])
     entry("fused_paper_mlp_t", "paper_t.cu", "paper_t.py:177", paper["render_launches"],
           {d: paper_worst["t", d] for d in ("float32", "bfloat16")},
           {d: paper_times["t", d] for d in ("float32", "bfloat16")},
@@ -2461,7 +2949,8 @@ def main() -> int:
               else 4 * (4 * p + 767 * p + 74048 + 82820 + 64 * n),
               4 * (3 * p + 64 * n + 82820 + 4 * p) + 2 * (82240 + 768 * p) if which == "fwd"
               else 4 * (4 * p + 82820 + 64 * n) + 2 * (768 * p + 76800),
-              disk_launches=disk["launches"][which])
+              disk_launches=disk["launches"][which],
+              tightened_launches=geo["train_launches"][which])
     # The bf16 instances keep bf16 residuals (2,752 rows a point) and read
     # bf16 weights (623,232 forward, 595,968 backward values at F = 10).
     for which, line in (("fwd", 197), ("bwd", 241)):
@@ -2527,6 +3016,7 @@ def main() -> int:
           chain_c_frame_s_bf16=bf16_frames["frame", "chain C"])
     for e in entries:
         check(e["launches"] > 0, f"{e['name']} was not launched on its main path")
+    print(f"[device] {card}")   # again, near the end, where a reader of the tail finds it
     print(json.dumps({"kernels": [{k: float(f"{v:.6g}") if type(v) is float else v
                                     for k, v in e.items()} for e in entries]}))
     print(json.dumps({"ok": True, "device": {

@@ -229,11 +229,15 @@ def make_train_step(model_coarse, model_fine, settings: RenderSettings,
     return train_step
 
 
+def fold_seed(seed: int, i: int) -> int:
+    """A seed derived from (seed, i), where JAX folds ``i`` into a key."""
+    return (int(seed) * 1_000_003 + int(i)) % (2**63 - 1)
+
+
 def step_generator(base_seed: int, step: int, device) -> torch.Generator:
     """The generator of one step: seeded from (base seed, step) alone, so
     resume and replay draw the same numbers whatever the steps per call."""
-    seed = (int(base_seed) * 1_000_003 + int(step)) % (2**63 - 1)
-    return torch.Generator(device=device).manual_seed(seed)
+    return torch.Generator(device=device).manual_seed(fold_seed(base_seed, step))
 
 
 def make_train_loop(model_coarse, model_fine, settings: RenderSettings, batch_size: int,

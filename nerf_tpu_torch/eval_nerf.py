@@ -10,6 +10,11 @@ Usage:
   python -m nerf_tpu_torch.eval_nerf --config cfg.yml --checkpoint ckpt --savedir out/ \
       [--split test] [--gif out.gif]
 
+``--tighten-aabb TAU`` sweeps the checkpoint's coarse density field once
+(64^3, ``engine/geometry.density_aabb``) and cuts every ray's sample
+interval to its crossing of the box around sigma > TAU; the kernel path
+then renders those intervals.
+
 ``--renderer kernel`` (the default) evaluates the radiance field with the
 hand-written CUDA kernel of the model's family, FlexibleNeRF or PaperNeRF
 (the JAX CLI's ``pallas``); ``--renderer plain``
@@ -32,6 +37,7 @@ import torch
 from .config import load_config, render_settings_from_config
 from .data.eval_poses import load_render_split
 from .engine.checkpoint import load_models_and_params
+from .engine.geometry import tighten_to_density_aabb
 from .engine.renderer import make_pose_render_fn
 from .utils.gif import write_gif
 from .utils.png import write_png
@@ -55,6 +61,8 @@ class EvalResult:
     finite: List[bool]          # per frame: every map finite
     first_maps: Dict[str, torch.Tensor]  # frame 0's maps, on the CPU
     psnrs: List[float] = dataclasses.field(default_factory=list)  # per frame, on a split
+    aabb: Optional[tuple] = None        # the --tighten-aabb box, when swept
+    aabb_seconds: float = 0.0           # the sweep's host seconds
 
     @property
     def steady_seconds(self) -> float:
@@ -74,9 +82,12 @@ def render_trajectory(
     save_disparity_image: bool = False,
     split: str = "render",
     gif: str = "",
+    tighten_aabb: Optional[float] = None,
+    aabb_sweep_bounds: Optional[List[float]] = None,
 ) -> EvalResult:
     """Render the config's trajectory, or the poses of dataset split
-    ``split``, from ``checkpoint`` into ``savedir`` (and ``gif``)."""
+    ``split``, from ``checkpoint`` into ``savedir`` (and ``gif``);
+    ``tighten_aabb``: the density threshold of ``--tighten-aabb``."""
     if renderer not in ("kernel", "plain"):
         raise ValueError(f"renderer must be 'kernel' or 'plain', got {renderer!r}")
     render_poses, h, w, focal, truth = load_render_split(
@@ -90,6 +101,13 @@ def render_trajectory(
         compute_dtype=precision,
         use_pallas=(renderer == "kernel"),
     )
+    box, box_seconds = None, 0.0
+    if tighten_aabb is not None:
+        if settings.use_ndc:
+            raise SystemExit("--tighten-aabb is incompatible with NDC (LLFF) scenes")
+        box, box_seconds = tighten_to_density_aabb(model_coarse, settings, tighten_aabb,
+                                                   aabb_sweep_bounds)
+        settings = dataclasses.replace(settings, aabb=box)
     render = make_pose_render_fn(model_coarse, model_fine, settings, h, w, focal, output="maps")
 
     os.makedirs(savedir, exist_ok=True)
@@ -97,7 +115,7 @@ def render_trajectory(
         os.makedirs(os.path.join(savedir, "disparity"), exist_ok=True)
     poses = render_poses[:num_poses] if num_poses > 0 else render_poses
 
-    result = EvalResult(h, w, focal, [], [], {})
+    result = EvalResult(h, w, focal, [], [], {}, aabb=box, aabb_seconds=box_seconds)
     frames = []
     for i, pose in enumerate(poses):
         t0 = time.perf_counter()
@@ -150,25 +168,25 @@ def main(argv: Optional[List[str]] = None) -> EvalResult:
                              "PaperNeRF; other shapes use plain); plain: positional "
                              "encoding + the module.")
     parser.add_argument("--tighten-aabb", type=float, default=None, metavar="TAU",
-                        help="Density-AABB sample tightening (not ported yet).")
+                        help="Sweep the checkpoint's density field once, bound the region "
+                             "with post-ReLU sigma > TAU (1.0 is a good default), and "
+                             "tighten every ray's sample interval to its crossing of that "
+                             "box. Blender scenes only (NDC rays are incompatible).")
     parser.add_argument("--aabb-sweep-bounds", type=float, nargs=6, default=None,
                         metavar=("X0", "Y0", "Z0", "X1", "Y1", "Z1"),
-                        help="Density-sweep cube for --tighten-aabb.")
+                        help="Density-sweep cube for --tighten-aabb (default (-1.5, 1.5)^3, "
+                             "which covers the blender scenes). The sweep warns if the "
+                             "occupied region touches these bounds (clipped geometry).")
     parser.add_argument("--device", type=str, default="cuda")
     args = parser.parse_args(argv)
-
-    if args.tighten_aabb is not None:
-        raise NotImplementedError(
-            "--tighten-aabb needs engine/geometry.py, not ported yet "
-            "(ROADMAP.md, open items §1 item 11)"
-        )
 
     cfg = load_config(args.config, args.overrides)
     result = render_trajectory(
         cfg, args.checkpoint, args.savedir,
         num_poses=args.num_poses, precision=args.precision, renderer=args.renderer,
         device=args.device, save_disparity_image=args.save_disparity_image,
-        split=args.split, gif=args.gif,
+        split=args.split, gif=args.gif, tighten_aabb=args.tighten_aabb,
+        aabb_sweep_bounds=args.aabb_sweep_bounds,
     )
     n = len(result.seconds)
     rays = result.height * result.width

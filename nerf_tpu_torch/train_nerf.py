@@ -25,11 +25,17 @@ Usage:
   python -m nerf_tpu_torch.train_nerf --config cfg.yml [--load-checkpoint ckpt] \\
       [--overrides key value ...] [--device cuda]
 
+``--tighten-aabb TAU`` continues a trained run on tightened samples: the
+restored coarse field's density is swept once on a 64^3 grid
+(``engine/geometry.density_aabb``), and every ray's sample interval, in
+training and validation, is cut to its crossing of the box around sigma >
+TAU.
+
 ``main(argv)`` parses the flags; ``train(cfg, ...)`` does the work and takes a
 ``CfgNode``, so a caller can drive it without a YAML file.
 
-Not ported yet, and raising: more than one device and ``--tighten-aabb``
-(ROADMAP.md, open items §1 item 11).
+Not ported yet, and raising: more than one device (ROADMAP.md, open items §1
+item 11).
 """
 
 from __future__ import annotations
@@ -72,6 +78,7 @@ from .engine.checkpoint import (
     ntc_train_state,
     save_checkpoint,
 )
+from .engine.geometry import tighten_to_density_aabb
 from .engine.renderer import make_image_render_fn
 from .engine.train import create_train_state, make_train_loop, steps_per_call
 from .ops import get_ray_bundle, img2mse, mse2psnr
@@ -163,24 +170,39 @@ class TrainResult:
     store_builder: str = ""                 # native, torch or cache
     load_seconds: float = 0.0               # reading the dataset's images
     store_seconds: float = 0.0              # building the store from them
+    aabb: Optional[tuple] = None            # the --tighten-aabb box, when swept
+    aabb_seconds: float = 0.0               # the sweep's host seconds
+
+
+_NO_FIELD_TO_BOUND = ("--tighten-aabb needs a trained field to bound: resume from a checkpoint "
+                      "(train a warmup phase first, or pass --load-checkpoint)")
 
 
 def train(cfg, logdir: Optional[str] = None, device="cuda", load_checkpoint: str = "",
-          num_devices: int = 1, tighten_aabb: Optional[float] = None) -> TrainResult:
-    """Train the configured models on ``device``; returns a :class:`TrainResult`."""
+          num_devices: int = 1, tighten_aabb: Optional[float] = None,
+          aabb_sweep_bounds: Optional[List[float]] = None) -> TrainResult:
+    """Train the configured models on ``device``; returns a :class:`TrainResult`.
+
+    ``tighten_aabb``: the density threshold of ``--tighten-aabb``; it needs a
+    checkpoint to resume from and a scene without NDC, as in the JAX CLI.
+    """
     if num_devices != 1:
         raise NotImplementedError(
             f"num_devices={num_devices}: data-parallel training (parallel/dp.py) is not "
             "ported yet (ROADMAP.md, open items §1 item 11)")
-    if tighten_aabb is not None:
-        raise NotImplementedError(
-            "--tighten-aabb needs engine/geometry.py, not ported yet "
-            "(ROADMAP.md, open items §1 item 11)")
     if load_checkpoint and not os.path.exists(load_checkpoint):
         raise SystemExit(f"--load-checkpoint {load_checkpoint!r} does not exist")
     cfg = cfg.clone()
     if cfg.is_frozen():
         cfg.defrost()
+    logdir = logdir or os.path.join(cfg.experiment.logdir, cfg.experiment.id)
+    ckpt_path = load_checkpoint or latest_checkpoint(logdir)
+    if tighten_aabb is not None:
+        # The JAX CLI's refusals, made before the dataset loads.
+        if not cfg.dataset.no_ndc:
+            raise SystemExit("--tighten-aabb is incompatible with NDC (LLFF) scenes")
+        if not ckpt_path:
+            raise SystemExit(_NO_FIELD_TO_BOUND)
     seed = int(cfg.experiment.randomseed)
     data = load_dataset(cfg, device)
     h, w, focal = data["hwf"]
@@ -210,11 +232,9 @@ def train(cfg, logdir: Optional[str] = None, device="cuda", load_checkpoint: str
     spec = optimizer_from_config(cfg)
     state = create_train_state(model_coarse, model_fine, spec)
 
-    logdir = logdir or os.path.join(cfg.experiment.logdir, cfg.experiment.id)
     os.makedirs(logdir, exist_ok=True)
     with open(os.path.join(logdir, "config.json"), "w") as f:
         json.dump(cfg.to_dict(), f, indent=2, sort_keys=True)
-    ckpt_path = load_checkpoint or latest_checkpoint(logdir)
     if ckpt_path:
         info = load_train_checkpoint(ckpt_path, model_coarse, model_fine, state.optimizer, spec)
         state.step = info["step"]
@@ -225,6 +245,13 @@ def train(cfg, logdir: Optional[str] = None, device="cuda", load_checkpoint: str
     result = TrainResult(logdir=logdir, start_step=state.step, store_rays=ro_store.shape[0],
                          store_builder=data["store_builder"],
                          load_seconds=data["load_seconds"], store_seconds=data["store_seconds"])
+    if tighten_aabb is not None:
+        if state.step == 0:
+            raise SystemExit(_NO_FIELD_TO_BOUND)
+        result.aabb, result.aabb_seconds = tighten_to_density_aabb(
+            model_coarse, val_settings, tighten_aabb, aabb_sweep_bounds)
+        settings = dataclasses.replace(settings, aabb=result.aabb)
+        val_settings = dataclasses.replace(val_settings, aabb=result.aabb)
     writer = MetricWriter(logdir)
     rate = RateMeter()
     batch = int(cfg.nerf.train.num_random_rays)
@@ -317,11 +344,21 @@ def main(argv: Optional[List[str]] = None) -> TrainResult:
     parser.add_argument("--num-devices", type=int, default=1,
                         help="Devices to train on (only 1 is ported).")
     parser.add_argument("--tighten-aabb", type=float, default=None, metavar="TAU",
-                        help="Density-AABB sample tightening (not ported yet).")
+                        help="For CONTINUED training (needs a checkpoint to resume from): "
+                             "sweep the restored density field once, bound the sigma > TAU "
+                             "region, and tighten every ray's sample interval to its "
+                             "crossing of that box (train and validation). Blender scenes "
+                             "only (NDC is incompatible).")
+    parser.add_argument("--aabb-sweep-bounds", type=float, nargs=6, default=None,
+                        metavar=("X0", "Y0", "Z0", "X1", "Y1", "Z1"),
+                        help="Density-sweep cube for --tighten-aabb (default (-1.5, 1.5)^3, "
+                             "which covers the blender scenes). The sweep warns if the "
+                             "occupied region touches these bounds (clipped geometry).")
     args = parser.parse_args(argv)
     cfg = load_config(args.config, args.overrides)
     return train(cfg, device=args.device, load_checkpoint=args.load_checkpoint,
-                 num_devices=args.num_devices, tighten_aabb=args.tighten_aabb)
+                 num_devices=args.num_devices, tighten_aabb=args.tighten_aabb,
+                 aabb_sweep_bounds=args.aabb_sweep_bounds)
 
 
 if __name__ == "__main__":

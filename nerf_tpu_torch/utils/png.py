@@ -1,13 +1,15 @@
 """A minimal PNG encoder and decoder on the standard library (``zlib`` +
 ``struct``) and numpy.
 
-The decoder reads what the datasets hold: bit depth 8 or 16, colour types 0
-(grey), 2 (RGB), 3 (palette), 4 (grey + alpha) and 6 (RGBA), any number
-of ``IDAT`` chunks and all five row filters. It returns the array
-``imageio.v2.imread`` (Pillow) returns for the file: its dtype, shape and
-values. So ancillary chunks are ignored: ``gAMA``, as imageio applies no
-gamma, and ``tRNS``, which imageio drops when it expands a palette to RGB. Interlaced files, other bit depths, CRC errors and
-truncated files raise :class:`PNGError`.
+The decoder reads every standard PNG the datasets can hold: bit depths 1, 2,
+4 and 8 for grey (colour type 0) and palette (3) files, 8 and 16 for grey
+too and for RGB (2), grey + alpha (4) and RGBA (6), plain or Adam7
+interlaced, any number of ``IDAT`` chunks and all five row filters. It
+returns the array ``imageio.v2.imread`` (Pillow) returns for the file: its
+dtype, shape and values. So ancillary chunks are ignored: ``gAMA``, as
+imageio applies no gamma, and ``tRNS``, which imageio drops when it expands
+a palette to RGB. Other bit depths, CRC errors and truncated files raise
+:class:`PNGError`.
 """
 
 from __future__ import annotations
@@ -20,6 +22,10 @@ import numpy as np
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _COLOR_TYPE = {1: 0, 3: 2, 4: 6}  # channels -> grey, RGB, RGBA
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # colour type -> samples a pixel
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+# Adam7: (first row, first column, row step, column step) of the seven passes.
+_ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4), (2, 0, 4, 2),
+          (0, 1, 2, 2), (1, 0, 2, 1))
 
 
 class PNGError(ValueError):
@@ -171,12 +177,37 @@ def _unfilter(raw: np.ndarray, h: int, stride: int, bpp: int) -> np.ndarray:
     return out.reshape(h, stride).astype(np.uint8)
 
 
+def _unpack(rows: np.ndarray, width: int, channels: int, depth: int) -> np.ndarray:
+    """Unfiltered (h, stride) scanlines -> (h, width, channels) samples:
+    uint8 for depths up to 8 (sub-byte samples packed most significant bits
+    first), (h, width, channels, 2) big-endian byte pairs for 16."""
+    h = rows.shape[0]
+    if depth == 16:
+        return rows.reshape(h, width, channels, 2)
+    if depth == 8:
+        return rows.reshape(h, width, channels)
+    bits = np.unpackbits(rows, axis=1).reshape(h, -1, depth)
+    weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+    samples = (bits * weights).sum(axis=-1, dtype=np.uint8)
+    return samples[:, :width * channels].reshape(h, width, channels)
+
+
+def _passes(w: int, h: int, interlace: int):
+    """(r0, c0, dr, dc, rows, columns) of each non-empty pass."""
+    for r0, c0, dr, dc in (_ADAM7 if interlace else ((0, 0, 1, 1),)):
+        ph, pw = -(-(h - r0) // dr), -(-(w - c0) // dc)
+        if ph > 0 and pw > 0:
+            yield r0, c0, dr, dc, ph, pw
+
+
 def decode_png(data: bytes) -> np.ndarray:
     """The pixels of a PNG file's bytes, as ``imageio.v2.imread`` gives them:
     grey (H, W), grey + alpha (H, W, 2), RGB (H, W, 3) or RGBA (H, W, 4),
     palette files expanded to RGB; uint8 at bit depth 8, uint16 for 16-bit
     grey, and 16-bit colour files reduced to their high bytes (uint8),
-    16-bit grey + alpha as RGBA."""
+    16-bit grey + alpha as RGBA. Sub-byte grey is ``bool`` at depth 1 and
+    uint8 scaled to 0..255 at depths 2 and 4 (x85, x17); sub-byte palette
+    files expand like 8-bit ones."""
     header = None
     palette = None
     idat = []
@@ -192,12 +223,10 @@ def decode_png(data: bytes) -> np.ndarray:
     if header is None:
         raise PNGError("no IHDR chunk")
     w, h, depth, ctype, compression, filt, interlace = header
-    if ctype not in _CHANNELS or compression != 0 or filt != 0:
+    if ctype not in _CHANNELS or compression != 0 or filt != 0 or interlace > 1:
         raise PNGError(f"unsupported PNG: colour type {ctype}, compression {compression}, "
-                       f"filter method {filt}")
-    if interlace:
-        raise PNGError("interlaced (Adam7) PNGs are not supported")
-    if depth not in (8, 16) or (ctype == 3 and depth != 8):
+                       f"filter method {filt}, interlace method {interlace}")
+    if depth not in _DEPTHS[ctype]:
         raise PNGError(f"unsupported bit depth {depth} for colour type {ctype}")
     if not idat:
         raise PNGError("no IDAT chunk")
@@ -205,21 +234,27 @@ def decode_png(data: bytes) -> np.ndarray:
         raw = zlib.decompress(b"".join(idat))
     except zlib.error as e:
         raise PNGError(f"corrupt image data: {e}") from None
-    nbytes = depth // 8
-    bpp = _CHANNELS[ctype] * nbytes
-    stride = w * bpp
-    if len(raw) < h * (1 + stride):
-        raise PNGError(f"truncated image data: {len(raw)} bytes for {h} rows of {1 + stride}")
-    rows = _unfilter(np.frombuffer(raw, np.uint8, h * (1 + stride)).reshape(h, 1 + stride),
-                     h, stride, bpp)
+    channels = _CHANNELS[ctype]
+    bits = channels * depth                     # bits a pixel
+    bpp = max(1, bits // 8)                     # the filters' byte distance
+    passes = list(_passes(w, h, interlace))
+    need = sum(ph * (1 + -(-pw * bits // 8)) for *_, ph, pw in passes)
+    if len(raw) < need:
+        raise PNGError(f"truncated image data: {len(raw)} bytes for {need}")
+    shape = (h, w, channels) + ((2,) if depth == 16 else ())
+    pix = np.zeros(shape, np.uint8)
+    pos = 0
+    for r0, c0, dr, dc, ph, pw in passes:
+        stride = -(-pw * bits // 8)
+        filtered = np.frombuffer(raw, np.uint8, ph * (1 + stride), pos).reshape(ph, 1 + stride)
+        pos += ph * (1 + stride)
+        pix[r0::dr, c0::dc] = _unpack(_unfilter(filtered, ph, stride, bpp), pw, channels, depth)
     if depth == 16:
-        pix = rows.reshape(h, w, _CHANNELS[ctype], 2)
         if ctype == 0:
             return (pix[..., 0, 0].astype(np.uint16) << 8) | pix[..., 0, 1]
         if ctype == 4:   # grey + alpha: RGBA, grey in R, G and B
             return np.ascontiguousarray(pix[..., [0, 0, 0, 1], 0])
         return np.ascontiguousarray(pix[..., 0])
-    pix = rows.reshape(h, w, _CHANNELS[ctype])
     if ctype == 3:
         if palette is None:
             raise PNGError("palette image without a PLTE chunk")
@@ -228,8 +263,11 @@ def decode_png(data: bytes) -> np.ndarray:
             raise PNGError(f"palette index {int(idx.max())} past the {len(palette)}-entry PLTE")
         return palette[idx]
     if ctype == 0:
-        return np.ascontiguousarray(pix[..., 0])
-    return np.ascontiguousarray(pix)
+        grey = pix[..., 0]
+        if depth == 1:
+            return grey != 0
+        return grey * np.uint8(255 // (2 ** depth - 1))
+    return pix
 
 
 def read_png(path: str) -> np.ndarray:

@@ -99,13 +99,15 @@ def test_eval_cli_matches_jax(tiny, capsys):
 
 @pytest.mark.parametrize("flag,error", [
     (["--gif", "x.gif", "--split", "test"], (ValueError, "on-disk dataset")),
-    (["--tighten-aabb", "1.0"], (NotImplementedError, "ROADMAP.md")),
+    (["--tighten-aabb", "1.0", "--overrides", "dataset.no_ndc", "False"],
+     (SystemExit, "incompatible with NDC")),
     (["--split", "val"], (ValueError, "on-disk dataset")),
 ])
 def test_eval_cli_unported_flags_raise(tiny, flag, error):
-    """--tighten-aabb is not ported; --gif and --split are
-    (tests/test_torch_eval_split_gif.py), and a dataset split of a config
-    without a dataset on disk raises as the JAX CLI does."""
+    """--tighten-aabb, --gif and --split are ported
+    (tests/test_torch_geometry.py, tests/test_torch_eval_split_gif.py);
+    --tighten-aabb refuses an NDC scene, and a dataset split of a config
+    without a dataset on disk raises, as the JAX CLI does."""
     cfg_path, ckpt, d = tiny
     with pytest.raises(error[0], match=error[1]):
         eval_nerf.main(["--config", cfg_path, "--checkpoint", ckpt, "--savedir",

@@ -1,9 +1,10 @@
 """The port's stdlib PNG decoder (``nerf_tpu_torch/utils/png.py``) against
 ``imageio.v2.imread`` on PNGs this test writes: every filter type and a mix
 of them, colour types 0, 2, 3 (with and without ``tRNS``), 4 and 6, bit
-depths 8 and 16, several ``IDAT`` chunks and a ``gAMA`` chunk. The arrays
-must be equal, dtype and shape included. Interlaced, corrupt and truncated
-files raise ``PNGError``.
+depths 8 and 16, several ``IDAT`` chunks and a ``gAMA`` chunk, Adam7
+interlacing at every colour type and depth, and bit depths 1, 2 and 4 of
+grey and palette files. The arrays must be equal, dtype and shape included.
+Corrupt and truncated files and bad bit depths raise ``PNGError``.
 
 The encoder here is the test's own (filters computed by a per-byte loop), so
 a fault shared by the port's filtering writer and its decoder still shows.
@@ -50,15 +51,37 @@ def _filter(rows, bpp, filters):
     return bytes(out)
 
 
+ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4), (2, 0, 4, 2),
+         (0, 1, 2, 2), (1, 0, 2, 1))
+
+
+def _pack_rows(samples, depth):
+    """(h, w, ch) samples -> scanlines of bytes: big-endian at 16 bits,
+    sub-byte samples packed from the most significant bit, each row padded
+    to a whole byte."""
+    h, w = samples.shape[:2]
+    flat = samples.reshape(h, -1)
+    if depth == 16:
+        return [bytes(r) for r in flat.astype(">u2").view(np.uint8).reshape(h, -1)]
+    rows = []
+    for r in flat:
+        bits = "".join(format(int(v), f"0{depth}b") for v in r)
+        bits += "0" * (-len(bits) % 8)
+        rows.append(bytes(int(bits[i:i + 8], 2) for i in range(0, len(bits), 8)))
+    return rows
+
+
 def encode(samples, depth, ctype, filters=(0,), n_idat=1, palette=None, trns=None,
            gama=False, interlace=0):
     h, w = samples.shape[:2]
-    ch = CHANNELS[ctype]
-    flat = samples.reshape(h, w * ch)
-    if depth == 16:
-        flat = flat.astype(">u2").view(np.uint8).reshape(h, w * ch * 2)
-    rows = [bytes(r.astype(np.uint8)) for r in flat]
-    z = zlib.compress(_filter(rows, ch * depth // 8, filters), 6)
+    bpp = max(1, CHANNELS[ctype] * depth // 8)
+    passes = ADAM7 if interlace else ((0, 0, 1, 1),)
+    data = b""
+    for r0, c0, dr, dc in passes:
+        sub = samples[r0::dr, c0::dc]
+        if sub.shape[0] and sub.shape[1]:       # an empty pass has no bytes at all
+            data += _filter(_pack_rows(sub, depth), bpp, filters)
+    z = zlib.compress(data, 6)
     parts = [b"\x89PNG\r\n\x1a\n",
              _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0, interlace))]
     if gama:
@@ -84,7 +107,7 @@ KINDS = [(8, 0), (8, 2), (8, 3), (8, 4), (8, 6), (16, 0), (16, 2), (16, 4), (16,
 
 
 def _samples(depth, ctype, rng, shape=(7, 9)):
-    hi = 20 if ctype == 3 else 2 ** depth
+    hi = min(20, 2 ** depth) if ctype == 3 else 2 ** depth
     return rng.integers(0, hi, shape + (CHANNELS[ctype],))
 
 
@@ -135,8 +158,6 @@ def test_filtering_writer_reads_back(tmp_path):
 def test_bad_files_raise():
     img = np.random.default_rng(2).integers(0, 256, (6, 5, 3))
     good = encode(img, 8, 2, (1,))
-    with pytest.raises(PNGError, match="interlaced"):
-        decode_png(encode(img, 8, 2, interlace=1))
     corrupt = bytearray(good)
     corrupt[40] ^= 0xFF                     # inside IDAT: its CRC no longer holds
     with pytest.raises(PNGError, match="CRC"):
@@ -151,6 +172,49 @@ def test_bad_files_raise():
     with pytest.raises(PNGError, match="truncated image data"):
         decode_png(good[:idat] + _chunk(b"IDAT", cut) + good[idat + 12 + length:])
     ihdr_end = 8 + 12 + 13
-    four_bit = _chunk(b"IHDR", struct.pack(">IIBBBBB", 5, 6, 4, 0, 0, 0, 0))
+    four_bit_rgb = _chunk(b"IHDR", struct.pack(">IIBBBBB", 5, 6, 4, 2, 0, 0, 0))
     with pytest.raises(PNGError, match="bit depth"):
-        decode_png(good[:8] + four_bit + good[ihdr_end:])
+        decode_png(good[:8] + four_bit_rgb + good[ihdr_end:])
+    interlace_2 = _chunk(b"IHDR", struct.pack(">IIBBBBB", 5, 6, 8, 2, 0, 0, 2))
+    with pytest.raises(PNGError, match="interlace method"):
+        decode_png(good[:8] + interlace_2 + good[ihdr_end:])
+    cut_adam7 = encode(img, 8, 2, (4,), interlace=1)
+    idat = cut_adam7.index(b"IDAT") - 4
+    (length,) = struct.unpack(">I", cut_adam7[idat:idat + 4])
+    cut = zlib.compress(zlib.decompress(cut_adam7[idat + 8:idat + 8 + length])[:-3], 6)
+    with pytest.raises(PNGError, match="truncated image data"):
+        decode_png(cut_adam7[:idat] + _chunk(b"IDAT", cut) + cut_adam7[idat + 12 + length:])
+
+
+def _assert_like_imageio(data):
+    want, got = imageio_read(data), decode_png(data)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("shape", [(7, 9), (1, 1), (3, 2), (8, 8), (17, 12)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("depth,ctype", KINDS, ids=lambda k: str(k))
+def test_adam7_matches_imageio(depth, ctype, shape):
+    """Adam7 at every colour type and depth 8/16; the shapes leave passes
+    empty (1x1 has one pass of seven, 3x2 three) and give each pass its own
+    row width. Rows cycle all five filters within each pass."""
+    rng = np.random.default_rng(depth * 10 + ctype + shape[0])
+    palette = rng.integers(0, 256, (20, 3)) if ctype == 3 else None
+    _assert_like_imageio(encode(_samples(depth, ctype, rng, shape), depth, ctype,
+                                (0, 1, 2, 3, 4), n_idat=2, palette=palette, interlace=1))
+
+
+@pytest.mark.parametrize("interlace", [0, 1], ids=["plain", "adam7"])
+@pytest.mark.parametrize("shape", [(7, 9), (5, 13), (16, 3)], ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("depth,ctype", [(1, 0), (2, 0), (4, 0), (1, 3), (2, 3), (4, 3)],
+                         ids=lambda k: str(k))
+def test_sub_byte_depths_match_imageio(depth, ctype, shape, interlace):
+    """Bit depths 1, 2 and 4 of grey and palette files: imageio gives a 1-bit
+    grey file as bool, 2- and 4-bit grey scaled to 0..255 as uint8, and a
+    palette file expanded to uint8 RGB. Row widths that end mid-byte, with
+    and without Adam7, every filter on the 1-byte pixel distance."""
+    rng = np.random.default_rng(depth * 10 + ctype + shape[1])
+    palette = rng.integers(0, 256, (2 ** depth, 3)) if ctype == 3 else None
+    _assert_like_imageio(encode(_samples(depth, ctype, rng, shape), depth, ctype,
+                                (4, 3, 2, 1, 0), palette=palette, interlace=interlace))

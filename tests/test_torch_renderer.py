@@ -182,7 +182,8 @@ def test_training_options_raise_naming_the_roadmap(tmp_path):
     """The training options render now (use_pallas_train through the
     training kernels' plain pair here, remat through activation
     checkpointing, both equal to the plain path); what the training path
-    still lacks raises naming its ROADMAP.md item."""
+    still lacks raises naming its ROADMAP.md item, and --tighten-aabb
+    refuses a run with no checkpoint."""
     from nerf_tpu_torch.engine.train import make_optimizer
     from nerf_tpu_torch.train_nerf import train
 
@@ -199,9 +200,12 @@ def test_training_options_raise_naming_the_roadmap(tmp_path):
         make_optimizer("RMSprop", 1e-3)
     from nerf_tpu_torch.config import get_default_config
 
-    for kwargs in (dict(num_devices=2), dict(tighten_aabb=2.0)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            train(get_default_config(), logdir=str(tmp_path), device="cpu", **kwargs)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        train(get_default_config(), logdir=str(tmp_path), device="cpu", num_devices=2)
+    # --tighten-aabb is ported (tests/test_torch_geometry.py); with nothing
+    # to resume from it refuses, as the JAX CLI does.
+    with pytest.raises(SystemExit, match="needs a trained field to bound"):
+        train(get_default_config(), logdir=str(tmp_path), device="cpu", tighten_aabb=2.0)
 
 
 def test_perturbed_render_draws_from_the_generator():

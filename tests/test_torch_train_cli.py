@@ -99,7 +99,8 @@ def test_cli_resumes_from_its_checkpoint(trained, tmp_path):
 
 
 @pytest.mark.parametrize("argv,error", [
-    (["--tighten-aabb", "2.0"], (NotImplementedError, "ROADMAP.md")),
+    (["--tighten-aabb", "2.0", "--overrides", "experiment.id", "fresh"],
+     (SystemExit, "needs a trained field to bound")),
     (["--num-devices", "2"], (NotImplementedError, "ROADMAP.md")),
     (["--overrides", "dataset.type", "blender", "dataset.basedir", "{tmp}/none"],
      (FileNotFoundError, "transforms_train.json")),
@@ -109,7 +110,9 @@ def test_cli_resumes_from_its_checkpoint(trained, tmp_path):
     (["--load-checkpoint", "{tmp}/checkpoint00003.ntc"], (ValueError, "truncated msgpack")),
 ], ids=["tighten-aabb", "num-devices", "blender", "llff", "nrc-cache", "ntc-resume"])
 def test_unported_options_raise_naming_the_roadmap(trained, tmp_path, argv, error):
-    """What is not ported raises naming its ROADMAP.md item. The dataset
+    """What is not ported raises naming its ROADMAP.md item. --tighten-aabb
+    is ported (tests/test_torch_geometry.py) and keeps the JAX CLI's refusal
+    of a run with no checkpoint to bound. The dataset
     loaders, the .nrc cache and .ntc resume are ported
     (tests/test_torch_train_disk.py, tests/test_torch_ntc_resume.py): on a
     missing dataset, an empty .nrc or an empty .ntc they raise for the
