@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's render, training, serving, geometry and pose
-paths on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's render, training, serving, geometry, pose and
+multi-scene paths on one NVIDIA GPU and check them.
 
 Run from the root of a checkout, with one card:
 
@@ -118,7 +118,27 @@ Phases, one or more lines each:
      perturbed cameras, the JAX test's pose recovery through
      ``make_pose_opt_loop``, and a short ``--joint-train`` whose ``.ntc``
      ``eval_nerf`` renders; then the sweep, query, frame and per-iteration
-     times.
+     times;
+ 19. the multi-scene workflow on phase 17's field and datasets:
+     ``distill_dataset --renderer pallas`` into a blender set of MS_SIZE
+     views through #1 (its launches; view 0 held against the plain path
+     with phase 4's gates, and its PNG bitwise the kernel path's u8 frame);
+     ``train_multiscene`` at the full lowres protocol (MS_SCENES synthetic
+     scenes, 64 + 64 samples, 10/4, 1024 rays a scene, f32, MS_STEPS steps,
+     no kernel launch, as in JAX): every scene's loss falling, every
+     exported ``.ntc`` rendered by ``eval_nerf`` through #1; the batched
+     step against the single-scene step on each scene's own draws at full
+     width (MS_LOSS_RTOL, MS_GRAD_TOL); two groups (the distilled set and
+     phase 17's scene | its LLFF scene) for MS_GROUP_STEPS steps;
+     ``eval_multiscene`` on the blender group through #1 in f32 and bf16
+     (launches), and ``evaluate_metrics`` on its PNGs reproducing its
+     PSNR/SSIM; the seven other optimizer names, OPT_STEPS ``train_nerf``
+     steps each at lego_fused through #8; the VeryTiny, MultiHead and
+     Replicate families' frames on the card against the CPU with the kernel
+     flags on and no launch; ``tiny_nerf``'s rising PSNR; a ``.ckpt ->
+     .ntc -> .ckpt`` ``convert_checkpoint`` round trip; then the multi-scene
+     step's rays/s beside phase 8's plain f32 single-scene step, distill
+     s/view and eval s/frame.
 
 Then one JSON line of per-kernel results (each kernel's launches on its main
 path, error, time, plain time and the least time the card could take for the
@@ -251,6 +271,25 @@ POSE_LOSS_GAIN = 0.5
 # the translation error falls.
 POSE_GAIN = 0.6
 JOINT_ITERS = 10
+# Phase 19: the multi-scene workflow, from phase 17's trained field.
+MS_DISTILL = ("16", "4", "4")   # distilled train / val / test views at MS_SIZE
+MS_SIZE = 400
+MS_SCENES = 6                   # the README's 6-scene sweep, full lowres protocol
+MS_STEPS = 300
+MS_CALL = 100                   # steps a call (--print-every)
+MS_GROUP_STEPS = 20             # the two-group run (distilled + lego | fern)
+MS_PROFILE_STEPS = 10           # the 6-scene loop's steps under the profiler
+MS_LOSS_RTOL = 1e-5             # scene s of the batched step vs the single-scene step
+# Their gradients, scaled by each leaf's largest: both are float32 sums of
+# 65,536-131,072 points in another order, and each reads up to 1.9e-3 from
+# the float64 gradient on this batch (a CPU probe at this width); a scene
+# that took another's gradient would read O(1).
+MS_GRAD_TOL = 1e-3
+MS_METRIC_TOL = (0.1, 5e-3)     # evaluate_metrics on the 8-bit PNGs vs eval_multiscene (dB, SSIM)
+OPTIMIZER_NAMES = ("RMSprop", "Adagrad", "Adamax", "Adadelta", "NAdam", "RAdam", "Rprop")
+OPT_STEPS = 3
+FAMILY_TOL = 1e-4               # a family's frame, card vs CPU, plain path
+TINY_ITERS = 300
 DEVICE = "cuda"
 # Multiply-adds per point of the 4x128 10/4 FlexibleNeRF forward, dir
 # contribution excluded: 63x128 + 3x128x128 + 128x129 + 128x64 + 64x3; of its
@@ -1213,11 +1252,11 @@ def time_paper(cfg, checkpoint: str, dev, on: str) -> dict:
     return times
 
 
-def profile_steps(run, steps: int, what: str, on: str) -> None:
+def profile_steps(run, steps: int, what: str, on: str, top_n: int = 4) -> dict:
     """One ``run()`` of ``steps`` steps under ``torch.profiler``: wall time,
     the device's busy share (kernel time over wall; one stream, so kernels do
-    not overlap) and the kernels that take the most device time. The
-    profiler's own cost lengthens the wall time."""
+    not overlap) and the kernels that take the most device time, printed and
+    returned per step. The profiler's own cost lengthens the wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1236,10 +1275,44 @@ def profile_steps(run, steps: int, what: str, on: str) -> None:
     launches = sum(c for _, _, c in rows)
     rows.sort(key=lambda r: -r[1])
     top = "; ".join(f"{k.removeprefix('void ').replace('(anonymous namespace)::', '')[:24]} "
-                    f"{t / 1e3 / steps:.2f}" for k, t, _ in rows[:4])
+                    f"{t / 1e3 / steps:.2f}" for k, t, _ in rows[:top_n])
     print(f"[profile] {what}: {1e3 * wall / steps:.2f} ms/step wall under the profiler, device "
           f"busy {busy / steps:.2f} ms/step ({100 * busy / (1e3 * wall):.1f}%), "
           f"{launches / steps:.0f} launches/step; top ms/step: {top} {on}")
+    return {"wall_ms": 1e3 * wall / steps, "busy_ms": busy / steps,
+            "busy_share": busy / (1e3 * wall), "launches": launches / steps}
+
+
+def profile_matmuls(run, what: str, on: str, top_n: int) -> list:
+    """One ``run()`` of one step under ``torch.profiler`` with the shapes
+    recorded: the ``top_n`` matrix products by device time, each with its
+    input shapes, calls and device ms, printed and returned. Recording the
+    shapes keeps the ops' inputs alive, so ``run`` is one step: ten steps of
+    the 6-scene loop ran the H100 out of memory, and one step leaves ~11 GiB
+    held after the profile ends."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        run()
+        torch.cuda.synchronize()
+    mms = sorted((e for e in prof.key_averages(group_by_input_shape=True)
+                  if e.key in ("aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm")),
+                 key=lambda e: -e.self_device_time_total)[:top_n]
+    rows = []
+    for e in mms:
+        # (S, M, K) @ (S, K, N) for a bmm; addmm and baddbmm take the bias first
+        a, b = e.input_shapes[1:3] if e.key.endswith("addmm") else e.input_shapes[:2]
+        flop = 2 * math.prod(a) * b[-1] * e.count
+        ms = e.self_device_time_total / 1e3
+        rows.append((e.key, e.input_shapes[:3], e.count, ms, flop / ms / 1e9))
+    print(f"[profile] {what}, matrix products by device ms: " + "; ".join(
+        f"{k} {shapes} x{n} {ms:.2f} ms ({tflops:.2f} TFLOP/s)"
+        for k, shapes, n, ms, tflops in rows) + f" {on}")
+    return rows
 
 
 def map_errors(got: dict, want: dict) -> dict:
@@ -2251,6 +2324,7 @@ def disk_main_path(dev, on: str, synthetic_rays_per_sec: float, tmp: str = "") -
     check(counts["fused_flex_mlp_train_fwd"] == 0, "the 4x64 fern model reached #8")
     check(all(fev.finite) and len(fev.psnrs) == len(range(0, LLFF_VIEWS, 8)),
           "LLFF test frames")
+    out.update(fern=fern)
 
     print(f"[time] phase 17: decode + resize {1e3 * out['load_s_per_image']:.1f} ms an "
           f"{DISK_SIZE}x{DISK_SIZE} RGBA image, store build {out['store_s']:.2f} s "
@@ -2261,15 +2335,15 @@ def disk_main_path(dev, on: str, synthetic_rays_per_sec: float, tmp: str = "") -
 
 
 @contextlib.contextmanager
-def cached_blender_loads():
-    """Decode the blender dataset once for phase 18's entry points (phase 17
-    measures the decode): ``load_blender_data`` memoized by its arguments in
-    the modules that call it."""
-    from nerf_tpu_torch import optimize_poses, train_nerf
+def cached_blender_loads(*modules):
+    """Decode each blender dataset once for the entry points of phases 18
+    and 19 (phase 17 measures the decode): ``load_blender_data`` memoized by
+    its arguments in the modules that call it (phase 18's by default)."""
+    from nerf_tpu_torch import data, optimize_poses, train_nerf
     from nerf_tpu_torch.data import eval_poses
 
-    modules = (eval_poses, train_nerf, optimize_poses)
-    real = eval_poses.load_blender_data
+    modules = modules or (eval_poses, train_nerf, optimize_poses)
+    real = data.load_blender_data
     memo = {}
 
     def cached(*args, **kwargs):
@@ -2315,7 +2389,7 @@ def fine_on_common_depths(mc, mf, ro, rd, s):
     return kernel.fine.rgb, plain.fine.rgb
 
 
-def check_frames(mc, mf, s, poses, hwf, what: str) -> dict:
+def check_frames(mc, mf, s, poses, hwf, what: str, tag: str = "geometry") -> dict:
     """Phase 5's gates on each pose's frame, kernel path against plain path
     at settings ``s``: coarse rgb within RENDER_RGB_TOL, fine rgb too but at
     up to MAX_RESAMPLE_PIXELS pixels, each of which must agree on common
@@ -2348,7 +2422,7 @@ def check_frames(mc, mf, s, poses, hwf, what: str) -> dict:
         worst["fine"] = max(worst["fine"], float(fine_err.max()))
         worst["outliers"] = max(worst["outliers"], len(outliers))
         worst["frames"].append(k)
-    print(f"[geometry] {what}: {len(poses)} frames, kernel vs plain: rgb_coarse "
+    print(f"[{tag}] {what}: {len(poses)} frames, kernel vs plain: rgb_coarse "
           f"{worst['coarse']:.3e}, rgb_fine {worst['fine']:.3e}, {worst['outliers']} pixels a "
           f"frame over {RENDER_RGB_TOL:g} (<= {MAX_RESAMPLE_PIXELS}), {worst['common']:.3e} on "
           f"common depths")
@@ -2676,6 +2750,370 @@ def geometry_main_path(dev, on: str, disk: dict) -> dict:
         out.update(pose_s_per_iter=per_iter, pose_wall_s=rep["wall_s"], recovery=recovery)
     return out
 
+def multiscene_main_path(dev, on: str, disk: dict, single_rays_per_sec: float) -> dict:
+    """Phase 19: the multi-scene workflow on phase 17's field, through the
+    entry points a user calls: ``distill_dataset`` (the teacher through #1),
+    ``train_multiscene`` at the full lowres protocol and with two groups,
+    ``eval_multiscene`` through #1 in f32 and bf16 and ``evaluate_metrics``
+    on its PNGs; the batched step against the single-scene step per scene;
+    the seven optimizer names through #8, the three other model families,
+    ``tiny_nerf`` and a ``convert_checkpoint`` round trip. Returns the
+    launches and times."""
+    import numpy as np
+    import torch
+
+    from nerf_tpu_torch import (
+        convert_checkpoint, distill_dataset, eval_multiscene, eval_nerf, evaluate_metrics,
+        tiny_nerf, train_multiscene, train_nerf,
+    )
+    from nerf_tpu_torch.config import load_config, model_from_config, render_settings_from_config
+    from nerf_tpu_torch.data import (
+        composite_white_background, pose_spherical, spherical_render_poses,
+    )
+    from nerf_tpu_torch.engine.checkpoint import load_models_and_params
+    from nerf_tpu_torch.engine.renderer import (
+        RenderSettings, draw_render_randoms, make_pose_render_fn,
+    )
+    from nerf_tpu_torch.engine.train import (
+        create_train_state, fold_seed, make_optimizer, make_train_step,
+    )
+    from nerf_tpu_torch.models import FlexibleNeRFModel, get_model
+    from nerf_tpu_torch.ops import get_ray_bundle
+    from nerf_tpu_torch.parallel.multiscene import (
+        create_multiscene_state, make_multiscene_train_loop, make_multiscene_train_step,
+        sample_multiscene_batch, scene_generators, stack_draws,
+    )
+    from nerf_tpu_torch.utils.png import read_png
+
+    tmp = os.path.dirname(disk["scene"])
+    out = {}
+    chunk = int(lego_fused_config().nerf.validation.chunksize)
+
+    def frame_launches(side: int, width: int = 0) -> int:
+        return 2 * math.ceil(side * (width or side) / chunk)      # coarse + fine a chunk
+
+    # Distill phase 17's field into a blender set through #1.
+    distilled = os.path.join(tmp, "distilled")
+    reset_launches()
+    with quiet():
+        dist = distill_dataset.main([
+            "--config", disk["cfg_py"], "--checkpoint", disk["checkpoint"], "--savedir",
+            distilled, "--num-train", MS_DISTILL[0], "--num-val", MS_DISTILL[1], "--num-test",
+            MS_DISTILL[2], "--size", str(MS_SIZE), "--renderer", "pallas", "--device", DEVICE])
+    launches = read_launches()
+    views = sum(int(n) for n in MS_DISTILL)
+    expected = frame_launches(MS_SIZE) * views
+    print(f"[multiscene] distill_dataset --renderer pallas: {dist.views} views of "
+          f"{MS_SIZE}x{MS_SIZE} through #1 ({launches['fused_mlp_t']} launches, expected "
+          f"{expected})")
+    check(dist.views == views and launches["fused_mlp_t"] == expected,
+          f"distill: {dist.views} views, {launches['fused_mlp_t']} launches")
+    out["distill_launches"] = launches["fused_mlp_t"]
+    cfg = load_config(disk["cfg_py"])
+    with open(os.path.join(distilled, "transforms_train.json")) as f:
+        pose0 = np.asarray(json.load(f)["frames"][0]["transform_matrix"], np.float32)
+    focal = 0.5 * MS_SIZE / math.tan(0.5 * distill_dataset.BLENDER_CAMERA_ANGLE_X)
+    mc, mf, _ = load_models_and_params(disk["checkpoint"], cfg, DEVICE)
+    s_val = render_settings_from_config(cfg, "validation", hwf=(MS_SIZE, MS_SIZE, focal))
+    with torch.inference_mode():
+        held = check_frames(mc, mf, s_val, [pose0], (MS_SIZE, MS_SIZE, focal),
+                            "distilled view 0 (--renderer pallas) vs --renderer xla",
+                            tag="multiscene")
+    png = read_png(os.path.join(distilled, "train", "r_0.png"))
+    check(np.array_equal(png, held["frames"][0]["rgb_u8"].cpu().numpy()),
+          "distilled r_0.png is not the kernel path's u8 frame")
+    del mc, mf, held
+
+    # The full lowres protocol, six scenes at once.
+    ms_dir = os.path.join(tmp, "ms6")
+    reset_launches()
+    with quiet():
+        ms = train_multiscene.main([
+            "--num-scenes", str(MS_SCENES), "--size", str(MS_SIZE), "--num-coarse", "64",
+            "--num-fine", "64", "--n-xyz", "10", "--batch", "1024", "--iters", str(MS_STEPS),
+            "--print-every", str(MS_CALL), "--save-dir", ms_dir, "--device", DEVICE])
+    launches = read_launches()
+    losses = np.concatenate(ms.losses["blender"])          # (MS_STEPS, S)
+    first, last = losses[:20].mean(0), losses[-20:].mean(0)
+    steady = sum(ms.call_seconds[1:]), sum(ms.call_steps[1:])
+    out["ms_rays_per_sec"] = MS_SCENES * 1024 * steady[1] / steady[0]
+    out["ms_s_per_step"] = steady[0] / steady[1]
+    print(f"[multiscene] train_multiscene --num-scenes {MS_SCENES} --size {MS_SIZE}, 64+64, "
+          f"10/4, 1024 rays a scene, f32, {MS_STEPS} steps: mean loss of the first 20 steps "
+          f"-> last 20 per scene {', '.join(f'{a:.4f}->{b:.4f}' for a, b in zip(first, last))}; "
+          f"kernel launches {sum(launches.values())} (the plain field, as in JAX)")
+    check(np.isfinite(losses).all() and (last < first).all(),
+          f"a scene's loss did not fall: {first} -> {last}")
+    check(sum(launches.values()) == 0, f"multi-scene training reached a kernel: {launches}")
+    check(len(ms.checkpoints) == MS_SCENES, f"exports {ms.checkpoints}")
+    synth_py = write_py_config(synthetic_train_config(1), os.path.join(tmp, "synthetic.py"))
+    reset_launches()
+    expected = 0
+    with quiet():
+        for ckpt in ms.checkpoints:
+            ev = eval_nerf.main(["--config", synth_py, "--checkpoint", ckpt, "--num-poses", "1",
+                                 "--savedir", os.path.join(tmp, "ms6_eval",
+                                                           os.path.basename(os.path.dirname(ckpt))),
+                                 "--device", DEVICE])
+            check(all(ev.finite), f"{ckpt} rendered non-finite maps")
+            expected += frame_launches(ev.height, ev.width)
+    n = read_launches()["fused_mlp_t"]
+    print(f"[multiscene] each of the {MS_SCENES} exported .ntc renders a {ev.height}x{ev.width} "
+          f"frame in eval_nerf through #1 ({n} launches, expected {expected})")
+    check(n == expected, f"eval_nerf of the exports: {n} launches")
+
+    # Scene s of the batched step against the single-scene step, at full width.
+    settings = RenderSettings(num_coarse=64, num_fine=64, perturb=True,
+                              radiance_field_noise_std=0.2, white_background=True,
+                              num_encoding_fn_xyz=10, num_encoding_fn_dir=4)
+    model = FlexibleNeRFModel(num_encoding_fn_xyz=10, num_encoding_fn_dir=4).to(dev)
+    spec = make_optimizer("adam", 5e-3, 250.0, 0.1)
+    state = create_multiscene_state(model, model, spec, SEED, MS_SCENES, dev)
+    singles = []
+    for s in range(MS_SCENES):
+        tc = FlexibleNeRFModel(num_encoding_fn_xyz=10, num_encoding_fn_dir=4).to(dev)
+        tf = FlexibleNeRFModel(num_encoding_fn_xyz=10, num_encoding_fn_dir=4).to(dev)
+        tc.load_state_dict(state.scene_params(s, "coarse"))
+        tf.load_state_dict(state.scene_params(s, "fine"))
+        singles.append(create_train_state(tc, tf, spec))
+    poses = torch.as_tensor(spherical_render_poses(MS_SCENES, phi=-30.0, radius=4.0),
+                            dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rays, bundles = [], []
+    for s in range(MS_SCENES):
+        ro, rd = get_ray_bundle(400, 400, 0.5 * 400 / math.tan(0.3455556), poses[s][:3, :4])
+        ro, rd = ro.reshape(-1, 3), rd.reshape(-1, 3)
+        pick = torch.randint(400 * 400, (1024,), generator=gen, device=dev)
+        rays.append((ro[pick], rd[pick], torch.rand(1024, 3, generator=gen, device=dev)))
+        bundles.append((ro, rd, torch.rand(400 * 400, 3, generator=gen, device=dev)))
+    ro, rd, tgt = (torch.stack(x) for x in zip(*rays))
+
+    def scene_gen(s):
+        return torch.Generator(device=dev).manual_seed(fold_seed(SEED, s))
+
+    draws = stack_draws([draw_render_randoms(scene_gen(s), 1024, settings, dev)
+                         for s in range(MS_SCENES)])
+    state, m = make_multiscene_train_step(model, model, settings)(state, ro, rd, tgt,
+                                                                   draws=draws)
+    loss_err = grad_err = param_diff = 0.0
+    for s, single in enumerate(singles):
+        single, sm = make_train_step(single.model_coarse, single.model_fine, settings)(
+            single, ro[s], rd[s], tgt[s], scene_gen(s))
+        loss_err = max(loss_err, abs(float(m.loss[s]) - float(sm.loss)) / float(sm.loss))
+        for which, module in (("coarse", single.model_coarse), ("fine", single.model_fine)):
+            for name, p in module.named_parameters():
+                stacked = state.params[f"{which}.{name}"]
+                scale = max(float(p.grad.abs().max()), 1e-12)
+                grad_err = max(grad_err, float((stacked.grad[s] - p.grad).abs().max()) / scale)
+                param_diff = max(param_diff, float((stacked[s] - p).detach().abs().max()))
+    print(f"[multiscene] batched step vs the single-scene step, {MS_SCENES} scenes at full "
+          f"width with each scene's own draws: loss rel {loss_err:.3e} (tol {MS_LOSS_RTOL:g}), "
+          f"gradients {grad_err:.3e} of each leaf's largest (tol {MS_GRAD_TOL:g}), parameters "
+          f"after Adam max |diff| {param_diff:.3e} (lr 5e-3)")
+    check(loss_err <= MS_LOSS_RTOL and grad_err <= MS_GRAD_TOL,
+          f"batched vs single-scene step: loss {loss_err}, gradients {grad_err}")
+
+    # The loop train_multiscene runs, on 400x400 stores: its wall time, then
+    # under the profiler (the device's busy share and its top kernels), then
+    # the host's per-scene work of a step alone (generators, batches, draws).
+    stores = [torch.stack(x) for x in zip(*bundles)]
+    loop = make_multiscene_train_loop(model, model, settings, 1024, MS_PROFILE_STEPS)
+    loop(state, *stores, SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = loop(state, *stores, SEED)
+    m.loss.cpu()
+    out["ms_loop_ms"] = 1e3 * (time.perf_counter() - t0) / MS_PROFILE_STEPS
+    out["ms_profile"] = profile_steps(lambda: loop(state, *stores, SEED), MS_PROFILE_STEPS,
+                                      f"{MS_SCENES}-scene plain f32 loop step", on, top_n=8)
+    one_step = make_multiscene_train_loop(model, model, settings, 1024, 1)
+    out["ms_matmuls"] = profile_matmuls(lambda: one_step(state, *stores, SEED),
+                                        f"one {MS_SCENES}-scene step", on, top_n=6)
+
+    def per_scene_work():
+        for t in range(MS_PROFILE_STEPS):
+            gens = scene_generators(SEED, t, MS_SCENES, dev)
+            sample_multiscene_batch(gens, *stores, 1024)
+            stack_draws([draw_render_randoms(g, 1024, settings, dev) for g in gens])
+
+    per_scene_work()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    per_scene_work()
+    torch.cuda.synchronize()
+    out["ms_sampling_ms"] = 1e3 * (time.perf_counter() - t0) / MS_PROFILE_STEPS
+    print(f"[multiscene] the {MS_SCENES}-scene loop: {out['ms_loop_ms']:.2f} ms a step "
+          f"without the profiler; its per-scene generators, batches and draws alone "
+          f"{out['ms_sampling_ms']:.2f} ms a step {on}")
+    del state, singles, draws, rays, bundles, stores, ro, rd, tgt
+
+    # Two groups: the distilled set and phase 17's scene | phase 17's LLFF
+    # scene, then eval_multiscene on them; each dataset is decoded once.
+    with cached_blender_loads(train_multiscene, eval_multiscene):
+        two_dir = os.path.join(tmp, "ms2")
+        with quiet():
+            two = train_multiscene.main([
+                "--blender-dirs", distilled, disk["scene"], "--llff-dirs", disk["fern"],
+                "--llff-factor", "8", "--iters", str(MS_GROUP_STEPS), "--print-every",
+                str(MS_GROUP_STEPS // 2), "--num-coarse", "64", "--num-fine", "64", "--n-xyz", "10",
+                "--save-dir", two_dir, "--device", DEVICE])
+        group_losses = {tag: np.concatenate(x) for tag, x in two.losses.items()}
+        print(f"[multiscene] two groups, {MS_GROUP_STEPS} steps: {two.groups}; last losses "
+              + "; ".join(f"{tag} {', '.join(f'{v:.4f}' for v in x[-1])}"
+                          for tag, x in group_losses.items()))
+        check(two.groups == {"blender": ["distilled", "lego"], "llff": ["fern"]},
+              f"groups {two.groups}")
+        check(all(np.isfinite(x).all() for x in group_losses.values()), "two-group losses")
+        check(len(two.checkpoints) == 3, f"two-group exports {two.checkpoints}")
+
+        # eval_multiscene on the blender group through #1, f32 and bf16.
+        frame_s = []
+        real_pose_fn = eval_multiscene.make_pose_render_fn
+
+        def timed_pose_fn(*args, **kwargs):
+            render = real_pose_fn(*args, **kwargs)
+
+            def timed(pose):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                img = render(pose)
+                torch.cuda.synchronize()
+                frame_s.append(time.perf_counter() - t0)
+                return img
+
+            return timed
+
+        scenes = ["distilled", "lego"]
+        n_val = {"distilled": int(MS_DISTILL[1]), "lego": DISK_VIEWS[1][1]}
+        sides = {"distilled": MS_SIZE // 2, "lego": DISK_SIZE // 2}
+        expected = sum(n_val[sc] * frame_launches(sides[sc]) for sc in scenes)
+        summaries = {}
+        eval_multiscene.make_pose_render_fn = timed_pose_fn
+        try:
+            for precision in ("float32", "bfloat16"):
+                reset_launches()
+                with quiet():
+                    summaries[precision] = eval_multiscene.evaluate(
+                        cfg, two_dir, tmp, scenes=scenes, split="val",
+                        savedir=os.path.join(tmp, f"ms_eval_{precision}"), precision=precision,
+                        renderer="pallas", device=DEVICE)
+                out[f"eval_multiscene_launches_{precision}"] = read_launches()["fused_mlp_t"]
+        finally:
+            eval_multiscene.make_pose_render_fn = real_pose_fn
+        for precision, summary in summaries.items():
+            got = out[f"eval_multiscene_launches_{precision}"]
+            print(f"[multiscene] eval_multiscene --renderer pallas --precision {precision}: "
+                  + "; ".join(f"{sc} x{r['num_views']} psnr {r['psnr_mean']} (min {r['psnr_min']}) "
+                              f"ssim {r['ssim_mean']}" for sc, r in summary["scenes"].items())
+                  + f"; #1 launches {got} (expected {expected})")
+            check(got == expected, f"eval_multiscene {precision}: {got} launches")
+            check(all(math.isfinite(r["psnr_mean"]) for r in summary["scenes"].values()),
+                  "eval_multiscene PSNR")
+        out["eval_s_per_frame"] = float(np.median(frame_s))
+        # evaluate_metrics on the f32 PNGs against the ground truth as eval loaded it.
+        images, _, _, _, i_split = eval_multiscene.load_blender_data(distilled, half_res=True)
+        truth = os.path.join(tmp, "distilled_val.npz")
+        np.savez(truth, images=composite_white_background(images)[i_split[1]])
+        with quiet():
+            em = evaluate_metrics.main(["--pred", os.path.join(tmp, "ms_eval_float32",
+                                                               "distilled"), "--target", truth])
+        want = summaries["float32"]["scenes"]["distilled"]
+        d_psnr = abs(em["psnr_mean"] - want["psnr_mean"])
+        d_ssim = abs(em["ssim_mean"] - want["ssim_mean"])
+        print(f"[multiscene] evaluate_metrics on the written PNGs: psnr {em['psnr_mean']:.3f} ssim "
+              f"{em['ssim_mean']:.4f} against eval_multiscene's {want['psnr_mean']} / "
+              f"{want['ssim_mean']} (|diff| {d_psnr:.4f} dB, {d_ssim:.5f}; tol {MS_METRIC_TOL}: "
+              f"the PNGs hold 8 bits)")
+        check(em["num_images"] == n_val["distilled"] and d_psnr <= MS_METRIC_TOL[0]
+              and d_ssim <= MS_METRIC_TOL[1], "evaluate_metrics does not reproduce eval_multiscene")
+
+    # The seven optimizer names: 3 steps of train_nerf at lego_fused through #8.
+    parts, opt_launches = [], {"fwd": 0, "bwd": 0}
+    for name in OPTIMIZER_NAMES:
+        ocfg = synthetic_train_config(OPT_STEPS)
+        ocfg.merge_from_list(["optimizer.type", name, "dataset.num_views", 4,
+                              "dataset.image_size", 100, "experiment.logdir", tmp,
+                              "experiment.id", f"opt_{name}", "experiment.validate_every", 100,
+                              "experiment.print_every", OPT_STEPS])
+        reset_launches()
+        with quiet():
+            r = train_nerf.main(["--config", write_py_config(ocfg, os.path.join(
+                tmp, f"opt_{name}.py")), "--device", DEVICE])
+        counts = read_launches()
+        for which in opt_launches:
+            opt_launches[which] += counts[f"fused_flex_mlp_train_{which}"]
+        start = model_from_config(ocfg.models.coarse)
+        start.reset_parameters(torch.Generator().manual_seed(int(ocfg.experiment.randomseed)))
+        end = torch.load(r.checkpoint, map_location="cpu", weights_only=True)
+        moved = max(float((end["model_coarse_state_dict"][k] - v).abs().max())
+                    for k, v in start.state_dict().items())
+        parts.append(f"{name} loss {r.losses[-1]:.4f} moved {moved:.2e}")
+        check(len(r.losses) == OPT_STEPS and all(math.isfinite(x) for x in r.losses)
+              and moved > 0, f"{name}: losses {r.losses}, moved {moved}")
+        check(counts["fused_flex_mlp_train_fwd"] == 2 * OPT_STEPS
+              and counts["fused_flex_mlp_train_bwd"] == 2 * OPT_STEPS, f"{name}: {counts}")
+    out["optimizer_launches"] = opt_launches
+    print(f"[multiscene] {OPT_STEPS} train_nerf steps at lego_fused through #8 "
+          f"({2 * OPT_STEPS} + {2 * OPT_STEPS} launches each): " + "; ".join(parts))
+
+    # The three other families: one plain frame, card against CPU.
+    parts = []
+    side = 64
+    fam_focal = 0.5 * side / math.tan(0.3455556)
+    pose = torch.as_tensor(pose_spherical(30.0, -30.0, 4.0)[:3, :4], dtype=torch.float32)
+    for name in ("VeryTinyNeRFModel", "MultiHeadNeRFModel", "ReplicateNeRFModel"):
+        fam = get_model(name, generator=torch.Generator().manual_seed(SEED))
+        n_dir = 6 if name != "ReplicateNeRFModel" else 4
+        fs = RenderSettings(num_coarse=64, num_fine=64, perturb=False, white_background=True,
+                            num_encoding_fn_xyz=6, num_encoding_fn_dir=n_dir, use_pallas=True,
+                            use_pallas_train=True, chunksize=side * side)
+        with torch.inference_mode():
+            cpu = make_pose_render_fn(fam, fam, fs, side, side, fam_focal)(pose)["rgb_fine"]
+            fam.to(dev)
+            reset_launches()
+            card_maps = make_pose_render_fn(fam, fam, fs, side, side, fam_focal)(pose.to(dev))
+            counts = read_launches()
+        err = float((card_maps["rgb_fine"].cpu() - cpu).abs().max())
+        parts.append(f"{name} {err:.2e}")
+        check(err <= FAMILY_TOL and sum(counts.values()) == 0,
+              f"{name}: card vs CPU {err}, launches {counts}")
+    print(f"[multiscene] the three other families, a {side}x{side} frame on the plain path with "
+          f"the kernel flags on (no launch), card vs CPU max |diff| (tol {FAMILY_TOL:g}): "
+          + ", ".join(parts))
+
+    # tiny_nerf and a convert_checkpoint round trip.
+    with quiet():
+        tiny = tiny_nerf.main(["--iters", str(TINY_ITERS), "--size", "64", "--display-every",
+                               "100", "--logdir", os.path.join(tmp, "tiny"), "--device", DEVICE])
+    psnrs = [p for _, p in tiny.val_psnrs]
+    print(f"[multiscene] tiny_nerf {TINY_ITERS} iterations: held-out PSNR "
+          f"{' -> '.join(f'{p:.2f}' for p in psnrs)} dB, {tiny.rays_per_sec:,.0f} rays/s {on}")
+    check(all(math.isfinite(p) for p in psnrs) and psnrs[-1] > psnrs[0], "tiny_nerf PSNR")
+    ckpt = disk["checkpoint"][:-len(".ntc")] + ".ckpt"
+    with quiet():
+        convert_checkpoint.main(["--input", ckpt, "--output", os.path.join(tmp, "rt.ntc")])
+        convert_checkpoint.main(["--input", os.path.join(tmp, "rt.ntc"), "--output",
+                                 os.path.join(tmp, "rt.ckpt")])
+    a = torch.load(ckpt, map_location="cpu", weights_only=True)
+    b = torch.load(os.path.join(tmp, "rt.ckpt"), map_location="cpu", weights_only=True)
+    same = all(sorted(a[k]) == sorted(b[k]) and all(torch.equal(a[k][n], b[k][n]) for n in a[k])
+               for k in ("model_coarse_state_dict", "model_fine_state_dict"))
+    print(f"[multiscene] convert_checkpoint .ckpt -> .ntc -> .ckpt: state dicts "
+          f"{'bitwise' if same else 'NOT bitwise'} the original's")
+    check(same and b["iter"] == a["iter"], "convert_checkpoint round trip")
+
+    out["distill_s_per_view"] = float(np.median(dist.frame_seconds[1:]))
+    out["distill_s_per_view_wall"] = dist.seconds / dist.views
+    print(f"[time] phase 19: {MS_SCENES}-scene training {out['ms_s_per_step']:.4f} s a step = "
+          f"{out['ms_rays_per_sec']:,.0f} aggregate rays/s (host clock over {steady[1]} steps "
+          f"after the first call, each call ending in its metrics' fetch) against phase 8's "
+          f"plain f32 single-scene step {single_rays_per_sec:,.0f} rays/s; distill_dataset "
+          f"{out['distill_s_per_view']:.4f} s a {MS_SIZE}x{MS_SIZE} view (median; f32 through "
+          f"#1, render and fetch), {out['distill_s_per_view_wall']:.4f} s a view of the run's "
+          f"wall time (PNG writes overlapping renders); eval_multiscene {out['eval_s_per_frame']:.4f} s a frame "
+          f"(median, f32 and bf16, 200x200 and 400x400) {on}")
+    return out
+
 
 def main() -> int:
     import torch
@@ -2897,6 +3335,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         disk = disk_main_path(dev, on, trained["rays_per_sec"], tmp)
         geo = geometry_main_path(dev, on, disk)
+        # Phase 19: the multi-scene workflow on the same field and datasets.
+        multi = multiscene_main_path(dev, on, disk, train_times["step", "plain", "float32"])
 
     entries = []
 
@@ -2929,7 +3369,10 @@ def main() -> int:
           2 * p * MACS_PER_POINT, 4 * (3 * p + 64 * n + 82820 + 4 * p),
           disk_launches=disk["render_launches"],
           tightened_launches=geo["render_launches_float32"],
-          tightened_launches_bf16=geo["render_launches_bfloat16"])
+          tightened_launches_bf16=geo["render_launches_bfloat16"],
+          distill_launches=multi["distill_launches"],
+          eval_multiscene_launches=multi["eval_multiscene_launches_float32"],
+          eval_multiscene_launches_bf16=multi["eval_multiscene_launches_bfloat16"])
     entry("fused_paper_mlp_t", "paper_t.cu", "paper_t.py:177", paper["render_launches"],
           {d: paper_worst["t", d] for d in ("float32", "bfloat16")},
           {d: paper_times["t", d] for d in ("float32", "bfloat16")},
@@ -2950,7 +3393,8 @@ def main() -> int:
               4 * (3 * p + 64 * n + 82820 + 4 * p) + 2 * (82240 + 768 * p) if which == "fwd"
               else 4 * (4 * p + 82820 + 64 * n) + 2 * (768 * p + 76800),
               disk_launches=disk["launches"][which],
-              tightened_launches=geo["train_launches"][which])
+              tightened_launches=geo["train_launches"][which],
+              optimizer_launches=multi["optimizer_launches"][which])
     # The bf16 instances keep bf16 residuals (2,752 rows a point) and read
     # bf16 weights (623,232 forward, 595,968 backward values at F = 10).
     for which, line in (("fwd", 197), ("bwd", 241)):

@@ -248,20 +248,33 @@ _SIZE_KEYS = (
 
 
 def model_from_config(model_cfg: CfgNode, reference_compat_shapes: bool = False):
-    """Instantiate a model family from a cfg.models.{coarse,fine} section."""
+    """Instantiate a model family from a cfg.models.{coarse,fine} section.
+
+    The kwargs are the JAX package's (``nerf_tpu/config/schema.py:280-322``):
+    the size keys a family accepts, VeryTiny and MultiHead's one encoding
+    count from ``num_encoding_fn_xyz``, and VeryTiny's ``filter_size`` from
+    ``hidden_size``."""
     name = model_cfg.type
     if reference_compat_shapes:
         # The reference's constructor call: encoding and viewdir arguments
         # only; sizes keep the class defaults.
+        if name in ("VeryTinyNeRFModel", "MultiHeadNeRFModel"):
+            return get_model(name, num_encoding_functions=model_cfg.num_encoding_fn_xyz)
         keys = ("num_encoding_fn_xyz", "num_encoding_fn_dir", "include_input_xyz",
-                "include_input_dir", "use_viewdirs")
+                "include_input_dir")
+        if name in ("PaperNeRFModel", "FlexibleNeRFModel"):
+            keys += ("use_viewdirs",)
         return get_model(name, **{k: model_cfg[k] for k in keys})
     cls = MODEL_REGISTRY.get(name)
     if cls is None:
-        return get_model(name)  # raises, naming what is missing
+        return get_model(name)  # raises, naming the families there are
     accepted = inspect.signature(cls).parameters
-    return get_model(name, **{k: model_cfg[k] for k in _SIZE_KEYS
-                              if k in model_cfg and k in accepted})
+    kwargs = {k: model_cfg[k] for k in _SIZE_KEYS if k in model_cfg and k in accepted}
+    if "num_encoding_functions" in accepted and "num_encoding_fn_xyz" in model_cfg:
+        kwargs["num_encoding_functions"] = model_cfg["num_encoding_fn_xyz"]
+    if "filter_size" in accepted and "hidden_size" in model_cfg:
+        kwargs["filter_size"] = model_cfg["hidden_size"]
+    return get_model(name, **kwargs)
 
 
 def optimizer_from_config(cfg: CfgNode) -> OptimizerSpec:

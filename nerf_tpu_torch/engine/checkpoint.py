@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from ..utils.msgpack import msgpack_restore, msgpack_serialize
+from .optimizers import OPTAX_RULES, TORCH_KEY
 
 Params = Dict[str, Any]
 
@@ -193,27 +194,136 @@ def _to_cpu(obj):
     return obj
 
 
-def export_reference_checkpoint(path: str, step: int, model_coarse: torch.nn.Module,
-                                model_fine: Optional[torch.nn.Module], loss: float,
-                                psnr: float, optimizer: torch.optim.Optimizer,
-                                hwf: Optional[tuple] = None) -> None:
-    """Write a reference-schema ``.ckpt`` (``torch.save``, tensors on the CPU):
-    the modules' state dicts, ``optimizer.state_dict()`` and the loss and
-    PSNR of the last step."""
+def _write_reference_checkpoint(path: str, step: int, state_coarse: Dict[str, Any],
+                                state_fine: Optional[Dict[str, Any]],
+                                optimizer_state_dict: Dict[str, Any], loss: float, psnr: float,
+                                hwf: Optional[tuple]) -> None:
+    """The one writer of a reference-schema ``.ckpt``: ``torch.save`` to a
+    temporary file, then an atomic rename."""
     ckpt: Dict[str, Any] = {
         "iter": int(step),
-        "model_coarse_state_dict": _to_cpu(model_coarse.state_dict()),
-        "model_fine_state_dict": (_to_cpu(model_fine.state_dict())
-                                  if model_fine is not None else None),
-        "optimizer_state_dict": _to_cpu(optimizer.state_dict()),
+        "model_coarse_state_dict": state_coarse,
+        "model_fine_state_dict": state_fine,
+        "optimizer_state_dict": optimizer_state_dict,
         "loss": float(loss),
         "psnr": float(psnr),
     }
     if hwf is not None:
-        ckpt["height"], ckpt["width"], ckpt["focal_length"] = int(hwf[0]), int(hwf[1]), float(hwf[2])
+        ckpt["height"], ckpt["width"], ckpt["focal_length"] = hwf
     tmp = path + ".tmp"
     torch.save(ckpt, tmp)
     os.replace(tmp, path)
+
+
+def export_reference_checkpoint(path: str, step: int, model_coarse: torch.nn.Module,
+                                model_fine: Optional[torch.nn.Module], loss: float,
+                                psnr: float, optimizer: torch.optim.Optimizer,
+                                hwf: Optional[tuple] = None) -> None:
+    """Write a reference-schema ``.ckpt`` (tensors on the CPU): the modules'
+    state dicts, ``optimizer.state_dict()`` and the loss and PSNR of the
+    last step."""
+    _write_reference_checkpoint(
+        path, step, _to_cpu(model_coarse.state_dict()),
+        _to_cpu(model_fine.state_dict()) if model_fine is not None else None,
+        _to_cpu(optimizer.state_dict()), loss, psnr,
+        (int(hwf[0]), int(hwf[1]), float(hwf[2])) if hwf is not None else None)
+
+
+def _module_prefix_order(params: Params) -> list:
+    """The reference's attribute registration order of each family
+    (nerf/models.py), which is its ``parameters()`` order."""
+    prefixes = set(params.keys())
+    if "fc_out" in prefixes:                       # FlexibleNeRF, no viewdirs
+        return ["layer1", "layers_xyz", "fc_out"]
+    if "layer1" in prefixes and "layers_xyz" in prefixes:  # FlexibleNeRF
+        return ["layer1", "layers_xyz", "layers_dir", "fc_alpha", "fc_rgb", "fc_feat"]
+    if "layers_xyz" in prefixes:                   # PaperNeRFModel
+        return ["layers_xyz", "fc_feat", "fc_alpha", "layers_dir", "fc_rgb"]
+    if "layer3_1" in prefixes:                     # MultiHeadNeRFModel
+        return ["layer1", "layer2", "layer3_1", "layer3_2", "layer4", "layer5", "layer6"]
+    if "fc_alpha" in prefixes:                     # ReplicateNeRFModel
+        return ["layer1", "layer2", "layer3", "fc_alpha", "layer4", "layer5", "fc_rgb"]
+    return ["layer1", "layer2", "layer3"]          # VeryTinyNeRFModel
+
+
+def reference_state_dict_order(params: Params) -> list:
+    """The reference model's state-dict keys in its ``parameters()`` order."""
+    keys = []
+    for prefix in _module_prefix_order(params):
+        value = params.get(prefix)
+        if isinstance(value, (list, tuple)):
+            for i in range(len(value)):
+                keys += [f"{prefix}.{i}.weight", f"{prefix}.{i}.bias"]
+        elif value is not None:
+            keys += [f"{prefix}.weight", f"{prefix}.bias"]
+    return keys
+
+
+def reference_optimizer_state_dict(opt_state: Any, params_coarse: Params,
+                                   params_fine: Optional[Params], lr: float = 5.0e-3,
+                                   betas: tuple = (0.9, 0.999), eps: float = 1e-8
+                                   ) -> Dict[str, Any]:
+    """A ``torch.optim.Adam`` state dict over the reference's parameter order
+    from a ``.ntc``'s optax state (the JAX package's
+    ``reference_optimizer_state_dict``): the Adam moments, weight moments in
+    torch's (out, in) layout, or, with no Adam moments, a valid empty state.
+
+    The JAX trainer's state is ``optax.flatten``'s, so Adam's ``count``,
+    ``mu`` and ``nu`` are three leaves in a row: a scalar, then two vectors
+    raveled over every parameter in ``ravel_order``'s order."""
+    trees = [to_torch_state_dict(p) for p in (params_coarse, params_fine) if p is not None]
+    keys = [reference_state_dict_order(p) for p in (params_coarse, params_fine) if p is not None]
+    size = sum(int(np.size(v)) for sd in trees for v in sd.values())
+    leaves = _leaves(opt_state)
+    found = next((leaves[i:i + 3] for i in range(len(leaves) - 2)
+                  if np.ndim(leaves[i]) == 0
+                  and np.shape(leaves[i + 1]) == np.shape(leaves[i + 2]) == (size,)), None)
+    state: Dict[int, Dict[str, Any]] = {}
+    if found is not None:
+        count, mu, nu = (np.asarray(leaf) for leaf in found)
+        moments: Dict[tuple, tuple] = {}
+        offset = 0
+        for which, sd in enumerate(trees):
+            for key in sorted(sd, key=_ravel_key):
+                shape = np.shape(sd[key])
+                n = int(np.prod(shape))
+
+                def take(flat):
+                    if key.endswith(".weight"):       # raveled as the (in, out) kernel
+                        return np.ascontiguousarray(flat[offset:offset + n].reshape(shape[::-1]).T)
+                    return flat[offset:offset + n].reshape(shape)
+
+                moments[which, key] = take(mu), take(nu)
+                offset += n
+        step_t = torch.tensor(float(count))
+        ordered = [moments[which, key] for which, ks in enumerate(keys) for key in ks]
+        for i, (m, v) in enumerate(ordered):
+            state[i] = {"step": step_t,
+                        "exp_avg": torch.from_numpy(np.array(m, np.float32)),
+                        "exp_avg_sq": torch.from_numpy(np.array(v, np.float32))}
+    return {
+        "state": state,
+        "param_groups": [{"lr": float(lr), "betas": tuple(betas), "eps": float(eps),
+                          "weight_decay": 0, "amsgrad": False,
+                          "params": list(range(sum(len(ks) for ks in keys)))}],
+    }
+
+
+def export_reference_params(path: str, step: int, params_coarse: Params,
+                            params_fine: Optional[Params], loss: float, psnr: float,
+                            hwf: Optional[tuple] = None, opt_state: Any = None,
+                            lr: float = 5.0e-3) -> None:
+    """Write a reference-schema ``.ckpt`` from params pytrees (a ``.ntc``'s),
+    as the JAX package's ``export_reference_checkpoint`` does: readable by
+    the reference's eval_nerf.py and resumable by its train_nerf.py."""
+    def state_dict(params):
+        return {k: torch.from_numpy(np.asarray(v)) for k, v in to_torch_state_dict(params).items()}
+
+    _write_reference_checkpoint(
+        path, step, state_dict(params_coarse),
+        state_dict(params_fine) if params_fine is not None else None,
+        reference_optimizer_state_dict(opt_state, params_coarse, params_fine, lr=lr),
+        loss, psnr, hwf)
 
 
 def latest_checkpoint(logdir: str, prefix: str = "checkpoint",
@@ -237,10 +347,21 @@ def latest_checkpoint(logdir: str, prefix: str = "checkpoint",
 
 def _leaves(tree: Any) -> list:
     """The array leaves of an optax state in its list form, in
-    ``jax.tree.leaves`` order."""
+    ``jax.tree.leaves`` order (dict keys sorted)."""
     if isinstance(tree, (list, tuple)):
         return [leaf for v in tree for leaf in _leaves(v)]
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in _leaves(tree[k])]
     return [] if tree is None else [tree]
+
+
+def _ravel_key(name: str) -> tuple:
+    """A state-dict key's place in ``ravel_pytree``'s order of the JAX
+    params: module names sorted, list entries in order, ``bias`` before
+    ``kernel``."""
+    parts = name.split(".")
+    return (parts[0], int(parts[1]) if len(parts) == 3 else -1,
+            "kernel" if parts[-1] == "weight" else "bias")
 
 
 def ravel_order(model_coarse: torch.nn.Module, model_fine: Optional[torch.nn.Module]) -> list:
@@ -252,29 +373,43 @@ def ravel_order(model_coarse: torch.nn.Module, model_fine: Optional[torch.nn.Mod
         if model is None:
             continue
         named = dict(model.named_parameters())
-
-        def key(name: str):
-            parts = name.split(".")
-            return (parts[0], int(parts[1]) if len(parts) == 3 else -1,
-                    "kernel" if parts[-1] == "weight" else "bias")
-
-        out += [(named[name], name.endswith(".weight")) for name in sorted(named, key=key)]
+        out += [(named[name], name.endswith(".weight")) for name in sorted(named, key=_ravel_key)]
     return out
 
 
-def _optax_state(spec, count: np.ndarray, mu: np.ndarray, nu: np.ndarray) -> list:
+def _optax_layout(spec) -> list:
     """The JAX trainer's ``optax.flatten(make_optimizer(...))`` state for
-    ``spec`` (an ``engine.train.OptimizerSpec``) in its list form: the rule's
-    state, then the schedule's count (an empty state for a constant rate),
+    ``spec`` (an ``engine.train.OptimizerSpec``) in its list form, each leaf
+    named: "count" (the rule's update count), "schedule" (the schedule's),
+    or the rule's slot (a vector raveled over every parameter). The rule's
+    state comes in its ``optax.chain``'s place (AdamW's weight decay,
+    RMSprop's momentum and Adadelta's weight decay hold empty states, a
+    constant rate an empty ``scale``, rprop's ``scale(-1)`` one too),
     behind the clipping's empty state when clipping is on."""
-    schedule = [count] if spec.lr_decay and spec.lr_decay_factor else []
-    if spec.name == "adam":
-        inner = [[count, mu, nu], schedule]
-    elif spec.name == "adamw":
-        inner = [[count, mu, nu], [], schedule]
-    else:                                        # sgd without momentum
-        inner = [[], schedule]
+    if spec.name in ("adam", "adamw"):
+        rule = ["count", "mu", "nu"]
+    else:
+        rule = list(OPTAX_RULES[spec.name].SLOTS) if spec.name in OPTAX_RULES else []
+    schedule = ["schedule"] if spec.lr_decay and spec.lr_decay_factor else []
+    inner = {
+        "adamw": [rule, [], schedule],
+        "rmsprop": [rule, schedule, []],
+        "adadelta": [[], rule, schedule],
+        "rprop": [rule, []],
+    }.get(spec.name, [rule, schedule])
     return [[], inner] if spec.grad_clip_norm else inner
+
+
+def _optax_state(layout: list, values: Dict[str, np.ndarray]) -> list:
+    """``layout`` with each named leaf replaced by ``values[name]``."""
+    if isinstance(layout, list):
+        return [_optax_state(v, values) for v in layout]
+    return values[layout]
+
+
+def _slot_key(name: str) -> str:
+    """The state key this package keeps an optax slot under."""
+    return TORCH_KEY.get(name, name)
 
 
 def ntc_train_state(step: int, model_coarse: torch.nn.Module,
@@ -282,22 +417,29 @@ def ntc_train_state(step: int, model_coarse: torch.nn.Module,
                     spec, count: int, loss: float, psnr: float) -> Dict[str, Any]:
     """The dict the JAX trainer saves as ``checkpointNNNNN.ntc``, of this
     package's training state: params in the JAX layout and ``opt_state`` as
-    the optax state of ``spec`` after ``count`` updates, ``mu``/``nu`` raveled
-    from the Adam moments (zeros before the first update)."""
-    moments = {"exp_avg": [], "exp_avg_sq": []}
-    for p, is_weight in ravel_order(model_coarse, model_fine):
-        state = optimizer.state.get(p, {})
-        for name, parts in moments.items():
-            m = state.get(name)
-            m = torch.zeros_like(p) if m is None else m
+    the optax state of ``spec`` after ``count`` updates, each slot raveled
+    from the optimizer's state (its initial value before the first update)."""
+    layout = _optax_layout(spec)
+    group = optimizer.param_groups[0]
+    values: Dict[str, Any] = {"count": np.asarray(int(count), np.int32),
+                              "schedule": np.asarray(int(count), np.int32)}
+    for name in _leaves(layout):
+        if name in values:
+            continue
+        parts = []
+        for p, is_weight in ravel_order(model_coarse, model_fine):
+            m = optimizer.state.get(p, {}).get(_slot_key(name))
+            if m is None:
+                m = (optimizer.initial_slot(name, p, group) if hasattr(optimizer, "initial_slot")
+                     else torch.zeros_like(p))
             parts.append((m.t() if is_weight else m).detach().reshape(-1).cpu())
-    mu, nu = (torch.cat(parts).numpy().astype(np.float32) for parts in moments.values())
+        values[name] = torch.cat(parts).numpy().astype(np.float32)
     return {
         "step": np.asarray(int(step)),
         "params_coarse": convert_torch_state_dict(model_coarse.state_dict()),
         "params_fine": (convert_torch_state_dict(model_fine.state_dict())
                         if model_fine is not None else None),
-        "opt_state": _optax_state(spec, np.asarray(int(count), np.int32), mu, nu),
+        "opt_state": _optax_state(layout, values),
         "loss": np.asarray(float(loss)),
         "psnr": np.asarray(float(psnr)),
     }
@@ -311,8 +453,9 @@ def _ntc_optimizer_state_dict(ckpt: Dict[str, Any], model_coarse, model_fine,
     restored = _leaves(ckpt.get("opt_state"))
     order = ravel_order(model_coarse, model_fine)
     size = sum(p.numel() for p, _ in order)
-    template = _leaves(_optax_state(spec, np.zeros((), np.int32), np.zeros(size, np.float32),
-                                    np.zeros(size, np.float32)))
+    names = _leaves(_optax_layout(spec))
+    template = [np.zeros((), np.int32) if n in ("count", "schedule") else np.zeros(size)
+                for n in names]
     if not restored:
         print("checkpoint has no optimizer state; starting Adam fresh", flush=True)
         return None
@@ -320,12 +463,13 @@ def _ntc_optimizer_state_dict(ckpt: Dict[str, Any], model_coarse, model_fine,
             np.shape(a) != np.shape(b) for a, b in zip(restored, template)):
         print("checkpoint optimizer layout differs; starting Adam fresh", flush=True)
         return None
+    values = {n: np.asarray(v) for n, v in zip(names, restored)}
+    count = int(values.get("schedule", values.get("count", 0)))
+    slots = [n for n in names if n not in ("count", "schedule")]
     sd = optimizer.state_dict()
-    if spec.name == "sgd":
-        # No moments: the leaves are the schedule's count alone.
-        return {"state": {}, "param_groups": sd["param_groups"], "count": int(restored[0])}
-    # The layout is the template's, so its first three leaves are Adam's.
-    count, mu, nu = (np.asarray(x) for x in restored[:3])
+    if not slots:
+        # No moments (sgd): the leaves are the schedule's count alone.
+        return {"state": {}, "param_groups": sd["param_groups"], "count": count}
     index = {id(p): i for i, p in enumerate(optimizer.param_groups[0]["params"])}
     state: Dict[int, Dict[str, Any]] = {}
     offset = 0
@@ -337,10 +481,12 @@ def _ntc_optimizer_state_dict(ckpt: Dict[str, Any], model_coarse, model_fine,
             leaf = torch.from_numpy(np.array(flat[offset:offset + n], np.float32)).reshape(shape)
             return leaf.t().contiguous() if is_weight else leaf
 
-        state[index[id(p)]] = {"step": torch.tensor(float(count)),
-                               "exp_avg": take(mu), "exp_avg_sq": take(nu)}
+        entry = {_slot_key(name): take(values[name]) for name in slots}
+        if "count" in values:
+            entry["step"] = torch.tensor(float(values["count"]))
+        state[index[id(p)]] = entry
         offset += n
-    return {"state": state, "param_groups": sd["param_groups"], "count": int(count)}
+    return {"state": state, "param_groups": sd["param_groups"], "count": count}
 
 
 def load_train_checkpoint(path: str, model_coarse: torch.nn.Module,
@@ -388,24 +534,28 @@ def load_train_checkpoint(path: str, model_coarse: torch.nn.Module,
         model_fine.load_state_dict(ckpt["model_fine_state_dict"])
     params = optimizer.param_groups[0]["params"]
     moments = (ckpt.get("optimizer_state_dict") or {}).get("state") or {}
-    fits = len(moments) == len(params) and all(
-        i in moments and tuple(moments[i]["exp_avg"].shape) == tuple(p.shape)
+    slots = [_slot_key(n) for n in _leaves(_optax_layout(spec)) if n not in ("count", "schedule")
+             ] if spec is not None else ["exp_avg", "exp_avg_sq"]
+    fits = bool(slots) and len(moments) == len(params) and all(
+        i in moments and all(k in moments[i] and tuple(moments[i][k].shape) == tuple(p.shape)
+                             for k in slots)
         for i, p in enumerate(params)
     )
     count = 0
     if fits:
         _load_optimizer_state(optimizer, ckpt["optimizer_state_dict"])
-        count = int(float(moments[0]["step"]))
+        count = int(float(moments[0].get("step", 0)))
     return {"step": int(ckpt.get("iter", 0)), "count": count, "moments": fits}
 
 
 def _load_optimizer_state(optimizer: torch.optim.Optimizer, state_dict: Dict[str, Any]) -> None:
     """Load the moments of ``state_dict`` into ``optimizer``, each with its
-    own ``step`` tensor; the hyperparameters stay the optimizer's own (the
-    file's are its writer's)."""
+    own ``step`` tensor where the rule counts; the hyperparameters stay the
+    optimizer's own (the file's are its writer's)."""
     own = [{k: v for k, v in g.items() if k != "params"} for g in optimizer.param_groups]
     for entry in state_dict["state"].values():
-        entry["step"] = torch.as_tensor(entry["step"], dtype=torch.float32).clone()
+        if "step" in entry:
+            entry["step"] = torch.as_tensor(entry["step"], dtype=torch.float32).clone()
     optimizer.load_state_dict(state_dict)
     for group, hyper in zip(optimizer.param_groups, own):
         group.update(hyper)

@@ -167,13 +167,49 @@ def _eval_radiance_field(model, pts: torch.Tensor, viewdirs: Optional[torch.Tens
     return eval_fn(pts, viewdirs)
 
 
-def _composite(rf, z_vals, rd, s: RenderSettings, generator, final_dists=None) -> RenderOutputs:
+class RenderDraws(NamedTuple):
+    """The random numbers one ``render_rays`` call uses, drawn before it:
+    None where the settings draw nothing."""
+
+    t_rand: Optional[torch.Tensor]        # (N, num_coarse) stratified jitter
+    noise_coarse: Optional[torch.Tensor]  # (N, num_coarse) sigma noise
+    u_fine: Optional[torch.Tensor]        # (N, num_fine) resample uniforms
+    noise_fine: Optional[torch.Tensor]    # (N, num_coarse + num_fine) sigma noise
+
+
+def draw_render_randoms(generator: Optional[torch.Generator], num_rays: int,
+                        settings: RenderSettings, device=None,
+                        dtype: torch.dtype = torch.float32) -> RenderDraws:
+    """What ``render_rays(..., generator)`` would draw from ``generator`` for
+    ``num_rays`` rays, drawn now in its order, so ``render_rays(...,
+    draws=...)`` renders the same batch."""
+    s = settings
+    noisy = s.radiance_field_noise_std > 0.0
+
+    def rand(n):
+        return torch.rand((num_rays, n), generator=generator, dtype=dtype, device=device)
+
+    def randn(n):
+        return torch.randn((num_rays, n), generator=generator, dtype=dtype, device=device)
+
+    t_rand = rand(s.num_coarse) if s.perturb else None
+    noise_coarse = randn(s.num_coarse) if noisy else None
+    u_fine = noise_fine = None
+    if s.num_fine > 0:
+        u_fine = rand(s.num_fine) if s.perturb else None
+        noise_fine = randn(s.num_coarse + s.num_fine) if noisy else None
+    return RenderDraws(t_rand, noise_coarse, u_fine, noise_fine)
+
+
+def _composite(rf, z_vals, rd, s: RenderSettings, generator, final_dists=None,
+               noise=None) -> RenderOutputs:
     return volume_render_radiance_field(
         rf, z_vals, rd,
         radiance_field_noise_std=s.radiance_field_noise_std,
         white_background=s.white_background,
         generator=generator,
         final_dists=final_dists,
+        noise=noise,
     )
 
 
@@ -184,12 +220,18 @@ def render_rays(
     ray_directions: torch.Tensor,
     settings: RenderSettings,
     generator: Optional[torch.Generator] = None,
+    draws: Optional[RenderDraws] = None,
 ) -> RayRenderResult:
     """Render a flat (N, 3) batch of rays through the coarse->fine hierarchy.
 
-    ``model_fine`` None reuses the coarse model for the fine pass.
+    ``model_fine`` None reuses the coarse model for the fine pass. The
+    random numbers come from ``generator``, or from ``draws``
+    (``draw_render_randoms``) when given: then nothing is drawn here, so the
+    call works under ``torch.func.vmap``.
     """
     s = settings
+    if draws is None:
+        draws = RenderDraws(None, None, None, None)
     viewdirs = None
     if s.use_viewdirs:
         viewdirs = ray_directions / torch.linalg.norm(ray_directions, dim=-1, keepdim=True)
@@ -218,24 +260,26 @@ def render_rays(
 
     z_vals = coarse_z_values(near, far, s.num_coarse, s.lindisp, dtype=ro.dtype)
     if s.perturb:
-        z_vals = perturb_z_values(z_vals, generator)
+        z_vals = perturb_z_values(z_vals, generator, t_rand=draws.t_rand)
 
     pts = ro[..., None, :] + rd[..., None, :] * z_vals[..., :, None]
     rf = _eval_radiance_field(model_coarse, pts, viewdirs, s)
-    coarse = _composite(rf, z_vals, rd, s, generator, last_bin_or_sentinel(z_vals))
+    coarse = _composite(rf, z_vals, rd, s, generator, last_bin_or_sentinel(z_vals),
+                        draws.noise_coarse)
 
     fine = None
     if s.num_fine > 0:
         z_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
         z_samples = sample_pdf(
             z_mid, coarse.weights[..., 1:-1], s.num_fine,
-            det=not s.perturb, generator=generator,
+            det=not s.perturb, generator=generator, u=draws.u_fine,
         ).detach()
         z_all, _ = torch.sort(torch.cat([z_vals, z_samples], dim=-1), dim=-1)
         pts = ro[..., None, :] + rd[..., None, :] * z_all[..., :, None]
         fine_model = model_fine if model_fine is not None else model_coarse
         rf = _eval_radiance_field(fine_model, pts, viewdirs, s)
-        fine = _composite(rf, z_all, rd, s, generator, last_bin_or_sentinel(z_all))
+        fine = _composite(rf, z_all, rd, s, generator, last_bin_or_sentinel(z_all),
+                          draws.noise_fine)
     return RayRenderResult(coarse, fine)
 
 

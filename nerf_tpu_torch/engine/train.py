@@ -6,7 +6,8 @@ Behaviour kept from the JAX package (and the reference):
     loss;
   - per-step exponential LR decay lr * factor^(t / (lr_decay * 1000)), t the
     number of updates applied (``optax.exponential_decay``, staircase off);
-  - the optimizer picked by its ``torch.optim`` name from the config;
+  - the optimizer picked by its ``torch.optim`` name from the config, with
+    optax's rule and defaults (``engine/optimizers.py`` where torch's differ);
   - optional global-norm gradient clipping (``optax.clip_by_global_norm``)
     and a non-finite guard that skips an update.
 
@@ -23,28 +24,28 @@ after each update. Random numbers come from a ``torch.Generator`` seeded from
 from __future__ import annotations
 
 import dataclasses
+import difflib
 from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
 
 from ..ops.math import img2mse, mse2psnr
+from .optimizers import OPTAX_RULES
 from .renderer import RenderSettings, render_rays
 
 _ADAM_BETAS = (0.9, 0.999)
 _ADAM_EPS = 1e-8
 _ADAMW_WEIGHT_DECAY = 1e-4   # optax.adamw's default (torch.optim.AdamW's is 1e-2)
 
-# torch.optim names whose optax rules or defaults differ from torch's and have
-# not been checked name by name yet (ROADMAP.md, open items §1 item 5b).
-_NOT_PORTED = {
-    "rmsprop": "optax.rmsprop puts eps inside the square root and has no momentum by default",
-    "adagrad": "optax.adagrad starts its accumulator at 0.1 and puts eps inside the square root",
-    "adamax": "optax.adamax and torch.optim.Adamax differ in where eps enters",
-    "adadelta": "optax.adadelta and torch.optim.Adadelta differ in their defaults (lr, rho)",
-    "nadam": "optax.nadam and torch.optim.NAdam use different momentum schedules",
-    "radam": "optax.radam and torch.optim.RAdam differ in the rectification threshold",
-    "rprop": "optax.rprop and torch.optim.Rprop differ in their step-size bounds",
+# The JAX package's names (its optax table), and the torch.optim names it
+# refuses with a reason (nerf_tpu/engine/train.py:73-106).
+OPTIMIZER_NAMES = ("adam", "adamw", "sgd") + tuple(OPTAX_RULES)
+_NO_EQUIVALENT = {
+    "asgd": "averaged SGD has no optax equivalent; 'sgd' is nearest",
+    "lbfgs": "L-BFGS needs a line-search-driven update loop "
+             "(optax.lbfgs) incompatible with the fixed train step; use 'adam'",
+    "sparseadam": "JAX arrays are dense; use 'adam'",
 }
 
 
@@ -76,7 +77,7 @@ class OptimizerSpec:
     grad_clip_norm: Optional[float] = None
 
     def schedule(self, step: int) -> float:
-        if self.lr_decay and self.lr_decay_factor:
+        if self.lr_decay and self.lr_decay_factor and self.name != "rprop":
             return exponential_lr_schedule(self.lr, self.lr_decay, self.lr_decay_factor)(step)
         return float(self.lr)
 
@@ -88,8 +89,10 @@ class OptimizerSpec:
         elif self.name == "adamw":
             opt = torch.optim.AdamW(params, lr=self.lr, betas=_ADAM_BETAS, eps=_ADAM_EPS,
                                     weight_decay=_ADAMW_WEIGHT_DECAY)
-        else:
+        elif self.name == "sgd":
             opt = torch.optim.SGD(params, lr=self.lr, momentum=0.0)
+        else:
+            opt = OPTAX_RULES[self.name](params, lr=self.lr)
         return opt, self.make_scheduler(opt)
 
     def make_scheduler(self, opt: torch.optim.Optimizer, count: int = 0
@@ -105,21 +108,21 @@ class OptimizerSpec:
 def make_optimizer(optimizer_type: str, lr: float, lr_decay: Optional[float] = None,
                    lr_decay_factor: Optional[float] = None,
                    grad_clip_norm: Optional[float] = None) -> OptimizerSpec:
-    """An optimizer by its (reference ``torch.optim``) name.
-
-    ``adam``, ``adamw`` and ``sgd`` are ported with optax's defaults (their
-    update rules are the same in optax and torch); the seven other names the
-    JAX package maps onto optax raise until their rules are checked.
+    """An optimizer by its (reference ``torch.optim``) name, with optax's
+    rule and defaults: ``adam``, ``adamw`` and ``sgd`` on ``torch.optim``
+    (optax's rules; AdamW with optax's weight decay 1e-4), the seven others
+    on ``engine/optimizers.py``. ``rprop`` takes ``lr`` as its initial step
+    size and ignores the decay, as the JAX package does. Other names raise
+    the JAX package's ``ValueError``, with its reason or the nearest name.
     """
     name = optimizer_type.lower()
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"optimizer {optimizer_type!r} is not ported yet: {_NOT_PORTED[name]} "
-            "(ROADMAP.md, open items §1 item 5b)"
-        )
-    if name not in ("adam", "adamw", "sgd"):
+    if name not in OPTIMIZER_NAMES:
+        hint = _NO_EQUIVALENT.get(name)
+        if hint is None:
+            close = difflib.get_close_matches(name, OPTIMIZER_NAMES, n=1)
+            hint = f"did you mean {close[0]!r}?" if close else None
         raise ValueError(f"Unsupported optimizer {optimizer_type!r}; available: "
-                         f"['adam', 'adamw', 'sgd'] (and, not yet ported, {sorted(_NOT_PORTED)})")
+                         f"{sorted(OPTIMIZER_NAMES)}" + (f" ({hint})" if hint else ""))
     return OptimizerSpec(name, float(lr), lr_decay, lr_decay_factor,
                          float(grad_clip_norm) if grad_clip_norm else None)
 

@@ -4,24 +4,25 @@ from __future__ import annotations
 
 from typing import Any, Dict, Type
 
-from .mlp import FlexibleNeRFModel, PaperNeRFModel
+from .mlp import (
+    FlexibleNeRFModel,
+    MultiHeadNeRFModel,
+    PaperNeRFModel,
+    ReplicateNeRFModel,
+    VeryTinyNeRFModel,
+)
 
 MODEL_REGISTRY: Dict[str, Type[Any]] = {
-    "FlexibleNeRFModel": FlexibleNeRFModel,
+    "VeryTinyNeRFModel": VeryTinyNeRFModel,
+    "MultiHeadNeRFModel": MultiHeadNeRFModel,
+    "ReplicateNeRFModel": ReplicateNeRFModel,
     "PaperNeRFModel": PaperNeRFModel,
+    "FlexibleNeRFModel": FlexibleNeRFModel,
 }
-
-# Families the JAX package has and this package does not yet.
-_NOT_PORTED = ("VeryTinyNeRFModel", "MultiHeadNeRFModel", "ReplicateNeRFModel")
 
 
 def get_model(name: str, **kwargs):
     """Instantiate a model family by its reference class name."""
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{name} is not ported to nerf_tpu_torch yet "
-            "(ROADMAP.md, open items §1 item 3)"
-        )
     try:
         cls = MODEL_REGISTRY[name]
     except KeyError:
@@ -31,4 +32,12 @@ def get_model(name: str, **kwargs):
     return cls(**kwargs)
 
 
-__all__ = ["MODEL_REGISTRY", "get_model", "FlexibleNeRFModel", "PaperNeRFModel"]
+__all__ = [
+    "MODEL_REGISTRY",
+    "get_model",
+    "FlexibleNeRFModel",
+    "MultiHeadNeRFModel",
+    "PaperNeRFModel",
+    "ReplicateNeRFModel",
+    "VeryTinyNeRFModel",
+]

@@ -1,11 +1,14 @@
-"""The FlexibleNeRF and PaperNeRF radiance-field MLPs as ``nn.Module``s
-(ports of ``FlexibleNeRFModel`` and ``PaperNeRFModel`` in
-``nerf_tpu/models/mlp.py``).
+"""The five radiance-field MLP families as ``nn.Module``s (ports of
+``nerf_tpu/models/mlp.py``): ``FlexibleNeRFModel`` and ``PaperNeRFModel``,
+which the kernels take, and ``VeryTinyNeRFModel``, ``MultiHeadNeRFModel``
+and ``ReplicateNeRFModel``, which run eager only (the JAX package has no
+kernel for them either).
 
 Attribute names are the reference's (``layer1``, ``layers_xyz.N``,
-``fc_feat``, ``fc_alpha``, ``layers_dir.N``, ``fc_rgb``, ``fc_out``), so the
-state dict matches ``nerf_tpu/engine/checkpoint.py:to_torch_state_dict`` key
-for key and reference ``.ckpt`` files load as they are.
+``fc_feat``, ``fc_alpha``, ``layers_dir.N``, ``fc_rgb``, ``fc_out``;
+``layer1..3``; ``layer3_1``, ``layer3_2``, ``layer4..6``; ``layer1..5``),
+so the state dict matches ``nerf_tpu/engine/checkpoint.py:to_torch_state_dict``
+key for key and reference ``.ckpt`` files load as they are.
 
 Init is ``nn.Linear``'s: weight and bias ~ U(-1/sqrt(fan_in), 1/sqrt(fan_in)),
 drawn from the ``generator`` given (PyTorch's default generator otherwise).
@@ -201,4 +204,140 @@ class PaperNeRFModel(nn.Module):
         for layer in self.layers_dir[1:3]:
             h = torch.relu(_linear(layer, h))
         rgb = _linear(self.fc_rgb, h)
+        return torch.cat([rgb, alpha], dim=-1)
+
+
+def _skip_linear(device):
+    def linear(i, o):
+        return nn.utils.skip_init(nn.Linear, i, o, device=device or "cpu")
+
+    return linear
+
+
+class VeryTinyNeRFModel(nn.Module):
+    """Three linear layers over the jointly encoded (xyz [, dir]) input
+    (reference models.py:4-31). The reference's quirk is kept: the
+    direction's width is the xyz encoding's (``dim_dir == dim_xyz``), so a
+    config must encode the direction with ``num_encoding_functions`` too."""
+
+    def __init__(self, filter_size: int = 128, num_encoding_functions: int = 6,
+                 use_viewdirs: bool = True, generator: Optional[torch.Generator] = None,
+                 device=None):
+        super().__init__()
+        self.filter_size = filter_size
+        self.num_encoding_functions = num_encoding_functions
+        self.use_viewdirs = use_viewdirs
+        self.dim_xyz = 3 + 3 * 2 * num_encoding_functions
+        self.dim_dir = self.dim_xyz if use_viewdirs else 0
+        linear = _skip_linear(device)
+        self.layer1 = linear(self.dim_xyz + self.dim_dir, filter_size)
+        self.layer2 = linear(filter_size, filter_size)
+        self.layer3 = linear(filter_size, 4)
+        self.reset_parameters(generator)
+
+    @property
+    def input_dim(self) -> int:
+        return self.dim_xyz + self.dim_dir
+
+    reset_parameters = FlexibleNeRFModel.reset_parameters
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(..., input_dim) encoded input -> (..., 4) raw [r, g, b, sigma]."""
+        x = torch.relu(_linear(self.layer1, x))
+        x = torch.relu(_linear(self.layer2, x))
+        return _linear(self.layer3, x)
+
+
+class MultiHeadNeRFModel(nn.Module):
+    """A two-layer trunk on the xyz encoding with a sigma head and a feature
+    head, the rgb head on ``[feat, dir]`` (reference models.py:34-78); like
+    VeryTiny, ``dim_dir == dim_xyz``."""
+
+    def __init__(self, hidden_size: int = 128, num_encoding_functions: int = 6,
+                 use_viewdirs: bool = True, generator: Optional[torch.Generator] = None,
+                 device=None):
+        super().__init__()
+        self.hidden_size = hidden_size
+        self.num_encoding_functions = num_encoding_functions
+        self.use_viewdirs = use_viewdirs
+        self.dim_xyz = 3 + 3 * 2 * num_encoding_functions
+        self.dim_dir = self.dim_xyz if use_viewdirs else 0
+        h = hidden_size
+        linear = _skip_linear(device)
+        self.layer1 = linear(self.dim_xyz, h)
+        self.layer2 = linear(h, h)
+        self.layer3_1 = linear(h, 1)
+        self.layer3_2 = linear(h, h)
+        self.layer4 = linear(self.dim_dir + h, h)
+        self.layer5 = linear(h, h)
+        self.layer6 = linear(h, 3)
+        self.reset_parameters(generator)
+
+    @property
+    def input_dim(self) -> int:
+        return self.dim_xyz + self.dim_dir
+
+    reset_parameters = FlexibleNeRFModel.reset_parameters
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(..., input_dim) encoded input -> (..., 4) raw [r, g, b, sigma]."""
+        xyz, view = x[..., : self.dim_xyz], x[..., self.dim_xyz:]
+        h = torch.relu(_linear(self.layer1, xyz))
+        h = torch.relu(_linear(self.layer2, h))
+        sigma = _linear(self.layer3_1, h)
+        feat = torch.relu(_linear(self.layer3_2, h))
+        h = torch.relu(_linear(self.layer4, torch.cat([feat, view], dim=-1)))
+        h = torch.relu(_linear(self.layer5, h))
+        rgb = _linear(self.layer6, h)
+        return torch.cat([rgb, sigma], dim=-1)
+
+
+class ReplicateNeRFModel(nn.Module):
+    """The NeRF supplementary figure's layout: a three-layer trunk and a
+    two-layer direction branch at half width (reference models.py:81-120).
+    Its quirks are kept: ``layer3``'s feature has no ReLU, alpha is read from
+    the trunk (not from the feature), and ``num_layers`` is accepted and
+    ignored (the layout is fixed)."""
+
+    def __init__(self, hidden_size: int = 256, num_layers: int = 4,
+                 num_encoding_fn_xyz: int = 6, num_encoding_fn_dir: int = 4,
+                 include_input_xyz: bool = True, include_input_dir: bool = True,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        self.hidden_size = hidden_size
+        self.num_layers = num_layers
+        self.num_encoding_fn_xyz = num_encoding_fn_xyz
+        self.num_encoding_fn_dir = num_encoding_fn_dir
+        self.include_input_xyz = include_input_xyz
+        self.include_input_dir = include_input_dir
+        self.dim_xyz, self.dim_dir = _xyz_dir_dims(
+            num_encoding_fn_xyz, num_encoding_fn_dir, include_input_xyz, include_input_dir
+        )
+        h = hidden_size
+        linear = _skip_linear(device)
+        self.layer1 = linear(self.dim_xyz, h)
+        self.layer2 = linear(h, h)
+        self.layer3 = linear(h, h)
+        self.fc_alpha = linear(h, 1)
+        self.layer4 = linear(h + self.dim_dir, h // 2)
+        self.layer5 = linear(h // 2, h // 2)
+        self.fc_rgb = linear(h // 2, 3)
+        self.reset_parameters(generator)
+
+    @property
+    def input_dim(self) -> int:
+        return self.dim_xyz + self.dim_dir
+
+    reset_parameters = FlexibleNeRFModel.reset_parameters
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(..., input_dim) encoded input -> (..., 4) raw [r, g, b, sigma]."""
+        xyz, direction = x[..., : self.dim_xyz], x[..., self.dim_xyz:]
+        h = torch.relu(_linear(self.layer1, xyz))
+        h = torch.relu(_linear(self.layer2, h))
+        feat = _linear(self.layer3, h)
+        alpha = _linear(self.fc_alpha, h)
+        y = torch.relu(_linear(self.layer4, torch.cat([feat, direction], dim=-1)))
+        y = torch.relu(_linear(self.layer5, y))
+        rgb = _linear(self.fc_rgb, y)
         return torch.cat([rgb, alpha], dim=-1)

@@ -2,8 +2,9 @@
 stratified coarse samples and hierarchical inverse-CDF resampling.
 
 Random numbers come from an explicit ``torch.Generator`` where the JAX
-package threads a key; ``sample_pdf`` also takes its uniforms ``u`` from the
-caller, so a test can hand both packages the same numbers.
+package threads a key; both functions also take their uniforms from the
+caller (``t_rand``, ``u``), so a test can hand both packages the same
+numbers and a vmapped caller can hand each scene its own.
 """
 
 from __future__ import annotations
@@ -30,13 +31,16 @@ def coarse_z_values(near, far, num_samples: int, lindisp: bool = False,
 
 
 def perturb_z_values(z_vals: torch.Tensor,
-                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """Stratified jitter of depth samples within their bins."""
+                     generator: Optional[torch.Generator] = None,
+                     t_rand: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Stratified jitter of depth samples within their bins; ``t_rand``
+    (shaped like ``z_vals``, in [0, 1)) overrides the uniforms."""
     mids = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
     upper = torch.cat([mids, z_vals[..., -1:]], dim=-1)
     lower = torch.cat([z_vals[..., :1], mids], dim=-1)
-    t_rand = torch.rand(z_vals.shape, generator=generator, dtype=z_vals.dtype,
-                        device=z_vals.device)
+    if t_rand is None:
+        t_rand = torch.rand(z_vals.shape, generator=generator, dtype=z_vals.dtype,
+                            device=z_vals.device)
     return lower + (upper - lower) * t_rand
 
 

@@ -34,11 +34,13 @@ def volume_render_radiance_field(
     white_background: bool = False,
     generator: Optional[torch.Generator] = None,
     final_dists: Optional[torch.Tensor] = None,
+    noise: Optional[torch.Tensor] = None,
 ) -> RenderOutputs:
     """Composite raw (..., S, 4) [r, g, b, sigma] at depths (..., S) along
     (..., 3) un-normalized directions into rgb/disp/acc/weights/depth.
 
-    ``final_dists`` (...,) replaces the 1e10 thickness of the last sample.
+    ``final_dists`` (...,) replaces the 1e10 thickness of the last sample;
+    ``noise`` (..., S) standard normals replace the generator's draw.
     """
     if final_dists is None:
         last = torch.full_like(depth_values[..., :1], 1e10)
@@ -50,8 +52,9 @@ def volume_render_radiance_field(
     rgb = torch.sigmoid(radiance_field[..., :3])
     sigma_raw = radiance_field[..., 3]
     if radiance_field_noise_std > 0.0:
-        noise = torch.randn(sigma_raw.shape, generator=generator, dtype=sigma_raw.dtype,
-                            device=sigma_raw.device)
+        if noise is None:
+            noise = torch.randn(sigma_raw.shape, generator=generator, dtype=sigma_raw.dtype,
+                                device=sigma_raw.device)
         sigma_raw = sigma_raw + noise * radiance_field_noise_std
     sigma = torch.relu(sigma_raw)
 

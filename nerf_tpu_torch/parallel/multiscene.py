@@ -1,0 +1,239 @@
+"""Multi-scene training: S scenes stepped as one batched workload (the
+one-device half of ``nerf_tpu/parallel/multiscene.py``).
+
+Every scene has its own parameters, optimizer moments and random stream;
+they share the model shape, the render settings and the step count. The
+parameters of all scenes are stacked on a leading ``(S,)`` axis, one leaf
+per parameter of the ``coarse`` and ``fine`` modules, and one step runs
+every scene: ``torch.func.vmap`` over ``torch.func.functional_call`` of the
+plain field through ``engine.renderer.render_rays``, where the JAX package
+vmaps its train step. The losses of the scenes are summed and
+back-propagated once: the scenes share nothing, so each stacked leaf's
+gradient slice is that scene's own gradient. The optimizer is the
+configured ``torch.optim`` rule over the stacked leaves; every rule the port
+has is elementwise, so it updates each scene as the scene's own optimizer
+would, and the shared ``LambdaLR`` is each scene's schedule. As in the JAX
+step there is no gradient clipping (it would couple the scenes) and no
+non-finite skip.
+
+Random numbers: under ``vmap`` one generator cannot feed the scenes
+independently, so each scene's numbers are drawn before the vmapped body
+from its own generator and passed in (``engine.renderer.RenderDraws``).
+The loop seeds scene ``s``'s generator of step ``t`` with
+``fold_seed(fold_seed(base_seed, s), t)`` and draws its ray batch and then
+its render numbers from it, in the single-scene loop's order: scene ``s`` of
+``make_multiscene_train_loop(..., base_seed)`` takes the steps of
+``engine.train.make_train_loop(..., fold_seed(base_seed, s))`` on its own
+store, whatever S is and whatever the other scenes are.
+
+The field runs the plain path: the JAX multi-scene trainer never sets
+``use_pallas_train`` (``train_multiscene.py:250-256``). The kernels'
+autograd functions do not run under ``vmap``, so settings that ask for a
+kernel (``use_pallas`` or ``use_pallas_train``) raise rather than fall back
+to the plain field (ROADMAP.md, §2 item 12). The multi-device entry points
+raise until the ``torch.distributed`` modules exist (ROADMAP.md, open items
+§1 item 11).
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from ..engine.renderer import (
+    RenderDraws,
+    RenderSettings,
+    draw_render_randoms,
+    render_rays,
+)
+from ..engine.train import (
+    OptimizerSpec,
+    StepMetrics,
+    fold_seed,
+    sample_ray_batch,
+    step_generator,
+)
+from ..ops.math import img2mse, mse2psnr
+
+_MULTI_DEVICE = ("is not ported yet: it needs the torch.distributed modules "
+                 "(ROADMAP.md, open items §1 item 11)")
+
+
+@dataclasses.dataclass
+class MultiSceneState:
+    """The state of S scenes: ``params`` maps ``coarse.<name>`` and
+    ``fine.<name>`` to a leaf of shape (S, *parameter shape); ``step`` is
+    shared, as the JAX loop reads ``state.step[0]``."""
+
+    step: int
+    params: Dict[str, torch.Tensor]
+    optimizer: torch.optim.Optimizer
+    scheduler: torch.optim.lr_scheduler.LambdaLR
+
+    def scene_params(self, s: int, which: str = "coarse") -> Dict[str, torch.Tensor]:
+        """Scene ``s``'s state dict of the ``which`` module (a copy, detached)."""
+        prefix = which + "."
+        return {k[len(prefix):]: v[s].detach().clone() for k, v in self.params.items()
+                if k.startswith(prefix)}
+
+
+class _ScenePair(nn.Module):
+    """The coarse and fine modules under one name space, so one
+    ``functional_call`` swaps in a scene's parameters for both."""
+
+    def __init__(self, model_coarse: nn.Module, model_fine: Optional[nn.Module]):
+        super().__init__()
+        self.coarse = model_coarse
+        self.fine = model_fine
+
+    def forward(self, ro, rd, settings: RenderSettings, draws: RenderDraws):
+        return render_rays(self.coarse, self.fine, ro, rd, settings, draws=draws)
+
+
+def create_multiscene_state(model_coarse: nn.Module, model_fine: Optional[nn.Module],
+                            optimizer: OptimizerSpec, seed: int, num_scenes: int,
+                            device=None) -> MultiSceneState:
+    """A state whose every leaf has a leading ``(num_scenes,)`` axis: scene
+    ``s``'s coarse and then fine parameters are ``reset_parameters`` on the
+    CPU from a generator seeded with ``fold_seed(seed, s)`` (the JAX package
+    splits its key per scene), so every device starts from the same
+    weights."""
+    if device is None:
+        device = next(model_coarse.parameters()).device
+    scenes = []
+    for s in range(num_scenes):
+        gen = torch.Generator().manual_seed(fold_seed(seed, s))
+        pair = _ScenePair(copy.deepcopy(model_coarse).cpu(),
+                          copy.deepcopy(model_fine).cpu() if model_fine is not None else None)
+        for model in (pair.coarse, pair.fine):
+            if model is not None:
+                model.reset_parameters(gen)
+        scenes.append(dict(pair.named_parameters()))
+    params = {name: torch.stack([sc[name].detach() for sc in scenes]).to(device)
+              .requires_grad_(True) for name in scenes[0]}
+    for p in params.values():
+        p.grad = torch.zeros_like(p)
+    opt, sched = optimizer.init(list(params.values()))
+    return MultiSceneState(0, params, opt, sched)
+
+
+def stack_draws(draws: Sequence[RenderDraws]) -> RenderDraws:
+    """Per-scene draws stacked on a leading scene axis."""
+    return RenderDraws(*(None if field[0] is None else torch.stack(field)
+                         for field in zip(*draws)))
+
+
+def make_multiscene_train_step(model_coarse: nn.Module, model_fine: Optional[nn.Module],
+                               settings: RenderSettings
+                               ) -> Callable[..., Tuple[MultiSceneState, StepMetrics]]:
+    """Build the scene-vmapped training step.
+
+    ``step(state, ro (S, B, 3), rd (S, B, 3), target (S, B, 3),
+    generators=None, draws=None) -> (state, StepMetrics of (S,) tensors)``:
+    each scene's render numbers come from ``draws`` (a ``RenderDraws`` with
+    a leading scene axis) or, drawn here, from ``generators[s]``. The
+    modules give the shapes and the forward; their own parameters are not
+    used. Settings that ask for a kernel raise: the step runs the plain
+    field only."""
+    if settings.use_pallas or settings.use_pallas_train:
+        raise NotImplementedError(
+            "the multi-scene step runs the plain field: #8 under vmap, or #8 once a scene, "
+            "is not ported yet (ROADMAP.md, §2 item 12); pass settings with use_pallas and "
+            "use_pallas_train off")
+    # Copies: the JAX CLI passes one model as both (untied parameters here).
+    pair = _ScenePair(copy.deepcopy(model_coarse),
+                      copy.deepcopy(model_fine) if model_fine is not None else None)
+
+    def scene_losses(params, ro, rd, target, draws):
+        out = torch.func.functional_call(pair, params, (ro, rd, settings, draws))
+        coarse = img2mse(out.coarse.rgb, target)
+        fine = img2mse(out.fine.rgb, target) if out.fine is not None else torch.zeros_like(coarse)
+        return coarse + fine, coarse, fine
+
+    batched = torch.func.vmap(scene_losses, randomness="error")
+
+    def step(state: MultiSceneState, ro, rd, target,
+             generators: Optional[Sequence[torch.Generator]] = None,
+             draws: Optional[RenderDraws] = None):
+        if draws is None:
+            if generators is None:
+                generators = [None] * ro.shape[0]
+            draws = stack_draws([draw_render_randoms(g, ro.shape[1], settings, ro.device)
+                                 for g in generators])
+        state.optimizer.zero_grad(set_to_none=False)
+        loss, closs, floss = batched(state.params, ro, rd, target, draws)
+        loss.sum().backward()
+        state.optimizer.step()
+        state.scheduler.step()
+        state.step += 1
+        loss = loss.detach()
+        return state, StepMetrics(loss, closs.detach(), floss.detach(), mse2psnr(loss))
+
+    return step
+
+
+def scene_generators(base_seed: int, step: int, num_scenes: int, device
+                     ) -> List[torch.Generator]:
+    """Step ``step``'s generator of each scene: scene ``s``'s is the
+    single-scene loop's ``step_generator(fold_seed(base_seed, s), step)``."""
+    return [step_generator(fold_seed(base_seed, s), step, device) for s in range(num_scenes)]
+
+
+def make_multiscene_train_loop(model_coarse: nn.Module, model_fine: Optional[nn.Module],
+                               settings: RenderSettings, batch_size: int,
+                               steps_per_call: int, sample_mode: str = "gather"):
+    """``loop(state, ro (S, N, 3), rd (S, N, 3), tgt (S, N, 3), base_seed) ->
+    (state, StepMetrics of (steps_per_call, S) device tensors)``: each step
+    draws every scene's batch from its store on the device, then steps
+    them all at once."""
+    step_fn = make_multiscene_train_step(model_coarse, model_fine, settings)
+
+    def loop(state: MultiSceneState, ro_store, rd_store, tgt_store, base_seed: int):
+        metrics = []
+        for _ in range(steps_per_call):
+            gens = scene_generators(base_seed, state.step, ro_store.shape[0], ro_store.device)
+            batch = sample_multiscene_batch(gens, ro_store, rd_store, tgt_store, batch_size,
+                                            mode=sample_mode)
+            state, m = step_fn(state, *batch, generators=gens)
+            metrics.append(m)
+        return state, StepMetrics(*(torch.stack(field) for field in zip(*metrics)))
+
+    return loop
+
+
+def sample_multiscene_batch(generators: Sequence[Optional[torch.Generator]],
+                            ray_origins: torch.Tensor, ray_directions: torch.Tensor,
+                            targets: torch.Tensor, batch_size: int, mode: str = "gather"
+                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Independent (S, B, 3) ray batches of (S, N, 3) per-scene stores,
+    scene ``s``'s drawn from ``generators[s]`` as
+    ``engine.train.sample_ray_batch`` draws one scene's (``gather``: rows
+    with replacement; ``sliced``: one offset and the rows after it, which
+    needs pre-shuffled stores)."""
+    if len(generators) != ray_origins.shape[0]:
+        raise ValueError(f"{len(generators)} generators for {ray_origins.shape[0]} scenes")
+    parts = [sample_ray_batch(g, ray_origins[s], ray_directions[s], targets[s], batch_size,
+                              mode=mode) for s, g in enumerate(generators)]
+    return tuple(torch.stack(field) for field in zip(*parts))
+
+
+def shard_multiscene_stores(*args, **kwargs):
+    """Per-scene stores sharded over a device mesh (JAX
+    ``parallel/multiscene.py:shard_multiscene_stores``)."""
+    raise NotImplementedError(f"shard_multiscene_stores {_MULTI_DEVICE}")
+
+
+def make_parallel_multiscene_train_step(*args, **kwargs):
+    """The data-parallel multi-scene step (JAX
+    ``parallel/multiscene.py:make_parallel_multiscene_train_step``)."""
+    raise NotImplementedError(f"make_parallel_multiscene_train_step {_MULTI_DEVICE}")
+
+
+def make_parallel_multiscene_train_loop(*args, **kwargs):
+    """The data-parallel multi-scene loop (JAX
+    ``parallel/multiscene.py:make_parallel_multiscene_train_loop``)."""
+    raise NotImplementedError(f"make_parallel_multiscene_train_loop {_MULTI_DEVICE}")

@@ -87,8 +87,11 @@ def test_init_is_linear_style_and_seeded():
 def test_get_model_raises_for_replicate():
     assert isinstance(get_model("FlexibleNeRFModel", hidden_size=16), FlexibleNeRFModel)
     assert isinstance(get_model("PaperNeRFModel", num_encoding_fn_xyz=10), PaperNeRFModel)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_model("ReplicateNeRFModel")
+    # Replicate is ported (tests/test_torch_model_families.py); only an
+    # unknown name raises.
+    from nerf_tpu_torch.models import ReplicateNeRFModel
+
+    assert isinstance(get_model("ReplicateNeRFModel"), ReplicateNeRFModel)
     with pytest.raises(ValueError, match="Unknown model type"):
         get_model("NoSuchModel")
 
