@@ -138,7 +138,27 @@ Phases, one or more lines each:
      flags on and no launch; ``tiny_nerf``'s rising PSNR; a ``.ckpt ->
      .ntc -> .ckpt`` ``convert_checkpoint`` round trip; then the multi-scene
      step's rays/s beside phase 8's plain f32 single-scene step, distill
-     s/view and eval s/frame.
+     s/view and eval s/frame;
+ 20. the multi-device layer (``nerf_tpu_torch/parallel``) on this one card,
+     every rank's kernels on it: (a) in a one-rank NCCL group, the
+     data-parallel step at lego_fused's protocol (#8) bitwise the serial
+     step; two ranks sharing the card through gloo (one spawned group):
+     (b) ``train_nerf --num-devices 2`` for P20_TRAIN_STEPS steps (2 + 2
+     launches of #8 a step on each rank, the loss falling, the ranks' final
+     weights bitwise equal, one checkpoint set from rank 0 that ``eval_nerf``
+     renders through #1), one f32 data-parallel step against the serial step
+     on the union batch (P20_DP_TOL), rays/s, the all-reduce's ms a step and
+     its bucket's bytes; (c) the mesh server on phase 7's ``.ntc`` at bf16,
+     400x400 (every served PNG bitwise the one-card u8 frame, /health
+     devices 2, #1 launches on both ranks, a ``--logdir`` reload on both,
+     the follower gone after the stop) and its median latency beside phase
+     16's; (e) ``optimize_poses --num-devices 2`` on phase 18's 8 views (the
+     final twists within P20_POSE_TOL of phase 18's serial run); (f)
+     ``train_multiscene --num-devices 2`` on phase 19's six scenes, and one
+     data-parallel step against the one-device batched step (phase 19's
+     gates); and (d) ``extract_geometry --num-devices 2``, which spawns its
+     own ranks, at 256^3 on phase 17's field (grid and PLY bitwise phase
+     18's serial run's). One card cannot show scaling: the ranks share it.
 
 Then one JSON line of per-kernel results (each kernel's launches on its main
 path, error, time, plain time and the least time the card could take for the
@@ -290,6 +310,13 @@ OPTIMIZER_NAMES = ("RMSprop", "Adagrad", "Adamax", "Adadelta", "NAdam", "RAdam",
 OPT_STEPS = 3
 FAMILY_TOL = 1e-4               # a family's frame, card vs CPU, plain path
 TINY_ITERS = 300
+P20_TRAIN_STEPS = 60            # phase 20(b): 2 ranks x 512 rays a step
+P20_DP_TOL = 1e-5               # DP step vs serial on the union batch, of each leaf's largest
+P20_SERVE_RENDERS = 5
+P20_POSE_TOL = 1e-4             # final twists, 2 ranks vs phase 18's serial run
+P20_MS_STEPS = 20
+P20_DEADLINE_S = 600            # a spawned group's whole run
+P20_TIMEOUT_S = 60.0            # its collectives' limit, so a hung rank fails fast
 DEVICE = "cuda"
 # Multiply-adds per point of the 4x128 10/4 FlexibleNeRF forward, dir
 # contribution excluded: 63x128 + 3x128x128 + 128x129 + 128x64 + 64x3; of its
@@ -2647,7 +2674,8 @@ def geometry_main_path(dev, on: str, disk: dict) -> dict:
         with contextlib.redirect_stdout(buf):
             extract_geometry.main(["--config", cfg_py, "--checkpoint", ckpt, "--output", mesh,
                                    "--iso", str(GEO_ISO), "--resolution", str(GEO_RESOLUTION),
-                                   "--chunk", "262144", "--device", DEVICE])
+                                   "--chunk", "262144", "--device", DEVICE, "--save-grid",
+                                   os.path.join(tmp, "lego_grid.npz")])
         for line in buf.getvalue().splitlines():
             print(f"[geometry] extract_geometry: {line.replace(tmp, '<tmp>')} {on}")
         verts, faces, colors, normals = geometry.load_ply(mesh)
@@ -2717,7 +2745,8 @@ def geometry_main_path(dev, on: str, disk: dict) -> dict:
 
         with quiet():
             rep = optimize_poses.main(["--config", cfg_py, "--checkpoint", ckpt, "--device",
-                                       DEVICE, *POSE_ARGS])
+                                       DEVICE, *POSE_ARGS, "--save-poses",
+                                       os.path.join(tmp, "poses_serial.npz")])
         per_iter = rep["wall_s"] / rep["iters"]
         print(f"[geometry] optimize_poses {' '.join(POSE_ARGS)}: {rep['iters']} iterations, "
               f"loss {rep['initial_loss']:.6f} -> {rep['final_loss']:.6f} (gate < "
@@ -2747,7 +2776,9 @@ def geometry_main_path(dev, on: str, disk: dict) -> dict:
                                                    "aligned_rot_deg_mean")),
               "joint training not finite")
         check(jrep.get("saved_checkpoint") == joint and all(jev.finite), "joint checkpoint")
-        out.update(pose_s_per_iter=per_iter, pose_wall_s=rep["wall_s"], recovery=recovery)
+        out.update(pose_s_per_iter=per_iter, pose_wall_s=rep["wall_s"], recovery=recovery,
+                   mesh_ply=mesh, grid_npz=os.path.join(tmp, "lego_grid.npz"),
+                   poses_npz=os.path.join(tmp, "poses_serial.npz"))
     return out
 
 def multiscene_main_path(dev, on: str, disk: dict, single_rays_per_sec: float) -> dict:
@@ -3115,6 +3146,515 @@ def multiscene_main_path(dev, on: str, disk: dict, single_rays_per_sec: float) -
     return out
 
 
+# --------------------------------------------------------------------------
+# Phase 20: the multi-device layer on the one card. The rank bodies are
+# top-level functions: each spawned rank imports this file (not as its
+# main) and runs one of them.
+
+
+def p20_batch(dev, seed: int):
+    """A 1024-ray batch of phase 7's synthetic store (20 views of 400x400),
+    drawn from a generator seeded with ``seed``: the same on every rank."""
+    import numpy as np
+    import torch
+
+    from nerf_tpu_torch.data import flatten_rays, make_synthetic_dataset
+    from nerf_tpu_torch.engine.train import sample_ray_batch
+
+    ds = make_synthetic_dataset(num_views=20, height=400, width=400, device=dev)
+    store = [torch.as_tensor(np.ascontiguousarray(a), device=dev) for a in flatten_rays(ds, dev)]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return sample_ray_batch(gen, *store, 1024), ds.hwf
+
+
+def p20_step(mesh, settings, spec, batch, parallel: bool, seed: int):
+    """One train step of seeded flagship models, serial or data-parallel
+    (on this rank's rows of ``batch``): (state, metrics, launches)."""
+    import torch
+
+    from nerf_tpu_torch.engine.train import create_train_state, make_train_step
+    from nerf_tpu_torch.parallel.dp import make_parallel_train_step
+    from nerf_tpu_torch.parallel.mesh import shard_rows
+
+    mc = seeded_model(SEED, opacify=False).to(mesh.device)
+    mf = seeded_model(SEED + 1, opacify=False).to(mesh.device)
+    state = create_train_state(mc, mf, spec)
+    if parallel:
+        step, rows = make_parallel_train_step(mc, mf, settings, mesh), shard_rows(mesh, *batch)
+    else:
+        step, rows = make_train_step(mc, mf, settings), batch
+    reset_launches()
+    state, m = step(state, *rows, torch.Generator(device=mesh.device).manual_seed(seed))
+    torch.cuda.synchronize()
+    counts = read_launches()
+    return state, m, (counts["fused_flex_mlp_train_fwd"], counts["fused_flex_mlp_train_bwd"])
+
+
+def p20_nccl_rank() -> dict:
+    """Phase 20(a), on a one-rank NCCL group: ``make_parallel_train_step``
+    at lego_fused's train protocol (bf16, #8) against ``make_train_step`` on
+    the same batch and generator: the parameters after the step."""
+    import torch
+
+    from nerf_tpu_torch.config import optimizer_from_config, render_settings_from_config
+    from nerf_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(1, DEVICE)
+    cfg = synthetic_train_config(1)
+    batch, hwf = p20_batch(mesh.device, SEED)
+    settings = render_settings_from_config(cfg, "train", hwf=hwf)
+    spec = optimizer_from_config(cfg)
+    serial, ms, ls = p20_step(mesh, settings, spec, batch, False, SEED + 7)
+    dp, md, ld = p20_step(mesh, settings, spec, batch, True, SEED + 7)
+    pairs = list(zip(serial.params, dp.params))
+    return {"backend": mesh.backend, "world": mesh.world_size,
+            "bitwise": all(torch.equal(a, b) for a, b in pairs),
+            "max_diff": max(float((a - b).detach().abs().max()) for a, b in pairs),
+            "losses": (float(ms.loss), float(md.loss)), "launches": (ls, ld),
+            "allreduce_calls": mesh.allreduce_calls}
+
+
+def p20_train(mesh, paths: dict) -> dict:
+    """Phase 20(b): ``train_nerf.main --num-devices 2 --dist-backend gloo``
+    in the ranks' group; this rank's #8 launches, its losses and a digest
+    of its final weights (the modules captured as the trainer builds its
+    state)."""
+    import hashlib
+
+    from nerf_tpu_torch import train_nerf
+
+    captured = {}
+    real = train_nerf.create_train_state
+
+    def capture(mc, mf, spec, *args, **kwargs):
+        captured["models"] = (mc, mf)
+        return real(mc, mf, spec, *args, **kwargs)
+
+    train_nerf.create_train_state = capture
+    reset_launches()
+    try:
+        with quiet():
+            run = train_nerf.main(["--config", paths["train_py"], "--device", DEVICE,
+                                   "--num-devices", "2", "--dist-backend", "gloo"])
+    finally:
+        train_nerf.create_train_state = real
+    counts = read_launches()
+    params = [p.detach().cpu().numpy() for m in captured["models"] for p in m.parameters()]
+    return {"losses": run.losses, "rays_per_sec": run.rays_per_sec, "seconds": run.seconds,
+            "allreduce_ms": run.allreduce_ms, "bucket_bytes": run.bucket_bytes,
+            "world_size": run.world_size, "checkpoint": run.checkpoint,
+            "n_params": sum(p.size for p in params),
+            "digest": hashlib.sha256(b"".join(p.tobytes() for p in params)).hexdigest(),
+            "launches": (counts["fused_flex_mlp_train_fwd"], counts["fused_flex_mlp_train_bwd"])}
+
+
+def p20_union(mesh) -> dict:
+    """Phase 20(b): one data-parallel step (f32 through #8, perturbation and
+    sigma noise off) against the serial step on the union batch, on rank 0:
+    each leaf's gradient and parameter gap over the serial leaf's largest
+    value. SGD, so the parameter gap is the gradient's (Adam's first update
+    is lr * sign(g), which turns a rounding in a near-zero gradient into a
+    whole step)."""
+    import hashlib
+
+    import torch
+
+    from nerf_tpu_torch.config import render_settings_from_config
+    from nerf_tpu_torch.engine.train import make_optimizer
+
+    batch, hwf = p20_batch(mesh.device, SEED + 1)
+    settings = dataclasses.replace(
+        render_settings_from_config(synthetic_train_config(1), "train", hwf=hwf),
+        compute_dtype="float32", perturb=False, radiance_field_noise_std=0.0)
+    spec = make_optimizer("sgd", 5e-3)
+    dp, _, launches = p20_step(mesh, settings, spec, batch, True, SEED)
+    out = {"launches": launches, "digest": hashlib.sha256(b"".join(
+        p.detach().cpu().numpy().tobytes() for p in dp.params)).hexdigest()}
+    if mesh.is_primary:
+        serial, _, _ = p20_step(mesh, settings, spec, batch, False, SEED)
+        gaps = {"grad": 0.0, "param": 0.0}
+        for a, b in zip(dp.params, serial.params):
+            gaps["grad"] = max(gaps["grad"], float((a.grad - b.grad).abs().max())
+                               / max(float(b.grad.abs().max()), 1e-30))
+            gaps["param"] = max(gaps["param"], float((a - b).detach().abs().max())
+                                / max(float(b.detach().abs().max()), 1e-30))
+        out["gaps"] = gaps
+    return out
+
+
+def p20_frame_gap(sharded: dict, serial: dict) -> dict:
+    """A 2-rank frame's maps against the one-rank frame's: bitwise or not,
+    phase 4's gates (rgb_coarse's largest gap, rgb_fine's pixels over
+    RENDER_RGB_TOL) and the u8 values that differ."""
+    fine = (sharded["rgb_fine"] - serial["rgb_fine"]).abs().amax(dim=-1)
+    u8 = (sharded["rgb_u8"].int() - serial["rgb_u8"].int()).abs()
+    return {"bitwise": all(bool((sharded[k] == serial[k]).all()) for k in serial),
+            "coarse": float((sharded["rgb_coarse"] - serial["rgb_coarse"]).abs().max()),
+            "fine_over": int((fine > RENDER_RGB_TOL).sum()), "u8_values": int((u8 > 0).sum()),
+            "u8_levels": int(u8.max())}
+
+
+def p20_serve(mesh, paths: dict) -> dict:
+    """Phase 20(c): the mesh server in the ranks' group. Rank 0 serves a
+    ``--logdir`` service over HTTP from a thread (P20_SERVE_RENDERS GETs,
+    /health, then a newer .ntc that must reach both ranks) and stops it;
+    rank 1 follows until the stop. Then both ranks render the served poses
+    with the sharded renderer's maps, and rank 0 holds them against the
+    one-rank frames (phase 16 holds those bitwise to the one-rank server's
+    PNGs) and the served PNGs against the sharded frames' u8."""
+    import numpy as np
+    import torch
+
+    from nerf_tpu_torch.engine.checkpoint import (
+        convert_torch_state_dict, load_models_and_params, save_checkpoint,
+    )
+    from nerf_tpu_torch.engine.renderer import make_pose_render_fn
+    from nerf_tpu_torch.parallel.dp import make_parallel_pose_render_fn
+    from nerf_tpu_torch.serve_nerf import RenderService
+
+    cfg = lego_fused_config()
+    reset_launches()
+    with quiet():
+        service = RenderService(cfg, precision="bfloat16", renderer="kernel",
+                                watch_logdir=paths["serve_logdir"], device=DEVICE, mesh=mesh)
+    out, pngs = {}, []
+    if mesh.is_primary:
+        first_step = service.checkpoint_step
+        with serving(service) as base:
+            health = json.loads(http(base, "/health")[2])
+            for i in range(P20_SERVE_RENDERS):
+                t0 = time.perf_counter()
+                status, _, body = http(base, f"/render?frame={i}")
+                out.setdefault("times", []).append(time.perf_counter() - t0)
+                check(status == 200, f"2-rank /render?frame={i}: {status} {body[:200]}")
+                pngs.append(decode_png(body))
+            models = [seeded_model(SEED + i, opacify=True) for i in (2, 3)]
+            step = first_step + 1000
+            save_checkpoint(os.path.join(paths["serve_logdir"], f"checkpoint{step:05d}.ntc"), {
+                "step": step, "params_coarse": convert_torch_state_dict(models[0].state_dict()),
+                "params_fine": convert_torch_state_dict(models[1].state_dict())})
+            status, _, body = http(base, "/render?frame=0")
+            check(status == 200, f"2-rank reload /render?frame=0: {status}")
+            pngs.append(decode_png(body))
+            after = json.loads(http(base, "/health")[2])
+        service.stop()
+        out.update(devices=health["devices"], steps=(first_step, after["checkpoint_step"]),
+                   reload_differs=not np.array_equal(pngs[0], pngs[-1]))
+    else:
+        service.follow()
+    out.update(launches=read_launches()["fused_mlp_t"], checkpoint_step=service.checkpoint_step,
+               frames=P20_SERVE_RENDERS + 2, chunk=service.settings.chunksize)
+    h, w, focal = service.height, service.width, service.focal
+    out["hwf"] = (h, w, focal)
+    frames = [(paths["serve_ntc"], i) for i in range(P20_SERVE_RENDERS)]
+    frames.append((service.checkpoint_path, 0))
+    gaps = []
+    for path, i in frames:
+        mc, mf, _ = load_models_and_params(path, cfg, DEVICE)
+        pose = torch.as_tensor(np.asarray(service.poses[i], np.float32)[:3, :4], device=DEVICE)
+        with torch.inference_mode():
+            sharded = make_parallel_pose_render_fn(mc, mf, service.settings, h, w, focal,
+                                                   mesh)(pose)
+            if not mesh.is_primary:
+                continue
+            serial = make_pose_render_fn(mc, mf, service.settings, h, w, focal)(pose)
+        gap = p20_frame_gap(sharded, serial)
+        gap["served"] = bool(np.array_equal(pngs[len(gaps)], sharded["rgb_u8"].cpu().numpy()))
+        gaps.append(gap)
+    if mesh.is_primary:
+        # The one-rank renderer against itself at another chunk size.
+        with torch.inference_mode():
+            maps = [make_pose_render_fn(mc, mf, dataclasses.replace(service.settings,
+                                                                    chunksize=c),
+                                        h, w, focal)(pose) for c in (service.settings.chunksize,
+                                                                     math.ceil(h * w / 2))]
+        out.update(gaps=gaps, chunk_gap=p20_frame_gap(*maps))
+    return out
+
+
+def p20_poses(mesh, paths: dict) -> dict:
+    """Phase 20(e): ``optimize_poses --num-devices 2`` in the ranks' group,
+    phase 18's arguments; rank 0 saves the refined twists."""
+    from nerf_tpu_torch import optimize_poses
+
+    with quiet():
+        rep = optimize_poses.main(["--config", paths["disk_py"], "--checkpoint",
+                                   paths["disk_ckpt"], "--device", DEVICE, *POSE_ARGS,
+                                   "--num-devices", "2", "--dist-backend", "gloo",
+                                   "--save-poses", paths["poses_dp"]])
+    return {"report": rep}
+
+
+def p20_multiscene(mesh, paths: dict) -> dict:
+    """Phase 20(f): ``train_multiscene --num-devices 2`` on phase 19's six
+    scenes for P20_MS_STEPS steps in the ranks' group; then one
+    data-parallel step (each rank's half of every scene's batch and of its
+    draws) against the one-device batched step on the union batch, on rank
+    0 (phase 19's gates)."""
+    import numpy as np
+    import torch
+
+    from nerf_tpu_torch import train_multiscene
+    from nerf_tpu_torch.data import spherical_render_poses
+    from nerf_tpu_torch.engine.renderer import RenderDraws, RenderSettings, draw_render_randoms
+    from nerf_tpu_torch.engine.train import fold_seed, make_optimizer
+    from nerf_tpu_torch.models import FlexibleNeRFModel
+    from nerf_tpu_torch.ops import get_ray_bundle
+    from nerf_tpu_torch.parallel.mesh import shard_rows
+    from nerf_tpu_torch.parallel.multiscene import (
+        create_multiscene_state, make_multiscene_train_step,
+        make_parallel_multiscene_train_step, shard_multiscene_stores, stack_draws,
+    )
+
+    reset_launches()
+    with quiet():
+        ms = train_multiscene.main([
+            "--num-scenes", str(MS_SCENES), "--size", str(MS_SIZE), "--num-coarse", "64",
+            "--num-fine", "64", "--n-xyz", "10", "--batch", "1024", "--iters",
+            str(P20_MS_STEPS), "--print-every", str(P20_MS_STEPS // 2), "--device", DEVICE,
+            "--num-devices", "2", "--dist-backend", "gloo"])
+    out = {"losses": np.concatenate(ms.losses["blender"]), "launches": sum(
+        read_launches().values()), "s_per_step": ms.call_seconds[-1] / ms.call_steps[-1]}
+    dev = mesh.device
+    settings = RenderSettings(num_coarse=64, num_fine=64, perturb=True,
+                              radiance_field_noise_std=0.2, white_background=True,
+                              num_encoding_fn_xyz=10, num_encoding_fn_dir=4)
+    model = FlexibleNeRFModel(num_encoding_fn_xyz=10, num_encoding_fn_dir=4).to(dev)
+    spec = make_optimizer("adam", 5e-3, 250.0, 0.1)
+    poses = torch.as_tensor(spherical_render_poses(MS_SCENES, phi=-30.0, radius=4.0),
+                            dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rays = []
+    for s in range(MS_SCENES):
+        ro, rd = get_ray_bundle(400, 400, 0.5 * 400 / math.tan(0.3455556), poses[s][:3, :4])
+        pick = torch.randint(400 * 400, (1024,), generator=gen, device=dev)
+        rays.append((ro.reshape(-1, 3)[pick], rd.reshape(-1, 3)[pick],
+                     torch.rand(1024, 3, generator=gen, device=dev)))
+    batch = [torch.stack(x) for x in zip(*rays)]
+    draws = stack_draws([draw_render_randoms(
+        torch.Generator(device=dev).manual_seed(fold_seed(SEED, s)), 1024, settings, dev)
+        for s in range(MS_SCENES)])
+    state = create_multiscene_state(model, model, spec, SEED, MS_SCENES, dev)
+    local_draws = RenderDraws(*(None if f is None else shard_rows(mesh, f, axis=1)
+                                for f in draws))
+    state, m = make_parallel_multiscene_train_step(model, model, settings, mesh)(
+        state, *shard_multiscene_stores(mesh, *batch), draws=local_draws)
+    if mesh.is_primary:
+        ref = create_multiscene_state(model, model, spec, SEED, MS_SCENES, dev)
+        ref, rm = make_multiscene_train_step(model, model, settings)(ref, *batch, draws=draws)
+        out["loss_err"] = float(((m.loss - rm.loss).abs() / rm.loss).max())
+        out["grad_err"] = max(
+            float(((state.params[k].grad - p.grad).abs().reshape(MS_SCENES, -1).amax(1)
+                   / p.grad.abs().reshape(MS_SCENES, -1).amax(1).clamp_min(1e-12)).max())
+            for k, p in ref.params.items())
+    return out
+
+
+def p20_ranks(paths: dict) -> dict:
+    """Phase 20(b, c, e, f): the two ranks' work on the shared card, in
+    order; each part returns numbers only (no tensors)."""
+    import torch
+
+    from nerf_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(2, DEVICE, "gloo")
+    out = {"rank": mesh.rank, "device": str(mesh.device)}
+    parts = {"train": lambda: p20_train(mesh, paths), "union": lambda: p20_union(mesh),
+             "serve": lambda: p20_serve(mesh, paths), "poses": lambda: p20_poses(mesh, paths),
+             "multiscene": lambda: p20_multiscene(mesh, paths)}
+    for name, part in parts.items():
+        out[name] = part()
+        # The ranks share the card: hand this rank's cached blocks back.
+        torch.cuda.empty_cache()
+    return out
+
+
+def multidevice_main_path(on: str, served_state: dict, disk: dict, geo: dict,
+                          serve_latency_s: float) -> dict:
+    """Phase 20: the multi-device layer on the one card, through the entry
+    points a user calls, with every rank's kernels on the card: (a) a
+    one-rank NCCL group's data-parallel step bitwise the serial step; (b, c,
+    e, f) two ranks sharing the card through gloo: ``train_nerf``, the mesh
+    server, ``optimize_poses`` and ``train_multiscene`` with ``--num-devices
+    2``; (d) ``extract_geometry --num-devices 2``, which spawns its own two
+    ranks. Returns the launches and numbers."""
+    import numpy as np
+
+    from nerf_tpu_torch import extract_geometry
+    from nerf_tpu_torch.engine.checkpoint import save_checkpoint
+    from nerf_tpu_torch.eval_nerf import render_trajectory
+    from nerf_tpu_torch.parallel.distributed import rank_device, run_ranks
+
+    import torch
+
+    t_phase = time.perf_counter()
+    tmp = os.path.join(os.path.dirname(disk["scene"]), "multidevice")
+    os.makedirs(tmp)
+    out = {}
+    # The ranks share the card with this process: hand its cached blocks back.
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"[multidevice] the card's memory before the ranks start: {free / 2**30:.1f} GiB "
+          f"free of {total / 2**30:.1f}")
+
+    # (a) One rank, NCCL.
+    a = run_ranks(p20_nccl_rank, 1, backend="nccl", device=DEVICE, timeout_s=P20_TIMEOUT_S,
+                  deadline_s=P20_DEADLINE_S)[0]
+    print(f"[multidevice] (a) {a['backend']} group of {a['world']} rank: the data-parallel step "
+          f"at lego_fused's protocol (bf16, #8 launches {a['launches'][1]}) against the serial "
+          f"step (#8 {a['launches'][0]}) on one batch and generator: parameters bitwise equal "
+          f"{a['bitwise']} (max |diff| {a['max_diff']:.3e}), loss {a['losses'][0]:.6f} / "
+          f"{a['losses'][1]:.6f}, {a['allreduce_calls']} all-reduce")
+    check(a["bitwise"] and a["launches"][1] == (2, 2) == a["launches"][0]
+          and a["allreduce_calls"] == 1, f"phase 20(a): {a}")
+    out["nccl_launches"] = a["launches"][1]
+
+    # (b, c, e, f) Two ranks share the card through gloo.
+    cfg = synthetic_train_config(P20_TRAIN_STEPS)
+    cfg.merge_from_list(["experiment.logdir", tmp, "experiment.id", "dp"])
+    serve_logdir = os.path.join(tmp, "serve")
+    os.makedirs(serve_logdir)
+    serve_ntc = os.path.join(serve_logdir, f"checkpoint{served_state['step']:05d}.ntc")
+    save_checkpoint(serve_ntc, served_state)
+    paths = {"train_py": write_py_config(cfg, os.path.join(tmp, "dp.py")),
+             "serve_logdir": serve_logdir, "serve_ntc": serve_ntc,
+             "disk_py": disk["cfg_py"], "disk_ckpt": disk["checkpoint"],
+             "poses_dp": os.path.join(tmp, "poses_dp.npz")}
+    t0 = time.perf_counter()
+    ranks = run_ranks(p20_ranks, 2, paths, backend="gloo", device=DEVICE,
+                      timeout_s=P20_TIMEOUT_S, deadline_s=P20_DEADLINE_S)
+    ranks_s = time.perf_counter() - t0
+    r0, r1 = ranks
+    check(r0["device"] == r1["device"] == str(rank_device(DEVICE, 0)),
+          f"rank devices {r0['device']} {r1['device']}")
+
+    tr = [r["train"] for r in ranks]
+    steps, batch = len(tr[0]["losses"]), int(cfg.nerf.train.num_random_rays)
+    losses = np.asarray(tr[0]["losses"])
+    first, last = float(losses[:10].mean()), float(losses[-10:].mean())
+    logdir = os.path.join(tmp, "dp")
+    files = sorted(os.listdir(logdir))
+    print(f"[multidevice] (b) train_nerf --num-devices 2 --dist-backend gloo, lego_fused on "
+          f"the synthetic scene, {steps} steps of {batch} rays ({batch // 2} a rank): #8 "
+          f"launches (fwd, bwd) "
+          f"rank 0 {tr[0]['launches']}, rank 1 {tr[1]['launches']} (expected {2 * steps} each); "
+          f"mean loss of the first 10 steps {first:.5f}, of the last 10 {last:.5f}; final "
+          f"weights' sha256 equal on both ranks {tr[0]['digest'] == tr[1]['digest']}; the "
+          f"logdir holds {files}")
+    check(steps == P20_TRAIN_STEPS and tr[0]["world_size"] == 2, f"{steps} steps")
+    check(all(t["launches"] == (2 * steps, 2 * steps) for t in tr), "#8 launches on the ranks")
+    check(last < first and np.isfinite(losses).all(), f"the loss did not fall: {first} {last}")
+    check(tr[0]["digest"] == tr[1]["digest"], "the ranks' final weights differ")
+    want = [f"checkpoint{steps:05d}.ckpt", f"checkpoint{steps:05d}.ntc", "config.json",
+            "images", "metrics.jsonl"]
+    check(files == want and tr[1]["checkpoint"] is None, f"logdir {files}")
+    reset_launches()
+    with quiet():
+        ev = render_trajectory(cfg, tr[0]["checkpoint"], os.path.join(tmp, "dp_eval"),
+                               num_poses=1, renderer="kernel", device=DEVICE)
+    ev_launches = read_launches()["fused_mlp_t"]
+    print(f"[multidevice] (b) eval_nerf renders rank 0's checkpoint through #1 "
+          f"({ev_launches} launches): finite {all(ev.finite)}")
+    check(all(ev.finite) and ev_launches > 0, "eval of the data-parallel checkpoint")
+    un = [r["union"] for r in ranks]
+    print(f"[multidevice] (b) one data-parallel step (f32, #8 launches per rank "
+          f"{un[0]['launches']} / {un[1]['launches']}, no jitter or noise, SGD) against the "
+          f"serial step on the union batch of 1024 rays: gradient gap {un[0]['gaps']['grad']:.3e}, "
+          f"parameter gap {un[0]['gaps']['param']:.3e} of each leaf's largest (tol "
+          f"{P20_DP_TOL:g}); ranks' weights equal {un[0]['digest'] == un[1]['digest']}")
+    check(max(un[0]["gaps"].values()) <= P20_DP_TOL and un[0]["digest"] == un[1]["digest"],
+          f"DP step vs serial: {un[0]['gaps']}")
+    bucket_mb = tr[0]["bucket_bytes"] / 1e6
+    print(f"[time] (b) two ranks sharing the card through gloo: {tr[0]['rays_per_sec']:,.0f} "
+          f"rays/s over {tr[0]['seconds']:.2f} s of training; the gradient all-reduce "
+          f"{tr[0]['allreduce_ms']:.3f} ms a step on rank 0 ({tr[1]['allreduce_ms']:.3f} on "
+          f"rank 1; host clock around the synchronized collective, CPU staging included); "
+          f"the flat bucket {tr[0]['bucket_bytes']:,} bytes ({bucket_mb:.3f} MB: "
+          f"{tr[0]['n_params']:,} parameters + 3 losses, f32) {on}")
+    check(tr[0]["bucket_bytes"] == 4 * (tr[0]["n_params"] + 3), "bucket bytes")
+    out.update(train_launches=tr[0]["launches"], rays_per_sec=tr[0]["rays_per_sec"],
+               allreduce_ms=tr[0]["allreduce_ms"], bucket_bytes=tr[0]["bucket_bytes"])
+
+    sv, follower = r0["serve"], r1["serve"]
+    h, w, _ = sv["hwf"]
+    per_frame = 2 * math.ceil(math.ceil(h * w / 2) / sv["chunk"])
+    latency = sorted(sv["times"])[len(sv["times"]) // 2]
+    gaps = sv["gaps"]
+    print(f"[multidevice] (c) the mesh server, 2 ranks, {h}x{w} bf16: /health devices "
+          f"{sv['devices']}; #1 launches rank 0 {sv['launches']}, rank 1 "
+          f"{follower['launches']} (expected {per_frame * sv['frames']} each: warm-up, "
+          f"{P20_SERVE_RENDERS} GETs, the reload's GET); --logdir reload: step "
+          f"{sv['steps'][0]} -> {sv['steps'][1]} on rank 0, {follower['checkpoint_step']} on "
+          f"rank 1; rank 1 left after the stop; every served PNG the sharded frame's u8 "
+          f"{all(g['served'] for g in gaps)}")
+    print(f"[multidevice] (c) the {len(gaps)} served frames (the last after the reload) "
+          f"against the one-rank frames: bitwise {sum(g['bitwise'] for g in gaps)} of "
+          f"{len(gaps)}; rgb_coarse max |diff| {max(g['coarse'] for g in gaps):.3e} (tol "
+          f"{RENDER_RGB_TOL:g}); rgb_fine pixels over {RENDER_RGB_TOL:g} "
+          f"{[g['fine_over'] for g in gaps]} (at most {MAX_RESAMPLE_PIXELS}); u8 values that "
+          f"differ {[g['u8_values'] for g in gaps]} of {h * w * 3}, by at most "
+          f"{max(g['u8_levels'] for g in gaps)} levels; the one-rank renderer against itself "
+          f"at chunk {sv['chunk']} and {math.ceil(h * w / 2)} (a rank's rays in one chunk): "
+          f"rgb_coarse {sv['chunk_gap']['coarse']:.3e}, rgb_fine pixels over "
+          f"{RENDER_RGB_TOL:g} {sv['chunk_gap']['fine_over']}, u8 values "
+          f"{sv['chunk_gap']['u8_values']}")
+    check(sv["devices"] == 2 and all(g["served"] for g in gaps), f"(c) served frames {gaps}")
+    check(all(g["bitwise"] or (g["coarse"] <= RENDER_RGB_TOL
+                               and g["fine_over"] <= MAX_RESAMPLE_PIXELS) for g in gaps),
+          f"(c) the 2-rank frames fail phase 4's gates: {gaps}")
+    check(sv["reload_differs"], "(c) the frame after the reload shows the old weights")
+    check(sv["launches"] == follower["launches"] == per_frame * sv["frames"],
+          f"(c) launches {sv['launches']} {follower['launches']}")
+    check(follower["checkpoint_step"] == sv["checkpoint_step"] == sv["steps"][1]
+          != sv["steps"][0], "(c) the reload did not reach both ranks")
+    print(f"[time] (c) 2-rank server request latency "
+          f"{' / '.join(f'{t:.4f}' for t in sv['times'])} s, median {latency:.4f} s, against "
+          f"phase 16's one-rank median {serve_latency_s:.4f} s {on}")
+    out.update(serve_launches=sv["launches"], serve_latency_s=latency)
+
+    # (d) extract_geometry spawns its own two ranks.
+    mesh2, grid2 = os.path.join(tmp, "mesh_dp.ply"), os.path.join(tmp, "grid_dp.npz")
+    t0 = time.perf_counter()
+    extract_geometry.main(["--config", disk["cfg_py"], "--checkpoint", disk["checkpoint"],
+                           "--output", mesh2, "--iso", str(GEO_ISO), "--resolution",
+                           str(GEO_RESOLUTION), "--chunk", "262144", "--device", DEVICE,
+                           "--save-grid", grid2, "--num-devices", "2", "--dist-backend", "gloo",
+                           "--dist-timeout", str(P20_TIMEOUT_S)])
+    extract_s = time.perf_counter() - t0
+    same_grid = bool(np.array_equal(np.load(grid2)["sigma"], np.load(geo["grid_npz"])["sigma"]))
+    with open(mesh2, "rb") as f_dp, open(geo["mesh_ply"], "rb") as f_serial:
+        same_mesh = f_dp.read() == f_serial.read()
+    print(f"[multidevice] (d) extract_geometry --num-devices 2 at {GEO_RESOLUTION}^3 (its own "
+          f"2 spawned ranks): grid bitwise phase 18's serial grid {same_grid}, PLY bytes equal "
+          f"{same_mesh}; {extract_s:.1f} s of command, spawn included {on}")
+    check(same_grid and same_mesh, "(d) the sharded sweep differs from the serial one")
+
+    rep = r0["poses"]["report"]
+    xi_dp, xi_serial = (np.load(p)["xi"] for p in (paths["poses_dp"], geo["poses_npz"]))
+    xi_err = float(np.abs(xi_dp - xi_serial).max())
+    print(f"[multidevice] (e) optimize_poses --num-devices 2, {' '.join(POSE_ARGS)}: "
+          f"{rep['iters']} iterations, loss {rep['initial_loss']:.6f} -> "
+          f"{rep['final_loss']:.6f}; final twists against phase 18's serial run max |diff| "
+          f"{xi_err:.3e} (tol {P20_POSE_TOL:g}); {rep['wall_s']} s {on}")
+    check(xi_err <= P20_POSE_TOL, f"(e) twists {xi_err}")
+
+    ms = r0["multiscene"]
+    ms_first, ms_last = ms["losses"][:5].mean(0), ms["losses"][-5:].mean(0)
+    print(f"[multidevice] (f) train_multiscene --num-devices 2, {MS_SCENES} scenes, "
+          f"{P20_MS_STEPS} steps: losses finite {bool(np.isfinite(ms['losses']).all())}, mean "
+          f"of the first 5 -> last 5 steps {', '.join(f'{a:.4f}->{b:.4f}' for a, b in zip(ms_first, ms_last))}; "
+          f"kernel launches {ms['launches']}; one data-parallel step against the one-device "
+          f"batched step: loss rel {ms['loss_err']:.3e} (tol {MS_LOSS_RTOL:g}), gradients "
+          f"{ms['grad_err']:.3e} of a leaf's largest (tol {MS_GRAD_TOL:g}); "
+          f"{ms['s_per_step']:.4f} s a step {on}")
+    check(np.isfinite(ms["losses"]).all() and ms["launches"] == 0, "(f) losses or launches")
+    check(ms["loss_err"] <= MS_LOSS_RTOL and ms["grad_err"] <= MS_GRAD_TOL,
+          f"(f) DP vs one-device step: {ms['loss_err']} {ms['grad_err']}")
+    print(f"[time] phase 20: {time.perf_counter() - t_phase:.1f} s (the two-rank group "
+          f"{ranks_s:.1f} s of it) {on}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3337,6 +3877,8 @@ def main() -> int:
         geo = geometry_main_path(dev, on, disk)
         # Phase 19: the multi-scene workflow on the same field and datasets.
         multi = multiscene_main_path(dev, on, disk, train_times["step", "plain", "float32"])
+        # Phase 20: the multi-device layer, its ranks on this one card.
+        md = multidevice_main_path(on, served_state, disk, geo, served["latency_s"])
 
     entries = []
 
@@ -3371,6 +3913,7 @@ def main() -> int:
           tightened_launches=geo["render_launches_float32"],
           tightened_launches_bf16=geo["render_launches_bfloat16"],
           distill_launches=multi["distill_launches"],
+          multidevice_launches=md["serve_launches"],
           eval_multiscene_launches=multi["eval_multiscene_launches_float32"],
           eval_multiscene_launches_bf16=multi["eval_multiscene_launches_bfloat16"])
     entry("fused_paper_mlp_t", "paper_t.cu", "paper_t.py:177", paper["render_launches"],
@@ -3394,7 +3937,9 @@ def main() -> int:
               else 4 * (4 * p + 82820 + 64 * n) + 2 * (768 * p + 76800),
               disk_launches=disk["launches"][which],
               tightened_launches=geo["train_launches"][which],
-              optimizer_launches=multi["optimizer_launches"][which])
+              optimizer_launches=multi["optimizer_launches"][which],
+              multidevice_launches=md["train_launches"][which == "bwd"],
+              nccl_launches=md["nccl_launches"][which == "bwd"])
     # The bf16 instances keep bf16 residuals (2,752 rows a point) and read
     # bf16 weights (623,232 forward, 595,968 backward values at F = 10).
     for which, line in (("fwd", 197), ("bwd", 241)):

@@ -97,25 +97,37 @@ def sigma_chunk_body(model, settings: RenderSettings, resolution: int,
 
 def make_sigma_grid_fn(model, settings: RenderSettings, resolution: int,
                        bbox_min: Tuple[float, float, float],
-                       bbox_max: Tuple[float, float, float], chunk: int = 65536):
+                       bbox_max: Tuple[float, float, float], chunk: int = 65536, mesh=None):
     """Build ``grid_fn() -> (R, R, R) float32 sigma`` (a numpy array).
 
     Grid axis order is (x, y, z); vertex (i, j, k) sits at
     ``bbox_min + (i, j, k) / (R - 1) * (bbox_max - bbox_min)``. The chunks
     run one after another into one device buffer; nothing crosses to the
     device per call, and only the grid comes back.
+
+    ``mesh`` (``parallel.mesh.Mesh``): the chunks are dealt out in contiguous
+    blocks, every rank the same number (the tail's padding past the grid
+    computed and sliced off), and rank 0 gathers the grid; the other ranks
+    get None. The chunk boundaries and the body are the serial sweep's, so
+    the grid is bitwise the serial one's on the same device.
     """
     r = int(resolution)
     n = r ** 3
     chunk = int(min(chunk, n))
     num_chunks = (n + chunk - 1) // chunk
+    world, rank = (1, 0) if mesh is None else (mesh.world_size, mesh.rank)
+    local = -(-num_chunks // world)
     one_chunk = sigma_chunk_body(model, settings, r, bbox_min, bbox_max, chunk)
 
-    def grid_fn() -> np.ndarray:
+    def grid_fn() -> Optional[np.ndarray]:
         with torch.inference_mode():
-            sig = torch.empty(num_chunks * chunk, dtype=torch.float32, device=_device(model))
-            for c in range(num_chunks):
-                sig[c * chunk:(c + 1) * chunk] = one_chunk(c)
+            sig = torch.empty(local * chunk, dtype=torch.float32, device=_device(model))
+            for i in range(local):
+                sig[i * chunk:(i + 1) * chunk] = one_chunk(rank * local + i)
+            if mesh is not None:
+                sig = mesh.gather_rows(sig)
+                if sig is None:
+                    return None
             return sig[:n].reshape(r, r, r).cpu().numpy()
 
     return grid_fn

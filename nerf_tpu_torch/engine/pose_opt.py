@@ -167,9 +167,40 @@ def _step(optimizer, scheduler, params: List[torch.Tensor], grads) -> None:
     scheduler.step()
 
 
+def _image_shard(mesh, local_n: int) -> Tuple[int, Optional[int]]:
+    """This rank's first global image index and its render-number fold: (0,
+    None) without a mesh or on one rank."""
+    if mesh is None or mesh.world_size == 1:
+        return 0, None
+    return mesh.rank * local_n, mesh.rank
+
+
+def _local_view(opt_params: Dict[str, torch.Tensor], offset: int, local_n: int
+                ) -> Dict[str, torch.Tensor]:
+    """The camera variables of a rank's images: its rows of the replicated
+    twists (the gradient is zero outside them) and the shared focal."""
+    return {"xi": opt_params["xi"][offset:offset + local_n],
+            "log_focal": opt_params["log_focal"]}
+
+
+def mesh_grad_reduce(mesh) -> Callable:
+    """The data-parallel ``grad_reduce(grads, loss) -> (grads, loss)`` hook:
+    one ``all_reduce_mean`` of the gradients (tensors, not None) and the
+    loss over ``mesh``. Each twist row is non-zero on one rank only, so its
+    mean is the serial gradient of a mean of W equal-size rank means; the
+    focal correction genuinely averages."""
+
+    def reduce(grads, loss):
+        loss = loss.reshape(1)
+        mesh.all_reduce_mean(list(grads) + [loss])
+        return grads, loss[0]
+
+    return reduce
+
+
 def make_pose_opt_step(model_coarse, model_fine, settings: RenderSettings, height: int,
                        width: int, focal_length: float, rays_per_image: int,
-                       refine_focal: bool = False):
+                       refine_focal: bool = False, mesh=None):
     """Build one pose-refinement step: ``step(state, base_poses (N, 4, 4),
     images (N, H, W, 3), seed, pixel_indices=None) -> (state, loss)``. The
     NeRF weights get no gradient; the state's optimizer updates ``xi`` and
@@ -177,36 +208,56 @@ def make_pose_opt_step(model_coarse, model_fine, settings: RenderSettings, heigh
 
     Pass a deterministic ``settings`` (``settings.eval_variant()``):
     z-perturbation only adds sampling noise to the pose gradient.
+
+    ``mesh`` (``parallel.mesh.Mesh``): data-parallel over images. The state
+    (all N twists) is replicated and ``base_poses`` / ``images`` are this
+    rank's contiguous n = N / W of them; its pixels are the serial run's for
+    the same global images, its render numbers folded with the rank, and
+    one all-reduce (:func:`mesh_grad_reduce`) precedes the update.
     """
     photometric_loss = make_photometric_loss_fn(
         model_coarse, model_fine, settings, height, width, focal_length, rays_per_image,
         refine_focal=refine_focal)
+    reduce = None if mesh is None else mesh_grad_reduce(mesh)
 
     def step(state: PoseOptState, base_poses, images, seed: int,
              pixel_indices: Optional[torch.Tensor] = None):
         params = [state.xi, state.log_focal]
-        loss = photometric_loss(state.opt_params, base_poses, images, seed,
-                                pixel_indices=pixel_indices)
+        local_n = images.shape[0]
+        offset, fold = _image_shard(mesh, local_n)
+        opt_params = (state.opt_params if fold is None
+                      else _local_view(state.opt_params, offset, local_n))
+        loss = photometric_loss(opt_params, base_poses, images, seed, image_index_offset=offset,
+                                render_key_fold=fold, pixel_indices=pixel_indices)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
+        loss = loss.detach()
+        if reduce is not None:
+            # log_focal has no gradient without refine_focal: reduce a zero.
+            grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+            grads, loss = reduce(grads, loss)
         _step(state.optimizer, state.scheduler, params, grads)
-        return state, loss.detach()
+        return state, loss
 
     return step
 
 
 def make_pose_opt_loop(model_coarse, model_fine, settings: RenderSettings, height: int,
                        width: int, focal_length: float, rays_per_image: int,
-                       steps_per_loop: int, refine_focal: bool = False):
-    """K refinement steps: ``loop(state, base_poses, images, base_seed) ->
-    (state, losses (K,))``, step i seeded with ``fold_seed(base_seed, i)``;
-    the losses stay on the device."""
+                       steps_per_loop: int, refine_focal: bool = False, mesh=None):
+    """K refinement steps: ``loop(state, base_poses, images, base_seed,
+    pixel_indices=None) -> (state, losses (K,))``, step i seeded with
+    ``fold_seed(base_seed, i)``; the losses stay on the device.
+    ``pixel_indices`` (K, n, R) replaces the pixel draws (tests); ``mesh``:
+    ``make_pose_opt_step``'s, with this rank's images."""
     step = make_pose_opt_step(model_coarse, model_fine, settings, height, width, focal_length,
-                              rays_per_image, refine_focal=refine_focal)
+                              rays_per_image, refine_focal=refine_focal, mesh=mesh)
 
-    def loop(state, base_poses, images, base_seed: int):
+    def loop(state, base_poses, images, base_seed: int,
+             pixel_indices: Optional[torch.Tensor] = None):
         losses = []
         for i in range(steps_per_loop):
-            state, loss = step(state, base_poses, images, fold_seed(base_seed, i))
+            state, loss = step(state, base_poses, images, fold_seed(base_seed, i),
+                               None if pixel_indices is None else pixel_indices[i])
             losses.append(loss)
         return state, torch.stack(losses)
 
@@ -318,9 +369,13 @@ def init_joint_train_state(model_coarse, model_fine, seed: int, num_poses: int,
 
 
 def joint_update(carry: JointTrainState, loss: Callable[[Dict[str, torch.Tensor]], torch.Tensor],
-                 anchor_first: bool) -> Tuple[JointTrainState, torch.Tensor]:
+                 anchor_first: bool, grad_reduce: Optional[Callable] = None
+                 ) -> Tuple[JointTrainState, torch.Tensor]:
     """One joint scene + camera update: ``loss(opt_params) -> scalar`` closes
     over this step's data and seed and renders through the state's modules;
+    ``grad_reduce(grads, loss) -> (grads, loss)`` is the data-parallel hook
+    (``parallel/pose_dp.py``: one all-reduce of the camera and NeRF
+    gradients, camera first, and the loss), applied before the anchor;
     ``anchor_first`` zeroes camera 0's twist gradient."""
     pose_params = [carry.pose.xi, carry.pose.log_focal]
     nerf_params = carry.nerf_params
@@ -328,6 +383,9 @@ def joint_update(carry: JointTrainState, loss: Callable[[Dict[str, torch.Tensor]
     grads = torch.autograd.grad(loss_val, pose_params + nerf_params, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g for p, g in zip(pose_params + nerf_params,
                                                                       grads)]
+    loss_val = loss_val.detach()
+    if grad_reduce is not None:
+        grads, loss_val = grad_reduce(grads, loss_val)
     g_pose, g_nerf = grads[:2], grads[2:]
     if anchor_first:
         g_pose[0] = torch.cat([torch.zeros_like(g_pose[0][:1]), g_pose[0][1:]])
@@ -335,13 +393,13 @@ def joint_update(carry: JointTrainState, loss: Callable[[Dict[str, torch.Tensor]
         clip_by_global_norm(g_nerf, carry.grad_clip_norm)
     _step(carry.nerf_optimizer, carry.nerf_scheduler, nerf_params, g_nerf)
     _step(carry.pose.optimizer, carry.pose.scheduler, pose_params, g_pose)
-    return carry, loss_val.detach()
+    return carry, loss_val
 
 
 def make_joint_train_loop(model_coarse, model_fine, settings: RenderSettings, height: int,
                           width: int, focal_length: float, rays_per_image: int,
                           steps_per_loop: int, refine_focal: bool = False,
-                          anchor_first: bool = True):
+                          anchor_first: bool = True, mesh=None):
     """Joint NeRF + camera training (the BARF/NeRF-- setting): the scene and
     the cameras that observed it are optimized together, so a NeRF can be
     trained from scratch with miscalibrated poses.
@@ -353,20 +411,34 @@ def make_joint_train_loop(model_coarse, model_fine, settings: RenderSettings, he
     most of the rigid gauge freedom; without it only gauge-aligned errors
     (``align_poses_umeyama``) mean anything.
 
-    ``loop(state, base_poses (N, 4, 4), images, base_seed) -> (state,
-    losses (K,))``, step i seeded with ``fold_seed(base_seed, i)``.
+    ``loop(state, base_poses (N, 4, 4), images, base_seed, pixel_indices=None)
+    -> (state, losses (K,))``, step i seeded with ``fold_seed(base_seed, i)``.
+    ``mesh``: data-parallel over images as ``make_pose_opt_step``, the NeRF
+    weights, cameras and both optimizers replicated, one all-reduce of both
+    gradients a step (``joint_update``'s ``grad_reduce``) before the anchor,
+    the clipping and the two updates.
     """
     loss_fn = make_photometric_loss_fn(model_coarse, model_fine, settings, height, width,
                                        focal_length, rays_per_image, refine_focal=refine_focal)
+    reduce = None if mesh is None else mesh_grad_reduce(mesh)
 
-    def loop(state: JointTrainState, base_poses, images, base_seed: int):
+    def loop(state: JointTrainState, base_poses, images, base_seed: int,
+             pixel_indices: Optional[torch.Tensor] = None):
+        local_n = images.shape[0]
+        offset, fold = _image_shard(mesh, local_n)
         losses = []
         for i in range(steps_per_loop):
             seed = fold_seed(base_seed, i)
-            state, loss = joint_update(
-                state, lambda opt_params: loss_fn(opt_params, base_poses, images, seed),
-                anchor_first)
-            losses.append(loss)
+            pixels = None if pixel_indices is None else pixel_indices[i]
+
+            def loss(opt_params):
+                if fold is not None:
+                    opt_params = _local_view(opt_params, offset, local_n)
+                return loss_fn(opt_params, base_poses, images, seed, image_index_offset=offset,
+                               render_key_fold=fold, pixel_indices=pixels)
+
+            state, l = joint_update(state, loss, anchor_first, grad_reduce=reduce)
+            losses.append(l)
         return state, torch.stack(losses)
 
     return loop

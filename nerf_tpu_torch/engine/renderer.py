@@ -31,7 +31,7 @@ from ..kernels.mlp_t import fused_mlp_t, supports_fused
 from ..kernels.paper_t import fused_paper_mlp_t, supports_fused_paper
 from ..kernels.paper_train import fused_paper_mlp_train
 from ..ops.encoding import coarse_to_fine_window, positional_encoding
-from ..ops.rays import get_ray_bundle, ndc_rays, ray_aabb_interval
+from ..ops.rays import ndc_rays, pixel_rays, ray_aabb_interval
 from ..ops.sampling import coarse_z_values, perturb_z_values, sample_pdf
 from ..ops.volume import RenderOutputs, volume_render_radiance_field
 
@@ -294,59 +294,114 @@ def make_render_fn(model_coarse, model_fine, settings: RenderSettings
     return render
 
 
-def make_image_render_fn(model_coarse, model_fine, settings: RenderSettings
-                         ) -> Callable[..., Dict[str, torch.Tensor]]:
+def render_chunks(model_coarse, model_fine, ray_origins, ray_directions,
+                  settings: RenderSettings, generator=None) -> Dict[str, torch.Tensor]:
+    """Flat (N, 3) rays rendered ``chunksize`` at a time (the last chunk holds
+    the remainder), without autograd: the flat maps of ``render_maps_dict``."""
+    chunks = []
+    with torch.inference_mode():
+        for start in range(0, ray_origins.shape[0], settings.chunksize):
+            out = render_rays(
+                model_coarse, model_fine,
+                ray_origins[start:start + settings.chunksize],
+                ray_directions[start:start + settings.chunksize],
+                settings, generator,
+            )
+            chunks.append(render_maps_dict(out))
+        return {name: torch.cat([c[name] for c in chunks]) for name in chunks[0]}
+
+
+def rank_rows(mesh, n: int, device) -> torch.Tensor:
+    """Row indices of this rank's contiguous range of ``n`` rows split over
+    a ``mesh`` (``parallel.mesh.Mesh``; None = all rows): ``ceil(n / W)``
+    a rank, the padded tail clamped to row ``n - 1`` (JAX ``dp.py:312-326``)."""
+    if mesh is None or mesh.world_size == 1:
+        return torch.arange(n, device=device)
+    shard = -(-n // mesh.world_size)
+    return torch.clamp(torch.arange(mesh.rank * shard, (mesh.rank + 1) * shard, device=device),
+                       max=n - 1)
+
+
+def gather_maps(mesh, maps: Dict[str, torch.Tensor], n: int
+                ) -> Optional[Dict[str, torch.Tensor]]:
+    """Every rank's flat maps (one dtype) of its :func:`rank_rows`, as the
+    first ``n`` rows on rank 0, in one gather (the maps side by side as
+    columns); None on the other ranks. Without a mesh (or on one rank), the
+    maps."""
+    if mesh is None or mesh.world_size == 1:
+        return maps
+    names = list(maps)
+    widths = [1 if maps[k].ndim == 1 else maps[k].shape[1] for k in names]
+    cols = mesh.gather_rows(torch.cat([maps[k].reshape(maps[k].shape[0], w)
+                                       for k, w in zip(names, widths)], 1))
+    if cols is None:
+        return None
+    out, c = {}, 0
+    for k, w in zip(names, widths):
+        out[k] = cols[:n, c] if maps[k].ndim == 1 else cols[:n, c:c + w]
+        c += w
+    return out
+
+
+def make_image_render_fn(model_coarse, model_fine, settings: RenderSettings, mesh=None
+                         ) -> Callable[..., Optional[Dict[str, torch.Tensor]]]:
     """Full-image renderer: ``render_image(ray_origins, ray_directions,
     generator=None) -> dict`` of (H, W[, 3]) maps, rendering ``chunksize``
-    rays at a time (the last chunk holds the remainder)."""
-    s = settings
+    rays at a time (the last chunk holds the remainder).
+
+    ``mesh`` (``parallel.mesh.Mesh``): each rank renders its contiguous range
+    of the H*W rays (:func:`rank_rows`) and rank 0 assembles the image; the
+    other ranks get None.
+    """
 
     def render_image(ray_origins, ray_directions, generator=None):
         h, w = ray_origins.shape[0], ray_origins.shape[1]
         ro = ray_origins.reshape(-1, 3)
         rd = ray_directions.reshape(-1, 3)
-        chunks = []
-        with torch.inference_mode():
-            for start in range(0, ro.shape[0], s.chunksize):
-                out = render_rays(
-                    model_coarse, model_fine,
-                    ro[start:start + s.chunksize], rd[start:start + s.chunksize],
-                    s, generator,
-                )
-                chunks.append(render_maps_dict(out))
-            return {
-                name: torch.cat([c[name] for c in chunks]).reshape(
-                    (h, w) + chunks[0][name].shape[1:]
-                )
-                for name in chunks[0]
-            }
+        if mesh is not None and mesh.world_size > 1:
+            rows = rank_rows(mesh, h * w, ro.device)
+            ro, rd = ro[rows], rd[rows]
+        maps = gather_maps(mesh, render_chunks(model_coarse, model_fine, ro, rd, settings,
+                                               generator), h * w)
+        if maps is None:
+            return None
+        return {name: v.reshape((h, w) + v.shape[1:]) for name, v in maps.items()}
 
     return render_image
 
 
 def make_pose_render_fn(model_coarse, model_fine, settings: RenderSettings,
                         height: int, width: int, focal: float,
-                        output: str = "maps") -> Callable[..., Any]:
+                        output: str = "maps", mesh=None) -> Callable[..., Any]:
     """``render(pose34) -> out``: rays for a (3, 4) camera-to-world pose are
     made on the pose's device, then rendered as one image.
 
     ``output``: "maps" = all (H, W[, 3]) maps plus ``rgb_u8``; "u8" = the
     uint8 displayed image; "f32" = the [0, 1]-clipped float image.
+
+    ``mesh`` (``parallel.mesh.Mesh``): only the pose reaches a rank, which
+    makes and renders the rays of its own pixel range (:func:`rank_rows`)
+    and sends its slice to rank 0 ("u8" sends uint8); the other ranks get
+    None. This is ``serve_nerf``'s multi-device path.
     """
     if output not in ("maps", "u8", "f32"):
         raise ValueError(f"unknown output mode {output!r}")
-    base = make_image_render_fn(model_coarse, model_fine, settings)
+    n = height * width
 
     def render(pose34, generator=None):
-        ro, rd = get_ray_bundle(height, width, focal, pose34)
-        maps = base(ro, rd, generator)
+        ro, rd = pixel_rays(height, width, focal, pose34, rank_rows(mesh, n, pose34.device))
+        maps = render_chunks(model_coarse, model_fine, ro, rd, settings, generator)
+        if output != "maps":
+            rgb = torch.clamp(maps.get("rgb_fine", maps["rgb_coarse"]), 0.0, 1.0)
+            maps = {output: rgb if output == "f32" else (rgb * 255.0).to(torch.uint8)}
+        maps = gather_maps(mesh, maps, n)
+        if maps is None:
+            return None
+        maps = {name: v.reshape((height, width) + v.shape[1:]) for name, v in maps.items()}
+        if output != "maps":
+            return maps[output]
         rgb = maps.get("rgb_fine", maps["rgb_coarse"])
-        if output == "f32":
-            return torch.clamp(rgb, 0.0, 1.0)
-        u8 = (torch.clamp(rgb, 0.0, 1.0) * 255.0).to(torch.uint8)
-        if output == "u8":
-            return u8
-        maps["rgb_u8"] = u8
+        maps["rgb_u8"] = (torch.clamp(rgb, 0.0, 1.0) * 255.0).to(torch.uint8)
         return maps
 
     return render

@@ -201,7 +201,7 @@ def clip_by_global_norm(grads, max_norm: float) -> None:
 
 
 def make_train_step(model_coarse, model_fine, settings: RenderSettings,
-                    nan_guard: bool = False):
+                    nan_guard: bool = False, mesh=None):
     """``step(state, ro (B, 3), rd (B, 3), target (B, 3), generator) ->
     (state, StepMetrics)``: render, loss, backward, optional clipping, update.
 
@@ -209,6 +209,12 @@ def make_train_step(model_coarse, model_fine, settings: RenderSettings,
     parameters, the optimizer's moments and the schedule's count stay as they
     were; only ``state.step`` moves. It reads one flag from the device per
     step.
+
+    ``mesh`` (``parallel.mesh.Mesh``): the data-parallel step on this rank's
+    rays. One ``all_reduce_mean`` of the gradients and the three losses (the
+    JAX ``lax.pmean``) runs between the backward and the guard, so every
+    rank guards, clips and updates with the same numbers and no two ranks
+    part. The metrics are then the global batch's.
     """
     loss_fn = make_loss_fn(model_coarse, model_fine, settings)
 
@@ -217,17 +223,21 @@ def make_train_step(model_coarse, model_fine, settings: RenderSettings,
         loss, (closs, floss) = loss_fn(ro, rd, target, generator)
         loss.backward()
         grads = [p.grad for p in state.params]
+        loss, closs, floss = loss.detach(), closs.detach(), floss.detach()
+        if mesh is not None:
+            losses = torch.stack([loss, closs, floss])
+            mesh.all_reduce_mean(grads + [losses])
+            loss, closs, floss = losses
         update = True
         if nan_guard:
-            update = bool(all_finite(loss.detach(), grads))
+            update = bool(all_finite(loss, grads))
         if update:
             if state.grad_clip_norm:
                 clip_by_global_norm(grads, state.grad_clip_norm)
             state.optimizer.step()
             state.scheduler.step()
         state.step += 1
-        loss = loss.detach()
-        return state, StepMetrics(loss, closs.detach(), floss.detach(), mse2psnr(loss))
+        return state, StepMetrics(loss, closs, floss, mse2psnr(loss))
 
     return train_step
 
@@ -237,24 +247,46 @@ def fold_seed(seed: int, i: int) -> int:
     return (int(seed) * 1_000_003 + int(i)) % (2**63 - 1)
 
 
-def step_generator(base_seed: int, step: int, device) -> torch.Generator:
+def step_generator(base_seed: int, step: int, device, rank: Optional[int] = None
+                   ) -> torch.Generator:
     """The generator of one step: seeded from (base seed, step) alone, so
-    resume and replay draw the same numbers whatever the steps per call."""
-    return torch.Generator(device=device).manual_seed(fold_seed(base_seed, step))
+    resume and replay draw the same numbers whatever the steps per call;
+    with ``rank``, that seed folded with the rank (a data-parallel rank's
+    own draws, JAX ``dp.py:145``)."""
+    seed = fold_seed(base_seed, step)
+    if rank is not None:
+        seed = fold_seed(seed, rank)
+    return torch.Generator(device=device).manual_seed(seed)
 
 
 def make_train_loop(model_coarse, model_fine, settings: RenderSettings, batch_size: int,
-                    steps_per_call: int, nan_guard: bool = False, sample_mode: str = "gather"):
+                    steps_per_call: int, nan_guard: bool = False, sample_mode: str = "gather",
+                    mesh=None):
     """``loop(state, ro_store, rd_store, tgt_store, base_seed) -> (state,
     StepMetrics of (steps_per_call,) device tensors)``: ``steps_per_call``
-    steps, each drawing its ray batch from the device-resident store."""
-    step_fn = make_train_step(model_coarse, model_fine, settings, nan_guard=nan_guard)
+    steps, each drawing its ray batch from the device-resident store.
+
+    ``mesh``: data-parallel over its ranks, with this rank's slice of the
+    store and ``batch_size`` the GLOBAL batch; each step draws ``batch_size
+    / world`` rays and takes ``make_train_step``'s all-reducing step. On
+    more than one rank, step t's generator is seeded with
+    ``fold_seed(fold_seed(base_seed, t), rank)``, as the JAX loop folds the
+    shard index into the step key; on one rank the draws are the serial
+    loop's.
+    """
+    world = 1 if mesh is None else mesh.world_size
+    if batch_size % world:
+        raise ValueError(f"global batch {batch_size} not divisible by {world} ranks")
+    local_batch = batch_size // world
+    rank_fold = mesh.rank if world > 1 else None
+    step_fn = make_train_step(model_coarse, model_fine, settings, nan_guard=nan_guard,
+                              mesh=mesh)
 
     def loop(state: TrainState, ro_store, rd_store, tgt_store, base_seed: int):
         metrics = []
         for _ in range(steps_per_call):
-            gen = step_generator(base_seed, state.step, ro_store.device)
-            ro, rd, tgt = sample_ray_batch(gen, ro_store, rd_store, tgt_store, batch_size,
+            gen = step_generator(base_seed, state.step, ro_store.device, rank_fold)
+            ro, rd, tgt = sample_ray_batch(gen, ro_store, rd_store, tgt_store, local_batch,
                                            mode=sample_mode)
             state, m = step_fn(state, ro, rd, tgt, gen)
             metrics.append(m)

@@ -17,7 +17,10 @@ Reads native ``.ntc`` checkpoints and reference ``.ckpt`` files:
 
 Bounded (blender/synthetic) scenes only: LLFF forward-facing scenes have no
 natural world-space box; pass an explicit --bbox if you know one. The sweep
-runs on one device (``--device``, default ``cuda``).
+runs on ``--device`` (default ``cuda``); ``--num-devices N`` shards its
+chunks over N ranks (``engine.geometry.make_sigma_grid_fn`` with a mesh;
+under ``torchrun`` its group, else N spawned ranks), bitwise the serial
+grid, and rank 0 alone builds and writes the mesh.
 """
 
 from __future__ import annotations
@@ -33,6 +36,8 @@ import numpy as np
 from .config import load_config, render_settings_from_config
 from .engine.checkpoint import load_models_and_params
 from .engine.geometry import extract_mesh, extract_pointcloud, make_sigma_grid_fn, save_ply
+from .parallel.distributed import add_mesh_args, run_cli
+from .parallel.mesh import make_mesh
 
 
 def main(argv: Optional[List[str]] = None) -> None:
@@ -67,14 +72,14 @@ def main(argv: Optional[List[str]] = None) -> None:
     parser.add_argument("--precision", choices=["bfloat16", "float32"], default="float32")
     parser.add_argument("--overrides", type=str, nargs="*", default=None)
     parser.add_argument("--device", type=str, default="cuda")
-    parser.add_argument("--num-devices", type=int, default=1,
-                        help="Devices to sweep on (only 1 is ported).")
-    args = parser.parse_args(argv)
+    add_mesh_args(parser, "Ranks to shard the sweep over.")
+    run_cli(extract, parser.parse_args(argv))
 
-    if args.num_devices != 1:
-        raise NotImplementedError(
-            f"--num-devices {args.num_devices}: the sharded sweep (parallel/geometry.py) is "
-            "not ported yet (ROADMAP.md, open items §1 item 11)")
+
+def extract(args: argparse.Namespace) -> None:
+    """One rank of ``extract_geometry``: its part of the sweep; rank 0 (or
+    the only process) then builds and writes the geometry."""
+    mesh = make_mesh(args.num_devices, args.device, args.dist_backend)
     cfg = load_config(args.config, args.overrides)
     if cfg.dataset.type == "llff" and args.bbox is None:
         raise SystemExit(
@@ -86,7 +91,7 @@ def main(argv: Optional[List[str]] = None) -> None:
     if not all(hi > lo for lo, hi in zip(bbox_min, bbox_max)):
         raise SystemExit(f"degenerate --bbox: min {bbox_min} !< max {bbox_max}")
 
-    model_coarse, model_fine, _ = load_models_and_params(args.checkpoint, cfg, args.device)
+    model_coarse, model_fine, _ = load_models_and_params(args.checkpoint, cfg, mesh.device)
     model = model_fine if args.model == "fine" and model_fine is not None else model_coarse
 
     # Grid sampling happens in WORLD space whatever the scene renders in, so
@@ -98,8 +103,12 @@ def main(argv: Optional[List[str]] = None) -> None:
     )
 
     t0 = time.time()
+    if mesh.world_size > 1 and mesh.is_primary:
+        print(f"sharding the grid sweep over {mesh.world_size} devices", flush=True)
     sigma_grid = make_sigma_grid_fn(model, settings, args.resolution, bbox_min, bbox_max,
-                                    args.chunk)()
+                                    args.chunk, mesh=mesh)()
+    if not mesh.is_primary:
+        return
     n = args.resolution ** 3
     dt = time.time() - t0
     print(

@@ -14,6 +14,7 @@ Fast math is never on: the encoding's sinusoids take arguments up to
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -61,12 +62,24 @@ def build_library() -> Path:
 
     The compiler's output (``-Xptxas -v``: registers, shared memory and
     spills of each kernel) is kept beside the library as ``<name>.log``.
+    Processes that start cold at once (the ranks of a process group) take a
+    file lock beside the library in turn, and each looks for the library
+    again once it holds the lock, so one of them runs ``nvcc``.
     """
     out = library_path()
     if out.exists():
         return out
-    nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(out.with_suffix(".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not out.exists():
+            _compile(out)
+    return out
+
+
+def _compile(out: Path) -> None:
+    """One ``nvcc -c`` per source, all started together, then the link."""
+    nvcc = find_nvcc()
     tag = f"{out.stem}.{os.getpid()}"
     objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
     cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
@@ -89,7 +102,6 @@ def build_library() -> Path:
         cmd, log = failed[0]
         raise RuntimeError(f"nvcc failed: {' '.join(cmd)}\n{log}")
     os.replace(tmp, out)
-    return out
 
 
 @functools.lru_cache(maxsize=None)

@@ -13,13 +13,16 @@ with ``ctypes``. It exposes:
     the bytes the JAX package's functions write and read;
   - :func:`available`: whether the library builds and loads here.
 
-When ``g++`` fails, the three functions raise with its message;
+Processes that start cold at once build it once: a file lock beside the
+library serializes them (``_build``). When ``g++`` fails, the three
+functions raise with its message;
 ``data.rays_store.build_ray_store`` then takes the PyTorch builder.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import subprocess
@@ -45,17 +48,24 @@ def library_path() -> Path:
 
 
 def _build() -> Path:
+    """Build the library unless it exists. Processes that start cold at once
+    (the ranks of a process group) take a file lock in turn, and each looks
+    for the library again once it holds the lock, so one of them builds."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp")
-    proc = subprocess.run(["g++", *CXX_FLAGS, str(SOURCE), "-o", str(tmp)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"g++ failed to build {SOURCE.name}:\n{proc.stderr}")
-    os.replace(tmp, out)
+    with open(out.with_suffix(".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if out.exists():
+            return out
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp")
+        proc = subprocess.run(["g++", *CXX_FLAGS, str(SOURCE), "-o", str(tmp)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"g++ failed to build {SOURCE.name}:\n{proc.stderr}")
+        os.replace(tmp, out)
     return out
 
 

@@ -17,11 +17,19 @@ def get_ray_bundle(height: int, width: int, focal_length, tform_cam2world: torch
     camera frame, rotated into the world frame. Returns (H, W, 3) origins and
     (H, W, 3) un-normalized directions on the pose's device.
     """
-    dtype, device = tform_cam2world.dtype, tform_cam2world.device
-    ii, jj = meshgrid_xy(
-        torch.arange(width, dtype=dtype, device=device),
-        torch.arange(height, dtype=dtype, device=device),
-    )
+    index = torch.arange(height * width, device=tform_cam2world.device)
+    ray_origins, ray_directions = pixel_rays(height, width, focal_length, tform_cam2world, index)
+    return ray_origins.reshape(height, width, 3), ray_directions.reshape(height, width, 3)
+
+
+def pixel_rays(height: int, width: int, focal_length, tform_cam2world: torch.Tensor,
+               index: torch.Tensor):
+    """The rays of the flat pixel indices ``index`` (row-major, ``j * W +
+    i``) of ``get_ray_bundle``'s image: (len, 3) origins and directions.
+    A data-parallel rank makes the rays of its own pixel range with it."""
+    dtype = tform_cam2world.dtype
+    ii = (index % width).to(dtype)
+    jj = (index // width).to(dtype)
     directions = torch.stack(
         [
             (ii - width * 0.5) / focal_length,

@@ -19,7 +19,11 @@ Two modes:
 
 The final line is one JSON record with the before/after photometric loss (a
 fixed-seed evaluation) and, in perturb mode, the mean/max pose errors. It
-runs on one device (``--device``, default ``cuda``).
+runs on ``--device`` (default ``cuda``); ``--num-devices N`` shards the images
+over N ranks (``engine.pose_opt``'s loops with a mesh; under ``torchrun`` its
+group, else N spawned ranks) with the cameras replicated and one all-reduce
+a step, when N divides the images (else every rank runs the serial loop, as
+the JAX CLI falls back); rank 0 alone prints and writes.
 """
 
 from __future__ import annotations
@@ -59,6 +63,8 @@ from .engine.pose_opt import (
     twists_to_poses,
 )
 from .engine.train import fold_seed
+from .parallel.distributed import add_mesh_args, run_cli
+from .parallel.mesh import make_mesh, replicate_params, shard_rows
 
 
 def load_split_images_and_poses(cfg, split: str, device="cpu"):
@@ -151,8 +157,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
     parser.add_argument("--overrides", type=str, nargs="*", default=None,
                         help="Dotted-key value pairs, e.g. dataset.basedir /tmp/distilled")
     parser.add_argument("--device", type=str, default="cuda")
-    parser.add_argument("--num-devices", type=int, default=1,
-                        help="Devices to refine on (only 1 is ported).")
+    add_mesh_args(parser, "Ranks to shard the images over.")
     args = parser.parse_args(argv)
     if not args.joint_train:
         for flag, val, unset in [("--nerf-lr", args.nerf_lr, 0.0),
@@ -160,27 +165,40 @@ def main(argv: Optional[List[str]] = None) -> dict:
                                  ("--save-checkpoint", args.save_checkpoint, "")]:
             if val != unset:
                 parser.error(f"{flag} requires --joint-train")
-    if args.num_devices != 1:
-        raise NotImplementedError(
-            f"--num-devices {args.num_devices}: data-parallel pose refinement "
-            "(parallel/pose_dp.py) is not ported yet (ROADMAP.md, open items §1 item 11)")
-    device = args.device
+        if not args.checkpoint:
+            parser.error("--checkpoint is required unless --joint-train")
+    if args.perturb_focal != 1.0 and not args.refine_focal:
+        parser.error("--perturb-focal requires --refine-focal")
+    return run_cli(refine, args)
+
+
+def refine(args: argparse.Namespace) -> dict:
+    """One rank of ``optimize_poses``: the refinement on this rank's images
+    (or all of them, serially); returns the JSON report."""
+    mesh = make_mesh(args.num_devices, args.device, args.dist_backend)
+    device = mesh.device
+    log = print if mesh.is_primary else (lambda *a, **k: None)
 
     cfg = load_config(args.config, args.overrides)
     images, poses, (h, w, focal) = load_split_images_and_poses(cfg, args.split, device)
     if args.max_images > 0:
         images, poses = images[:args.max_images], poses[:args.max_images]
     n = images.shape[0]
-    print(f"refining {n} {args.split} poses at {h}x{w} (focal {focal:.1f})", flush=True)
+    log(f"refining {n} {args.split} poses at {h}x{w} (focal {focal:.1f})", flush=True)
+    # The JAX CLI's layout: the images shard when the devices divide them;
+    # else every rank runs the serial loop.
+    dp = n % mesh.world_size == 0
+    loop_mesh = mesh if dp else None
+    if not dp and not args.joint_train:
+        log(f"serial fallback: {n} images not divisible by {mesh.world_size} devices",
+            flush=True)
 
     if args.checkpoint:
         model_coarse, model_fine, _ = load_models_and_params(args.checkpoint, cfg, device)
-    elif args.joint_train:
+    else:
         model_coarse = model_from_config(cfg.models.coarse).to(device)
         model_fine = (model_from_config(cfg.models.fine).to(device)
                       if "fine" in cfg.models else None)
-    else:
-        parser.error("--checkpoint is required unless --joint-train")
 
     # Deterministic f32 plain settings: z-perturbation and noise would only
     # add variance to the pose gradient.
@@ -195,11 +213,9 @@ def main(argv: Optional[List[str]] = None) -> dict:
 
     true_focal = focal
     if args.perturb_focal != 1.0:
-        if not args.refine_focal:
-            parser.error("--perturb-focal requires --refine-focal")
         # The optimizer is told the wrong focal; the targets reflect the true one.
         focal = focal * args.perturb_focal
-        print(f"perturbed focal: {focal:.2f} (true {true_focal:.2f})", flush=True)
+        log(f"perturbed focal: {focal:.2f} (true {true_focal:.2f})", flush=True)
 
     true_poses = torch.as_tensor(np.asarray(poses), dtype=torch.float32, device=device)
     ground_truth_known = args.perturb_rot_deg > 0.0 or args.perturb_trans > 0.0
@@ -219,15 +235,16 @@ def main(argv: Optional[List[str]] = None) -> dict:
         else:
             state = init_joint_train_state(model_coarse, model_fine, 1000 + args.seed, n,
                                            nerf_opt, optimizer)
+        replicate_params(mesh, model_coarse, model_fine)
         # Coarse-to-fine annealing is a from-scratch device: on a pretrained
         # checkpoint, alpha < n_freq feeds the converged MLP band-masked
         # encodings it never saw, so finetuning defaults to none.
         if args.anneal_iters >= 0:
             anneal = args.anneal_iters
             if anneal > 0 and args.checkpoint:
-                print("WARNING: --anneal-iters > 0 with a pretrained --checkpoint masks "
-                      "encoding bands the checkpoint was trained with; expect transient "
-                      "corruption.", flush=True)
+                log("WARNING: --anneal-iters > 0 with a pretrained --checkpoint masks "
+                    "encoding bands the checkpoint was trained with; expect transient "
+                    "corruption.", flush=True)
         else:
             anneal = 0 if args.checkpoint else args.iters // 2
         n_freq = float(train_settings.num_encoding_fn_xyz)
@@ -240,17 +257,22 @@ def main(argv: Optional[List[str]] = None) -> dict:
                       else dataclasses.replace(train_settings, pe_alpha_xyz=alpha))
                 joint_loops[alpha] = make_joint_train_loop(
                     model_coarse, model_fine, st, h, w, focal, args.rays_per_image,
-                    args.steps_per_loop, refine_focal=args.refine_focal)
+                    args.steps_per_loop, refine_focal=args.refine_focal, mesh=loop_mesh)
             return joint_loops[alpha]
 
-        print(f"joint NeRF+camera training (nerf lr {nerf_lr:g}, anneal {anneal} iters)",
-              flush=True)
+        log(f"joint NeRF+camera training (nerf lr {nerf_lr:g}, anneal {anneal} iters)",
+            flush=True)
         pose_state = state.pose
     else:
         state = pose_state = init_pose_opt_state(n, optimizer, device)
         loop = make_pose_opt_loop(model_coarse, model_fine, settings, h, w, focal,
                                   args.rays_per_image, args.steps_per_loop,
-                                  refine_focal=args.refine_focal)
+                                  refine_focal=args.refine_focal, mesh=loop_mesh)
+    loop_base44, loop_images = base44, images
+    if dp:
+        loop_base44, loop_images = shard_rows(mesh, base44, images)
+    if dp and mesh.world_size > 1:
+        log(f"data-parallel over {mesh.world_size} devices", flush=True)
     # Fixed-seed evaluation: the SAME pixel sample before and after, so the
     # reported improvement is camera movement, not sampling luck.
     eval_fn = make_photometric_loss_fn(model_coarse, model_fine, settings, h, w, focal,
@@ -268,12 +290,12 @@ def main(argv: Optional[List[str]] = None) -> dict:
     for i in range(num_loops):
         step_seed = fold_seed(args.seed, i)
         if args.joint_train:
-            state, losses = joint_loop_for(i * args.steps_per_loop)(state, base44, images,
-                                                                    step_seed)
+            state, losses = joint_loop_for(i * args.steps_per_loop)(
+                state, loop_base44, loop_images, step_seed)
         else:
-            state, losses = loop(state, base44, images, step_seed)
-        print(f"[{(i + 1) * args.steps_per_loop:5d}] loss {float(losses[-1]):.6f} "
-              f"({time.time() - t0:.1f}s)", flush=True)
+            state, losses = loop(state, loop_base44, loop_images, step_seed)
+        log(f"[{(i + 1) * args.steps_per_loop:5d}] loss {float(losses[-1]):.6f} "
+            f"({time.time() - t0:.1f}s)", flush=True)
     final_loss = eval_loss()
 
     with torch.no_grad():
@@ -311,7 +333,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
                               aligned_trans_mean=float(aligned["trans"].mean()))
     if args.joint_train:
         report["mode"] = "joint"
-        if args.save_checkpoint:
+        if args.save_checkpoint and mesh.is_primary:
             os.makedirs(os.path.dirname(args.save_checkpoint) or ".", exist_ok=True)
             save_checkpoint(args.save_checkpoint, {
                 "step": np.asarray(num_loops * args.steps_per_loop),
@@ -320,15 +342,17 @@ def main(argv: Optional[List[str]] = None) -> dict:
                                 if model_fine is not None else None),
                 "loss": np.asarray(final_loss),
             })
+        if args.save_checkpoint:
             report["saved_checkpoint"] = args.save_checkpoint
-    if args.save_poses:
+    if args.save_poses and mesh.is_primary:
         os.makedirs(os.path.dirname(args.save_poses) or ".", exist_ok=True)
         np.savez(args.save_poses, poses=refined.cpu().numpy(),
                  xi=pose_state.xi.detach().cpu().numpy(),
                  log_focal=pose_state.log_focal.detach().cpu().numpy(),
                  base_poses=base34.cpu().numpy())
+    if args.save_poses:
         report["saved"] = args.save_poses
-    print(json.dumps(report), flush=True)
+    log(json.dumps(report), flush=True)
     return report
 
 

@@ -30,9 +30,15 @@ The field runs the plain path: the JAX multi-scene trainer never sets
 ``use_pallas_train`` (``train_multiscene.py:250-256``). The kernels'
 autograd functions do not run under ``vmap``, so settings that ask for a
 kernel (``use_pallas`` or ``use_pallas_train``) raise rather than fall back
-to the plain field (ROADMAP.md, §2 item 12). The multi-device entry points
-raise until the ``torch.distributed`` modules exist (ROADMAP.md, open items
-§1 item 11).
+to the plain field (ROADMAP.md, §2 item 12).
+
+Data parallelism (the JAX package's ``shard_map`` around the vmapped step):
+each scene's ray batch shards over the ranks of a mesh on the ray axis
+(``shard_multiscene_stores``), the stacked state is replicated, and one
+``all_reduce_mean`` of every (S, ...) gradient leaf and the (S,) losses runs
+between the backward and the update. Rank r's scene s draws step t's rays
+and render numbers from ``fold_seed(fold_seed(fold_seed(base_seed, s), t),
+r)``.
 """
 
 from __future__ import annotations
@@ -58,9 +64,7 @@ from ..engine.train import (
     step_generator,
 )
 from ..ops.math import img2mse, mse2psnr
-
-_MULTI_DEVICE = ("is not ported yet: it needs the torch.distributed modules "
-                 "(ROADMAP.md, open items §1 item 11)")
+from .mesh import Mesh, shard_rows
 
 
 @dataclasses.dataclass
@@ -128,7 +132,7 @@ def stack_draws(draws: Sequence[RenderDraws]) -> RenderDraws:
 
 
 def make_multiscene_train_step(model_coarse: nn.Module, model_fine: Optional[nn.Module],
-                               settings: RenderSettings
+                               settings: RenderSettings, mesh: Optional[Mesh] = None
                                ) -> Callable[..., Tuple[MultiSceneState, StepMetrics]]:
     """Build the scene-vmapped training step.
 
@@ -138,7 +142,9 @@ def make_multiscene_train_step(model_coarse: nn.Module, model_fine: Optional[nn.
     a leading scene axis) or, drawn here, from ``generators[s]``. The
     modules give the shapes and the forward; their own parameters are not
     used. Settings that ask for a kernel raise: the step runs the plain
-    field only."""
+    field only. With a ``mesh``, the rays are this rank's and one
+    all-reduce of the stacked gradients and the (S,) losses runs between
+    the backward and the update."""
     if settings.use_pallas or settings.use_pallas_train:
         raise NotImplementedError(
             "the multi-scene step runs the plain field: #8 under vmap, or #8 once a scene, "
@@ -154,7 +160,11 @@ def make_multiscene_train_step(model_coarse: nn.Module, model_fine: Optional[nn.
         fine = img2mse(out.fine.rgb, target) if out.fine is not None else torch.zeros_like(coarse)
         return coarse + fine, coarse, fine
 
-    batched = torch.func.vmap(scene_losses, randomness="error")
+    def batched(params, ro, rd, target, draws: RenderDraws):
+        # The settings draw nothing for some fields: those are not mapped.
+        dims = RenderDraws(*(None if f is None else 0 for f in draws))
+        return torch.func.vmap(scene_losses, in_dims=(0, 0, 0, 0, dims),
+                               randomness="error")(params, ro, rd, target, draws)
 
     def step(state: MultiSceneState, ro, rd, target,
              generators: Optional[Sequence[torch.Generator]] = None,
@@ -167,36 +177,53 @@ def make_multiscene_train_step(model_coarse: nn.Module, model_fine: Optional[nn.
         state.optimizer.zero_grad(set_to_none=False)
         loss, closs, floss = batched(state.params, ro, rd, target, draws)
         loss.sum().backward()
+        losses = torch.stack([loss.detach(), closs.detach(), floss.detach()])
+        if mesh is not None:
+            mesh.all_reduce_mean([p.grad for p in state.params.values()] + [losses])
         state.optimizer.step()
         state.scheduler.step()
         state.step += 1
-        loss = loss.detach()
-        return state, StepMetrics(loss, closs.detach(), floss.detach(), mse2psnr(loss))
+        loss, closs, floss = losses
+        return state, StepMetrics(loss, closs, floss, mse2psnr(loss))
 
     return step
 
 
-def scene_generators(base_seed: int, step: int, num_scenes: int, device
-                     ) -> List[torch.Generator]:
+def scene_generators(base_seed: int, step: int, num_scenes: int, device,
+                     rank: Optional[int] = None) -> List[torch.Generator]:
     """Step ``step``'s generator of each scene: scene ``s``'s is the
-    single-scene loop's ``step_generator(fold_seed(base_seed, s), step)``."""
-    return [step_generator(fold_seed(base_seed, s), step, device) for s in range(num_scenes)]
+    single-scene loop's ``step_generator(fold_seed(base_seed, s), step)``;
+    on rank ``rank`` of a mesh, its seed folded with the rank."""
+    return [step_generator(fold_seed(base_seed, s), step, device, rank)
+            for s in range(num_scenes)]
 
 
 def make_multiscene_train_loop(model_coarse: nn.Module, model_fine: Optional[nn.Module],
                                settings: RenderSettings, batch_size: int,
-                               steps_per_call: int, sample_mode: str = "gather"):
+                               steps_per_call: int, sample_mode: str = "gather",
+                               mesh: Optional[Mesh] = None):
     """``loop(state, ro (S, N, 3), rd (S, N, 3), tgt (S, N, 3), base_seed) ->
     (state, StepMetrics of (steps_per_call, S) device tensors)``: each step
     draws every scene's batch from its store on the device, then steps
-    them all at once."""
-    step_fn = make_multiscene_train_step(model_coarse, model_fine, settings)
+    them all at once.
+
+    ``mesh``: data-parallel over its ranks, with this rank's store slices
+    (``shard_multiscene_stores``) and ``batch_size`` the per-scene GLOBAL
+    batch; each step draws ``batch_size / world`` rays a scene, on more than
+    one rank with ``scene_generators(..., rank=mesh.rank)``."""
+    world = 1 if mesh is None else mesh.world_size
+    if batch_size % world:
+        raise ValueError(f"per-scene batch {batch_size} not divisible by {world} ranks")
+    local_batch = batch_size // world
+    rank_fold = mesh.rank if world > 1 else None
+    step_fn = make_multiscene_train_step(model_coarse, model_fine, settings, mesh)
 
     def loop(state: MultiSceneState, ro_store, rd_store, tgt_store, base_seed: int):
         metrics = []
         for _ in range(steps_per_call):
-            gens = scene_generators(base_seed, state.step, ro_store.shape[0], ro_store.device)
-            batch = sample_multiscene_batch(gens, ro_store, rd_store, tgt_store, batch_size,
+            gens = scene_generators(base_seed, state.step, ro_store.shape[0], ro_store.device,
+                                    rank_fold)
+            batch = sample_multiscene_batch(gens, ro_store, rd_store, tgt_store, local_batch,
                                             mode=sample_mode)
             state, m = step_fn(state, *batch, generators=gens)
             metrics.append(m)
@@ -221,19 +248,30 @@ def sample_multiscene_batch(generators: Sequence[Optional[torch.Generator]],
     return tuple(torch.stack(field) for field in zip(*parts))
 
 
-def shard_multiscene_stores(*args, **kwargs):
-    """Per-scene stores sharded over a device mesh (JAX
-    ``parallel/multiscene.py:shard_multiscene_stores``)."""
-    raise NotImplementedError(f"shard_multiscene_stores {_MULTI_DEVICE}")
+def shard_multiscene_stores(mesh: Mesh, *arrays):
+    """This rank's slice of (S, N, ...) per-scene stores on the RAY axis (1):
+    every rank holds every scene's rays [r N / W, (r + 1) N / W), the JAX
+    ``P(None, axis)`` layout. N must divide by the world."""
+    return shard_rows(mesh, *arrays, axis=1)
 
 
-def make_parallel_multiscene_train_step(*args, **kwargs):
-    """The data-parallel multi-scene step (JAX
-    ``parallel/multiscene.py:make_parallel_multiscene_train_step``)."""
-    raise NotImplementedError(f"make_parallel_multiscene_train_step {_MULTI_DEVICE}")
+def make_parallel_multiscene_train_step(model_coarse: nn.Module,
+                                        model_fine: Optional[nn.Module],
+                                        settings: RenderSettings, mesh: Mesh):
+    """The data-parallel scene-vmapped step on this rank's ``b = B / world``
+    rays of each scene's global batch: ``make_multiscene_train_step`` with
+    the mesh. With perturbation and sigma noise off it matches the
+    one-device step on the union batch (a mean of equal-size rank means is
+    the global mean)."""
+    return make_multiscene_train_step(model_coarse, model_fine, settings, mesh)
 
 
-def make_parallel_multiscene_train_loop(*args, **kwargs):
-    """The data-parallel multi-scene loop (JAX
-    ``parallel/multiscene.py:make_parallel_multiscene_train_loop``)."""
-    raise NotImplementedError(f"make_parallel_multiscene_train_loop {_MULTI_DEVICE}")
+def make_parallel_multiscene_train_loop(model_coarse: nn.Module,
+                                        model_fine: Optional[nn.Module],
+                                        settings: RenderSettings, mesh: Mesh, batch_size: int,
+                                        steps_per_call: int, sample_mode: str = "gather"):
+    """The data-parallel loop on this rank's store slices, ``batch_size``
+    the per-scene GLOBAL batch: ``make_multiscene_train_loop`` with the
+    mesh."""
+    return make_multiscene_train_loop(model_coarse, model_fine, settings, batch_size,
+                                      steps_per_call, sample_mode=sample_mode, mesh=mesh)

@@ -23,9 +23,18 @@ between the logdir listing and the open 503, an unknown route 404.
 Socket I/O is threaded (``ThreadingHTTPServer``): a stalled or slow-reading
 client holds only its own connection thread, never the device, so
 ``/health`` and other renders keep answering. Renders are serialized by one
-device lock. The server renders on its one ``--device``; the JAX server's
-sharding of a frame over a mesh of devices is not ported (ROADMAP.md, open
-items §1 item 11), and ``/health`` reports ``"devices": 1``.
+device lock.
+
+``--num-devices N`` shards each frame over N ranks, one a device
+(``engine.renderer.make_pose_render_fn`` with a mesh; under ``torchrun`` its group,
+else N spawned ranks): rank 0 runs the HTTP server and the device lock, and
+for each frame broadcasts a small command (render this pose, reload this
+checkpoint, stop) to the other ranks, which wait in
+``RenderService.follow``; every rank renders its slice of the pixels and
+rank 0 assembles the frame and writes the PNG. ``/health`` reports
+``"devices": N``. While idle, rank 0 sends a no-op every ``HEARTBEAT_S``
+seconds, so the followers' waits stay inside the group's timeout, and on
+the way out it always sends stop.
 
 ``--logdir`` (instead of ``--checkpoint``) watches a training run: each
 request renders the run's newest ``checkpoint*.ntc`` (what either package's
@@ -43,6 +52,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import signal
 import sys
 import threading
 import time
@@ -52,6 +62,7 @@ from urllib.parse import parse_qs, urlparse
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .config import load_config, render_settings_from_config
 from .data import pose_spherical, resolve_render_poses
@@ -63,7 +74,11 @@ from .engine.checkpoint import (
     load_reference_checkpoint,
 )
 from .engine.renderer import make_pose_render_fn
+from .parallel.distributed import add_mesh_args, run_cli
+from .parallel.mesh import Mesh, make_mesh
 from .utils.png import png_bytes
+
+HEARTBEAT_S = 10.0   # an idle mesh server's no-op period (inside the group's timeout)
 
 _VIEWER_STYLE = """<style>
 body{font-family:sans-serif;margin:2em;background:#111;color:#eee}
@@ -124,17 +139,22 @@ def _read_params(path: str) -> dict:
 
 
 class RenderService:
-    """Checkpoint + pose renderer + render-trajectory poses, on one device.
+    """Checkpoint + pose renderer + render-trajectory poses, on one device or
+    a mesh of ranks.
 
     Separated from the HTTP layer so tests (and other frontends) can drive
     it directly: ``render_pose`` takes any (3|4, 4) camera-to-world matrix,
     ``render_spherical`` builds the standard orbit pose. ``renderer`` is
     "kernel" (the model family's CUDA kernel on a CUDA device) or "plain".
+    With a ``mesh`` of more than one rank, rank 0's service renders (and
+    commands the others) and every other rank's runs ``follow()`` until
+    rank 0's ``stop()``.
     """
 
     def __init__(self, cfg, checkpoint_path: Optional[str] = None,
                  precision: str = "float32", renderer: str = "kernel",
-                 watch_logdir: Optional[str] = None, device: str = "cuda"):
+                 watch_logdir: Optional[str] = None, device: str = "cuda",
+                 mesh: Optional[Mesh] = None):
         if renderer not in ("kernel", "plain"):
             raise ValueError(f"renderer must be 'kernel' or 'plain', got {renderer!r}")
         self.watch_logdir = watch_logdir
@@ -144,6 +164,12 @@ class RenderService:
             checkpoint_path = newest_checkpoint(watch_logdir)
             if checkpoint_path is None:
                 raise ValueError(f"no .ntc (or .ckpt) checkpoints under {watch_logdir}")
+        if mesh is not None and mesh.world_size > 1:
+            # Every rank serves rank 0's checkpoint (a logdir may gain one
+            # between the ranks' listings).
+            box = [checkpoint_path]
+            dist.broadcast_object_list(box, src=0, group=mesh.group)
+            checkpoint_path = box[0]
         self.checkpoint_path = checkpoint_path
         self.device = torch.device(device)
         self.poses, h, w, focal = resolve_render_poses(cfg, "render")
@@ -160,9 +186,11 @@ class RenderService:
             use_pallas=(renderer == "kernel"),
         )
         self.use_ndc = self.settings.use_ndc
-        self.num_devices = 1
+        # One rank commands no others: the service is then the serial one.
+        self.mesh = mesh if mesh is not None and mesh.world_size > 1 else None
+        self.num_devices = 1 if self.mesh is None else self.mesh.world_size
         self._render = make_pose_render_fn(self.model_coarse, self.model_fine, self.settings,
-                                           h, w, focal, output="u8")
+                                           h, w, focal, output="u8", mesh=self.mesh)
         step = ckpt.get("step", ckpt.get("iter"))
         self.checkpoint_step = None if step is None else int(step)
         self.frames_served = 0
@@ -171,30 +199,90 @@ class RenderService:
         # so the reload check, the render and the latency bookkeeping are
         # serialized here. Socket I/O stays outside the lock.
         self._device_lock = threading.Lock()
+        self._stopped = threading.Event()
+        self._last_command = time.monotonic()
+        self.compile_s = 0.0
+        if self.mesh is not None and not self.mesh.is_primary:
+            return   # a follower renders what rank 0 commands (follow)
         # Warm up (the kernels' build and first launch) before accepting
         # traffic, so the first request does not look like an outage.
         t0 = time.perf_counter()
         self.render_pose(self.poses[0])
         self.compile_s = time.perf_counter() - t0
         self.frames_served = 0
+        if self.mesh is not None:
+            threading.Thread(target=self._heartbeat, daemon=True).start()
+
+    def _on_device(self):
+        """The current device is per thread: set it in the caller's thread."""
+        return (torch.cuda.device(self.device) if self.device.type == "cuda"
+                else contextlib.nullcontext())
+
+    def _command(self, cmd: tuple) -> None:
+        """Rank 0: send one command to every other rank (under the lock)."""
+        if self.mesh is None:
+            return
+        with self._on_device():
+            dist.broadcast_object_list([cmd], src=0, group=self.mesh.group)
+        self._last_command = time.monotonic()
+
+    def _heartbeat(self) -> None:
+        while not self._stopped.wait(HEARTBEAT_S / 2):
+            with self._device_lock:
+                if (not self._stopped.is_set()
+                        and time.monotonic() - self._last_command >= HEARTBEAT_S / 2):
+                    self._command(("noop",))
+
+    def stop(self) -> None:
+        """Rank 0: tell the other ranks to leave ``follow`` (once)."""
+        with self._device_lock:
+            if self.mesh is not None and not self._stopped.is_set():
+                self._command(("stop",))
+            self._stopped.set()
+
+    def follow(self) -> None:
+        """A rank other than 0: carry out rank 0's commands until stop."""
+        while True:
+            cmd = [None]
+            with self._on_device():
+                dist.broadcast_object_list(cmd, src=0, group=self.mesh.group)
+            op = cmd[0][0]
+            if op == "render":
+                self._render_on_device(cmd[0][1])
+            elif op == "reload":
+                self._load(cmd[0][1])
+            elif op == "stop":
+                return
+
+    def _load(self, path: str) -> None:
+        """Load ``path``'s weights into the live modules (strictly: a
+        checkpoint of another shape raises)."""
+        ckpt = _read_params(path)
+        if self.model_fine is not None and ckpt.get("params_fine") is None:
+            raise RuntimeError(f"{path} has no fine model, but one is being served")
+        load_jax_params(self.model_coarse, ckpt["params_coarse"])
+        if self.model_fine is not None:
+            load_jax_params(self.model_fine, ckpt["params_fine"])
+        self.checkpoint_path = path
+        step = ckpt.get("step")
+        self.checkpoint_step = None if step is None else int(step)
+
+    def _render_on_device(self, pose34: np.ndarray) -> Optional[np.ndarray]:
+        """This rank's part of one frame; the (H, W, 3) uint8 image on rank 0."""
+        with self._on_device(), torch.inference_mode():
+            img = self._render(torch.as_tensor(pose34, device=self.device))
+            return None if img is None else img.cpu().numpy()
 
     def _maybe_reload(self) -> None:
         """Watch mode: load the logdir's newest checkpoint, if it is new, into
-        the live modules (strictly: a checkpoint of another shape raises)."""
+        the live modules, then have the other ranks load it too."""
         if self.watch_logdir is None:
             return
         newest = newest_checkpoint(self.watch_logdir)
         if newest is None or newest == self.checkpoint_path:
             return
-        ckpt = _read_params(newest)
-        if self.model_fine is not None and ckpt.get("params_fine") is None:
-            raise RuntimeError(f"{newest} has no fine model, but one is being served")
-        load_jax_params(self.model_coarse, ckpt["params_coarse"])
-        if self.model_fine is not None:
-            load_jax_params(self.model_fine, ckpt["params_fine"])
-        self.checkpoint_path = newest
-        step = ckpt.get("step")
-        self.checkpoint_step = None if step is None else int(step)
+        self._load(newest)
+        self._command(("reload", newest))
         print(f"[serve] reloaded {newest} (step {self.checkpoint_step})", flush=True)
 
     def render_pose(self, pose) -> np.ndarray:
@@ -203,15 +291,13 @@ class RenderService:
         if pose.shape not in ((3, 4), (4, 4)):
             raise ValueError(f"pose must be (3, 4) or (4, 4), got {pose.shape}")
         with self._device_lock:
+            if self._stopped.is_set():
+                raise RuntimeError("the render service has stopped")
             self._maybe_reload()
             t0 = time.perf_counter()
-            # The current device and inference mode are per thread: set both
-            # in the handler's thread.
-            on_device = (torch.cuda.device(self.device) if self.device.type == "cuda"
-                         else contextlib.nullcontext())
-            with on_device, torch.inference_mode():
-                img = self._render(torch.as_tensor(pose[:3, :4], device=self.device))
-                img = img.cpu().numpy()
+            pose34 = np.ascontiguousarray(pose[:3, :4])
+            self._command(("render", pose34))
+            img = self._render_on_device(pose34)
             self.last_render_s = time.perf_counter() - t0
             self.frames_served += 1
         return img
@@ -359,26 +445,45 @@ def main(argv: Optional[List[str]] = None) -> None:
                         help="kernel: the model family's CUDA kernel (the JAX CLI's "
                              "pallas); plain: positional encoding + the module.")
     parser.add_argument("--device", type=str, default="cuda")
+    add_mesh_args(parser, "Ranks to shard each frame over.")
     parser.add_argument("--overrides", type=str, nargs="*", default=None,
                         help="Dotted-key config overrides, e.g. nerf.validation.num_coarse 32")
-    args = parser.parse_args(argv)
+    try:
+        run_cli(serve_rank, parser.parse_args(argv))
+    except KeyboardInterrupt:   # the spawning launcher's; a rank 0 stops its followers
+        print("\nshut down")
 
+
+def serve_rank(args: argparse.Namespace) -> None:
+    """One rank of the server: rank 0 (or the only process) serves HTTP
+    until interrupted and then stops the other ranks, which follow it."""
+    mesh = make_mesh(args.num_devices, args.device, args.dist_backend)
     cfg = load_config(args.config, args.overrides)
-    print("loading checkpoint + warming up the renderer...", flush=True)
+    if mesh.is_primary:
+        print("loading checkpoint + warming up the renderer...", flush=True)
     service = RenderService(cfg, args.checkpoint, precision=args.precision,
                             renderer=args.renderer, watch_logdir=args.logdir,
-                            device=args.device)
-    httpd = serve(service, args.host, args.port)
-    h = service.health()
-    print(f"serving {h['height']}x{h['width']} renders on "
-          f"http://{args.host}:{httpd.server_address[1]}/ on {h['device']} "
-          f"(warm-up {h['compile_s']}s; open in a browser for the orbit viewer)", flush=True)
+                            device=mesh.device, mesh=mesh)
+    if not mesh.is_primary:
+        # Ctrl-C reaches every rank; a follower leaves on rank 0's stop.
+        signal.signal(signal.SIGINT, signal.SIG_IGN)
+        service.follow()
+        return
     try:
-        httpd.serve_forever()
-    except KeyboardInterrupt:
-        print("\nshutting down")
+        httpd = serve(service, args.host, args.port)
+        h = service.health()
+        print(f"serving {h['height']}x{h['width']} renders on "
+              f"http://{args.host}:{httpd.server_address[1]}/ on {h['device']} x "
+              f"{h['devices']} (warm-up {h['compile_s']}s; open in a browser for the orbit "
+              "viewer)", flush=True)
+        try:
+            httpd.serve_forever()
+        except KeyboardInterrupt:
+            print("\nshutting down", flush=True)
+        finally:
+            httpd.server_close()
     finally:
-        httpd.server_close()
+        service.stop()
 
 
 if __name__ == "__main__":

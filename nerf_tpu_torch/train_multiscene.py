@@ -1,4 +1,4 @@
-"""Train S NeRF scenes at once on one device (port of ``train_multiscene.py``).
+"""Train S NeRF scenes at once (port of ``train_multiscene.py``).
 
 The scene axis is a batch axis over parameters, optimizer state and ray
 batches (``parallel/multiscene.py``): one step trains every scene of a
@@ -22,8 +22,14 @@ Usage:
 Each group's base seed is fixed (the JAX CLI splits a new key per call and
 folds the step in); scene ``s`` of a group draws from
 ``fold_seed(fold_seed(base, s), step)``, so a run is the same whatever the
-steps per call. Not ported yet, and raising: more than one device
-(ROADMAP.md, open items §1 item 11).
+steps per call.
+
+``--num-devices N`` shards each scene's ray batch over N ranks, one a
+device (the data-parallel multi-scene step of ``parallel/multiscene.py``;
+under ``torchrun`` its group, else N spawned ranks): every rank holds every
+scene's slice of the ray axis, the stacked state is replicated, and one
+all-reduce of the (S,)-stacked gradients runs a step. ``--batch`` must
+divide by N; rank 0 alone prints and writes.
 """
 
 from __future__ import annotations
@@ -49,7 +55,13 @@ from .engine.checkpoint import convert_torch_state_dict, save_checkpoint
 from .engine.renderer import RenderSettings
 from .engine.train import fold_seed, make_optimizer
 from .models import FlexibleNeRFModel
-from .parallel.multiscene import create_multiscene_state, make_multiscene_train_loop
+from .parallel.distributed import add_mesh_args, run_cli
+from .parallel.mesh import Mesh, make_mesh
+from .parallel.multiscene import (
+    create_multiscene_state,
+    make_multiscene_train_loop,
+    shard_multiscene_stores,
+)
 
 # The seed the JAX CLI draws its per-call keys from (PRNGKey(1)).
 _LOOP_SEED = 1
@@ -61,26 +73,32 @@ class SceneGroup:
 
     def __init__(self, tag: str, names: List[str], stores, settings: RenderSettings,
                  model: FlexibleNeRFModel, spec, batch: int, seed: int, loop_seed: int,
-                 device):
+                 mesh: Mesh):
         self.tag = tag
         self.names = names
         self.settings = settings
         self.model = model
         self.batch = batch
         self.loop_seed = loop_seed
+        self.mesh = mesh
         self.loops: Dict[int, object] = {}
         n_min = min(st[0].shape[0] for st in stores)
-        self.ro, self.rd, self.tgt = (
-            torch.from_numpy(np.stack([st[i][:n_min] for st in stores])).to(device)
-            for i in range(3))
-        self.state = create_multiscene_state(model, model, spec, seed, len(names), device)
+        # The ray axis shards over the mesh: each scene keeps a multiple of it.
+        n_min -= n_min % mesh.world_size
+        stacked = shard_multiscene_stores(
+            mesh, *(np.stack([st[i][:n_min] for st in stores]) for i in range(3)))
+        self.ro, self.rd, self.tgt = (torch.from_numpy(np.ascontiguousarray(a)).to(mesh.device)
+                                      for a in stacked)
+        self.state = create_multiscene_state(model, model, spec, seed, len(names), mesh.device)
         self.metrics = None
-        print(f"[{tag}] {len(names)} scenes x {n_min:,} rays ({', '.join(names)})", flush=True)
+        if mesh.is_primary:
+            print(f"[{tag}] {len(names)} scenes x {n_min:,} rays ({', '.join(names)})",
+                  flush=True)
 
     def step(self, k_steps: int) -> None:
         if k_steps not in self.loops:
             self.loops[k_steps] = make_multiscene_train_loop(
-                self.model, self.model, self.settings, self.batch, k_steps)
+                self.model, self.model, self.settings, self.batch, k_steps, mesh=self.mesh)
         self.state, metrics = self.loops[k_steps](self.state, self.ro, self.rd, self.tgt,
                                                   self.loop_seed)
         self.metrics = type(metrics)(*(x.cpu() for x in metrics))   # the call's one fetch
@@ -221,8 +239,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         help="Also export per-scene checkpoints every N iters; 0 = only at "
                              "the end.")
     parser.add_argument("--device", type=str, default="cuda")
-    parser.add_argument("--num-devices", type=int, default=1,
-                        help="Devices to train on (only 1 is ported).")
+    add_mesh_args(parser, "Ranks to shard each scene's ray batch over.")
     return parser.parse_args(argv)
 
 
@@ -230,21 +247,32 @@ def main(argv: Optional[List[str]] = None) -> MultiSceneResult:
     args = parse_args(argv)
     if args.iters < 1:
         raise SystemExit("--iters must be >= 1")
-    if args.num_devices > 1:
-        raise NotImplementedError(
-            "multi-scene training over more than one device (the data-parallel multi-scene "
-            "step) is not ported yet (ROADMAP.md, open items §1 item 11)")
-    device = torch.device(args.device)
+    if args.num_devices > 1 and args.batch % args.num_devices:
+        raise SystemExit(f"--batch {args.batch} must be divisible by the "
+                         f"{args.num_devices}-device mesh")
+    return run_cli(train_scenes, args)
+
+
+def train_scenes(args: argparse.Namespace) -> MultiSceneResult:
+    """One rank of ``train_multiscene`` (or the only process): every group
+    trained ``args.iters`` steps; rank 0 prints and exports."""
+    mesh = make_mesh(args.num_devices, args.device, args.dist_backend)
+    device = mesh.device
+    primary = mesh.is_primary
+    log = print if primary else (lambda *a, **k: None)
+    if mesh.world_size > 1:
+        log(f"data-parallel over {mesh.world_size} devices, {args.batch} rays/scene/step",
+            flush=True)
 
     spec = make_optimizer("adam", 5e-3, 250.0, 0.1)
     groups: List[SceneGroup] = []
     blender = _blender_group(args, device)
     if blender is not None:
         groups.append(SceneGroup("blender", *blender, spec, args.batch, seed=0,
-                                 loop_seed=fold_seed(_LOOP_SEED, 0), device=device))
+                                 loop_seed=fold_seed(_LOOP_SEED, 0), mesh=mesh))
     if args.llff_dirs:
         groups.append(SceneGroup("llff", *_llff_group(args, device), spec, args.batch, seed=10,
-                                 loop_seed=fold_seed(_LOOP_SEED, 1), device=device))
+                                 loop_seed=fold_seed(_LOOP_SEED, 1), mesh=mesh))
     if not groups:
         raise SystemExit("no scenes: pass --blender-dirs and/or --llff-dirs")
     all_names = [n for g in groups for n in g.names]
@@ -252,7 +280,7 @@ def main(argv: Optional[List[str]] = None) -> MultiSceneResult:
         # a/lego and b/lego would overwrite each other's exports
         raise SystemExit(f"duplicate scene names across groups: {all_names}")
     s_total = len(all_names)
-    print(f"{s_total} scenes in {len(groups)} group(s) on {device}", flush=True)
+    log(f"{s_total} scenes in {len(groups)} group(s) on {device}", flush=True)
 
     result = MultiSceneResult({g.tag: g.names for g in groups}, {g.tag: [] for g in groups},
                               {g.tag: [] for g in groups}, 0.0, 0.0, [])
@@ -272,19 +300,19 @@ def main(argv: Optional[List[str]] = None) -> MultiSceneResult:
         now = time.perf_counter()
         result.call_steps.append(k_steps)
         result.call_seconds.append(now - t_chunk)
-        print(f"iter {i - 1:5d} psnr {' | '.join(parts)} "
-              f"rays/s {s_total * args.batch * k_steps / (now - t_chunk):,.0f}"
-              f" (cum {s_total * args.batch * i / (now - t0):,.0f})", flush=True)
+        log(f"iter {i - 1:5d} psnr {' | '.join(parts)} "
+            f"rays/s {s_total * args.batch * k_steps / (now - t_chunk):,.0f}"
+            f" (cum {s_total * args.batch * i / (now - t0):,.0f})", flush=True)
         t_chunk = now
-        if (args.save_dir and args.save_every and i < args.iters
+        if (primary and args.save_dir and args.save_every and i < args.iters
                 and i // args.save_every > prev // args.save_every):
             for g in groups:
                 result.checkpoints += g.export_checkpoints(args.save_dir, i)
     result.seconds = time.perf_counter() - t0
     result.rays_per_sec = s_total * args.batch * args.iters / result.seconds
-    print(f"trained {s_total} scenes x {args.iters} iters in {result.seconds:.1f}s = "
-          f"{result.rays_per_sec:,.0f} aggregate rays/s", flush=True)
-    if args.save_dir:
+    log(f"trained {s_total} scenes x {args.iters} iters in {result.seconds:.1f}s = "
+        f"{result.rays_per_sec:,.0f} aggregate rays/s", flush=True)
+    if primary and args.save_dir:
         for g in groups:
             result.checkpoints += g.export_checkpoints(args.save_dir, args.iters)
     return result

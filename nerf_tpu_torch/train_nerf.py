@@ -31,11 +31,20 @@ restored coarse field's density is swept once on a 64^3 grid
 training and validation, is cut to its crossing of the box around sigma >
 TAU.
 
+``--num-devices N`` trains data-parallel over N ranks of a
+``torch.distributed`` group, one a device (``engine.train.make_train_loop``
+with a ``parallel.mesh.Mesh``): under ``torchrun`` in its group (N must
+equal ``WORLD_SIZE``), else on N ranks it spawns, whose collectives keep
+torch's timeout unless ``--dist-timeout`` sets one. The batch is padded to a multiple of N, the store with its own
+first rows and then sliced per rank; each step all-reduces the gradients
+and losses once. Rank 0 alone writes the config, metrics, validation
+images and checkpoints (a barrier follows each save) and renders the
+validation frame; on resume every rank loads the same checkpoint. NCCL
+needs a card a rank; ranks that share a card (or the CPU) take
+``--dist-backend gloo``.
+
 ``main(argv)`` parses the flags; ``train(cfg, ...)`` does the work and takes a
 ``CfgNode``, so a caller can drive it without a YAML file.
-
-Not ported yet, and raising: more than one device (ROADMAP.md, open items §1
-item 11).
 """
 
 from __future__ import annotations
@@ -82,6 +91,8 @@ from .engine.geometry import tighten_to_density_aabb
 from .engine.renderer import make_image_render_fn
 from .engine.train import create_train_state, make_train_loop, steps_per_call
 from .ops import get_ray_bundle, img2mse, mse2psnr
+from .parallel.distributed import add_mesh_args, run_ranks, spawn_or_join
+from .parallel.mesh import make_mesh, pad_to_devices, replicate_params, shard_rows
 from .utils import MetricWriter, RateMeter
 
 
@@ -172,6 +183,9 @@ class TrainResult:
     store_seconds: float = 0.0              # building the store from them
     aabb: Optional[tuple] = None            # the --tighten-aabb box, when swept
     aabb_seconds: float = 0.0               # the sweep's host seconds
+    world_size: int = 1                     # data-parallel ranks
+    allreduce_ms: float = 0.0               # host ms a step in the gradient all-reduce
+    bucket_bytes: int = 0                   # the all-reduce's flat bucket
 
 
 _NO_FIELD_TO_BOUND = ("--tighten-aabb needs a trained field to bound: resume from a checkpoint "
@@ -180,16 +194,26 @@ _NO_FIELD_TO_BOUND = ("--tighten-aabb needs a trained field to bound: resume fro
 
 def train(cfg, logdir: Optional[str] = None, device="cuda", load_checkpoint: str = "",
           num_devices: int = 1, tighten_aabb: Optional[float] = None,
-          aabb_sweep_bounds: Optional[List[float]] = None) -> TrainResult:
-    """Train the configured models on ``device``; returns a :class:`TrainResult`.
+          aabb_sweep_bounds: Optional[List[float]] = None,
+          dist_backend: Optional[str] = None, dist_timeout: Optional[float] = None
+          ) -> TrainResult:
+    """Train the configured models on ``device``; returns a :class:`TrainResult`
+    (rank 0's, when it spawned ``num_devices`` ranks).
 
     ``tighten_aabb``: the density threshold of ``--tighten-aabb``; it needs a
     checkpoint to resume from and a scene without NDC, as in the JAX CLI.
+    ``num_devices`` > 1: data-parallel over that many ranks, in the live
+    process group or on ranks spawned here with ``dist_backend`` and
+    ``dist_timeout`` (seconds; None: torch's default).
     """
-    if num_devices != 1:
-        raise NotImplementedError(
-            f"num_devices={num_devices}: data-parallel training (parallel/dp.py) is not "
-            "ported yet (ROADMAP.md, open items §1 item 11)")
+    if spawn_or_join(num_devices, dist_backend, device, dist_timeout):
+        return run_ranks(train, num_devices, cfg, logdir, device, load_checkpoint, num_devices,
+                         tighten_aabb, aabb_sweep_bounds, dist_backend, dist_timeout,
+                         backend=dist_backend, device=device, timeout_s=dist_timeout)[0]
+    mesh = make_mesh(num_devices, device, dist_backend)
+    device = mesh.device
+    primary = mesh.is_primary
+    log = print if primary else (lambda *a, **k: None)
     if load_checkpoint and not os.path.exists(load_checkpoint):
         raise SystemExit(f"--load-checkpoint {load_checkpoint!r} does not exist")
     cfg = cfg.clone()
@@ -215,8 +239,20 @@ def train(cfg, logdir: Optional[str] = None, device="cuda", load_checkpoint: str
         ro_store, rd_store, tgt_store = shuffle_ray_store(ro_store, rd_store, tgt_store, seed=seed)
     ro_store, rd_store, tgt_store = (torch.as_tensor(np.ascontiguousarray(a), device=device)
                                      for a in (ro_store, rd_store, tgt_store))
-    print(f"ray store: {ro_store.shape[0]:,} rays on {device} ({sampling} sampling, "
-          f"{data['store_builder']} builder)", flush=True)
+    store_rays = ro_store.shape[0]
+    log(f"ray store: {store_rays:,} rays on {device} ({sampling} sampling, "
+        f"{data['store_builder']} builder)", flush=True)
+    # The JAX CLI's layout: the batch padded to the mesh, the store with its
+    # own first rows, then each rank keeps its contiguous slice.
+    batch = pad_to_devices(int(cfg.nerf.train.num_random_rays), mesh.world_size)
+    pad = pad_to_devices(store_rays, mesh.world_size) - store_rays
+    if pad:
+        ro_store, rd_store, tgt_store = (torch.cat([a, a[:pad]])
+                                         for a in (ro_store, rd_store, tgt_store))
+    ro_store, rd_store, tgt_store = (x.contiguous() for x in
+                                     shard_rows(mesh, ro_store, rd_store, tgt_store))
+    if mesh.world_size > 1:
+        log(f"data-parallel over {mesh.world_size} devices, batch {batch}", flush=True)
 
     settings = render_settings_from_config(cfg, "train", hwf=(h, w, focal))
     val_settings = render_settings_from_config(cfg, "validation", hwf=(h, w, focal))
@@ -232,18 +268,20 @@ def train(cfg, logdir: Optional[str] = None, device="cuda", load_checkpoint: str
     spec = optimizer_from_config(cfg)
     state = create_train_state(model_coarse, model_fine, spec)
 
-    os.makedirs(logdir, exist_ok=True)
-    with open(os.path.join(logdir, "config.json"), "w") as f:
-        json.dump(cfg.to_dict(), f, indent=2, sort_keys=True)
+    if primary:
+        os.makedirs(logdir, exist_ok=True)
+        with open(os.path.join(logdir, "config.json"), "w") as f:
+            json.dump(cfg.to_dict(), f, indent=2, sort_keys=True)
     if ckpt_path:
         info = load_train_checkpoint(ckpt_path, model_coarse, model_fine, state.optimizer, spec)
         state.step = info["step"]
         state.scheduler = spec.make_scheduler(state.optimizer, info["count"])
-        print(f"resumed from {ckpt_path} at step {state.step} "
-              f"({'with' if info['moments'] else 'without'} optimizer moments)", flush=True)
+        log(f"resumed from {ckpt_path} at step {state.step} "
+            f"({'with' if info['moments'] else 'without'} optimizer moments)", flush=True)
 
-    result = TrainResult(logdir=logdir, start_step=state.step, store_rays=ro_store.shape[0],
-                         store_builder=data["store_builder"],
+    replicate_params(mesh, model_coarse, model_fine)
+    result = TrainResult(logdir=logdir, start_step=state.step, store_rays=store_rays,
+                         world_size=mesh.world_size, store_builder=data["store_builder"],
                          load_seconds=data["load_seconds"], store_seconds=data["store_seconds"])
     if tighten_aabb is not None:
         if state.step == 0:
@@ -252,9 +290,8 @@ def train(cfg, logdir: Optional[str] = None, device="cuda", load_checkpoint: str
             model_coarse, val_settings, tighten_aabb, aabb_sweep_bounds)
         settings = dataclasses.replace(settings, aabb=result.aabb)
         val_settings = dataclasses.replace(val_settings, aabb=result.aabb)
-    writer = MetricWriter(logdir)
+    writer = MetricWriter(logdir) if primary else None
     rate = RateMeter()
-    batch = int(cfg.nerf.train.num_random_rays)
     train_iters = int(cfg.experiment.train_iters)
     every = {k: int(getattr(cfg.experiment, k)) for k in
              ("print_every", "validate_every", "save_every")}
@@ -268,7 +305,8 @@ def train(cfg, logdir: Optional[str] = None, device="cuda", load_checkpoint: str
         k_steps = min(k_call, train_iters - state.step)
         if k_steps not in loops:
             loops[k_steps] = make_train_loop(model_coarse, model_fine, settings, batch, k_steps,
-                                             nan_guard=nan_guard, sample_mode=sampling)
+                                             nan_guard=nan_guard, sample_mode=sampling,
+                                             mesh=mesh)
         prev_done = state.step
         t0 = time.perf_counter()
         state, metrics = loops[k_steps](state, ro_store, rd_store, tgt_store, seed)
@@ -283,8 +321,16 @@ def train(cfg, logdir: Optional[str] = None, device="cuda", load_checkpoint: str
         result.call_psnrs.append(psnr)
         done = state.step
         i_end = done - 1
-        print(f"[TRAIN] iter {i_end} loss {loss:.6f} psnr {psnr:.3f} "
-              f"rays/s {rate.rate():,.0f}", flush=True)
+
+        def crossed(period: int) -> bool:
+            return done // period > prev_done // period
+
+        log(f"[TRAIN] iter {i_end} loss {loss:.6f} psnr {psnr:.3f} "
+            f"rays/s {rate.rate():,.0f}", flush=True)
+        if not primary:
+            if crossed(every["save_every"]) or done >= train_iters:
+                mesh.barrier()   # rank 0's checkpoint is whole past here
+            continue
         writer.scalars({
             "train/loss": loss,
             "train/coarse_loss": float(metrics.coarse_loss[-1]),
@@ -292,9 +338,6 @@ def train(cfg, logdir: Optional[str] = None, device="cuda", load_checkpoint: str
             "train/psnr": psnr,
             "train/rays_per_sec": rate.rate(),
         }, i_end)
-
-        def crossed(period: int) -> bool:
-            return done // period > prev_done // period
 
         if data["val_images"] is not None and (crossed(every["validate_every"])
                                                or done >= train_iters):
@@ -324,12 +367,17 @@ def train(cfg, logdir: Optional[str] = None, device="cuda", load_checkpoint: str
             save_checkpoint(os.path.join(logdir, f"checkpoint{done:05d}.ntc"),
                             ntc_train_state(done, model_coarse, model_fine, state.optimizer,
                                             spec, state.scheduler.last_epoch, loss, psnr))
+            mesh.barrier()
         writer.flush()
 
-    writer.close()
+    if writer is not None:
+        writer.close()
     result.rays_per_sec = trained / result.seconds if result.seconds > 0 else 0.0
-    print(f"done: {state.step - result.start_step} iters in {result.seconds:.1f}s of training "
-          f"({result.rays_per_sec:,.0f} rays/s)", flush=True)
+    if mesh.allreduce_calls:
+        result.allreduce_ms = 1e3 * mesh.allreduce_seconds / mesh.allreduce_calls
+        result.bucket_bytes = mesh.bucket_bytes
+    log(f"done: {state.step - result.start_step} iters in {result.seconds:.1f}s of training "
+        f"({result.rays_per_sec:,.0f} rays/s)", flush=True)
     return result
 
 
@@ -341,8 +389,7 @@ def main(argv: Optional[List[str]] = None) -> TrainResult:
     parser.add_argument("--overrides", type=str, nargs="*", default=None,
                         help="Dotted-key value pairs, e.g. optimizer.lr 1e-3")
     parser.add_argument("--device", type=str, default="cuda")
-    parser.add_argument("--num-devices", type=int, default=1,
-                        help="Devices to train on (only 1 is ported).")
+    add_mesh_args(parser, "Data-parallel ranks.")
     parser.add_argument("--tighten-aabb", type=float, default=None, metavar="TAU",
                         help="For CONTINUED training (needs a checkpoint to resume from): "
                              "sweep the restored density field once, bound the sigma > TAU "
@@ -358,7 +405,8 @@ def main(argv: Optional[List[str]] = None) -> TrainResult:
     cfg = load_config(args.config, args.overrides)
     return train(cfg, device=args.device, load_checkpoint=args.load_checkpoint,
                  num_devices=args.num_devices, tighten_aabb=args.tighten_aabb,
-                 aabb_sweep_bounds=args.aabb_sweep_bounds)
+                 aabb_sweep_bounds=args.aabb_sweep_bounds, dist_backend=args.dist_backend,
+                 dist_timeout=args.dist_timeout)
 
 
 if __name__ == "__main__":

@@ -225,12 +225,25 @@ def test_sample_multiscene_batch(mode):
 
 
 def test_multi_device_entry_points_raise_naming_the_roadmap():
-    for fn in (tms.shard_multiscene_stores, tms.make_parallel_multiscene_train_step,
-               tms.make_parallel_multiscene_train_loop):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            fn()
-    with pytest.raises(NotImplementedError, match="item 11"):
-        train_multiscene.main(["--num-devices", "2", "--device", "cpu"])
+    """The data-parallel multi-scene path is ported
+    (tests/test_torch_parallel.py, tests/test_torch_parallel_cli.py); what
+    it cannot do raises: a batch or a store the ranks do not divide, NCCL
+    for ranks on the CPU, a batch the CLI's mesh does not divide."""
+    from nerf_tpu_torch.parallel.mesh import Mesh
+
+    mesh = Mesh(2, 1, torch.device("cpu"))
+    _, ts = _settings()
+    with pytest.raises(ValueError, match="not divisible by 2 ranks"):
+        tms.make_parallel_multiscene_train_loop(None, None, ts, mesh, 33, 1)
+    with pytest.raises(ValueError, match="do not divide over 2 ranks"):
+        tms.shard_multiscene_stores(mesh, np.zeros((2, 5, 3)))
+    np.testing.assert_array_equal(
+        tms.shard_multiscene_stores(mesh, np.arange(8).reshape(1, 4, 2)), [[[4, 5], [6, 7]]])
+    with pytest.raises(ValueError, match="NCCL backend needs a CUDA device"):
+        train_multiscene.main(["--num-devices", "2", "--device", "cpu", "--dist-backend", "nccl",
+                               "--batch", "32"])
+    with pytest.raises(SystemExit, match="must be divisible by the 2-device mesh"):
+        train_multiscene.main(["--num-devices", "2", "--device", "cpu", "--batch", "33"])
 
 
 @pytest.mark.parametrize("flag", ["use_pallas", "use_pallas_train"])

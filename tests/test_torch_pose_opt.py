@@ -419,6 +419,9 @@ def test_cli_flag_dependencies(cli, capsys, argv, error):
 
 
 def test_cli_refuses_more_than_one_device(cli):
+    """More than one device is ported (tests/test_torch_parallel_cli.py);
+    NCCL for ranks on the CPU is refused before any rank starts."""
     cfg, ckpt, _ = cli
-    with pytest.raises(NotImplementedError, match="pose_dp.py"):
-        optimize_poses.main(["--config", cfg, "--checkpoint", ckpt, "--num-devices", "2"])
+    with pytest.raises(ValueError, match="NCCL backend needs a CUDA device"):
+        optimize_poses.main(["--config", cfg, "--checkpoint", ckpt, "--num-devices", "2",
+                             "--dist-backend", "nccl", "--device", "cpu"])

@@ -200,8 +200,11 @@ def test_training_options_raise_naming_the_roadmap(tmp_path):
     assert make_optimizer("RMSprop", 1e-3).name == "rmsprop"
     from nerf_tpu_torch.config import get_default_config
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        train(get_default_config(), logdir=str(tmp_path), device="cpu", num_devices=2)
+    # Data-parallel training is ported (tests/test_torch_parallel_cli.py);
+    # NCCL for ranks on the CPU is refused before any rank starts.
+    with pytest.raises(ValueError, match="NCCL backend needs a CUDA device"):
+        train(get_default_config(), logdir=str(tmp_path), device="cpu", num_devices=2,
+              dist_backend="nccl")
     # --tighten-aabb is ported (tests/test_torch_geometry.py); with nothing
     # to resume from it refuses, as the JAX CLI does.
     with pytest.raises(SystemExit, match="needs a trained field to bound"):

@@ -101,7 +101,8 @@ def test_cli_resumes_from_its_checkpoint(trained, tmp_path):
 @pytest.mark.parametrize("argv,error", [
     (["--tighten-aabb", "2.0", "--overrides", "experiment.id", "fresh"],
      (SystemExit, "needs a trained field to bound")),
-    (["--num-devices", "2"], (NotImplementedError, "ROADMAP.md")),
+    (["--num-devices", "2", "--dist-backend", "nccl"],
+     (ValueError, "NCCL backend needs a CUDA device")),
     (["--overrides", "dataset.type", "blender", "dataset.basedir", "{tmp}/none"],
      (FileNotFoundError, "transforms_train.json")),
     (["--overrides", "dataset.type", "llff", "dataset.basedir", "{tmp}/none"],
