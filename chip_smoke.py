@@ -574,6 +574,12 @@ TENSOR_CORE_KERNELS = ("mlp_t:mlp_t<1>", "flex_train:train_fwd<1>",
                        "paper_train:train_bwd_act<1>", "paper_train:train_bwd_wgrad<1>")
 
 
+# The f32 4x128 forwards, on flex_mlp.cuh's register-blocked FMA body: none
+# may spill.
+F32_FLEX_KERNELS = ("mlp_t:mlp_t<0>", "flex_train:train_fwd<0>", "mlp:flexible_mlp<0>",
+                    "mlp:flexible_mlp_rays<0>", "stage:stage<0>")
+
+
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
@@ -3689,6 +3695,10 @@ def main() -> int:
     print("[build] registers of the tensor-core instances: "
           + ", ".join(r for r in regs if r.rsplit(" ", 1)[0] in TENSOR_CORE_KERNELS)
           + "; spills (store/load bytes): " + (", ".join(r for r in regs if "(" in r) or "none"))
+    f32_regs = [r for r in regs if r.rsplit(" ", 1)[0].split(" (")[0] in F32_FLEX_KERNELS]
+    print("[build] registers of the f32 4x128 forwards: " + ", ".join(f32_regs))
+    check(len(f32_regs) == len(F32_FLEX_KERNELS) and not any("(" in r for r in f32_regs),
+          f"f32 4x128 forwards missing or spilling: {f32_regs}")
     mma = sass_mma_counts(lib)
     print("[build] HMMA/HGMMA instructions (cuobjdump -sass): "
           + ", ".join(f"{k} {mma.get(k)}" for k in TENSOR_CORE_KERNELS))

@@ -25,8 +25,9 @@
 // the backward's 0.37 GB of f32 deltas, written by the layer-gradient pass
 // and read by the weight-gradient pass.
 //
-// The f32 instances run the FMA design below; the bf16 instances run the
-// same passes on the tensor cores (flex_tc.cuh: mma.sync m16n8k16, bf16
+// The f32 instances run the FMA design: the forward flex_mlp.cuh's
+// (mlp_t.cu's note), the backward the passes below; the bf16 instances run
+// the same passes on the tensor cores (flex_tc.cuh: mma.sync m16n8k16, bf16
 // operands, f32 sums), with the tile, the residuals and the deltas
 // point-major, and bf16 weights the wrapper prepares in fragment order
 // (kernels/mlp.py pack_tc_forward, kernels/flex_train.py pack_tc_backward):
@@ -101,7 +102,6 @@ constexpr int kTWx1 = kTWx2 + kHidden * kHidden;           // layers_xyz.1
 constexpr int kTWx0 = kTWx1 + kHidden * kHidden;           // layers_xyz.0
 constexpr int kTParams = kTWx0 + kHidden * kHidden;        // 74048
 
-constexpr size_t kFwdSmem = 2 * kHidden * kTile * sizeof(float);
 constexpr size_t kActSmem = (2 * kHidden + 1) * kTile * sizeof(float);
 
 // Weight-gradient tiling.
@@ -145,9 +145,7 @@ __device__ __forceinline__ void train_fwd_tile(const float* __restrict__ pts,
     tc::forward_tile(pts, dc, params, wbf, out, res, n_points, samples, enc,
                      enc + tc::kEncStride * kTile);
   } else {
-    float* buf_a = reinterpret_cast<float*>(smem);
-    forward_tile<false>(pts, dc, params, out, res, n_points, samples, buf_a,
-                        buf_a + kHidden * kTile);
+    forward_tile(pts, dc, params, out, res, n_points, samples, reinterpret_cast<float*>(smem));
   }
 }
 
@@ -419,6 +417,13 @@ __constant__ WJob kTcJobs[kNumJobs] = {
 };
 
 __device__ __forceinline__ float load(const float* p) { return *p; }
+
+// The identity rounding of the f32 instance, which the staging below calls.
+template <bool kBf16>
+__device__ __forceinline__ float rnd(float x) {
+  static_assert(!kBf16, "the bf16 weight gradients run on the tensor cores");
+  return x;
+}
 
 // The f32 instance, on the FMA pipes: 16 x 16 threads, 4 x 4 outputs each.
 // Its staging keeps the form of the kernel it came from (load, rnd<false>):
@@ -702,7 +707,7 @@ template <bool kBf16>
 cudaError_t launch_fwd(const float* pts, const float* dc, const float* params, const bf16* wbf,
                        float* out, void* res, long long n_points, int samples,
                        cudaStream_t stream) {
-  const size_t smem = kBf16 ? tc::kFwdSmem : kFwdSmem;
+  const size_t smem = kBf16 ? tc::kFwdSmem : kForwardSmem;
   cudaError_t err = cudaFuncSetAttribute(train_fwd_kernel<kBf16>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));

@@ -16,15 +16,16 @@
 // ~82k multiply-adds (the point-major one 27 x 64 more, and 24 sinusoids)
 // against 24-28 B of point traffic.
 //
-// compute dtype f32: flex_mlp.cuh's forward over 64-point tiles, one block
-// of 128 threads a tile, activations in two feature-major shared buffers of
-// 128 x 64 f32 (64 KB, dynamic shared memory), f32 FMAs from registers; only
-// the direction layer differs (flex_mlp.cuh's forward_tile_with takes it as
-// a callback). After the trunk buf_a's rows 64..127 are free: the
-// point-major kernel encodes the directions there; the ray-major one stages
-// the dc rows of the rays its tile touches (at most ceil(63 / S) + 1 <= 64)
-// there once, and each point's row in that stage is a 32-bit division once
-// per point. Its output is bitwise mlp_t.cu's f32 output. The f32 instances
+// compute dtype f32: flex_mlp.cuh's forward over 64-point tiles, the design
+// mlp_t.cu's note sets out (one block of 128 threads a tile, 8 x 8 output
+// blocks a thread summed in registers, weights staged by cp.async, 96 KB of
+// dynamic shared memory); only the direction layer differs (flex_mlp.cuh's
+// forward_tile_with takes it as a callback, and it runs flex_mlp.cuh's
+// dense: #2's over its two blocks of rows, feat's then the direction's).
+// After the trunk buf_a's rows 64..127 are free: the point-major kernel
+// encodes the directions there; the ray-major one stages the dc rows of the
+// rays its tile touches (at most ceil(63 / S) + 1 <= 64) there once, and
+// each point's row in that stage is a 32-bit division once per point. Its output is bitwise mlp_t.cu's f32 output. The f32 instances
 // stay on the FMA pipes: a product on the tensor cores at f32 accuracy
 // (3xTF32) is a change for the whole family, and #3 alone on it would no
 // longer be bitwise #1.
@@ -57,9 +58,9 @@ namespace {
 
 using namespace flex;
 
-constexpr size_t kBufBytes = 2 * kHidden * kTile * sizeof(float);
-// The ray-major kernel's table of each point's ray within the tile's stage.
-constexpr size_t kRaysSmemBytes = kBufBytes + kTile * sizeof(int);
+// The ray-major kernel's table of each point's ray within the tile's stage
+// follows the forward's shared memory.
+constexpr size_t kRaysSmemBytes = kForwardSmem + kTile * sizeof(int);
 
 // #2's f32 direction layer: the tile's direction encoding into buf_a rows
 // 64..90, then one sum over the feat rows and the 27 direction rows.
@@ -68,12 +69,13 @@ struct DirLayerEncoded {
   const float* dirs;
   long long tile0;
   long long n_points;
-  __device__ __forceinline__ void operator()(const float* feat, float* hd) const {
+  __device__ __forceinline__ void operator()(const float* feat, float* hd, Ring& ring) const {
     float* denc = hd + kDirHidden * kTile;
-    encode_tile<false, kFreqDir>(dirs, tile0, n_points, denc);
+    encode_tile<kFreqDir>(dirs, tile0, n_points, denc);
     __syncthreads();
-    dense2<kDirHidden, true, false>(params + kOffWd, kHidden, feat, params + kOffWdDir, kEncDir,
-                                    denc, params + kOffBd, hd);
+    dense<kDirHidden, true>(ring, Rows{params + kOffWd, kHidden, feat},
+                            Rows{params + kOffWdDir, kEncDir, denc}, params + kOffBd, hd,
+                            AddNothing{}, Slice{nullptr, 0});
   }
 };
 
@@ -95,13 +97,13 @@ struct DirLayerStaged {
   long long ray0;
   int rays;
   const int* ray_of;
-  __device__ __forceinline__ void operator()(const float* feat, float* hd) const {
+  __device__ __forceinline__ void operator()(const float* feat, float* hd, Ring& ring) const {
     float* dc_s = hd + kDirHidden * kTile;
     const float* src = dc + ray0 * kDirHidden;
     for (int i = threadIdx.x; i < rays * kDirHidden; i += kThreads) dc_s[i] = __ldg(src + i);
     __syncthreads();
-    dense_with<kDirHidden, true, false>(params + kOffWd, params + kOffBd, kHidden, feat, hd,
-                                        AddStagedRow{dc_s, ray_of});
+    dense<kDirHidden, true>(ring, Rows{params + kOffWd, kHidden, feat}, params + kOffBd, hd,
+                            AddStagedRow{dc_s, ray_of}, Slice{nullptr, 0});
   }
 };
 
@@ -156,11 +158,10 @@ flexible_mlp_kernel(const float* __restrict__ pts, const float* __restrict__ dir
                     float* __restrict__ out, long long n_points) {
   static_assert(!kBf16, "the bf16 instance is the specialization below");
   extern __shared__ float4 smem[];
-  float* buf_a = reinterpret_cast<float*>(smem);
   const long long tile0 = static_cast<long long>(blockIdx.x) * kTile;
-  forward_tile_with<false>(pts, params, out, 0, nullptr, tile0, n_points, buf_a,
-                           buf_a + kHidden * kTile,
-                           DirLayerEncoded{params, dirs, tile0, n_points});
+  forward_tile_with(pts, params, out, 0, nullptr, tile0, n_points,
+                    reinterpret_cast<float*>(smem),
+                    DirLayerEncoded{params, dirs, tile0, n_points});
 }
 
 template <>
@@ -186,17 +187,16 @@ flexible_mlp_rays_kernel(const float* __restrict__ pts, const float* __restrict_
                          long long n_points, int samples) {
   static_assert(!kBf16, "the bf16 instance is the specialization below");
   extern __shared__ float4 smem[];
-  float* buf_a = reinterpret_cast<float*>(smem);
-  int* ray_of = reinterpret_cast<int*>(buf_a + 2 * kHidden * kTile);
+  float* buf = reinterpret_cast<float*>(smem);
+  int* ray_of = reinterpret_cast<int*>(buf + kForwardSmem / sizeof(float));
   const long long tile0 = static_cast<long long>(blockIdx.x) * kTile;
   const long long ray0 = tile0 / samples;
   const int rem = static_cast<int>(tile0 - ray0 * samples);   // tile0's sample in its ray
   const long long last = (tile0 + kTile < n_points ? tile0 + kTile : n_points) - 1;
   const int rays = static_cast<int>(last / samples - ray0) + 1;  // <= kTile
   if (threadIdx.x < kTile) ray_of[threadIdx.x] = (rem + static_cast<int>(threadIdx.x)) / samples;
-  forward_tile_with<false>(pts, params, out, 0, nullptr, tile0, n_points, buf_a,
-                           buf_a + kHidden * kTile,
-                           DirLayerStaged{params, dc, ray0, rays, ray_of});
+  forward_tile_with(pts, params, out, 0, nullptr, tile0, n_points, buf,
+                    DirLayerStaged{params, dc, ray0, rays, ray_of});
 }
 
 template <>
@@ -220,7 +220,7 @@ template <bool kBf16>
 cudaError_t launch_points(const float* pts, const float* dirs, const float* params,
                           const __nv_bfloat16* wbf, float* out, long long n_points,
                           cudaStream_t stream) {
-  const size_t smem = kBf16 ? tc::kFwdSmem : kBufBytes;
+  const size_t smem = kBf16 ? tc::kFwdSmem : kForwardSmem;
   cudaError_t err = cudaFuncSetAttribute(flexible_mlp_kernel<kBf16>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));

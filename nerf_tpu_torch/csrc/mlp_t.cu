@@ -12,24 +12,39 @@
 // keeping the activations out of device memory and the multipliers fed.
 //
 // compute dtype f32: flex_mlp.cuh's forward_tile on the FMA pipes, which the
-// training forward (flex_train.cu) runs too:
-//   * one block of 128 threads per tile of kTile = 64 points;
-//   * the tile's activations ping-pong between two feature-major shared
-//     buffers act[feature][point] of 128 x 64 f32 (64 KB in all, so dynamic
-//     shared memory with cudaFuncSetAttribute);
-//   * thread j computes output feature j of a dense layer for a run of
-//     points, accumulating in registers: per input feature k it reads one
-//     weight W[k][j] (neighbouring threads, neighbouring addresses; the
-//     330 KB parameter buffer stays L2/L1 resident) and the run's
-//     activations act[k][p..] as float4 broadcasts from shared memory;
+// training forward (flex_train.cu), the render stage (stage.cu) and the
+// point-major and ray-major forwards (mlp.cu) run too. The f32 FMA rate
+// bounds it: 67 TFLOP/s on an H100 SXM at 700 W, ~41 ms for a 131072 x 128
+// chunk. The design keeps the FMA pipes fed from registers:
+//   * one block of 128 threads per tile of kTile = 64 points; the tile's
+//     activations ping-pong between two feature-major shared buffers
+//     act[feature][point] of 128 x 64 f32, beside a ring of two 16 KB weight
+//     slots: 96 KB of dynamic shared memory, two blocks an SM;
+//   * each thread sums an 8-feature x 8-point block of a 128-wide layer's
+//     outputs (4 x 8 of the 64-wide direction layer) in registers: per input
+//     row it reads two float4s of activations and two of weights from
+//     shared memory, each load one conflict-free wavefront, and issues 64
+//     FMAs. The design before it gave each thread one feature of a run of 64
+//     points: one LDS.128 for every 4 FMAs saturated the shared-memory pipe,
+//     and 3 blocks of 64 KB (12 warps) hid little of its latency, ~24
+//     TFLOP/s;
+//   * the weights reach shared memory by cp.async, 32 rows a slice (64 at
+//     the direction layer), the next slice (at a layer's end the next
+//     layer's first) in flight while one is summed, one barrier a slice;
+//   * every output's sum keeps its order (fmaf over k from 0, + bias, + dc,
+//     ReLU), so the outputs are bitwise the one-feature design's;
 //   * the encoding is written in the checkpoint's interleaved order
 //     [x | sin f0 | cos f0 | sin f1 | ...], so layer 1 takes the checkpoint's
 //     rows as they are; the sinusoids are sincosf of x * 2^f (exact in f32),
 //     without fast math and without the TPU's double-angle recurrence;
 //   * fc_alpha is a 1-wide dot product per point, fc_rgb 3 per point, done
 //     by one thread each; the ragged tail of the last tile is masked.
-// It runs at ~24 TFLOP/s on an H100 SXM (700 W), about 35% of the f32 FMA
-// peak: 3 blocks of 64 KB fit an SM, and their 12 warps hide little latency.
+// It runs a 131072 x 128 chunk in 68-69 ms on an NVIDIA H100 80GB HBM3 at
+// 700 W, ~40 TFLOP/s, 60% of the f32 FMA peak (the one-feature design
+// 115-117 ms; tools/torch_kernel_check.py --parent-csrc). Its innermost loop
+// is 83% FFMAs; two blocks an SM (8 warps) leave the per-slice barriers,
+// the serial heads and the encoding less to hide behind than three would,
+// but three (8-row slices) ran slower (tools/torch_kernel_variants.py).
 //
 // compute dtype bf16: flex_tc.cuh's forward_tile on the tensor cores
 // (mma.sync m16n8k16, bf16 operands, f32 sums, bf16 point-major tiles of
@@ -45,8 +60,6 @@ namespace {
 
 using namespace flex;
 
-constexpr size_t kSmemBytes = 2 * kHidden * kTile * sizeof(float);
-
 template <bool kBf16>
 __device__ __forceinline__ void mlp_t_tile(const float* __restrict__ pts,
                                            const float* __restrict__ dc,
@@ -60,9 +73,8 @@ __device__ __forceinline__ void mlp_t_tile(const float* __restrict__ pts,
     tc::forward_tile(pts, dc, params, wbf, out, nullptr, n_points, samples, enc,
                      enc + tc::kEncStride * kTile);
   } else {
-    float* buf_a = reinterpret_cast<float*>(smem);
-    forward_tile<false>(pts, dc, params, out, nullptr, n_points, samples, buf_a,
-                        buf_a + kHidden * kTile);
+    forward_tile(pts, dc, params, out, nullptr, n_points, samples,
+                 reinterpret_cast<float*>(smem));
   }
 }
 
@@ -88,7 +100,7 @@ template <bool kBf16>
 cudaError_t launch(const float* pts, const float* dc, const float* params,
                    const __nv_bfloat16* wbf, float* out, long long n_points, int samples,
                    cudaStream_t stream) {
-  const size_t smem = kBf16 ? tc::kFwdSmem : kSmemBytes;
+  const size_t smem = kBf16 ? tc::kFwdSmem : kForwardSmem;
   cudaError_t err = cudaFuncSetAttribute(
       mlp_t_kernel<kBf16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));

@@ -22,9 +22,9 @@
 // points of the last tile that belong to the next block are masked. Then each
 // of the 4 warps composites rays of the block from shared memory with
 // composite.cuh's warp scan and writes the maps and weights.
-//   * f32: the MLP is flex_mlp.cuh's forward_tile_at, unchanged, beside its
-//     two 32 KB f32 activation buffers: 72 KB at R * S = 512, so three
-//     blocks an SM, as for mlp_t.cu's f32 kernel;
+//   * f32: the MLP is flex_mlp.cuh's forward_tile_at (mlp_t.cu's note), its
+//     96 KB of activation buffers and weight ring before the field: 104 KB
+//     at R * S = 512, so two blocks an SM, as for mlp_t.cu's f32 kernel;
 //   * bf16: the MLP is flex_tc.cuh's tensor-core tile (forward_tile_with
 //     with DirRayRow), the one mlp_t.cu's bf16 kernel runs, with the same
 //     bf16 weight fragments (kernels/mlp.py pack_tc_forward): 26 KB of bf16
@@ -48,7 +48,6 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kPointsPerBlock = 512;
 constexpr int kMaxSamples = 4096;   // field rows of one ray: 64 KB of shared memory
-constexpr size_t kMlpSmemBytes = 2 * kHidden * kTile * sizeof(float);
 
 // Each warp composites rays of the block's field (rays * samples, 4) in
 // shared memory and writes their maps.
@@ -80,16 +79,14 @@ stage_kernel(const float* __restrict__ pts, const float* __restrict__ z,
              int samples, int rays_per_block, bool white_background) {
   static_assert(!kBf16, "the bf16 instance is the specialization below");
   extern __shared__ float4 smem[];
-  float* buf_a = reinterpret_cast<float*>(smem);
-  float* buf_b = buf_a + kHidden * kTile;
-  float* field = buf_b + kHidden * kTile;  // (rays * samples, 4), the block's field
+  float* mlp = reinterpret_cast<float*>(smem);
+  float* field = mlp + kForwardSmem / sizeof(float);  // (rays * samples, 4), the block's field
   const long long ray0 = static_cast<long long>(blockIdx.x) * rays_per_block;
   const int rays = static_cast<int>(min(static_cast<long long>(rays_per_block), n_rays - ray0));
   const long long p0 = ray0 * samples;
   const long long p_end = p0 + static_cast<long long>(rays) * samples;
   for (long long tile0 = p0; tile0 < p_end; tile0 += kTile) {
-    forward_tile_at<false>(pts, dc, params, field, p0, nullptr, tile0, p_end, samples,
-                           buf_a, buf_b);
+    forward_tile_at(pts, dc, params, field, p0, nullptr, tile0, p_end, samples, mlp);
     __syncthreads();
   }
   composite_block(field, z, dirs, rgb, disp, acc, depth, weights, ray0, rays, samples,
@@ -132,7 +129,7 @@ cudaError_t launch(const float* pts, const float* z, const float* dirs, const fl
                    float* depth, float* weights, long long n_rays, int samples,
                    bool white_background, cudaStream_t stream) {
   const int rays_per_block = samples >= kPointsPerBlock ? 1 : kPointsPerBlock / samples;
-  const size_t smem = (kBf16 ? tc::kFwdSmem : kMlpSmemBytes) +
+  const size_t smem = (kBf16 ? tc::kFwdSmem : kForwardSmem) +
                       static_cast<size_t>(rays_per_block) * samples * 4 * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       stage_kernel<kBf16>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));

@@ -5,7 +5,10 @@ without the suite's conftest (it imports JAX):
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
-This file imports torch and the port only. The bf16 instances of #1-#4, #7
+This file imports torch and the port only. The f32 instances of #1-#3, #7
+and #8's forward share flex_mlp.cuh's register-blocked body: they are held
+to their plain versions at point counts that end mid-tile and mid-slice, and
+two launches bitwise equal. The bf16 instances of #1-#4, #7
 and the #8 and #9 pairs run on the tensor cores: their forwards are held
 to TC_FWD_TOL (#3 bitwise to #1 too, the same tile), the bf16 backwards against the plain backward on the forward
 kernel's own residuals (a bf16 sum in another order flips roundings and ReLU
@@ -442,6 +445,77 @@ def test_stage_bf16_is_composite_of_the_tensor_core_field(model, n, s, white_bac
                                              white_background)
         torch.cuda.synchronize()
     assert all(torch.equal(got[k], want[k]) for k in want)
+
+
+# The f32 4x128 forwards share flex_mlp.cuh's register-blocked body, which
+# stages weights in slices of 32 rows (64 at the direction layer's width).
+# Point counts that end mid-tile and mid-slice: 37 x 45 = 26 tiles and 1
+# point, 3 x 7 = one partial tile, 129 x 33 (a stage block's tiles straddle
+# rays). Map tolerances as chip_smoke.py's MAP_TOLS.
+F32_MAP_TOLS = {"rgb": 1e-5, "acc": 1e-5, "weights": 1e-5, "depth": 1e-4, "disp": 1e-4}
+
+
+def _f32_forwards(model, pts, vd, z, rd):
+    """name -> a call of the f32 instance of #1, #2, #3, #7 and #8's forward."""
+    n, s = pts.shape[:2]
+    flat_pts, flat_vd = pts.reshape(-1, 3), vd[:, None, :].expand(n, s, 3).reshape(-1, 3)
+    dc, params = dir_contribution(model, vd), pack_params(model)
+    return {
+        "#1": lambda: fused_mlp_t(model, pts, vd, "float32"),
+        "#2": lambda: mlp.fused_flexible_mlp(model, flat_pts, flat_vd, "float32"),
+        "#3": lambda: mlp.fused_flexible_mlp_rays(model, pts, vd, "float32"),
+        "#7": lambda: stage.fused_render_stage(model, pts, vd, z, rd, True, "float32"),
+        "#8": lambda: flex_train_fwd(pts, dc, params, "float32"),
+    }
+
+
+@pytest.mark.parametrize("n,s", [(37, 45), (3, 7), (129, 33)])
+def test_f32_forwards_match_plain_at_ragged_counts(model, n, s):
+    """Each f32 instance against its plain version: #1-#3 and #8's output to
+    1e-4, #8's residuals to 1e-4 of the plain one's largest entry, #7's maps
+    to F32_MAP_TOLS; #3 bitwise #1."""
+    pts, vd, z, rd = _ray_case(n, s, seed=n * s)
+    with torch.inference_mode():
+        got = {name: fn() for name, fn in _f32_forwards(model, pts, vd, z, rd).items()}
+        torch.cuda.synchronize()
+        flat_vd = vd[:, None, :].expand(n, s, 3).reshape(-1, 3)
+        want = {
+            "#1": mlp_t_plain(model, pts, vd, "float32"),
+            "#2": mlp.flexible_mlp_plain(model, pts.reshape(-1, 3), flat_vd, "float32"),
+            "#3": mlp.flexible_mlp_rays_plain(model, pts, vd, "float32"),
+        }
+        maps = stage.render_stage_plain(model, pts, vd, z, rd, True, "float32")
+        plain_out, plain_res = flex_train_plain_fwd(pts, dir_contribution(model, vd),
+                                                    pack_params(model), "float32")
+    for name, w in want.items():
+        assert float((got[name] - w).abs().max()) <= 1e-4, name
+    errs = _map_errs(got["#7"], maps)
+    assert all(errs[k] <= F32_MAP_TOLS[k] for k in errs), errs
+    out, res = got["#8"]
+    assert float((out - plain_out).abs().max()) <= 1e-4
+    for got_r, want_r in zip(residuals_as_plain(res, n * s), plain_res, strict=True):
+        assert _scaled_err(got_r, want_r) <= 1e-4
+    assert torch.equal(got["#3"], got["#1"])
+
+
+@pytest.mark.parametrize("n,s", [(37, 45), (2048, 128)])
+def test_f32_forwards_repeat_bitwise(model, n, s):
+    """Two launches of each f32 instance give bitwise-equal outputs (#8's
+    residuals included)."""
+    pts, vd, z, rd = _ray_case(n, s, seed=n + 1)
+    calls = _f32_forwards(model, pts, vd, z, rd)
+    with torch.inference_mode():
+        first = {name: fn() for name, fn in calls.items()}
+        again = {name: fn() for name, fn in calls.items()}
+        torch.cuda.synchronize()
+    for name in calls:
+        a, b = first[name], again[name]
+        if name == "#7":
+            assert all(torch.equal(a[k], b[k]) for k in a), name
+        elif name == "#8":
+            assert torch.equal(a[0], b[0]) and torch.equal(a[1][0], b[1][0]), name
+        else:
+            assert torch.equal(a, b), name
 
 
 def test_new_kernels_refuse_what_they_do_not_take(model):

@@ -17,12 +17,13 @@ plain versions in f32 and bf16 at chip_smoke.py's phase 9 shapes, points
 ending mid-tile, and 0, 6, 10 and 16 encoding frequencies. With
 ``--parent-csrc`` (another tree's ``nerf_tpu_torch/csrc``, e.g. unpacked with
 ``git archive``) it also builds that tree, prints both trees' registers and
-spills of the tensor-core instances, checks that the outputs
-``bitwise_results`` lists are bitwise the same from both, each tree through
-its own wrappers (its package, imported under another name), and times #1,
-#2, #3, #7 and the #8 pair in bf16 and #6 (det, by the profiler's device
-time too) from both in turns (parent, this tree, this tree, parent). A short
-first call for a new kernel; ``chip_smoke.py`` is the full check.
+spills of the tensor-core instances and of the f32 4x128 instances, checks
+that the outputs ``bitwise_results`` lists are bitwise the same from both,
+each tree through its own wrappers (its package, imported under another
+name), and times #1, #2, #3, #7 and the #8 pair in f32 and bf16 and #6 (det,
+by the profiler's device time too) from both in turns (parent, this tree,
+this tree, parent). A short first call for a new kernel; ``chip_smoke.py``
+is the full check.
 """
 
 import argparse
@@ -279,9 +280,9 @@ def bitwise_results(m: dict, dev) -> list:
 
 def timed_calls(m: dict, dev) -> dict:
     """Through one tree's wrappers, at the main path's shapes: name -> (fn,
-    reps) for #1, #2, #3 and #7 in bf16 (one fine-pass chunk), #6 det (one
-    coarse chunk's resample, M 63 -> 64) and the #8 pair in bf16 (one
-    training pass)."""
+    reps) for #1, #2, #3 and #7 in f32 and bf16 (one fine-pass chunk), #6
+    det (one coarse chunk's resample, M 63 -> 64) and the #8 pair in f32 and
+    bf16 (one training pass)."""
     flex, _ = tree_models(m, dev)
     pts, vd, z, rd = cs.orbit_rays(*cs.KERNEL_CHUNK, dev, 1)
     flat_pts, flat_vd = pts.reshape(-1, 3), vd[:, None, :].expand(*pts.shape).reshape(-1, 3)
@@ -289,19 +290,24 @@ def timed_calls(m: dict, dev) -> dict:
     params, dc = m["mlp"].pack_params(flex).detach(), m["mlp"].dir_contribution(flex, tvd).detach()
     g = torch.randn(*cs.TRAIN_SHAPE, 4, device=dev, generator=torch.Generator(
         device=dev).manual_seed(4))
-    res = m["flex_train"].flex_train_fwd(tp, dc, params, "bfloat16")[1]
+    res = {dt: m["flex_train"].flex_train_fwd(tp, dc, params, dt)[1]
+           for dt in ("float32", "bfloat16")}
     bins, w, _ = resample_case(cs.KERNEL_CHUNK[0], 63, 64, dev)
-    return {
-        "#1 bf16": (lambda: m["mlp_t"].fused_mlp_t(flex, pts, vd, "bfloat16"), 3),
-        "#2 bf16": (lambda: m["mlp"].fused_flexible_mlp(flex, flat_pts, flat_vd, "bfloat16"), 3),
-        "#3 bf16": (lambda: m["mlp"].fused_flexible_mlp_rays(flex, pts, vd, "bfloat16"), 3),
-        "#6 det": (lambda: m["resample"].fused_sample_pdf(bins, w, 64, det=True), 50),
-        "#7 bf16": (lambda: m["stage"].fused_render_stage(flex, pts, vd, z, rd, True,
-                                                           "bfloat16"), 3),
-        "#8 fwd bf16": (lambda: m["flex_train"].flex_train_fwd(tp, dc, params, "bfloat16"), 10),
-        "#8 bwd bf16": (lambda: m["flex_train"].flex_train_bwd(g, res, params, *cs.TRAIN_SHAPE,
-                                                               "bfloat16"), 10),
-    }
+    calls = {"#6 det": (lambda: m["resample"].fused_sample_pdf(bins, w, 64, det=True), 50)}
+    for dt, tag, reps in (("float32", "f32", 2), ("bfloat16", "bf16", 3)):
+        calls.update({
+            f"#1 {tag}": (lambda dt=dt: m["mlp_t"].fused_mlp_t(flex, pts, vd, dt), reps),
+            f"#2 {tag}": (lambda dt=dt: m["mlp"].fused_flexible_mlp(flex, flat_pts, flat_vd, dt),
+                          reps),
+            f"#3 {tag}": (lambda dt=dt: m["mlp"].fused_flexible_mlp_rays(flex, pts, vd, dt), reps),
+            f"#7 {tag}": (lambda dt=dt: m["stage"].fused_render_stage(flex, pts, vd, z, rd, True,
+                                                                       dt), reps),
+            f"#8 fwd {tag}": (lambda dt=dt: m["flex_train"].flex_train_fwd(tp, dc, params, dt),
+                              10),
+            f"#8 bwd {tag}": (lambda dt=dt: m["flex_train"].flex_train_bwd(
+                g, res[dt], params, *cs.TRAIN_SHAPE, dt), 10),
+        })
+    return calls
 
 
 def time_in_turns(calls: dict, order, use=lambda label: None) -> None:
@@ -333,11 +339,11 @@ def check_bitwise_against(parent_csrc: Path, dev) -> bool:
     parent_path = importlib.import_module("parent_nerf_tpu_torch.kernels._build").build_library()
     print("parent", cs.ptxas_summary(parent_path.with_suffix(".log").read_text(), frames=True),
           flush=True)
-    watched = cs.TENSOR_CORE_KERNELS + ("mlp:flexible_mlp<0>", "mlp:flexible_mlp_rays<0>",
-                                        "stage:stage<0>")
+    watched = cs.TENSOR_CORE_KERNELS + cs.F32_FLEX_KERNELS + (
+        "flex_train:train_bwd_act<0>", "flex_train:train_bwd_wgrad<0>")
     for label, path in (("parent", parent_path), ("this tree", _build.build_library())):
         regs = cs.ptxas_summary(path.with_suffix(".log").read_text()).split(", ")
-        print(f"registers (spills) of the tensor-core instances and #2/#3/#7 f32, {label}: "
+        print(f"registers (spills) of the tensor-core instances and the f32 4x128 ones, {label}: "
               + ", ".join(r for r in regs if r.rsplit(" ", 1)[0].split(" (")[0] in watched),
               flush=True)
     outs = {label: bitwise_results(m, dev) for label, m in trees.items()}

@@ -11,13 +11,14 @@ interface) and each ``--probe``: a copy of this tree's ``csrc`` with one
 named edit (PROBES below; the probes marked so compute wrong results on
 purpose, to show what one part of a kernel costs). Each library is loaded in
 turn under this tree's wrappers. For each it prints the flagship kernels'
-registers, #1 and #3 bf16 and the #8 bf16 pair against their plain versions
+registers, the hottest loop of each f32 4x128 forward in its SASS, #1 and
+#3 bf16 and the #8 bf16 pair against their plain versions
 (``chip_smoke.flex_pair_errors``), whether #3 bf16 is bitwise #1 bf16, and
-whether its outputs (#6's at ``torch_kernel_check.RESAMPLE_CASES`` too)
-equal base's bitwise; then it times
-``torch_kernel_check.timed_calls`` (#1, #2, #3 and #7 bf16 at one fine-pass
-chunk, #6 det also by the profiler's device time, the #8 bf16 pair at one
-training pass) in turns (base, variants, the variants again in reverse,
+whether its outputs (the f32 #1, #3 and #8 forward's too, and #6's at
+``torch_kernel_check.RESAMPLE_CASES``) equal base's bitwise; then it times
+``torch_kernel_check.timed_calls`` (#1, #2, #3 and #7 in f32 and bf16 at one
+fine-pass chunk, #6 det also by the profiler's device time, the #8 pair in
+f32 and bf16 at one training pass) in turns (base, variants, the variants again in reverse,
 base), and each launch of #8's bf16 backward by the profiler. Builds go under ``build/variants/``.
 """
 
@@ -95,6 +96,80 @@ PROBES = {
                     "for (int o = 32; o < 32; o <<= 1) {")],
     "rs_no_sum": [("resample.cu", "for (int o = 16; o > 0; o >>= 1) sum +=",
                    "for (int o = 0; o > 0; o >>= 1) sum +=")],
+    # The f32 4x128 forward (flex_mlp.cuh) with its FMA loop unrolled by 4
+    # instead of 2; with ring slots of 16 rows a 128-wide slice instead of 32;
+    # or with slots of 8 rows, 72 KB a block and so three blocks an SM (#7's
+    # field keeps it at two). The same sums in the same order, so the same
+    # results.
+    "f32_unroll4": [("flex_mlp.cuh", "#pragma unroll 2\n  for (int k = 0; k < rows; ++k) {",
+                     "#pragma unroll 4\n  for (int k = 0; k < rows; ++k) {")],
+    "f32_slot16": [("flex_mlp.cuh", "kSlotFloats = 32 * kHidden;",
+                    "kSlotFloats = 16 * kHidden;")],
+    "f32_three_blocks": [("flex_mlp.cuh", "kSlotFloats = 32 * kHidden;",
+                          "kSlotFloats = 8 * kHidden;")],
+    # fc_rgb by one thread a point, its three sums interleaved (the same sums).
+    "f32_rgb_per_point": [("flex_mlp.cuh", """  for (int i = threadIdx.x; i < 3 * kTile; i += kThreads) {
+    const int c = i / kTile;
+    const int p = i % kTile;
+    float acc = 0.f;
+    for (int k = 0; k < kDirHidden; ++k) {
+      acc = fmaf(__ldg(params + kOffWr + k * 3 + c), buf_a[k * kTile + p], acc);
+    }
+    if (tile0 + p < n_points) out[(tile0 + p - out0) * 4 + c] = acc + __ldg(params + kOffBr + c);
+  }""", """  if (threadIdx.x < kTile) {
+    const int p = threadIdx.x;
+    float acc[3] = {0.f, 0.f, 0.f};
+    for (int k = 0; k < kDirHidden; ++k) {
+      const float h = buf_a[k * kTile + p];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) acc[c] = fmaf(__ldg(params + kOffWr + k * 3 + c), h, acc[c]);
+    }
+    if (tile0 + p < n_points) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        out[(tile0 + p - out0) * 4 + c] = acc[c] + __ldg(params + kOffBr + c);
+      }
+    }
+  }""")],
+    # The encoding as one item per (frequency, point, coordinate), spread
+    # over every thread (x * 2^f and sincosf as before: the same values).
+    "f32_encode_flat": [("flex_mlp.cuh", """  for (int i = threadIdx.x; i < kTile * 3; i += kThreads) {
+    const int p = i / 3;
+    const int c = i % 3;
+    const float x = tile0 + p < n_points ? pts[tile0 * 3 + i] : 0.f;
+    act[c * kTile + p] = x;
+    float scale = 1.f;
+#pragma unroll
+    for (int f = 0; f < kFreq; ++f) {
+      float s, co;
+      sincosf(x * scale, &s, &co);
+      act[(3 + 6 * f + c) * kTile + p] = s;
+      act[(6 + 6 * f + c) * kTile + p] = co;
+      scale *= 2.f;
+    }
+  }""", """  for (int i = threadIdx.x; i < kTile * 3 * (kFreq + 1); i += kThreads) {
+    const int f = i / (kTile * 3) - 1;
+    const int pc = i % (kTile * 3);
+    const int p = pc / 3;
+    const int c = pc % 3;
+    const float x = tile0 + p < n_points ? pts[tile0 * 3 + pc] : 0.f;
+    if (f < 0) {
+      act[c * kTile + p] = x;
+    } else {
+      float s, co;
+      sincosf(x * static_cast<float>(1 << f), &s, &co);
+      act[(3 + 6 * f + c) * kTile + p] = s;
+      act[(6 + 6 * f + c) * kTile + p] = co;
+    }
+  }""")],
+    # Wrong results: the f32 4x128 forward without fc_alpha and fc_rgb, or
+    # without sincosf in its encoding.
+    "f32_no_heads": [("flex_mlp.cuh", "  if (threadIdx.x < kTile) {\n    const int p = threadIdx.x;",
+                      "  if (threadIdx.x < 0) {\n    const int p = threadIdx.x;"),
+                     ("flex_mlp.cuh", "for (int i = threadIdx.x; i < 3 * kTile; i += kThreads) {",
+                      "for (int i = threadIdx.x; i < 0; i += kThreads) {")],
+    "f32_no_sincos": [("flex_mlp.cuh", "      sincosf(x * scale, &s, &co);",
+                       "      s = x * scale;\n      co = s + 1.f;")],
     # The layer-gradient pass with each layer's ReLU-mask rows brought into
     # shared memory by cp.async while its product runs.
     "mask_prefetch": [
@@ -142,6 +217,50 @@ PROBES = {
 }
 
 
+def hottest_loops(lib: Path, kernels) -> dict:
+    """For each kernel named (``chip_smoke.kernel_label``) in the library's
+    SASS (``cuobjdump -sass``): of its innermost loops (a backward branch
+    and its target, no other backward branch between them), the one holding
+    the most FFMAs, as its instruction count and its FFMA, LDS and other
+    counts: how many issue slots its sums take."""
+    import re
+
+    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    code, name = {}, None
+    for line in sass.splitlines():
+        head = re.search(r"Function : (\S+)", line)
+        if head:
+            name = cs.kernel_label(head.group(1))
+            code[name] = []
+            continue
+        ins = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+        if name and ins:
+            code[name].append((int(ins.group(1), 16), ins.group(2)))
+    out = {}
+    for k in kernels:
+        loops = []
+        for at, text in code.get(k, []):
+            jump = re.search(r"\bBRA\s+(?:`\(\S+\)\s*)?0x([0-9a-f]+)", text)
+            if jump and int(jump.group(1), 16) < at:
+                loops.append((int(jump.group(1), 16), at))
+        best = None
+        for start, end in loops:
+            if any(start <= s0 and e0 < end for s0, e0 in loops if (s0, e0) != (start, end)):
+                continue
+            body = [t.split()[0] if not t.startswith("@") else t.split()[1]
+                    for a, t in code[k] if start <= a <= end]
+            ffma = sum(op.startswith("FFMA") for op in body)
+            if best is None or ffma > best[1]:
+                lds = sum(op.startswith("LDS") for op in body)
+                best = (len(body), ffma, lds)
+        if best:
+            out[k] = (f"{best[0]} instructions, {best[1]} FFMA, {best[2]} LDS, "
+                      f"{best[0] - best[1] - best[2]} other")
+    return out
+
+
 def probe_csrc(name: str) -> Path:
     """A copy of this tree's csrc with the probe's edits."""
     d = OUT / name / "csrc"
@@ -176,8 +295,11 @@ def main() -> int:
         path = _build.build_library()
         libs[name] = ctypes.CDLL(str(path))
         regs = cs.ptxas_summary(path.with_suffix(".log").read_text()).split(", ")
-        print(name, ", ".join(r for r in regs if r.startswith(("mlp_t:", "flex_train:"))),
+        print(name, ", ".join(r for r in regs
+                              if r.startswith(("mlp_t:", "flex_train:", "mlp:", "stage:"))),
               flush=True)
+        print(f"{name} hottest loop of each f32 4x128 forward: " + "; ".join(
+            f"{k} {v}" for k, v in hottest_loops(path, cs.F32_FLEX_KERNELS).items()), flush=True)
 
     def use(name):
         _build.load_library = lambda: libs[name]
@@ -210,6 +332,9 @@ def main() -> int:
                 print(f"{name} ({n}, {s}) bf16: #1 {err:.3e}; #3 {err3:.3e}, bitwise #1 "
                       f"{torch.equal(res[-1], res[-2])}; #8 forward {e['fwd']:.3e}, "
                       f"residuals {e['res']:.3e}, gradients {e['bwd']:.3e}", flush=True)
+                f32 = flex_train.flex_train_fwd(pts, dc, params, "float32")
+                res += [mlp_t.fused_mlp_t(model, pv, vd, "float32"),
+                        mlp.fused_flexible_mlp_rays(model, pv, vd, "float32"), f32[0], f32[1][0]]
             for n, mb, s in RESAMPLE_CASES:
                 bins, w, u = resample_case(n, mb, s, dev)
                 res += [resample.fused_sample_pdf(bins, w, 64, det=True),
