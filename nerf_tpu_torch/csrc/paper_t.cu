@@ -12,15 +12,18 @@
 // 256x256 + 256 + 256x128 + 2x128x128 + 128x3) against 12 B read and 16 B
 // written, so the kernel is far above the memory roofline: a 131072 x 128
 // chunk is bounded at 312 ms by the f32 FMA peak (67 TFLOP/s) and at 21 ms
-// by the bf16 tensor-core peak (989 TFLOP/s).
+// by the bf16 tensor-core peak (989 TFLOP/s). On an H100 80GB HBM3 at 700 W
+// the f32 design takes ~460 ms a chunk (~68% of its bound), the bf16 one
+// ~63 ms.
 //
 // Two designs, one per compute dtype, both one block of 256 threads per tile
 // of 64 points with the whole forward in one launch:
 //   * float32 (paper_mlp.cuh's forward_tile, on the FMA pipes): the encoding
-//     (dim x 64 f32) and one 256 x 64 f32 activation buffer in dynamic shared
-//     memory, ~80 KB at F = 10, two blocks an SM; each thread keeps 4
-//     features x 16 points (8 at the 128-wide direction branch) in registers,
-//     so a layer writes its output back over its input after a barrier;
+//     (dim x 64 f32), one 256 x 64 f32 activation buffer and a two-slot ring
+//     of weight slices (cp.async) in dynamic shared memory, ~112 KB at
+//     F = 10, two blocks an SM; each thread keeps 8 features x 8 points (4 x 8
+//     at the 128-wide direction branch) in registers, so a layer writes its
+//     output back over its input after a barrier;
 //   * bfloat16 (paper_tc.cuh's forward_tile, on the tensor cores): the same
 //     in-place structure with the tile point-major in bf16 (~43 KB at
 //     F = 10), every wide product an mma.sync m16n8k16 with f32 sums, its
@@ -58,9 +61,8 @@ paper_t_kernel(const float* __restrict__ pts, const float* __restrict__ dc,
     tc::forward_tile(pts, dc, params, wbf, L, T, out, nullptr, n_points, samples, num_freq, enc,
                      enc + tc::enc_stride(L.dim) * kTile);
   } else {
-    float* enc = reinterpret_cast<float*>(smem);
-    forward_tile(pts, dc, params, L, out, nullptr, n_points, samples, num_freq, enc,
-                 enc + L.dim * kTile);
+    forward_tile(pts, dc, params, L, out, nullptr, n_points, samples, num_freq,
+                 reinterpret_cast<float*>(smem));
   }
 }
 
@@ -71,6 +73,7 @@ cudaError_t launch(const float* pts, const float* dc, const float* params,
   const size_t smem = kBf16 ? tc::fwd_smem_bytes(L.dim) : fwd_smem_bytes(L);
   cudaError_t err = cudaFuncSetAttribute(
       paper_t_kernel<kBf16>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err == cudaSuccess && !kBf16) err = max_shared_carveout(paper_t_kernel<kBf16>);
   if (err != cudaSuccess) return err;
   const long long tiles = (n_points + kTile - 1) / kTile;
   paper_t_kernel<kBf16><<<static_cast<unsigned int>(tiles), kThreads, smem, stream>>>(

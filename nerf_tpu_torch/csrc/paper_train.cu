@@ -22,21 +22,24 @@
 // through the layers, ~0.6M for the weight gradients) at F = 10, against
 // ~5.5 KB (bf16) or ~11 KB (f32) of residuals and ~10.8 KB of f32 deltas
 // moved through device memory. At 1024 x 128 points the f32 FMA peak (67
-// TFLOP/s) bounds the forward at 2.4 ms and the backward at ~4.9 ms. On the
+// TFLOP/s) bounds the forward at 2.4 ms and the backward at ~4.7 ms; on an
+// H100 80GB HBM3 at 700 W the f32 instances take ~3.8 and ~8.9 ms. On the
 // bf16 tensor cores (989 TFLOP/s) the arithmetic takes 0.17 + 0.33 ms, and
 // the bytes set the pace: the forward's 0.72 GB of residual writes (0.22 ms
 // at 3.35 TB/s), and the backward's 1.41 GB of f32 deltas, written by the
 // layer-gradient pass and read by the weight-gradient pass.
 //
-// The f32 instances run the FMA design below (the 4x128 training kernels'
-// design widened); the bf16 instances run the same passes on the tensor cores
+// The f32 instances run on the FMA pipes (paper_mlp.cuh's register-blocked
+// dense layer, and the weight-gradient pass below); the bf16 instances run
+// the same passes on the tensor cores
 // (paper_tc.cuh: mma.sync m16n8k16, bf16 operands, f32 sums), with the tile,
 // the residuals and the deltas point-major, and bf16 weights the wrapper
 // prepares in fragment order (kernels/paper_train.py pack_tc_backward):
 //   * forward: paper_t.cu's evaluation (paper_mlp.cuh's or paper_tc.cuh's
 //     forward_tile), one block of 256 threads per tile of 64 points, given a
-//     residual buffer, so it also copies each layer's tile from shared memory
-//     into res[tile][row][point] (f32) or res[point][row] (bf16), coalesced;
+//     residual buffer, so it also writes each layer's tile to
+//     res[tile][row][point] (f32, from the registers that hold it) or
+//     res[point][row] (bf16, copied from shared memory), coalesced;
 //   * backward, four launches on one stream:
 //     1. train_bwd_act: per 64-point tile, carries the cotangent back through
 //        fc_rgb, layers_dir.2, .1, the fused [layers_dir.0 feat rows;
@@ -47,25 +50,26 @@
 //        0; feat has no mask. Every layer's output gradient is written, f32
 //        and unrounded, to the delta rows (delta[tile][row][point] in f32,
 //        delta[point][row] in bf16), and over the tile's shared buffer
-//        (rounded, in bf16) as the next product's operand. The bf16 instance
-//        runs the fused head and drgb . W_rgb as padded products (K 129 ->
-//        144 and 3 -> 16);
+//        (rounded, in bf16) as the next product's operand. The f32 instance
+//        runs paper_mlp.cuh's dense layer over the backward weights, staged
+//        through its ring; the bf16 instance runs the fused head and
+//        drgb . W_rgb as padded products (K 129 -> 144 and 3 -> 16);
 //     2. train_bwd_wgrad: dW = X^T dY and db = sum dY for the 15 weight
 //        blocks (layer 4's enc rows and h rows are two), as one launch over
-//        (output tile, chunk of 32 point tiles): 64 x 64 tiles on the FMA
-//        pipes (f32), 128 x 128 on the tensor cores (bf16: half the re-reads
-//        of each X and dY row). Each block keeps its partial sums in
-//        registers and writes them to its chunk's row of a work buffer
-//        laid out like the packed parameters;
+//        (output tile, chunk of 32 point tiles), 128 x 128 output tiles: on
+//        the FMA pipes (f32: 8 x 8 outputs a thread, X and dY staged by
+//        cp.async two stages deep) or on the tensor cores (bf16). Each block
+//        keeps its partial sums in registers and writes them to its chunk's
+//        row of a work buffer laid out like the packed parameters;
 //     3. train_bwd_reduce: sums the chunks' rows in a fixed order. No atomics:
 //        two identical calls give bitwise-equal gradients;
 //     4. train_bwd_ddc: ddc[ray] = sum over the ray's samples of layers_dir.0's
 //        output gradient, one thread per (ray, feature), so rays that
 //        straddle tiles are summed whole.
 //   * the f32 backward reads the weights as nn.Linear's (out, in) matrices
-//     from a second packed buffer (kT* offsets below), so that neighbouring
-//     threads read neighbouring weights when they compute neighbouring input
-//     features; the bf16 one reads their fragments (paper_tc.cuh kB*).
+//     from a second packed buffer (kT* offsets below): as (K, OUT) matrices,
+//     K the forward layer's outputs, the forward's dense layer takes them
+//     as they are; the bf16 one reads their fragments (paper_tc.cuh kB*).
 //
 // compute dtype bf16: both operands of every product (forward, dX = dY W^T
 // and dW = X^T dY) are rounded to bf16 and the sums stay f32, as
@@ -109,13 +113,19 @@ __host__ __device__ constexpr int tw_x(int i) {                // layers_xyz.7 .
 }
 constexpr int kTParams = tw_x(1) + kWidth * kWidth;            // 590464
 
-constexpr size_t kActSmem = kWidth * kTile * sizeof(float);
+// Dynamic shared memory of the f32 layer-gradient pass: the 256-row tile
+// buffer and the weight ring (96 KB, two blocks an SM).
+constexpr size_t kBwdSmem = (kActFloats + 2 * kSlotFloats) * sizeof(float);
 
-// Weight-gradient tiling.
-constexpr int kWTile = 64;            // output tile: 64 inputs x 64 outputs
-constexpr int kWThreads = 256;        // 16 x 16 threads, 4 x 4 outputs each
+// f32 weight-gradient tiling: a block sums a 128 x 128 output tile over a
+// chunk of point tiles, staged half a tile (kWPoints points) at a time.
+constexpr int kWTile = 128;           // output tile: 128 inputs x 128 outputs
+constexpr int kWThreads = 256;        // 16 x 16 threads, 8 x 8 outputs each
 constexpr int kTilesPerChunk = 32;    // point tiles summed by one block
-constexpr int kWPad = kWTile + 4;     // shared row length (float4-aligned)
+constexpr int kWPoints = kTile / 2;   // points a stage
+constexpr int kWStride = kWPoints + 4;   // shared row: 16-byte aligned, rows 4 banks apart
+constexpr int kWBuf = kWTile * kWStride;  // floats of one stage's X or dY
+constexpr size_t kWgradSmem = 4 * kWBuf * sizeof(float);   // X and dY, two stages: 72 KB
 
 // bf16 weight-gradient tiling: 128 inputs x 128 outputs, 8 warps of 32 x 64.
 constexpr int kGTile = 128;
@@ -141,39 +151,38 @@ train_fwd_kernel(const float* __restrict__ pts, const float* __restrict__ dc,
     tc::forward_tile(pts, dc, params, wbf, L, T, out, res, n_points, samples, num_freq, enc,
                      enc + tc::enc_stride(L.dim) * kTile);
   } else {
-    float* enc = reinterpret_cast<float*>(smem);
-    forward_tile(pts, dc, params, L, out, res, n_points, samples, num_freq, enc,
-                 enc + L.dim * kTile);
+    forward_tile(pts, dc, params, L, out, res, n_points, samples, num_freq,
+                 reinterpret_cast<float*>(smem));
   }
 }
 
 // ---------------------------------------------------------------------------
 // Backward 1: the gradient of every layer's output, per tile.
 
-// The f32 instance: dX = mask(stored activation > 0) * acc, written to the
-// tile's delta rows and, unless act is null, over the shared tile buffer as
-// the next product's operand. mask_rows null = no mask.
+// The f32 instance: dX = mask(stored activation > 0) * the thread's block,
+// written to the tile's delta rows and, unless act is null, over the shared
+// tile buffer as the next product's operand (the sum ended with a barrier
+// after its last read of it). mask_rows null = no mask.
 template <int OUT>
-__device__ __forceinline__ void store_grad(Acc<OUT>& a, const float* __restrict__ mask_rows,
+__device__ __forceinline__ void store_grad(Block<OUT>& blk, const float* __restrict__ mask_rows,
                                            float* __restrict__ delta_rows, float* act) {
-  constexpr int kRun = Acc<OUT>::kRun;
+  constexpr int kTF = OUT / 32;
   if (mask_rows != nullptr) {
 #pragma unroll
     for (int f = 0; f < kTF; ++f) {
-      const float* m = mask_rows + (a.j0 + f) * kTile + a.p0;
+      const float* m = mask_rows + (Block<OUT>::j0() + f) * kTile + Block<OUT>::p0();
+      const float4 m0 = *reinterpret_cast<const float4*>(m);
+      const float4 m1 = *reinterpret_cast<const float4*>(m + 32);
+      const float mk[8] = {m0.x, m0.y, m0.z, m0.w, m1.x, m1.y, m1.z, m1.w};
 #pragma unroll
-      for (int p = 0; p < kRun; ++p) a.v[f][p] = m[p] > 0.f ? a.v[f][p] : 0.f;
+      for (int q = 0; q < 8; ++q) blk.v[f][q] = mk[q] > 0.f ? blk.v[f][q] : 0.f;
     }
   }
 #pragma unroll
   for (int f = 0; f < kTF; ++f) {
-    float4* d = reinterpret_cast<float4*>(delta_rows + (a.j0 + f) * kTile + a.p0);
-#pragma unroll
-    for (int q = 0; q < kRun / 4; ++q) {
-      d[q] = make_float4(a.v[f][4 * q], a.v[f][4 * q + 1], a.v[f][4 * q + 2], a.v[f][4 * q + 3]);
-    }
+    blk.store(delta_rows, f);
+    if (act != nullptr) blk.store(act, f);
   }
-  if (act != nullptr) a.write(act);
 }
 
 // The bf16 instance: dX = mask(stored activation > 0) * acc, written
@@ -274,21 +283,28 @@ __device__ __forceinline__ void bwd_act_tile_tc(const float* __restrict__ g,
   }
 }
 
-// The f32 instance, on the FMA pipes; act holds 256 rows.
+// The f32 instance, on paper_mlp.cuh's dense layer: the backward weights
+// read as (K, OUT) matrices (K = the forward layer's outputs), staged
+// through the ring; smem is kBwdSmem bytes: the 256-row tile buffer, then
+// the ring.
 __device__ __forceinline__ void bwd_act_tile_fma(const float* __restrict__ g,
                                                  const float* __restrict__ res,
                                                  const float* __restrict__ wt,
                                                  float* __restrict__ delta, long long n_points,
-                                                 int dim, float* act) {
+                                                 int dim, float* smem) {
   const long long tile0 = static_cast<long long>(blockIdx.x) * kTile;
   const float* rt = res + static_cast<long long>(blockIdx.x) * res_rows(dim) * kTile;
   float* dt = delta + static_cast<long long>(blockIdx.x) * kDRows * kTile;
   auto rrow = [rt](int r) { return rt + r * kTile; };
   auto drow = [dt](int r) { return dt + r * kTile; };
+  float* act = smem;
+  Ring ring{smem + kActFloats, 0};
 
   // Cotangent: drgb into act rows 0..2, dsigma into row 128 (the fused
   // head's extra row, which the 128-wide direction layers leave alone);
-  // padded points get 0, so they add nothing anywhere.
+  // padded points get 0, so they add nothing anywhere. fc_rgb's weights
+  // land meanwhile; the first sum's barrier publishes both.
+  stage_async(ring.slot(0), first_slice<kDirWidth>(wt + kTWr, 3));
   if (threadIdx.x < kTile) {
     const int p = threadIdx.x;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -302,38 +318,42 @@ __device__ __forceinline__ void bwd_act_tile_fma(const float* __restrict__ g,
     dt[(kDRgb + 2) * kTile + p] = v.z;
     dt[kDSig * kTile + p] = v.w;
   }
-  __syncthreads();
   {  // dd2 = mask(d2) * drgb W_rgb
-    Acc<kDirWidth> a;
-    a.mac(wt + kTWr, 3, act);
-    store_grad<kDirWidth>(a, rrow(res_d(dim, 2)), drow(kDD2), act);
+    Block<kDirWidth> b;
+    dense_sum<kDirWidth>(ring, Rows{wt + kTWr, 3, act}, b,
+                         first_slice<kDirWidth>(wt + kTWd2, kDirWidth));
+    store_grad<kDirWidth>(b, rrow(res_d(dim, 2)), drow(kDD2), act);
   }
   {  // dd1 = mask(d1) * dd2 W_d2
-    Acc<kDirWidth> a;
-    a.mac(wt + kTWd2, kDirWidth, act);
-    store_grad<kDirWidth>(a, rrow(res_d(dim, 1)), drow(kDD1), act);
+    Block<kDirWidth> b;
+    dense_sum<kDirWidth>(ring, Rows{wt + kTWd2, kDirWidth, act}, b,
+                         first_slice<kDirWidth>(wt + kTWd1, kDirWidth));
+    store_grad<kDirWidth>(b, rrow(res_d(dim, 1)), drow(kDD1), act);
   }
   {  // dd0 = mask(d0) * dd1 W_d1
-    Acc<kDirWidth> a;
-    a.mac(wt + kTWd1, kDirWidth, act);
-    store_grad<kDirWidth>(a, rrow(res_d(dim, 0)), drow(kDD0), act);
+    Block<kDirWidth> b;
+    dense_sum<kDirWidth>(ring, Rows{wt + kTWd1, kDirWidth, act}, b,
+                         first_slice<kWidth>(wt + kTWda, kDirWidth + 1));
+    store_grad<kDirWidth>(b, rrow(res_d(dim, 0)), drow(kDD0), act);
   }
   {  // dfeat = [dd0; dsigma] [W_d0 feat cols; W_alpha]; feat has no ReLU
-    Acc<kWidth> a;
-    a.mac(wt + kTWda, kDirWidth + 1, act);
-    store_grad<kWidth>(a, nullptr, drow(kDFeat), act);
+    Block<kWidth> b;
+    dense_sum<kWidth>(ring, Rows{wt + kTWda, kDirWidth + 1, act}, b,
+                      first_slice<kWidth>(wt + kTWf, kWidth));
+    store_grad<kWidth>(b, nullptr, drow(kDFeat), act);
   }
   {  // dz7 = mask(h7) * dfeat W_feat
-    Acc<kWidth> a;
-    a.mac(wt + kTWf, kWidth, act);
-    store_grad<kWidth>(a, rrow(res_h(dim, 7)), drow(d_z(7)), act);
+    Block<kWidth> b;
+    dense_sum<kWidth>(ring, Rows{wt + kTWf, kWidth, act}, b,
+                      first_slice<kWidth>(wt + tw_x(7), kWidth));
+    store_grad<kWidth>(b, rrow(res_h(dim, 7)), drow(d_z(7)), act);
   }
   // dz_{i-1} = mask(h_{i-1}) * dz_i W_i (layer 4: its h columns only).
   for (int i = 7; i >= 1; --i) {
-    Acc<kWidth> a;
-    a.mac(wt + tw_x(i), kWidth, act);
-    store_grad<kWidth>(a, rrow(res_h(dim, i - 1)), drow(d_z(i - 1)),
-                              i > 1 ? act : nullptr);
+    Block<kWidth> b;
+    dense_sum<kWidth>(ring, Rows{wt + tw_x(i), kWidth, act}, b,
+                      i > 1 ? first_slice<kWidth>(wt + tw_x(i - 1), kWidth) : Slice{nullptr, 0});
+    store_grad<kWidth>(b, rrow(res_h(dim, i - 1)), drow(d_z(i - 1)), i > 1 ? act : nullptr);
   }
 }
 
@@ -369,10 +389,11 @@ struct WJobs {
 };
 
 // The weight blocks, their residual rows (the f32 layout, or the bf16 one of
-// the tensor-core instance) and their output tiles (kWTile square, or kGTile).
+// the tensor-core instance) and their output tiles, kWTile square in both.
+static_assert(kGTile == kWTile, "both weight-gradient instances share the jobs' tiles");
 WJobs make_jobs(const Layout& L, bool tensor_cores) {
   const int dim = L.dim;
-  const int tile = tensor_cores ? kGTile : kWTile;
+  const int tile = kWTile;
   auto res_h = [&](int i) { return tensor_cores ? tc::res_h(dim, i) : paper::res_h(dim, i); };
   auto res_d = [&](int i) { return tensor_cores ? tc::res_d(dim, i) : paper::res_d(dim, i); };
   const int res_feat = tensor_cores ? tc::res_feat(dim) : paper::res_feat(dim);
@@ -409,82 +430,130 @@ __device__ __forceinline__ WJob find_job(const WJobs& jobs) {
   return jobs.job[jb];
 }
 
-// The f32 instance, on the FMA pipes: 16 x 16 threads, 4 x 4 outputs each.
+// Stage s of a block's chunk (point tile t_begin + s / 2, its half s % 2)
+// into xs and ys (kWTile rows of kWStride floats each): the kWTile residual
+// rows X from x_row + i0 and delta rows dY from d_row + o0, kWPoints points
+// a row, as one cp.async group of 16-byte copies of every thread; rows past
+// in_dim or out_dim are filled with zeros (a copy of 0 source bytes).
+__device__ __forceinline__ void stage_wgrad(float* xs, float* ys, const float* __restrict__ res,
+                                            const float* __restrict__ delta, const WJob& job,
+                                            int rows, long long t_begin, int s, int i0, int o0) {
+  const long long t = t_begin + s / 2;
+  const int half = (s % 2) * kWPoints;
+  const float* xt = res + (t * rows + job.x_row + i0) * kTile + half;
+  const float* yt = delta + (t * kDRows + job.d_row + o0) * kTile + half;
+  const unsigned xd = static_cast<unsigned>(__cvta_generic_to_shared(xs));
+  const unsigned yd = static_cast<unsigned>(__cvta_generic_to_shared(ys));
+  for (int e = threadIdx.x; e < kWTile * (kWPoints / 4); e += kWThreads) {
+    const int r = e / (kWPoints / 4);
+    const int c = 4 * (e % (kWPoints / 4));
+    const bool xv = i0 + r < job.in_dim;
+    const bool yv = o0 + r < job.out_dim;
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(xd + 4 * (r * kWStride + c)),
+                 "l"(xt + (xv ? r : 0) * kTile + c), "r"(xv ? 16 : 0) : "memory");
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(yd + 4 * (r * kWStride + c)),
+                 "l"(yt + (yv ? r : 0) * kTile + c), "r"(yv ? 16 : 0) : "memory");
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// The f32 instance, on the FMA pipes: a kWTile x kWTile output tile, 16 x 16
+// threads of 8 x 8 outputs. Thread (ty, tx) owns inputs i0 + ty + 16 a and
+// outputs o0 + tx + 16 b (a, b = 0..7); a warp is 4 ty x 8 tx, so its
+// float4 reads of 4 X rows and of 8 dY rows (kWStride floats apart: 4 banks)
+// each take one wavefront, and per 4 points a thread issues 256 FMAs for 16
+// shared loads. X and dY are staged feature-major, straight copies of the
+// residual and delta rows, by cp.async into two stages (smem, kWgradSmem
+// bytes): stage s + 1 lands while stage s is summed, one barrier a stage.
+// Each output's sum runs over the chunk's point tiles, then their points, in
+// ascending order from 0.f, and so does each bias sum (threads 0..127 of a
+// block with i0 = 0 read their dY row as it is staged): an order that does
+// not depend on the output tiling, so no tiling changes a result's bits.
 __device__ __forceinline__ void wgrad_fma(const float* __restrict__ res,
                                           const float* __restrict__ delta,
                                           float* __restrict__ partial, long long n_tiles, int dim,
-                                          int n_params, const WJobs& jobs) {
-  __shared__ __align__(16) float xs[kTile * kWPad];   // xs[p][i]
-  __shared__ __align__(16) float ys[kTile * kWPad];   // ys[p][o]
-
+                                          int n_params, const WJobs& jobs, float* smem) {
   const WJob job = find_job(jobs);
   const int o_tiles = (job.out_dim + kWTile - 1) / kWTile;
   const int local = blockIdx.x - job.first_tile;
   const int i0 = (local / o_tiles) * kWTile;
   const int o0 = (local % o_tiles) * kWTile;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  const bool bias_block = job.b_off >= 0 && i0 == 0 && threadIdx.x < kWTile &&
-                          o0 + threadIdx.x < job.out_dim;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int ty = (warp >> 1) * 4 + (lane >> 3);
+  const int tx = (warp & 1) * 8 + (lane & 7);
+  const bool bias_rows = job.b_off >= 0 && i0 == 0 && threadIdx.x < kWTile;
   const int rows = res_rows(dim);
 
-  float acc[4][4];
+  float acc[8][8];
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
+  for (int a = 0; a < 8; ++a) {
 #pragma unroll
-    for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
+    for (int b = 0; b < 8; ++b) acc[a][b] = 0.f;
   }
   float bsum = 0.f;
 
   const long long t_begin = static_cast<long long>(blockIdx.y) * kTilesPerChunk;
-  const long long t_end = min(t_begin + kTilesPerChunk, n_tiles);
-  for (long long t = t_begin; t < t_end; ++t) {
-    const float* xt = res + (t * rows + job.x_row) * kTile;
-    const float* dtile = delta + (t * kDRows + job.d_row) * kTile;
-    for (int e = threadIdx.x; e < kWTile * kTile; e += kWThreads) {
-      const int r = e / kTile;
-      const int p = e % kTile;
-      xs[p * kWPad + r] = i0 + r < job.in_dim ? xt[(i0 + r) * kTile + p] : 0.f;
-      ys[p * kWPad + r] = o0 + r < job.out_dim ? dtile[(o0 + r) * kTile + p] : 0.f;
-    }
-    if (bias_block) {
-      const float* row = dtile + (o0 + threadIdx.x) * kTile;
-      for (int p = 0; p < kTile; ++p) bsum += row[p];
-    }
+  const int n_stages = 2 * static_cast<int>(min(t_begin + kTilesPerChunk, n_tiles) - t_begin);
+  stage_wgrad(smem, smem + kWBuf, res, delta, job, rows, t_begin, 0, i0, o0);
+  for (int s = 0; s < n_stages; ++s) {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
     __syncthreads();
-#pragma unroll 4
-    for (int p = 0; p < kTile; ++p) {
-      const float4 xa = *reinterpret_cast<const float4*>(xs + p * kWPad + ty * 4);
-      const float4 yb = *reinterpret_cast<const float4*>(ys + p * kWPad + tx * 4);
-      const float xv[4] = {xa.x, xa.y, xa.z, xa.w};
-      const float yv[4] = {yb.x, yb.y, yb.z, yb.w};
+    const float* xs = smem + (s % 2) * 2 * kWBuf;
+    const float* ys = xs + kWBuf;
+    if (s + 1 < n_stages) {
+      float* nx = smem + ((s + 1) % 2) * 2 * kWBuf;
+      stage_wgrad(nx, nx + kWBuf, res, delta, job, rows, t_begin, s + 1, i0, o0);
+    }
+    if (bias_rows) {
+      const float* yr = ys + threadIdx.x * kWStride;
 #pragma unroll
-      for (int a = 0; a < 4; ++a) {
-#pragma unroll
-        for (int b = 0; b < 4; ++b) acc[a][b] = fmaf(xv[a], yv[b], acc[a][b]);
+      for (int p = 0; p < kWPoints; p += 4) {
+        const float4 v = *reinterpret_cast<const float4*>(yr + p);
+        bsum += v.x;
+        bsum += v.y;
+        bsum += v.z;
+        bsum += v.w;
       }
     }
-    __syncthreads();
+    // Not unrolled: unrolled by 2 it spills at the 128 registers that two
+    // blocks an SM allow, and runs slower.
+#pragma unroll 1
+    for (int p = 0; p < kWPoints; p += 4) {
+      float4 x[8];
+#pragma unroll
+      for (int a = 0; a < 8; ++a) {
+        x[a] = *reinterpret_cast<const float4*>(xs + (ty + 16 * a) * kWStride + p);
+      }
+#pragma unroll
+      for (int b = 0; b < 8; ++b) {
+        const float4 y = *reinterpret_cast<const float4*>(ys + (tx + 16 * b) * kWStride + p);
+#pragma unroll
+        for (int a = 0; a < 8; ++a) acc[a][b] = fmaf(x[a].x, y.x, acc[a][b]);
+#pragma unroll
+        for (int a = 0; a < 8; ++a) acc[a][b] = fmaf(x[a].y, y.y, acc[a][b]);
+#pragma unroll
+        for (int a = 0; a < 8; ++a) acc[a][b] = fmaf(x[a].z, y.z, acc[a][b]);
+#pragma unroll
+        for (int a = 0; a < 8; ++a) acc[a][b] = fmaf(x[a].w, y.w, acc[a][b]);
+      }
+    }
   }
 
   float* out = partial + static_cast<long long>(blockIdx.y) * n_params;
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int i = i0 + ty * 4 + a;
+  for (int a = 0; a < 8; ++a) {
+    const int i = i0 + ty + 16 * a;
 #pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int o = o0 + tx * 4 + b;
+    for (int b = 0; b < 8; ++b) {
+      const int o = o0 + tx + 16 * b;
       if (i < job.in_dim && o < job.out_dim) out[job.w_off + i * job.out_dim + o] = acc[a][b];
     }
   }
-  if (bias_block) out[job.b_off + o0 + threadIdx.x] = bsum;
   // The layout pads a short bias (fc_alpha's 1, fc_rgb's 3) to 4 floats:
-  // give the pad a zero so the reduced gradient is defined everywhere.
-  const int o_pad = o0 + static_cast<int>(threadIdx.x);
-  if (job.b_off >= 0 && i0 == 0 && threadIdx.x < kWTile && o_pad >= job.out_dim &&
-      o_pad < pad4(job.out_dim)) {
-    out[job.b_off + o_pad] = 0.f;
-  }
+  // the pad gets a zero, so the reduced gradient is defined everywhere.
+  const int ob = o0 + static_cast<int>(threadIdx.x);
+  if (bias_rows && ob < pad4(job.out_dim)) out[job.b_off + ob] = ob < job.out_dim ? bsum : 0.f;
 }
 
 // The bf16 instance, on the tensor cores: a kGTile x kGTile output tile,
@@ -625,14 +694,15 @@ __device__ __forceinline__ void wgrad_tc(const bf16* __restrict__ res,
 }
 
 template <bool kBf16>
-__global__ void __launch_bounds__(kWThreads, kBf16 ? 2 : 1)
+__global__ void __launch_bounds__(kWThreads, 2)
 train_bwd_wgrad_kernel(const Res<kBf16>* __restrict__ res, const float* __restrict__ delta,
                        float* __restrict__ partial, long long n_tiles, int dim, int n_params,
                        const __grid_constant__ WJobs jobs) {
+  extern __shared__ float4 smem[];
   if constexpr (kBf16) {
     wgrad_tc(res, delta, partial, n_tiles, dim, n_params, jobs);
   } else {
-    wgrad_fma(res, delta, partial, n_tiles, dim, n_params, jobs);
+    wgrad_fma(res, delta, partial, n_tiles, dim, n_params, jobs, reinterpret_cast<float*>(smem));
   }
 }
 
@@ -672,6 +742,7 @@ cudaError_t launch_fwd(const float* pts, const float* dc, const float* params, c
   cudaError_t err = cudaFuncSetAttribute(train_fwd_kernel<kBf16>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
+  if (err == cudaSuccess && !kBf16) err = max_shared_carveout(train_fwd_kernel<kBf16>);
   if (err != cudaSuccess) return err;
   const long long tiles = (n_points + kTile - 1) / kTile;
   train_fwd_kernel<kBf16><<<static_cast<unsigned int>(tiles), kThreads, smem, stream>>>(
@@ -687,19 +758,28 @@ cudaError_t launch_bwd(const float* g, const void* res, const void* wt, const La
   const long long tiles = (n_points + kTile - 1) / kTile;
   const long long chunks = (tiles + kTilesPerChunk - 1) / kTilesPerChunk;
   const Res<kBf16>* r = static_cast<const Res<kBf16>*>(res);
-  const size_t smem = kBf16 ? tc::kActSmem : kActSmem;
+  const size_t smem = kBf16 ? tc::kActSmem : kBwdSmem;
   cudaError_t err = cudaFuncSetAttribute(train_bwd_act_kernel<kBf16>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
+  if (err == cudaSuccess && !kBf16) err = max_shared_carveout(train_bwd_act_kernel<kBf16>);
   if (err != cudaSuccess) return err;
   train_bwd_act_kernel<kBf16><<<static_cast<unsigned int>(tiles), kThreads, smem, stream>>>(
       g, r, wt, delta, n_points, L.dim);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
+  const size_t wsmem = kBf16 ? 0 : kWgradSmem;
+  if (!kBf16) {
+    err = cudaFuncSetAttribute(train_bwd_wgrad_kernel<kBf16>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(wsmem));
+    if (err == cudaSuccess) err = max_shared_carveout(train_bwd_wgrad_kernel<kBf16>);
+    if (err != cudaSuccess) return err;
+  }
   const WJobs jobs = make_jobs(L, kBf16);
   train_bwd_wgrad_kernel<kBf16><<<dim3(jobs.n_wtiles, static_cast<unsigned int>(chunks)),
-                                  kWThreads, 0, stream>>>(r, delta, partial, tiles, L.dim,
-                                                          L.total, jobs);
+                                  kWThreads, wsmem, stream>>>(r, delta, partial, tiles, L.dim,
+                                                              L.total, jobs);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   train_bwd_reduce_kernel<<<(L.total + 255) / 256, 256, 0, stream>>>(

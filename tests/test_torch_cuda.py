@@ -6,9 +6,10 @@ without the suite's conftest (it imports JAX):
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
 This file imports torch and the port only. The f32 instances of #1-#3, #7
-and #8's forward share flex_mlp.cuh's register-blocked body: they are held
-to their plain versions at point counts that end mid-tile and mid-slice, and
-two launches bitwise equal. The bf16 instances of #1-#4, #7
+and #8's forward share flex_mlp.cuh's register-blocked body, the f32 #4 and
+#9 paper_mlp.cuh's: they are held to their plain versions at point counts
+that end mid-tile and mid-slice (#9 also mid-chunk, at encoding depths 0, 6
+and 16), and two launches bitwise equal. The bf16 instances of #1-#4, #7
 and the #8 and #9 pairs run on the tensor cores: their forwards are held
 to TC_FWD_TOL (#3 bitwise to #1 too, the same tile), the bf16 backwards against the plain backward on the forward
 kernel's own residuals (a bf16 sum in another order flips roundings and ReLU
@@ -307,6 +308,48 @@ def test_paper_bf16_kernels_match_plain_at_any_depth(paper_model, f, n, s):
     assert float((got - want).abs().max()) <= TC_FWD_TOL
     with torch.no_grad():
         _check_paper_train_pair(model, n, s, "bfloat16", 2e-2, f)
+
+
+@pytest.mark.parametrize("f", [0, 6, 16])
+@pytest.mark.parametrize("n,s", [(7, 61), (333, 61), (41, 50)])
+def test_paper_f32_kernels_match_plain_at_any_depth(paper_model, f, n, s):
+    """The f32 #4 and #9 (paper_mlp.cuh's register-blocked body, the
+    weight-gradient pass's 128 x 128 tiles) at encoding depths whose enc
+    rows end mid-slice (3 + 6F = 3, 39, 99). (333, 61) ends mid-tile with a
+    last chunk of 30 of kTilesPerChunk = 32 tiles; (41, 50) is 33 tiles, the
+    last of 2 points alone in its chunk."""
+    model = PaperNeRFModel(num_encoding_fn_xyz=f,
+                           generator=torch.Generator().manual_seed(f)).cuda().eval()
+    pts, vd = _inputs(n, s, seed=f + 1)
+    with torch.inference_mode():
+        got = paper_t.fused_paper_mlp_t(model, pts, vd, "float32")
+        torch.cuda.synchronize()
+        want = paper_t.paper_t_plain(model, pts, vd, "float32")
+    assert float((got - want).abs().max()) <= 1e-4
+    with torch.no_grad():
+        _check_paper_train_pair(model, n, s, "float32", 1e-4, f)
+
+
+@pytest.mark.parametrize("n,s", [(41, 50), (1024, 128)])
+def test_paper_f32_kernels_repeat_bitwise(paper_model, n, s):
+    """Two calls of the f32 #4, #9's forward (output and residuals) and #9's
+    backward (gradient and ddc) give bitwise-equal results."""
+    pts, vd = _inputs(n, s, seed=n + s)
+    g = torch.randn(n, s, 4, generator=torch.Generator(device="cuda").manual_seed(5),
+                    device="cuda")
+    params = paper_t.pack_params(paper_model).detach()
+    dc = paper_t.dir_contribution(paper_model, vd).detach()
+
+    def run():
+        out, res = paper_train.paper_train_fwd(pts, dc, params, "float32", 10)
+        grad, ddc = paper_train.paper_train_bwd(g, res, params, n, s, "float32", 10)
+        return paper_t.fused_paper_mlp_t(paper_model, pts, vd, "float32"), out, res[0], grad, ddc
+
+    with torch.no_grad():
+        first, again = run(), run()
+        torch.cuda.synchronize()
+    for name, a, b in zip(("#4", "#9 out", "#9 residuals", "#9 grad", "#9 ddc"), first, again):
+        assert torch.equal(a, b), name
 
 
 def test_paper_bf16_dead_layer_gets_a_zero_gradient(paper_model):

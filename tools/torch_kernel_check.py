@@ -17,13 +17,15 @@ plain versions in f32 and bf16 at chip_smoke.py's phase 9 shapes, points
 ending mid-tile, and 0, 6, 10 and 16 encoding frequencies. With
 ``--parent-csrc`` (another tree's ``nerf_tpu_torch/csrc``, e.g. unpacked with
 ``git archive``) it also builds that tree, prints both trees' registers and
-spills of the tensor-core instances and of the f32 4x128 instances, checks
-that the outputs ``bitwise_results`` lists are bitwise the same from both,
-each tree through its own wrappers (its package, imported under another
-name), and times #1, #2, #3, #7 and the #8 pair in f32 and bf16 and #6 (det,
-by the profiler's device time too) from both in turns (parent, this tree,
-this tree, parent). A short first call for a new kernel; ``chip_smoke.py``
-is the full check.
+spills of the tensor-core instances and of the f32 4x128 and Paper
+instances, checks that the outputs ``bitwise_results`` lists (the f32 Paper
+ones among them) are bitwise the same from both, each tree through its own
+wrappers (its package, imported under another name), times #1, #2, #3, #7
+and the #8 pair in f32 and bf16, #4 and the #9 pair in f32 and #6 (det, by
+the profiler's device time too) from both in turns (parent, this tree, this
+tree, parent), and each launch of #8's bf16 and #9's f32 backward by the
+profiler. A short first call for a new kernel; ``chip_smoke.py`` is the
+full check.
 """
 
 import argparse
@@ -242,10 +244,10 @@ def resample_case(n: int, m: int, s: int, dev):
 
 
 def bitwise_results(m: dict, dev) -> list:
-    """Through one tree's wrappers: the f32 outputs of #1, #2, #3, #7 and the
-    #8 pair, and the bf16 outputs of #1, #4, the #8 pair and the #9 pair, at
-    a render shape and a ragged one; #6's det and stochastic outputs at
-    RESAMPLE_CASES."""
+    """Through one tree's wrappers: the f32 and bf16 outputs of #1, #4, the #8
+    pair and the #9 pair (forward output, residuals, gradient, ddc), the f32
+    ones of #2, #3 and #7, at a render shape and a ragged one; #6's det and
+    stochastic outputs at RESAMPLE_CASES."""
     flex, paper = tree_models(m, dev)
     out = []
     with torch.no_grad():
@@ -266,10 +268,11 @@ def bitwise_results(m: dict, dev) -> list:
             out.append(m["mlp"].fused_flexible_mlp(flex, flat_pts, flat_vd, "float32"))
             maps = m["stage"].fused_render_stage(flex, pts, vd, z, vd, True, "float32")
             out += [maps[k] for k in sorted(maps)]
-            out.append(m["paper_t"].fused_paper_mlp_t(paper, pts, vd, "bfloat16"))
             dc, pp = m["paper_t"].dir_contribution(paper, vd), m["paper_t"].pack_params(paper)
-            po, r = m["paper_train"].paper_train_fwd(pts, dc, pp, "bfloat16", 10)
-            out += [po, r[0], *m["paper_train"].paper_train_bwd(g, r, pp, n, s, "bfloat16", 10)]
+            for dt in ("bfloat16", "float32"):
+                out.append(m["paper_t"].fused_paper_mlp_t(paper, pts, vd, dt))
+                po, r = m["paper_train"].paper_train_fwd(pts, dc, pp, dt, 10)
+                out += [po, r[0], *m["paper_train"].paper_train_bwd(g, r, pp, n, s, dt, 10)]
         for n, mb, s in RESAMPLE_CASES:
             bins, w, u = resample_case(n, mb, s, dev)
             out.append(m["resample"].fused_sample_pdf(bins, w, 64, det=True))
@@ -280,10 +283,10 @@ def bitwise_results(m: dict, dev) -> list:
 
 def timed_calls(m: dict, dev) -> dict:
     """Through one tree's wrappers, at the main path's shapes: name -> (fn,
-    reps) for #1, #2, #3 and #7 in f32 and bf16 (one fine-pass chunk), #6
-    det (one coarse chunk's resample, M 63 -> 64) and the #8 pair in f32 and
-    bf16 (one training pass)."""
-    flex, _ = tree_models(m, dev)
+    reps) for #1, #2, #3 and #7 in f32 and bf16 and #4 in f32 (one fine-pass
+    chunk), #6 det (one coarse chunk's resample, M 63 -> 64), the #8 pair in
+    f32 and bf16 and the #9 pair in f32 (one training pass, F = 10)."""
+    flex, paper = tree_models(m, dev)
     pts, vd, z, rd = cs.orbit_rays(*cs.KERNEL_CHUNK, dev, 1)
     flat_pts, flat_vd = pts.reshape(-1, 3), vd[:, None, :].expand(*pts.shape).reshape(-1, 3)
     tp, tvd = cs.orbit_points(*cs.TRAIN_SHAPE, dev, 3)
@@ -294,6 +297,15 @@ def timed_calls(m: dict, dev) -> dict:
            for dt in ("float32", "bfloat16")}
     bins, w, _ = resample_case(cs.KERNEL_CHUNK[0], 63, 64, dev)
     calls = {"#6 det": (lambda: m["resample"].fused_sample_pdf(bins, w, 64, det=True), 50)}
+    pp = m["paper_t"].pack_params(paper).detach()
+    pdc = m["paper_t"].dir_contribution(paper, tvd).detach()
+    pres = m["paper_train"].paper_train_fwd(tp, pdc, pp, "float32", 10)[1]
+    calls.update({
+        "#4 f32": (lambda: m["paper_t"].fused_paper_mlp_t(paper, pts, vd, "float32"), 2),
+        "#9 fwd f32": (lambda: m["paper_train"].paper_train_fwd(tp, pdc, pp, "float32", 10), 10),
+        "#9 bwd f32": (lambda: m["paper_train"].paper_train_bwd(
+            g, pres, pp, *cs.TRAIN_SHAPE, "float32", 10), 10),
+    })
     for dt, tag, reps in (("float32", "f32", 2), ("bfloat16", "bf16", 3)):
         calls.update({
             f"#1 {tag}": (lambda dt=dt: m["mlp_t"].fused_mlp_t(flex, pts, vd, dt), reps),
@@ -332,18 +344,18 @@ def check_bitwise_against(parent_csrc: Path, dev) -> bool:
     parent's ptxas report; then ``timed_calls`` from both in turns (parent,
     this tree, this tree, parent) by CUDA events, #6's kernel by the
     profiler's device time in the same turns, and each launch of #8's bf16
-    backward by the profiler."""
+    and #9's f32 backward by the profiler."""
     trees = {"parent": import_package(parent_csrc.resolve().parent, "parent_nerf_tpu_torch"),
              "this tree": {sub.split(".")[-1]: importlib.import_module(f"nerf_tpu_torch.{sub}")
                            for sub in _MODULES}}
     parent_path = importlib.import_module("parent_nerf_tpu_torch.kernels._build").build_library()
     print("parent", cs.ptxas_summary(parent_path.with_suffix(".log").read_text(), frames=True),
           flush=True)
-    watched = cs.TENSOR_CORE_KERNELS + cs.F32_FLEX_KERNELS + (
+    watched = cs.TENSOR_CORE_KERNELS + cs.F32_FLEX_KERNELS + cs.F32_PAPER_KERNELS + (
         "flex_train:train_bwd_act<0>", "flex_train:train_bwd_wgrad<0>")
     for label, path in (("parent", parent_path), ("this tree", _build.build_library())):
         regs = cs.ptxas_summary(path.with_suffix(".log").read_text()).split(", ")
-        print(f"registers (spills) of the tensor-core instances and the f32 4x128 ones, {label}: "
+        print(f"registers (spills) of the tensor-core instances and the f32 ones, {label}: "
               + ", ".join(r for r in regs if r.rsplit(" ", 1)[0].split(" (")[0] in watched),
               flush=True)
     outs = {label: bitwise_results(m, dev) for label, m in trees.items()}
@@ -354,11 +366,11 @@ def check_bitwise_against(parent_csrc: Path, dev) -> bool:
     calls = {label: timed_calls(m, dev) for label, m in trees.items()}
     with torch.no_grad():
         time_in_turns(calls, ("parent", "this tree", "this tree", "parent"))
-        for label in ("parent", "this tree"):
-            per = cs.kernel_device_ms(calls[label]["#8 bwd bf16"][0], 10,
-                                      r"train_bwd_\w+?_kernel")
-            print(f"ms #8 bwd bf16 by launch, {label}: "
-                  + ", ".join(f"{k} {v:.4f}" for k, v in per.items()), flush=True)
+        for name in ("#8 bwd bf16", "#9 bwd f32"):
+            for label in ("parent", "this tree"):
+                per = cs.kernel_device_ms(calls[label][name][0], 10, r"train_bwd_\w+?_kernel")
+                print(f"ms {name} by launch, {label}: "
+                      + ", ".join(f"{k} {v:.4f}" for k, v in per.items()), flush=True)
     return all(same)
 
 

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time variants of the flagship's kernels against this tree's, on one NVIDIA GPU.
+"""Time variants of the port's kernels against this tree's, on one NVIDIA GPU.
 
 Run from the root of a checkout, with one card:
 
@@ -11,15 +11,17 @@ interface) and each ``--probe``: a copy of this tree's ``csrc`` with one
 named edit (PROBES below; the probes marked so compute wrong results on
 purpose, to show what one part of a kernel costs). Each library is loaded in
 turn under this tree's wrappers. For each it prints the flagship kernels'
-registers, the hottest loop of each f32 4x128 forward in its SASS, #1 and
-#3 bf16 and the #8 bf16 pair against their plain versions
-(``chip_smoke.flex_pair_errors``), whether #3 bf16 is bitwise #1 bf16, and
-whether its outputs (the f32 #1, #3 and #8 forward's too, and #6's at
-``torch_kernel_check.RESAMPLE_CASES``) equal base's bitwise; then it times
-``torch_kernel_check.timed_calls`` (#1, #2, #3 and #7 in f32 and bf16 at one
-fine-pass chunk, #6 det also by the profiler's device time, the #8 pair in
-f32 and bf16 at one training pass) in turns (base, variants, the variants again in reverse,
-base), and each launch of #8's bf16 backward by the profiler. Builds go under ``build/variants/``.
+and Paper kernels' registers, the hottest loop of each f32 4x128 forward and
+f32 Paper kernel in its SASS, #1 and #3 bf16 and the #8 bf16 pair against
+their plain versions (``chip_smoke.flex_pair_errors``), whether #3 bf16 is
+bitwise #1 bf16, and whether its outputs (the f32 #1, #3 and #8 forward's
+too, and ``torch_kernel_check.bitwise_results``) equal base's bitwise; then
+it times ``torch_kernel_check.timed_calls`` (#1, #2, #3 and #7 in f32 and
+bf16 and #4 in f32 at one fine-pass chunk, #6 det also by the profiler's
+device time, the #8 pair in f32 and bf16 and the #9 pair in f32 at one
+training pass) in turns (base, variants, the variants again in reverse,
+base), and each launch of #8's bf16 and #9's f32 backward by the profiler.
+Builds go under ``build/variants/``.
 """
 
 import argparse
@@ -36,9 +38,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
-from nerf_tpu_torch.kernels import _build, flex_train, mlp, mlp_t, resample  # noqa: E402
+from nerf_tpu_torch.kernels import _build, flex_train, mlp, mlp_t  # noqa: E402
 from torch_kernel_check import (  # noqa: E402
-    _MODULES, RESAMPLE_CASES, resample_case, time_in_turns, timed_calls,
+    _MODULES, bitwise_results, time_in_turns, timed_calls,
 )
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -170,6 +172,78 @@ PROBES = {
                       "for (int i = threadIdx.x; i < 0; i += kThreads) {")],
     "f32_no_sincos": [("flex_mlp.cuh", "      sincosf(x * scale, &s, &co);",
                        "      s = x * scale;\n      co = s + 1.f;")],
+    # The f32 Paper kernels (the same sums in the same order, so the same
+    # results): the weight-gradient pass's point loop unrolled by 2 (it then
+    # spills at two blocks an SM), and so at one block an SM; ring slots of
+    # 32 rows a 256-wide slice instead of 16 (one forward block an SM); the
+    # dense layer's loop unrolled by 2 instead of 4.
+    "p9_wgrad_unroll2": [("paper_train.cu", "#pragma unroll 1\n    for (int p = 0; p < kWPoints;",
+                          "#pragma unroll 2\n    for (int p = 0; p < kWPoints;")],
+    "p9_wgrad_one_block": [
+        ("paper_train.cu", "#pragma unroll 1\n    for (int p = 0; p < kWPoints;",
+         "#pragma unroll 2\n    for (int p = 0; p < kWPoints;"),
+        ("paper_train.cu", "__launch_bounds__(kWThreads, 2)\ntrain_bwd_wgrad_kernel",
+         "__launch_bounds__(kWThreads, kBf16 ? 2 : 1)\ntrain_bwd_wgrad_kernel")],
+    # The weight-gradient pass with three stages in flight (108 KB a block,
+    # still two an SM): each copy has two stages' sums to land in.
+    "p9_wgrad_three_stages": [
+        ("paper_train.cu", "kWgradSmem = 4 * kWBuf * sizeof(float);",
+         "kWgradSmem = 6 * kWBuf * sizeof(float);"),
+        ("paper_train.cu",
+         "  stage_wgrad(smem, smem + kWBuf, res, delta, job, rows, t_begin, 0, i0, o0);\n",
+         "  stage_wgrad(smem, smem + kWBuf, res, delta, job, rows, t_begin, 0, i0, o0);\n"
+         "  stage_wgrad(smem + 2 * kWBuf, smem + 3 * kWBuf, res, delta, job, rows, t_begin, 1,"
+         " i0, o0);\n"),
+        ("paper_train.cu", "    asm volatile(\"cp.async.wait_group 0;\\n\" ::: \"memory\");\n"
+                           "    __syncthreads();\n    const float* xs = smem + (s % 2)",
+         "    if (s + 1 < n_stages) {\n"
+         "      asm volatile(\"cp.async.wait_group 1;\\n\" ::: \"memory\");\n    } else {\n"
+         "      asm volatile(\"cp.async.wait_group 0;\\n\" ::: \"memory\");\n    }\n"
+         "    __syncthreads();\n    const float* xs = smem + (s % 3)"),
+        ("paper_train.cu", "    if (s + 1 < n_stages) {\n      float* nx = smem + ((s + 1) % 2) * 2 * kWBuf;\n"
+                           "      stage_wgrad(nx, nx + kWBuf, res, delta, job, rows, t_begin, s + 1, i0, o0);",
+         "    if (s + 2 < n_stages) {\n      float* nx = smem + ((s + 2) % 3) * 2 * kWBuf;\n"
+         "      stage_wgrad(nx, nx + kWBuf, res, delta, job, rows, t_begin, s + 2, i0, o0);")],
+    # Wrong results: the weight-gradient pass stages its first two stages
+    # only and sums them over and over: its time without the staging.
+    "p9_wgrad_no_staging": [("paper_train.cu", "    if (s + 1 < n_stages) {\n      float* nx",
+                             "    if (s + 1 < 2) {\n      float* nx")],
+    # The weight-gradient pass reading two points a step (float2 operands,
+    # 16 registers of X instead of 32), its loop unrolled by 2.
+    "p9_wgrad_pairs": [("paper_train.cu", """#pragma unroll 1
+    for (int p = 0; p < kWPoints; p += 4) {
+      float4 x[8];""", """#pragma unroll 2
+    for (int p = 0; p < kWPoints; p += 2) {
+      float2 x[8];"""), ("paper_train.cu", """        x[a] = *reinterpret_cast<const float4*>(xs + (ty + 16 * a) * kWStride + p);""",
+                         """        x[a] = *reinterpret_cast<const float2*>(xs + (ty + 16 * a) * kWStride + p);"""),
+                       ("paper_train.cu", """        const float4 y = *reinterpret_cast<const float4*>(ys + (tx + 16 * b) * kWStride + p);""",
+                        """        const float2 y = *reinterpret_cast<const float2*>(ys + (tx + 16 * b) * kWStride + p);"""),
+                       ("paper_train.cu", """#pragma unroll
+        for (int a = 0; a < 8; ++a) acc[a][b] = fmaf(x[a].z, y.z, acc[a][b]);
+#pragma unroll
+        for (int a = 0; a < 8; ++a) acc[a][b] = fmaf(x[a].w, y.w, acc[a][b]);
+""", "")],
+    # The layer-gradient pass asking L2 for each layer's ReLU-mask rows when
+    # its sum starts (prefetch.global.L2, no registers held), so the mask
+    # reads after the sum find them there.
+    "p9_act_mask_prefetch": [
+        ("paper_train.cu", "  float* act = smem;\n  Ring ring{smem + kActFloats, 0};\n",
+         "  float* act = smem;\n  Ring ring{smem + kActFloats, 0};\n"
+         "  auto prefetch = [](const float* rows, int n) {\n"
+         "    for (int i = threadIdx.x; i < n * kTile / 32; i += kThreads) {\n"
+         "      asm volatile(\"prefetch.global.L2 [%0];\" ::\"l\"(rows + 32 * i));\n"
+         "    }\n  };\n")] + [
+        ("paper_train.cu", f"    Block<{w}> b;\n    dense_sum<{w}>(ring, Rows{{wt + {at},",
+         f"    Block<{w}> b;\n    prefetch(rrow({row}), {w});\n"
+         f"    dense_sum<{w}>(ring, Rows{{wt + {at},")
+        for w, at, row in (("kDirWidth", "kTWr", "res_d(dim, 2)"),
+                           ("kDirWidth", "kTWd2", "res_d(dim, 1)"),
+                           ("kDirWidth", "kTWd1", "res_d(dim, 0)"),
+                           ("kWidth", "kTWf", "res_h(dim, 7)"),
+                           ("kWidth", "tw_x(i)", "res_h(dim, i - 1)"))],
+    "p9_slot32": [("paper_mlp.cuh", "kSlotFloats = 16 * kWidth;", "kSlotFloats = 32 * kWidth;")],
+    "p9_unroll2": [("paper_mlp.cuh", "#pragma unroll 4\n  for (int k = 0; k < rows; ++k) {",
+                    "#pragma unroll 2\n  for (int k = 0; k < rows; ++k) {")],
     # The layer-gradient pass with each layer's ReLU-mask rows brought into
     # shared memory by cp.async while its product runs.
     "mask_prefetch": [
@@ -295,11 +369,11 @@ def main() -> int:
         path = _build.build_library()
         libs[name] = ctypes.CDLL(str(path))
         regs = cs.ptxas_summary(path.with_suffix(".log").read_text()).split(", ")
-        print(name, ", ".join(r for r in regs
-                              if r.startswith(("mlp_t:", "flex_train:", "mlp:", "stage:"))),
-              flush=True)
-        print(f"{name} hottest loop of each f32 4x128 forward: " + "; ".join(
-            f"{k} {v}" for k, v in hottest_loops(path, cs.F32_FLEX_KERNELS).items()), flush=True)
+        print(name, ", ".join(r for r in regs if r.startswith(
+            ("mlp_t:", "flex_train:", "mlp:", "stage:", "paper_t:", "paper_train:"))), flush=True)
+        print(f"{name} hottest loop of each f32 4x128 forward and f32 Paper kernel: " + "; ".join(
+            f"{k} {v}" for k, v in hottest_loops(
+                path, cs.F32_FLEX_KERNELS + cs.F32_PAPER_KERNELS).items()), flush=True)
 
     def use(name):
         _build.load_library = lambda: libs[name]
@@ -335,11 +409,7 @@ def main() -> int:
                 f32 = flex_train.flex_train_fwd(pts, dc, params, "float32")
                 res += [mlp_t.fused_mlp_t(model, pv, vd, "float32"),
                         mlp.fused_flexible_mlp_rays(model, pv, vd, "float32"), f32[0], f32[1][0]]
-            for n, mb, s in RESAMPLE_CASES:
-                bins, w, u = resample_case(n, mb, s, dev)
-                res += [resample.fused_sample_pdf(bins, w, 64, det=True),
-                        resample.fused_sample_pdf(bins, w, s, u=u)]
-            outs[name] = res
+            outs[name] = res + bitwise_results(mods, dev)
         for name in list(trees)[1:]:
             same = all(torch.equal(a, b) for a, b in zip(outs["base"], outs[name]))
             print(f"{name} bitwise equal to base: {same}", flush=True)
@@ -348,12 +418,12 @@ def main() -> int:
             use(name)
             calls[name] = timed_calls(mods, dev)
         time_in_turns(calls, list(trees) + list(trees)[::-1], use)
-        for name in trees:
-            use(name)
-            per = cs.kernel_device_ms(calls[name]["#8 bwd bf16"][0], 20,
-                                      r"train_bwd_\w+?_kernel")
-            print(f"ms #8 bwd bf16 by launch, {name}: "
-                  + ", ".join(f"{k} {v:.4f}" for k, v in per.items()), flush=True)
+        for call in ("#8 bwd bf16", "#9 bwd f32"):
+            for name in trees:
+                use(name)
+                per = cs.kernel_device_ms(calls[name][call][0], 20, r"train_bwd_\w+?_kernel")
+                print(f"ms {call} by launch, {name}: "
+                      + ", ".join(f"{k} {v:.4f}" for k, v in per.items()), flush=True)
     return 0
 
 
