@@ -10,8 +10,9 @@ Phases, one or more lines each:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
   2. build: compile ``nerf_tpu_torch/csrc`` with nvcc for sm_90a; the bf16
      instances of #1, #2, #3, #4, #7, #8 and #9 must hold tensor-core
-     instructions (TENSOR_CORE_KERNELS), and the f32 4x128 forwards and f32
-     Paper kernels must not spill (F32_FLEX_KERNELS, F32_PAPER_KERNELS);
+     instructions (TENSOR_CORE_KERNELS), and the f32 4x128 forwards, #8's
+     f32 backward passes and the f32 Paper kernels must not spill
+     (F32_FLEX_KERNELS, F32_FLEX_BWD_KERNELS, F32_PAPER_KERNELS);
   3. kernel vs plain: the fused encode+MLP kernel against its plain PyTorch
      version at the render path's shapes, float32 and bfloat16 (the bf16
      instance on the tensor cores, to TC_BF16_FWD_TOL);
@@ -579,8 +580,11 @@ TENSOR_CORE_KERNELS = ("mlp_t:mlp_t<1>", "flex_train:train_fwd<1>",
 # may spill.
 F32_FLEX_KERNELS = ("mlp_t:mlp_t<0>", "flex_train:train_fwd<0>", "mlp:flexible_mlp<0>",
                     "mlp:flexible_mlp_rays<0>", "stage:stage<0>")
+# #8's f32 backward passes, the layer gradient on flex_mlp.cuh's body and
+# the weight gradient on fma_wgrad.cuh's register blocks: neither may spill.
+F32_FLEX_BWD_KERNELS = ("flex_train:train_bwd_act<0>", "flex_train:train_bwd_wgrad<0>")
 # The f32 8x256 Paper kernels, on paper_mlp.cuh's register-blocked FMA body
-# and paper_train.cu's register-blocked weight-gradient pass: none may spill.
+# and fma_wgrad.cuh's register-blocked weight-gradient pass: none may spill.
 F32_PAPER_KERNELS = ("paper_t:paper_t<0>", "paper_train:train_fwd<0>",
                      "paper_train:train_bwd_act<0>", "paper_train:train_bwd_wgrad<0>")
 
@@ -3701,6 +3705,7 @@ def main() -> int:
           + ", ".join(r for r in regs if r.rsplit(" ", 1)[0] in TENSOR_CORE_KERNELS)
           + "; spills (store/load bytes): " + (", ".join(r for r in regs if "(" in r) or "none"))
     for what, names in (("f32 4x128 forwards", F32_FLEX_KERNELS),
+                        ("f32 4x128 backward passes", F32_FLEX_BWD_KERNELS),
                         ("f32 Paper kernels", F32_PAPER_KERNELS)):
         f32_regs = [r for r in regs if r.rsplit(" ", 1)[0].split(" (")[0] in names]
         print(f"[build] registers of the {what}: " + ", ".join(f32_regs))

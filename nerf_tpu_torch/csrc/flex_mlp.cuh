@@ -3,7 +3,8 @@
 // stage.cu, the forward fused with compositing; mlp.cu, the point-major and
 // ray-major forwards): the packed parameter layout, the positional encoding
 // of a point tile, the register-blocked dense layer over a tile in shared
-// memory with its weights staged by cp.async, and the whole forward over a
+// memory with its weights staged by cp.async (whose sum, dense_sum, is also
+// flex_train.cu's f32 layer-gradient pass), and the whole forward over a
 // tile, which saves the f32 training residuals when it is given a buffer for
 // them. The bf16 instances of every kernel run flex_tc.cuh's tensor-core tile,
 // which shares the parameter layout and the constants here.
@@ -121,7 +122,9 @@ __device__ __forceinline__ void encode_tile(const float* __restrict__ pts,
 // the slice that landed and frees the other slot, into which the next slice
 // is then staged. A layer's last slice stages the first slice of the next
 // layer's weights (`next`), so only a tile's first layer waits for its
-// weights, and that wait overlaps the encoding.
+// weights, and that wait overlaps the encoding. The sum is its own entry,
+// dense_sum, which the f32 layer-gradient pass runs over the backward
+// weights with an epilogue of its own.
 
 // `rows` feature rows of the tile buffer `in` through as many rows of W
 // ((rows, OUT) row-major in device memory): one block of a layer's sum.
@@ -215,21 +218,19 @@ __device__ __forceinline__ void mac(float (&acc)[OUT / 16][8], const float* w,
   }
 }
 
-// The dense layer over the rows of a, then those of b (b.rows = 0: none),
-// into out; add(p, j, y) returns y plus whatever the caller adds for point p
-// of the tile. The callbacks are structs with force-inlined operators, not
-// lambdas: a lambda's call is not certain to be inlined. The first slice of
-// a's weights is in the ring's slot cur (staged, perhaps still in flight);
-// the layer stages `next` the same way for the layer after it.
-template <int OUT, bool kRelu, typename Add>
-__device__ __forceinline__ void dense(Ring& ring, Rows a, Rows b,
-                                      const float* __restrict__ bias, float* out, Add add,
-                                      Slice next) {
+// The sums of a dense layer over the rows of a, then those of b (b.rows = 0:
+// none), into the thread's block acc[f][q] (feature j0 + f, the q-th of its
+// 8 points; j0 and the points as above). The first slice of a's weights is
+// in the ring's slot cur (staged, perhaps still in flight); the layer stages
+// `next` the same way for the layer after it. No barrier follows the last
+// slice: a caller that writes over a.in or b.in syncs first.
+template <int OUT>
+__device__ __forceinline__ void dense_sum(Ring& ring, Rows a, Rows b, float (&acc)[OUT / 16][8],
+                                          Slice next) {
   constexpr int kTF = OUT / 16;
   constexpr int kSliceRows = kSlotFloats / OUT;
   const int j0 = (threadIdx.x / 8) * kTF;
   const int p0 = 4 * (threadIdx.x % 8);
-  float acc[kTF][8];
 #pragma unroll
   for (int f = 0; f < kTF; ++f) {
 #pragma unroll
@@ -258,6 +259,28 @@ __device__ __forceinline__ void dense(Ring& ring, Rows a, Rows b,
       }
     }
   }
+}
+
+// The single-block sum.
+template <int OUT>
+__device__ __forceinline__ void dense_sum(Ring& ring, Rows a, float (&acc)[OUT / 16][8],
+                                          Slice next) {
+  dense_sum<OUT>(ring, a, Rows{nullptr, 0, nullptr}, acc, next);
+}
+
+// The dense layer: dense_sum, then act(add(p, j, sum + b[j])) into out; add
+// returns y plus whatever the caller adds for point p of the tile. The
+// callbacks are structs with force-inlined operators, not lambdas: a
+// lambda's call is not certain to be inlined.
+template <int OUT, bool kRelu, typename Add>
+__device__ __forceinline__ void dense(Ring& ring, Rows a, Rows b,
+                                      const float* __restrict__ bias, float* out, Add add,
+                                      Slice next) {
+  constexpr int kTF = OUT / 16;
+  const int j0 = (threadIdx.x / 8) * kTF;
+  const int p0 = 4 * (threadIdx.x % 8);
+  float acc[kTF][8];
+  dense_sum<OUT>(ring, a, b, acc, next);
   float bj[kTF];
 #pragma unroll
   for (int f = 0; f < kTF; ++f) bj[f] = __ldg(bias + j0 + f);

@@ -47,9 +47,11 @@
 //        next product's operand. The bf16 instance runs drgb . W_rgb and the
 //        fused head as padded products (K 3 -> 16 and 129 -> 144);
 //     2. train_bwd_wgrad: dW = X^T dY and db = sum dY for the eight weight
-//        matrices, as one launch over (output tile, chunk of 16 point
-//        tiles): 64 x 64 tiles on the FMA pipes (f32), one 128 x 128 tile a
-//        matrix on the tensor cores (bf16, staged by cp.async; the warps of
+//        matrices, as one launch over (matrix, chunk of 16 point tiles), one
+//        output tile of at most 128 x 128 a matrix: on the FMA pipes (f32:
+//        fma_wgrad.cuh's register blocks, cut to the matrix's extent rounded
+//        up to 16 rows and columns, X and dY staged by cp.async two stages
+//        deep) or on the tensor cores (bf16, staged by cp.async; the warps of
 //        a narrow matrix's empty rows and columns skip their products). Each
 //        block keeps its partial sums in registers and writes them to its
 //        chunk's row of a scratch buffer laid out like the packed parameters;
@@ -59,9 +61,11 @@
 //        direction layer's gradient, one thread per (ray, feature), so rays
 //        that straddle tiles (S not a divisor of 64) are summed whole.
 //   * the f32 backward reads the weights as nn.Linear's (out, in) matrices
-//     from a second packed buffer (kT* offsets below), so that neighbouring
-//     threads read neighbouring weights when they compute neighbouring input
-//     features; the bf16 one reads their fragments (flex_tc.cuh kB*).
+//     from a second packed buffer (kT* offsets below): as (K, OUT) matrices,
+//     K the forward layer's outputs, flex_mlp.cuh's dense_sum stages and
+//     sums them as it does the forward's, so the f32 layer-gradient pass is
+//     the forward's register-blocked body with an epilogue of its own; the
+//     bf16 one reads their fragments (flex_tc.cuh kB*).
 //
 // compute dtype bf16: both operands of every product (forward, dX = dY W^T
 // and dW = X^T dY) are rounded to bf16 and the sums stay f32, as
@@ -76,6 +80,7 @@
 
 #include "flex_mlp.cuh"
 #include "flex_tc.cuh"
+#include "fma_wgrad.cuh"
 
 namespace {
 
@@ -102,13 +107,15 @@ constexpr int kTWx1 = kTWx2 + kHidden * kHidden;           // layers_xyz.1
 constexpr int kTWx0 = kTWx1 + kHidden * kHidden;           // layers_xyz.0
 constexpr int kTParams = kTWx0 + kHidden * kHidden;        // 74048
 
-constexpr size_t kActSmem = (2 * kHidden + 1) * kTile * sizeof(float);
+// Dynamic shared memory of the f32 layer-gradient pass: buf_a (129 rows:
+// the fused head's K), buf_b (128), then the weight ring (96.25 KB, two
+// blocks an SM).
+constexpr size_t kActSmem = ((2 * kHidden + 1) * kTile + 2 * kSlotFloats) * sizeof(float);
 
-// Weight-gradient tiling.
-constexpr int kWTile = 64;            // output tile: 64 inputs x 64 outputs
-constexpr int kWThreads = 256;        // 16 x 16 threads, 4 x 4 outputs each
+// Weight-gradient blocks: one a matrix and chunk of point tiles.
+constexpr int kWThreads = wgrad::kThreads;
 constexpr int kTilesPerChunk = 16;    // point tiles summed by one block
-constexpr int kWPad = kWTile + 4;     // shared row length (float4-aligned)
+static_assert(wgrad::kTile == kTile, "fma_wgrad.cuh tiles points as the kernels do");
 
 // bf16 weight-gradient tiling: 128 inputs x 128 outputs, 8 warps of 32 x 64.
 constexpr int kGTile = 128;
@@ -170,61 +177,68 @@ train_fwd_kernel<true>(const float* __restrict__ pts, const float* __restrict__ 
 // ---------------------------------------------------------------------------
 // Backward 1: the gradient of every layer's output, per tile.
 
-// The f32 instance's layer: dX[j][p] = mask(act[j][p] > 0) * sum_k WT[k][j]
-// * dY[k][p], WT (in_dim, OUT) being the (out, in) nn.Linear weight of the
-// forward layer. The result goes to delta rows and, unless out_s is null, to
-// out_s (the next product's operand). mask_rows null = no mask.
+// The f32 instance's epilogue: dX = mask(stored activation > 0) * the
+// thread's block (dense_sum's), written to the tile's delta rows and, unless
+// act is null, to the shared tile buffer act as the next product's operand.
+// mask_rows null = no mask.
 template <int OUT>
-__device__ __forceinline__ void dense_bwd(const float* __restrict__ WT, int in_dim,
-                                          const float* in, const float* __restrict__ mask_rows,
-                                          float* out_s, float* __restrict__ delta_rows) {
-  constexpr int kRun = kTile / (kThreads / OUT);
-  const int j = threadIdx.x % OUT;
-  const int p0 = (threadIdx.x / OUT) * kRun;
-  float acc[kRun];
+__device__ __forceinline__ void store_grad(float (&acc)[OUT / 16][8],
+                                           const float* __restrict__ mask_rows,
+                                           float* __restrict__ delta_rows, float* act) {
+  constexpr int kTF = OUT / 16;
+  const int j0 = (threadIdx.x / 8) * kTF;
+  const int p0 = 4 * (threadIdx.x % 8);
+  if (mask_rows != nullptr) {
 #pragma unroll
-  for (int p = 0; p < kRun; ++p) acc[p] = 0.f;
-  for (int k = 0; k < in_dim; ++k) {
-    const float w = __ldg(WT + k * OUT + j);
-    const float4* a = reinterpret_cast<const float4*>(in + k * kTile + p0);
+    for (int f = 0; f < kTF; ++f) {
+      const float* m = mask_rows + (j0 + f) * kTile + p0;
+      const float4 m0 = *reinterpret_cast<const float4*>(m);
+      const float4 m1 = *reinterpret_cast<const float4*>(m + 32);
+      const float mk[8] = {m0.x, m0.y, m0.z, m0.w, m1.x, m1.y, m1.z, m1.w};
 #pragma unroll
-    for (int q = 0; q < kRun / 4; ++q) {
-      const float4 v = a[q];
-      acc[4 * q + 0] = fmaf(w, v.x, acc[4 * q + 0]);
-      acc[4 * q + 1] = fmaf(w, v.y, acc[4 * q + 1]);
-      acc[4 * q + 2] = fmaf(w, v.z, acc[4 * q + 2]);
-      acc[4 * q + 3] = fmaf(w, v.w, acc[4 * q + 3]);
+      for (int q = 0; q < 8; ++q) acc[f][q] = mk[q] > 0.f ? acc[f][q] : 0.f;
     }
   }
-  if (mask_rows != nullptr) {
-    const float* m = mask_rows + j * kTile + p0;
 #pragma unroll
-    for (int p = 0; p < kRun; ++p) acc[p] = m[p] > 0.f ? acc[p] : 0.f;
-  }
-  float4* d = reinterpret_cast<float4*>(delta_rows + j * kTile + p0);
-#pragma unroll
-  for (int q = 0; q < kRun / 4; ++q) {
-    d[q] = make_float4(acc[4 * q], acc[4 * q + 1], acc[4 * q + 2], acc[4 * q + 3]);
-  }
-  if (out_s != nullptr) {
-#pragma unroll
-    for (int p = 0; p < kRun; ++p) out_s[j * kTile + p0 + p] = acc[p];
+  for (int f = 0; f < kTF; ++f) {
+    const float4 lo = make_float4(acc[f][0], acc[f][1], acc[f][2], acc[f][3]);
+    const float4 hi = make_float4(acc[f][4], acc[f][5], acc[f][6], acc[f][7]);
+    float* d = delta_rows + (j0 + f) * kTile + p0;
+    *reinterpret_cast<float4*>(d) = lo;
+    *reinterpret_cast<float4*>(d + 32) = hi;
+    if (act != nullptr) {
+      float* a = act + (j0 + f) * kTile + p0;
+      *reinterpret_cast<float4*>(a) = lo;
+      *reinterpret_cast<float4*>(a + 32) = hi;
+    }
   }
 }
 
-// The f32 instance, on the FMA pipes.
+// The f32 instance, on flex_mlp.cuh's dense_sum over the backward weights,
+// staged through its ring. Each layer's gradient is dX[j][p] = mask(act[j][p]
+// > 0) * sum_k WT[k][j] dY[k][p], WT (K, OUT) the (out, in) nn.Linear weight
+// of the forward layer, summed as acc = fmaf(WT[k][j], dY[k][p], acc) for k
+// ascending from 0.f, with no bias: the order of the one-feature-a-thread
+// design before it, so the deltas are bitwise that design's. The tile's
+// gradients ping-pong between buf_a and buf_b (dense_sum's first barrier
+// ends the reads of the buffer a layer writes); each layer's last slice
+// stages the next layer's first. smem is kActSmem bytes.
 __device__ __forceinline__ void bwd_act_tile_fma(const float* __restrict__ g,
                                                  const float* __restrict__ res,
                                                  const float* __restrict__ wt,
                                                  float* __restrict__ delta, long long n_points,
-                                                 float* buf_a) {
-  float* buf_b = buf_a + (kHidden + 1) * kTile;    // buf_a: 129 rows, buf_b: 128
+                                                 float* smem) {
+  float* buf_a = smem;                             // 129 rows
+  float* buf_b = buf_a + (kHidden + 1) * kTile;    // 128 rows
+  Ring ring{buf_b + kBufFloats, 0};
   const long long tile0 = static_cast<long long>(blockIdx.x) * kTile;
   const float* rt = res + static_cast<long long>(blockIdx.x) * kResRows * kTile;
   float* dt = delta + static_cast<long long>(blockIdx.x) * kDRows * kTile;
 
   // Cotangent: drgb into buf_a rows 0..2, dsigma into row 128 (the fused
   // head's extra row); padded points get 0, so they add nothing anywhere.
+  // fc_rgb's weights land meanwhile; the first sum's barrier publishes both.
+  stage_async(ring.slot(0), first_slice<kDirHidden>(wt + kTWr, 3));
   if (threadIdx.x < kTile) {
     const int p = threadIdx.x;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -238,24 +252,41 @@ __device__ __forceinline__ void bwd_act_tile_fma(const float* __restrict__ g,
     dt[(kDRgb + 2) * kTile + p] = v.z;
     dt[kDSig * kTile + p] = v.w;
   }
-  __syncthreads();
-  // dhd = mask(hd) * drgb W_rgb^T
-  dense_bwd<kDirHidden>(wt + kTWr, 3, buf_a, rt + kResHd * kTile, buf_b, dt + kDHd * kTile);
-  __syncthreads();
-  // dfeat = mask(feat) * dhd W_dir[:128]^T  (buf_a row 128 keeps dsigma)
-  dense_bwd<kHidden>(wt + kTWd, kDirHidden, buf_b, rt + kResFeat * kTile, buf_a,
-                     dt + kDFeat * kTile);
-  __syncthreads();
-  // dh3 = mask(h3) * [dfeat; dsigma] [W_feat; W_alpha]^T
-  dense_bwd<kHidden>(wt + kTWfa, kHidden + 1, buf_a, rt + kResH3 * kTile, buf_b,
-                     dt + kDH3 * kTile);
-  __syncthreads();
-  dense_bwd<kHidden>(wt + kTWx2, kHidden, buf_b, rt + kResH2 * kTile, buf_a, dt + kDH2 * kTile);
-  __syncthreads();
-  dense_bwd<kHidden>(wt + kTWx1, kHidden, buf_a, rt + kResH1 * kTile, buf_b, dt + kDH1 * kTile);
-  __syncthreads();
-  // da0: layer1 has no ReLU, so no mask.
-  dense_bwd<kHidden>(wt + kTWx0, kHidden, buf_b, nullptr, nullptr, dt + kDA0 * kTile);
+  {  // dhd = mask(hd) * drgb W_rgb^T
+    float acc[kDirHidden / 16][8];
+    dense_sum<kDirHidden>(ring, Rows{wt + kTWr, 3, buf_a}, acc,
+                          first_slice<kHidden>(wt + kTWd, kDirHidden));
+    store_grad<kDirHidden>(acc, rt + kResHd * kTile, dt + kDHd * kTile, buf_b);
+  }
+  {  // dfeat = mask(feat) * dhd W_dir[:128]^T  (buf_a row 128 keeps dsigma)
+    float acc[kHidden / 16][8];
+    dense_sum<kHidden>(ring, Rows{wt + kTWd, kDirHidden, buf_b}, acc,
+                       first_slice<kHidden>(wt + kTWfa, kHidden + 1));
+    store_grad<kHidden>(acc, rt + kResFeat * kTile, dt + kDFeat * kTile, buf_a);
+  }
+  {  // dh3 = mask(h3) * [dfeat; dsigma] [W_feat; W_alpha]^T
+    float acc[kHidden / 16][8];
+    dense_sum<kHidden>(ring, Rows{wt + kTWfa, kHidden + 1, buf_a}, acc,
+                       first_slice<kHidden>(wt + kTWx2, kHidden));
+    store_grad<kHidden>(acc, rt + kResH3 * kTile, dt + kDH3 * kTile, buf_b);
+  }
+  {
+    float acc[kHidden / 16][8];
+    dense_sum<kHidden>(ring, Rows{wt + kTWx2, kHidden, buf_b}, acc,
+                       first_slice<kHidden>(wt + kTWx1, kHidden));
+    store_grad<kHidden>(acc, rt + kResH2 * kTile, dt + kDH2 * kTile, buf_a);
+  }
+  {
+    float acc[kHidden / 16][8];
+    dense_sum<kHidden>(ring, Rows{wt + kTWx1, kHidden, buf_a}, acc,
+                       first_slice<kHidden>(wt + kTWx0, kHidden));
+    store_grad<kHidden>(acc, rt + kResH1 * kTile, dt + kDH1 * kTile, buf_b);
+  }
+  {  // da0: layer1 has no ReLU, so no mask.
+    float acc[kHidden / 16][8];
+    dense_sum<kHidden>(ring, Rows{wt + kTWx0, kHidden, buf_b}, acc, Slice{nullptr, 0});
+    store_grad<kHidden>(acc, nullptr, dt + kDA0 * kTile, nullptr);
+  }
 }
 
 template <int NT>
@@ -380,29 +411,25 @@ train_bwd_act_kernel<true>(const float* __restrict__ g, const bf16* __restrict__
 // ---------------------------------------------------------------------------
 // Backward 2: weight and bias gradients, partial sums per chunk of tiles.
 
-struct WJob {
-  int x_row, in_dim;    // residual rows X
-  int d_row, out_dim;   // delta rows dY
-  int w_off, b_off;     // where dW (in, out) and db go in the packed layout
-  int first_tile;       // index of the job's first output tile
-};
+using WJob = wgrad::Job;
 
+// The eight matrices, one output tile each, in the f32 residual layout and
+// in the bf16 one (first_tile: the job's index). The f32 table runs the
+// largest first: its grid is (chunk, job), and blocks start in that order,
+// so the small ones fill the last wave.
 constexpr int kNumJobs = 8;
 __constant__ WJob kJobs[kNumJobs] = {
-    {kResHd, kDirHidden, kDRgb, 3, kOffWr, kOffBr, 0},                         // fc_rgb: 1 tile
-    {kResFeat, kHidden, kDHd, kDirHidden, kOffWd, kOffBd, 1},                  // layers_dir.0: 2
-    {kResH3, kHidden, kDFeat, kHidden, kOffWf, kOffBf, 3},                     // fc_feat: 4
-    {kResH3, kHidden, kDSig, 1, kOffWa, kOffBa, 7},                            // fc_alpha: 2
+    {kResH3, kHidden, kDFeat, kHidden, kOffWf, kOffBf, 0},                     // fc_feat
     {kResH2, kHidden, kDH3, kHidden, kOffWx + 2 * kLayerX,
-     kOffWx + 2 * kLayerX + kHidden * kHidden, 9},                             // layers_xyz.2: 4
+     kOffWx + 2 * kLayerX + kHidden * kHidden, 1},                             // layers_xyz.2
     {kResH1, kHidden, kDH2, kHidden, kOffWx + kLayerX,
-     kOffWx + kLayerX + kHidden * kHidden, 13},                                // layers_xyz.1: 4
-    {kResA0, kHidden, kDH1, kHidden, kOffWx, kOffWx + kHidden * kHidden, 17},  // layers_xyz.0: 4
-    {kResEnc, kEnc, kDA0, kHidden, kOffW1, kOffB1, 21},                        // layer1: 2
+     kOffWx + kLayerX + kHidden * kHidden, 2},                                 // layers_xyz.1
+    {kResA0, kHidden, kDH1, kHidden, kOffWx, kOffWx + kHidden * kHidden, 3},   // layers_xyz.0
+    {kResFeat, kHidden, kDHd, kDirHidden, kOffWd, kOffBd, 4},                  // layers_dir.0
+    {kResEnc, kEnc, kDA0, kHidden, kOffW1, kOffB1, 5},                         // layer1
+    {kResH3, kHidden, kDSig, 1, kOffWa, kOffBa, 6},                            // fc_alpha
+    {kResHd, kDirHidden, kDRgb, 3, kOffWr, kOffBr, 7},                         // fc_rgb
 };
-constexpr int kNumWTiles = 23;
-// The same matrices in the bf16 residual layout, one kGTile square output
-// tile each.
 __constant__ WJob kTcJobs[kNumJobs] = {
     {tc::kRowHd, kDirHidden, kDRgb, 3, kOffWr, kOffBr, 0},
     {tc::kRowFeat, kHidden, kDHd, kDirHidden, kOffWd, kOffBd, 1},
@@ -416,89 +443,40 @@ __constant__ WJob kTcJobs[kNumJobs] = {
     {tc::kRowEnc, kEnc, kDA0, kHidden, kOffW1, kOffB1, 7},
 };
 
-__device__ __forceinline__ float load(const float* p) { return *p; }
-
-// The identity rounding of the f32 instance, which the staging below calls.
-template <bool kBf16>
-__device__ __forceinline__ float rnd(float x) {
-  static_assert(!kBf16, "the bf16 weight gradients run on the tensor cores");
-  return x;
+// The f32 instance, on the FMA pipes: chunk blockIdx.x of matrix
+// blockIdx.y, fma_wgrad.cuh's register blocks over the matrix's extent
+// rounded up to 16 rows (inputs) and columns (outputs): 8 x 8 a thread for
+// the 128 x 128 matrices, 8 x 4 for layers_dir.0 (128 x 64), 4 x 8 for
+// layer1 (63 x 128), 8 x 1 for fc_alpha (128 x 1) and 4 x 1 for fc_rgb
+// (64 x 3): 84,992 products a point for the 82,112 the matrices hold, 3.4%
+// of them padding (64 x 64 tiles: 13%).
+template <int A, int B>
+__device__ __forceinline__ void wgrad_tile(const float* __restrict__ res,
+                                           const float* __restrict__ delta,
+                                           float* __restrict__ partial, long long n_tiles,
+                                           const WJob& job, float* smem) {
+  wgrad::tile_sums<A, B, false>(res, kResRows, delta, kDRows, partial, kParams, n_tiles,
+                                kTilesPerChunk, blockIdx.x, job, 0, 0, smem);
 }
 
-// The f32 instance, on the FMA pipes: 16 x 16 threads, 4 x 4 outputs each.
-// Its staging keeps the form of the kernel it came from (load, rnd<false>):
-// the same statements without them compile to 77 registers instead of 80,
-// and the whole f32 backward at 1024 x 128 then ran 3.23-3.32 ms against the
-// parent's 3.19-3.21 in one call; in this form 3.17-3.18 against 3.20-3.23
-// (tools/torch_kernel_check.py, NVIDIA H100 80GB HBM3, 700 W).
 __device__ __forceinline__ void wgrad_fma(const float* __restrict__ res,
                                           const float* __restrict__ delta,
-                                          float* __restrict__ partial, long long n_tiles) {
-  constexpr bool kBf16 = false;
-  __shared__ __align__(16) float xs[kTile * kWPad];   // xs[p][i]
-  __shared__ __align__(16) float ys[kTile * kWPad];   // ys[p][o]
-
-  int jb = 0;
-  while (jb + 1 < kNumJobs && kJobs[jb + 1].first_tile <= static_cast<int>(blockIdx.x)) ++jb;
-  const WJob job = kJobs[jb];
-  const int o_tiles = (job.out_dim + kWTile - 1) / kWTile;
-  const int local = blockIdx.x - job.first_tile;
-  const int i0 = (local / o_tiles) * kWTile;
-  const int o0 = (local % o_tiles) * kWTile;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  const bool bias_block = i0 == 0 && threadIdx.x < kWTile && o0 + threadIdx.x < job.out_dim;
-
-  float acc[4][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-#pragma unroll
-    for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
+                                          float* __restrict__ partial, long long n_tiles,
+                                          float* smem) {
+  const WJob job = kJobs[blockIdx.y];
+  if (job.in_dim > 64) {
+    if (job.out_dim > 64) {
+      wgrad_tile<8, 8>(res, delta, partial, n_tiles, job, smem);
+    } else if (job.out_dim > 16) {
+      wgrad_tile<8, 4>(res, delta, partial, n_tiles, job, smem);
+    } else {
+      wgrad_tile<8, 1>(res, delta, partial, n_tiles, job, smem);
+    }
+  } else if (job.out_dim > 16) {
+    wgrad_tile<4, 8>(res, delta, partial, n_tiles, job, smem);
+  } else {
+    wgrad_tile<4, 1>(res, delta, partial, n_tiles, job, smem);
   }
-  float bsum = 0.f;
-
-  const long long t_begin = static_cast<long long>(blockIdx.y) * kTilesPerChunk;
-  const long long t_end = min(t_begin + kTilesPerChunk, n_tiles);
-  for (long long t = t_begin; t < t_end; ++t) {
-    const float* xt = res + (t * kResRows + job.x_row) * kTile;
-    const float* dtile = delta + (t * kDRows + job.d_row) * kTile;
-    for (int e = threadIdx.x; e < kWTile * kTile; e += kWThreads) {
-      const int r = e / kTile;
-      const int p = e % kTile;
-      xs[p * kWPad + r] = i0 + r < job.in_dim ? load(xt + (i0 + r) * kTile + p) : 0.f;
-      ys[p * kWPad + r] = o0 + r < job.out_dim ? rnd<kBf16>(dtile[(o0 + r) * kTile + p]) : 0.f;
-    }
-    if (bias_block) {
-      const float* row = dtile + (o0 + threadIdx.x) * kTile;
-      for (int p = 0; p < kTile; ++p) bsum += row[p];
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int p = 0; p < kTile; ++p) {
-      const float4 xa = *reinterpret_cast<const float4*>(xs + p * kWPad + ty * 4);
-      const float4 yb = *reinterpret_cast<const float4*>(ys + p * kWPad + tx * 4);
-      const float xv[4] = {xa.x, xa.y, xa.z, xa.w};
-      const float yv[4] = {yb.x, yb.y, yb.z, yb.w};
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-#pragma unroll
-        for (int b = 0; b < 4; ++b) acc[a][b] = fmaf(xv[a], yv[b], acc[a][b]);
-      }
-    }
-    __syncthreads();
-  }
-
-  float* out = partial + static_cast<long long>(blockIdx.y) * kParams;
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int i = i0 + ty * 4 + a;
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int o = o0 + tx * 4 + b;
-      if (i < job.in_dim && o < job.out_dim) out[job.w_off + i * job.out_dim + o] = acc[a][b];
-    }
-  }
-  if (bias_block) out[job.b_off + o0 + threadIdx.x] = bsum;
 }
 
 // 16 bytes from device memory to shared memory, asynchronously (cp.async,
@@ -661,11 +639,13 @@ __device__ __forceinline__ void wgrad_tc(const bf16* __restrict__ res,
   }
 }
 
+// 2 blocks an SM: 128 registers, 72 KB of shared memory each.
 template <bool kBf16>
-__global__ void __launch_bounds__(kWThreads)
+__global__ void __launch_bounds__(kWThreads, 2)
 train_bwd_wgrad_kernel(const Res<kBf16>* __restrict__ res, const float* __restrict__ delta,
                        float* __restrict__ partial, long long n_tiles) {
-  wgrad_fma(res, delta, partial, n_tiles);
+  extern __shared__ float4 smem[];
+  wgrad_fma(res, delta, partial, n_tiles, reinterpret_cast<float*>(smem));
 }
 
 template <>
@@ -734,16 +714,14 @@ cudaError_t launch_bwd(const float* g, const void* res, const void* wt, float* d
                                 stream>>>(g, r, wt, delta, n_points);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  if (kBf16) {
-    err = cudaFuncSetAttribute(train_bwd_wgrad_kernel<kBf16>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(kWgradSmem));
-    if (err != cudaSuccess) return err;
-  }
-  train_bwd_wgrad_kernel<kBf16><<<dim3(kBf16 ? kNumJobs : kNumWTiles,
-                                       static_cast<unsigned int>(chunks)),
-                                  kWThreads, kBf16 ? kWgradSmem : 0, stream>>>(r, delta, partial,
-                                                                                tiles);
+  const size_t wsmem = kBf16 ? kWgradSmem : wgrad::kSmem;
+  err = cudaFuncSetAttribute(train_bwd_wgrad_kernel<kBf16>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(wsmem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid = kBf16 ? dim3(kNumJobs, static_cast<unsigned int>(chunks))
+                         : dim3(static_cast<unsigned int>(chunks), kNumJobs);
+  train_bwd_wgrad_kernel<kBf16><<<grid, kWThreads, wsmem, stream>>>(r, delta, partial, tiles);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   train_bwd_reduce_kernel<<<(kParams + 255) / 256, 256, 0, stream>>>(

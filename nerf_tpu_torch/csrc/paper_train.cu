@@ -30,7 +30,8 @@
 // layer-gradient pass and read by the weight-gradient pass.
 //
 // The f32 instances run on the FMA pipes (paper_mlp.cuh's register-blocked
-// dense layer, and the weight-gradient pass below); the bf16 instances run
+// dense layer, and fma_wgrad.cuh's weight-gradient pass, which the 4x128
+// field's shares); the bf16 instances run
 // the same passes on the tensor cores
 // (paper_tc.cuh: mma.sync m16n8k16, bf16 operands, f32 sums), with the tile,
 // the residuals and the deltas point-major, and bf16 weights the wrapper
@@ -83,6 +84,7 @@
 
 #include <type_traits>
 
+#include "fma_wgrad.cuh"
 #include "paper_mlp.cuh"
 #include "paper_tc.cuh"
 
@@ -117,15 +119,12 @@ constexpr int kTParams = tw_x(1) + kWidth * kWidth;            // 590464
 // buffer and the weight ring (96 KB, two blocks an SM).
 constexpr size_t kBwdSmem = (kActFloats + 2 * kSlotFloats) * sizeof(float);
 
-// f32 weight-gradient tiling: a block sums a 128 x 128 output tile over a
-// chunk of point tiles, staged half a tile (kWPoints points) at a time.
-constexpr int kWTile = 128;           // output tile: 128 inputs x 128 outputs
-constexpr int kWThreads = 256;        // 16 x 16 threads, 8 x 8 outputs each
+// Weight-gradient tiling: a block sums a 128 x 128 output tile (f32:
+// fma_wgrad.cuh's, 8 x 8 outputs a thread) over a chunk of point tiles.
+constexpr int kWTile = wgrad::kWTile;
+constexpr int kWThreads = wgrad::kThreads;
 constexpr int kTilesPerChunk = 32;    // point tiles summed by one block
-constexpr int kWPoints = kTile / 2;   // points a stage
-constexpr int kWStride = kWPoints + 4;   // shared row: 16-byte aligned, rows 4 banks apart
-constexpr int kWBuf = kWTile * kWStride;  // floats of one stage's X or dY
-constexpr size_t kWgradSmem = 4 * kWBuf * sizeof(float);   // X and dY, two stages: 72 KB
+static_assert(wgrad::kTile == kTile, "fma_wgrad.cuh tiles points as the kernels do");
 
 // bf16 weight-gradient tiling: 128 inputs x 128 outputs, 8 warps of 32 x 64.
 constexpr int kGTile = 128;
@@ -375,12 +374,7 @@ train_bwd_act_kernel(const float* __restrict__ g, const Res<kBf16>* __restrict__
 // ---------------------------------------------------------------------------
 // Backward 2: weight and bias gradients, partial sums per chunk of tiles.
 
-struct WJob {
-  int x_row, in_dim;    // residual rows X
-  int d_row, out_dim;   // delta rows dY
-  int w_off, b_off;     // where dW (in, out) and db go in the packed layout (b_off -1: none)
-  int first_tile;       // index of the job's first output tile
-};
+using WJob = wgrad::Job;
 
 constexpr int kMaxJobs = 16;
 struct WJobs {
@@ -430,45 +424,8 @@ __device__ __forceinline__ WJob find_job(const WJobs& jobs) {
   return jobs.job[jb];
 }
 
-// Stage s of a block's chunk (point tile t_begin + s / 2, its half s % 2)
-// into xs and ys (kWTile rows of kWStride floats each): the kWTile residual
-// rows X from x_row + i0 and delta rows dY from d_row + o0, kWPoints points
-// a row, as one cp.async group of 16-byte copies of every thread; rows past
-// in_dim or out_dim are filled with zeros (a copy of 0 source bytes).
-__device__ __forceinline__ void stage_wgrad(float* xs, float* ys, const float* __restrict__ res,
-                                            const float* __restrict__ delta, const WJob& job,
-                                            int rows, long long t_begin, int s, int i0, int o0) {
-  const long long t = t_begin + s / 2;
-  const int half = (s % 2) * kWPoints;
-  const float* xt = res + (t * rows + job.x_row + i0) * kTile + half;
-  const float* yt = delta + (t * kDRows + job.d_row + o0) * kTile + half;
-  const unsigned xd = static_cast<unsigned>(__cvta_generic_to_shared(xs));
-  const unsigned yd = static_cast<unsigned>(__cvta_generic_to_shared(ys));
-  for (int e = threadIdx.x; e < kWTile * (kWPoints / 4); e += kWThreads) {
-    const int r = e / (kWPoints / 4);
-    const int c = 4 * (e % (kWPoints / 4));
-    const bool xv = i0 + r < job.in_dim;
-    const bool yv = o0 + r < job.out_dim;
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(xd + 4 * (r * kWStride + c)),
-                 "l"(xt + (xv ? r : 0) * kTile + c), "r"(xv ? 16 : 0) : "memory");
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(yd + 4 * (r * kWStride + c)),
-                 "l"(yt + (yv ? r : 0) * kTile + c), "r"(yv ? 16 : 0) : "memory");
-  }
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// The f32 instance, on the FMA pipes: a kWTile x kWTile output tile, 16 x 16
-// threads of 8 x 8 outputs. Thread (ty, tx) owns inputs i0 + ty + 16 a and
-// outputs o0 + tx + 16 b (a, b = 0..7); a warp is 4 ty x 8 tx, so its
-// float4 reads of 4 X rows and of 8 dY rows (kWStride floats apart: 4 banks)
-// each take one wavefront, and per 4 points a thread issues 256 FMAs for 16
-// shared loads. X and dY are staged feature-major, straight copies of the
-// residual and delta rows, by cp.async into two stages (smem, kWgradSmem
-// bytes): stage s + 1 lands while stage s is summed, one barrier a stage.
-// Each output's sum runs over the chunk's point tiles, then their points, in
-// ascending order from 0.f, and so does each bias sum (threads 0..127 of a
-// block with i0 = 0 read their dY row as it is staged): an order that does
-// not depend on the output tiling, so no tiling changes a result's bits.
+// The f32 instance, on the FMA pipes: fma_wgrad.cuh's 8 x 8 outputs a
+// thread over the job's 128 x 128 output tile.
 __device__ __forceinline__ void wgrad_fma(const float* __restrict__ res,
                                           const float* __restrict__ delta,
                                           float* __restrict__ partial, long long n_tiles, int dim,
@@ -476,84 +433,9 @@ __device__ __forceinline__ void wgrad_fma(const float* __restrict__ res,
   const WJob job = find_job(jobs);
   const int o_tiles = (job.out_dim + kWTile - 1) / kWTile;
   const int local = blockIdx.x - job.first_tile;
-  const int i0 = (local / o_tiles) * kWTile;
-  const int o0 = (local % o_tiles) * kWTile;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int ty = (warp >> 1) * 4 + (lane >> 3);
-  const int tx = (warp & 1) * 8 + (lane & 7);
-  const bool bias_rows = job.b_off >= 0 && i0 == 0 && threadIdx.x < kWTile;
-  const int rows = res_rows(dim);
-
-  float acc[8][8];
-#pragma unroll
-  for (int a = 0; a < 8; ++a) {
-#pragma unroll
-    for (int b = 0; b < 8; ++b) acc[a][b] = 0.f;
-  }
-  float bsum = 0.f;
-
-  const long long t_begin = static_cast<long long>(blockIdx.y) * kTilesPerChunk;
-  const int n_stages = 2 * static_cast<int>(min(t_begin + kTilesPerChunk, n_tiles) - t_begin);
-  stage_wgrad(smem, smem + kWBuf, res, delta, job, rows, t_begin, 0, i0, o0);
-  for (int s = 0; s < n_stages; ++s) {
-    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-    __syncthreads();
-    const float* xs = smem + (s % 2) * 2 * kWBuf;
-    const float* ys = xs + kWBuf;
-    if (s + 1 < n_stages) {
-      float* nx = smem + ((s + 1) % 2) * 2 * kWBuf;
-      stage_wgrad(nx, nx + kWBuf, res, delta, job, rows, t_begin, s + 1, i0, o0);
-    }
-    if (bias_rows) {
-      const float* yr = ys + threadIdx.x * kWStride;
-#pragma unroll
-      for (int p = 0; p < kWPoints; p += 4) {
-        const float4 v = *reinterpret_cast<const float4*>(yr + p);
-        bsum += v.x;
-        bsum += v.y;
-        bsum += v.z;
-        bsum += v.w;
-      }
-    }
-    // Not unrolled: unrolled by 2 it spills at the 128 registers that two
-    // blocks an SM allow, and runs slower.
-#pragma unroll 1
-    for (int p = 0; p < kWPoints; p += 4) {
-      float4 x[8];
-#pragma unroll
-      for (int a = 0; a < 8; ++a) {
-        x[a] = *reinterpret_cast<const float4*>(xs + (ty + 16 * a) * kWStride + p);
-      }
-#pragma unroll
-      for (int b = 0; b < 8; ++b) {
-        const float4 y = *reinterpret_cast<const float4*>(ys + (tx + 16 * b) * kWStride + p);
-#pragma unroll
-        for (int a = 0; a < 8; ++a) acc[a][b] = fmaf(x[a].x, y.x, acc[a][b]);
-#pragma unroll
-        for (int a = 0; a < 8; ++a) acc[a][b] = fmaf(x[a].y, y.y, acc[a][b]);
-#pragma unroll
-        for (int a = 0; a < 8; ++a) acc[a][b] = fmaf(x[a].z, y.z, acc[a][b]);
-#pragma unroll
-        for (int a = 0; a < 8; ++a) acc[a][b] = fmaf(x[a].w, y.w, acc[a][b]);
-      }
-    }
-  }
-
-  float* out = partial + static_cast<long long>(blockIdx.y) * n_params;
-#pragma unroll
-  for (int a = 0; a < 8; ++a) {
-    const int i = i0 + ty + 16 * a;
-#pragma unroll
-    for (int b = 0; b < 8; ++b) {
-      const int o = o0 + tx + 16 * b;
-      if (i < job.in_dim && o < job.out_dim) out[job.w_off + i * job.out_dim + o] = acc[a][b];
-    }
-  }
-  // The layout pads a short bias (fc_alpha's 1, fc_rgb's 3) to 4 floats:
-  // the pad gets a zero, so the reduced gradient is defined everywhere.
-  const int ob = o0 + static_cast<int>(threadIdx.x);
-  if (bias_rows && ob < pad4(job.out_dim)) out[job.b_off + ob] = ob < job.out_dim ? bsum : 0.f;
+  wgrad::tile_sums<8, 8, true>(res, res_rows(dim), delta, kDRows, partial, n_params, n_tiles,
+                               kTilesPerChunk, blockIdx.y, job, (local / o_tiles) * kWTile,
+                               (local % o_tiles) * kWTile, smem);
 }
 
 // The bf16 instance, on the tensor cores: a kGTile x kGTile output tile,
@@ -768,7 +650,7 @@ cudaError_t launch_bwd(const float* g, const void* res, const void* wt, const La
       g, r, wt, delta, n_points, L.dim);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const size_t wsmem = kBf16 ? 0 : kWgradSmem;
+  const size_t wsmem = kBf16 ? 0 : wgrad::kSmem;
   if (!kBf16) {
     err = cudaFuncSetAttribute(train_bwd_wgrad_kernel<kBf16>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -6,10 +6,12 @@ without the suite's conftest (it imports JAX):
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
 This file imports torch and the port only. The f32 instances of #1-#3, #7
-and #8's forward share flex_mlp.cuh's register-blocked body, the f32 #4 and
-#9 paper_mlp.cuh's: they are held to their plain versions at point counts
-that end mid-tile and mid-slice (#9 also mid-chunk, at encoding depths 0, 6
-and 16), and two launches bitwise equal. The bf16 instances of #1-#4, #7
+and #8's forward and layer-gradient pass share flex_mlp.cuh's
+register-blocked body, the f32 #4 and #9 paper_mlp.cuh's, and #8's and #9's
+f32 weight-gradient passes fma_wgrad.cuh's: they are held to their plain
+versions at point counts that end mid-tile and mid-slice (#8 and #9 also
+mid-chunk, #9 at encoding depths 0, 6 and 16), and two launches bitwise
+equal. The bf16 instances of #1-#4, #7
 and the #8 and #9 pairs run on the tensor cores: their forwards are held
 to TC_FWD_TOL (#3 bitwise to #1 too, the same tile), the bf16 backwards against the plain backward on the forward
 kernel's own residuals (a bf16 sum in another order flips roundings and ReLU
@@ -164,12 +166,13 @@ def _scaled_err(got, want):
 
 
 @pytest.mark.parametrize("compute_dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2)])
-@pytest.mark.parametrize("n,s", [(1, 1), (33, 64), (1024, 128), (7, 61)])
+@pytest.mark.parametrize("n,s", [(1, 1), (33, 64), (1024, 128), (7, 61), (333, 61), (41, 50)])
 def test_train_kernels_match_plain(model, n, s, compute_dtype, tol):
     """The forward and its residuals against the plain forward's (residuals
     scaled by the plain one's largest entry), every parameter gradient and
     ddc against the plain backward on the forward kernel's own residuals
-    (scaled likewise)."""
+    (scaled likewise). (333, 61) ends in a partial tile and a partial chunk
+    (318 tiles), with rays that straddle tiles; (41, 50) is a 3-chunk run."""
     pts, dc, params, g = _train_case(model, n, s, compute_dtype, seed=n * s)
     fwd0, bwd0 = fused_flex_mlp_train.fwd_launches, fused_flex_mlp_train.bwd_launches
     out, res = flex_train_fwd(pts, dc, params, compute_dtype)
@@ -193,12 +196,13 @@ def test_train_kernels_match_plain(model, n, s, compute_dtype, tol):
 
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
 def test_train_backward_is_deterministic(model, compute_dtype):
-    pts, dc, params, g = _train_case(model, 1024, 128, compute_dtype, seed=5)
-    _, res = flex_train_fwd(pts, dc, params, compute_dtype)
-    a = flex_train_bwd(g, res, params, 1024, 128, compute_dtype)
-    b = flex_train_bwd(g, res, params, 1024, 128, compute_dtype)
-    torch.cuda.synchronize()
-    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    for n, s in ((1024, 128), (41, 50)):
+        pts, dc, params, g = _train_case(model, n, s, compute_dtype, seed=5)
+        _, res = flex_train_fwd(pts, dc, params, compute_dtype)
+        a = flex_train_bwd(g, res, params, n, s, compute_dtype)
+        b = flex_train_bwd(g, res, params, n, s, compute_dtype)
+        torch.cuda.synchronize()
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]), (n, s)
 
 
 def test_train_function_goes_through_both_kernels(model):

@@ -23,8 +23,8 @@ ones among them) are bitwise the same from both, each tree through its own
 wrappers (its package, imported under another name), times #1, #2, #3, #7
 and the #8 pair in f32 and bf16, #4 and the #9 pair in f32 and #6 (det, by
 the profiler's device time too) from both in turns (parent, this tree, this
-tree, parent), and each launch of #8's bf16 and #9's f32 backward by the
-profiler. A short first call for a new kernel; ``chip_smoke.py`` is the
+tree, parent), and each launch of #8's f32 and bf16 and #9's f32 backward by
+the profiler. A short first call for a new kernel; ``chip_smoke.py`` is the
 full check.
 """
 
@@ -343,16 +343,16 @@ def check_bitwise_against(parent_csrc: Path, dev) -> bool:
     """The outputs ``bitwise_results`` lists, from both trees, bitwise; the
     parent's ptxas report; then ``timed_calls`` from both in turns (parent,
     this tree, this tree, parent) by CUDA events, #6's kernel by the
-    profiler's device time in the same turns, and each launch of #8's bf16
-    and #9's f32 backward by the profiler."""
+    profiler's device time in the same turns, and each launch of #8's f32
+    and bf16 and #9's f32 backward by the profiler."""
     trees = {"parent": import_package(parent_csrc.resolve().parent, "parent_nerf_tpu_torch"),
              "this tree": {sub.split(".")[-1]: importlib.import_module(f"nerf_tpu_torch.{sub}")
                            for sub in _MODULES}}
     parent_path = importlib.import_module("parent_nerf_tpu_torch.kernels._build").build_library()
     print("parent", cs.ptxas_summary(parent_path.with_suffix(".log").read_text(), frames=True),
           flush=True)
-    watched = cs.TENSOR_CORE_KERNELS + cs.F32_FLEX_KERNELS + cs.F32_PAPER_KERNELS + (
-        "flex_train:train_bwd_act<0>", "flex_train:train_bwd_wgrad<0>")
+    watched = (cs.TENSOR_CORE_KERNELS + cs.F32_FLEX_KERNELS + cs.F32_FLEX_BWD_KERNELS
+               + cs.F32_PAPER_KERNELS)
     for label, path in (("parent", parent_path), ("this tree", _build.build_library())):
         regs = cs.ptxas_summary(path.with_suffix(".log").read_text()).split(", ")
         print(f"registers (spills) of the tensor-core instances and the f32 ones, {label}: "
@@ -366,7 +366,7 @@ def check_bitwise_against(parent_csrc: Path, dev) -> bool:
     calls = {label: timed_calls(m, dev) for label, m in trees.items()}
     with torch.no_grad():
         time_in_turns(calls, ("parent", "this tree", "this tree", "parent"))
-        for name in ("#8 bwd bf16", "#9 bwd f32"):
+        for name in ("#8 bwd f32", "#8 bwd bf16", "#9 bwd f32"):
             for label in ("parent", "this tree"):
                 per = cs.kernel_device_ms(calls[label][name][0], 10, r"train_bwd_\w+?_kernel")
                 print(f"ms {name} by launch, {label}: "

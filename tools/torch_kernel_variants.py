@@ -11,8 +11,8 @@ interface) and each ``--probe``: a copy of this tree's ``csrc`` with one
 named edit (PROBES below; the probes marked so compute wrong results on
 purpose, to show what one part of a kernel costs). Each library is loaded in
 turn under this tree's wrappers. For each it prints the flagship kernels'
-and Paper kernels' registers, the hottest loop of each f32 4x128 forward and
-f32 Paper kernel in its SASS, #1 and #3 bf16 and the #8 bf16 pair against
+and Paper kernels' registers, the hottest loop of each f32 4x128 kernel (the
+forwards and #8's backward passes) and f32 Paper kernel in its SASS, #1 and #3 bf16 and the #8 bf16 pair against
 their plain versions (``chip_smoke.flex_pair_errors``), whether #3 bf16 is
 bitwise #1 bf16, and whether its outputs (the f32 #1, #3 and #8 forward's
 too, and ``torch_kernel_check.bitwise_results``) equal base's bitwise; then
@@ -20,8 +20,8 @@ it times ``torch_kernel_check.timed_calls`` (#1, #2, #3 and #7 in f32 and
 bf16 and #4 in f32 at one fine-pass chunk, #6 det also by the profiler's
 device time, the #8 pair in f32 and bf16 and the #9 pair in f32 at one
 training pass) in turns (base, variants, the variants again in reverse,
-base), and each launch of #8's bf16 and #9's f32 backward by the profiler.
-Builds go under ``build/variants/``.
+base), and each launch of #8's f32 and bf16 and #9's f32 backward by the
+profiler. Builds go under ``build/variants/``.
 """
 
 import argparse
@@ -172,57 +172,66 @@ PROBES = {
                       "for (int i = threadIdx.x; i < 0; i += kThreads) {")],
     "f32_no_sincos": [("flex_mlp.cuh", "      sincosf(x * scale, &s, &co);",
                        "      s = x * scale;\n      co = s + 1.f;")],
-    # The f32 Paper kernels (the same sums in the same order, so the same
-    # results): the weight-gradient pass's point loop unrolled by 2 (it then
-    # spills at two blocks an SM), and so at one block an SM; ring slots of
-    # 32 rows a 256-wide slice instead of 16 (one forward block an SM); the
-    # dense layer's loop unrolled by 2 instead of 4.
-    "p9_wgrad_unroll2": [("paper_train.cu", "#pragma unroll 1\n    for (int p = 0; p < kWPoints;",
-                          "#pragma unroll 2\n    for (int p = 0; p < kWPoints;")],
-    "p9_wgrad_one_block": [
-        ("paper_train.cu", "#pragma unroll 1\n    for (int p = 0; p < kWPoints;",
-         "#pragma unroll 2\n    for (int p = 0; p < kWPoints;"),
+    # The f32 weight-gradient pass of #8 and #9 (fma_wgrad.cuh; the same sums
+    # in the same order, so the same results): its point loop unrolled by 2
+    # (#9's then spills at two blocks an SM), and so at one block an SM.
+    "wgrad_unroll2": [("fma_wgrad.cuh", "#pragma unroll 1\n    for (int p = 0; p < kPoints;",
+                       "#pragma unroll 2\n    for (int p = 0; p < kPoints;")],
+    "wgrad_one_block": [
+        ("fma_wgrad.cuh", "#pragma unroll 1\n    for (int p = 0; p < kPoints;",
+         "#pragma unroll 2\n    for (int p = 0; p < kPoints;"),
         ("paper_train.cu", "__launch_bounds__(kWThreads, 2)\ntrain_bwd_wgrad_kernel",
-         "__launch_bounds__(kWThreads, kBf16 ? 2 : 1)\ntrain_bwd_wgrad_kernel")],
+         "__launch_bounds__(kWThreads, kBf16 ? 2 : 1)\ntrain_bwd_wgrad_kernel"),
+        ("flex_train.cu", "template <bool kBf16>\n__global__ void __launch_bounds__(kWThreads, 2)\n"
+                          "train_bwd_wgrad_kernel",
+         "template <bool kBf16>\n__global__ void __launch_bounds__(kWThreads, 1)\n"
+         "train_bwd_wgrad_kernel")],
     # The weight-gradient pass with three stages in flight (108 KB a block,
     # still two an SM): each copy has two stages' sums to land in.
-    "p9_wgrad_three_stages": [
-        ("paper_train.cu", "kWgradSmem = 4 * kWBuf * sizeof(float);",
-         "kWgradSmem = 6 * kWBuf * sizeof(float);"),
-        ("paper_train.cu",
-         "  stage_wgrad(smem, smem + kWBuf, res, delta, job, rows, t_begin, 0, i0, o0);\n",
-         "  stage_wgrad(smem, smem + kWBuf, res, delta, job, rows, t_begin, 0, i0, o0);\n"
-         "  stage_wgrad(smem + 2 * kWBuf, smem + 3 * kWBuf, res, delta, job, rows, t_begin, 1,"
-         " i0, o0);\n"),
-        ("paper_train.cu", "    asm volatile(\"cp.async.wait_group 0;\\n\" ::: \"memory\");\n"
-                           "    __syncthreads();\n    const float* xs = smem + (s % 2)",
+    "wgrad_three_stages": [
+        ("fma_wgrad.cuh", "kSmem = 4 * kBuf * sizeof(float);", "kSmem = 6 * kBuf * sizeof(float);"),
+        ("fma_wgrad.cuh",
+         "  stage<A, B>(smem, smem + kBuf, res, res_rows, delta, d_rows, job, t_begin, 0, i0, o0);\n",
+         "  stage<A, B>(smem, smem + kBuf, res, res_rows, delta, d_rows, job, t_begin, 0, i0, o0);\n"
+         "  if (n_stages > 1) {\n"
+         "    stage<A, B>(smem + 2 * kBuf, smem + 3 * kBuf, res, res_rows, delta, d_rows, job,"
+         " t_begin, 1, i0, o0);\n  }\n"),
+        ("fma_wgrad.cuh", "    asm volatile(\"cp.async.wait_group 0;\\n\" ::: \"memory\");\n"
+                          "    __syncthreads();\n    const float* xs = smem + (s % 2)",
          "    if (s + 1 < n_stages) {\n"
          "      asm volatile(\"cp.async.wait_group 1;\\n\" ::: \"memory\");\n    } else {\n"
          "      asm volatile(\"cp.async.wait_group 0;\\n\" ::: \"memory\");\n    }\n"
          "    __syncthreads();\n    const float* xs = smem + (s % 3)"),
-        ("paper_train.cu", "    if (s + 1 < n_stages) {\n      float* nx = smem + ((s + 1) % 2) * 2 * kWBuf;\n"
-                           "      stage_wgrad(nx, nx + kWBuf, res, delta, job, rows, t_begin, s + 1, i0, o0);",
-         "    if (s + 2 < n_stages) {\n      float* nx = smem + ((s + 2) % 3) * 2 * kWBuf;\n"
-         "      stage_wgrad(nx, nx + kWBuf, res, delta, job, rows, t_begin, s + 2, i0, o0);")],
+        ("fma_wgrad.cuh", "    if (s + 1 < n_stages) {\n      float* nx = smem + ((s + 1) % 2) * 2 * kBuf;\n"
+                          "      stage<A, B>(nx, nx + kBuf, res, res_rows, delta, d_rows, job, t_begin, s + 1,"
+                          " i0, o0);",
+         "    if (s + 2 < n_stages) {\n      float* nx = smem + ((s + 2) % 3) * 2 * kBuf;\n"
+         "      stage<A, B>(nx, nx + kBuf, res, res_rows, delta, d_rows, job, t_begin, s + 2,"
+         " i0, o0);")],
     # Wrong results: the weight-gradient pass stages its first two stages
     # only and sums them over and over: its time without the staging.
-    "p9_wgrad_no_staging": [("paper_train.cu", "    if (s + 1 < n_stages) {\n      float* nx",
-                             "    if (s + 1 < 2) {\n      float* nx")],
+    "wgrad_no_staging": [("fma_wgrad.cuh", "    if (s + 1 < n_stages) {\n      float* nx",
+                          "    if (s + 1 < 2) {\n      float* nx")],
     # The weight-gradient pass reading two points a step (float2 operands,
-    # 16 registers of X instead of 32), its loop unrolled by 2.
-    "p9_wgrad_pairs": [("paper_train.cu", """#pragma unroll 1
-    for (int p = 0; p < kWPoints; p += 4) {
-      float4 x[8];""", """#pragma unroll 2
-    for (int p = 0; p < kWPoints; p += 2) {
-      float2 x[8];"""), ("paper_train.cu", """        x[a] = *reinterpret_cast<const float4*>(xs + (ty + 16 * a) * kWStride + p);""",
-                         """        x[a] = *reinterpret_cast<const float2*>(xs + (ty + 16 * a) * kWStride + p);"""),
-                       ("paper_train.cu", """        const float4 y = *reinterpret_cast<const float4*>(ys + (tx + 16 * b) * kWStride + p);""",
-                        """        const float2 y = *reinterpret_cast<const float2*>(ys + (tx + 16 * b) * kWStride + p);"""),
-                       ("paper_train.cu", """#pragma unroll
-        for (int a = 0; a < 8; ++a) acc[a][b] = fmaf(x[a].z, y.z, acc[a][b]);
+    # half the registers of X), its loop unrolled by 2.
+    "wgrad_pairs": [("fma_wgrad.cuh", """#pragma unroll 1
+    for (int p = 0; p < kPoints; p += 4) {
+      float4 x[A];""", """#pragma unroll 2
+    for (int p = 0; p < kPoints; p += 2) {
+      float2 x[A];"""), ("fma_wgrad.cuh", """        x[a] = *reinterpret_cast<const float4*>(xs + (ty + 16 * a) * kStride + p);""",
+                         """        x[a] = *reinterpret_cast<const float2*>(xs + (ty + 16 * a) * kStride + p);"""),
+                    ("fma_wgrad.cuh", """        const float4 y = *reinterpret_cast<const float4*>(ys + (tx + 16 * b) * kStride + p);""",
+                     """        const float2 y = *reinterpret_cast<const float2*>(ys + (tx + 16 * b) * kStride + p);"""),
+                    ("fma_wgrad.cuh", """#pragma unroll
+        for (int a = 0; a < A; ++a) acc[a][b] = fmaf(x[a].z, y.z, acc[a][b]);
 #pragma unroll
-        for (int a = 0; a < 8; ++a) acc[a][b] = fmaf(x[a].w, y.w, acc[a][b]);
+        for (int a = 0; a < A; ++a) acc[a][b] = fmaf(x[a].w, y.w, acc[a][b]);
 """, "")],
+    # #8's weight-gradient pass on whole 128 x 128 tiles of 8 x 8 a thread
+    # for every matrix, not cut to its extent (the same sums, so the same
+    # results): what the 15,104 padded products a point would cost.
+    "f8_wgrad_square": [("flex_train.cu", "  if (job.in_dim > 64) {\n    if (job.out_dim > 64) {",
+                         "  if (true) {\n    if (true) {")],
     # The layer-gradient pass asking L2 for each layer's ReLU-mask rows when
     # its sum starts (prefetch.global.L2, no registers held), so the mask
     # reads after the sum find them there.
@@ -371,9 +380,10 @@ def main() -> int:
         regs = cs.ptxas_summary(path.with_suffix(".log").read_text()).split(", ")
         print(name, ", ".join(r for r in regs if r.startswith(
             ("mlp_t:", "flex_train:", "mlp:", "stage:", "paper_t:", "paper_train:"))), flush=True)
-        print(f"{name} hottest loop of each f32 4x128 forward and f32 Paper kernel: " + "; ".join(
+        print(f"{name} hottest loop of each f32 4x128 and f32 Paper kernel: " + "; ".join(
             f"{k} {v}" for k, v in hottest_loops(
-                path, cs.F32_FLEX_KERNELS + cs.F32_PAPER_KERNELS).items()), flush=True)
+                path, cs.F32_FLEX_KERNELS + cs.F32_FLEX_BWD_KERNELS + cs.F32_PAPER_KERNELS
+            ).items()), flush=True)
 
     def use(name):
         _build.load_library = lambda: libs[name]
@@ -418,7 +428,7 @@ def main() -> int:
             use(name)
             calls[name] = timed_calls(mods, dev)
         time_in_turns(calls, list(trees) + list(trees)[::-1], use)
-        for call in ("#8 bwd bf16", "#9 bwd f32"):
+        for call in ("#8 bwd f32", "#8 bwd bf16", "#9 bwd f32"):
             for name in trees:
                 use(name)
                 per = cs.kernel_device_ms(calls[name][call][0], 20, r"train_bwd_\w+?_kernel")
