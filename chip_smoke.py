@@ -140,7 +140,17 @@ Phases, one or more lines each:
      flags on and no launch; ``tiny_nerf``'s rising PSNR; a ``.ckpt ->
      .ntc -> .ckpt`` ``convert_checkpoint`` round trip; then the multi-scene
      step's rays/s beside phase 8's plain f32 single-scene step, distill
-     s/view and eval s/frame;
+     s/view and eval s/frame. The scene axis of #8 and #9: their
+     scene-batched launches at MS_PAIR_SHAPES, f32 and bf16, bitwise the
+     single-scene launches on each scene's inputs; then the same 6-scene
+     full-width step with ``use_pallas_train`` (2 + 2 launches of #8 a
+     step, whatever the scene count), f32 and bf16, against the plain
+     batched step and the single-scene kernel step per scene (f32:
+     MS_LOSS_RTOL, MS_GRAD_TOL; bf16: TC_BF16_FWD_TOL and BF16_TOL against
+     the single-scene kernel step, BF16_TOL and MS_BF16_GRAD_NORM against
+     the plain f32 step), and a 6-scene PaperNeRF step through #9 against
+     its single-scene kernel steps; the kernel loops' ms a step, rays/s
+     and busy share beside the plain loop's, in turns;
  20. the multi-device layer (``nerf_tpu_torch/parallel``) on this one card,
      every rank's kernels on it: (a) in a one-rank NCCL group, the
      data-parallel step at lego_fused's protocol (#8) bitwise the serial
@@ -307,6 +317,20 @@ MS_LOSS_RTOL = 1e-5             # scene s of the batched step vs the single-scen
 # the float64 gradient on this batch (a CPU probe at this width); a scene
 # that took another's gradient would read O(1).
 MS_GRAD_TOL = 1e-3
+# The scene-batched training pairs against single-scene launches, bitwise:
+# (family, scenes, rays, samples, encoding depth); phase 19's coarse and
+# fine passes, a partial last tile a scene, one scene.
+MS_PAIR_SHAPES = (("flex", MS_SCENES, 1024, 64, 10), ("flex", MS_SCENES, 1024, 128, 10),
+                  ("flex", 3, 333, 61, 10), ("flex", 1, 333, 61, 10),
+                  ("paper", 3, 1024, 64, 10), ("paper", 2, 333, 61, 6), ("paper", 1, 41, 50, 10))
+# A bf16 kernel step's gradient against the plain f32 step's, each leaf's
+# relative L2 distance: bf16 operands move every product by ~2^-9 and flip
+# ReLU masks near 0; the CPU tests find the port's bf16 training gradients
+# within about 7% of f32 (JAX's own bf16 path within 14%), and a scene that
+# took another's gradient would read O(1).
+MS_BF16_GRAD_NORM = 0.1
+MS_PAPER_RAYS = 512             # rays a scene of the 6-scene Paper kernel step
+SHORT = {"float32": "f32", "bfloat16": "bf16"}
 MS_METRIC_TOL = (0.1, 5e-3)     # evaluate_metrics on the 8-bit PNGs vs eval_multiscene (dB, SSIM)
 OPTIMIZER_NAMES = ("RMSprop", "Adagrad", "Adamax", "Adadelta", "NAdam", "RAdam", "Rprop")
 OPT_STEPS = 3
@@ -573,20 +597,22 @@ TENSOR_CORE_KERNELS = ("mlp_t:mlp_t<1>", "flex_train:train_fwd<1>",
                        "flex_train:train_bwd_act<1>", "flex_train:train_bwd_wgrad<1>",
                        "mlp:flexible_mlp<1>", "mlp:flexible_mlp_rays<1>", "stage:stage<1>",
                        "paper_t:paper_t<1>", "paper_train:train_fwd<1>",
-                       "paper_train:train_bwd_act<1>", "paper_train:train_bwd_wgrad<1>")
+                       "paper_train:train_bwd_act<1>", "paper_train:train_bwd_wgrad<1>",
+                       "flex_train:train_bwd_act_one<1>", "paper_train:train_bwd_act_one<1>")
 
 
-# The f32 4x128 forwards, on flex_mlp.cuh's register-blocked FMA body: none
-# may spill.
+# The f32 4x128 forwards (#8's one-scene kernel too), on flex_mlp.cuh's
+# register-blocked FMA body: none may spill.
 F32_FLEX_KERNELS = ("mlp_t:mlp_t<0>", "flex_train:train_fwd<0>", "mlp:flexible_mlp<0>",
-                    "mlp:flexible_mlp_rays<0>", "stage:stage<0>")
+                    "mlp:flexible_mlp_rays<0>", "stage:stage<0>", "flex_train:train_fwd_one<0>")
 # #8's f32 backward passes, the layer gradient on flex_mlp.cuh's body and
 # the weight gradient on fma_wgrad.cuh's register blocks: neither may spill.
 F32_FLEX_BWD_KERNELS = ("flex_train:train_bwd_act<0>", "flex_train:train_bwd_wgrad<0>")
 # The f32 8x256 Paper kernels, on paper_mlp.cuh's register-blocked FMA body
 # and fma_wgrad.cuh's register-blocked weight-gradient pass: none may spill.
 F32_PAPER_KERNELS = ("paper_t:paper_t<0>", "paper_train:train_fwd<0>",
-                     "paper_train:train_bwd_act<0>", "paper_train:train_bwd_wgrad<0>")
+                     "paper_train:train_bwd_act<0>", "paper_train:train_bwd_wgrad<0>",
+                     "paper_train:train_fwd_one<0>")
 
 
 def check(ok: bool, what: str) -> None:
@@ -2796,6 +2822,250 @@ def geometry_main_path(dev, on: str, disk: dict) -> dict:
                    poses_npz=os.path.join(tmp, "poses_serial.npz"))
     return out
 
+
+def scene_pair_cases(family: str, scenes: int, n: int, s: int, f: int, dev, seed: int):
+    """Inputs of #8's (``family`` "flex") or #9's ("paper", encoding depth
+    ``f``) training pair on ``scenes`` scenes, each with its own seeded
+    model, orbit points and cotangent: a list of (pts, dc, params, g)."""
+    import torch
+
+    from nerf_tpu_torch import models
+
+    cases = []
+    for i in range(scenes):
+        if family == "flex":
+            cases.append(train_case(n, s, seeded_model(seed + i, opacify=False).to(dev), dev,
+                                    seed + i))
+        else:
+            model = models.PaperNeRFModel(num_encoding_fn_xyz=f, num_encoding_fn_dir=4,
+                                          generator=torch.Generator().manual_seed(seed + i))
+            pts, _, dc, params, g = paper_case(n, s, model.to(dev), dev, seed + i)
+            cases.append((pts, dc, params, g))
+    return cases
+
+
+def scene_pair_fns(family: str, f: int):
+    """#8's or #9's (forward over scenes, backward over scenes, single-scene
+    forward, single-scene backward), each taking the compute dtype last."""
+    from nerf_tpu_torch.kernels import flex_train, paper_train
+
+    if family == "flex":
+        return (flex_train.flex_train_fwd_scenes, flex_train.flex_train_bwd_scenes,
+                flex_train.flex_train_fwd, flex_train.flex_train_bwd)
+    return (lambda *a: paper_train.paper_train_fwd_scenes(*a, f),
+            lambda *a: paper_train.paper_train_bwd_scenes(*a, f),
+            lambda *a: paper_train.paper_train_fwd(*a, f),
+            lambda *a: paper_train.paper_train_bwd(*a, f))
+
+
+def scene_pair_bitwise(family: str, scenes: int, n: int, s: int, f: int, dtype: str, dev,
+                       seed: int) -> bool:
+    """#8's or #9's scene-batched pair (``scene_pair_cases``) against a
+    single-scene launch on each scene's inputs: the output, the residuals,
+    the gradient and ddc bitwise, and all finite."""
+    import torch
+
+    cases = scene_pair_cases(family, scenes, n, s, f, dev, seed)
+    fwd_scenes, bwd_scenes, fwd, bwd = scene_pair_fns(family, f)
+    pts, dc, params, g = (torch.stack(x) for x in zip(*cases))
+    out, res = fwd_scenes(pts, dc, params, dtype)
+    grad, ddc = bwd_scenes(g, res, params, dtype)
+    singles = []
+    for p_, d_, w_, g_ in cases:
+        o1, r1 = fwd(p_, d_, w_, dtype)
+        singles.append((o1, r1[0], *bwd(g_, r1, w_, n, s, dtype)))
+    torch.cuda.synchronize()
+    # The kernels' residuals are one (S, ...) buffer; the plain version's
+    # (CPU) a tuple a scene.
+    res = res[0] if out.is_cuda else [r[0] for r in res]
+    finite = all(bool(torch.isfinite(t).all()) for t in (out, grad, ddc))
+    return finite and all(torch.equal(a[i], b) for i, single in enumerate(singles)
+                          for a, b in zip((out, res, grad, ddc), single))
+
+
+def step_gaps(loss, grads: dict, want_loss, want_grads: dict) -> dict:
+    """Scene by scene, a step's losses and gradients (stacked leaves, or a
+    list of per-scene modules' gradients) against another step's: the
+    largest relative loss gap, the largest gradient gap scaled by each
+    leaf's largest entry, and the largest relative L2 distance of a leaf."""
+    loss_rel = grad_max = grad_norm = 0.0
+    for s in range(len(loss)):
+        loss_rel = max(loss_rel, abs(float(loss[s]) - float(want_loss[s])) / float(want_loss[s]))
+        for name, want in want_grads.items():
+            a, b = grads[name][s], want[s]
+            if not float(b.abs().max()):
+                continue
+            grad_max = max(grad_max, float((a - b).abs().max() / b.abs().max()))
+            grad_norm = max(grad_norm, float((a - b).norm() / b.norm()))
+    return {"loss": loss_rel, "grad": grad_max, "grad_norm": grad_norm}
+
+
+def multiscene_kernel_path(dev, on: str, model, spec, settings, batch, draws, scene_gen,
+                           plain: dict, stores) -> dict:
+    """Phase 19, the scene axis of #8 and #9: the pairs' scene-batched
+    launches bitwise the single-scene ones; the 6-scene step with
+    ``use_pallas_train`` against the plain batched step (``plain``: its
+    losses and gradients on the same state, batch and draws) and against
+    the single-scene kernel step, f32 and bf16; a 6-scene PaperNeRF step
+    through #9 the same way, against the plain batched PaperNeRF step and
+    its single-scene kernel steps; then the kernel loops
+    beside the plain loop, in turns. Returns the launches and times."""
+    import torch
+
+    from nerf_tpu_torch.engine.renderer import draw_render_randoms
+    from nerf_tpu_torch.engine.train import create_train_state, make_train_step
+    from nerf_tpu_torch.models import FlexibleNeRFModel, PaperNeRFModel
+    from nerf_tpu_torch.parallel.multiscene import (
+        create_multiscene_state, make_multiscene_train_loop, make_multiscene_train_step,
+        stack_draws,
+    )
+
+    out = {}
+    parts = []
+    for family, scenes, n, s, f in MS_PAIR_SHAPES:
+        for dtype in ("float32", "bfloat16"):
+            same = scene_pair_bitwise(family, scenes, n, s, f, dtype, dev, seed=n + s)
+            parts.append(f"{'#8' if family == 'flex' else '#9'} {scenes}x({n}, {s}"
+                         f"{'' if f == 10 else f', F {f}'}) {SHORT[dtype]} "
+                         f"{'bitwise' if same else 'DIFFERS'}")
+            check(same, f"scene-batched {family} pair at {scenes}x({n}, {s}) {dtype} is not "
+                        "bitwise the single-scene launches")
+    print("[multiscene] scene-batched training pairs vs single-scene launches on each scene: "
+          + "; ".join(parts))
+
+    def singles(family_model, ks, ro, rd, tgt, state):
+        """Each scene's single-scene kernel step from the batched state's start."""
+        losses, grads = [], {}
+        for s_ in range(ro.shape[0]):
+            tc, tf = family_model(), family_model()
+            tc.load_state_dict(state.scene_params(s_, "coarse"))
+            tf.load_state_dict(state.scene_params(s_, "fine"))
+            single = create_train_state(tc, tf, spec)
+            single, sm = make_train_step(tc, tf, ks)(single, ro[s_], rd[s_], tgt[s_],
+                                                     scene_gen(s_))
+            losses.append(float(sm.loss))
+            for which, module in (("coarse", tc), ("fine", tf)):
+                for name, p in module.named_parameters():
+                    grads.setdefault(f"{which}.{name}", []).append(p.grad)
+        return losses, grads
+
+    ro, rd, tgt = batch
+    flex = lambda: FlexibleNeRFModel(num_encoding_fn_xyz=10, num_encoding_fn_dir=4).to(dev)
+    launches = {}
+    for dtype in ("float32", "bfloat16"):
+        ks = dataclasses.replace(settings, use_pallas_train=True, compute_dtype=dtype)
+        state = create_multiscene_state(model, model, spec, SEED, MS_SCENES, dev)
+        start = create_multiscene_state(model, model, spec, SEED, MS_SCENES, dev)
+        reset_launches()
+        state, m = make_multiscene_train_step(model, model, ks)(state, ro, rd, tgt, draws=draws)
+        launches[dtype] = read_launches()
+        grads = {k: v.grad for k, v in state.params.items()}
+        vs_plain = step_gaps(m.loss, grads, plain["loss"], plain["grads"])
+        single_losses, single_grads = singles(flex, ks, ro, rd, tgt, start)
+        vs_single = step_gaps(m.loss, grads, single_losses, single_grads)
+        counts = launches[dtype]
+        print(f"[multiscene] the {MS_SCENES}-scene step through #8, {dtype}: "
+              f"{counts['fused_flex_mlp_train_fwd']} + {counts['fused_flex_mlp_train_bwd']} "
+              f"launches (expected 2 + 2); against the plain batched f32 step loss rel "
+              f"{vs_plain['loss']:.3e}, gradients {vs_plain['grad']:.3e} of a leaf's largest, "
+              f"{vs_plain['grad_norm']:.3e} in norm; against the single-scene kernel step "
+              f"loss rel {vs_single['loss']:.3e}, gradients {vs_single['grad']:.3e}")
+        others = {k: v for k, v in counts.items() if not k.startswith("fused_flex_mlp_train")}
+        check(counts["fused_flex_mlp_train_fwd"] == 2 and counts["fused_flex_mlp_train_bwd"] == 2
+              and not any(others.values()), f"kernel multi-scene step {dtype}: {counts}")
+        if dtype == "float32":
+            check(max(vs_plain["loss"], vs_single["loss"]) <= MS_LOSS_RTOL
+                  and max(vs_plain["grad"], vs_single["grad"]) <= MS_GRAD_TOL,
+                  f"f32 kernel multi-scene step: {vs_plain}, {vs_single}")
+        else:
+            check(vs_single["loss"] <= TC_BF16_FWD_TOL and vs_single["grad"] <= BF16_TOL
+                  and vs_plain["loss"] <= BF16_TOL and vs_plain["grad_norm"] <= MS_BF16_GRAD_NORM,
+                  f"bf16 kernel multi-scene step: {vs_plain}, {vs_single}")
+        out[f"step_{dtype}"] = {"vs_plain": vs_plain, "vs_single": vs_single}
+        del state, start, grads, single_grads
+    out["launches"] = launches
+
+    # PaperNeRF through #9: MS_PAPER_RAYS rays a scene, f32 and bf16, against
+    # the plain batched step and the single-scene kernel step, as #8 above.
+    paper = lambda: PaperNeRFModel(num_encoding_fn_xyz=10, num_encoding_fn_dir=4).to(dev)
+    pmodel = paper()
+    b = MS_PAPER_RAYS
+    pbatch = (ro[:, :b], rd[:, :b], tgt[:, :b])
+    pdraws = stack_draws([draw_render_randoms(scene_gen(s_), b, settings, dev)
+                          for s_ in range(MS_SCENES)])
+    state = create_multiscene_state(pmodel, pmodel, spec, SEED, MS_SCENES, dev)
+    reset_launches()
+    state, m = make_multiscene_train_step(pmodel, pmodel, settings)(state, *pbatch, draws=pdraws)
+    check(not any(read_launches().values()), "the plain Paper multi-scene step reached a kernel")
+    pplain = {"loss": m.loss.clone(), "grads": {k: v.grad.clone() for k, v in state.params.items()}}
+    del state
+    out["paper_launches"] = {}
+    for dtype in ("float32", "bfloat16"):
+        ks = dataclasses.replace(settings, use_pallas_train=True, compute_dtype=dtype)
+        state = create_multiscene_state(pmodel, pmodel, spec, SEED, MS_SCENES, dev)
+        start = create_multiscene_state(pmodel, pmodel, spec, SEED, MS_SCENES, dev)
+        reset_launches()
+        state, m = make_multiscene_train_step(pmodel, pmodel, ks)(state, *pbatch, draws=pdraws)
+        counts = out["paper_launches"][dtype] = read_launches()
+        grads = {k: v.grad for k, v in state.params.items()}
+        vs_plain = step_gaps(m.loss, grads, pplain["loss"], pplain["grads"])
+        single_losses, single_grads = singles(paper, ks, *pbatch, start)
+        vs_single = step_gaps(m.loss, grads, single_losses, single_grads)
+        print(f"[multiscene] the {MS_SCENES}-scene PaperNeRF step ({b} rays a scene) through "
+              f"#9, {dtype}: {counts['fused_paper_mlp_train_fwd']} + "
+              f"{counts['fused_paper_mlp_train_bwd']} launches (expected 2 + 2); against the "
+              f"plain batched f32 step loss rel {vs_plain['loss']:.3e}, gradients "
+              f"{vs_plain['grad']:.3e} of a leaf's largest, {vs_plain['grad_norm']:.3e} in norm; "
+              f"against the single-scene kernel step loss rel {vs_single['loss']:.3e}, "
+              f"gradients {vs_single['grad']:.3e}")
+        others = {k: v for k, v in counts.items() if not k.startswith("fused_paper_mlp_train")}
+        check(counts["fused_paper_mlp_train_fwd"] == 2 and counts["fused_paper_mlp_train_bwd"] == 2
+              and not any(others.values()), f"Paper kernel multi-scene step {dtype}: {counts}")
+        if dtype == "float32":
+            check(max(vs_plain["loss"], vs_single["loss"]) <= MS_LOSS_RTOL
+                  and max(vs_plain["grad"], vs_single["grad"]) <= MS_GRAD_TOL,
+                  f"f32 Paper kernel multi-scene step: {vs_plain}, {vs_single}")
+        else:
+            check(vs_single["loss"] <= TC_BF16_FWD_TOL and vs_single["grad"] <= BF16_TOL
+                  and vs_plain["loss"] <= BF16_TOL and vs_plain["grad_norm"] <= MS_BF16_GRAD_NORM,
+                  f"bf16 Paper kernel multi-scene step: {vs_plain}, {vs_single}")
+        out[f"paper_step_{dtype}"] = {"vs_plain": vs_plain, "vs_single": vs_single}
+        del state, start, grads, single_grads
+    del pplain
+
+    # The loops train_multiscene runs, kernel and plain in turns.
+    batch_size = ro.shape[1]
+    loops = {"plain f32": make_multiscene_train_loop(model, model, settings, batch_size,
+                                                     MS_PROFILE_STEPS)}
+    for dtype in ("float32", "bfloat16"):
+        ks = dataclasses.replace(settings, use_pallas_train=True, compute_dtype=dtype)
+        loops[f"#8 {SHORT[dtype]}"] = make_multiscene_train_loop(model, model, ks, batch_size,
+                                                              MS_PROFILE_STEPS)
+    states = {label: create_multiscene_state(model, model, spec, SEED, MS_SCENES, dev)
+              for label in loops}
+    for label, loop in loops.items():
+        loop(states[label], *stores, SEED)         # warm-up
+    ms = {label: [] for label in loops}
+    for label in ("#8 f32", "plain f32", "#8 bf16", "#8 bf16", "plain f32", "#8 f32"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, m = loops[label](states[label], *stores, SEED)
+        m.loss.cpu()
+        ms[label].append(1e3 * (time.perf_counter() - t0) / MS_PROFILE_STEPS)
+    out["loop_ms"] = ms
+    out["profile"] = {label: profile_steps(lambda: loops[label](states[label], *stores, SEED),
+                                           MS_PROFILE_STEPS, f"{MS_SCENES}-scene {label} loop step",
+                                           on, top_n=6)
+                      for label in ("#8 f32", "#8 bf16")}
+    rays = MS_SCENES * batch_size
+    print(f"[time] the {MS_SCENES}-scene loop, ms a step in turns (aggregate rays/s): "
+          + "; ".join(f"{label} {' / '.join(f'{x:.2f}' for x in v)} "
+                      f"({rays * 1e3 * len(v) / sum(v):,.0f})" for label, v in ms.items())
+          + f"; busy share #8 f32 {100 * out['profile']['#8 f32']['busy_share']:.1f}%, "
+          f"#8 bf16 {100 * out['profile']['#8 bf16']['busy_share']:.1f}% {on}")
+    return out
+
+
 def multiscene_main_path(dev, on: str, disk: dict, single_rays_per_sec: float) -> dict:
     """Phase 19: the multi-scene workflow on phase 17's field, through the
     entry points a user calls: ``distill_dataset`` (the teacher through #1),
@@ -2941,6 +3211,7 @@ def multiscene_main_path(dev, on: str, disk: dict, single_rays_per_sec: float) -
                          for s in range(MS_SCENES)])
     state, m = make_multiscene_train_step(model, model, settings)(state, ro, rd, tgt,
                                                                    draws=draws)
+    plain = {"loss": m.loss.clone(), "grads": {k: v.grad.clone() for k, v in state.params.items()}}
     loss_err = grad_err = param_diff = 0.0
     for s, single in enumerate(singles):
         single, sm = make_train_step(single.model_coarse, single.model_fine, settings)(
@@ -2959,10 +3230,14 @@ def multiscene_main_path(dev, on: str, disk: dict, single_rays_per_sec: float) -
     check(loss_err <= MS_LOSS_RTOL and grad_err <= MS_GRAD_TOL,
           f"batched vs single-scene step: loss {loss_err}, gradients {grad_err}")
 
+    stores = [torch.stack(x) for x in zip(*bundles)]
+    out["kernel"] = multiscene_kernel_path(dev, on, model, spec, settings, (ro, rd, tgt), draws,
+                                           scene_gen, plain, stores)
+    del plain
+
     # The loop train_multiscene runs, on 400x400 stores: its wall time, then
     # under the profiler (the device's busy share and its top kernels), then
     # the host's per-scene work of a step alone (generators, batches, draws).
-    stores = [torch.stack(x) for x in zip(*bundles)]
     loop = make_multiscene_train_loop(model, model, settings, 1024, MS_PROFILE_STEPS)
     loop(state, *stores, SEED)
     torch.cuda.synchronize()
@@ -3960,6 +4235,10 @@ def main() -> int:
               disk_launches=disk["launches"][which],
               tightened_launches=geo["train_launches"][which],
               optimizer_launches=multi["optimizer_launches"][which],
+              multiscene_launches=multi["kernel"]["launches"]["float32"][
+                  f"fused_flex_mlp_train_{which}"],
+              multiscene_launches_bf16=multi["kernel"]["launches"]["bfloat16"][
+                  f"fused_flex_mlp_train_{which}"],
               multidevice_launches=md["train_launches"][which == "bwd"],
               nccl_launches=md["nccl_launches"][which == "bwd"])
     # The bf16 instances keep bf16 residuals (2,752 rows a point) and read
@@ -3973,7 +4252,11 @@ def main() -> int:
               4 * (3 * p + 128 * n + 625416 + 4 * p + 2751 * p) if which == "fwd"
               else 4 * (4 * p + 2751 * p + 590464 + 625416 + 128 * n),
               4 * (3 * p + 128 * n + 625416 + 4 * p) + 2 * (623232 + 2752 * p) if which == "fwd"
-              else 4 * (4 * p + 625416 + 128 * n) + 2 * (2752 * p + 595968))
+              else 4 * (4 * p + 625416 + 128 * n) + 2 * (2752 * p + 595968),
+              multiscene_launches=multi["kernel"]["paper_launches"]["float32"][
+                  f"fused_paper_mlp_train_{which}"],
+              multiscene_launches_bf16=multi["kernel"]["paper_launches"]["bfloat16"][
+                  f"fused_paper_mlp_train_{which}"])
     # Phase 12-13's kernels, at the shapes they were timed at (#6: det, so u
     # is one row of S floats); launches from phase 13's chains.
     n, s = KERNEL_CHUNK

@@ -72,6 +72,11 @@
 // preferred_element_type=f32 does on the TPU; residuals are stored in bf16.
 // Bias gradients and ddc sum the unrounded f32 deltas, as the TPU kernel's
 // rowsum and ddc do.
+//
+// Scenes (scenes.cuh): every launch takes a count of scenes of one shape,
+// each with its own inputs, parameters, residuals and outputs, as the
+// scene-vmapped multi-scene step gives them; the scene is each grid's
+// slowest axis and a scene's blocks do what a single-scene launch's do.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -81,6 +86,7 @@
 #include "flex_mlp.cuh"
 #include "flex_tc.cuh"
 #include "fma_wgrad.cuh"
+#include "scenes.cuh"
 
 namespace {
 
@@ -138,31 +144,46 @@ using Res = std::conditional_t<kBf16, bf16, float>;
 // specialization with its own: a register budget that fits its blocks on an
 // SM without spills.
 
+// Tile blockIdx.x of scene sc. The f32 body takes the scene's points,
+// their rays' dc rows and their outputs by their index among all the
+// scenes' (scene sc's points start at sc * n_points, a whole number of rays),
+// and its parameters at a constant stride, so that it holds no pointer of
+// its own scene through the layers: with every pointer offset, 6 scenes of
+// 1024 x 128 points took 4.75 ms against 4.16 for 6 single-scene launches,
+// so 4.21-4.24 (NVIDIA H100 80GB HBM3, 700 W, tools/torch_kernel_check.py).
 template <bool kBf16>
-__device__ __forceinline__ void train_fwd_tile(const float* __restrict__ pts,
-                                               const float* __restrict__ dc,
-                                               const float* __restrict__ params,
-                                               const bf16* __restrict__ wbf,
-                                               float* __restrict__ out,
-                                               Res<kBf16>* __restrict__ res, long long n_points,
-                                               int samples) {
+__device__ __forceinline__ void train_fwd_scene(const float* pts, const float* dc,
+                                                const float* params, const bf16* wbf, float* out,
+                                                Res<kBf16>* res, long long n_points, int samples,
+                                                const scenes::Strides& st, unsigned int sc) {
+  using scenes::at;
   extern __shared__ float4 smem[];
   if constexpr (kBf16) {
     auto* enc = reinterpret_cast<bf16*>(smem);
-    tc::forward_tile(pts, dc, params, wbf, out, res, n_points, samples, enc,
-                     enc + tc::kEncStride * kTile);
+    tc::forward_tile(at(pts, st.pts, sc), at(dc, st.dc, sc), at(params, st.params, sc),
+                     at(wbf, st.wbf, sc), at(out, st.out, sc), at(res, st.res, sc), n_points,
+                     samples, enc, enc + tc::kEncStride * kTile);
   } else {
-    forward_tile(pts, dc, params, out, res, n_points, samples, reinterpret_cast<float*>(smem));
+    const long long first = static_cast<long long>(sc) * n_points;
+    // forward_tile_at finds the residual rows of the point p at tile p / kTile
+    // from res: rt is scene sc's buffer less the first / kTile tiles before
+    // it, so the global tiles of scene sc land in its own buffer. first / kTile
+    // <= sc * tiles, so rt never lies before scene 0's buffer.
+    float* rt = at(res, st.res, sc) - (first / kTile) * kResRows * kTile;
+    forward_tile_at(pts, dc, params + static_cast<long long>(sc) * kParams, out, 0, rt,
+                    first + static_cast<long long>(blockIdx.x) * kTile, first + n_points, samples,
+                    reinterpret_cast<float*>(smem));
   }
 }
 
+// Tile blockIdx.x of scene blockIdx.y.
 template <bool kBf16>
 __global__ void __launch_bounds__(kThreads)
 train_fwd_kernel(const float* __restrict__ pts, const float* __restrict__ dc,
                  const float* __restrict__ params, const bf16* __restrict__ wbf,
                  float* __restrict__ out, Res<kBf16>* __restrict__ res, long long n_points,
-                 int samples) {
-  train_fwd_tile<kBf16>(pts, dc, params, wbf, out, res, n_points, samples);
+                 int samples, const scenes::Strides st) {
+  train_fwd_scene<kBf16>(pts, dc, params, wbf, out, res, n_points, samples, st, blockIdx.y);
 }
 
 template <>
@@ -170,8 +191,22 @@ __global__ void __launch_bounds__(kThreads, 4)
 train_fwd_kernel<true>(const float* __restrict__ pts, const float* __restrict__ dc,
                        const float* __restrict__ params, const bf16* __restrict__ wbf,
                        float* __restrict__ out, bf16* __restrict__ res, long long n_points,
-                       int samples) {
-  train_fwd_tile<true>(pts, dc, params, wbf, out, res, n_points, samples);
+                       int samples, const scenes::Strides st) {
+  train_fwd_scene<true>(pts, dc, params, wbf, out, res, n_points, samples, st, blockIdx.y);
+}
+
+// One scene, without the scene's offsets (wbf and st unused): the f32
+// forward runs it at S = 1, where train_fwd_kernel<0> (126 registers against
+// 114) takes 3% longer. Only the f32 instance exists.
+template <bool kBf16>
+__global__ void __launch_bounds__(kThreads)
+train_fwd_one_kernel(const float* __restrict__ pts, const float* __restrict__ dc,
+                     const float* __restrict__ params, const bf16* __restrict__ wbf,
+                     float* __restrict__ out, Res<kBf16>* __restrict__ res, long long n_points,
+                     int samples, const scenes::Strides st) {
+  static_assert(!kBf16, "the bf16 forward has no one-scene kernel");
+  extern __shared__ float4 smem[];
+  forward_tile(pts, dc, params, out, res, n_points, samples, reinterpret_cast<float*>(smem));
 }
 
 // ---------------------------------------------------------------------------
@@ -387,14 +422,32 @@ __device__ __forceinline__ void bwd_act_tile_tc(const float* __restrict__ g,
   }
 }
 
+// Tile blockIdx.x of scene sc.
+template <bool kBf16>
+__device__ __forceinline__ void bwd_act_scene(const float* g, const Res<kBf16>* res,
+                                              const void* weights, float* delta,
+                                              long long n_points, const scenes::Strides& st,
+                                              unsigned int sc) {
+  using scenes::at;
+  extern __shared__ float4 smem[];
+  if constexpr (kBf16) {
+    bwd_act_tile_tc(at(g, st.g, sc), at(res, st.res, sc),
+                    at(static_cast<const bf16*>(weights), st.wt, sc), at(delta, st.delta, sc),
+                    n_points, reinterpret_cast<bf16*>(smem));
+  } else {
+    bwd_act_tile_fma(at(g, st.g, sc), at(res, st.res, sc),
+                     at(static_cast<const float*>(weights), st.wt, sc), at(delta, st.delta, sc),
+                     n_points, reinterpret_cast<float*>(smem));
+  }
+}
+
+// Tile blockIdx.x of scene blockIdx.y.
 template <bool kBf16>
 __global__ void __launch_bounds__(kThreads)
 train_bwd_act_kernel(const float* __restrict__ g, const Res<kBf16>* __restrict__ res,
                      const void* __restrict__ weights, float* __restrict__ delta,
-                     long long n_points) {
-  extern __shared__ float4 smem[];
-  bwd_act_tile_fma(g, res, static_cast<const float*>(weights), delta, n_points,
-                   reinterpret_cast<float*>(smem));
+                     long long n_points, const scenes::Strides st) {
+  bwd_act_scene<kBf16>(g, res, weights, delta, n_points, st, blockIdx.y);
 }
 
 // 3 blocks an SM: at 4 (128 registers) the k-step loop spilled.
@@ -402,10 +455,19 @@ template <>
 __global__ void __launch_bounds__(kThreads, 3)
 train_bwd_act_kernel<true>(const float* __restrict__ g, const bf16* __restrict__ res,
                            const void* __restrict__ weights, float* __restrict__ delta,
-                           long long n_points) {
-  extern __shared__ float4 smem[];
-  bwd_act_tile_tc(g, res, static_cast<const bf16*>(weights), delta, n_points,
-                  reinterpret_cast<bf16*>(smem));
+                           long long n_points, const scenes::Strides st) {
+  bwd_act_scene<true>(g, res, weights, delta, n_points, st, blockIdx.y);
+}
+
+// One scene, without the scene's offsets (st unused): the bf16 pass runs it
+// at S = 1, where train_bwd_act_kernel<1> spills 4 bytes and takes 5%
+// longer. Only the bf16 instance is launched.
+template <bool kBf16>
+__global__ void __launch_bounds__(kThreads, 3)
+train_bwd_act_one_kernel(const float* __restrict__ g, const Res<kBf16>* __restrict__ res,
+                         const void* __restrict__ weights, float* __restrict__ delta,
+                         long long n_points, const scenes::Strides st) {
+  bwd_act_scene<kBf16>(g, res, weights, delta, n_points, scenes::Strides{}, 0u);
 }
 
 // ---------------------------------------------------------------------------
@@ -639,39 +701,54 @@ __device__ __forceinline__ void wgrad_tc(const bf16* __restrict__ res,
   }
 }
 
-// 2 blocks an SM: 128 registers, 72 KB of shared memory each.
+// Scene sc's chunk and matrix (blockIdx.x and .y, or .y and .x in bf16).
+template <bool kBf16>
+__device__ __forceinline__ void wgrad_scene(const Res<kBf16>* res, const float* delta,
+                                            float* partial, long long n_tiles,
+                                            const scenes::Strides& st, unsigned int sc) {
+  using scenes::at;
+  if constexpr (kBf16) {
+    wgrad_tc(at(res, st.res, sc), at(delta, st.delta, sc), at(partial, st.partial, sc),
+             n_tiles);
+  } else {
+    extern __shared__ float4 smem[];
+    wgrad_fma(at(res, st.res, sc), at(delta, st.delta, sc), at(partial, st.partial, sc),
+              n_tiles, reinterpret_cast<float*>(smem));
+  }
+}
+
+// 2 blocks an SM: 128 registers, 72 KB of shared memory each. The scene is
+// blockIdx.z.
 template <bool kBf16>
 __global__ void __launch_bounds__(kWThreads, 2)
 train_bwd_wgrad_kernel(const Res<kBf16>* __restrict__ res, const float* __restrict__ delta,
-                       float* __restrict__ partial, long long n_tiles) {
-  extern __shared__ float4 smem[];
-  wgrad_fma(res, delta, partial, n_tiles, reinterpret_cast<float*>(smem));
+                       float* __restrict__ partial, long long n_tiles, const scenes::Strides st) {
+  wgrad_scene<kBf16>(res, delta, partial, n_tiles, st, blockIdx.z);
 }
 
-template <>
-__global__ void __launch_bounds__(kWThreads, 2)
-train_bwd_wgrad_kernel<true>(const bf16* __restrict__ res, const float* __restrict__ delta,
-                             float* __restrict__ partial, long long n_tiles) {
-  wgrad_tc(res, delta, partial, n_tiles);
-}
-
-// Backward 3: grad[e] = sum over chunks c, in order, of partial[c][e].
+// Backward 3: grad[e] = sum over chunks c, in order, of partial[c][e], per
+// scene blockIdx.y.
 __global__ void train_bwd_reduce_kernel(const float* __restrict__ partial, int n_chunks,
-                                        float* __restrict__ grad) {
+                                        float* __restrict__ grad, const scenes::Strides st) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= kParams) return;
+  partial = scenes::at(partial, st.partial, blockIdx.y);
+  grad = scenes::at(grad, st.grad, blockIdx.y);
   float s = 0.f;
   for (int c = 0; c < n_chunks; ++c) s += partial[static_cast<long long>(c) * kParams + e];
   grad[e] = s;
 }
 
-// Backward 4: ddc[r][c] = sum over s of dhd at point r * samples + s; the
-// deltas are point-major in the bf16 instance.
+// Backward 4: ddc[r][c] = sum over s of dhd at point r * samples + s, per
+// scene blockIdx.y; the deltas are point-major in the bf16 instance.
 template <bool kBf16>
 __global__ void train_bwd_ddc_kernel(const float* __restrict__ delta, long long n_rays,
-                                     int samples, float* __restrict__ ddc) {
+                                     int samples, float* __restrict__ ddc,
+                                     const scenes::Strides st) {
   const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (idx >= n_rays * kDirHidden) return;
+  delta = scenes::at(delta, st.delta, blockIdx.y);
+  ddc = scenes::at(ddc, st.ddc, blockIdx.y);
   const long long r = idx / kDirHidden;
   const int c = static_cast<int>(idx % kDirHidden);
   float s = 0.f;
@@ -683,61 +760,86 @@ __global__ void train_bwd_ddc_kernel(const float* __restrict__ delta, long long 
   ddc[idx] = s;
 }
 
+// The per-scene strides of a launch at this shape (scenes.cuh): each
+// scene's buffers are the single-scene launch's.
+scenes::Strides scene_strides(long long n_points, int samples, bool bf16) {
+  const long long tiles = (n_points + kTile - 1) / kTile;
+  const long long chunks = (tiles + kTilesPerChunk - 1) / kTilesPerChunk;
+  const long long dc = n_points / samples * kDirHidden;
+  return {3 * n_points, dc, kParams, bf16 ? tc::kFwdWeights : 0,
+          4 * n_points, tiles * kTile * (bf16 ? tc::kRows : kResRows), 4 * n_points,
+          bf16 ? tc::kBwdWeights : kTParams, tiles * kDRows * kTile, chunks * kParams, kParams,
+          dc};
+}
+
+// `smem` bytes of dynamic shared memory for `kernel`.
+template <typename Kernel>
+cudaError_t set_smem(Kernel* kernel, size_t smem) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
 template <bool kBf16>
 cudaError_t launch_fwd(const float* pts, const float* dc, const float* params, const bf16* wbf,
-                       float* out, void* res, long long n_points, int samples,
+                       float* out, void* res, int n_scenes, long long n_points, int samples,
                        cudaStream_t stream) {
   const size_t smem = kBf16 ? tc::kFwdSmem : kForwardSmem;
-  cudaError_t err = cudaFuncSetAttribute(train_fwd_kernel<kBf16>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+  auto* kernel = train_fwd_kernel<kBf16>;
+  if constexpr (!kBf16) {
+    if (n_scenes == 1) kernel = train_fwd_one_kernel<kBf16>;
+  }
+  cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const long long tiles = (n_points + kTile - 1) / kTile;
-  train_fwd_kernel<kBf16><<<static_cast<unsigned int>(tiles), kThreads, smem, stream>>>(
-      pts, dc, params, wbf, out, static_cast<Res<kBf16>*>(res), n_points, samples);
+  const unsigned int tiles = static_cast<unsigned int>((n_points + kTile - 1) / kTile);
+  kernel<<<dim3(tiles, n_scenes), kThreads, smem, stream>>>(
+      pts, dc, params, wbf, out, static_cast<Res<kBf16>*>(res), n_points, samples,
+      scene_strides(n_points, samples, kBf16));
   return cudaGetLastError();
 }
 
 template <bool kBf16>
 cudaError_t launch_bwd(const float* g, const void* res, const void* wt, float* delta,
-                       float* partial, float* grad, float* ddc, long long n_points,
-                       int samples, cudaStream_t stream) {
+                       float* partial, float* grad, float* ddc, int n_scenes,
+                       long long n_points, int samples, cudaStream_t stream) {
   const long long tiles = (n_points + kTile - 1) / kTile;
   const long long chunks = (tiles + kTilesPerChunk - 1) / kTilesPerChunk;
+  const scenes::Strides st = scene_strides(n_points, samples, kBf16);
   const Res<kBf16>* r = static_cast<const Res<kBf16>*>(res);
   const size_t smem = kBf16 ? kActSmemTc : kActSmem;
-  cudaError_t err = cudaFuncSetAttribute(train_bwd_act_kernel<kBf16>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+  auto* act = train_bwd_act_kernel<kBf16>;
+  if constexpr (kBf16) {
+    if (n_scenes == 1) act = train_bwd_act_one_kernel<kBf16>;
+  }
+  cudaError_t err = set_smem(act, smem);
   if (err != cudaSuccess) return err;
-  train_bwd_act_kernel<kBf16><<<static_cast<unsigned int>(tiles), kThreads, smem,
-                                stream>>>(g, r, wt, delta, n_points);
+  act<<<dim3(static_cast<unsigned int>(tiles), n_scenes), kThreads, smem, stream>>>(
+      g, r, wt, delta, n_points, st);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const size_t wsmem = kBf16 ? kWgradSmem : wgrad::kSmem;
-  err = cudaFuncSetAttribute(train_bwd_wgrad_kernel<kBf16>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(wsmem));
+  err = set_smem(train_bwd_wgrad_kernel<kBf16>, wsmem);
   if (err != cudaSuccess) return err;
-  const dim3 grid = kBf16 ? dim3(kNumJobs, static_cast<unsigned int>(chunks))
-                         : dim3(static_cast<unsigned int>(chunks), kNumJobs);
-  train_bwd_wgrad_kernel<kBf16><<<grid, kWThreads, wsmem, stream>>>(r, delta, partial, tiles);
+  const dim3 grid = kBf16 ? dim3(kNumJobs, static_cast<unsigned int>(chunks), n_scenes)
+                         : dim3(static_cast<unsigned int>(chunks), kNumJobs, n_scenes);
+  train_bwd_wgrad_kernel<kBf16><<<grid, kWThreads, wsmem, stream>>>(r, delta, partial, tiles,
+                                                                    st);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  train_bwd_reduce_kernel<<<(kParams + 255) / 256, 256, 0, stream>>>(
-      partial, static_cast<int>(chunks), grad);
+  train_bwd_reduce_kernel<<<dim3((kParams + 255) / 256, n_scenes), 256, 0, stream>>>(
+      partial, static_cast<int>(chunks), grad, st);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const long long n_rays = n_points / samples;
   const long long threads = n_rays * kDirHidden;
-  train_bwd_ddc_kernel<kBf16><<<static_cast<unsigned int>((threads + 255) / 256), 256, 0,
-                                stream>>>(delta, n_rays, samples, ddc);
+  train_bwd_ddc_kernel<kBf16><<<dim3(static_cast<unsigned int>((threads + 255) / 256), n_scenes),
+                                256, 0, stream>>>(delta, n_rays, samples, ddc, st);
   return cudaGetLastError();
 }
 
-bool bad_shape(long long n_points, int samples) {
+bool bad_shape(int n_scenes, long long n_points, int samples) {
   const long long tiles = (n_points + kTile - 1) / kTile;
-  return samples <= 0 || n_points <= 0 || n_points % samples != 0 || tiles > 0x7fffffffLL ||
+  return n_scenes <= 0 || n_scenes > scenes::kMaxScenes || samples <= 0 || n_points <= 0 ||
+         n_points % samples != 0 || tiles > 0x7fffffffLL ||
          (tiles + kTilesPerChunk - 1) / kTilesPerChunk > 65535 ||
          (n_points / samples * kDirHidden + 255) / 256 > 0x7fffffffLL;
 }
@@ -761,44 +863,48 @@ extern "C" void nerf_flex_train_layout(int* out) {
   out[8] = tc::kBwdWeights;
 }
 
-// pts (n_points, 3), dc (n_points / samples, 64), params (kParams,), out
-// (n_points, 4): contiguous f32 device buffers, dc 16-byte aligned; with
-// bf16 != 0 also wbf (tc::kFwdWeights,), the bf16 forward weights in
-// fragment order (16-byte aligned; ignored for f32); res: tiles * kTile *
-// (kResRows f32 or tc::kRows bf16) elements of the compute dtype. Returns a
-// cudaError_t.
+// n_scenes scenes of n_points points each (scenes.cuh: every buffer below is
+// one scene's, laid end to end n_scenes times). pts (n_points, 3), dc
+// (n_points / samples, 64), params (kParams,), out (n_points, 4): contiguous
+// f32 device buffers, dc 16-byte aligned; with bf16 != 0 also wbf
+// (tc::kFwdWeights,), the bf16 forward weights in fragment order (16-byte
+// aligned; ignored for f32); res: tiles * kTile * (kResRows f32 or tc::kRows
+// bf16) elements of the compute dtype. Returns a cudaError_t.
 extern "C" int nerf_flex_train_forward(const float* pts, const float* dc, const float* params,
                                        long long n_params, const void* wbf, long long n_wbf,
-                                       float* out, void* res, long long n_points, int samples,
-                                       int bf16, void* stream) {
-  if (n_params != kParams || bad_shape(n_points, samples) ||
+                                       float* out, void* res, int n_scenes, long long n_points,
+                                       int samples, int bf16, void* stream) {
+  if (n_params != kParams || bad_shape(n_scenes, n_points, samples) ||
       (bf16 && (wbf == nullptr || n_wbf != tc::kFwdWeights))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* w = static_cast<const __nv_bfloat16*>(wbf);
   const cudaError_t err =
-      bf16 ? launch_fwd<true>(pts, dc, params, w, out, res, n_points, samples, s)
-           : launch_fwd<false>(pts, dc, params, w, out, res, n_points, samples, s);
+      bf16 ? launch_fwd<true>(pts, dc, params, w, out, res, n_scenes, n_points, samples, s)
+           : launch_fwd<false>(pts, dc, params, w, out, res, n_scenes, n_points, samples, s);
   return static_cast<int>(err);
 }
 
-// g (n_points, 4) f32 cotangent; res from the forward; wt the backward
-// weights: (kTParams,) f32 (out, in) matrices, or with bf16 != 0
-// (tc::kBwdWeights,) bf16 fragments, 16-byte aligned; scratch: delta (tiles *
-// kDRows * kTile f32) and partial (chunks * kParams f32); outputs: grad
-// (kParams,) in the packed parameter layout and ddc (n_points / samples, 64).
-// Returns a cudaError_t.
+// n_scenes scenes, as the forward's. g (n_points, 4) f32 cotangent; res from
+// the forward; wt the backward weights: (kTParams,) f32 (out, in) matrices,
+// or with bf16 != 0 (tc::kBwdWeights,) bf16 fragments, 16-byte aligned;
+// scratch: delta (tiles * kDRows * kTile f32) and partial (chunks * kParams
+// f32); outputs: grad (kParams,) in the packed parameter layout and ddc
+// (n_points / samples, 64). Returns a cudaError_t.
 extern "C" int nerf_flex_train_backward(const float* g, const void* res, const void* wt,
                                         long long n_wt, float* delta, float* partial,
-                                        float* grad, float* ddc, long long n_points,
-                                        int samples, int bf16, void* stream) {
-  if (n_wt != (bf16 ? tc::kBwdWeights : kTParams) || bad_shape(n_points, samples)) {
+                                        float* grad, float* ddc, int n_scenes,
+                                        long long n_points, int samples, int bf16,
+                                        void* stream) {
+  if (n_wt != (bf16 ? tc::kBwdWeights : kTParams) || bad_shape(n_scenes, n_points, samples)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      bf16 ? launch_bwd<true>(g, res, wt, delta, partial, grad, ddc, n_points, samples, s)
-           : launch_bwd<false>(g, res, wt, delta, partial, grad, ddc, n_points, samples, s);
+      bf16 ? launch_bwd<true>(g, res, wt, delta, partial, grad, ddc, n_scenes, n_points,
+                              samples, s)
+           : launch_bwd<false>(g, res, wt, delta, partial, grad, ddc, n_scenes, n_points,
+                               samples, s);
   return static_cast<int>(err);
 }

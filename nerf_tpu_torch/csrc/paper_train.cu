@@ -78,6 +78,11 @@
 // Bias gradients and ddc sum the unrounded f32 deltas. (The TPU kernel sums
 // its bias gradients with a ones-row dot at DEFAULT precision, which on the
 // TPU rounds dY to bf16 and on the CPU does not; the port keeps f32 sums.)
+//
+// Scenes (scenes.cuh): every launch takes a count of scenes of one shape,
+// each with its own inputs, parameters, residuals and outputs, as the
+// scene-vmapped multi-scene step gives them; the scene is each grid's
+// slowest axis and a scene's blocks do what a single-scene launch's do.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -87,6 +92,7 @@
 #include "fma_wgrad.cuh"
 #include "paper_mlp.cuh"
 #include "paper_tc.cuh"
+#include "scenes.cuh"
 
 namespace {
 
@@ -138,13 +144,22 @@ using Res = std::conditional_t<kBf16, bf16, float>;
 // ---------------------------------------------------------------------------
 // Forward: paper_t's evaluation, saving every residual.
 
+// Tile blockIdx.x of scene sc.
 template <bool kBf16>
-__global__ void __launch_bounds__(kThreads, 2)
-train_fwd_kernel(const float* __restrict__ pts, const float* __restrict__ dc,
-                 const float* __restrict__ params, const bf16* __restrict__ wbf, const Layout L,
-                 const tc::FwdLayout T, float* __restrict__ out, Res<kBf16>* __restrict__ res,
-                 long long n_points, int samples, int num_freq) {
+__device__ __forceinline__ void train_fwd_scene(const float* pts, const float* dc,
+                                                const float* params, const bf16* wbf,
+                                                const Layout& L, const tc::FwdLayout& T,
+                                                float* out, Res<kBf16>* res, long long n_points,
+                                                int samples, int num_freq,
+                                                const scenes::Strides& st, unsigned int sc) {
+  using scenes::at;
   extern __shared__ float4 smem[];
+  pts = at(pts, st.pts, sc);
+  dc = at(dc, st.dc, sc);
+  params = at(params, st.params, sc);
+  wbf = at(wbf, st.wbf, sc);
+  out = at(out, st.out, sc);
+  res = at(res, st.res, sc);
   if constexpr (kBf16) {
     auto* enc = reinterpret_cast<bf16*>(smem);
     tc::forward_tile(pts, dc, params, wbf, L, T, out, res, n_points, samples, num_freq, enc,
@@ -153,6 +168,31 @@ train_fwd_kernel(const float* __restrict__ pts, const float* __restrict__ dc,
     forward_tile(pts, dc, params, L, out, res, n_points, samples, num_freq,
                  reinterpret_cast<float*>(smem));
   }
+}
+
+// Tile blockIdx.x of scene blockIdx.y.
+template <bool kBf16>
+__global__ void __launch_bounds__(kThreads, 2)
+train_fwd_kernel(const float* __restrict__ pts, const float* __restrict__ dc,
+                 const float* __restrict__ params, const bf16* __restrict__ wbf, const Layout L,
+                 const tc::FwdLayout T, float* __restrict__ out, Res<kBf16>* __restrict__ res,
+                 long long n_points, int samples, int num_freq, const scenes::Strides st) {
+  train_fwd_scene<kBf16>(pts, dc, params, wbf, L, T, out, res, n_points, samples, num_freq, st,
+                         blockIdx.y);
+}
+
+// One scene, without the scene's offsets (st unused): the f32 forward runs
+// it at S = 1, where train_fwd_kernel<0> takes 4% longer. Only the f32
+// instance is launched.
+template <bool kBf16>
+__global__ void __launch_bounds__(kThreads, 2)
+train_fwd_one_kernel(const float* __restrict__ pts, const float* __restrict__ dc,
+                     const float* __restrict__ params, const bf16* __restrict__ wbf,
+                     const Layout L, const tc::FwdLayout T, float* __restrict__ out,
+                     Res<kBf16>* __restrict__ res, long long n_points, int samples, int num_freq,
+                     const scenes::Strides st) {
+  train_fwd_scene<kBf16>(pts, dc, params, wbf, L, T, out, res, n_points, samples, num_freq,
+                         scenes::Strides{}, 0u);
 }
 
 // ---------------------------------------------------------------------------
@@ -356,19 +396,44 @@ __device__ __forceinline__ void bwd_act_tile_fma(const float* __restrict__ g,
   }
 }
 
+// Tile blockIdx.x of scene sc.
+template <bool kBf16>
+__device__ __forceinline__ void bwd_act_scene(const float* g, const Res<kBf16>* res,
+                                              const void* weights, float* delta,
+                                              long long n_points, int dim,
+                                              const scenes::Strides& st, unsigned int sc) {
+  using scenes::at;
+  extern __shared__ float4 smem[];
+  g = at(g, st.g, sc);
+  res = at(res, st.res, sc);
+  delta = at(delta, st.delta, sc);
+  if constexpr (kBf16) {
+    bwd_act_tile_tc(g, res, at(static_cast<const bf16*>(weights), st.wt, sc), delta, n_points,
+                    dim, reinterpret_cast<bf16*>(smem));
+  } else {
+    bwd_act_tile_fma(g, res, at(static_cast<const float*>(weights), st.wt, sc), delta,
+                     n_points, dim, reinterpret_cast<float*>(smem));
+  }
+}
+
+// Tile blockIdx.x of scene blockIdx.y.
 template <bool kBf16>
 __global__ void __launch_bounds__(kThreads, 2)
 train_bwd_act_kernel(const float* __restrict__ g, const Res<kBf16>* __restrict__ res,
                      const void* __restrict__ weights, float* __restrict__ delta,
-                     long long n_points, int dim) {
-  extern __shared__ float4 smem[];
-  if constexpr (kBf16) {
-    bwd_act_tile_tc(g, res, static_cast<const bf16*>(weights), delta, n_points, dim,
-                    reinterpret_cast<bf16*>(smem));
-  } else {
-    bwd_act_tile_fma(g, res, static_cast<const float*>(weights), delta, n_points, dim,
-                     reinterpret_cast<float*>(smem));
-  }
+                     long long n_points, int dim, const scenes::Strides st) {
+  bwd_act_scene<kBf16>(g, res, weights, delta, n_points, dim, st, blockIdx.y);
+}
+
+// One scene, without the scene's offsets (st unused): the bf16 pass runs it
+// at S = 1, where train_bwd_act_kernel<1> spills 8 bytes and takes 1.4%
+// longer. Only the bf16 instance is launched.
+template <bool kBf16>
+__global__ void __launch_bounds__(kThreads, 2)
+train_bwd_act_one_kernel(const float* __restrict__ g, const Res<kBf16>* __restrict__ res,
+                         const void* __restrict__ weights, float* __restrict__ delta,
+                         long long n_points, int dim, const scenes::Strides st) {
+  bwd_act_scene<kBf16>(g, res, weights, delta, n_points, dim, scenes::Strides{}, 0u);
 }
 
 // ---------------------------------------------------------------------------
@@ -575,12 +640,17 @@ __device__ __forceinline__ void wgrad_tc(const bf16* __restrict__ res,
   }
 }
 
+// Output tile blockIdx.x and chunk blockIdx.y of scene sc.
 template <bool kBf16>
-__global__ void __launch_bounds__(kWThreads, 2)
-train_bwd_wgrad_kernel(const Res<kBf16>* __restrict__ res, const float* __restrict__ delta,
-                       float* __restrict__ partial, long long n_tiles, int dim, int n_params,
-                       const __grid_constant__ WJobs jobs) {
+__device__ __forceinline__ void wgrad_scene(const Res<kBf16>* res, const float* delta,
+                                            float* partial, long long n_tiles, int dim,
+                                            int n_params, const WJobs& jobs,
+                                            const scenes::Strides& st, unsigned int sc) {
+  using scenes::at;
   extern __shared__ float4 smem[];
+  res = at(res, st.res, sc);
+  delta = at(delta, st.delta, sc);
+  partial = at(partial, st.partial, sc);
   if constexpr (kBf16) {
     wgrad_tc(res, delta, partial, n_tiles, dim, n_params, jobs);
   } else {
@@ -588,23 +658,39 @@ train_bwd_wgrad_kernel(const Res<kBf16>* __restrict__ res, const float* __restri
   }
 }
 
-// Backward 3: grad[e] = sum over chunks c, in order, of partial[c][e].
+// The scene is blockIdx.z.
+template <bool kBf16>
+__global__ void __launch_bounds__(kWThreads, 2)
+train_bwd_wgrad_kernel(const Res<kBf16>* __restrict__ res, const float* __restrict__ delta,
+                       float* __restrict__ partial, long long n_tiles, int dim, int n_params,
+                       const __grid_constant__ WJobs jobs, const scenes::Strides st) {
+  wgrad_scene<kBf16>(res, delta, partial, n_tiles, dim, n_params, jobs, st, blockIdx.z);
+}
+
+// Backward 3: grad[e] = sum over chunks c, in order, of partial[c][e], per
+// scene blockIdx.y.
 __global__ void train_bwd_reduce_kernel(const float* __restrict__ partial, int n_chunks,
-                                        int n_params, float* __restrict__ grad) {
+                                        int n_params, float* __restrict__ grad,
+                                        const scenes::Strides st) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= n_params) return;
+  partial = scenes::at(partial, st.partial, blockIdx.y);
+  grad = scenes::at(grad, st.grad, blockIdx.y);
   float s = 0.f;
   for (int c = 0; c < n_chunks; ++c) s += partial[static_cast<long long>(c) * n_params + e];
   grad[e] = s;
 }
 
-// Backward 4: ddc[r][c] = sum over s of dd0 at point r * samples + s; the
-// deltas are point-major in the bf16 instance.
+// Backward 4: ddc[r][c] = sum over s of dd0 at point r * samples + s, per
+// scene blockIdx.y; the deltas are point-major in the bf16 instance.
 template <bool kBf16>
 __global__ void train_bwd_ddc_kernel(const float* __restrict__ delta, long long n_rays,
-                                     int samples, float* __restrict__ ddc) {
+                                     int samples, float* __restrict__ ddc,
+                                     const scenes::Strides st) {
   const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (idx >= n_rays * kDirWidth) return;
+  delta = scenes::at(delta, st.delta, blockIdx.y);
+  ddc = scenes::at(ddc, st.ddc, blockIdx.y);
   const long long r = idx / kDirWidth;
   const int c = static_cast<int>(idx % kDirWidth);
   float s = 0.f;
@@ -616,69 +702,90 @@ __global__ void train_bwd_ddc_kernel(const float* __restrict__ delta, long long 
   ddc[idx] = s;
 }
 
+// The per-scene strides of a launch at this shape (scenes.cuh): each
+// scene's buffers are the single-scene launch's.
+scenes::Strides scene_strides(const Layout& L, long long n_points, int samples, bool bf16) {
+  const long long tiles = (n_points + kTile - 1) / kTile;
+  const long long chunks = (tiles + kTilesPerChunk - 1) / kTilesPerChunk;
+  const long long dc = n_points / samples * kDirWidth;
+  return {3 * n_points, dc, L.total, bf16 ? tc::make_fwd_layout(L.dim).total : 0,
+          4 * n_points, tiles * kTile * (bf16 ? tc::res_rows(L.dim) : res_rows(L.dim)),
+          4 * n_points, bf16 ? tc::kBTotal : kTParams, tiles * kDRows * kTile,
+          chunks * L.total, L.total, dc};
+}
+
+// `smem` bytes of dynamic shared memory for `kernel` and, with `carveout`,
+// the largest shared-memory carveout.
+template <typename Kernel>
+cudaError_t set_smem(Kernel* kernel, size_t smem, bool carveout) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  return err == cudaSuccess && carveout ? max_shared_carveout(kernel) : err;
+}
+
 template <bool kBf16>
 cudaError_t launch_fwd(const float* pts, const float* dc, const float* params, const bf16* wbf,
-                       const Layout& L, float* out, void* res, long long n_points, int samples,
-                       int num_freq, cudaStream_t stream) {
+                       const Layout& L, float* out, void* res, int n_scenes, long long n_points,
+                       int samples, int num_freq, cudaStream_t stream) {
   const size_t smem = kBf16 ? tc::fwd_smem_bytes(L.dim) : fwd_smem_bytes(L);
-  cudaError_t err = cudaFuncSetAttribute(train_fwd_kernel<kBf16>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err == cudaSuccess && !kBf16) err = max_shared_carveout(train_fwd_kernel<kBf16>);
+  auto* kernel = train_fwd_kernel<kBf16>;
+  if constexpr (!kBf16) {
+    if (n_scenes == 1) kernel = train_fwd_one_kernel<kBf16>;
+  }
+  cudaError_t err = set_smem(kernel, smem, !kBf16);
   if (err != cudaSuccess) return err;
-  const long long tiles = (n_points + kTile - 1) / kTile;
-  train_fwd_kernel<kBf16><<<static_cast<unsigned int>(tiles), kThreads, smem, stream>>>(
+  const unsigned int tiles = static_cast<unsigned int>((n_points + kTile - 1) / kTile);
+  kernel<<<dim3(tiles, n_scenes), kThreads, smem, stream>>>(
       pts, dc, params, wbf, L, tc::make_fwd_layout(L.dim), out, static_cast<Res<kBf16>*>(res),
-      n_points, samples, num_freq);
+      n_points, samples, num_freq, scene_strides(L, n_points, samples, kBf16));
   return cudaGetLastError();
 }
 
 template <bool kBf16>
 cudaError_t launch_bwd(const float* g, const void* res, const void* wt, const Layout& L,
-                       float* delta, float* partial, float* grad, float* ddc, long long n_points,
-                       int samples, cudaStream_t stream) {
+                       float* delta, float* partial, float* grad, float* ddc, int n_scenes,
+                       long long n_points, int samples, cudaStream_t stream) {
   const long long tiles = (n_points + kTile - 1) / kTile;
   const long long chunks = (tiles + kTilesPerChunk - 1) / kTilesPerChunk;
+  const scenes::Strides st = scene_strides(L, n_points, samples, kBf16);
   const Res<kBf16>* r = static_cast<const Res<kBf16>*>(res);
   const size_t smem = kBf16 ? tc::kActSmem : kBwdSmem;
-  cudaError_t err = cudaFuncSetAttribute(train_bwd_act_kernel<kBf16>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err == cudaSuccess && !kBf16) err = max_shared_carveout(train_bwd_act_kernel<kBf16>);
+  auto* act = train_bwd_act_kernel<kBf16>;
+  if constexpr (kBf16) {
+    if (n_scenes == 1) act = train_bwd_act_one_kernel<kBf16>;
+  }
+  cudaError_t err = set_smem(act, smem, !kBf16);
   if (err != cudaSuccess) return err;
-  train_bwd_act_kernel<kBf16><<<static_cast<unsigned int>(tiles), kThreads, smem, stream>>>(
-      g, r, wt, delta, n_points, L.dim);
+  act<<<dim3(static_cast<unsigned int>(tiles), n_scenes), kThreads, smem, stream>>>(
+      g, r, wt, delta, n_points, L.dim, st);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const size_t wsmem = kBf16 ? 0 : wgrad::kSmem;
   if (!kBf16) {
-    err = cudaFuncSetAttribute(train_bwd_wgrad_kernel<kBf16>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(wsmem));
-    if (err == cudaSuccess) err = max_shared_carveout(train_bwd_wgrad_kernel<kBf16>);
+    err = set_smem(train_bwd_wgrad_kernel<kBf16>, wsmem, true);
     if (err != cudaSuccess) return err;
   }
   const WJobs jobs = make_jobs(L, kBf16);
-  train_bwd_wgrad_kernel<kBf16><<<dim3(jobs.n_wtiles, static_cast<unsigned int>(chunks)),
-                                  kWThreads, wsmem, stream>>>(r, delta, partial, tiles, L.dim,
-                                                              L.total, jobs);
+  const dim3 grid(jobs.n_wtiles, static_cast<unsigned int>(chunks), n_scenes);
+  train_bwd_wgrad_kernel<kBf16><<<grid, kWThreads, wsmem, stream>>>(r, delta, partial, tiles,
+                                                                    L.dim, L.total, jobs, st);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  train_bwd_reduce_kernel<<<(L.total + 255) / 256, 256, 0, stream>>>(
-      partial, static_cast<int>(chunks), L.total, grad);
+  train_bwd_reduce_kernel<<<dim3((L.total + 255) / 256, n_scenes), 256, 0, stream>>>(
+      partial, static_cast<int>(chunks), L.total, grad, st);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const long long n_rays = n_points / samples;
   const long long threads = n_rays * kDirWidth;
-  train_bwd_ddc_kernel<kBf16><<<static_cast<unsigned int>((threads + 255) / 256), 256, 0,
-                                stream>>>(delta, n_rays, samples, ddc);
+  train_bwd_ddc_kernel<kBf16><<<dim3(static_cast<unsigned int>((threads + 255) / 256), n_scenes),
+                                256, 0, stream>>>(delta, n_rays, samples, ddc, st);
   return cudaGetLastError();
 }
 
-bool bad_shape(long long n_points, int samples, int num_freq) {
+bool bad_shape(int n_scenes, long long n_points, int samples, int num_freq) {
   const long long tiles = (n_points + kTile - 1) / kTile;
-  return num_freq < 0 || num_freq > kMaxFreq || samples <= 0 || n_points <= 0 ||
-         n_points % samples != 0 || tiles > 0x7fffffffLL ||
+  return n_scenes <= 0 || n_scenes > scenes::kMaxScenes || num_freq < 0 || num_freq > kMaxFreq ||
+         samples <= 0 || n_points <= 0 || n_points % samples != 0 || tiles > 0x7fffffffLL ||
          (tiles + kTilesPerChunk - 1) / kTilesPerChunk > 65535 ||
          (n_points / samples * kDirWidth + 255) / 256 > 0x7fffffffLL;
 }
@@ -703,17 +810,20 @@ extern "C" void nerf_paper_train_layout(int num_freq, int* out) {
   out[8] = tc::kBTotal;
 }
 
-// pts (n_points, 3), dc (n_points / samples, 128), params (packed, see
-// nerf_paper_train_layout), out (n_points, 4): contiguous f32 device
-// buffers, dc and params 16-byte aligned; with bf16 != 0 also wbf, the bf16
-// forward weights in fragment order (16-byte aligned; ignored for f32); res:
-// tiles * kTile * (f32 or bf16 residual rows) elements of the compute dtype.
-// Returns a cudaError_t.
+// n_scenes scenes of n_points points each (scenes.cuh: every buffer below is
+// one scene's, laid end to end n_scenes times). pts (n_points, 3), dc
+// (n_points / samples, 128), params (packed, see nerf_paper_train_layout),
+// out (n_points, 4): contiguous f32 device buffers, dc and params 16-byte
+// aligned; with bf16 != 0 also wbf, the bf16 forward weights in fragment
+// order (16-byte aligned; ignored for f32); res: tiles * kTile * (f32 or bf16
+// residual rows) elements of the compute dtype. Returns a cudaError_t.
 extern "C" int nerf_paper_train_forward(const float* pts, const float* dc, const float* params,
                                         long long n_params, const void* wbf, long long n_wbf,
-                                        float* out, void* res, long long n_points, int samples,
-                                        int num_freq, int bf16, void* stream) {
-  if (bad_shape(n_points, samples, num_freq)) return static_cast<int>(cudaErrorInvalidValue);
+                                        float* out, void* res, int n_scenes, long long n_points,
+                                        int samples, int num_freq, int bf16, void* stream) {
+  if (bad_shape(n_scenes, n_points, samples, num_freq)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const Layout L = make_layout(num_freq);
   if (n_params != L.total ||
       (bf16 && (wbf == nullptr || n_wbf != tc::make_fwd_layout(L.dim).total))) {
@@ -722,28 +832,34 @@ extern "C" int nerf_paper_train_forward(const float* pts, const float* dc, const
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* w = static_cast<const __nv_bfloat16*>(wbf);
   const cudaError_t err =
-      bf16 ? launch_fwd<true>(pts, dc, params, w, L, out, res, n_points, samples, num_freq, s)
-           : launch_fwd<false>(pts, dc, params, w, L, out, res, n_points, samples, num_freq, s);
+      bf16 ? launch_fwd<true>(pts, dc, params, w, L, out, res, n_scenes, n_points, samples,
+                              num_freq, s)
+           : launch_fwd<false>(pts, dc, params, w, L, out, res, n_scenes, n_points, samples,
+                               num_freq, s);
   return static_cast<int>(err);
 }
 
-// g (n_points, 4) f32 cotangent; res from the forward; wt the backward
-// weights: (kTParams,) f32 (out, in) matrices, or with bf16 != 0 (kBTotal,)
-// bf16 fragments, 16-byte aligned; work buffers: delta (tiles * kDRows * kTile
-// f32) and partial (chunks * n_params f32); outputs: grad (n_params,) in the
-// packed parameter layout and ddc (n_points / samples, 128). Returns a
-// cudaError_t.
+// n_scenes scenes, as the forward's. g (n_points, 4) f32 cotangent; res from
+// the forward; wt the backward weights: (kTParams,) f32 (out, in) matrices,
+// or with bf16 != 0 (kBTotal,) bf16 fragments, 16-byte aligned; work buffers:
+// delta (tiles * kDRows * kTile f32) and partial (chunks * n_params f32);
+// outputs: grad (n_params,) in the packed parameter layout and ddc
+// (n_points / samples, 128). Returns a cudaError_t.
 extern "C" int nerf_paper_train_backward(const float* g, const void* res, const void* wt,
                                          long long n_wt, float* delta, float* partial,
-                                         float* grad, float* ddc, long long n_points,
-                                         int samples, int num_freq, int bf16, void* stream) {
-  if (n_wt != (bf16 ? tc::kBTotal : kTParams) || bad_shape(n_points, samples, num_freq)) {
+                                         float* grad, float* ddc, int n_scenes,
+                                         long long n_points, int samples, int num_freq,
+                                         int bf16, void* stream) {
+  if (n_wt != (bf16 ? tc::kBTotal : kTParams) ||
+      bad_shape(n_scenes, n_points, samples, num_freq)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Layout L = make_layout(num_freq);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      bf16 ? launch_bwd<true>(g, res, wt, L, delta, partial, grad, ddc, n_points, samples, s)
-           : launch_bwd<false>(g, res, wt, L, delta, partial, grad, ddc, n_points, samples, s);
+      bf16 ? launch_bwd<true>(g, res, wt, L, delta, partial, grad, ddc, n_scenes, n_points,
+                              samples, s)
+           : launch_bwd<false>(g, res, wt, L, delta, partial, grad, ddc, n_scenes, n_points,
+                               samples, s);
   return static_cast<int>(err);
 }

@@ -31,8 +31,14 @@ are rounded to bf16 and the sums stay f32 (``.bfloat16().float()`` and f32
 matmuls in the plain version); bias gradients and ddc sum the unrounded f32
 gradients, as the TPU kernel does.
 
+``flex_train_fwd_scenes`` / ``flex_train_bwd_scenes`` run S scenes of one shape, each
+with its own parameters, in one launch each way (the scene is a grid axis
+of every pass, ``csrc/scenes.cuh``): the autograd function's ``vmap`` rule
+calls them for the multi-scene step. ``flex_train_fwd`` / ``flex_train_bwd`` are
+their S = 1 case, which launches the single-scene kernels.
+
 ``fused_flex_mlp_train.fwd_launches`` and ``.bwd_launches`` count the
-kernels' launches (one per call each).
+kernels' launches (one per call each, a scene-batched call included).
 """
 
 from __future__ import annotations
@@ -59,7 +65,16 @@ from .mlp import (  # noqa: F401  (unpack_params: re-exported for the callers of
     tc_unflatten,
     unpack_params,
 )
-from .train_vjp import TrainKernelFamily, build_train_vjp
+from .train_vjp import (
+    TrainKernelFamily,
+    TrainLaunches,
+    TrainLayout,
+    build_train_vjp,
+    launch_backward,
+    launch_forward,
+    plain_backward_scenes,
+    plain_forward_scenes,
+)
 
 _TILE = 64                 # points per block (csrc/flex_mlp.cuh kTile)
 _TILES_PER_CHUNK = 16      # point tiles per weight-gradient block
@@ -74,11 +89,19 @@ _NUM_TC_FWD_WEIGHTS = 64 * 128 + 4 * 128 * 128 + 128 * 64 + 128 + 3 * 64   # 822
 _NUM_TC_BWD_WEIGHTS = 16 * 64 + 64 * 128 + 144 * 128 + 3 * 128 * 128     # 76800
 
 
+@functools.lru_cache(maxsize=None)
+def _bwd_index(device: str) -> torch.Tensor:
+    """Where each value of the f32 backward weights comes from in the packed
+    parameters, on ``device``: the packing run on the positions themselves."""
+    layers = unpack_params(torch.arange(_NUM_PARAMS, dtype=torch.float64))
+    return torch.cat([layers[name][0].t().reshape(-1) for name in _BWD_ORDER]).long().to(device)
+
+
 def pack_backward_weights(params: torch.Tensor) -> torch.Tensor:
     """The backward kernel's weights: each layer's (out, in) matrix, in the
-    order of ``csrc/flex_train.cu``'s kT* offsets."""
-    layers = unpack_params(params)
-    return torch.cat([layers[name][0].t().reshape(-1) for name in _BWD_ORDER])
+    order of ``csrc/flex_train.cu``'s kT* offsets; (..., 82820) -> (...,
+    74048), one gather."""
+    return params[..., _bwd_index(str(params.device))]
 
 
 def _tc_backward_matrices(layers, pad):
@@ -98,7 +121,8 @@ def _tc_backward_matrices(layers, pad):
 
 def pack_tc_backward(params: torch.Tensor) -> torch.Tensor:
     """The bf16 backward kernel's weights (``csrc/flex_tc.cuh`` kB*), from
-    the packed parameters: rounded to bf16, fragment order, zero K pads."""
+    the packed parameters (..., 82820): rounded to bf16, fragment order, zero
+    K pads."""
     from .paper_t import gather_bf16
 
     return gather_bf16(params, lambda device: tc_gather_index(_tc_backward_matrices, device))
@@ -202,6 +226,12 @@ def flex_train_plain_bwd(g: torch.Tensor, residuals, params: torch.Tensor, n: in
     return torch.cat(grads), dhd.reshape(n, s, _DIR_HIDDEN).sum(dim=1)
 
 
+def _layout() -> TrainLayout:
+    return TrainLayout(res_rows=_RES_ROWS, tc_res_rows=_TC_RES_ROWS, delta_rows=_DELTA_ROWS,
+                       n_params=_NUM_PARAMS, tile=_TILE, tiles_per_chunk=_TILES_PER_CHUNK,
+                       dc_width=_DIR_HIDDEN)
+
+
 @functools.lru_cache(maxsize=None)
 def _kernels():
     from ._build import load_library
@@ -217,10 +247,10 @@ def _kernels():
         raise RuntimeError(f"csrc/flex_train.cu layout {tuple(layout)} != wrapper's {want}")
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     fwd = lib.nerf_flex_train_forward
-    fwd.argtypes = [ptr, ptr, ptr, i64, ptr, i64, ptr, ptr, i64, i32, i32, ptr]
+    fwd.argtypes = [ptr, ptr, ptr, i64, ptr, i64, ptr, ptr, i32, i64, i32, i32, ptr]
     fwd.restype = ctypes.c_int
     bwd = lib.nerf_flex_train_backward
-    bwd.argtypes = [ptr, ptr, ptr, i64, ptr, ptr, ptr, ptr, i64, i32, i32, ptr]
+    bwd.argtypes = [ptr, ptr, ptr, i64, ptr, ptr, ptr, ptr, i32, i64, i32, i32, ptr]
     bwd.restype = ctypes.c_int
     return fwd, bwd
 
@@ -230,89 +260,60 @@ def tc_forward_weights() -> int:
     return tc_gather_index(_tc_forward_matrices, "cpu").numel()
 
 
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """Contiguous, float32 and 16-byte aligned (the kernels read float4)."""
-    t = t.float().contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
+_LAUNCHES = TrainLaunches(
+    name="fused_flex_mlp_train",
+    layout=_layout,
+    kernels=_kernels,
+    pack_tc_forward=pack_tc_forward,
+    pack_tc_backward=pack_tc_backward,
+    pack_backward_weights=pack_backward_weights,
+)
 
 
-def _check_cuda(what: str, pts: torch.Tensor, *others: torch.Tensor) -> None:
-    if pts.device.type != "cuda":
-        raise ValueError(f"{what}: no kernel for device {pts.device}")
-    if any(t.device != pts.device for t in others):
-        raise ValueError(f"{what}: every tensor must be on {pts.device}")
+def flex_train_fwd_scenes(pts: torch.Tensor, dc: torch.Tensor, params: torch.Tensor,
+                          compute_dtype: str = "float32"):
+    """The forward over S scenes: pts (S, N, P, 3), dc (S, N, 64), params
+    (S, 82820) -> ``(raw (S, N, P, 4) f32, residuals)``. One launch of the
+    kernel on CUDA tensors; the plain version scene by scene on CPU ones."""
+    if pts.device.type == "cpu":
+        return plain_forward_scenes(flex_train_plain_fwd, pts, dc, params, compute_dtype)
+    return launch_forward(_LAUNCHES, fused_flex_mlp_train, pts, dc, params, compute_dtype)
+
+
+def flex_train_bwd_scenes(g: torch.Tensor, residuals, params: torch.Tensor,
+                          compute_dtype: str = "float32"):
+    """The backward over S scenes: g (S, N, P, 4) and ``flex_train_fwd_scenes``'
+    residuals -> ``(d params (S, 82820), ddc (S, N, 64))``. One launch of the
+    kernels on CUDA tensors; the plain version scene by scene on CPU ones."""
+    if g.device.type == "cpu":
+        return plain_backward_scenes(flex_train_plain_bwd, g, residuals, params, compute_dtype)
+    return launch_backward(_LAUNCHES, fused_flex_mlp_train, g, residuals, params, compute_dtype)
 
 
 def flex_train_fwd(pts: torch.Tensor, dc: torch.Tensor, params: torch.Tensor,
                    compute_dtype: str = "float32"):
-    """The forward: the kernel on CUDA tensors, the plain version on CPU ones."""
+    """The forward of one scene: the kernel on CUDA tensors (the scene-batched
+    wrapper at S = 1, which launches the single-scene kernel), the plain
+    version on CPU ones."""
     if pts.device.type == "cpu":
         return flex_train_plain_fwd(pts, dc, params, compute_dtype)
-    what = "fused_flex_mlp_train forward"
-    _check_cuda(what, pts, dc, params)
-    n, s = pts.shape[0], pts.shape[1]
-    if pts.ndim != 3 or pts.shape[-1] != 3 or tuple(dc.shape) != (n, _DIR_HIDDEN):
-        raise ValueError(f"{what}: want pts (N, S, 3) and dc (N, 64), got "
-                         f"{tuple(pts.shape)} and {tuple(dc.shape)}")
-    if pts.dtype != torch.float32 or params.numel() != _NUM_PARAMS:
-        raise ValueError(f"{what}: want float32 pts and a {_NUM_PARAMS}-float parameter buffer")
-    bf16 = compute_dtype == "bfloat16"
-    tiles = -(-n * s // _TILE)
-    out = torch.empty((n, s, 4), dtype=torch.float32, device=pts.device)
-    res = torch.empty(tiles * (_TC_RES_ROWS if bf16 else _RES_ROWS) * _TILE, device=pts.device,
-                      dtype=torch.bfloat16 if bf16 else torch.float32)
-    if n * s == 0:
-        return out, (res,)
-    # The aligned copies are freed when this returns, before the kernel may
-    # have run: the caching allocator hands their blocks out again only in
-    # this stream's order, after the kernel.
-    with torch.cuda.device(pts.device):
-        pts_c, dc_c, params_c = (_aligned(t) for t in (pts, dc, params))
-        wbf = pack_tc_forward(params_c) if bf16 else None
-        stream = torch.cuda.current_stream(pts.device).cuda_stream
-        rc = _kernels()[0](pts_c.data_ptr(), dc_c.data_ptr(), params_c.data_ptr(),
-                           params_c.numel(), None if wbf is None else wbf.data_ptr(),
-                           0 if wbf is None else wbf.numel(), out.data_ptr(), res.data_ptr(),
-                           n * s, s, int(bf16), stream)
-    if rc != 0:
-        raise RuntimeError(f"{what}: kernel launch failed with CUDA error {rc}")
-    fused_flex_mlp_train.fwd_launches += 1
-    return out, (res,)
+    out, (res,) = flex_train_fwd_scenes(pts[None], dc[None], params[None], compute_dtype)
+    return out[0], (res[0],)
 
 
 def flex_train_bwd(g: torch.Tensor, residuals, params: torch.Tensor, n: int, s: int,
                    compute_dtype: str = "float32"):
-    """The backward: the kernel on CUDA tensors, the plain version on CPU ones."""
+    """The backward of one scene: the kernels on CUDA tensors (the
+    scene-batched wrapper at S = 1, which launches the single-scene
+    kernels), the plain version on CPU ones."""
     if g.device.type == "cpu":
         return flex_train_plain_bwd(g, residuals, params, n, s, compute_dtype)
-    what = "fused_flex_mlp_train backward"
-    (res,) = residuals
-    _check_cuda(what, g, res, params)
     if tuple(g.shape) != (n, s, 4):
-        raise ValueError(f"{what}: want a ({n}, {s}, 4) cotangent, got {tuple(g.shape)}")
-    device = g.device
-    grad = torch.empty(_NUM_PARAMS, dtype=torch.float32, device=device)
-    ddc = torch.empty((n, _DIR_HIDDEN), dtype=torch.float32, device=device)
-    if n * s == 0:
-        return grad.zero_(), ddc
-    tiles = -(-n * s // _TILE)
-    chunks = -(-tiles // _TILES_PER_CHUNK)
-    # Scratch, freed when this returns: the caching allocator hands the
-    # blocks out again only in this stream's order, after the kernels.
-    delta = torch.empty(tiles * _DELTA_ROWS * _TILE, dtype=torch.float32, device=device)
-    partial = torch.empty(chunks * _NUM_PARAMS, dtype=torch.float32, device=device)
-    with torch.cuda.device(device):
-        g_c = _aligned(g)
-        wt = (pack_tc_backward(params) if compute_dtype == "bfloat16"
-              else _aligned(pack_backward_weights(params.detach())))
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = _kernels()[1](g_c.data_ptr(), res.data_ptr(), wt.data_ptr(), wt.numel(),
-                           delta.data_ptr(), partial.data_ptr(), grad.data_ptr(),
-                           ddc.data_ptr(), n * s, s, int(compute_dtype == "bfloat16"), stream)
-    if rc != 0:
-        raise RuntimeError(f"{what}: kernel launch failed with CUDA error {rc}")
-    fused_flex_mlp_train.bwd_launches += 1
-    return grad, ddc
+        raise ValueError(f"fused_flex_mlp_train backward: want a ({n}, {s}, 4) cotangent, got "
+                         f"{tuple(g.shape)}")
+    (res,) = residuals
+    grad, ddc = flex_train_bwd_scenes(g[None], (res[None],), params[None], compute_dtype)
+    return grad[0], ddc[0]
 
 
 _FAMILY = TrainKernelFamily(
@@ -321,8 +322,8 @@ _FAMILY = TrainKernelFamily(
     dir_contribution=dir_contribution,
     pack_params=pack_params,
     static_args=lambda model: (),
-    forward=flex_train_fwd,
-    backward=flex_train_bwd,
+    forward=flex_train_fwd_scenes,
+    backward=flex_train_bwd_scenes,
 )
 
 fused_flex_mlp_train = build_train_vjp(_FAMILY)

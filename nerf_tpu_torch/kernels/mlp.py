@@ -105,11 +105,18 @@ def _no_tf32():
 
 
 class _F32MatMul(torch.autograd.Function):
+    # vmap (the multi-scene step's scene axis) runs the forward and the
+    # backward below on batched tensors.
+    generate_vmap_rule = True
+
     @staticmethod
-    def forward(ctx, a, b):
-        ctx.save_for_backward(a, b)
+    def forward(a, b):
         with _no_tf32():
             return a @ b
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
 
     @staticmethod
     def backward(ctx, g):

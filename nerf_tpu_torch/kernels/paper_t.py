@@ -36,9 +36,10 @@ import torch
 
 from ..models.mlp import PaperNeRFModel
 from ..ops.encoding import positional_encoding
-from .flex_train import _aligned, _rounder
+from .flex_train import _rounder
 from .mlp import f32_matmul
 from .mlp_t import _COMPUTE_DTYPES
+from .train_vjp import aligned
 
 _WIDTH = 256
 _DIR_WIDTH = 128
@@ -179,12 +180,12 @@ def _gather_index(matrices, num_freq: int, device: str) -> torch.Tensor:
 
 
 def gather_bf16(params: torch.Tensor, index) -> torch.Tensor:
-    """A bf16 weight buffer from the packed f32 parameters: ``index(device)``
-    gives where each value comes from (``params.numel()`` for a zero pad).
-    One gather and one rounding, 16-byte aligned."""
-    params = params.detach().float().reshape(-1)
-    ext = torch.cat([params, params.new_zeros(1)])
-    out = ext[index(str(params.device))].to(torch.bfloat16)
+    """A bf16 weight buffer from the packed f32 parameters (..., n), one a
+    leading index (a scene): ``index(device)`` gives where each value comes
+    from (n for a zero pad). One gather and one rounding, 16-byte aligned."""
+    params = params.detach().float()
+    ext = torch.nn.functional.pad(params, (0, 1))
+    out = ext[..., index(str(params.device))].to(torch.bfloat16)
     return out if out.data_ptr() % 16 == 0 else out.clone()
 
 
@@ -324,8 +325,8 @@ def fused_paper_mlp_t(model: PaperNeRFModel, pts: torch.Tensor, viewdirs: torch.
     # this stream's order, after the kernel.
     with torch.no_grad(), torch.cuda.device(pts.device):
         pts_c = pts.contiguous()
-        dc = _aligned(dir_contribution(model, viewdirs))
-        params = _aligned(pack_params(model))
+        dc = aligned(dir_contribution(model, viewdirs))
+        params = aligned(pack_params(model))
         f = model.num_encoding_fn_xyz
         wbf = pack_tc_forward(params, f) if compute_dtype == "bfloat16" else None
         stream = torch.cuda.current_stream(pts.device).cuda_stream

@@ -39,8 +39,14 @@ unrounded f32 gradients. (The JAX kernel sums its bias gradients with a
 ones-row dot at DEFAULT precision, which rounds dY to bf16 on the TPU and
 not on the CPU; the port keeps the f32 sums of its kernel #8.)
 
+``paper_train_fwd_scenes`` / ``paper_train_bwd_scenes`` run S scenes of one shape, each
+with its own parameters, in one launch each way (the scene is a grid axis
+of every pass, ``csrc/scenes.cuh``): the autograd function's ``vmap`` rule
+calls them for the multi-scene step. ``paper_train_fwd`` / ``paper_train_bwd`` are
+their S = 1 case, which launches the single-scene kernels.
+
 ``fused_paper_mlp_train.fwd_launches`` and ``.bwd_launches`` count the
-kernels' launches (one per call each).
+kernels' launches (one per call each, a scene-batched call included).
 """
 
 from __future__ import annotations
@@ -50,7 +56,7 @@ import functools
 
 import torch
 
-from .flex_train import _aligned, _check_cuda, _rounder
+from .flex_train import _rounder
 from .paper_t import (
     _DIR_WIDTH,
     _WIDTH,
@@ -68,7 +74,16 @@ from .paper_t import (
     tc_forward_weights,
     unpack_params,
 )
-from .train_vjp import TrainKernelFamily, build_train_vjp
+from .train_vjp import (
+    TrainKernelFamily,
+    TrainLaunches,
+    TrainLayout,
+    build_train_vjp,
+    launch_backward,
+    launch_forward,
+    plain_backward_scenes,
+    plain_forward_scenes,
+)
 
 _TILE = 64                 # points per block (csrc/paper_mlp.cuh kTile)
 _TILES_PER_CHUNK = 32      # point tiles per weight-gradient block
@@ -93,16 +108,24 @@ def tc_res_rows(num_freq: int) -> int:
     return _pad16(3 + 6 * num_freq) + 9 * _WIDTH + 3 * _DIR_WIDTH
 
 
-def pack_backward_weights(params: torch.Tensor, num_freq: int) -> torch.Tensor:
-    """The backward kernel's weights: each layer's (out, in) matrix, in the
-    order of ``csrc/paper_train.cu``'s kT* offsets."""
-    layers = unpack_params(params, num_freq)
+@functools.lru_cache(maxsize=None)
+def _bwd_index(num_freq: int, device: str) -> torch.Tensor:
+    """Where each value of the f32 backward weights comes from in the packed
+    parameters, on ``device``: the packing run on the positions themselves."""
+    layers = unpack_params(torch.arange(num_params(num_freq), dtype=torch.float64), num_freq)
     dim = 3 + 6 * num_freq
     parts = []
     for name in _BWD_ORDER:
         w = layers[name][0]
         parts.append((w[dim:] if name == "layers_xyz.4" else w).t().reshape(-1))
-    return torch.cat(parts)
+    return torch.cat(parts).long().to(device)
+
+
+def pack_backward_weights(params: torch.Tensor, num_freq: int) -> torch.Tensor:
+    """The backward kernel's weights: each layer's (out, in) matrix, in the
+    order of ``csrc/paper_train.cu``'s kT* offsets; (..., num_params) ->
+    (..., 590464), one gather."""
+    return params[..., _bwd_index(num_freq, str(params.device))]
 
 
 def _tc_backward_matrices(layers, dim: int, pad):
@@ -215,6 +238,12 @@ def paper_train_plain_bwd(g: torch.Tensor, residuals, params: torch.Tensor, n: i
     return torch.cat(grads), dd0.reshape(n, s, _DIR_WIDTH).sum(dim=1)
 
 
+def _layout(num_freq: int) -> TrainLayout:
+    return TrainLayout(res_rows=res_rows(num_freq), tc_res_rows=tc_res_rows(num_freq),
+                       delta_rows=_DELTA_ROWS, n_params=num_params(num_freq), tile=_TILE,
+                       tiles_per_chunk=_TILES_PER_CHUNK, dc_width=_DIR_WIDTH)
+
+
 @functools.lru_cache(maxsize=None)
 def _kernels(num_freq: int):
     from ._build import load_library
@@ -231,88 +260,76 @@ def _kernels(num_freq: int):
     if tuple(got) != want:
         raise RuntimeError(f"csrc/paper_train.cu layout {tuple(got)} != wrapper's {want}")
     fwd = lib.nerf_paper_train_forward
-    fwd.argtypes = [ptr, ptr, ptr, i64, ptr, i64, ptr, ptr, i64, i32, i32, i32, ptr]
+    fwd.argtypes = [ptr, ptr, ptr, i64, ptr, i64, ptr, ptr, i32, i64, i32, i32, i32, ptr]
     fwd.restype = ctypes.c_int
     bwd = lib.nerf_paper_train_backward
-    bwd.argtypes = [ptr, ptr, ptr, i64, ptr, ptr, ptr, ptr, i64, i32, i32, i32, ptr]
+    bwd.argtypes = [ptr, ptr, ptr, i64, ptr, ptr, ptr, ptr, i32, i64, i32, i32, i32, ptr]
     bwd.restype = ctypes.c_int
     return fwd, bwd
 
 
+_LAUNCHES = TrainLaunches(
+    name="fused_paper_mlp_train",
+    layout=_layout,
+    kernels=_kernels,
+    pack_tc_forward=pack_tc_forward,
+    pack_tc_backward=pack_tc_backward,
+    pack_backward_weights=pack_backward_weights,
+)
+
+
+def paper_train_fwd_scenes(pts: torch.Tensor, dc: torch.Tensor, params: torch.Tensor,
+                           compute_dtype: str = "float32", num_freq: int = 10):
+    """The forward over S scenes: pts (S, N, P, 3), dc (S, N, 128), params
+    (S, num_params) -> ``(raw (S, N, P, 4) f32, residuals)``. One launch of
+    the kernel on CUDA tensors; the plain version scene by scene on CPU
+    ones."""
+    if pts.device.type == "cpu":
+        return plain_forward_scenes(paper_train_plain_fwd, pts, dc, params, compute_dtype,
+                                    num_freq)
+    return launch_forward(_LAUNCHES, fused_paper_mlp_train, pts, dc, params, compute_dtype,
+                          num_freq)
+
+
+def paper_train_bwd_scenes(g: torch.Tensor, residuals, params: torch.Tensor,
+                           compute_dtype: str = "float32", num_freq: int = 10):
+    """The backward over S scenes: g (S, N, P, 4) and
+    ``paper_train_fwd_scenes``' residuals -> ``(d params (S, num_params), ddc
+    (S, N, 128))``. One launch of the kernels on CUDA tensors; the plain
+    version scene by scene on CPU ones."""
+    if g.device.type == "cpu":
+        return plain_backward_scenes(paper_train_plain_bwd, g, residuals, params, compute_dtype,
+                                     num_freq)
+    return launch_backward(_LAUNCHES, fused_paper_mlp_train, g, residuals, params,
+                           compute_dtype, num_freq)
+
+
 def paper_train_fwd(pts: torch.Tensor, dc: torch.Tensor, params: torch.Tensor,
                     compute_dtype: str = "float32", num_freq: int = 10):
-    """The forward: the kernel on CUDA tensors, the plain version on CPU ones."""
+    """The forward of one scene: the kernel on CUDA tensors (the scene-batched
+    wrapper at S = 1, which launches the single-scene kernel), the plain
+    version on CPU ones."""
     if pts.device.type == "cpu":
         return paper_train_plain_fwd(pts, dc, params, compute_dtype, num_freq)
-    what = "fused_paper_mlp_train forward"
-    _check_cuda(what, pts, dc, params)
-    n, s = pts.shape[0], pts.shape[1]
-    if pts.ndim != 3 or pts.shape[-1] != 3 or tuple(dc.shape) != (n, _DIR_WIDTH):
-        raise ValueError(f"{what}: want pts (N, S, 3) and dc (N, 128), got "
-                         f"{tuple(pts.shape)} and {tuple(dc.shape)}")
-    if pts.dtype != torch.float32 or params.numel() != num_params(num_freq):
-        raise ValueError(f"{what}: want float32 pts and a {num_params(num_freq)}-float "
-                         "parameter buffer")
-    bf16 = compute_dtype == "bfloat16"
-    tiles = -(-n * s // _TILE)
-    out = torch.empty((n, s, 4), dtype=torch.float32, device=pts.device)
-    rows = tc_res_rows(num_freq) if bf16 else res_rows(num_freq)
-    res = torch.empty(tiles * rows * _TILE, device=pts.device,
-                      dtype=torch.bfloat16 if bf16 else torch.float32)
-    if n * s == 0:
-        return out, (res,)
-    # The aligned copies are freed when this returns, before the kernel may
-    # have run: the caching allocator hands their blocks out again only in
-    # this stream's order, after the kernel.
-    with torch.cuda.device(pts.device):
-        pts_c, dc_c, params_c = (_aligned(t) for t in (pts, dc, params))
-        wbf = pack_tc_forward(params_c, num_freq) if bf16 else None
-        stream = torch.cuda.current_stream(pts.device).cuda_stream
-        rc = _kernels(num_freq)[0](pts_c.data_ptr(), dc_c.data_ptr(), params_c.data_ptr(),
-                                   params_c.numel(), None if wbf is None else wbf.data_ptr(),
-                                   0 if wbf is None else wbf.numel(), out.data_ptr(),
-                                   res.data_ptr(), n * s, s, num_freq, int(bf16), stream)
-    if rc != 0:
-        raise RuntimeError(f"{what}: kernel launch failed with CUDA error {rc}")
-    fused_paper_mlp_train.fwd_launches += 1
-    return out, (res,)
+    out, (res,) = paper_train_fwd_scenes(pts[None], dc[None], params[None], compute_dtype,
+                                         num_freq)
+    return out[0], (res[0],)
 
 
 def paper_train_bwd(g: torch.Tensor, residuals, params: torch.Tensor, n: int, s: int,
                     compute_dtype: str = "float32", num_freq: int = 10):
-    """The backward: the kernel on CUDA tensors, the plain version on CPU ones."""
+    """The backward of one scene: the kernels on CUDA tensors (the
+    scene-batched wrapper at S = 1, which launches the single-scene
+    kernels), the plain version on CPU ones."""
     if g.device.type == "cpu":
         return paper_train_plain_bwd(g, residuals, params, n, s, compute_dtype, num_freq)
-    what = "fused_paper_mlp_train backward"
-    (res,) = residuals
-    _check_cuda(what, g, res, params)
     if tuple(g.shape) != (n, s, 4):
-        raise ValueError(f"{what}: want a ({n}, {s}, 4) cotangent, got {tuple(g.shape)}")
-    device = g.device
-    n_params = num_params(num_freq)
-    grad = torch.empty(n_params, dtype=torch.float32, device=device)
-    ddc = torch.empty((n, _DIR_WIDTH), dtype=torch.float32, device=device)
-    if n * s == 0:
-        return grad.zero_(), ddc
-    tiles = -(-n * s // _TILE)
-    chunks = -(-tiles // _TILES_PER_CHUNK)
-    # Scratch, freed when this returns: the caching allocator hands the
-    # blocks out again only in this stream's order, after the kernels.
-    delta = torch.empty(tiles * _DELTA_ROWS * _TILE, dtype=torch.float32, device=device)
-    partial = torch.empty(chunks * n_params, dtype=torch.float32, device=device)
-    with torch.cuda.device(device):
-        g_c = _aligned(g)
-        wt = (pack_tc_backward(params, num_freq) if compute_dtype == "bfloat16"
-              else _aligned(pack_backward_weights(params.detach(), num_freq)))
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = _kernels(num_freq)[1](g_c.data_ptr(), res.data_ptr(), wt.data_ptr(), wt.numel(),
-                                   delta.data_ptr(), partial.data_ptr(), grad.data_ptr(),
-                                   ddc.data_ptr(), n * s, s, num_freq,
-                                   int(compute_dtype == "bfloat16"), stream)
-    if rc != 0:
-        raise RuntimeError(f"{what}: kernel launch failed with CUDA error {rc}")
-    fused_paper_mlp_train.bwd_launches += 1
-    return grad, ddc
+        raise ValueError(f"fused_paper_mlp_train backward: want a ({n}, {s}, 4) cotangent, "
+                         f"got {tuple(g.shape)}")
+    (res,) = residuals
+    grad, ddc = paper_train_bwd_scenes(g[None], (res[None],), params[None], compute_dtype,
+                                       num_freq)
+    return grad[0], ddc[0]
 
 
 _FAMILY = TrainKernelFamily(
@@ -321,8 +338,8 @@ _FAMILY = TrainKernelFamily(
     dir_contribution=dir_contribution,
     pack_params=pack_params,
     static_args=lambda model: (model.num_encoding_fn_xyz,),
-    forward=paper_train_fwd,
-    backward=paper_train_bwd,
+    forward=paper_train_fwd_scenes,
+    backward=paper_train_bwd_scenes,
 )
 
 fused_paper_mlp_train = build_train_vjp(_FAMILY)

@@ -6,7 +6,7 @@ they share the model shape, the render settings and the step count. The
 parameters of all scenes are stacked on a leading ``(S,)`` axis, one leaf
 per parameter of the ``coarse`` and ``fine`` modules, and one step runs
 every scene: ``torch.func.vmap`` over ``torch.func.functional_call`` of the
-plain field through ``engine.renderer.render_rays``, where the JAX package
+modules through ``engine.renderer.render_rays``, where the JAX package
 vmaps its train step. The losses of the scenes are summed and
 back-propagated once: the scenes share nothing, so each stacked leaf's
 gradient slice is that scene's own gradient. The optimizer is the
@@ -26,11 +26,17 @@ its render numbers from it, in the single-scene loop's order: scene ``s`` of
 ``engine.train.make_train_loop(..., fold_seed(base_seed, s))`` on its own
 store, whatever S is and whatever the other scenes are.
 
-The field runs the plain path: the JAX multi-scene trainer never sets
-``use_pallas_train`` (``train_multiscene.py:250-256``). The kernels'
-autograd functions do not run under ``vmap``, so settings that ask for a
-kernel (``use_pallas`` or ``use_pallas_train``) raise rather than fall back
-to the plain field (ROADMAP.md, §2 item 12).
+The field: with ``use_pallas_train`` set and a model the training kernels
+take (FlexibleNeRF 4x128, PaperNeRF 8x256), the renderer's dispatch reaches
+#8 or #9 inside the vmapped body, and their autograd function's ``vmap``
+rule (``kernels/train_vjp.py``) runs every scene in one scene-batched
+forward launch and one backward launch a field evaluation: the scene is a
+grid axis of the kernels, as ``pallas_call``'s batching rule makes it one in
+the JAX step. Otherwise the plain field runs, vmapped. ``use_pallas`` (the
+forward-only kernels, which carry no gradient) is turned off, as JAX's
+``make_loss_fn`` and the single-scene step turn it off. The
+``train_multiscene`` CLI sets neither flag, as the JAX CLI does not
+(``train_multiscene.py:250-256``).
 
 Data parallelism (the JAX package's ``shard_map`` around the vmapped step):
 each scene's ray batch shards over the ranks of a mesh on the ray axis
@@ -141,15 +147,12 @@ def make_multiscene_train_step(model_coarse: nn.Module, model_fine: Optional[nn.
     each scene's render numbers come from ``draws`` (a ``RenderDraws`` with
     a leading scene axis) or, drawn here, from ``generators[s]``. The
     modules give the shapes and the forward; their own parameters are not
-    used. Settings that ask for a kernel raise: the step runs the plain
-    field only. With a ``mesh``, the rays are this rank's and one
-    all-reduce of the stacked gradients and the (S,) losses runs between
-    the backward and the update."""
-    if settings.use_pallas or settings.use_pallas_train:
-        raise NotImplementedError(
-            "the multi-scene step runs the plain field: #8 under vmap, or #8 once a scene, "
-            "is not ported yet (ROADMAP.md, §2 item 12); pass settings with use_pallas and "
-            "use_pallas_train off")
+    used. ``use_pallas_train`` runs the field through the training kernels,
+    all scenes in one launch each way; ``use_pallas`` is turned off (no
+    gradient). With a ``mesh``, the rays are this rank's and one all-reduce
+    of the stacked gradients and the (S,) losses runs between the backward
+    and the update."""
+    settings = dataclasses.replace(settings, use_pallas=False)
     # Copies: the JAX CLI passes one model as both (untied parameters here).
     pair = _ScenePair(copy.deepcopy(model_coarse),
                       copy.deepcopy(model_fine) if model_fine is not None else None)

@@ -582,3 +582,114 @@ def test_new_kernels_refuse_what_they_do_not_take(model):
         stage.fused_render_stage(model, pts.double(), vd.double(), z, rd)
     with pytest.raises(ValueError, match="want depths"):
         stage.fused_render_stage(model, pts, vd, z[:3], rd)
+
+
+# --- the scene axis of #8 and #9 -------------------------------------------
+
+
+def _scene_case(family, scenes, n, s, f, seed):
+    """Stacked inputs of #8's ("flex") or #9's ("paper") pair on ``scenes``
+    scenes, each with its own seeded model, points and cotangent."""
+    mod = paper_t if family == "paper" else mlp
+    cases = []
+    for i in range(scenes):
+        gen = torch.Generator().manual_seed(seed + i)
+        m = (PaperNeRFModel(num_encoding_fn_xyz=f, generator=gen) if family == "paper"
+             else FlexibleNeRFModel(num_encoding_fn_xyz=10, num_encoding_fn_dir=4, generator=gen))
+        m = m.cuda()
+        pts, vd = _inputs(n, s, seed=seed + i)
+        g = torch.randn(n, s, 4, generator=torch.Generator(device="cuda").manual_seed(seed - i),
+                        device="cuda")
+        cases.append((pts, mod.dir_contribution(m, vd).detach(), mod.pack_params(m).detach(), g))
+    return cases
+
+
+def _scene_fns(family, f):
+    if family == "paper":
+        return (lambda *a: paper_train.paper_train_fwd_scenes(*a, f),
+                lambda *a: paper_train.paper_train_bwd_scenes(*a, f),
+                lambda *a: paper_train.paper_train_fwd(*a, f),
+                lambda *a: paper_train.paper_train_bwd(*a, f),
+                paper_train.fused_paper_mlp_train)
+    from nerf_tpu_torch.kernels import flex_train
+
+    return (flex_train.flex_train_fwd_scenes, flex_train.flex_train_bwd_scenes, flex_train_fwd,
+            flex_train_bwd, fused_flex_mlp_train)
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("family,scenes,n,s,f", [
+    ("flex", 3, 333, 61, 10), ("flex", 2, 1024, 128, 10), ("flex", 1, 41, 50, 10),
+    ("flex", 4, 7, 61, 10), ("paper", 3, 333, 61, 10), ("paper", 2, 41, 50, 6),
+    ("paper", 1, 1024, 64, 10), ("paper", 2, 7, 61, 16)])
+def test_scene_batched_pair_is_the_single_scene_launches(model, family, scenes, n, s, f,
+                                                         compute_dtype):
+    """One forward and one backward launch for all scenes; each scene's
+    output, residuals, gradient and ddc bitwise a single-scene launch's on
+    its inputs. N·P odd or ending mid-tile (333 x 61, 7 x 61), a 3-chunk
+    run (41 x 50), one scene."""
+    cases = _scene_case(family, scenes, n, s, f, seed=n + s)
+    fwd_scenes, bwd_scenes, fwd, bwd, fused = _scene_fns(family, f)
+    pts, dc, params, g = (torch.stack(x) for x in zip(*cases))
+    fwd0, bwd0 = fused.fwd_launches, fused.bwd_launches
+    out, res = fwd_scenes(pts, dc, params, compute_dtype)
+    grad, ddc = bwd_scenes(g, res, params, compute_dtype)
+    torch.cuda.synchronize()
+    assert (fused.fwd_launches, fused.bwd_launches) == (fwd0 + 1, bwd0 + 1)
+    assert bool(torch.isfinite(out).all() and torch.isfinite(grad).all())
+    for i, (p_, d_, w_, g_) in enumerate(cases):
+        o1, r1 = fwd(p_, d_, w_, compute_dtype)
+        g1, d1 = bwd(g_, r1, w_, n, s, compute_dtype)
+        torch.cuda.synchronize()
+        assert torch.equal(out[i], o1) and torch.equal(res[0][i], r1[0]), i
+        assert torch.equal(grad[i], g1) and torch.equal(ddc[i], d1), i
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("family", ["flex", "paper"])
+def test_vmapped_training_field_launches_once_for_all_scenes(model, family, compute_dtype):
+    """Under torch.func.vmap over stacked parameters the autograd entry
+    point launches one forward and one backward for the scenes; each scene
+    against its model alone: the output to 1e-6 (f32) or TC_FWD_TOL (bf16;
+    the direction term's host matmul runs batched), gradients within the
+    same of each leaf's largest."""
+    scenes, n, s = 3, 64, 32
+    cls = PaperNeRFModel if family == "paper" else FlexibleNeRFModel
+    models = [cls(num_encoding_fn_xyz=10, num_encoding_fn_dir=4,
+                  generator=torch.Generator().manual_seed(i)).cuda() for i in range(scenes)]
+    fused = _scene_fns(family, 10)[4]
+    pts, vd = (torch.stack(x) for x in zip(*(_inputs(n, s, seed=i) for i in range(scenes))))
+    cot = torch.randn(scenes, n, s, 4, generator=torch.Generator(device="cuda").manual_seed(9),
+                      device="cuda")
+    names = [k for k, _ in models[0].named_parameters()]
+    leaves = {k: torch.stack([dict(m.named_parameters())[k].detach() for m in models])
+              .requires_grad_(True) for k in names}
+    template = cls(num_encoding_fn_xyz=10, num_encoding_fn_dir=4).cuda()
+
+    class Field(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.model = template
+
+        def forward(self, x, v):
+            return fused(self.model, x, v, compute_dtype)
+
+    field = Field()
+    fwd0, bwd0 = fused.fwd_launches, fused.bwd_launches
+    out = torch.func.vmap(lambda p, x, v: torch.func.functional_call(
+        field, {f"model.{k}": t for k, t in p.items()}, (x, v)))(leaves, pts, vd)
+    (out * cot).sum().backward()
+    torch.cuda.synchronize()
+    assert (fused.fwd_launches, fused.bwd_launches) == (fwd0 + 1, bwd0 + 1)
+    tol = 1e-6 if compute_dtype == "float32" else TC_FWD_TOL
+    for i, m in enumerate(models):
+        want = fused(m, pts[i], vd[i], compute_dtype)
+        (want * cot[i]).sum().backward()
+        assert float((out[i] - want).abs().max()) <= tol, i
+        for k, p in m.named_parameters():
+            got = leaves[k].grad
+            if p.grad is None:                # #9's dead layers_dir.3
+                assert got is None or not bool(got[i].any()), k
+                continue
+            assert _scaled_err(got[i], p.grad) <= (1e-5 if compute_dtype == "float32"
+                                                   else 2e-2), (i, k)

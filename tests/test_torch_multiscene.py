@@ -246,14 +246,6 @@ def test_multi_device_entry_points_raise_naming_the_roadmap():
         train_multiscene.main(["--num-devices", "2", "--device", "cpu", "--batch", "33"])
 
 
-@pytest.mark.parametrize("flag", ["use_pallas", "use_pallas_train"])
-def test_kernel_settings_raise_naming_the_roadmap(flag):
-    """The step never quietly swaps a requested kernel for the plain field."""
-    _, ts = _settings(**{flag: True})
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tms.make_multiscene_train_step(FlexibleNeRFModel(**NARROW), None, ts)
-
-
 CLI_FLAGS = ["--num-scenes", "2", "--iters", "4", "--size", "8", "--views", "3", "--batch", "16",
              "--num-coarse", "4", "--num-fine", "4", "--n-xyz", "2", "--n-dir", "1",
              "--print-every", "2"]

@@ -14,18 +14,22 @@ stage (#7) against its plain version and, in bf16, bitwise against #5 on
 #1's bf16 field, and times #1-#3 once; then holds the 8x256 PaperNeRF
 kernels, #4 ``fused_paper_mlp_t`` and the #9 training pair, against their
 plain versions in f32 and bf16 at chip_smoke.py's phase 9 shapes, points
-ending mid-tile, and 0, 6, 10 and 16 encoding frequencies. With
+ending mid-tile, and 0, 6, 10 and 16 encoding frequencies; and the
+scene-batched #8 and #9 pairs at phase 19's shape (MS_SCENES scenes of
+TRAIN_SHAPE), bitwise the single-scene launches, each pass timed as one
+batched call beside MS_SCENES single-scene calls in turns. With
 ``--parent-csrc`` (another tree's ``nerf_tpu_torch/csrc``, e.g. unpacked with
 ``git archive``) it also builds that tree, prints both trees' registers and
 spills of the tensor-core instances and of the f32 4x128 and Paper
 instances, checks that the outputs ``bitwise_results`` lists (the f32 Paper
 ones among them) are bitwise the same from both, each tree through its own
 wrappers (its package, imported under another name), times #1, #2, #3, #7
-and the #8 pair in f32 and bf16, #4 and the #9 pair in f32 and #6 (det, by
-the profiler's device time too) from both in turns (parent, this tree, this
-tree, parent), and each launch of #8's f32 and bf16 and #9's f32 backward by
-the profiler. A short first call for a new kernel; ``chip_smoke.py`` is the
-full check.
+and the #8 and #9 pairs in f32 and bf16, #4 in f32 and #6 (det, by the
+profiler's device time too) from both in turns (parent, this tree, this
+tree, parent), and each launch of #8's and #9's f32 and bf16 forward and
+backward by the profiler: the training pairs' launches at one scene, beside
+the other tree's. A short first call for a new kernel; ``chip_smoke.py`` is
+the full check.
 """
 
 import argparse
@@ -202,6 +206,43 @@ def check_flex_tc_kernels(dev) -> bool:
     return ok
 
 
+def time_scene_batches(dev) -> bool:
+    """#8's and #9's pairs on MS_SCENES scenes of TRAIN_SHAPE, f32 and bf16:
+    bitwise the single-scene launches (``chip_smoke.scene_pair_bitwise``),
+    then each pass as one scene-batched call and as MS_SCENES single-scene
+    calls, by CUDA events in turns (single, batched, batched, single). True
+    when all are bitwise."""
+    scenes, (n, s) = cs.MS_SCENES, cs.TRAIN_SHAPE
+    ok = True
+    with torch.no_grad():
+        for family, tag in (("flex", "#8"), ("paper", "#9")):
+            cases = cs.scene_pair_cases(family, scenes, n, s, 10, dev, seed=7)
+            pts, dc, params, g = (torch.stack(x) for x in zip(*cases))
+            fwd_scenes, bwd_scenes, fwd, bwd = cs.scene_pair_fns(family, 10)
+            for dt, short in (("float32", "f32"), ("bfloat16", "bf16")):
+                same = cs.scene_pair_bitwise(family, scenes, n, s, 10, dt, dev, seed=7)
+                ok &= same
+                res = fwd_scenes(pts, dc, params, dt)[1]
+                single_res = [fwd(p_, d_, w_, dt)[1] for p_, d_, w_, _ in cases]
+                calls = {
+                    "fwd": {"single": lambda: [fwd(*c[:3], dt) for c in cases],
+                            "batched": lambda: fwd_scenes(pts, dc, params, dt)},
+                    "bwd": {"single": lambda: [bwd(c[3], r, c[2], n, s, dt)
+                                               for c, r in zip(cases, single_res)],
+                            "batched": lambda: bwd_scenes(g, res, params, dt)},
+                }
+                for which, by in calls.items():
+                    times = {"single": [], "batched": []}
+                    for label in ("single", "batched", "batched", "single"):
+                        times[label].append(cs.cuda_ms(by[label], 5))
+                    batched, single = (" / ".join(f"{t:.4f}" for t in times[k])
+                                       for k in ("batched", "single"))
+                    print(f"ms {tag} {which} {short}, {scenes} scenes of ({n}, {s}) (bitwise "
+                          f"{same}): one batched call {batched}; {scenes} single-scene calls "
+                          f"{single}", flush=True)
+    return ok
+
+
 _MODULES = ("kernels.mlp_t", "kernels.mlp", "kernels.flex_train", "kernels.stage",
             "kernels.paper_t", "kernels.paper_train", "kernels.resample", "models")
 # #6's cases: bin edges M, stochastic u of each shape's S; det takes S = 64.
@@ -284,8 +325,8 @@ def bitwise_results(m: dict, dev) -> list:
 def timed_calls(m: dict, dev) -> dict:
     """Through one tree's wrappers, at the main path's shapes: name -> (fn,
     reps) for #1, #2, #3 and #7 in f32 and bf16 and #4 in f32 (one fine-pass
-    chunk), #6 det (one coarse chunk's resample, M 63 -> 64), the #8 pair in
-    f32 and bf16 and the #9 pair in f32 (one training pass, F = 10)."""
+    chunk), #6 det (one coarse chunk's resample, M 63 -> 64), the #8 and #9
+    pairs in f32 and bf16 (one training pass, F = 10)."""
     flex, paper = tree_models(m, dev)
     pts, vd, z, rd = cs.orbit_rays(*cs.KERNEL_CHUNK, dev, 1)
     flat_pts, flat_vd = pts.reshape(-1, 3), vd[:, None, :].expand(*pts.shape).reshape(-1, 3)
@@ -299,15 +340,15 @@ def timed_calls(m: dict, dev) -> dict:
     calls = {"#6 det": (lambda: m["resample"].fused_sample_pdf(bins, w, 64, det=True), 50)}
     pp = m["paper_t"].pack_params(paper).detach()
     pdc = m["paper_t"].dir_contribution(paper, tvd).detach()
-    pres = m["paper_train"].paper_train_fwd(tp, pdc, pp, "float32", 10)[1]
-    calls.update({
-        "#4 f32": (lambda: m["paper_t"].fused_paper_mlp_t(paper, pts, vd, "float32"), 2),
-        "#9 fwd f32": (lambda: m["paper_train"].paper_train_fwd(tp, pdc, pp, "float32", 10), 10),
-        "#9 bwd f32": (lambda: m["paper_train"].paper_train_bwd(
-            g, pres, pp, *cs.TRAIN_SHAPE, "float32", 10), 10),
-    })
+    pres = {dt: m["paper_train"].paper_train_fwd(tp, pdc, pp, dt, 10)[1]
+            for dt in ("float32", "bfloat16")}
+    calls["#4 f32"] = (lambda: m["paper_t"].fused_paper_mlp_t(paper, pts, vd, "float32"), 2)
     for dt, tag, reps in (("float32", "f32", 2), ("bfloat16", "bf16", 3)):
         calls.update({
+            f"#9 fwd {tag}": (lambda dt=dt: m["paper_train"].paper_train_fwd(tp, pdc, pp, dt, 10),
+                              10),
+            f"#9 bwd {tag}": (lambda dt=dt: m["paper_train"].paper_train_bwd(
+                g, pres[dt], pp, *cs.TRAIN_SHAPE, dt, 10), 10),
             f"#1 {tag}": (lambda dt=dt: m["mlp_t"].fused_mlp_t(flex, pts, vd, dt), reps),
             f"#2 {tag}": (lambda dt=dt: m["mlp"].fused_flexible_mlp(flex, flat_pts, flat_vd, dt),
                           reps),
@@ -343,8 +384,8 @@ def check_bitwise_against(parent_csrc: Path, dev) -> bool:
     """The outputs ``bitwise_results`` lists, from both trees, bitwise; the
     parent's ptxas report; then ``timed_calls`` from both in turns (parent,
     this tree, this tree, parent) by CUDA events, #6's kernel by the
-    profiler's device time in the same turns, and each launch of #8's f32
-    and bf16 and #9's f32 backward by the profiler."""
+    profiler's device time in the same turns, and each launch of #8's and
+    #9's f32 and bf16 forward and backward by the profiler."""
     trees = {"parent": import_package(parent_csrc.resolve().parent, "parent_nerf_tpu_torch"),
              "this tree": {sub.split(".")[-1]: importlib.import_module(f"nerf_tpu_torch.{sub}")
                            for sub in _MODULES}}
@@ -366,9 +407,10 @@ def check_bitwise_against(parent_csrc: Path, dev) -> bool:
     calls = {label: timed_calls(m, dev) for label, m in trees.items()}
     with torch.no_grad():
         time_in_turns(calls, ("parent", "this tree", "this tree", "parent"))
-        for name in ("#8 bwd f32", "#8 bwd bf16", "#9 bwd f32"):
+        for name in ("#8 fwd f32", "#8 fwd bf16", "#9 fwd f32", "#9 fwd bf16", "#8 bwd f32",
+                     "#8 bwd bf16", "#9 bwd f32", "#9 bwd bf16"):
             for label in ("parent", "this tree"):
-                per = cs.kernel_device_ms(calls[label][name][0], 10, r"train_bwd_\w+?_kernel")
+                per = cs.kernel_device_ms(calls[label][name][0], 10, r"train_\w+?_kernel")
                 print(f"ms {name} by launch, {label}: "
                       + ", ".join(f"{k} {v:.4f}" for k, v in per.items()), flush=True)
     return all(same)
@@ -402,7 +444,10 @@ def main() -> int:
     print("#2 and #3 within tolerance of plain:", flex_ok, flush=True)
     stage_ok = check_stage_kernel(dev)
     print("#7 within tolerance of plain, bf16 bitwise #5 on #1's field:", stage_ok, flush=True)
-    ok = tc_ok and flex_ok and paper_ok and stage_ok
+    scenes_ok = time_scene_batches(dev)
+    print("#8 and #9 scene-batched pairs bitwise the single-scene launches:", scenes_ok,
+          flush=True)
+    ok = tc_ok and flex_ok and paper_ok and stage_ok and scenes_ok
     if args.parent_csrc is not None and not check_bitwise_against(args.parent_csrc, dev):
         return 1
     return 0 if ok else 1

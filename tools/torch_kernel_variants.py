@@ -18,10 +18,10 @@ bitwise #1 bf16, and whether its outputs (the f32 #1, #3 and #8 forward's
 too, and ``torch_kernel_check.bitwise_results``) equal base's bitwise; then
 it times ``torch_kernel_check.timed_calls`` (#1, #2, #3 and #7 in f32 and
 bf16 and #4 in f32 at one fine-pass chunk, #6 det also by the profiler's
-device time, the #8 pair in f32 and bf16 and the #9 pair in f32 at one
-training pass) in turns (base, variants, the variants again in reverse,
-base), and each launch of #8's f32 and bf16 and #9's f32 backward by the
-profiler. Builds go under ``build/variants/``.
+device time, the #8 and #9 pairs in f32 and bf16 at one training pass) in
+turns (base, variants, the variants again in reverse, base), and each
+launch of #8's and #9's f32 and bf16 backward by the profiler. Builds go
+under ``build/variants/``.
 """
 
 import argparse
@@ -428,7 +428,7 @@ def main() -> int:
             use(name)
             calls[name] = timed_calls(mods, dev)
         time_in_turns(calls, list(trees) + list(trees)[::-1], use)
-        for call in ("#8 bwd f32", "#8 bwd bf16", "#9 bwd f32"):
+        for call in ("#8 bwd f32", "#8 bwd bf16", "#9 bwd f32", "#9 bwd bf16"):
             for name in trees:
                 use(name)
                 per = cs.kernel_device_ms(calls[name][call][0], 20, r"train_bwd_\w+?_kernel")
