@@ -34,6 +34,7 @@ from ..ops.encoding import coarse_to_fine_window, positional_encoding
 from ..ops.rays import ndc_rays, pixel_rays, ray_aabb_interval
 from ..ops.sampling import coarse_z_values, perturb_z_values, sample_pdf
 from ..ops.volume import RenderOutputs, volume_render_radiance_field
+from ..utils.profiling import RENDER_FIELD, RENDER_IMAGE, annotate
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,30 +142,31 @@ def _eval_radiance_field(model, pts: torch.Tensor, viewdirs: Optional[torch.Tens
     model's shape is one it takes, else positional encoding + the module.
     The JAX package's order: the training kernels first (FlexibleNeRF, then
     PaperNeRF), then the forward-only ones (the same order)."""
-    fusable = (viewdirs is not None and s.log_sampling_xyz and s.log_sampling_dir
-               and s.pe_alpha_xyz < 0.0 and pts.ndim == 3)
-    if s.use_pallas_train and fusable:
-        if supports_fused(model):
-            return fused_flex_mlp_train(model, pts, viewdirs, compute_dtype=s.compute_dtype)
-        if supports_fused_paper(model):
-            return fused_paper_mlp_train(model, pts, viewdirs, compute_dtype=s.compute_dtype)
-    if s.use_pallas and fusable:
-        if supports_fused(model):
-            return fused_mlp_t(model, pts, viewdirs, compute_dtype=s.compute_dtype)
-        if supports_fused_paper(model):
-            return fused_paper_mlp_t(model, pts, viewdirs, compute_dtype=s.compute_dtype)
+    with annotate(RENDER_FIELD):
+        fusable = (viewdirs is not None and s.log_sampling_xyz and s.log_sampling_dir
+                   and s.pe_alpha_xyz < 0.0 and pts.ndim == 3)
+        if s.use_pallas_train and fusable:
+            if supports_fused(model):
+                return fused_flex_mlp_train(model, pts, viewdirs, compute_dtype=s.compute_dtype)
+            if supports_fused_paper(model):
+                return fused_paper_mlp_train(model, pts, viewdirs, compute_dtype=s.compute_dtype)
+        if s.use_pallas and fusable:
+            if supports_fused(model):
+                return fused_mlp_t(model, pts, viewdirs, compute_dtype=s.compute_dtype)
+            if supports_fused_paper(model):
+                return fused_paper_mlp_t(model, pts, viewdirs, compute_dtype=s.compute_dtype)
 
-    def eval_fn(pts_, viewdirs_):
-        enc = encode_points(pts_, viewdirs_, s)
-        if s.compute_dtype != "float32":
-            # The encoding stays f32 (high-frequency phases); only the MLP's
-            # matmuls drop to the compute dtype.
-            enc = enc.to(getattr(torch, s.compute_dtype))
-        return model(enc).float()
+        def eval_fn(pts_, viewdirs_):
+            enc = encode_points(pts_, viewdirs_, s)
+            if s.compute_dtype != "float32":
+                # The encoding stays f32 (high-frequency phases); only the MLP's
+                # matmuls drop to the compute dtype.
+                enc = enc.to(getattr(torch, s.compute_dtype))
+            return model(enc).float()
 
-    if s.remat:
-        return torch.utils.checkpoint.checkpoint(eval_fn, pts, viewdirs, use_reentrant=False)
-    return eval_fn(pts, viewdirs)
+        if s.remat:
+            return torch.utils.checkpoint.checkpoint(eval_fn, pts, viewdirs, use_reentrant=False)
+        return eval_fn(pts, viewdirs)
 
 
 class RenderDraws(NamedTuple):
@@ -389,19 +391,20 @@ def make_pose_render_fn(model_coarse, model_fine, settings: RenderSettings,
     n = height * width
 
     def render(pose34, generator=None):
-        ro, rd = pixel_rays(height, width, focal, pose34, rank_rows(mesh, n, pose34.device))
-        maps = render_chunks(model_coarse, model_fine, ro, rd, settings, generator)
-        if output != "maps":
-            rgb = torch.clamp(maps.get("rgb_fine", maps["rgb_coarse"]), 0.0, 1.0)
-            maps = {output: rgb if output == "f32" else (rgb * 255.0).to(torch.uint8)}
-        maps = gather_maps(mesh, maps, n)
-        if maps is None:
-            return None
-        maps = {name: v.reshape((height, width) + v.shape[1:]) for name, v in maps.items()}
-        if output != "maps":
-            return maps[output]
-        rgb = maps.get("rgb_fine", maps["rgb_coarse"])
-        maps["rgb_u8"] = (torch.clamp(rgb, 0.0, 1.0) * 255.0).to(torch.uint8)
-        return maps
+        with annotate(RENDER_IMAGE):
+            ro, rd = pixel_rays(height, width, focal, pose34, rank_rows(mesh, n, pose34.device))
+            maps = render_chunks(model_coarse, model_fine, ro, rd, settings, generator)
+            if output != "maps":
+                rgb = torch.clamp(maps.get("rgb_fine", maps["rgb_coarse"]), 0.0, 1.0)
+                maps = {output: rgb if output == "f32" else (rgb * 255.0).to(torch.uint8)}
+            maps = gather_maps(mesh, maps, n)
+            if maps is None:
+                return None
+            maps = {name: v.reshape((height, width) + v.shape[1:]) for name, v in maps.items()}
+            if output != "maps":
+                return maps[output]
+            rgb = maps.get("rgb_fine", maps["rgb_coarse"])
+            maps["rgb_u8"] = (torch.clamp(rgb, 0.0, 1.0) * 255.0).to(torch.uint8)
+            return maps
 
     return render

@@ -31,6 +31,7 @@ import torch
 from torch import nn
 
 from ..ops.math import img2mse, mse2psnr
+from ..utils.profiling import TRAIN_BACKWARD, TRAIN_DRAW, TRAIN_FORWARD, TRAIN_UPDATE, annotate
 from .optimizers import OPTAX_RULES
 from .renderer import RenderSettings, render_rays
 
@@ -219,25 +220,29 @@ def make_train_step(model_coarse, model_fine, settings: RenderSettings,
     loss_fn = make_loss_fn(model_coarse, model_fine, settings)
 
     def train_step(state: TrainState, ro, rd, target, generator=None):
-        state.optimizer.zero_grad(set_to_none=False)
-        loss, (closs, floss) = loss_fn(ro, rd, target, generator)
-        loss.backward()
-        grads = [p.grad for p in state.params]
-        loss, closs, floss = loss.detach(), closs.detach(), floss.detach()
-        if mesh is not None:
-            losses = torch.stack([loss, closs, floss])
-            mesh.all_reduce_mean(grads + [losses])
-            loss, closs, floss = losses
-        update = True
-        if nan_guard:
-            update = bool(all_finite(loss, grads))
-        if update:
-            if state.grad_clip_norm:
-                clip_by_global_norm(grads, state.grad_clip_norm)
-            state.optimizer.step()
-            state.scheduler.step()
-        state.step += 1
-        return state, StepMetrics(loss, closs, floss, mse2psnr(loss))
+        with annotate(TRAIN_FORWARD):
+            loss, (closs, floss) = loss_fn(ro, rd, target, generator)
+        with annotate(TRAIN_BACKWARD):
+            state.optimizer.zero_grad(set_to_none=False)
+            loss.backward()
+        with annotate(TRAIN_UPDATE):
+            grads = [p.grad for p in state.params]
+            loss, closs, floss = loss.detach(), closs.detach(), floss.detach()
+            if mesh is not None:
+                losses = torch.stack([loss, closs, floss])
+                mesh.all_reduce_mean(grads + [losses])
+                loss, closs, floss = losses
+            update = True
+            if nan_guard:
+                update = bool(all_finite(loss, grads))
+            if update:
+                if state.grad_clip_norm:
+                    clip_by_global_norm(grads, state.grad_clip_norm)
+                state.optimizer.step()
+                state.scheduler.step()
+            state.step += 1
+            metrics = StepMetrics(loss, closs, floss, mse2psnr(loss))
+        return state, metrics
 
     return train_step
 
@@ -285,9 +290,10 @@ def make_train_loop(model_coarse, model_fine, settings: RenderSettings, batch_si
     def loop(state: TrainState, ro_store, rd_store, tgt_store, base_seed: int):
         metrics = []
         for _ in range(steps_per_call):
-            gen = step_generator(base_seed, state.step, ro_store.device, rank_fold)
-            ro, rd, tgt = sample_ray_batch(gen, ro_store, rd_store, tgt_store, local_batch,
-                                           mode=sample_mode)
+            with annotate(TRAIN_DRAW):
+                gen = step_generator(base_seed, state.step, ro_store.device, rank_fold)
+                ro, rd, tgt = sample_ray_batch(gen, ro_store, rd_store, tgt_store, local_batch,
+                                               mode=sample_mode)
             state, m = step_fn(state, ro, rd, tgt, gen)
             metrics.append(m)
         return state, StepMetrics(*(torch.stack(field) for field in zip(*metrics)))

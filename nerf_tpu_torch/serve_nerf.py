@@ -77,6 +77,7 @@ from .engine.renderer import make_pose_render_fn
 from .parallel.distributed import add_mesh_args, run_cli
 from .parallel.mesh import Mesh, make_mesh
 from .utils.png import png_bytes
+from .utils.profiling import SERVE_REQUEST, annotate
 
 HEARTBEAT_S = 10.0   # an idle mesh server's no-op period (inside the group's timeout)
 
@@ -287,20 +288,21 @@ class RenderService:
 
     def render_pose(self, pose) -> np.ndarray:
         """(3|4, 4) camera-to-world -> (H, W, 3) uint8."""
-        pose = np.asarray(pose, np.float32)
-        if pose.shape not in ((3, 4), (4, 4)):
-            raise ValueError(f"pose must be (3, 4) or (4, 4), got {pose.shape}")
-        with self._device_lock:
-            if self._stopped.is_set():
-                raise RuntimeError("the render service has stopped")
-            self._maybe_reload()
-            t0 = time.perf_counter()
-            pose34 = np.ascontiguousarray(pose[:3, :4])
-            self._command(("render", pose34))
-            img = self._render_on_device(pose34)
-            self.last_render_s = time.perf_counter() - t0
-            self.frames_served += 1
-        return img
+        with annotate(SERVE_REQUEST):
+            pose = np.asarray(pose, np.float32)
+            if pose.shape not in ((3, 4), (4, 4)):
+                raise ValueError(f"pose must be (3, 4) or (4, 4), got {pose.shape}")
+            with self._device_lock:
+                if self._stopped.is_set():
+                    raise RuntimeError("the render service has stopped")
+                self._maybe_reload()
+                t0 = time.perf_counter()
+                pose34 = np.ascontiguousarray(pose[:3, :4])
+                self._command(("render", pose34))
+                img = self._render_on_device(pose34)
+                self.last_render_s = time.perf_counter() - t0
+                self.frames_served += 1
+            return img
 
     def render_frame(self, index: int) -> np.ndarray:
         return self.render_pose(self.poses[index % len(self.poses)])

@@ -1,64 +1,48 @@
-"""Profiling and timing helpers (port of ``nerf_tpu/utils/profiling.py``).
+"""The port's named spans for ``torch.profiler``.
 
-``trace(logdir)`` records the enclosed region with ``torch.profiler`` (host
-and, on a CUDA build with a card, device activity) and writes it as a Chrome
-trace into ``logdir``, which Perfetto and ``chrome://tracing`` open;
-``annotate(name)`` marks a named sub-region in it; ``time_fn`` gives
-steady-state seconds per call, waiting for the device where the JAX helper
-blocks on its result.
+``annotate(name)`` opens a span: under an active profiler a
+``torch.profiler.record_function`` range, which the trace holds as a
+``user_annotation`` event on the host's clock that the device's events
+share; with no profiler active, one shared null context, so a span costs
+the port one check of the profiler's state.
+
+The spans sit at the port's layer boundaries, named by the constants below
+so that the program and the readers of its traces name them from one place:
+
+- ``train.draw``: a step's generator and ray batch (``engine.train.make_train_loop``);
+- ``train.forward``: the render and the two MSEs (``make_train_step``);
+- ``train.backward``: ``zero_grad`` and ``loss.backward()``, autograd's
+  device thread included;
+- ``train.update``: the rest of the step: the all-reduce, the non-finite
+  guard, clipping, the optimizer, the schedule, the step's PSNR;
+- ``render.field``: one radiance-field evaluation, kernel or plain
+  (``engine.renderer``);
+- ``render.image``: a pose's pixel rays, chunks, uint8 conversion and
+  gather (``make_pose_render_fn``);
+- ``serve.request``: one ``RenderService.render_pose`` call, lock wait and
+  fetch to the host included.
 """
 
 from __future__ import annotations
 
 import contextlib
-import os
-import time
-from typing import Callable, Tuple
 
 import torch
 
+TRAIN_DRAW = "train.draw"
+TRAIN_FORWARD = "train.forward"
+TRAIN_BACKWARD = "train.backward"
+TRAIN_UPDATE = "train.update"
+RENDER_FIELD = "render.field"
+RENDER_IMAGE = "render.image"
+SERVE_REQUEST = "serve.request"
 
-def _synchronize() -> None:
-    """Wait for the card's queued work, where there is a card."""
-    if torch.cuda.is_available() and torch.cuda.is_initialized():
-        torch.cuda.synchronize()
-
-
-@contextlib.contextmanager
-def trace(logdir: str):
-    """Record the enclosed region and write ``logdir/trace_<pid>_<ns>.json``."""
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-    os.makedirs(logdir, exist_ok=True)
-    prof = torch.profiler.profile(activities=activities)
-    prof.start()
-    try:
-        yield prof
-    finally:
-        _synchronize()
-        prof.stop()
-        prof.export_chrome_trace(
-            os.path.join(logdir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
+_NO_SPAN = contextlib.nullcontext()
 
 
 def annotate(name: str):
-    """Named sub-region inside an active trace (shows up in the timeline)."""
-    return torch.profiler.record_function(name)
-
-
-def time_fn(fn: Callable, *args, warmup: int = 2, reps: int = 10) -> Tuple[float, object]:
-    """Steady-state seconds per call of ``fn(*args)`` after ``warmup`` calls,
-    the device's queued work waited for before and after the timed calls.
-
-    Returns (seconds_per_call, last_output).
-    """
-    out = None
-    for _ in range(warmup):
-        out = fn(*args)
-    _synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        out = fn(*args)
-    _synchronize()
-    return (time.perf_counter() - t0) / reps, out
+    """A context manager that records the span ``name`` under an active
+    profiler, and does nothing otherwise."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN

@@ -27,6 +27,7 @@ package.
   unit of its last place.
 """
 
+import contextlib
 import dataclasses
 import importlib
 import json
@@ -51,6 +52,7 @@ from nerf_tpu_torch.engine import train as ttrain
 from nerf_tpu_torch.engine.checkpoint import load_checkpoint, load_jax_params
 from nerf_tpu_torch.models import FlexibleNeRFModel
 from nerf_tpu_torch.parallel import multiscene as tms
+from nerf_tpu_torch.utils.profiling import RENDER_FIELD
 
 torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -184,6 +186,25 @@ def test_each_scene_equals_the_single_scene_loop(k):
             for name, v in state.scene_params(s, which).items():
                 np.testing.assert_allclose(v.numpy(), sd[name].numpy(), rtol=0, atol=1e-6)
 
+
+
+def test_the_vmapped_loop_is_the_same_under_a_profiler():
+    """The field's span inside the scene-vmapped body records under a
+    profiler and changes nothing of the step."""
+    _, ts = _settings()
+    store = _store(2)
+    spec = ttrain.make_optimizer("adam", 5e-3, 250.0, 0.1)
+    model = FlexibleNeRFModel(**NARROW)
+    losses = []
+    for profiled in (False, True):
+        state = tms.create_multiscene_state(model, model, spec, 0, S)
+        loop = tms.make_multiscene_train_loop(model, model, ts, B, 2)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) \
+                if profiled else contextlib.nullcontext() as prof:
+            losses.append(loop(state, *store, 9)[1].loss)
+    assert torch.equal(losses[0], losses[1])
+    fields = [e for e in prof.events() if e.name == RENDER_FIELD]
+    assert len(fields) == 2 * 2     # coarse and fine, two steps
 
 def test_a_scene_does_not_depend_on_the_others():
     _, ts = _settings()

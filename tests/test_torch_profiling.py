@@ -1,45 +1,49 @@
-"""nerf_tpu_torch.utils.profiling: the JAX helpers' interface on torch.profiler.
+"""nerf_tpu_torch.utils.profiling: the port's spans.
 
-``trace(logdir)`` writes a Chrome trace of the region into ``logdir`` with
-each ``annotate`` span in it; ``time_fn`` returns (seconds a call, the last
-output) as the JAX ``time_fn`` does, calling the function warmup + reps
-times.
+``annotate`` opens a ``record_function`` range only under an active
+profiler, where the Chrome trace holds it as a ``user_annotation`` event;
+with none active it hands back one shared null context and opens nothing.
 """
 
 import json
-import os
 
 import torch
 
-from nerf_tpu.utils import profiling as jprofiling
 from nerf_tpu_torch.utils import profiling
 
 
-def test_trace_writes_a_chrome_trace_with_the_spans(tmp_path):
-    logdir = tmp_path / "trace"
-    with profiling.trace(str(logdir)):
-        with profiling.annotate("render_chunk"):
-            torch.ones(64, 64) @ torch.ones(64, 64)
-    files = os.listdir(logdir)
-    assert len(files) == 1 and files[0].endswith(".json")
-    events = json.loads((logdir / files[0]).read_text())["traceEvents"]
-    assert any(e.get("name") == "render_chunk" for e in events)
+def chrome_spans(prof, tmp_path):
+    """The ``user_annotation`` events of a finished profile as (name, start,
+    end) in microseconds, by start."""
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    return sorted(((e["name"], e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("ph") == "X" and e.get("cat") == "user_annotation"),
+                  key=lambda s: s[1])
 
 
-def test_time_fn_counts_calls_and_returns_the_last_output():
-    calls = []
+def test_annotate_without_a_profiler_opens_nothing(monkeypatch):
+    def refuse(name):
+        raise AssertionError(f"record_function({name!r}) opened with no profiler active")
 
-    def fn(x):
-        calls.append(1)
-        return x + len(calls)
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    assert not torch._C._autograd._profiler_enabled()
+    first = profiling.annotate(profiling.TRAIN_DRAW)
+    assert first is profiling.annotate(profiling.SERVE_REQUEST)
+    with first:
+        with profiling.annotate(profiling.RENDER_FIELD):
+            torch.ones(4).add_(1)
 
-    secs, out = profiling.time_fn(fn, torch.zeros(()), warmup=3, reps=4)
-    assert len(calls) == 7 and float(out) == 7.0 and secs >= 0.0
-    jcalls = []
 
-    def jfn(x):
-        jcalls.append(1)
-        return x + len(jcalls)
+def test_annotate_under_a_profiler_records_nested_spans(tmp_path):
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with profiling.annotate(profiling.RENDER_IMAGE):
+            with profiling.annotate(profiling.RENDER_FIELD):
+                torch.ones(64, 64) @ torch.ones(64, 64)
+    (outer, o0, o1), (inner, i0, i1) = chrome_spans(prof, tmp_path)
+    assert (outer, inner) == (profiling.RENDER_IMAGE, profiling.RENDER_FIELD)
+    assert o0 <= i0 and i1 <= o1 + 1e-3
+    # Once the profiler stops, a span costs nothing again.
+    assert profiling.annotate("after") is profiling.annotate(profiling.TRAIN_UPDATE)
 
-    jsecs, jout = jprofiling.time_fn(jfn, 0.0, warmup=3, reps=4)
-    assert len(jcalls) == len(calls) and float(jout) == float(out)

@@ -35,6 +35,8 @@ from nerf_tpu_torch import serve_nerf  # noqa: E402
 from nerf_tpu_torch.config import load_config  # noqa: E402
 from nerf_tpu_torch.engine.checkpoint import save_checkpoint  # noqa: E402
 from nerf_tpu_torch.models import FlexibleNeRFModel  # noqa: E402
+from nerf_tpu_torch.utils.profiling import RENDER_FIELD, RENDER_IMAGE, SERVE_REQUEST  # noqa: E402
+from tests.test_torch_profiling import chrome_spans  # noqa: E402
 
 torch.set_num_threads(1)
 NARROW = dict(num_layers=2, hidden_size=16, num_encoding_fn_xyz=2, num_encoding_fn_dir=1)
@@ -318,6 +320,20 @@ def test_concurrent_renders_serialize_on_the_device_lock(setup):
     assert all(r[0] == 200 and r[2][:8] == b"\x89PNG\r\n\x1a\n" for r in results)
     assert service.frames_served == before + 4
 
+
+
+def test_a_request_spans_the_service_the_image_and_its_fields(setup, tmp_path):
+    service = setup[1]
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        service.render_pose(service.poses[3])
+    spans = chrome_spans(prof, tmp_path)
+    (request, r0, r1), (image, i0, i1) = spans[:2]
+    assert (request, image) == (SERVE_REQUEST, RENDER_IMAGE)
+    assert r0 <= i0 and i1 <= r1 + 1e-3
+    fields = spans[2:]
+    chunks = -(-service.height * service.width // service.settings.chunksize)
+    assert [f[0] for f in fields] == [RENDER_FIELD] * chunks     # coarse alone: num_fine 0
+    assert all(i0 <= f[1] and f[2] <= i1 + 1e-3 for f in fields)
 
 def test_viewer_html_variants():
     orbit = serve_nerf.viewer_html(ndc=False, num_frames=40)

@@ -38,6 +38,9 @@ from nerf_tpu_torch.engine.checkpoint import (
     save_checkpoint,
 )
 from nerf_tpu_torch.models import FlexibleNeRFModel
+from nerf_tpu_torch.utils.profiling import (RENDER_FIELD, TRAIN_BACKWARD, TRAIN_DRAW,
+                                            TRAIN_FORWARD, TRAIN_UPDATE)
+from tests.test_torch_profiling import chrome_spans
 
 torch.set_num_threads(1)
 ENC = dict(num_encoding_fn_xyz=10, num_encoding_fn_dir=4)
@@ -350,3 +353,21 @@ def test_train_loop_is_deterministic_whatever_the_steps_per_call():
             trace += m.loss.tolist()
         losses[k] = trace
     assert losses[1] == losses[3]
+
+
+def test_train_loop_spans_each_step_by_phase(tmp_path):
+    state, settings = _narrow_state()
+    settings = dataclasses.replace(settings, num_fine=4)   # a coarse and a fine evaluation
+    loop = ttrain.make_train_loop(state.model_coarse, None, settings, 8, 2)
+    store = [torch.from_numpy(a) for a in _batch(30, n=64)]
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        loop(state, *store, 42)
+    spans = chrome_spans(prof, tmp_path)
+    order = [TRAIN_DRAW, TRAIN_FORWARD, TRAIN_BACKWARD, TRAIN_UPDATE]
+    phases = [s for s in spans if s[0] in order]
+    assert [s[0] for s in phases] == order * 2
+    assert all(a[2] <= b[1] for a, b in zip(phases, phases[1:]))
+    fields = [s for s in spans if s[0] == RENDER_FIELD]
+    assert len(fields) == 4
+    for _, start, end in (s for s in phases if s[0] == TRAIN_FORWARD):
+        assert sum(start <= f[1] and f[2] <= end + 1e-3 for f in fields) == 2
