@@ -220,6 +220,9 @@ PAPER_PSNR_FLOOR_DB = 20.0
 TIMED_STEPS = 30
 # The PaperNeRF slice (phases 9-11).
 PAPER_CHECK_SHAPES = ((2048, 64), (2048, 128), (1000, 128), (333, 61))
+# #4's calls in a 400x400 frame of 64 + 128 samples at chunk 131072: coarse
+# and fine (64 + 192 samples), a whole chunk and the rest of 160,000 rays.
+PAPER_FRAME_SHAPES = ((131072, 64), (28928, 64), (131072, 192), (28928, 192))
 PAPER_FREQS = (10, 6, 0, 16)   # encoding depths phase 9 checks: lego_paper's, the JAX default, ends
 PAPER_TRAIN_STEPS = 300
 PAPER_TIMED_STEPS = 10
@@ -1052,6 +1055,30 @@ def check_paper_kernels(dev) -> dict:
             lines.append(f"({n}, {s}) F={f} {errs[0]:.2e}/{errs[1]:.2e}")
     print(f"[paper-kernel] fused_paper_mlp_t max |kernel - plain| f32/bf16 (tol {F32_TOL:g}/"
           f"{TC_BF16_FWD_TOL:g}): {', '.join(lines)}")
+    lines = []
+    with torch.inference_mode():
+        # The bf16 instance (paper_wg.cuh's wgmma body) alone at a 400x400
+        # frame's four shapes (coarse and fine, a whole chunk and the rest)
+        # and at ragged ones: points ending mid-tile, samples that do not
+        # divide a consumer's 64 points, so that one slab's dc rows span rays.
+        for n, s in PAPER_FRAME_SHAPES + ((777, 48), (333, 100)):
+            pts, vd, _, _, _ = paper_case(n, s, models[10], dev, seed=n + s + 1)
+            before = (fused_paper_mlp_t.launches, fused_paper_mlp_t.wgmma_launches)
+            got = fused_paper_mlp_t(models[10], pts, vd, "bfloat16")
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(got).all()), f"paper bf16 kernel output at ({n}, {s})")
+            check((fused_paper_mlp_t.launches, fused_paper_mlp_t.wgmma_launches)
+                  == (before[0] + 1, before[1] + 1),
+                  f"paper bf16 kernel at ({n}, {s}) not one wgmma launch")
+            err = max(float((got[i:i + PLAIN_CHUNK] - paper_t_plain(
+                models[10], pts[i:i + PLAIN_CHUNK], vd[i:i + PLAIN_CHUNK], "bfloat16")
+                             ).abs().max()) for i in range(0, n, PLAIN_CHUNK))
+            worst["t", "bfloat16"] = max(worst["t", "bfloat16"], err)
+            check(err <= TC_BF16_FWD_TOL, f"paper bf16 kernel at ({n}, {s}): {err}")
+            lines.append(f"({n}, {s}) {err:.2e}")
+            del pts, vd, got
+    print(f"[paper-kernel] fused_paper_mlp_t bf16 (wgmma, one launch each) max |kernel - plain| "
+          f"(tol {TC_BF16_FWD_TOL:g}): {', '.join(lines)}")
     with torch.no_grad():
         for f, (n, s) in [(10, shape) for shape in TRAIN_CHECK_SHAPES] + [
                 (f, (333, 61)) for f in PAPER_FREQS if f != 10]:

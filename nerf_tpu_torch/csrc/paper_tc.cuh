@@ -1,7 +1,7 @@
-// Tensor-core device code of the bf16 PaperNeRF (8x256) kernels: paper_t.cu's
-// render forward and paper_train.cu's training forward, layer-gradient pass
-// and weight-gradient pass, at compute dtype bf16. The f32 instances keep
-// paper_mlp.cuh's FMA design.
+// Tensor-core device code of the bf16 PaperNeRF (8x256) training kernels:
+// paper_train.cu's forward, layer-gradient pass and weight-gradient pass, at
+// compute dtype bf16. The f32 instances keep paper_mlp.cuh's FMA design; the
+// bf16 render forward (paper_t.cu) runs paper_wg.cuh's wgmma body.
 //
 // Every wide product is mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32:
 // bf16 operands, f32 sums, the semantics of the TPU kernel's
@@ -41,15 +41,16 @@
 // they are staged) point-major in shared memory and reads both operands with
 // ldmatrix.trans. Its bias sums add the unrounded f32 deltas as they pass.
 //
-// Why mma.sync and not wgmma: wgmma reads B from shared memory, so every
-// weight would have to be staged there (128 KB for a 256 x 256 layer), and
-// its 64-row warpgroup tiles and asynchronous completion would replace the
-// in-place structure above; mma.sync keeps the f32 design's structure with
-// bf16 operands. On an H100 80GB HBM3 at 700 W a 131072 x 128 chunk of the
-// render forward takes ~62 ms (~335 TFLOP/s); with the weight fragments
-// served from L1 instead of L2 (a probe, wrong results) it took ~53 ms, so
-// the L2 weight stream costs ~14% and the rest is the instruction rate of
-// mma.sync and ldmatrix and the per-layer barriers.
+// Why mma.sync here: the training forward writes every layer's output to
+// the residual rows as it goes, and this tile's in-place structure (a
+// layer's whole output in registers, then written over its input) serves
+// that and the backward passes alike. The render forward writes no
+// residuals and runs paper_wg.cuh's persistent wgmma body instead: on an
+// H100 80GB HBM3 at 700 W a 131072 x 128 chunk takes ~31 ms there against
+// ~62 ms on this tile (~335 TFLOP/s), which the instruction rate of
+// mma.sync and ldmatrix, the per-layer barriers and the L2 weight stream
+// (~14%, by a probe that served the weight fragments from L1) hold back.
+// Moving #9's forward onto a wgmma body is later work.
 
 #pragma once
 

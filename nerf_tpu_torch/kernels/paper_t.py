@@ -12,9 +12,11 @@ runtime argument of the kernel (0 to 16).
 What bounds it on the card is arithmetic: 622,720 multiply-adds a point at
 10 frequencies against 28 B of point traffic. ``compute_dtype="float32"``
 runs f32 FMAs from registers; ``"bfloat16"`` runs every wide product on the
-tensor cores (``mma.sync``, bf16 operands, f32 sums; ``csrc/paper_tc.cuh``),
-its weights handed over as a bf16 copy in the instruction's fragment order
-(``pack_tc_forward``), built once per call.
+tensor cores (``wgmma``, bf16 operands, f32 sums; ``csrc/paper_wg.cuh``), its
+weights handed over as a bf16 image of the kernel's shared-memory ring
+stages (``pack_wg_forward``), built once per call. ``pack_tc_forward`` packs
+the same weights in ``mma.sync`` fragment order for #9's bf16 training
+forward (``csrc/paper_tc.cuh``).
 
 Like the TPU version, the per-ray direction contribution
 ``enc(viewdirs) @ W_dir[:, 256:].T`` (N, 128) is computed outside the kernel
@@ -208,6 +210,105 @@ def unpack_tc_forward(buf: torch.Tensor, num_freq: int) -> Dict[str, torch.Tenso
         unpack_params(torch.zeros(num_params(num_freq)), num_freq), 3 + 6 * num_freq, 0.0))
 
 
+_SLICE_K = 64   # K columns of a ring slice of the wgmma kernel (csrc/paper_wg.cuh kSliceK)
+
+
+def _swizzled(m: torch.Tensor, pad: float) -> torch.Tensor:
+    """An (N, K) operand as the shared-memory images of its ring slices
+    (``csrc/paper_wg.cuh``): K cut into 64-column slices, the last padded
+    with ``pad``; each slice N rows of 128 bytes, K-major, whose eight
+    16-byte chunks lie swizzled: column k of row n in chunk (k // 8) ^ (n % 8),
+    the layout wgmma's 128-byte-swizzle descriptor reads."""
+    n, k = m.shape
+    kp = -(-k // _SLICE_K) * _SLICE_K
+    x = torch.nn.functional.pad(m, (0, kp - k), value=pad).reshape(n, kp // _SLICE_K, 8, 8)
+    rows = torch.arange(n).view(n, 1)
+    x = x[rows, :, torch.arange(8).view(1, 8) ^ (rows % 8)]     # n, chunk, slice, e
+    return x.permute(2, 0, 1, 3).reshape(-1)
+
+
+def _unswizzled(flat: torch.Tensor, n: int, k: int) -> torch.Tensor:
+    """The inverse of ``_swizzled``: the (N, K) matrix, the slices' pads cut."""
+    kp = -(-k // _SLICE_K) * _SLICE_K
+    x = flat.reshape(kp // _SLICE_K, n, 8, 8).permute(1, 0, 2, 3)   # n, slice, chunk, e
+    rows = torch.arange(n).view(n, 1)
+    x = x[rows, :, torch.arange(8).view(1, 8) ^ (rows % 8)]         # n, chunk, slice, e
+    return x.permute(0, 2, 1, 3).reshape(n, kp)[:, :k]
+
+
+def _wg_parts(mats) -> List[Tuple[str, torch.Tensor]]:
+    """The wgmma kernel's operands in the order its ring reads them: the
+    tensor-core forward's matrices (``_tc_forward_matrices``) with layer 4
+    cut into its encoding rows and its h rows (each starts a slice)."""
+    kin = mats[0][1].shape[1]
+    out = []
+    for name, m in mats:
+        if name == "layers_xyz.4":
+            out += [(f"{name}.enc", m[:, :kin]), (f"{name}.h", m[:, kin:])]
+        else:
+            out.append((name, m))
+    return out
+
+
+def _wg_image(mats, pad: float) -> torch.Tensor:
+    """``_tc_forward_matrices``' operands as the wgmma kernel's weight image:
+    every wide one as its swizzled ring slices (``_swizzled``), in order,
+    then the narrow heads fc_alpha and fc_rgb row by row."""
+    return torch.cat([_swizzled(m, pad) if m.shape[0] >= _DIR_WIDTH else m.reshape(-1)
+                      for _, m in _wg_parts(mats)])
+
+
+@functools.lru_cache(maxsize=None)
+def _wg_index(num_freq: int, device: str) -> torch.Tensor:
+    """Where each value of ``pack_wg_forward``'s image comes from in the packed
+    parameters (``num_params`` for a zero pad), on ``device``."""
+    n = num_params(num_freq)
+    ref = torch.arange(n + 1, dtype=torch.float64)
+    mats = _tc_forward_matrices(unpack_params(ref, num_freq), 3 + 6 * num_freq, float(n))
+    return _wg_image(mats, float(n)).long().to(device)
+
+
+def pack_wg_forward(params: torch.Tensor, num_freq: int) -> torch.Tensor:
+    """The bf16 render forward's weights (``csrc/paper_wg.cuh``), from the
+    packed parameters: every weight rounded to bf16, each wide layer (out,
+    in) as the swizzled images of its 64-column K slices in the order the
+    kernel's ring streams them (K pads zero: 63 -> 64, the skip's encoding
+    rows and h rows each a whole number of slices), then fc_alpha and
+    fc_rgb plain."""
+    return gather_bf16(params, lambda device: _wg_index(num_freq, device))
+
+
+def unpack_wg_forward(buf: torch.Tensor, num_freq: int) -> Dict[str, torch.Tensor]:
+    """``pack_wg_forward``'s image as f32 operand matrices, in
+    ``unpack_tc_forward``'s form: name -> (out, in) with its pads to 16
+    (layers_xyz.4: [enc rows, pad, h rows]). Raises if a slice's pad beyond
+    those is not zero."""
+    mats = _tc_forward_matrices(unpack_params(torch.zeros(num_params(num_freq)), num_freq),
+                                3 + 6 * num_freq, 0.0)
+    got, off = {}, 0
+    for name, m in _wg_parts(mats):
+        n, k = m.shape
+        size = n * (-(-k // _SLICE_K) * _SLICE_K if n >= _DIR_WIDTH else k)
+        part = buf[off:off + size].float()
+        if n >= _DIR_WIDTH:
+            whole = _unswizzled(part, n, -(-k // _SLICE_K) * _SLICE_K)
+            if whole[:, k:].any():
+                raise ValueError(f"{name}: nonzero values in its slices' pad")
+            got[name] = whole[:, :k]
+        else:
+            got[name] = part.view(n, k)
+        off += size
+    if off != buf.numel():
+        raise ValueError(f"a buffer of {buf.numel()} values for a layout of {off}")
+    got["layers_xyz.4"] = torch.cat([got.pop("layers_xyz.4.enc"), got.pop("layers_xyz.4.h")], 1)
+    return got
+
+
+def wg_forward_weights(num_freq: int) -> int:
+    """bf16 values of ``pack_wg_forward``'s image."""
+    return _wg_index(num_freq, "cpu").numel()
+
+
 def _unflatten(buf: torch.Tensor, mats, warps: int = 8) -> Dict[str, torch.Tensor]:
     """The inverse of ``_flatten``: name -> the f32 (N, K) matrix."""
     out, off = {}, 0
@@ -273,14 +374,14 @@ def _kernel():
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     fn.argtypes = [ptr, ptr, ptr, i64, ptr, i64, ptr, i64, i32, i32, i32, ptr]
     fn.restype = ctypes.c_int
-    for name in ("nerf_paper_num_params", "nerf_paper_tc_weights"):
+    for name in ("nerf_paper_num_params", "nerf_paper_wg_weights"):
         getattr(lib, name).argtypes = [i32]
         getattr(lib, name).restype = i32
     for f in (0, 6, 10, 16):
-        got = (lib.nerf_paper_num_params(f), lib.nerf_paper_tc_weights(f))
-        want = (num_params(f), tc_forward_weights(f))
+        got = (lib.nerf_paper_num_params(f), lib.nerf_paper_wg_weights(f))
+        want = (num_params(f), wg_forward_weights(f))
         if got != want:
-            raise RuntimeError(f"csrc/paper_mlp.cuh / paper_tc.cuh layouts at {f} frequencies "
+            raise RuntimeError(f"csrc/paper_mlp.cuh / paper_wg.cuh layouts at {f} frequencies "
                                f"{got} != wrapper's {want}")
     return fn
 
@@ -297,7 +398,8 @@ def fused_paper_mlp_t(model: PaperNeRFModel, pts: torch.Tensor, viewdirs: torch.
 
     CPU tensors go through ``paper_t_plain``. CUDA tensors go through the
     kernel; anything it does not take raises. ``fused_paper_mlp_t.launches``
-    counts the kernel's launches.
+    counts the kernel's launches, ``fused_paper_mlp_t.wgmma_launches`` those
+    of its bf16 instance (``csrc/paper_wg.cuh``).
     """
     what = "fused_paper_mlp_t"
     if compute_dtype not in _COMPUTE_DTYPES:
@@ -328,7 +430,7 @@ def fused_paper_mlp_t(model: PaperNeRFModel, pts: torch.Tensor, viewdirs: torch.
         dc = aligned(dir_contribution(model, viewdirs))
         params = aligned(pack_params(model))
         f = model.num_encoding_fn_xyz
-        wbf = pack_tc_forward(params, f) if compute_dtype == "bfloat16" else None
+        wbf = pack_wg_forward(params, f) if compute_dtype == "bfloat16" else None
         stream = torch.cuda.current_stream(pts.device).cuda_stream
         rc = _kernel()(pts_c.data_ptr(), dc.data_ptr(), params.data_ptr(), params.numel(),
                        None if wbf is None else wbf.data_ptr(), 0 if wbf is None else wbf.numel(),
@@ -336,7 +438,9 @@ def fused_paper_mlp_t(model: PaperNeRFModel, pts: torch.Tensor, viewdirs: torch.
     if rc != 0:
         raise RuntimeError(f"{what}: kernel launch failed with CUDA error {rc}")
     fused_paper_mlp_t.launches += 1
+    fused_paper_mlp_t.wgmma_launches += wbf is not None
     return out
 
 
 fused_paper_mlp_t.launches = 0
+fused_paper_mlp_t.wgmma_launches = 0

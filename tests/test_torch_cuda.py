@@ -234,15 +234,19 @@ def paper_model():
 
 
 @pytest.mark.parametrize("compute_dtype,tol", [("float32", 1e-4), ("bfloat16", TC_FWD_TOL)])
-@pytest.mark.parametrize("n,s", [(1, 1), (33, 64), (1000, 128), (7, 61)])
+@pytest.mark.parametrize("n,s", [(1, 1), (33, 64), (1000, 128), (7, 61), (333, 48), (100, 100)])
 def test_paper_kernel_matches_plain(paper_model, n, s, compute_dtype, tol):
+    """(333, 48) and (100, 100): samples that do not divide the bf16 body's
+    64-point slabs, so a slab's dc rows span rays; all end mid-tile."""
     pts, vd = _inputs(n, s, seed=n * s)
-    before = paper_t.fused_paper_mlp_t.launches
+    fused = paper_t.fused_paper_mlp_t
+    before = (fused.launches, fused.wgmma_launches)
     with torch.inference_mode():
-        got = paper_t.fused_paper_mlp_t(paper_model, pts, vd, compute_dtype)
+        got = fused(paper_model, pts, vd, compute_dtype)
         torch.cuda.synchronize()
         want = paper_t.paper_t_plain(paper_model, pts, vd, compute_dtype)
-    assert paper_t.fused_paper_mlp_t.launches == before + 1
+    bf16 = compute_dtype == "bfloat16"
+    assert (fused.launches, fused.wgmma_launches) == (before[0] + 1, before[1] + bf16)
     assert got.shape == (n, s, 4) and got.is_cuda
     assert float((got - want).abs().max()) <= tol
 

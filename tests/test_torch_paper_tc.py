@@ -1,14 +1,18 @@
 """The bf16 weight buffers of the tensor-core PaperNeRF kernels (#4, #9).
 
 The bf16 instances of ``fused_paper_mlp_t`` and ``fused_paper_mlp_train``
-read their weights as bf16 copies that the wrappers build once per call
-(``kernels/paper_t.pack_tc_forward``, ``kernels/paper_train.pack_tc_backward``)
-in the order of the ``mma.sync`` m16n8k16 B fragments, each K padded to a
-multiple of 16 with zero rows. The kernels themselves run only on the card
+read their weights as bf16 copies that the wrappers build once per call:
+#9's (``kernels/paper_t.pack_tc_forward``, ``kernels/paper_train.pack_tc_backward``)
+in the order of the ``mma.sync`` m16n8k16 B fragments, #4's
+(``kernels/paper_t.pack_wg_forward``) as the swizzled shared-memory images of
+its wgmma kernel's 64-column K slices; each K padded to a multiple of 16 with
+zero rows. The kernels themselves run only on the card
 (tests/test_torch_cuda.py); here, at encoding depths 0, 6, 10 and 16 (K pads
 3 -> 16, 39 -> 48, 63 -> 64, 99 -> 112, and 319 -> 320 at the skip):
 
-- the fragment order is the PTX layout of the B operand, element by element;
+- the fragment order is the PTX layout of the B operand, element by element,
+  and the slice images the 128-byte swizzle, element by element; the image's
+  length is csrc/paper_wg.cuh's;
 - each buffer unpacks to round_bf16(W) of the model's nn.Linear weights
   exactly, its pads zero;
 - the plain forward and backward computed from the unpacked weights equal
@@ -42,15 +46,20 @@ from nerf_tpu.ops.pallas.paper_t import fused_paper_mlp_t as jax_paper_t
 from nerf_tpu.ops.pallas.paper_train import fused_paper_mlp_train as jax_paper_train
 from nerf_tpu_torch.engine.checkpoint import load_jax_params
 from nerf_tpu_torch.kernels.paper_t import (
+    _swizzled,
+    _unswizzled,
     dir_contribution,
     fragment_matrix,
     fragment_order,
     pack_params,
     pack_tc_forward,
+    pack_wg_forward,
     paper_plain_forward,
     tc_forward_weights,
     unpack_params,
     unpack_tc_forward,
+    unpack_wg_forward,
+    wg_forward_weights,
 )
 from nerf_tpu_torch.kernels.paper_train import (
     pack_tc_backward,
@@ -101,13 +110,27 @@ def test_fragment_order_is_the_mma_b_layout():
     assert torch.equal(fragment_matrix(flat, n, k), m)
 
 
-@pytest.mark.parametrize("f", FREQS)
-def test_forward_buffer_unpacks_to_the_rounded_weights(f):
-    model = _model(f)
+def test_wg_image_is_the_swizzled_slice_layout():
+    """csrc/paper_wg.cuh's ring slices: K in 64-column slices (the last
+    padded), each N rows of 128 bytes whose 16-byte chunks are swizzled,
+    column k of row n at chunk (k // 8) ^ (n % 8), as TMA's and wgmma's
+    128-byte swizzle lays a K-major operand out."""
+    n, k = 24, 100
+    m = torch.arange(n * k, dtype=torch.float64).view(n, k)
+    flat = _swizzled(m, -1.0)
+    assert flat.numel() == n * 128
+    for row in range(n):
+        for col in range(128):
+            got = flat[(col // 64) * n * 64 + row * 64 + ((col % 64 // 8) ^ (row % 8)) * 8
+                       + col % 8]
+            assert got == (m[row, col] if col < k else -1.0), (row, col)
+    assert torch.equal(_unswizzled(flat, n, k), m)
+
+
+def _check_forward_weights(mats, model, f):
+    """The forward operand matrices ``mats`` (name -> (out, in) with the K
+    pads to 16) hold round_bf16 of ``model``'s weights, their pads zero."""
     dim, kin = 3 + 6 * f, -(-(3 + 6 * f) // 16) * 16
-    buf = pack_tc_forward(pack_params(model), f)
-    assert buf.dtype == torch.bfloat16 and buf.numel() == tc_forward_weights(f)
-    mats = unpack_tc_forward(buf, f)
     for i in range(8):
         w, got = model.layers_xyz[i].weight, mats[f"layers_xyz.{i}"]
         if i == 0:
@@ -125,6 +148,38 @@ def test_forward_buffer_unpacks_to_the_rounded_weights(f):
         assert torch.equal(mats[f"layers_dir.{i}"], _r(model.layers_dir[i].weight))
     assert torch.equal(mats["fc_alpha"], _r(model.fc_alpha.weight))
     assert torch.equal(mats["fc_rgb"], _r(model.fc_rgb.weight))
+
+
+@pytest.mark.parametrize("f", FREQS)
+def test_forward_buffer_unpacks_to_the_rounded_weights(f):
+    model = _model(f)
+    buf = pack_tc_forward(pack_params(model), f)
+    assert buf.dtype == torch.bfloat16 and buf.numel() == tc_forward_weights(f)
+    _check_forward_weights(unpack_tc_forward(buf, f), model, f)
+
+
+@pytest.mark.parametrize("f", FREQS)
+def test_wg_buffer_unpacks_to_the_rounded_weights(f):
+    """The wgmma render forward's image unpacks to the same matrices (its
+    slices' pads beyond the 16-column ones checked zero by the unpacking)."""
+    model = _model(f)
+    buf = pack_wg_forward(pack_params(model), f)
+    assert buf.dtype == torch.bfloat16 and buf.numel() == wg_forward_weights(f)
+    assert buf.data_ptr() % 16 == 0
+    _check_forward_weights(unpack_wg_forward(buf, f), model, f)
+
+
+@pytest.mark.parametrize("f", FREQS)
+def test_wg_weight_count_is_the_c_layouts(f):
+    """csrc/paper_wg.cuh num_weights: (2 enc_slices + 32) wide slices of
+    256 x 64, 8 narrow ones of 128 x 64 (layers_dir.0: 4, .1, .2: 2 each),
+    then fc_alpha (256) and fc_rgb (3 x 128); enc_slices = ceil(pad16(dim) /
+    64): 1 at F <= 10, 2 at F = 16."""
+    kin = -(-(3 + 6 * f) // 16) * 16
+    enc_slices = -(-kin // 64)
+    want = (2 * enc_slices + 32) * 256 * 64 + 8 * 128 * 64 + 256 + 3 * 128
+    assert wg_forward_weights(f) == want
+    assert want == (656000 if f == 16 else 623232)
 
 
 @pytest.mark.parametrize("f", FREQS)
@@ -150,11 +205,11 @@ def test_backward_buffer_unpacks_to_the_rounded_weights(f):
         assert torch.equal(mats[f"layers_xyz.{i}"], _r((w[:, dim:] if i == 4 else w).t()))
 
 
-def _with_forward_weights(model, f):
+def _with_forward_weights(model, f, pack=pack_tc_forward, unpack=unpack_tc_forward):
     """A copy of ``model`` whose forward weights are those of its bf16
-    forward buffer."""
+    forward buffer (``pack``'s, read back by ``unpack``)."""
     dim, kin = 3 + 6 * f, -(-(3 + 6 * f) // 16) * 16
-    mats = unpack_tc_forward(pack_tc_forward(pack_params(model), f), f)
+    mats = unpack(pack(pack_params(model), f), f)
     out = copy.deepcopy(model)
     with torch.no_grad():
         for i in range(8):
@@ -168,6 +223,20 @@ def _with_forward_weights(model, f):
         out.fc_alpha.weight.copy_(mats["fc_alpha"])
         out.fc_rgb.weight.copy_(mats["fc_rgb"])
     return out
+
+
+@pytest.mark.parametrize("f", FREQS)
+def test_plain_pass_from_the_wg_buffer_is_bitwise_the_bf16_plain_pass(f):
+    model = _model(f)
+    pts, vd, _ = (torch.from_numpy(a) for a in _inputs(7, 9, seed=f + 20))
+    with torch.no_grad():
+        dc = dir_contribution(model, vd)
+        want = paper_plain_forward(pts, dc, pack_params(model).detach(), f, "bfloat16",
+                                   residuals=False)[0]
+        wg_model = _with_forward_weights(model, f, pack_wg_forward, unpack_wg_forward)
+        got = paper_plain_forward(pts, dc, pack_params(wg_model), f, "bfloat16",
+                                  residuals=False)[0]
+    assert torch.equal(got, want)
 
 
 def _with_backward_weights(model, f):

@@ -14,7 +14,9 @@ stage (#7) against its plain version and, in bf16, bitwise against #5 on
 #1's bf16 field, and times #1-#3 once; then holds the 8x256 PaperNeRF
 kernels, #4 ``fused_paper_mlp_t`` and the #9 training pair, against their
 plain versions in f32 and bf16 at chip_smoke.py's phase 9 shapes, points
-ending mid-tile, and 0, 6, 10 and 16 encoding frequencies; and the
+ending mid-tile, and 0, 6, 10 and 16 encoding frequencies, #4's bf16
+instance also at a 400x400 frame's four shapes and ragged ones, one wgmma
+launch each (``fused_paper_mlp_t.wgmma_launches``); and the
 scene-batched #8 and #9 pairs at phase 19's shape (MS_SCENES scenes of
 TRAIN_SHAPE), bitwise the single-scene launches, each pass timed as one
 batched call beside MS_SCENES single-scene calls in turns. With
@@ -23,8 +25,10 @@ batched call beside MS_SCENES single-scene calls in turns. With
 spills of the tensor-core instances and of the f32 4x128 and Paper
 instances, checks that the outputs ``bitwise_results`` lists (the f32 Paper
 ones among them) are bitwise the same from both, each tree through its own
-wrappers (its package, imported under another name), times #1, #2, #3, #7
-and the #8 and #9 pairs in f32 and bf16, #4 in f32 and #6 (det, by the
+wrappers (its package, imported under another name), and #4's bf16 outputs
+within chip_smoke.py's BF16_TOL of the other tree's (its wgmma body sums in
+another order than the mma.sync tile), times #1, #2, #3, #4, #7
+and the #8 and #9 pairs in f32 and bf16, #6 (det, by the
 profiler's device time too) from both in turns (parent, this tree, this
 tree, parent), and each launch of #8's and #9's f32 and bf16 forward and
 backward by the profiler: the training pairs' launches at one scene, beside
@@ -152,6 +156,24 @@ def check_paper_kernels(dev) -> bool:
                                    ).abs().max()))
                 ok &= errs[-1] <= fwd_tols[dt]
             print(f"#4 ({n}, {s}) F={f}: f32 {errs[0]:.3e}, bf16 {errs[1]:.3e}", flush=True)
+        # The bf16 instance (paper_wg.cuh's wgmma body) alone at a frame's four
+        # shapes and ragged ones (samples that do not divide a consumer's 64
+        # points), each one launch through the wgmma body.
+        ragged = ((777, 48), (333, 100))
+        for f, (n, s) in [(10, shape) for shape in cs.PAPER_FRAME_SHAPES + ragged] + [
+                (f, (100, 48)) for f in PAPER_FREQS]:
+            pts, vd, _, _, _ = cs.paper_case(n, s, models[f], dev, seed=n + s + f + 1)
+            fn = paper_t.fused_paper_mlp_t
+            before = (fn.launches, fn.wgmma_launches)
+            got = fn(models[f], pts, vd, "bfloat16")
+            torch.cuda.synchronize()
+            one = (fn.launches, fn.wgmma_launches) == (before[0] + 1, before[1] + 1)
+            err = max(float((got[i:i + cs.PLAIN_CHUNK] - paper_t.paper_t_plain(
+                models[f], pts[i:i + cs.PLAIN_CHUNK], vd[i:i + cs.PLAIN_CHUNK], "bfloat16")
+                             ).abs().max()) for i in range(0, n, cs.PLAIN_CHUNK))
+            ok &= one and bool(torch.isfinite(got).all()) and err <= cs.TC_BF16_FWD_TOL
+            print(f"#4 bf16 ({n}, {s}) F={f}: {err:.3e}, one wgmma launch {one}", flush=True)
+            del pts, vd, got
     train_cases = [(10, shape) for shape in cs.TRAIN_CHECK_SHAPES] + [
         (f, shape) for f in PAPER_FREQS for shape in ((1, 1), (5, 33), (333, 61))]
     with torch.no_grad():
@@ -284,13 +306,15 @@ def resample_case(n: int, m: int, s: int, dev):
     return bins, w, u
 
 
-def bitwise_results(m: dict, dev) -> list:
-    """Through one tree's wrappers: the f32 and bf16 outputs of #1, #4, the #8
+def bitwise_results(m: dict, dev):
+    """Through one tree's wrappers: the f32 and bf16 outputs of #1, the #8
     pair and the #9 pair (forward output, residuals, gradient, ddc), the f32
-    ones of #2, #3 and #7, at a render shape and a ragged one; #6's det and
-    stochastic outputs at RESAMPLE_CASES."""
+    ones of #2, #3, #4 and #7, at a render shape and a ragged one; #6's det
+    and stochastic outputs at RESAMPLE_CASES. Returns them and, apart, #4's
+    bf16 outputs at the same shapes (paper_wg.cuh's wgmma body, which sums
+    in another order than the mma.sync tile before it)."""
     flex, paper = tree_models(m, dev)
-    out = []
+    out, paper_bf16 = [], []
     with torch.no_grad():
         for n, s in ((2048, 128), (333, 61)):
             pts, vd = cs.orbit_points(n, s, dev, n)
@@ -311,7 +335,8 @@ def bitwise_results(m: dict, dev) -> list:
             out += [maps[k] for k in sorted(maps)]
             dc, pp = m["paper_t"].dir_contribution(paper, vd), m["paper_t"].pack_params(paper)
             for dt in ("bfloat16", "float32"):
-                out.append(m["paper_t"].fused_paper_mlp_t(paper, pts, vd, dt))
+                (paper_bf16 if dt == "bfloat16" else out).append(
+                    m["paper_t"].fused_paper_mlp_t(paper, pts, vd, dt))
                 po, r = m["paper_train"].paper_train_fwd(pts, dc, pp, dt, 10)
                 out += [po, r[0], *m["paper_train"].paper_train_bwd(g, r, pp, n, s, dt, 10)]
         for n, mb, s in RESAMPLE_CASES:
@@ -319,12 +344,12 @@ def bitwise_results(m: dict, dev) -> list:
             out.append(m["resample"].fused_sample_pdf(bins, w, 64, det=True))
             out.append(m["resample"].fused_sample_pdf(bins, w, s, u=u))
     torch.cuda.synchronize()
-    return out
+    return out, paper_bf16
 
 
 def timed_calls(m: dict, dev) -> dict:
     """Through one tree's wrappers, at the main path's shapes: name -> (fn,
-    reps) for #1, #2, #3 and #7 in f32 and bf16 and #4 in f32 (one fine-pass
+    reps) for #1, #2, #3, #4 and #7 in f32 and bf16 (one fine-pass
     chunk), #6 det (one coarse chunk's resample, M 63 -> 64), the #8 and #9
     pairs in f32 and bf16 (one training pass, F = 10)."""
     flex, paper = tree_models(m, dev)
@@ -343,6 +368,7 @@ def timed_calls(m: dict, dev) -> dict:
     pres = {dt: m["paper_train"].paper_train_fwd(tp, pdc, pp, dt, 10)[1]
             for dt in ("float32", "bfloat16")}
     calls["#4 f32"] = (lambda: m["paper_t"].fused_paper_mlp_t(paper, pts, vd, "float32"), 2)
+    calls["#4 bf16"] = (lambda: m["paper_t"].fused_paper_mlp_t(paper, pts, vd, "bfloat16"), 3)
     for dt, tag, reps in (("float32", "f32", 2), ("bfloat16", "bf16", 3)):
         calls.update({
             f"#9 fwd {tag}": (lambda dt=dt: m["paper_train"].paper_train_fwd(tp, pdc, pp, dt, 10),
@@ -400,9 +426,14 @@ def check_bitwise_against(parent_csrc: Path, dev) -> bool:
               + ", ".join(r for r in regs if r.rsplit(" ", 1)[0].split(" (")[0] in watched),
               flush=True)
     outs = {label: bitwise_results(m, dev) for label, m in trees.items()}
-    same = [torch.equal(a, b) for a, b in zip(outs["parent"], outs["this tree"])]
+    same = [torch.equal(a, b) for a, b in zip(outs["parent"][0], outs["this tree"][0])]
     print(f"bitwise equal to parent: {all(same)} ({sum(same)} of {len(same)} outputs)",
           flush=True)
+    errs = [float((a - b).abs().max()) for a, b in zip(outs["parent"][1], outs["this tree"][1])]
+    near = all(e <= cs.BF16_TOL for e in errs)
+    print(f"#4 bf16 against the parent's (tol {cs.BF16_TOL:g}): "
+          + ", ".join(f"{e:.3e}" for e in errs) + f", within {near}, bitwise "
+          + str(all(e == 0.0 for e in errs)), flush=True)
 
     calls = {label: timed_calls(m, dev) for label, m in trees.items()}
     with torch.no_grad():
@@ -413,7 +444,7 @@ def check_bitwise_against(parent_csrc: Path, dev) -> bool:
                 per = cs.kernel_device_ms(calls[label][name][0], 10, r"train_\w+?_kernel")
                 print(f"ms {name} by launch, {label}: "
                       + ", ".join(f"{k} {v:.4f}" for k, v in per.items()), flush=True)
-    return all(same)
+    return all(same) and near
 
 
 def main() -> int:

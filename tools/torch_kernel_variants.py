@@ -16,8 +16,8 @@ forwards and #8's backward passes) and f32 Paper kernel in its SASS, #1 and #3 b
 their plain versions (``chip_smoke.flex_pair_errors``), whether #3 bf16 is
 bitwise #1 bf16, and whether its outputs (the f32 #1, #3 and #8 forward's
 too, and ``torch_kernel_check.bitwise_results``) equal base's bitwise; then
-it times ``torch_kernel_check.timed_calls`` (#1, #2, #3 and #7 in f32 and
-bf16 and #4 in f32 at one fine-pass chunk, #6 det also by the profiler's
+it times ``torch_kernel_check.timed_calls`` (#1, #2, #3, #4 and #7 in f32
+and bf16 at one fine-pass chunk, #6 det also by the profiler's
 device time, the #8 and #9 pairs in f32 and bf16 at one training pass) in
 turns (base, variants, the variants again in reverse, base), and each
 launch of #8's and #9's f32 and bf16 backward by the profiler. Builds go
@@ -419,7 +419,8 @@ def main() -> int:
                 f32 = flex_train.flex_train_fwd(pts, dc, params, "float32")
                 res += [mlp_t.fused_mlp_t(model, pv, vd, "float32"),
                         mlp.fused_flexible_mlp_rays(model, pv, vd, "float32"), f32[0], f32[1][0]]
-            outs[name] = res + bitwise_results(mods, dev)
+            same_code, paper_bf16 = bitwise_results(mods, dev)
+            outs[name] = res + same_code + paper_bf16
         for name in list(trees)[1:]:
             same = all(torch.equal(a, b) for a, b in zip(outs["base"], outs[name]))
             print(f"{name} bitwise equal to base: {same}", flush=True)
