@@ -1,6 +1,6 @@
 """What both drivers share: the system's configuration built from a
-configuration file, weights from the seed, the kernels' launch counters,
-and the comparison numbers."""
+configuration file, weights from the seed and the kernels' launch counters
+through the model type's plug-in, and the comparison numbers."""
 
 from __future__ import annotations
 
@@ -50,12 +50,13 @@ def sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def seed_weights(modules, seed: int, device, opacify: bool = False) -> None:
+def seed_linears(modules, seed: int, device, opacify: bool, density_bias: str) -> None:
     """Every linear layer of ``modules`` (in order) from one draw of
     uniforms on ``device``: weight and bias ~ U(-1/sqrt(fan_in),
     1/sqrt(fan_in)), the layers' own initialisation. ``opacify`` then scales
-    every weight by 3 and adds 2 to the density bias, so that a field of
-    random weights renders a scene that is mostly opaque, not empty."""
+    every weight by 3 and adds 2 to the bias of each module's layer
+    ``density_bias``, so that a field of random weights renders a scene that
+    is mostly opaque, not empty. The seeding of the MLP types' plug-ins."""
     linears = [m for mod in modules for m in mod.modules() if isinstance(m, torch.nn.Linear)]
     total = sum(m.weight.numel() + m.bias.numel() for m in linears)
     gen = torch.Generator(device=device).manual_seed(int(seed))
@@ -71,7 +72,24 @@ def seed_weights(modules, seed: int, device, opacify: bool = False) -> None:
             for mod in modules:
                 for p in mod.parameters():
                     p.mul_(3.0)
-                mod.fc_alpha.bias.add_(2.0)
+                mod.get_submodule(density_bias).bias.add_(2.0)
+
+
+def seed_fields(model_type, modules, seed: int, device, opacify: bool = False) -> None:
+    """The weights of ``modules`` from ``seed`` by their type's plug-in
+    (``model_type``, a ``spec.ModelType``). Every leaf holds NaN until the
+    plug-in writes it, so that a leaf it leaves unseeded raises here instead
+    of making the comparison with the reference meaningless."""
+    with torch.no_grad():
+        for mod in modules:
+            for p in mod.parameters():
+                p.fill_(math.nan)
+    model_type.plugin.seed(modules, seed, device, opacify=opacify)
+    named = [(f"{i}.{k}", p) for i, mod in enumerate(modules) for k, p in mod.named_parameters()]
+    finite = torch.stack([torch.isfinite(p).all() for _, p in named]).tolist()
+    unseeded = [k for (k, _), ok in zip(named, finite) if not ok]
+    if unseeded:
+        raise ValueError(f"{model_type.name}'s plug-in left leaves unseeded: {unseeded}")
 
 
 def named_leaves(coarse, fine) -> Dict[str, torch.Tensor]:
@@ -81,16 +99,22 @@ def named_leaves(coarse, fine) -> Dict[str, torch.Tensor]:
     return out
 
 
-def field_counters(model_type: str):
-    """The kernel wrappers whose launch counters show that the fields ran
-    through the kernels: (training pair, render forward)."""
-    from nerf_tpu_torch.kernels.flex_train import fused_flex_mlp_train
-    from nerf_tpu_torch.kernels.mlp_t import fused_mlp_t
-    from nerf_tpu_torch.kernels.paper_t import fused_paper_mlp_t
-    from nerf_tpu_torch.kernels.paper_train import fused_paper_mlp_train
+def zero_counters(counters: Dict) -> None:
+    """Counters as a plug-in names them, ``{check: (wrapper, counter,
+    launches a field evaluation)}``, set to nought."""
+    for holder, attr, _ in counters.values():
+        setattr(holder, attr, 0)
 
-    return {"FlexibleNeRFModel": (fused_flex_mlp_train, fused_mlp_t),
-            "PaperNeRFModel": (fused_paper_mlp_train, fused_paper_mlp_t)}[model_type]
+
+def read_counters(counters: Dict) -> Dict[str, int]:
+    return {name: getattr(holder, attr) for name, (holder, attr, _) in counters.items()}
+
+
+def launch_checks(counters: Dict, counts: Dict[str, int], evaluations: int) -> List[Dict]:
+    """Each counter's launches against its launches a field evaluation
+    times ``evaluations``, exactly."""
+    return [check(name, counts[name], per * evaluations, exact=True)
+            for name, (_, _, per) in counters.items()]
 
 
 def check(name: str, value: float, limit: float, exact: bool = False) -> Dict:

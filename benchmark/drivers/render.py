@@ -28,7 +28,8 @@ import torch
 from ..harness import trace as tr
 from ..reference import nerf_plain
 from ..traffic.scene import focal_length, pose_spherical
-from .common import check, field_counters, program_config, seed_weights, sized, sync
+from .common import (check, launch_checks, program_config, read_counters, seed_fields, sized,
+                     sync, zero_counters)
 
 
 def orbit(poses: int, phi: float, radius: float) -> np.ndarray:
@@ -43,6 +44,7 @@ class RenderRun:
         self.seed = int(seed)
         self.device = torch.device(device)
         self.faults = set(faults)
+        self.model_type = cell.model
         self.config, self.traffic = sized(cell.config, cell.traffic, sizes)
         self.frames: List[np.ndarray] = []
         self.pose_ids: List[int] = []
@@ -66,7 +68,7 @@ class RenderRun:
         mf = model_from_config(cfg.models.fine).to(dev)
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
-        seed_weights([mc, mf], self.seed, dev, opacify=True)
+        seed_fields(self.model_type, [mc, mf], self.seed, dev, opacify=True)
         self.weights = ({k: p.detach().clone() for k, p in mc.named_parameters()},
                         {k: p.detach().clone() for k, p in mf.named_parameters()})
         fd, path = tempfile.mkstemp(suffix=".ntc", prefix="bench_weights_")
@@ -83,18 +85,19 @@ class RenderRun:
             self.phases["service"] = time.perf_counter() - t1
         finally:
             os.unlink(path)
-        self.kernel = field_counters(cfg.models.coarse.type)[1]
+        self.counters = self.model_type.plugin.render_counters()
         if "altered" in self.faults:
             produce = self.service._render_on_device
             self.service._render_on_device = lambda pose: produce(pose)[:, ::-1]
         chunk = int(cfg.nerf.validation.chunksize)
-        self.launches_per_frame = 2 * -(-self.height * self.width // chunk)
+        # Each chunk of a frame's rays evaluates the coarse and the fine field once.
+        self.evaluations_per_frame = 2 * -(-self.height * self.width // chunk)
 
     def warm_up(self) -> None:
         for i in range(int(self.traffic["warmup_frames"])):
             self.service.render_pose(self.poses[(self.offset + i) % len(self.poses)])
         sync(self.device)
-        self.kernel.launches = 0
+        zero_counters(self.counters)
 
     def _frame(self, i: int):
         pid = (self.offset + i) % len(self.poses)
@@ -137,7 +140,7 @@ class RenderRun:
         return {"trace": trace, "frames": n}
 
     def release(self) -> None:
-        self.counts = self.kernel.launches
+        self.counts = read_counters(self.counters)
         del self.service
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
@@ -152,8 +155,9 @@ class RenderRun:
     def reference_frame(self, pid: int, precision: str) -> np.ndarray:
         pose = torch.as_tensor(self.poses[pid], device=self.device)
         return nerf_plain.render_frame(
-            self.config, self.weights[0], self.weights[1], pose, self.height, self.width,
-            self.focal, precision, chunk=int(self.traffic["reference_chunk"])).cpu().numpy()
+            self.model_type.field, self.config, self.weights[0], self.weights[1], pose,
+            self.height, self.width, self.focal, precision,
+            chunk=int(self.traffic["reference_chunk"])).cpu().numpy()
 
     @property
     def precision(self) -> str:
@@ -182,5 +186,5 @@ class RenderRun:
 
     def checks(self, limits: Dict, readings: Dict) -> List[Dict]:
         return [*(check(k, readings[k], limit) for k, limit in limits.items()),
-                check("field_launches", self.counts,
-                      self.launches_per_frame * self.frames_done, exact=True)]
+                *launch_checks(self.counters, self.counts,
+                               self.evaluations_per_frame * self.frames_done)]

@@ -11,7 +11,8 @@ passed, and ends in a synchronize.
 What is compared, once the window has closed and the state is freed: the
 first ``checked_steps`` steps of the warm-up call: each one's loss, the
 gradient of step 1 (read back from Adam's first moment: after one step it is
-(1 - beta1) times the gradient) and each leaf's change over those steps,
+(1 - beta1) times the gradient, beta1 the leaf's parameter group's) and each
+leaf's change over those steps,
 against the plain reference taking the same steps from the same weights on
 the same draws.
 """
@@ -30,10 +31,9 @@ import torch
 from ..harness import trace as tr
 from ..reference import nerf_plain
 from ..traffic.scene import make_store
-from .common import (check, field_counters, named_leaves, norm_gaps, program_config,
-                     seed_weights, sized, sync)
+from .common import (check, launch_checks, named_leaves, norm_gaps, program_config,
+                     read_counters, seed_fields, sized, sync, zero_counters)
 
-BETA1 = 0.9
 # A leaf whose reference gradient is under this share of the median leaf's
 # moves under Adam by rounding alone: it is left out of the change.
 STILL_LEAF = 1e-3
@@ -48,6 +48,7 @@ class TrainRun:
         self.seed = int(seed)
         self.device = torch.device(device)
         self.faults = set(faults)
+        self.model_type = cell.model
         self.config, self.traffic = sized(cell.config, cell.traffic, sizes)
         self.steps_done = 0
 
@@ -75,14 +76,14 @@ class TrainRun:
             raise ValueError("checked_steps must not exceed steps_per_call")
         mc = model_from_config(cfg.models.coarse).to(dev).train()
         mf = model_from_config(cfg.models.fine).to(dev).train()
-        seed_weights([mc, mf], self.seed, dev)
+        seed_fields(self.model_type, [mc, mf], self.seed, dev)
         self.init = {k: p.detach().clone() for k, p in named_leaves(mc, mf).items()}
         self.state = engine_train.create_train_state(mc, mf, optimizer_from_config(cfg))
         self._plant_faults(engine_train)
         self.loop = engine_train.make_train_loop(
             mc, mf, settings, self.batch, self.k, sample_mode=str(cfg.nerf.train.ray_sampling))
-        self.pair = field_counters(cfg.models.coarse.type)[0]
-        self.pair.fwd_launches = self.pair.bwd_launches = 0
+        self.counters = self.model_type.plugin.train_counters()
+        zero_counters(self.counters)
 
     def warm_up(self) -> None:
         """The first call of the loop, which the window calls next: its first
@@ -115,10 +116,11 @@ class TrainRun:
 
     def _adam_gradient(self) -> Dict[str, torch.Tensor]:
         opt = self.state.optimizer
+        beta1 = {p: group["betas"][0] for group in opt.param_groups for p in group["params"]}
         out = {}
         for name, p in self._leaves().items():
             st = opt.state.get(p, {})
-            out[name] = (st["exp_avg"].detach() / (1.0 - BETA1) if "exp_avg" in st
+            out[name] = (st["exp_avg"].detach() / (1.0 - beta1[p]) if "exp_avg" in st
                          else torch.zeros_like(p))
         return out
 
@@ -181,7 +183,7 @@ class TrainRun:
         """Free the system's state (the reference runs after this)."""
         for undo in self._undo:
             undo()
-        self.counts = (self.pair.fwd_launches, self.pair.bwd_launches)
+        self.counts = read_counters(self.counters)
         del self.state, self.loop
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
@@ -198,15 +200,15 @@ class TrainRun:
 
     def reference(self, precision: str) -> Dict:
         steps = int(self.traffic["checked_steps"])
-        r = nerf_plain.train_steps(self.config, self.init, self.store, self.seed, steps, precision)
+        r = nerf_plain.train_steps(self.model_type.field, self.config, self.init, self.store,
+                                   self.seed, steps, precision)
         return {"losses": r.losses, "grad": r.first_grad, "after": r.params}
 
     def checks(self, limits: Dict, readings: Dict) -> List[Dict]:
         steps = self.steps_done
-        out = [check(k, readings[k], limit) for k, limit in limits.items()]
-        out.append(check("field_fwd_launches", self.counts[0], 2 * steps, exact=True))
-        out.append(check("field_bwd_launches", self.counts[1], 2 * steps, exact=True))
-        return out
+        # A step evaluates the coarse field once and the fine field once.
+        return [*(check(k, readings[k], limit) for k, limit in limits.items()),
+                *launch_checks(self.counters, self.counts, 2 * steps)]
 
 
 class HostClocks:
@@ -301,10 +303,11 @@ def reference_readings(cell, seed: int, device, precision: str, sizes=None) -> D
     store = make_store(int(t["views"]), int(t["height"]), int(t["width"]), int(t["pose_seed"]), dev)
     mc = model_from_config(cfg.models.coarse).to(dev)
     mf = model_from_config(cfg.models.fine).to(dev)
-    seed_weights([mc, mf], seed, dev)
+    seed_fields(cell.model, [mc, mf], seed, dev)
     init = {k: p.detach().clone() for k, p in named_leaves(mc, mf).items()}
     steps = int(t["checked_steps"])
-    low = nerf_plain.train_steps(run.config, init, store, seed, steps, precision)
-    ref = nerf_plain.train_steps(run.config, init, store, seed, steps, run.precision)
+    field = cell.model.field
+    low = nerf_plain.train_steps(field, run.config, init, store, seed, steps, precision)
+    ref = nerf_plain.train_steps(field, run.config, init, store, seed, steps, run.precision)
     return compare(low.losses, low.first_grad, low.params, init,
                    {"losses": ref.losses, "grad": ref.first_grad, "after": ref.params})

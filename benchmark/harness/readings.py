@@ -5,14 +5,15 @@ frame's share of the card's peak.
 ``info`` is what ``run.run_cell`` hands a reader: ``window`` (the untraced
 window: ``seconds`` and ``steps`` or ``frames``), ``traced`` (None, or the
 profiled stretch: ``trace`` and its ``steps`` or ``frames``), ``config``
-(the configuration's file) and ``traffic``.
+(the configuration's file), ``traffic`` and ``root`` (the checkout whose
+model-type plug-ins count the fields; this one's where it is left out).
 """
 
 from __future__ import annotations
 
 from typing import Dict, Optional, Sequence, Tuple
 
-from . import counts
+from . import counts, spec
 from . import trace as tr
 
 
@@ -30,6 +31,10 @@ def step_rays(config: Dict) -> int:
 
 def frame_rays(config: Dict) -> int:
     return int(config["dataset"]["height"]) * int(config["dataset"]["width"])
+
+
+def _root(info: Dict):
+    return info.get("root", spec.ROOT)
 
 
 def _unit(info: Dict, key: str) -> Optional[int]:
@@ -99,8 +104,9 @@ def roofline_pct(info: Dict, model_type: str, patterns: Sequence[str], training:
     mode = "train" if training else "validation"
     rays = step_rays(config) if training else frame_rays(config)
     dtype = str(config["nerf"][mode].get("compute_dtype", "float32"))
-    least = sum(counts.least_seconds(counts.field_flops(model, n, training),
-                                     counts.field_bytes(model, rays, n, training), dtype)
+    root = _root(info)
+    least = sum(counts.least_seconds(counts.field_flops(model, n, training, root),
+                                     counts.field_bytes(model, rays, n, training, root), dtype)
                 for n in points(config, mode, rays))
     seconds, launched = tr.matching_seconds(info["traced"]["trace"], patterns)
     if launched == 0 or seconds <= 0:
@@ -108,13 +114,15 @@ def roofline_pct(info: Dict, model_type: str, patterns: Sequence[str], training:
     return 100.0 * least * units / seconds
 
 
-def _model_flops(config: Dict, training: bool) -> float:
+def _model_flops(info: Dict, training: bool) -> float:
     """The model's operations a training step (3 forwards of both fields,
     forward and backward by the usual rule) or a frame (1 forward)."""
+    config = info["config"]
     model = config["models"]["coarse"]
     mode = "train" if training else "validation"
     rays = step_rays(config) if training else frame_rays(config)
-    flops = sum(counts.field_flops(model, n, backward=False) for n in points(config, mode, rays))
+    flops = sum(counts.field_flops(model, n, False, _root(info))
+                for n in points(config, mode, rays))
     return (3 if training else 1) * flops
 
 
@@ -131,7 +139,7 @@ def mfu_pct(info: Dict, training: bool) -> Optional[float]:
     key = "steps" if training else "frames"
     if key not in window:
         return None
-    flops = _model_flops(config, training) * window[key]
+    flops = _model_flops(info, training) * window[key]
     return 100.0 * flops / window["seconds"] / _peak(config, training)
 
 
@@ -144,4 +152,4 @@ def device_mfu_pct(info: Dict, training: bool) -> Optional[float]:
     if ms is None:
         return None
     config = info["config"]
-    return 100.0 * _model_flops(config, training) / (1e-3 * ms) / _peak(config, training)
+    return 100.0 * _model_flops(info, training) / (1e-3 * ms) / _peak(config, training)

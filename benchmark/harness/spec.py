@@ -7,10 +7,14 @@ file of its own under ``benchmark/``:
 - a cell: ``workloads/<name>.json`` (its limits and anything else of its own);
 - a traffic mix: ``traffic/<name>.json`` (its parameters and its driver);
 - a per-layer metric, or an end-to-end one that the run does not time
-  itself: ``metrics/<name>.py`` (its reader).
+  itself: ``metrics/<name>.py`` (its reader);
+- a model type (a configuration's ``models.coarse.type``): its plug-in
+  ``models/<type>.py`` (its kernels' launch counters, the plain stand-ins
+  that count them on the CPU, its seeding, its operations and bytes) and its
+  plain field ``reference/fields/<type>.py``.
 
-A later cell or metric is added by adding files and entries: nothing here
-names one.
+A later cell, metric or model type is added by adding files and entries:
+nothing here names one.
 """
 
 from __future__ import annotations
@@ -20,10 +24,18 @@ import importlib.util
 import json
 from pathlib import Path
 from types import ModuleType
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional
 
 HERE = Path(__file__).resolve().parent.parent          # benchmark/
 ROOT = HERE.parent                                     # the checkout
+
+
+class ModelType(NamedTuple):
+    """What the benchmark knows of one model type, from its two files."""
+
+    name: str
+    plugin: ModuleType      # models/<name>.py
+    field: Callable         # reference/fields/<name>.py's ``field``
 
 
 @dataclasses.dataclass
@@ -39,6 +51,8 @@ class Cell:
     workload: Dict          # workloads/<name>.json
     end_to_end: List[Dict]  # BENCHMARK.json's end-to-end entries this cell reports
     per_layer: List[Dict]   # and its per-layer ones
+    model: ModelType        # the type of the configuration's fields
+    root: Path              # the checkout it was found in
 
 
 def load_json(path: Path) -> Dict:
@@ -55,7 +69,8 @@ def _applies(metric: Dict, cell: str) -> bool:
 
 
 def find_cell(name: str, root: Path = ROOT) -> Cell:
-    """The cell called ``name``; a KeyError names the cells there are."""
+    """The cell called ``name``; a KeyError names the cells there are, a
+    FileNotFoundError the files its model type lacks."""
     spec = benchmark_spec(root)
     cells = {w["name"]: w for w in spec["workloads"]}
     if name not in cells:
@@ -63,29 +78,54 @@ def find_cell(name: str, root: Path = ROOT) -> Cell:
     w = cells[name]
     configs = {c["name"]: c for c in spec["configs"]}
     bench = root / "benchmark"
+    config = load_json(root / configs[w["config"]]["file"])
     return Cell(
         name=name,
         chips=int(w["chips"]),
         config_name=w["config"],
-        config=load_json(root / configs[w["config"]]["file"]),
+        config=config,
         traffic_name=w["traffic"],
         traffic=load_json(bench / "traffic" / f"{w['traffic']}.json"),
         workload=load_json(bench / "workloads" / f"{name}.json"),
         end_to_end=[m for m in spec["end_to_end"] if _applies(m, name)],
         per_layer=[m for m in spec["per_layer"] if _applies(m, name)],
+        model=model_type(config["models"]["coarse"]["type"], root),
+        root=root,
     )
 
 
-def metric_reader(name: str, root: Path = ROOT) -> ModuleType:
-    """``metrics/<name>.py`` loaded as a module (a name may hold dots)."""
-    path = root / "benchmark" / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(
-        "benchmark_metric_" + name.replace(".", "_").replace("-", "_"), path)
+def _load(path: Path, module_name: str) -> ModuleType:
+    spec = importlib.util.spec_from_file_location(module_name, path)
     if spec is None or spec.loader is None:
         raise FileNotFoundError(path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
+
+
+def metric_reader(name: str, root: Path = ROOT) -> ModuleType:
+    """``metrics/<name>.py`` loaded as a module (a name may hold dots)."""
+    path = root / "benchmark" / "metrics" / f"{name}.py"
+    return _load(path, "benchmark_metric_" + name.replace(".", "_").replace("-", "_"))
+
+
+def model_type_files(name: str, root: Path = ROOT) -> List[Path]:
+    """The two files of model type ``name``: its plug-in and its plain field."""
+    bench = root / "benchmark"
+    return [bench / "models" / f"{name}.py", bench / "reference" / "fields" / f"{name}.py"]
+
+
+def model_type(name: str, root: Path = ROOT) -> ModelType:
+    """Model type ``name`` from its plug-in and its plain field. The field
+    is loaded inside the reference's package, whose helpers it imports
+    relatively; a FileNotFoundError names both files where one is missing."""
+    plugin_path, field_path = model_type_files(name, root)
+    if not (plugin_path.is_file() and field_path.is_file()):
+        raise FileNotFoundError(
+            f"model type {name!r} needs both {plugin_path} and {field_path}")
+    plugin = _load(plugin_path, "benchmark_model_" + name)
+    field = _load(field_path, "benchmark.reference.fields." + name).field
+    return ModelType(name, plugin, field)
 
 
 def read_per_layer(cell: Cell, run, root: Path = ROOT) -> Dict[str, Dict]:

@@ -1,7 +1,8 @@
-"""Plain NeRF: the two MLPs, hierarchical volume rendering, the training loss
-and Adam, written from the published equations (Mildenhall et al. 2020,
+"""Plain NeRF: hierarchical volume rendering, the training loss and Adam,
+written from the published equations (Mildenhall et al. 2020,
 arXiv:2003.08934, and the reference code krrish94/nerf-pytorch that the
-configurations follow).
+configurations follow), over the plain field of the configuration's model
+type (``fields/<type>.py``, which shares the layers and encodings here).
 
 Everything is plain PyTorch on whatever device the tensors are on, in
 float32 with TF32 off. ``precision`` says what the operands of a layer's
@@ -23,12 +24,15 @@ from __future__ import annotations
 
 import contextlib
 import math
-from typing import Dict, List, NamedTuple, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional
 
 import torch
 
 PRECISIONS = ("float32", "bfloat16", "fp8")
 Weights = Dict[str, torch.Tensor]
+# A model type's plain field (``fields/<type>.py``): ``field(model, weights,
+# pts (N, S, 3), viewdirs (N, 3), precision)`` -> raw [r, g, b, sigma] (N, S, 4).
+Field = Callable[[Dict, Weights, torch.Tensor, torch.Tensor, str], torch.Tensor]
 
 
 @contextlib.contextmanager
@@ -104,42 +108,15 @@ def encode(x: torch.Tensor, num_fn: int, include_input: bool = True) -> torch.Te
     return torch.cat(parts, dim=-1)
 
 
-def field(model: Dict, weights: Weights, pts: torch.Tensor, viewdirs: torch.Tensor,
-          precision: str) -> torch.Tensor:
-    """Raw [r, g, b, sigma] (N, S, 4) of the MLP ``model`` (a configuration's
-    ``models.coarse`` entry) at points (N, S, 3) seen along unit directions
-    (N, 3)."""
+def encode_inputs(model: Dict, pts: torch.Tensor, viewdirs: torch.Tensor):
+    """The sinusoidal encodings of points (N, S, 3) and of unit directions
+    (N, 3), the latter broadcast over the samples, as ``model`` (a
+    configuration's ``models.coarse`` entry) states them."""
     xyz = encode(pts, int(model["num_encoding_fn_xyz"]), model.get("include_input_xyz", True))
     enc_dir = encode(viewdirs, int(model["num_encoding_fn_dir"]),
                      model.get("include_input_dir", True))
     enc_dir = enc_dir[:, None, :].expand(pts.shape[0], pts.shape[1], enc_dir.shape[-1])
-    relu = torch.relu
-    if model["type"] == "FlexibleNeRFModel":
-        n, every = int(model["num_layers"]), int(model.get("skip_connect_every", 4))
-        h = dense(xyz, weights, "layer1", precision)          # no ReLU here (reference)
-        for i in range(n - 1):
-            if i % every == 0 and i > 0 and i != n - 1:
-                h = torch.cat([h, xyz], dim=-1)
-            h = relu(dense(h, weights, f"layers_xyz.{i}", precision))
-        feat = relu(dense(h, weights, "fc_feat", precision))
-        alpha = dense(h, weights, "fc_alpha", precision)
-        h = relu(dense(torch.cat([feat, enc_dir], dim=-1), weights, "layers_dir.0", precision))
-        rgb = dense(h, weights, "fc_rgb", precision)
-        return torch.cat([rgb, alpha], dim=-1)
-    if model["type"] == "PaperNeRFModel":
-        h = xyz
-        for i in range(8):
-            if i == 4:
-                h = torch.cat([xyz, h], dim=-1)
-            h = relu(dense(h, weights, f"layers_xyz.{i}", precision))
-        feat = dense(h, weights, "fc_feat", precision)        # no ReLU (reference)
-        alpha = dense(feat, weights, "fc_alpha", precision)   # alpha from feat (reference)
-        h = relu(dense(torch.cat([feat, enc_dir], dim=-1), weights, "layers_dir.0", precision))
-        for i in (1, 2):                                      # layers_dir.3 is never run
-            h = relu(dense(h, weights, f"layers_dir.{i}", precision))
-        rgb = dense(h, weights, "fc_rgb", precision)
-        return torch.cat([rgb, alpha], dim=-1)
-    raise ValueError(f"no plain reference for model type {model['type']!r}")
+    return xyz, enc_dir
 
 
 class Composite(NamedTuple):
@@ -187,13 +164,13 @@ class Rendered(NamedTuple):
     fine: torch.Tensor      # (N, 3)
 
 
-def render_rays(model: Dict, coarse_w: Weights, fine_w: Weights, ro: torch.Tensor,
-                rd: torch.Tensor, protocol: Dict, generator: Optional[torch.Generator],
-                precision: str) -> Rendered:
-    """Coarse then fine rendering of rays (N, 3). ``protocol``: a
-    configuration's ``nerf.train`` or ``nerf.validation`` section with the
-    dataset's ``near`` and ``far``. Random numbers come from ``generator``
-    when ``perturb`` is on."""
+def render_rays(field: Field, model: Dict, coarse_w: Weights, fine_w: Weights,
+                ro: torch.Tensor, rd: torch.Tensor, protocol: Dict,
+                generator: Optional[torch.Generator], precision: str) -> Rendered:
+    """Coarse then fine rendering of rays (N, 3) through ``field``.
+    ``protocol``: a configuration's ``nerf.train`` or ``nerf.validation``
+    section with the dataset's ``near`` and ``far``. Random numbers come from
+    ``generator`` when ``perturb`` is on."""
     n, nc, nf = ro.shape[0], int(protocol["num_coarse"]), int(protocol["num_fine"])
     perturb = bool(protocol["perturb"])
     std = float(protocol["radiance_field_noise_std"])
@@ -240,8 +217,8 @@ class TrainTrace(NamedTuple):
     params: Dict[str, torch.Tensor]       # the leaves after the last step
 
 
-def train_steps(config: Dict, init: Dict[str, torch.Tensor], store, base_seed: int,
-                steps: int, precision: str) -> TrainTrace:
+def train_steps(field: Field, config: Dict, init: Dict[str, torch.Tensor], store,
+                base_seed: int, steps: int, precision: str) -> TrainTrace:
     """``steps`` training steps from ``init`` (leaves named ``coarse.<name>``
     and ``fine.<name>``): each draws its batch of rays with replacement from
     ``store`` (origins, directions, colours (R, 3)), renders it, takes
@@ -269,8 +246,8 @@ def train_steps(config: Dict, init: Dict[str, torch.Tensor], store, base_seed: i
             idx = torch.randint(ro_all.shape[0], (batch,), generator=gen, device=dev)
             coarse_w = {k[len("coarse."):]: t for k, t in leaves.items() if k.startswith("coarse.")}
             fine_w = {k[len("fine."):]: t for k, t in leaves.items() if k.startswith("fine.")}
-            out = render_rays(model, coarse_w, fine_w, ro_all[idx], rd_all[idx], protocol, gen,
-                              precision)
+            out = render_rays(field, model, coarse_w, fine_w, ro_all[idx], rd_all[idx],
+                              protocol, gen, precision)
             target = rgb_all[idx]
             loss = torch.mean((out.coarse - target) ** 2) + torch.mean((out.fine - target) ** 2)
             names = list(leaves)
@@ -307,8 +284,8 @@ def pose_rays(pose: torch.Tensor, height: int, width: int, focal: float):
     return ro, rd
 
 
-def render_frame(config: Dict, coarse_w: Weights, fine_w: Weights, pose: torch.Tensor,
-                 height: int, width: int, focal: float, precision: str,
+def render_frame(field: Field, config: Dict, coarse_w: Weights, fine_w: Weights,
+                 pose: torch.Tensor, height: int, width: int, focal: float, precision: str,
                  chunk: int = 16384) -> torch.Tensor:
     """The (H, W, 3) uint8 frame of ``pose`` at the validation protocol:
     the fine colour clipped to [0, 1], times 255, truncated."""
@@ -321,7 +298,7 @@ def render_frame(config: Dict, coarse_w: Weights, fine_w: Weights, pose: torch.T
     out = []
     with exact_float32(), torch.no_grad():
         for s in range(0, ro.shape[0], chunk):
-            rgb = render_rays(model, coarse_w, fine_w, ro[s:s + chunk], rd[s:s + chunk],
+            rgb = render_rays(field, model, coarse_w, fine_w, ro[s:s + chunk], rd[s:s + chunk],
                               protocol, None, precision).fine
             out.append((torch.clamp(rgb, 0.0, 1.0) * 255.0).to(torch.uint8))
     return torch.cat(out).reshape(height, width, 3)

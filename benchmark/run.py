@@ -90,11 +90,13 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device, t_start: floa
     attempted = window.get("steps", window.get("frames"))
     for k, v in window.items():
         log(f"[window] {k} {v}")
-    info = dict(window=window, traced=traced, config=run.config, traffic=run.traffic)
+    info = dict(window=window, traced=traced, config=run.config, traffic=run.traffic,
+                root=cell.root)
     if trace:
-        metrics = spec.read_per_layer(cell, info)
+        metrics = spec.read_per_layer(cell, info, cell.root)
     else:
-        metrics = spec.read_end_to_end(cell, dict(info, window=dict(window, setup_s=setup_s)))
+        metrics = spec.read_end_to_end(cell, dict(info, window=dict(window, setup_s=setup_s)),
+                                       cell.root)
         missing = [m["name"] for m in cell.end_to_end if m["name"] not in metrics]
         if missing and dev.type == "cuda":
             raise RuntimeError(f"no reading of {', '.join(missing)}")

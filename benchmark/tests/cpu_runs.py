@@ -3,6 +3,7 @@ plain versions stand in for the kernels, and their launch counters are
 counted around those plain versions, as on the card around the kernels."""
 
 import contextlib
+import importlib
 import time
 
 import pytest
@@ -17,10 +18,9 @@ SIZES = {
 
 
 @contextlib.contextmanager
-def counted_plain_kernels():
-    """Count launches on the plain versions the CPU runs."""
-    from nerf_tpu_torch.kernels import flex_train, mlp_t, paper_t, paper_train
-
+def counted_plain_kernels(root=spec.ROOT):
+    """Count launches on the plain versions the CPU runs: those that each
+    model type's plug-in under ``root`` names (``CPU_STANDINS``)."""
     mp = pytest.MonkeyPatch()
 
     def counting(module, name, holder, attr):
@@ -32,14 +32,11 @@ def counted_plain_kernels():
 
         mp.setattr(module, name, wrapped)
 
-    counting(flex_train, "flex_train_plain_fwd", flex_train.fused_flex_mlp_train, "fwd_launches")
-    counting(flex_train, "flex_train_plain_bwd", flex_train.fused_flex_mlp_train, "bwd_launches")
-    counting(paper_train, "paper_train_plain_fwd", paper_train.fused_paper_mlp_train,
-             "fwd_launches")
-    counting(paper_train, "paper_train_plain_bwd", paper_train.fused_paper_mlp_train,
-             "bwd_launches")
-    counting(mlp_t, "mlp_t_plain", mlp_t.fused_mlp_t, "launches")
-    counting(paper_t, "paper_t_plain", paper_t.fused_paper_mlp_t, "launches")
+    for path in sorted((root / "benchmark" / "models").glob("*.py")):
+        plugin = spec.model_type(path.stem, root).plugin
+        for module_name, plain, wrapper, attr in plugin.CPU_STANDINS:
+            module = importlib.import_module(module_name)
+            counting(module, plain, getattr(module, wrapper), attr)
     try:
         yield
     finally:
@@ -47,8 +44,8 @@ def counted_plain_kernels():
 
 
 def cpu_run(workload: str, seed: int = 2147483659, trace: bool = False, faults=(),
-            seconds: float = 0.3) -> dict:
-    cell = spec.find_cell(workload)
-    with counted_plain_kernels():
+            seconds: float = 0.3, root=spec.ROOT) -> dict:
+    cell = spec.find_cell(workload, root)
+    with counted_plain_kernels(root):
         return bench_run.run_cell(cell, seed, seconds, trace, "cpu", time.time(), faults=faults,
                                   sizes=SIZES[cell.traffic["driver"]], log=lambda *_: None)

@@ -1,16 +1,22 @@
-"""Operation and byte counts against hand counts of both configurations."""
+"""Operation and byte counts against hand counts of both configurations,
+through their model types' plug-ins."""
 
 import pytest
 
-from benchmark.harness import counts
+from benchmark.harness import counts, spec
 from benchmark.harness.spec import ROOT, load_json
 
 FLEX = load_json(ROOT / "benchmark/configs/flex_4x128.json")
 PAPER = load_json(ROOT / "benchmark/configs/paper_8x256.json")
 
 
+def layers(config):
+    model = config["models"]["coarse"]
+    return spec.model_type(model["type"]).plugin.layers(model)
+
+
 def test_flexible_counts_by_hand():
-    m = FLEX["models"]["coarse"]
+    m = layers(FLEX)
     # layer1 63x128, three 128x128, fc_feat 128x128, fc_alpha 128x1,
     # layers_dir.0 (128 + 27)x64, fc_rgb 64x3.
     fwd = 63 * 128 + 3 * 128 * 128 + 128 * 128 + 128 + 155 * 64 + 64 * 3
@@ -22,7 +28,7 @@ def test_flexible_counts_by_hand():
 
 
 def test_paper_counts_by_hand():
-    m = PAPER["models"]["coarse"]
+    m = layers(PAPER)
     fwd = (63 * 256 + 3 * 256 * 256 + (63 + 256) * 256 + 3 * 256 * 256 + 256 * 256 + 256
            + (256 + 27) * 128 + 2 * 128 * 128 + 128 * 3)
     assert fwd == 626_176 == counts.forward_macs(m)
@@ -38,7 +44,7 @@ def test_parameter_count_matches_the_modules(config):
     model = model_from_config(program_config(config).models.coarse)
     total = sum(p.numel() for p in model.parameters())
     unused = 128 * 128 + 128 if config is PAPER else 0     # layers_dir.3, never run
-    assert counts.num_params(config["models"]["coarse"]) == total - unused
+    assert counts.num_params(layers(config)) == total - unused
 
 
 def test_step_and_frame_operations():
@@ -56,7 +62,7 @@ def test_step_and_frame_operations():
 
 def test_bytes_and_least_time_by_hand():
     m = FLEX["models"]["coarse"]
-    params = counts.num_params(m)
+    params = counts.num_params(layers(FLEX))
     # Forward: points and directions in, weights in, raw out, 4 bytes each.
     assert counts.field_bytes(m, 2, 8, backward=False) == 4 * (3 * 8 + 3 * 2 + params + 4 * 8)
     # Backward adds the cotangent, the points and directions again, and the

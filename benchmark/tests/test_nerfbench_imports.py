@@ -24,15 +24,27 @@ def test_the_harness_loads_no_jax():
         "benchmark.drivers.render, benchmark.reference.nerf_plain\n"
         "from benchmark.harness import spec\n"
         "for m in spec.benchmark_spec()['per_layer']: spec.metric_reader(m['name'])\n"
+        "for c in spec.benchmark_spec()['configs']:\n"
+        "    t = spec.model_type(spec.load_json(c['file'])['models']['coarse']['type'])\n"
+        "    t.plugin.train_counters(), t.plugin.render_counters()\n"
         "import nerf_tpu_torch.serve_nerf, nerf_tpu_torch.engine.train")
     assert "nerf_tpu_torch" in tops                  # compared whole: not nerf_tpu
     assert not tops.intersection(FORBIDDEN), tops.intersection(FORBIDDEN)
 
 
 def test_the_reference_imports_nothing_of_the_system():
-    tops = loaded_after("import benchmark.reference.nerf_plain")
+    # Each model type's plain field, loaded as the harness loads it.
+    tops = loaded_after(
+        "import importlib.util, pathlib\n"
+        "import benchmark.reference.nerf_plain\n"
+        "for path in sorted(pathlib.Path('benchmark/reference/fields').glob('*.py')):\n"
+        "    s = importlib.util.spec_from_file_location("
+        "'benchmark.reference.fields.' + path.stem, path)\n"
+        "    s.loader.exec_module(importlib.util.module_from_spec(s))")
     assert "nerf_tpu_torch" not in tops and not tops.intersection(FORBIDDEN)
-    for path in (ROOT / "benchmark" / "reference").glob("*.py"):
+    files = sorted((ROOT / "benchmark" / "reference").rglob("*.py"))
+    assert ROOT / "benchmark/reference/fields/FlexibleNeRFModel.py" in files
+    for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
             names = []
             if isinstance(node, ast.Import):
