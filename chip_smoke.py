@@ -170,7 +170,17 @@ Phases, one or more lines each:
      data-parallel step against the one-device batched step (phase 19's
      gates); and (d) ``extract_geometry --num-devices 2``, which spawns its
      own ranks, at 256^3 on phase 17's field (grid and PLY bitwise phase
-     18's serial run's). One card cannot show scaling: the ranks share it.
+     18's serial run's). One card cannot show scaling: the ranks share it;
+ 21. Instant-NGP's hash-grid field (``configs/lego_hashgrid.yml``) and its
+     encoding pair (#10): the pair's registers (HASH_KERNELS, no spill); the
+     pair against its plain version at ``ngp_train``'s encodings and a fine
+     pass packed at a surface (HASH_SHAPES), f32 and bf16: the forward
+     bitwise, the backward within the atomics' order bound; ``train_nerf.
+     train`` at the lego_hashgrid protocol on the synthetic scene for
+     HASH_TRAIN_STEPS steps (2 + 2 launches of #10 a step, 2 a validation
+     frame, the loss falling); then a step's encodings each way against the
+     plain version's by CUDA events, and the fills that zero the table
+     gradients.
 
 Then one JSON line of per-kernel results (each kernel's launches on its main
 path, error, time, plain time and the least time the card could take for the
@@ -369,6 +379,23 @@ PAPER_MODEL = {
     "type": "PaperNeRFModel", "num_layers": 8, "hidden_size": 256,
     "num_encoding_fn_xyz": 10, "num_encoding_fn_dir": 4, "use_viewdirs": True,
 }
+# Instant-NGP's hash-grid field at its published shape (configs/lego_hashgrid.yml).
+HASH_MODEL = {
+    "type": "HashGridNeRFModel", "num_levels": 16, "features_per_level": 2,
+    "log2_hashmap_size": 19, "base_resolution": 16, "max_resolution": 2048,
+    "hidden_size": 64, "density_outputs": 16, "sh_degree": 4, "box": 1.5,
+}
+# Phase 21, #10: the ngp_train step's encodings (1024 rays of 64 coarse and
+# 64 + 128 fine samples) along rays through the cube, and the fine one packed
+# in a short depth interval, as training gathers samples at surfaces:
+# (rays, samples, depth interval).
+HASH_SHAPES = ((1024, 64, 3.0), (1024, 192, 3.0), (1024, 192, 0.05))
+HASH_STEP_SHAPES = HASH_SHAPES[:2]
+HASH_TRAIN_STEPS = 300
+# Operations a point of #10 each way: at each of 16 levels and 8 corners the
+# weight's two products and two multiply-adds of the features (or the
+# gradient's two products and two adds).
+HASH_OPS_PER_POINT = 16 * 8 * 6
 
 
 def lego_fused_config():
@@ -415,6 +442,19 @@ def lego_config(model: dict, lr: float, experiment_id: str):
         "optimizer.type", "Adam", "optimizer.lr", lr,
         "scheduler.lr_decay", 250, "scheduler.lr_decay_factor", 0.1,
     ]
+    cfg.merge_from_list(pairs)
+    return cfg
+
+
+def lego_hashgrid_config():
+    """``configs/lego_hashgrid.yml``'s values merged over the defaults, in
+    code: the lego protocol on Instant-NGP's field, 64 + 128 samples, no
+    sigma noise, bf16 through the hash-encoding pair (#10), Adam 1e-2."""
+    cfg = lego_config(HASH_MODEL, 1.0e-2, "lego-hashgrid")
+    pairs = ["experiment.train_iters", 35000, "nerf.train.ray_sampling", "gather",
+             "nerf.validation.compute_dtype", "bfloat16", "nerf.validation.use_pallas", True]
+    for mode in ("train", "validation"):
+        pairs += [f"nerf.{mode}.num_fine", 128, f"nerf.{mode}.radiance_field_noise_std", 0.0]
     cfg.merge_from_list(pairs)
     return cfg
 
@@ -611,6 +651,9 @@ F32_FLEX_KERNELS = ("mlp_t:mlp_t<0>", "flex_train:train_fwd<0>", "mlp:flexible_m
 # #8's f32 backward passes, the layer gradient on flex_mlp.cuh's body and
 # the weight gradient on fma_wgrad.cuh's register blocks: neither may spill.
 F32_FLEX_BWD_KERNELS = ("flex_train:train_bwd_act<0>", "flex_train:train_bwd_wgrad<0>")
+# #10's forward and backward, f32 and bf16 features: none may spill.
+HASH_KERNELS = ("hashgrid:hash_encode_fwd<0>", "hashgrid:hash_encode_fwd<1>",
+                "hashgrid:hash_encode_bwd<0>", "hashgrid:hash_encode_bwd<1>")
 # The f32 8x256 Paper kernels, on paper_mlp.cuh's register-blocked FMA body
 # and fma_wgrad.cuh's register-blocked weight-gradient pass: none may spill.
 F32_PAPER_KERNELS = ("paper_t:paper_t<0>", "paper_train:train_fwd<0>",
@@ -3972,6 +4015,143 @@ def multidevice_main_path(on: str, served_state: dict, disk: dict, geo: dict,
     return out
 
 
+def hash_rays(rays: int, samples: int, depth: float, dev, gen):
+    """Points (rays * samples, 3) as a ray's samples lie: each ray a straight
+    stretch of length ``depth`` about a point of the cube, neighbours in
+    memory near each other, clamped just outside the cube."""
+    import torch
+
+    o = (torch.rand(rays, 1, 3, generator=gen, device=dev) * 2 - 1) * 1.5
+    d = torch.nn.functional.normalize(torch.randn(rays, 1, 3, generator=gen, device=dev), dim=-1)
+    t = torch.linspace(-depth / 2, depth / 2, samples, device=dev)[None, :, None]
+    return torch.clamp(o + d * t, -1.6, 1.6).reshape(-1, 3).contiguous()
+
+
+def hash_atomic_bound(grad, pts, grid):
+    """How far two sums of one row's terms in any order can part: 2 n u
+    sum |term|, n the row's count of terms, u = 2^-24 (rows no term reaches
+    are 0 in both)."""
+    import torch
+
+    from nerf_tpu_torch.kernels import hashgrid
+    from nerf_tpu_torch.ops import encoding
+
+    absum = hashgrid.hash_encode_plain_bwd(grad.float().abs(), pts, grid)
+    count = torch.zeros(grid.num_entries, device=pts.device)
+    for level in range(grid.num_levels):
+        rows, _ = encoding.hash_corners(pts, grid, level)
+        count.index_add_(0, rows.reshape(-1), torch.ones(rows.numel(), device=pts.device))
+    return 2 * count[:, None] * 2.0 ** -24 * absum
+
+
+def hashgrid_main_path(dev, on: str, tmp: str) -> dict:
+    """Phase 21: Instant-NGP's hash-grid field and its encoding pair (#10).
+    The pair's registers; the pair against the plain version at HASH_SHAPES,
+    the forward bitwise and the backward within ``hash_atomic_bound``, in f32
+    and bf16; ``train_nerf.train`` at the lego_hashgrid protocol on the
+    synthetic scene (2 + 2 launches a step, a falling loss); then a step's
+    encodings (coarse and fine, each field its own table) timed each way by
+    CUDA events, kernel and plain in turns: the kernel's wrapper, the
+    backward's with the fill that zeroes its gradient (timed alone too).
+    Not by the profiler: after the earlier phases' profiles its device times
+    of these kernels read up to 4x below the events' on an H100. Returns
+    what the kernels line takes."""
+    import torch
+
+    from nerf_tpu_torch import models
+    from nerf_tpu_torch.kernels import _build, hashgrid
+    from nerf_tpu_torch.train_nerf import train
+
+    regs = ptxas_summary(_build.library_path().with_suffix(".log").read_text()).split(", ")
+    mine = [r for r in regs if r.rsplit(" ", 1)[0].split(" (")[0] in HASH_KERNELS]
+    vector = bool(_build.load_library().nerf_hash_encode_vector_red())
+    print(f"[hashgrid] registers of #10: {', '.join(mine)}; the backward adds a corner's "
+          f"two features with one vector reduction: {vector}")
+    check(len(mine) == len(HASH_KERNELS) and not any("(" in r for r in mine),
+          f"#10 missing or spilling: {mine}")
+
+    kwargs = {k: v for k, v in HASH_MODEL.items() if k != "type"}
+    fields = [models.HashGridNeRFModel(**kwargs, generator=torch.Generator().manual_seed(seed))
+              .to(dev) for seed in (SEED, SEED + 1)]
+    grid = fields[0].grid
+    tables = [f.table.detach() for f in fields]
+    gen = torch.Generator(device=dev).manual_seed(20260923)
+    worst = {"fwd": {}, "bwd": {}}
+    for rays, samples, depth in HASH_SHAPES:
+        pts = hash_rays(rays, samples, depth, dev, gen)
+        n = pts.shape[0]
+        for dtype in ("float32", "bfloat16"):
+            got = hashgrid.fused_hash_encode(tables[0], pts, grid, dtype)
+            check(torch.equal(got, hashgrid.hash_encode_plain(tables[0], pts, grid, dtype)),
+                  f"#10 forward vs plain at {n} points, depth {depth}, {dtype}: not bitwise")
+            worst["fwd"][dtype] = 0.0
+            grad = torch.randn(n, 2 * grid.num_levels, generator=gen, device=dev).to(
+                getattr(torch, dtype))
+            grad[::7] = 0       # points whose gradient is 0, as samples past a surface
+            dt = hashgrid._backward(grad, pts, grid)
+            want = hashgrid.hash_encode_plain_bwd(grad, pts, grid)
+            gap, allowed = (dt - want).abs(), hash_atomic_bound(grad, pts, grid)
+            over = int((gap > allowed).sum())
+            err = float(gap.max())
+            worst["bwd"][dtype] = max(worst["bwd"].get(dtype, 0.0), err)
+            print(f"[hashgrid] {rays}x{samples} points over depth {depth}, {dtype}: forward "
+                  f"bitwise plain; backward max |kernel - plain| {err:.3e}, at most "
+                  f"{float((gap / allowed.clamp_min(1e-30)).max()):.3f} of the atomics' order "
+                  f"bound, {over} entries over it")
+            check(over == 0 and torch.equal(dt == 0, want == 0),
+                  f"#10 backward vs plain at {n} points, depth {depth}, {dtype}: {over} over")
+    del got, grad, dt, want, gap, allowed
+
+    cfg = synthetic_train_config(HASH_TRAIN_STEPS, lego_hashgrid_config)
+    cfg.merge_from_list(["dataset.image_size", 100])
+    hashgrid.fused_hash_encode.fwd_launches = hashgrid.fused_hash_encode.bwd_launches = 0
+    with quiet():
+        run = train(cfg, logdir=os.path.join(tmp, "hashgrid"), device=DEVICE)
+    launches = {"fwd": hashgrid.fused_hash_encode.fwd_launches,
+                "bwd": hashgrid.fused_hash_encode.bwd_launches}
+    steps, frames = len(run.losses), len(run.val_psnrs)
+    losses = torch.tensor(run.losses)
+    first, last = float(losses[:20].mean()), float(losses[-20:].mean())
+    print(f"[hashgrid] train_nerf.train, lego_hashgrid protocol on the synthetic scene "
+          f"(100x100), {steps} steps of {cfg.nerf.train.num_random_rays} rays, "
+          f"{cfg.nerf.train.compute_dtype}: {launches['fwd']} forward and {launches['bwd']} "
+          f"backward launches of #10 (expected {2 * steps} + 2 a validation frame and "
+          f"{2 * steps}); mean loss of the first 20 steps {first:.5f}, of the last 20 "
+          f"{last:.5f}; {run.rays_per_sec:,.0f} rays/s {on}")
+    check(steps == HASH_TRAIN_STEPS, f"{steps} steps trained")
+    check(launches == {"fwd": 2 * steps + 2 * frames, "bwd": 2 * steps},
+          f"#10 launches on the training path {launches}")
+    check(bool(torch.isfinite(losses).all()) and last < first,
+          f"the hash field's loss did not fall: {first} -> {last}")
+
+    step = [hash_rays(rays, samples, 3.0, dev, gen) for rays, samples, _ in HASH_STEP_SHAPES]
+    times = {}
+    for dtype in ("float32", "bfloat16"):
+        grads = [torch.randn(p.shape[0], 2 * grid.num_levels, generator=gen, device=dev).to(
+            getattr(torch, dtype)) for p in step]
+        fns = {
+            "fwd": (lambda: [hashgrid._forward(t, p, grid, dtype) for t, p in zip(tables, step)],
+                    lambda: [hashgrid.hash_encode_plain(t, p, grid, dtype)
+                             for t, p in zip(tables, step)]),
+            "bwd": (lambda: [hashgrid._backward(g, p, grid) for g, p in zip(grads, step)],
+                    lambda: [hashgrid.hash_encode_plain_bwd(g, p, grid)
+                             for g, p in zip(grads, step)]),
+        }
+        parts = []
+        for which, (kernel, plain) in fns.items():
+            p1, k1, k2, p2 = (cuda_ms(f, reps) for f, reps in
+                              ((plain, 3), (kernel, 20), (kernel, 20), (plain, 3)))
+            times[which, dtype] = ((k1 + k2) / 2, (p1 + p2) / 2)
+            parts.append(f"{which} kernel {k1:.4f} / {k2:.4f}, plain {p1:.3f} / {p2:.3f}")
+        print(f"[time] fused_hash_encode, a step's encodings "
+              f"({' + '.join(str(p.shape[0]) for p in step)} points), {dtype}, ms: "
+              f"{'; '.join(parts)} {on}")
+    times["zero"] = cuda_ms(lambda: [torch.zeros_like(t) for t in tables], 20)
+    print(f"[time] the fills that zero a step's two table gradients: {times['zero']:.4f} ms {on}")
+    return {"worst": worst, "times": times, "launches": launches, "vector_red": vector,
+            "points": sum(p.shape[0] for p in step), "rows": grid.num_entries}
+
+
 def main() -> int:
     import torch
 
@@ -4204,6 +4384,10 @@ def main() -> int:
         # Phase 20: the multi-device layer, its ranks on this one card.
         md = multidevice_main_path(on, served_state, disk, geo, served["latency_s"])
 
+    # Phase 21: Instant-NGP's hash-grid field and its encoding pair (#10).
+    with tempfile.TemporaryDirectory() as tmp:
+        hashed = hashgrid_main_path(dev, on, tmp)
+
     entries = []
 
     def entry(name, source, replaces, launches, worst, ms, flops, nbytes, nbytes_bf16=None,
@@ -4217,7 +4401,8 @@ def main() -> int:
         bf16_bound = bound(flops, nbytes if nbytes_bf16 is None else nbytes_bf16, BF16_FLOPS)
         entries.append({
             "name": name, "route": "cuda", "source": f"nerf_tpu_torch/csrc/{source}",
-            "replaces": f"nerf_tpu/ops/pallas/{replaces}", "launches": launches,
+            "replaces": f"nerf_tpu/ops/pallas/{replaces}" if replaces else None,
+            "launches": launches,
             "max_abs_err": worst["float32"], "max_abs_err_bf16": worst.get("bfloat16"),
             "ms": ms["float32"][0], "plain_ms": ms["float32"][1],
             "bound_ms": ms_bound, "bound_by": bound_by, "library_ms": None,
@@ -4335,6 +4520,22 @@ def main() -> int:
           fused_mlp_t_ms=flex_times["#1", "float32"],
           fused_mlp_t_ms_bf16=flex_times["#1", "bfloat16"],
           chain_c_frame_s_bf16=bf16_frames["frame", "chain C"])
+    # #10 (no TPU kernel) at a step of ngp_train, the coarse and the fine
+    # field's encodings: the points in and the features out (or their
+    # gradient in) once, each field's table read once forward. The backward
+    # adds only into the rows its points reach, in gradients zeroed by fills
+    # that are not #10 (its ms includes them; gradient_zeroing_ms is theirs
+    # alone); bytes bind both dtypes (the sums are f32 in both).
+    p, rows = hashed["points"], hashed["rows"]
+    for which in ("fwd", "bwd"):
+        table_bytes = 2 * 8 * rows if which == "fwd" else 0
+        extra = {"gradient_zeroing_ms": hashed["times"]["zero"],
+                 "vector_red": hashed["vector_red"]} if which == "bwd" else {}
+        entry(f"fused_hash_encode_{which}", "hashgrid.cu", None, hashed["launches"][which],
+              hashed["worst"][which],
+              {d: hashed["times"][which, d] for d in ("float32", "bfloat16")},
+              HASH_OPS_PER_POINT * p, p * (12 + 4 * 32) + table_bytes,
+              p * (12 + 2 * 32) + table_bytes, **extra)
     for e in entries:
         check(e["launches"] > 0, f"{e['name']} was not launched on its main path")
     print(f"[device] {card}")   # again, near the end, where a reader of the tail finds it

@@ -244,6 +244,9 @@ def render_settings_from_config(
 _SIZE_KEYS = (
     "num_layers", "hidden_size", "skip_connect_every", "num_encoding_fn_xyz",
     "num_encoding_fn_dir", "include_input_xyz", "include_input_dir", "use_viewdirs",
+    # HashGridNeRFModel's grid and heads
+    "num_levels", "features_per_level", "log2_hashmap_size", "base_resolution",
+    "max_resolution", "density_outputs", "sh_degree", "box",
 )
 
 
@@ -255,9 +258,10 @@ def model_from_config(model_cfg: CfgNode, reference_compat_shapes: bool = False)
     count from ``num_encoding_fn_xyz``, and VeryTiny's ``filter_size`` from
     ``hidden_size``."""
     name = model_cfg.type
-    if reference_compat_shapes:
+    if reference_compat_shapes and name != "HashGridNeRFModel":
         # The reference's constructor call: encoding and viewdir arguments
-        # only; sizes keep the class defaults.
+        # only; sizes keep the class defaults. The reference has no hash
+        # grid: a .ckpt of one is the port's, built as configured.
         if name in ("VeryTinyNeRFModel", "MultiHeadNeRFModel"):
             return get_model(name, num_encoding_functions=model_cfg.num_encoding_fn_xyz)
         keys = ("num_encoding_fn_xyz", "num_encoding_fn_dir", "include_input_xyz",

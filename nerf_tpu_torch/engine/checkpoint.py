@@ -46,7 +46,9 @@ Params = Dict[str, Any]
 
 def convert_torch_state_dict(state_dict: Dict[str, Any]) -> Params:
     """A reference ``state_dict`` (tensors or numpy arrays) -> params pytree of
-    numpy arrays: ``*.weight`` (out, in) becomes ``kernel`` (in, out)."""
+    numpy arrays: ``*.weight`` (out, in) becomes ``kernel`` (in, out), a layer
+    without a bias has none; a top-level leaf of its own (a hash-grid
+    field's ``table``) keeps its name and layout."""
     params: Params = {}
     list_sizes: Dict[str, int] = {}
     for key in state_dict:
@@ -59,6 +61,9 @@ def convert_torch_state_dict(state_dict: Dict[str, Any]) -> Params:
     for key, value in state_dict.items():
         arr = value.detach().cpu().numpy() if isinstance(value, torch.Tensor) else np.asarray(value)
         parts = key.split(".")
+        if len(parts) == 1:
+            params[key] = arr.copy()
+            continue
         if parts[-1] == "weight":
             leaf_name, leaf = "kernel", arr.T.copy()
         elif parts[-1] == "bias":
@@ -80,14 +85,17 @@ def to_torch_state_dict(params: Params) -> Dict[str, np.ndarray]:
 
     def emit(prefix: str, layer: Dict[str, Any]) -> None:
         out[f"{prefix}.weight"] = np.asarray(layer["kernel"]).T.copy()
-        out[f"{prefix}.bias"] = np.asarray(layer["bias"]).copy()
+        if "bias" in layer:
+            out[f"{prefix}.bias"] = np.asarray(layer["bias"]).copy()
 
     for name, value in params.items():
         if isinstance(value, (list, tuple)):
             for i, layer in enumerate(value):
                 emit(f"{name}.{i}", layer)
-        else:
+        elif isinstance(value, dict):
             emit(name, value)
+        else:
+            out[name] = np.asarray(value).copy()
     return out
 
 
@@ -233,6 +241,8 @@ def _module_prefix_order(params: Params) -> list:
     """The reference's attribute registration order of each family
     (nerf/models.py), which is its ``parameters()`` order."""
     prefixes = set(params.keys())
+    if "table" in prefixes:                        # HashGridNeRFModel
+        return ["table", "density_net", "color_net"]
     if "fc_out" in prefixes:                       # FlexibleNeRF, no viewdirs
         return ["layer1", "layers_xyz", "fc_out"]
     if "layer1" in prefixes and "layers_xyz" in prefixes:  # FlexibleNeRF
@@ -252,10 +262,13 @@ def reference_state_dict_order(params: Params) -> list:
     for prefix in _module_prefix_order(params):
         value = params.get(prefix)
         if isinstance(value, (list, tuple)):
-            for i in range(len(value)):
-                keys += [f"{prefix}.{i}.weight", f"{prefix}.{i}.bias"]
+            for i, layer in enumerate(value):
+                keys += [f"{prefix}.{i}.weight"] + ([f"{prefix}.{i}.bias"] if "bias" in layer
+                                                    else [])
+        elif isinstance(value, dict):
+            keys += [f"{prefix}.weight"] + ([f"{prefix}.bias"] if "bias" in value else [])
         elif value is not None:
-            keys += [f"{prefix}.weight", f"{prefix}.bias"]
+            keys.append(prefix)
     return keys
 
 

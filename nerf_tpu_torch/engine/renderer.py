@@ -14,8 +14,10 @@ PaperNeRF goes through hand-written training kernels (``kernels/flex_train.py``,
 ``RenderSettings.use_pallas_train`` is on, else through a forward-only kernel
 (``kernels/mlp_t.py``, ``kernels/paper_t.py``) when ``use_pallas`` is on;
 otherwise, and for every other model shape, through positional encoding +
-the module. Compositing and resampling are plain PyTorch, as they are plain
-XLA on the JAX package's kernel path.
+the module. The hash-grid field (``models/hashgrid.py``) takes the points as
+they are, its encoding on the hash-encoding kernel pair
+(``kernels/hashgrid.py``) under either flag. Compositing and resampling are
+plain PyTorch, as they are plain XLA on the JAX package's kernel path.
 """
 
 from __future__ import annotations
@@ -27,9 +29,11 @@ import torch
 import torch.utils.checkpoint
 
 from ..kernels.flex_train import fused_flex_mlp_train
+from ..kernels.hashgrid import fused_hash_encode
 from ..kernels.mlp_t import fused_mlp_t, supports_fused
 from ..kernels.paper_t import fused_paper_mlp_t, supports_fused_paper
 from ..kernels.paper_train import fused_paper_mlp_train
+from ..models.hashgrid import HashGridNeRFModel
 from ..ops.encoding import coarse_to_fine_window, positional_encoding
 from ..ops.rays import ndc_rays, pixel_rays, ray_aabb_interval
 from ..ops.sampling import coarse_z_values, perturb_z_values, sample_pdf
@@ -141,8 +145,14 @@ def _eval_radiance_field(model, pts: torch.Tensor, viewdirs: Optional[torch.Tens
     """Radiance field at sample points: a fused kernel when enabled and the
     model's shape is one it takes, else positional encoding + the module.
     The JAX package's order: the training kernels first (FlexibleNeRF, then
-    PaperNeRF), then the forward-only ones (the same order)."""
+    PaperNeRF), then the forward-only ones (the same order). The hash-grid
+    field encodes its points itself, through the kernel pair when either
+    flag is on (which raises for a grid the kernels do not take)."""
     with annotate(RENDER_FIELD):
+        if isinstance(model, HashGridNeRFModel):
+            kernel = s.use_pallas_train or s.use_pallas
+            return model(pts, viewdirs, s.compute_dtype,
+                         encode=fused_hash_encode if kernel else None)
         fusable = (viewdirs is not None and s.log_sampling_xyz and s.log_sampling_dir
                    and s.pe_alpha_xyz < 0.0 and pts.ndim == 3)
         if s.use_pallas_train and fusable:

@@ -9,6 +9,11 @@ kernel when it is imported; the build happens at the first CUDA call
 
 from .composite import fused_volume_render, volume_render_plain
 from .flex_train import fused_flex_mlp_train, flex_train_plain_bwd, flex_train_plain_fwd
+from .hashgrid import (
+    fused_hash_encode,
+    hash_encode_plain,
+    hash_encode_plain_bwd,
+)
 from .mlp import (
     flexible_mlp_plain,
     flexible_mlp_rays_plain,
@@ -28,6 +33,9 @@ __all__ = [
     "fused_flex_mlp_train",
     "flex_train_plain_bwd",
     "flex_train_plain_fwd",
+    "fused_hash_encode",
+    "hash_encode_plain",
+    "hash_encode_plain_bwd",
     "flexible_mlp_plain",
     "flexible_mlp_rays_plain",
     "fused_flexible_mlp",

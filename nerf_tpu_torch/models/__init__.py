@@ -4,6 +4,7 @@ from __future__ import annotations
 
 from typing import Any, Dict, Type
 
+from .hashgrid import HashGridNeRFModel
 from .mlp import (
     FlexibleNeRFModel,
     MultiHeadNeRFModel,
@@ -18,6 +19,7 @@ MODEL_REGISTRY: Dict[str, Type[Any]] = {
     "ReplicateNeRFModel": ReplicateNeRFModel,
     "PaperNeRFModel": PaperNeRFModel,
     "FlexibleNeRFModel": FlexibleNeRFModel,
+    "HashGridNeRFModel": HashGridNeRFModel,
 }
 
 
@@ -36,6 +38,7 @@ __all__ = [
     "MODEL_REGISTRY",
     "get_model",
     "FlexibleNeRFModel",
+    "HashGridNeRFModel",
     "MultiHeadNeRFModel",
     "PaperNeRFModel",
     "ReplicateNeRFModel",

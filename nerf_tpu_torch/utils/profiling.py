@@ -17,6 +17,8 @@ so that the program and the readers of its traces name them from one place:
   guard, clipping, the optimizer, the schedule, the step's PSNR;
 - ``render.field``: one radiance-field evaluation, kernel or plain
   (``engine.renderer``);
+- ``field.encode``: a hash-grid field's encoding of its points, kernel or
+  plain, inside ``render.field`` (``models.hashgrid``);
 - ``render.image``: a pose's pixel rays, chunks, uint8 conversion and
   gather (``make_pose_render_fn``);
 - ``serve.request``: one ``RenderService.render_pose`` call, lock wait and
@@ -34,6 +36,7 @@ TRAIN_FORWARD = "train.forward"
 TRAIN_BACKWARD = "train.backward"
 TRAIN_UPDATE = "train.update"
 RENDER_FIELD = "render.field"
+FIELD_ENCODE = "field.encode"
 RENDER_IMAGE = "render.image"
 SERVE_REQUEST = "serve.request"
 

@@ -156,8 +156,9 @@ def test_build_names_what_it_looked_for(monkeypatch, tmp_path):
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert _build.library_path().parent == _build.BUILD_DIR
-    assert [p.name for p in _build._sources()] == ["composite.cu", "flex_train.cu", "mlp.cu",
-                                                   "mlp_t.cu", "paper_t.cu", "paper_train.cu",
+    assert [p.name for p in _build._sources()] == ["composite.cu", "flex_train.cu",
+                                                   "hashgrid.cu", "mlp.cu", "mlp_t.cu",
+                                                   "paper_t.cu", "paper_train.cu",
                                                    "resample.cu", "stage.cu"]
     assert {"composite.cuh", "flex_mlp.cuh", "paper_mlp.cuh"} <= {
         p.name for p in _build.CSRC.glob("*.cuh")}
