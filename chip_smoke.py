@@ -15,12 +15,14 @@ Phases, one or more lines each:
      (F32_FLEX_KERNELS, F32_FLEX_BWD_KERNELS, F32_PAPER_KERNELS);
   3. kernel vs plain: the fused encode+MLP kernel against its plain PyTorch
      version at the render path's shapes, float32 and bfloat16 (the bf16
-     instance on the tensor cores, to TC_BF16_FWD_TOL);
+     instance on the tensor cores, to TC_BF16_FWD_TOL), the bf16 one also at
+     a frame's four shapes and ragged ones, one wgmma launch each;
   4. main path: ``nerf_tpu_torch.eval_nerf.render_trajectory`` renders three
      400x400 orbit frames of the flagship 4x128 FlexibleNeRF
      (``configs/lego_fused.yml``, seeded random weights saved as a reference
      ``.ckpt``), and must have gone through the kernel; frame 0 is held
-     against the plain path;
+     against the plain path; a bf16 frame's 4 launches all take the wgmma
+     body;
   5. times on this card: the kernel against the plain version at one
      fine-pass chunk, and seconds per 400x400 frame for both paths;
   6. training kernels vs plain: the fused FlexibleNeRF forward + backward
@@ -233,6 +235,10 @@ PAPER_CHECK_SHAPES = ((2048, 64), (2048, 128), (1000, 128), (333, 61))
 # #4's calls in a 400x400 frame of 64 + 128 samples at chunk 131072: coarse
 # and fine (64 + 192 samples), a whole chunk and the rest of 160,000 rays.
 PAPER_FRAME_SHAPES = ((131072, 64), (28928, 64), (131072, 192), (28928, 192))
+# #1's calls in a 400x400 frame of 64 + 64 samples (the flagship's), the same
+# way, and ragged ones: samples that do not divide a 64-point tile.
+FRAME_SHAPES = ((131072, 64), (131072, 128), (28928, 64), (28928, 128))
+RAGGED_SHAPES = ((333, 48), (100, 100))
 PAPER_FREQS = (10, 6, 0, 16)   # encoding depths phase 9 checks: lego_paper's, the JAX default, ends
 PAPER_TRAIN_STEPS = 300
 PAPER_TIMED_STEPS = 10
@@ -4220,6 +4226,25 @@ def main() -> int:
             print(f"[kernel] ({n}, {s}): max |kernel - plain| f32 {errs['float32']:.3e}, bf16 "
                   f"{errs['bfloat16']:.3e} (tol {F32_TOL:g} / {TC_BF16_FWD_TOL:g}), max |plain| "
                   f"{float(want.abs().max()):.3e}")
+        # The bf16 instance (flex_wg.cuh's wgmma body) alone at a frame's four
+        # shapes and ragged ones, one wgmma launch each.
+        lines = []
+        for n, s in FRAME_SHAPES + RAGGED_SHAPES:
+            pts, vd = orbit_points(n, s, dev, seed=n + s + 1)
+            before = (fused_mlp_t.launches, fused_mlp_t.wgmma_launches)
+            got = fused_mlp_t(model, pts, vd, "bfloat16")
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(got).all()), f"kernel bf16 output at ({n}, {s})")
+            check((fused_mlp_t.launches, fused_mlp_t.wgmma_launches) == (before[0] + 1,
+                                                                         before[1] + 1),
+                  f"kernel bf16 at ({n}, {s}) not one wgmma launch")
+            err = float((got - mlp_t_plain(model, pts, vd, "bfloat16")).abs().max())
+            worst["bfloat16"] = max(worst["bfloat16"], err)
+            check(err <= TC_BF16_FWD_TOL, f"kernel vs plain at ({n}, {s}) bfloat16: {err}")
+            lines.append(f"({n}, {s}) {err:.2e}")
+            del pts, vd, got
+        print(f"[kernel] bf16 (wgmma, one launch each) max |kernel - plain| (tol "
+              f"{TC_BF16_FWD_TOL:g}): {', '.join(lines)}")
 
     # Phase 4: the main path, through the eval entry point.
     cfg = lego_fused_config()
@@ -4276,9 +4301,15 @@ def main() -> int:
             f"{name} {float((maps[name] - ref[name]).abs().max()):.3e}"
             for name in ("acc_fine", "depth_fine", "disp_fine")))
 
+        reset_launches()
+        fused_mlp_t.wgmma_launches = 0
         with quiet():
             bf16_run = render_trajectory(cfg, ckpt, os.path.join(tmp, "bf16"), num_poses=1,
                                          precision="bfloat16", renderer="kernel", device=DEVICE)
+        bf16_launches = (fused_mlp_t.launches, fused_mlp_t.wgmma_launches)
+        print(f"[main] bf16 frame: {bf16_launches[0]} launches, {bf16_launches[1]} through "
+              f"the wgmma body (expected {expected // NUM_POSES} each)")
+        check(bf16_launches == (expected // NUM_POSES,) * 2, f"bf16 launches {bf16_launches}")
         db = psnr(bf16_run.first_maps["rgb_fine"], ref["rgb_fine"])
         print(f"[main] frame 0 bf16 kernel path vs f32 plain path: PSNR {db:.2f} dB "
               f"(floor {PSNR_FLOOR_DB})")

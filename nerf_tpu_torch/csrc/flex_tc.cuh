@@ -1,8 +1,9 @@
-// Tensor-core device code of the bf16 4x128 FlexibleNeRF kernels: mlp_t.cu's
-// render forward, flex_train.cu's training forward, layer-gradient pass and
-// weight-gradient pass, mlp.cu's point-major and ray-major forwards and
-// stage.cu's whole render stage, at compute dtype bf16. The f32 instances
-// keep flex_mlp.cuh's FMA design.
+// Tensor-core device code of the bf16 4x128 FlexibleNeRF kernels:
+// flex_train.cu's training forward, layer-gradient pass and weight-gradient
+// pass, mlp.cu's point-major and ray-major forwards and stage.cu's whole
+// render stage, at compute dtype bf16. The f32 instances keep flex_mlp.cuh's
+// FMA design; mlp_t.cu's bf16 render forward (#1) runs flex_wg.cuh's wgmma
+// body, bitwise this tile.
 //
 // paper_tc.cuh's design at the flagship's widths. Every wide product is
 // mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 (tc_mma.cuh): bf16
@@ -26,7 +27,7 @@
 // tile's first point, the end of its points and the first row of its output
 // (stage.cu runs several tiles a block into a field in shared memory), and
 // the direction layer as a policy: DirRayRow adds the ray's row of the
-// wrapper's dc (#1, #3, #8, #7); mlp.cu's encodes each point's direction
+// wrapper's dc (#3, #8, #7); mlp.cu's encodes each point's direction
 // into the free encoding tile and sums its 27 rows into the same
 // accumulator (#2).
 //
@@ -39,8 +40,9 @@
 // The encoding is sincosf of x * 2^f in f32 (exact scaling, no fast math: at
 // 2^9 the phase must stay f32), rounded to bf16 once, where it is stored.
 //
-// What bounds it: a 131072 x 128 chunk of the render forward takes ~11.8 ms
-// on an NVIDIA H100 80GB HBM3 at 700 W, ~233 TFLOP/s, 24% of the bf16 peak.
+// What bounds it: a 131072 x 128 chunk of the ray-major forward (#3; the
+// render forward's body until flex_wg.cuh) takes ~11.8 ms on an NVIDIA H100
+// 80GB HBM3 at 700 W, ~233 TFLOP/s, 24% of the bf16 peak.
 // tools/torch_kernel_variants.py's probes, in one call on an H100 against
 // 12.05-12.17 ms: every weight fragment served from L1 (wrong results)
 // 9.8-10.1 ms, so the L2 weight stream costs ~18%; no sincosf (wrong
@@ -148,7 +150,7 @@ __device__ __forceinline__ float head_dot(const bf16* act, const bf16* __restric
 }
 
 // The direction layer whose term is the ray's row of dc (rays, 64) f32, the
-// ray of point gp being gp / samples (mlp_t.cu, mlp.cu's ray-major kernel,
+// ray of point gp being gp / samples (mlp.cu's ray-major kernel,
 // flex_train.cu, stage.cu):
 // hd = relu(feat . W_dir[:128] + b + dc[ray]) written over feat in `act`.
 struct DirRayRow {
@@ -250,7 +252,7 @@ __device__ __forceinline__ void forward_tile_with(const float* __restrict__ pts,
 }
 
 // The forward over the tile blockIdx.x with DirRayRow, into out (n_points,
-// 4) (mlp_t.cu, flex_train.cu).
+// 4) (flex_train.cu).
 __device__ __forceinline__ void forward_tile(const float* __restrict__ pts,
                                              const float* __restrict__ dc,
                                              const float* __restrict__ params,

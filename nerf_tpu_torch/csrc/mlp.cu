@@ -32,13 +32,13 @@
 //
 // compute dtype bf16: flex_tc.cuh's forward_tile_with on the tensor cores
 // (mma.sync m16n8k16, 17 KB bf16 point-major tiles, 4 blocks an SM at 128
-// registers), the trunk of mlp_t.cu's bf16 kernel with its L2-streamed
-// weight fragments.
-//   * ray-major: mlp_t.cu's bf16 kernel itself, on the weights
-//     kernels/mlp.py pack_tc_forward packs, with DirRayRow (each point's ray
-//     is point / S, its dc row read in the direction layer's epilogue): the
-//     same tiles, the same tile body and the same dc rows, so its output is
-//     bitwise mlp_t.cu's bf16 output;
+// registers) with its L2-streamed weight fragments, mlp_t.cu's bf16 body
+// until flex_wg.cuh took its place.
+//   * ray-major: that tile on the weights kernels/mlp.py pack_tc_forward
+//     packs, with DirRayRow (each point's ray is point / S, its dc row read
+//     in the direction layer's epilogue): the same sums in the same order as
+//     mlp_t.cu's bf16 body (flex_wg.cuh) and the same dc rows, so its output
+//     is bitwise mlp_t.cu's bf16 output;
 //   * point-major: on pack_tc_forward_points' weights (pack_tc_forward's
 //     buffer, then the 27 direction rows of layers_dir.0 padded to K 32 with
 //     zero rows). Its direction layer (DirEncodedTc) encodes the tile's

@@ -46,89 +46,99 @@
 // the serial heads and the encoding less to hide behind than three would,
 // but three (8-row slices) ran slower (tools/torch_kernel_variants.py).
 //
-// compute dtype bf16: flex_tc.cuh's forward_tile on the tensor cores
-// (mma.sync m16n8k16, bf16 operands, f32 sums, bf16 point-major tiles of
-// 17 KB), its weights a bf16 copy in fragment order that the wrapper packs
-// once per call (kernels/mlp.py pack_tc_forward). Activations are rounded
-// once, where they are stored as the next layer's input, as the TPU kernel's
-// preferred_element_type=f32 products with bf16 operands do.
+// compute dtype bf16: flex_wg.cuh's forward on wgmma: one persistent,
+// warp-specialised block of 512 threads an SM; the wide layers' bf16 images
+// (kernels/mlp.py pack_wg_forward, packed once per call) resident in shared
+// memory for the launch; two producer warpgroups encode the next tiles while
+// two consumer warpgroups run m64nNk16 products from registers, each on a
+// 64-point tile. Bitwise flex_tc.cuh's mma.sync tile, which the other bf16
+// 4x128 kernels still run: bf16 operands, f32 sums in the same k order,
+// activations rounded once, where they become the next layer's input, as the
+// TPU kernel's preferred_element_type=f32 products with bf16 operands do.
 
 #include "flex_mlp.cuh"
-#include "flex_tc.cuh"
+#include "flex_wg.cuh"
 
 namespace {
 
 using namespace flex;
 
 template <bool kBf16>
-__device__ __forceinline__ void mlp_t_tile(const float* __restrict__ pts,
-                                           const float* __restrict__ dc,
-                                           const float* __restrict__ params,
-                                           const __nv_bfloat16* __restrict__ wbf,
-                                           float* __restrict__ out, long long n_points,
-                                           int samples) {
-  extern __shared__ float4 smem[];
-  if constexpr (kBf16) {
-    auto* enc = reinterpret_cast<__nv_bfloat16*>(smem);
-    tc::forward_tile(pts, dc, params, wbf, out, nullptr, n_points, samples, enc,
-                     enc + tc::kEncStride * kTile);
-  } else {
-    forward_tile(pts, dc, params, out, nullptr, n_points, samples,
-                 reinterpret_cast<float*>(smem));
-  }
-}
-
-// The f32 instance keeps the FMA design's bounds; the bf16 one is held to
-// 128 registers, so that 4 blocks share an SM.
-template <bool kBf16>
 __global__ void __launch_bounds__(kThreads)
 mlp_t_kernel(const float* __restrict__ pts, const float* __restrict__ dc,
              const float* __restrict__ params, const __nv_bfloat16* __restrict__ wbf,
              float* __restrict__ out, long long n_points, int samples) {
-  mlp_t_tile<kBf16>(pts, dc, params, wbf, out, n_points, samples);
+  extern __shared__ float4 smem[];
+  forward_tile(pts, dc, params, out, nullptr, n_points, samples, reinterpret_cast<float*>(smem));
 }
 
+// The persistent bf16 kernel: one block an SM.
 template <>
-__global__ void __launch_bounds__(kThreads, 4)
+__global__ void __launch_bounds__(wg::kThreads, 1)
 mlp_t_kernel<true>(const float* __restrict__ pts, const float* __restrict__ dc,
                    const float* __restrict__ params, const __nv_bfloat16* __restrict__ wbf,
                    float* __restrict__ out, long long n_points, int samples) {
-  mlp_t_tile<true>(pts, dc, params, wbf, out, n_points, samples);
+  extern __shared__ float4 smem[];
+  wg::forward(pts, dc, params, wbf, out, n_points, samples,
+              reinterpret_cast<unsigned char*>(smem));
 }
 
-template <bool kBf16>
-cudaError_t launch(const float* pts, const float* dc, const float* params,
-                   const __nv_bfloat16* wbf, float* out, long long n_points, int samples,
-                   cudaStream_t stream) {
-  const size_t smem = kBf16 ? tc::kFwdSmem : kForwardSmem;
+cudaError_t launch_f32(const float* pts, const float* dc, const float* params, float* out,
+                       long long n_points, int samples, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      mlp_t_kernel<kBf16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      mlp_t_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kForwardSmem));
   if (err != cudaSuccess) return err;
   const long long tiles = (n_points + kTile - 1) / kTile;
-  mlp_t_kernel<kBf16><<<static_cast<unsigned int>(tiles), kThreads, smem,
-                        stream>>>(pts, dc, params, wbf, out, n_points, samples);
+  mlp_t_kernel<false><<<static_cast<unsigned int>(tiles), kThreads, kForwardSmem, stream>>>(
+      pts, dc, params, nullptr, out, n_points, samples);
+  return cudaGetLastError();
+}
+
+// As many blocks as fit on the card at once, at most one a unit of
+// wg::kConsumers tiles.
+cudaError_t launch_bf16(const float* pts, const float* dc, const float* params,
+                        const __nv_bfloat16* wbf, float* out, long long n_points, int samples,
+                        cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      mlp_t_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, wg::kSmemBytes);
+  int device = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, mlp_t_kernel<true>,
+                                                        wg::kThreads, wg::kSmemBytes);
+  }
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long unit = static_cast<long long>(wg::kConsumers) * wg::kRows;
+  const long long units = (n_points + unit - 1) / unit;
+  const long long blocks = static_cast<long long>(sms) * per_sm;
+  mlp_t_kernel<true><<<static_cast<unsigned int>(units < blocks ? units : blocks), wg::kThreads,
+                       wg::kSmemBytes, stream>>>(pts, dc, params, wbf, out, n_points, samples);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // Number of floats the packed parameter buffer must hold, and of bf16 values
-// in the tensor-core forward's weights.
+// in the wgmma forward's weight image.
 extern "C" int nerf_mlp_t_num_params() { return kParams; }
-extern "C" int nerf_mlp_t_tc_weights() { return tc::kFwdWeights; }
+extern "C" int nerf_mlp_t_wg_weights() { return wg::kNumWeights; }
 
 // pts (n_points, 3), dc (n_points / samples, 64), params (kParams,),
-// out (n_points, 4): contiguous f32 device buffers, dc 8-byte aligned; with
-// bf16 != 0 also wbf (tc::kFwdWeights,), the bf16 weights in fragment order,
-// 16-byte aligned (ignored for f32). Returns a cudaError_t.
+// out (n_points, 4): contiguous f32 device buffers, dc 8-byte and out
+// 16-byte aligned; with bf16 != 0 also wbf (wg::kNumWeights,), the bf16
+// weight image, 16-byte aligned (ignored for f32). Returns a cudaError_t.
 extern "C" int nerf_mlp_t_forward(const float* pts, const float* dc,
                                   const float* params, long long n_params,
                                   const void* wbf, long long n_wbf,
                                   float* out, long long n_points, int samples,
                                   int bf16, void* stream) {
   if (n_params != kParams || samples <= 0 || n_points <= 0 ||
-      (bf16 && (wbf == nullptr || n_wbf != tc::kFwdWeights)) ||
+      (bf16 && (wbf == nullptr || n_wbf != wg::kNumWeights)) ||
       n_points % samples != 0 ||
       (n_points + kTile - 1) / kTile > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -136,7 +146,7 @@ extern "C" int nerf_mlp_t_forward(const float* pts, const float* dc,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* w = static_cast<const __nv_bfloat16*>(wbf);
   const cudaError_t err =
-      bf16 ? launch<true>(pts, dc, params, w, out, n_points, samples, s)
-           : launch<false>(pts, dc, params, w, out, n_points, samples, s);
+      bf16 ? launch_bf16(pts, dc, params, w, out, n_points, samples, s)
+           : launch_f32(pts, dc, params, out, n_points, samples, s);
   return static_cast<int>(err);
 }

@@ -26,10 +26,11 @@
 //     96 KB of activation buffers and weight ring before the field: 104 KB
 //     at R * S = 512, so two blocks an SM, as for mlp_t.cu's f32 kernel;
 //   * bf16: the MLP is flex_tc.cuh's tensor-core tile (forward_tile_with
-//     with DirRayRow), the one mlp_t.cu's bf16 kernel runs, with the same
-//     bf16 weight fragments (kernels/mlp.py pack_tc_forward): 26 KB of bf16
-//     tiles + 8 KB of field at R * S = 512, so four blocks an SM at 128
-//     registers. Per point it computes what mlp_t.cu's bf16 kernel computes
+//     with DirRayRow), whose sums mlp_t.cu's bf16 body (flex_wg.cuh) takes in
+//     the same order, on bf16 weight fragments (kernels/mlp.py
+//     pack_tc_forward): 26 KB of bf16 tiles + 8 KB of field at R * S = 512,
+//     so four blocks an SM at 128 registers. Per point it computes what
+//     mlp_t.cu's bf16 kernel computes
 //     (the mma rows are independent, the heads per point, the epilogue
 //     elementwise) and per ray what composite.cu computes, so its maps are
 //     bitwise those of #5 on #1's bf16 field.

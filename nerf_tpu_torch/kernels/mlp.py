@@ -17,18 +17,19 @@ into the direction layer, as the TPU kernel does. The ray-major one adds the
 per-ray contribution ``enc(viewdirs) @ W_dir[128:]`` (R, 64), made outside
 the kernel with one matmul, from a copy in shared memory: it computes what
 ``fused_mlp_t`` computes, bit for bit. In bf16 both run
-``csrc/flex_tc.cuh``'s tensor-core forward (``fused_mlp_t``'s bf16 body):
-the ray-major one exactly as ``fused_mlp_t`` runs it, on the weights
-``pack_tc_forward`` builds, so again bit for bit; the point-major one with
-its own direction layer, on the weights ``pack_tc_forward_points`` builds.
+``csrc/flex_tc.cuh``'s ``mma.sync`` tile: the ray-major one on the weights
+``pack_tc_forward`` builds, again bit for bit ``fused_mlp_t``'s bf16 body
+(``csrc/flex_wg.cuh`` on wgmma, which sums in the tile's order); the
+point-major one with its own direction layer, on the weights
+``pack_tc_forward_points`` builds.
 
 This module also holds what the family's kernels share, as the JAX
 package's ``mlp.py`` does: the shape gate ``supports_fused``, the packed
 parameter layout, the per-ray direction contribution, and the bf16 forward
 weights of the tensor-core kernels (``pack_tc_forward``: the bf16 instances
-of ``fused_mlp_t``, the training forward, ``fused_render_stage`` and the
-ray-major forward run ``csrc/flex_tc.cuh``; ``pack_tc_forward_points`` for
-the point-major one).
+of the training forward, ``fused_render_stage`` and the ray-major forward
+run ``csrc/flex_tc.cuh``; ``pack_tc_forward_points`` for the point-major
+one; ``pack_wg_forward``: ``fused_mlp_t``'s, ``csrc/flex_wg.cuh``).
 
 ``compute_dtype="bfloat16"`` rounds both operands of every matmul to bf16
 and keeps f32 sums (``preferred_element_type=f32``). The point-major kernel
@@ -262,6 +263,60 @@ def unpack_tc_forward_points(buf: torch.Tensor) -> Dict[str, torch.Tensor]:
     """``pack_tc_forward_points``' buffer as f32 operand matrices:
     ``unpack_tc_forward``'s and "dir_rows" (64, 32)."""
     return tc_unflatten(buf, _tc_forward_points_matrices, points=True)
+
+
+def _wg_image(mats) -> torch.Tensor:
+    """The tensor-core forward's operands (``_tc_forward_matrices``, (out,
+    in)) as the wgmma body's weight image (``csrc/flex_wg.cuh``): each wide
+    layer as the swizzled images of its 64-column K slices
+    (``kernels/paper_t._swizzled``), in order, then fc_alpha and fc_rgb row
+    by row."""
+    from .paper_t import _swizzled
+
+    return torch.cat([_swizzled(m, 0.0) if m.shape[0] >= _DIR_HIDDEN else m.reshape(-1)
+                      for _, m in mats])
+
+
+@functools.lru_cache(maxsize=None)
+def wg_gather_index(device: str) -> torch.Tensor:
+    """Where each value of ``pack_wg_forward``'s image comes from in
+    ``pack_params``' buffer (one past its last value for a zero pad), on
+    ``device``."""
+    ref = torch.arange(_NUM_PARAMS + 1, dtype=torch.float64)
+    return _wg_image(_tc_forward_matrices(unpack_params(ref), float(_NUM_PARAMS))).long().to(
+        device)
+
+
+def pack_wg_forward(params: torch.Tensor) -> torch.Tensor:
+    """#1's bf16 weights (``csrc/flex_wg.cuh``), from the packed parameters:
+    every weight rounded to bf16, each wide layer (out, in) as the swizzled
+    shared-memory images of its 64-column K slices (layer1's K 63 -> 64 with
+    a zero row), then fc_alpha and fc_rgb plain. The layers lie at
+    ``pack_tc_forward``'s offsets; only the order inside each differs."""
+    from .paper_t import gather_bf16
+
+    return gather_bf16(params, wg_gather_index)
+
+
+def unpack_wg_forward(buf: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """``pack_wg_forward``'s image as f32 operand matrices, in
+    ``unpack_tc_forward``'s form: name -> (out, in) with its K pads."""
+    from .paper_t import _unswizzled
+
+    got, off = {}, 0
+    for name, m in _tc_forward_matrices(unpack_params(torch.zeros(_NUM_PARAMS)), 0.0):
+        n, k = m.shape
+        part = buf[off:off + n * k].float()
+        got[name] = _unswizzled(part, n, k) if n >= _DIR_HIDDEN else part.view(n, k)
+        off += n * k
+    if off != buf.numel():
+        raise ValueError(f"a buffer of {buf.numel()} values for a layout of {off}")
+    return got
+
+
+def wg_forward_weights() -> int:
+    """bf16 values of ``pack_wg_forward``'s image."""
+    return wg_gather_index("cpu").numel()
 
 
 def _rounding(compute_dtype: str):

@@ -11,10 +11,13 @@ against 28 B of point traffic. Both instances keep every activation of a
 64-point tile on chip (the source note in ``csrc/mlp_t.cu`` has the
 details). ``compute_dtype="float32"`` runs f32 FMAs from registers (~24
 TFLOP/s on an H100 SXM at 700 W, about 35% of the f32 FMA peak);
-``"bfloat16"`` runs every wide product on the tensor cores (``mma.sync``,
-bf16 operands, f32 sums; ``csrc/flex_tc.cuh``), its weights handed over as a
-bf16 copy in the instruction's fragment order (``kernels/mlp.pack_tc_forward``),
-built once per call.
+``"bfloat16"`` runs every wide product on the tensor cores by ``wgmma``
+(bf16 operands, f32 sums; ``csrc/flex_wg.cuh``: one persistent,
+warp-specialised block an SM whose producer warpgroup encodes the next
+tiles while its consumers multiply), its weights handed over as the bf16
+shared-memory image the kernel keeps resident (``kernels/mlp.pack_wg_forward``),
+built once per call. Its outputs are bitwise those of the ``mma.sync`` tile
+(``csrc/flex_tc.cuh``) that the other bf16 4x128 kernels run.
 
 Like the TPU version, the per-ray direction contribution
 ``enc(viewdirs) @ W_dir[128:]`` (N, 64) is computed outside the kernel with
@@ -39,11 +42,13 @@ from ..models.mlp import FlexibleNeRFModel
 # JAX package; they are re-exported here for the callers of this module.
 from .mlp import (  # noqa: F401
     _COMPUTE_DTYPES,
+    _NUM_PARAMS,
     dir_contribution,
     flexible_mlp_rays_plain,
     pack_params,
-    pack_tc_forward,
+    pack_wg_forward,
     supports_fused,
+    wg_forward_weights,
 )
 
 # #1 computes the ray-major kernel's function: one plain version serves both.
@@ -59,6 +64,10 @@ def _kernel():
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     fn.argtypes = [ptr, ptr, ptr, i64, ptr, i64, ptr, i64, i32, i32, ptr]
     fn.restype = ctypes.c_int
+    got = (lib.nerf_mlp_t_num_params(), lib.nerf_mlp_t_wg_weights())
+    want = (_NUM_PARAMS, wg_forward_weights())
+    if got != want:
+        raise RuntimeError(f"csrc/flex_mlp.cuh / flex_wg.cuh layouts {got} != wrapper's {want}")
     return fn
 
 
@@ -73,7 +82,8 @@ def fused_mlp_t(
 
     CPU tensors go through ``mlp_t_plain``. CUDA tensors go through the
     kernel; anything it does not take raises. ``fused_mlp_t.launches``
-    counts the kernel's launches.
+    counts the kernel's launches, ``fused_mlp_t.wgmma_launches`` those of
+    its bf16 instance (``csrc/flex_wg.cuh``).
     """
     if compute_dtype not in _COMPUTE_DTYPES:
         raise ValueError(f"compute_dtype must be one of {_COMPUTE_DTYPES}")
@@ -104,7 +114,7 @@ def fused_mlp_t(
         pts_c = pts.contiguous()
         dc = dir_contribution(model, viewdirs).contiguous()
         params = pack_params(model).contiguous()
-        wbf = pack_tc_forward(params) if compute_dtype == "bfloat16" else None
+        wbf = pack_wg_forward(params) if compute_dtype == "bfloat16" else None
         stream = torch.cuda.current_stream(pts.device).cuda_stream
         rc = _kernel()(
             pts_c.data_ptr(), dc.data_ptr(), params.data_ptr(), params.numel(),
@@ -114,7 +124,9 @@ def fused_mlp_t(
     if rc != 0:
         raise RuntimeError(f"fused_mlp_t: kernel launch failed with CUDA error {rc}")
     fused_mlp_t.launches += 1
+    fused_mlp_t.wgmma_launches += wbf is not None
     return out
 
 
 fused_mlp_t.launches = 0
+fused_mlp_t.wgmma_launches = 0

@@ -13,7 +13,8 @@ versions at point counts that end mid-tile and mid-slice (#8 and #9 also
 mid-chunk, #9 at encoding depths 0, 6 and 16), and two launches bitwise
 equal. The bf16 instances of #1-#4, #7
 and the #8 and #9 pairs run on the tensor cores: their forwards are held
-to TC_FWD_TOL (#3 bitwise to #1 too, the same tile), the bf16 backwards against the plain backward on the forward
+to TC_FWD_TOL (#3 bitwise to #1 too: the same sums, #1's on wgmma, one
+wgmma launch a bf16 call, at a frame's four shapes), the bf16 backwards against the plain backward on the forward
 kernel's own residuals (a bf16 sum in another order flips roundings and ReLU
 masks that an end-to-end comparison would follow), and #7's bf16 maps
 bitwise against #5 on #1's bf16 field, the same arithmetic.
@@ -62,16 +63,25 @@ def _inputs(n, s, seed):
     return pts, vd / torch.linalg.norm(vd, dim=-1, keepdim=True)
 
 
+# A 400x400 frame's four calls of #1 (coarse and fine, a whole 131072-ray
+# chunk and the rest of 160,000 rays), and ragged ones: samples that do not
+# divide a 64-point tile.
+FRAME_SHAPES = [(131072, 64), (131072, 128), (28928, 64), (28928, 128), (333, 48), (100, 100)]
+
+
 @pytest.mark.parametrize("compute_dtype,tol", [("float32", 1e-4), ("bfloat16", TC_FWD_TOL)])
-@pytest.mark.parametrize("n,s", [(1, 1), (33, 64), (1000, 128), (7, 61)])
+@pytest.mark.parametrize("n,s", [(1, 1), (33, 64), (1000, 128), (7, 61)] + FRAME_SHAPES)
 def test_kernel_matches_plain(model, n, s, compute_dtype, tol):
+    """#1 against its plain version; its bf16 instance is one launch of the
+    wgmma body (csrc/flex_wg.cuh) a call."""
     pts, vd = _inputs(n, s, seed=n * s)
-    before = fused_mlp_t.launches
+    before = (fused_mlp_t.launches, fused_mlp_t.wgmma_launches)
     with torch.inference_mode():
         got = fused_mlp_t(model, pts, vd, compute_dtype)
         torch.cuda.synchronize()
         want = mlp_t_plain(model, pts, vd, compute_dtype)
-    assert fused_mlp_t.launches == before + 1
+    bf16 = compute_dtype == "bfloat16"
+    assert (fused_mlp_t.launches, fused_mlp_t.wgmma_launches) == (before[0] + 1, before[1] + bf16)
     assert got.shape == (n, s, 4) and got.dtype == torch.float32 and got.is_cuda
     assert float((got - want).abs().max()) <= tol
 
@@ -120,7 +130,8 @@ def test_flexible_kernels_match_plain(model, n, s, compute_dtype, tol):
     """#3 (ray-major) and #2 (point-major, on the flattened points with each
     ray's direction) against their plain versions, their bf16 instances on
     the tensor cores to TC_FWD_TOL; #3 bitwise equal to #1 in both dtypes
-    (#1's tile body on the same dc rows)."""
+    (in f32 #1's tile body on the same dc rows; in bf16 the mma.sync tile,
+    whose sums #1's wgmma body takes in the same order)."""
     pts, vd = _inputs(n, s, seed=n + s)
     flat_pts, flat_vd = pts.reshape(-1, 3), vd[:, None, :].expand(n, s, 3).reshape(-1, 3)
     before = (mlp.fused_flexible_mlp.launches, mlp.fused_flexible_mlp_rays.launches)
@@ -486,9 +497,10 @@ def test_stage_kernel_matches_plain(model, compute_dtype, tol):
 @pytest.mark.parametrize("white_background", [False, True])
 @pytest.mark.parametrize("n,s", [(1, 1), (64, 64), (333, 61), (9, 600)])
 def test_stage_bf16_is_composite_of_the_tensor_core_field(model, n, s, white_background):
-    """#7's bf16 instance runs #1's tensor-core tile per point and #5's scan
-    per ray, at any S (a block's tiles straddle rays at S = 61): its maps are
-    bitwise those of #5 on #1's bf16 field."""
+    """#7's bf16 instance runs the mma.sync tile per point and #5's scan per
+    ray, at any S (a block's tiles straddle rays at S = 61): its maps are
+    bitwise those of #5 on #1's bf16 field (the wgmma body, which sums in
+    the tile's order)."""
     pts, vd, z, rd = _ray_case(n, s, seed=n + s)
     with torch.inference_mode():
         got = stage.fused_render_stage(model, pts, vd, z, rd, white_background, "bfloat16")

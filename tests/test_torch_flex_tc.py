@@ -12,7 +12,11 @@ multiple of 16 with zero rows (layer 1's 63 -> 64, the direction rows' 27 ->
 only on the card (tests/test_torch_cuda.py); here:
 
 - the 4-warp fragment order is the PTX layout of the B operand, element by
-  element;
+  element; #1's bf16 instance reads instead ``kernels/mlp.pack_wg_forward``'s
+  image (``csrc/flex_wg.cuh``): its wide layers as the 128-byte-swizzled
+  64-column K slices wgmma's descriptors read, checked element by element,
+  unpacking to the same rounded weights, of the length the C layout counts,
+  and a plain pass from it bitwise ``mlp_t_plain``'s;
 - each buffer unpacks to round_bf16(W) of the model's nn.Linear weights
   exactly, its pads zero; the point-major buffer is the forward buffer
   followed by layers_dir.0's direction rows;
@@ -69,8 +73,12 @@ from nerf_tpu_torch.kernels.mlp import (
     pack_params_points,
     pack_tc_forward,
     pack_tc_forward_points,
+    pack_wg_forward,
     unpack_tc_forward,
     unpack_tc_forward_points,
+    unpack_wg_forward,
+    wg_forward_weights,
+    wg_gather_index,
 )
 from nerf_tpu_torch.kernels.mlp_t import mlp_t_plain
 from nerf_tpu_torch.kernels.paper_t import fragment_matrix, fragment_order
@@ -176,10 +184,10 @@ def test_points_buffer_is_the_forward_buffer_then_the_rounded_direction_rows(see
     assert all(torch.equal(mats[k], v) for k, v in rest.items())
 
 
-def _with_forward_weights(model):
+def _with_forward_weights(model, pack=pack_tc_forward, unpack=unpack_tc_forward):
     """A copy of ``model`` whose forward weights are those of its bf16
-    forward buffer."""
-    mats = unpack_tc_forward(pack_tc_forward(pack_params(model)))
+    forward buffer (``pack``'s, read back by ``unpack``)."""
+    mats = unpack(pack(pack_params(model)))
     out = copy.deepcopy(model)
     with torch.no_grad():
         out.layer1.weight.copy_(mats["layer1"][:, :63])
@@ -252,15 +260,83 @@ def test_point_major_plain_pass_from_the_points_buffer_is_bitwise_the_bf16_plain
 
 @pytest.mark.parametrize("s", [1, 61, 128])
 def test_ray_major_plain_pass_from_the_forward_buffer_is_bitwise_mlp_t(s):
-    """#3's bf16 kernel runs #1's tile on #1's buffer: the ray-major plain
-    pass on the buffer's weights is mlp_t's plain bf16 pass, bit for bit, at
-    a ray-major layout (R, S) whose tiles start mid-ray."""
+    """#3's bf16 kernel runs the mma.sync tile on pack_tc_forward's buffer:
+    the ray-major plain pass on the buffer's weights is mlp_t's plain bf16
+    pass, bit for bit, at a ray-major layout (R, S) whose tiles start
+    mid-ray."""
     model = _model(s)
     pts, vd, _ = (torch.from_numpy(a) for a in _inputs(7, s, seed=s))
     with torch.no_grad():
         got = flexible_mlp_rays_plain(_with_forward_weights(model), pts, vd, "bfloat16")
         want = mlp_t_plain(model, pts, vd, "bfloat16")
     assert got.shape == (7, s, 4)
+    assert torch.equal(got, want)
+
+
+# The wide layers of #1's wgmma image (csrc/flex_wg.cuh), (out, in) with
+# layer1's K padded to 64, at their offsets.
+WG_WIDE = (("layer1", 128, 64, 0), ("layers_xyz.0", 128, 128, 8192),
+           ("layers_xyz.1", 128, 128, 24576), ("layers_xyz.2", 128, 128, 40960),
+           ("fc_feat", 128, 128, 57344), ("layers_dir.0", 64, 128, 73728))
+
+
+def test_wg_image_is_the_swizzled_slice_layout():
+    """csrc/flex_wg.cuh's resident image: each wide layer's K in 64-column
+    slices of N rows of 128 bytes, column k of row n at 16-byte chunk
+    (k % 64 // 8) ^ (n % 8), as wgmma's 128-byte-swizzle descriptor reads a
+    K-major operand; fc_alpha and fc_rgb follow plain. Checked on the
+    image's gather index: each value's position in pack_params' buffer (one
+    past its end for layer1's zero column)."""
+    index = wg_gather_index("cpu")
+    layers = unpack_params(torch.arange(82820 + 1, dtype=torch.float64))
+    for name, n, k, off in WG_WIDE:
+        w = layers[name][0].t()[:n]                      # (out, in) positions
+        w = torch.nn.functional.pad(w, (0, k - w.shape[1]), value=82820.0)
+        for row in range(n):
+            for col in range(k):
+                at = (off + (col // 64) * n * 64 + row * 64 + ((col % 64 // 8) ^ (row % 8)) * 8
+                      + col % 8)
+                assert index[at] == w[row, col], (name, row, col)
+    tail = torch.cat([layers["fc_alpha"][0].t().reshape(-1), layers["fc_rgb"][0].t().reshape(-1)])
+    assert torch.equal(index[81920:].double(), tail)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_wg_buffer_unpacks_to_the_rounded_weights(seed):
+    """#1's wgmma image holds the same matrices as the tensor-core forward
+    buffer: round_bf16(W), layer1's pad column zero."""
+    model = _model(seed)
+    buf = pack_wg_forward(pack_params(model))
+    assert buf.dtype == torch.bfloat16 and buf.numel() == wg_forward_weights()
+    assert buf.data_ptr() % 16 == 0
+    mats = unpack_wg_forward(buf)
+    want = unpack_tc_forward(pack_tc_forward(pack_params(model)))
+    assert list(mats) == list(want)
+    assert all(torch.equal(mats[k], v) for k, v in want.items())
+    w1 = mats["layer1"]
+    assert torch.equal(w1[:, :63], _r(model.layer1.weight)) and not w1[:, 63:].any()
+
+
+def test_wg_weight_count_is_the_c_layout():
+    """csrc/flex_wg.cuh kNumWeights (the card's nerf_mlp_t_wg_weights, which
+    kernels/mlp_t._kernel holds to this count): nine 128 x 64 slices
+    (layer1 one, the four 128-wide layers two each), two 64 x 64 slices of
+    the direction layer, then fc_alpha (128) and fc_rgb (3 x 64)."""
+    assert wg_forward_weights() == 9 * 128 * 64 + 2 * 64 * 64 + 128 + 3 * 64 == 82240
+    assert sum(n * k for _, n, k, _ in WG_WIDE) == 81920
+
+
+@pytest.mark.parametrize("s", [48, 64, 128])
+def test_plain_pass_from_the_wg_buffer_is_bitwise_mlp_t(s):
+    """#1's bf16 pass on its wgmma image's weights is mlp_t_plain's bf16
+    pass, bit for bit."""
+    model = _model(s + 3)
+    pts, vd, _ = (torch.from_numpy(a) for a in _inputs(5, s, seed=s + 3))
+    with torch.no_grad():
+        wg_model = _with_forward_weights(model, pack_wg_forward, unpack_wg_forward)
+        got = mlp_t_plain(wg_model, pts, vd, "bfloat16")
+        want = mlp_t_plain(model, pts, vd, "bfloat16")
+    assert got.shape == (5, s, 4)
     assert torch.equal(got, want)
 
 

@@ -24,8 +24,9 @@ batched call beside MS_SCENES single-scene calls in turns. With
 ``git archive``) it also builds that tree, prints both trees' registers and
 spills of the tensor-core instances and of the f32 4x128 and Paper
 instances, checks that the outputs ``bitwise_results`` lists (the f32 Paper
-ones among them) are bitwise the same from both, each tree through its own
-wrappers (its package, imported under another name), and #4's bf16 outputs
+ones among them) and #1's bf16 outputs at a frame's four shapes and ragged
+ones are bitwise the same from both, each tree through its own wrappers
+(its package, imported under another name), and #4's bf16 outputs
 within chip_smoke.py's BF16_TOL of the other tree's (its wgmma body sums in
 another order than the mma.sync tile), times #1, #2, #3, #4, #7
 and the #8 and #9 pairs in f32 and bf16, #6 (det, by the
@@ -201,21 +202,26 @@ def check_paper_kernels(dev) -> bool:
 
 def check_flex_tc_kernels(dev) -> bool:
     """The bf16 tensor-core instances of #1 and the #8 pair against their
-    plain versions: #1 at chip_smoke.py's phase 3 shapes and ragged ones, the
+    plain versions: #1 at chip_smoke.py's phase 3 shapes, a frame's four
+    shapes and ragged ones, one launch each through its wgmma body, the
     pair at its phase 6 shapes and ragged ones (the forward and its
     residuals against the plain forward's, the backward against the plain
     backward on the forward kernel's residuals), two backward calls bitwise
     equal. True when all are within chip_smoke.py's tolerances."""
     model = cs.seeded_model(cs.SEED, opacify=False).to(dev)
     ok = True
+    fn = mlp_t.fused_mlp_t
     with torch.inference_mode():
-        for n, s in cs.CHECK_SHAPES + ((1, 1), (5, 33)):
+        for n, s in cs.CHECK_SHAPES + ((1, 1), (5, 33)) + cs.FRAME_SHAPES + cs.RAGGED_SHAPES:
             pts, vd = cs.orbit_points(n, s, dev, n + s)
-            got = mlp_t.fused_mlp_t(model, pts, vd, "bfloat16")
+            before = (fn.launches, fn.wgmma_launches)
+            got = fn(model, pts, vd, "bfloat16")
             torch.cuda.synchronize()
+            one = (fn.launches, fn.wgmma_launches) == (before[0] + 1, before[1] + 1)
             err = float((got - mlp_t.mlp_t_plain(model, pts, vd, "bfloat16")).abs().max())
-            ok &= bool(torch.isfinite(got).all()) and err <= cs.TC_BF16_FWD_TOL
-            print(f"#1 bf16 ({n}, {s}): {err:.3e}", flush=True)
+            ok &= one and bool(torch.isfinite(got).all()) and err <= cs.TC_BF16_FWD_TOL
+            print(f"#1 bf16 ({n}, {s}): {err:.3e}, one wgmma launch {one}", flush=True)
+            del pts, vd, got
     with torch.no_grad():
         for n, s in cs.TRAIN_CHECK_SHAPES + ((1, 1), (5, 33)):
             pts, dc, params, g = cs.train_case(n, s, model, dev, seed=n * s)
@@ -429,6 +435,19 @@ def check_bitwise_against(parent_csrc: Path, dev) -> bool:
     same = [torch.equal(a, b) for a, b in zip(outs["parent"][0], outs["this tree"][0])]
     print(f"bitwise equal to parent: {all(same)} ({sum(same)} of {len(same)} outputs)",
           flush=True)
+    flex = {label: tree_models(m, dev)[0] for label, m in trees.items()}
+    parts, frame_same = [], True
+    with torch.no_grad():
+        for n, s in cs.FRAME_SHAPES + cs.RAGGED_SHAPES:
+            pts, vd = cs.orbit_points(n, s, dev, n + s + 2)
+            got = {label: m["mlp_t"].fused_mlp_t(flex[label], pts, vd, "bfloat16")
+                   for label, m in trees.items()}
+            diff = float((got["parent"] - got["this tree"]).abs().max())
+            frame_same &= torch.equal(got["parent"], got["this tree"])
+            parts.append(f"({n}, {s}) {diff:.3e}")
+            del pts, vd, got
+    print(f"#1 bf16 against the parent's at a frame's shapes, max |difference|: "
+          f"{', '.join(parts)}; bitwise {frame_same}", flush=True)
     errs = [float((a - b).abs().max()) for a, b in zip(outs["parent"][1], outs["this tree"][1])]
     near = all(e <= cs.BF16_TOL for e in errs)
     print(f"#4 bf16 against the parent's (tol {cs.BF16_TOL:g}): "
@@ -444,7 +463,7 @@ def check_bitwise_against(parent_csrc: Path, dev) -> bool:
                 per = cs.kernel_device_ms(calls[label][name][0], 10, r"train_\w+?_kernel")
                 print(f"ms {name} by launch, {label}: "
                       + ", ".join(f"{k} {v:.4f}" for k, v in per.items()), flush=True)
-    return all(same) and near
+    return all(same) and near and frame_same
 
 
 def main() -> int:

@@ -55,9 +55,22 @@ PROBES = {
     # Wrong results: the encoding without sincosf.
     "no_sincos": [("flex_tc.cuh", "      sincosf(x * scale, &s, &co);",
                    "      s = x * scale;\n      co = s + 1.f;")],
-    # #1 at 3 blocks an SM instead of 4.
-    "three_blocks": [("mlp_t.cu", "__launch_bounds__(kThreads, 4)\nmlp_t_kernel<true>",
-                      "__launch_bounds__(kThreads, 3)\nmlp_t_kernel<true>")],
+    # #1's wgmma body (flex_wg.cuh) with one producer warpgroup for three
+    # consumers; without the consumers' turns; and, with wrong results,
+    # without sincosf or without the heads' sums.
+    "wg_one_producer": [("flex_wg.cuh", "constexpr int kConsumers = 2;",
+                         "constexpr int kConsumers = 3;"),
+                        ("flex_wg.cuh", "constexpr int kProducers = 2;",
+                         "constexpr int kProducers = 1;")],
+    "wg_no_turns": [("flex_wg.cuh", "{ named_sync(1 + wg, 256); }", "{}"),
+                    ("flex_wg.cuh", "    named_arrive(1 + (wg + 1) % kConsumers, 256);\n", ""),
+                    ("flex_wg.cuh", "if (wg == kConsumers - 1) named_arrive(1, 256);", ""),
+                    ("flex_wg.cuh", "if (wg == 0) named_sync(1, 256);", "")],
+    "wg_no_sincos": [("flex_wg.cuh",
+                      "        sincosf(x[c] * static_cast<float>(1 << f), &s, &co);",
+                      "        s = x[c] * static_cast<float>(1 << f);\n        co = s + 1.f;")],
+    "wg_no_heads": [("flex_wg.cuh", "  for (int k = 0; k < KS; ++k) {",
+                     "  for (int k = 0; k < 0; ++k) {")],
     # The trunk's k-steps unrolled by 4 instead of 2.
     "unroll4": [("flex_tc.cuh",
                  "a.mac<2>(w + kWx0 + i * kHidden * kHidden, act, kStride, kHidden / 16);",
