@@ -793,7 +793,7 @@ def train_case(n: int, s: int, model, dev, seed: int):
     cotangent."""
     import torch
 
-    from nerf_tpu_torch.kernels.mlp_t import dir_contribution, pack_params
+    from nerf_tpu_torch.kernels.mlp import dir_contribution, pack_params
 
     pts, vd = orbit_points(n, s, dev, seed)
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
@@ -813,8 +813,9 @@ def flex_pair_errors(pts, dc, params, g, n: int, s: int, dtype: str) -> dict:
 
     from nerf_tpu_torch.kernels.flex_train import (
         flex_train_bwd, flex_train_fwd, flex_train_plain_bwd, flex_train_plain_fwd,
-        residuals_as_plain, unpack_params,
+        residuals_as_plain,
     )
+    from nerf_tpu_torch.kernels.mlp import unpack_params
 
     out, res = flex_train_fwd(pts, dc, params, dtype)
     grad, ddc = flex_train_bwd(g, res, params, n, s, dtype)

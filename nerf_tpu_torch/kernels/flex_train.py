@@ -20,8 +20,8 @@ CUDA kernels for Hopper in ``csrc/flex_train.cu``, behind one
 forward, the layer gradients and the weight gradients on the tensor cores
 (``mma.sync``, bf16 operands, f32 sums; ``csrc/flex_tc.cuh``), with bf16
 copies of the weights in the instruction's fragment order
-(``kernels/mlp.pack_tc_forward``, ``pack_tc_backward``) built once per call,
-and bf16 residuals point-major (``residuals_as_plain`` reads either layout).
+(``kernels/mlp.IMAGES``' ``tc_forward`` and ``tc_backward``) built once per
+call, and bf16 residuals point-major (``residuals_as_plain`` reads either layout).
 
 ``flex_train_plain_fwd`` / ``flex_train_plain_bwd`` are the plain PyTorch
 version: the same residuals and the same gradients from them, by the
@@ -49,20 +49,18 @@ import functools
 import torch
 
 from ..ops.encoding import positional_encoding
-from .mlp import (  # noqa: F401  (unpack_params: re-exported for the callers of this module)
+from .common import rounder
+from .mlp import (
     _DIM_XYZ,
     _DIR_HIDDEN,
     _HIDDEN,
     _LAYOUT,
     _NUM_FREQ_XYZ,
     _NUM_PARAMS,
-    _tc_forward_matrices,
+    IMAGES,
     dir_contribution,
     pack_params,
-    pack_tc_forward,
     supports_fused,
-    tc_gather_index,
-    tc_unflatten,
     unpack_params,
 )
 from .train_vjp import (
@@ -81,57 +79,6 @@ _TILES_PER_CHUNK = 16      # point tiles per weight-gradient block
 _RES_ROWS = _DIM_XYZ + 5 * _HIDDEN + _DIR_HIDDEN          # 767 residual rows per point
 _TC_RES_ROWS = 64 + 5 * _HIDDEN + _DIR_HIDDEN             # 768 in bf16, enc padded to 64
 _DELTA_ROWS = 4 + _DIR_HIDDEN + 5 * _HIDDEN               # 708 f32 gradient rows per point
-# Backward weights (csrc/flex_train.cu kT*): nn.Linear (out, in) matrices.
-_BWD_ORDER = ("fc_rgb", "layers_dir.0", "fc_feat", "fc_alpha",
-              "layers_xyz.2", "layers_xyz.1", "layers_xyz.0")
-_NUM_BWD_WEIGHTS = sum(i * o for n, i, o in _LAYOUT if n in _BWD_ORDER)   # 74048
-_NUM_TC_FWD_WEIGHTS = 64 * 128 + 4 * 128 * 128 + 128 * 64 + 128 + 3 * 64   # 82240
-_NUM_TC_BWD_WEIGHTS = 16 * 64 + 64 * 128 + 144 * 128 + 3 * 128 * 128     # 76800
-
-
-@functools.lru_cache(maxsize=None)
-def _bwd_index(device: str) -> torch.Tensor:
-    """Where each value of the f32 backward weights comes from in the packed
-    parameters, on ``device``: the packing run on the positions themselves."""
-    layers = unpack_params(torch.arange(_NUM_PARAMS, dtype=torch.float64))
-    return torch.cat([layers[name][0].t().reshape(-1) for name in _BWD_ORDER]).long().to(device)
-
-
-def pack_backward_weights(params: torch.Tensor) -> torch.Tensor:
-    """The backward kernel's weights: each layer's (out, in) matrix, in the
-    order of ``csrc/flex_train.cu``'s kT* offsets; (..., 82820) -> (...,
-    74048), one gather."""
-    return params[..., _bwd_index(str(params.device))]
-
-
-def _tc_backward_matrices(layers, pad):
-    """The bf16 layer-gradient pass's operands, in ``csrc/flex_tc.cuh``'s
-    kB* order, each (in, out) for dX = dY W: fc_rgb (K 3 -> 16),
-    layers_dir.0's feat rows, [fc_feat; fc_alpha] (K 129 -> 144),
-    layers_xyz.2 .. .0; K pads hold ``pad``."""
-    def w(name):
-        return layers[name][0]
-
-    head = torch.cat([w("fc_feat"), w("fc_alpha")], dim=1)
-    return [("fc_rgb", torch.nn.functional.pad(w("fc_rgb"), (0, 13), value=pad)),
-            ("layers_dir.0", w("layers_dir.0")),
-            ("head", torch.nn.functional.pad(head, (0, 15), value=pad))] + [
-        (f"layers_xyz.{i}", w(f"layers_xyz.{i}")) for i in (2, 1, 0)]
-
-
-def pack_tc_backward(params: torch.Tensor) -> torch.Tensor:
-    """The bf16 backward kernel's weights (``csrc/flex_tc.cuh`` kB*), from
-    the packed parameters (..., 82820): rounded to bf16, fragment order, zero
-    K pads."""
-    from .paper_t import gather_bf16
-
-    return gather_bf16(params, lambda device: tc_gather_index(_tc_backward_matrices, device))
-
-
-def unpack_tc_backward(buf: torch.Tensor):
-    """``pack_tc_backward``'s buffer as f32 operand matrices: name -> (in,
-    out) with its K pads ("head" is [fc_feat; fc_alpha])."""
-    return tc_unflatten(buf, _tc_backward_matrices)
 
 
 def residuals_as_plain(residuals, n_points: int, compute_dtype: str = "float32"):
@@ -155,18 +102,12 @@ def residuals_as_plain(residuals, n_points: int, compute_dtype: str = "float32")
     return tuple(table[:, a:a + w] for a, w in zip(starts, widths))
 
 
-def _rounder(compute_dtype: str):
-    if compute_dtype == "bfloat16":
-        return lambda x: x.bfloat16().float()
-    return lambda x: x
-
-
 def flex_train_plain_fwd(pts: torch.Tensor, dc: torch.Tensor, params: torch.Tensor,
                          compute_dtype: str = "float32"):
     """Plain version of the forward kernel: ``(raw (N, S, 4) f32, residuals)``,
     residuals = (enc, a0, h1, h2, h3, feat, hd), each (N*S, C) in the compute
     dtype."""
-    r = _rounder(compute_dtype)
+    r = rounder(compute_dtype)
     layers = unpack_params(params.float())
     n, s = pts.shape[0], pts.shape[1]
 
@@ -192,7 +133,7 @@ def flex_train_plain_bwd(g: torch.Tensor, residuals, params: torch.Tensor, n: in
                          compute_dtype: str = "float32"):
     """Plain version of the backward kernel: ``(d params (82820,) in the
     packed layout, ddc (N, 64))`` from the cotangent and the residuals."""
-    r = _rounder(compute_dtype)
+    r = rounder(compute_dtype)
     layers = unpack_params(params.float())
     enc, a0, h1, h2, h3, feat, hd = (x.float() for x in residuals)
     g = g.reshape(-1, 4).float()
@@ -241,8 +182,8 @@ def _kernels():
     lib.nerf_flex_train_layout.restype = None
     layout = (ctypes.c_int * 9)()
     lib.nerf_flex_train_layout(layout)
-    want = (_RES_ROWS, _DELTA_ROWS, _NUM_PARAMS, _NUM_BWD_WEIGHTS, _TILE, _TILES_PER_CHUNK,
-            _TC_RES_ROWS, tc_forward_weights(), _NUM_TC_BWD_WEIGHTS)
+    want = (_RES_ROWS, _DELTA_ROWS, _NUM_PARAMS, IMAGES.f32_backward.size, _TILE,
+            _TILES_PER_CHUNK, _TC_RES_ROWS, IMAGES.tc_forward.size, IMAGES.tc_backward.size)
     if tuple(layout) != want:
         raise RuntimeError(f"csrc/flex_train.cu layout {tuple(layout)} != wrapper's {want}")
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
@@ -255,18 +196,11 @@ def _kernels():
     return fwd, bwd
 
 
-def tc_forward_weights() -> int:
-    """bf16 values of ``pack_tc_forward``'s buffer."""
-    return tc_gather_index(_tc_forward_matrices, "cpu").numel()
-
-
 _LAUNCHES = TrainLaunches(
     name="fused_flex_mlp_train",
     layout=_layout,
     kernels=_kernels,
-    pack_tc_forward=pack_tc_forward,
-    pack_tc_backward=pack_tc_backward,
-    pack_backward_weights=pack_backward_weights,
+    images=lambda: IMAGES,
 )
 
 

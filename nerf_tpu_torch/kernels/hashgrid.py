@@ -37,8 +37,8 @@ import functools
 import torch
 
 from ..ops.encoding import HashGrid, hash_encode
+from .common import check_compute_dtype
 
-_COMPUTE_DTYPES = ("float32", "bfloat16")
 MAX_LEVELS = 16          # csrc/hashgrid.cu kMaxLevels
 
 
@@ -156,8 +156,7 @@ def fused_hash_encode(table: torch.Tensor, pts: torch.Tensor, grid: HashGrid,
     F) float32: (P, L * F) in ``compute_dtype``, differentiable in
     ``table``. CPU tensors go through the plain version; CUDA tensors through
     the kernels; anything they do not take raises."""
-    if compute_dtype not in _COMPUTE_DTYPES:
-        raise ValueError(f"compute_dtype must be one of {_COMPUTE_DTYPES}")
+    check_compute_dtype(compute_dtype)
     if pts.requires_grad:
         raise ValueError("fused_hash_encode makes no gradient for the points; "
                          "pass points that do not require one (detach them)")

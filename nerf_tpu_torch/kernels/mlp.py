@@ -18,18 +18,19 @@ per-ray contribution ``enc(viewdirs) @ W_dir[128:]`` (R, 64), made outside
 the kernel with one matmul, from a copy in shared memory: it computes what
 ``fused_mlp_t`` computes, bit for bit. In bf16 both run
 ``csrc/flex_tc.cuh``'s ``mma.sync`` tile: the ray-major one on the weights
-``pack_tc_forward`` builds, again bit for bit ``fused_mlp_t``'s bf16 body
+``IMAGES.tc_forward``, again bit for bit ``fused_mlp_t``'s bf16 body
 (``csrc/flex_wg.cuh`` on wgmma, which sums in the tile's order); the
-point-major one with its own direction layer, on the weights
-``pack_tc_forward_points`` builds.
+point-major one with its own direction layer, on
+``IMAGES.tc_forward_points``.
 
 This module also holds what the family's kernels share, as the JAX
 package's ``mlp.py`` does: the shape gate ``supports_fused``, the packed
-parameter layout, the per-ray direction contribution, and the bf16 forward
-weights of the tensor-core kernels (``pack_tc_forward``: the bf16 instances
-of the training forward, ``fused_render_stage`` and the ray-major forward
-run ``csrc/flex_tc.cuh``; ``pack_tc_forward_points`` for the point-major
-one; ``pack_wg_forward``: ``fused_mlp_t``'s, ``csrc/flex_wg.cuh``).
+parameter layout, the per-ray direction contribution, and the layouts of
+the family's weight images (``IMAGES``; ``kernels/common.WeightImage``
+packs them): the ``mma.sync`` forward that the bf16 training forward,
+``fused_render_stage`` and the ray-major forward read, the point-major
+one, ``fused_mlp_t``'s wgmma image, and the training backward's bf16 and
+f32 weights.
 
 ``compute_dtype="bfloat16"`` rounds both operands of every matmul to bf16
 and keeps f32 sums (``preferred_element_type=f32``). The point-major kernel
@@ -41,15 +42,25 @@ with ``.bfloat16().float()`` and f32 matmuls.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
 from ..models.mlp import FlexibleNeRFModel
 from ..ops.encoding import positional_encoding
+from .common import (
+    Fragments,
+    Rows,
+    Swizzled,
+    WeightImage,
+    check_forward,
+    check_rc,
+    cuda_stream,
+    f32_matmul,
+    rounder,
+)
 
 _NUM_FREQ_XYZ = 10
 _NUM_FREQ_DIR = 4
@@ -58,7 +69,6 @@ _DIM_DIR = 3 + 6 * _NUM_FREQ_DIR   # 27
 _DIR_K = 32                        # _DIM_DIR padded to a k-step of the tensor cores
 _HIDDEN = 128
 _DIR_HIDDEN = 64
-_COMPUTE_DTYPES = ("float32", "bfloat16")
 _TC_WARPS = 4              # warps of a tensor-core block (csrc/flex_tc.cuh kWarps)
 
 # Packed parameter buffer (pack_params, csrc/flex_mlp.cuh): name -> (in, out)
@@ -92,47 +102,6 @@ def supports_fused(model) -> bool:
         and len(model.layers_xyz) == 3
         and tuple(model.layer1.weight.shape) == (_HIDDEN, _DIM_XYZ)
     )
-
-
-@contextlib.contextmanager
-def _no_tf32():
-    """TF32 off for the matmuls inside; the caller's setting is restored."""
-    before = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = before
-
-
-class _F32MatMul(torch.autograd.Function):
-    # vmap (the multi-scene step's scene axis) runs the forward and the
-    # backward below on batched tensors.
-    generate_vmap_rule = True
-
-    @staticmethod
-    def forward(a, b):
-        with _no_tf32():
-            return a @ b
-
-    @staticmethod
-    def setup_context(ctx, inputs, output):
-        ctx.save_for_backward(*inputs)
-
-    @staticmethod
-    def backward(ctx, g):
-        a, b = ctx.saved_tensors
-        with _no_tf32():
-            return (g @ b.t() if ctx.needs_input_grad[0] else None,
-                    a.t() @ g if ctx.needs_input_grad[1] else None)
-
-
-def f32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` in full float32 on the card, forward and gradient, whatever
-    ``torch.backends.cuda.matmul.allow_tf32`` says: the JAX package asks for
-    HIGHEST precision per dot, so the flag is turned off around these
-    products only and the caller's setting is kept."""
-    return _F32MatMul.apply(a, b)
 
 
 def dir_contribution(model: FlexibleNeRFModel, viewdirs: torch.Tensor) -> torch.Tensor:
@@ -204,128 +173,60 @@ def _tc_forward_points_matrices(layers, pad):
     return _tc_forward_matrices(layers, pad) + [("dir_rows", dirs)]
 
 
-def _unpacker(points: bool):
-    """(unpack, number of values) of the packed parameters: ``pack_params``'
-    layout, or with ``points`` ``pack_params_points``'."""
-    return (unpack_params_points, _NUM_PARAMS_POINTS) if points else (unpack_params, _NUM_PARAMS)
+def _tc_backward_matrices(layers, pad):
+    """The bf16 layer-gradient pass's operands, in ``csrc/flex_tc.cuh``'s
+    kB* order, each (in, out) for dX = dY W: fc_rgb (K 3 -> 16),
+    layers_dir.0's feat rows, [fc_feat; fc_alpha] (K 129 -> 144),
+    layers_xyz.2 .. .0; K pads hold ``pad``."""
+    def w(name):
+        return layers[name][0]
+
+    head = torch.cat([w("fc_feat"), w("fc_alpha")], dim=1)
+    return [("fc_rgb", torch.nn.functional.pad(w("fc_rgb"), (0, 13), value=pad)),
+            ("layers_dir.0", w("layers_dir.0")),
+            ("head", torch.nn.functional.pad(head, (0, 15), value=pad))] + [
+        (f"layers_xyz.{i}", w(f"layers_xyz.{i}")) for i in (2, 1, 0)]
 
 
-@functools.lru_cache(maxsize=None)
-def tc_gather_index(matrices, device: str, points: bool = False) -> torch.Tensor:
-    """Where each value of a 4x128 bf16 weight buffer comes from in the
-    packed parameters (``pack_params``', or with ``points``
-    ``pack_params_points``'; one past their last value for a zero pad), on
-    ``device``: ``matrices`` run on the positions themselves, flattened for
-    4-warp blocks."""
-    from .paper_t import _flatten
-
-    unpack, n = _unpacker(points)
-    ref = torch.arange(n + 1, dtype=torch.float64)
-    return _flatten(matrices(unpack(ref), float(n)), _TC_WARPS).long().to(device)
+def _f32_backward_matrices(layers, pad):
+    """The f32 backward's weights (``csrc/flex_train.cu`` kT*): each
+    layer's nn.Linear (out, in) matrix."""
+    return [(name, layers[name][0].t()) for name in (
+        "fc_rgb", "layers_dir.0", "fc_feat", "fc_alpha", "layers_xyz.2", "layers_xyz.1",
+        "layers_xyz.0")]
 
 
-def tc_unflatten(buf: torch.Tensor, matrices, points: bool = False) -> Dict[str, torch.Tensor]:
-    """A 4x128 bf16 weight buffer as f32 operand matrices: name -> (N, K)
-    with its K pads (``points``: the layout ``tc_gather_index`` takes)."""
-    from .paper_t import _unflatten
+class Images(NamedTuple):
+    """The family's weight images, each from ``pack_params``' buffer
+    (``tc_forward_points`` from ``pack_params_points``'): ``image.pack(params)``
+    builds one with one gather, ``image.unpack(buf)`` gives its operands
+    back."""
 
-    unpack, n = _unpacker(points)
-    return _unflatten(buf, matrices(unpack(torch.zeros(n)), 0.0), _TC_WARPS)
-
-
-def pack_tc_forward(params: torch.Tensor) -> torch.Tensor:
-    """The bf16 forward kernels' weights (``csrc/flex_tc.cuh`` kW*), from
-    the packed parameters: every weight rounded to bf16, the wide ones in
-    fragment order with zero K pads (``kernels/paper_t.fragment_order`` at 4
-    warps)."""
-    from .paper_t import gather_bf16
-
-    return gather_bf16(params, lambda device: tc_gather_index(_tc_forward_matrices, device))
-
-
-def unpack_tc_forward(buf: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """``pack_tc_forward``'s buffer as f32 operand matrices: name -> (out,
-    in) with its K pads."""
-    return tc_unflatten(buf, _tc_forward_matrices)
+    # csrc/flex_tc.cuh kW*, mma.sync fragments of 4-warp blocks: the bf16
+    # training forward's, #3's and #7's weights.
+    tc_forward: WeightImage
+    # tc_forward's, then layers_dir.0's 27 direction rows padded to 32
+    # (kWdDir): #2's bf16 weights.
+    tc_forward_points: WeightImage
+    # csrc/flex_wg.cuh: #1's bf16 weights, each wide layer (out, in) as the
+    # swizzled images of its 64-column K slices, at tc_forward's offsets.
+    wg_forward: WeightImage
+    # csrc/flex_tc.cuh kB*: the bf16 layer-gradient pass's weights.
+    tc_backward: WeightImage
+    # csrc/flex_train.cu kT*: the f32 backward's weights.
+    f32_backward: WeightImage
 
 
-def pack_tc_forward_points(params: torch.Tensor) -> torch.Tensor:
-    """The bf16 point-major kernel's weights, from ``pack_params_points``'
-    buffer: ``pack_tc_forward``'s buffer, then layers_dir.0's 27 direction
-    rows padded with zero rows to 32, in fragment order."""
-    from .paper_t import gather_bf16
-
-    return gather_bf16(params, lambda device: tc_gather_index(_tc_forward_points_matrices,
-                                                              device, points=True))
-
-
-def unpack_tc_forward_points(buf: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """``pack_tc_forward_points``' buffer as f32 operand matrices:
-    ``unpack_tc_forward``'s and "dir_rows" (64, 32)."""
-    return tc_unflatten(buf, _tc_forward_points_matrices, points=True)
-
-
-def _wg_image(mats) -> torch.Tensor:
-    """The tensor-core forward's operands (``_tc_forward_matrices``, (out,
-    in)) as the wgmma body's weight image (``csrc/flex_wg.cuh``): each wide
-    layer as the swizzled images of its 64-column K slices
-    (``kernels/paper_t._swizzled``), in order, then fc_alpha and fc_rgb row
-    by row."""
-    from .paper_t import _swizzled
-
-    return torch.cat([_swizzled(m, 0.0) if m.shape[0] >= _DIR_HIDDEN else m.reshape(-1)
-                      for _, m in mats])
-
-
-@functools.lru_cache(maxsize=None)
-def wg_gather_index(device: str) -> torch.Tensor:
-    """Where each value of ``pack_wg_forward``'s image comes from in
-    ``pack_params``' buffer (one past its last value for a zero pad), on
-    ``device``."""
-    ref = torch.arange(_NUM_PARAMS + 1, dtype=torch.float64)
-    return _wg_image(_tc_forward_matrices(unpack_params(ref), float(_NUM_PARAMS))).long().to(
-        device)
-
-
-def pack_wg_forward(params: torch.Tensor) -> torch.Tensor:
-    """#1's bf16 weights (``csrc/flex_wg.cuh``), from the packed parameters:
-    every weight rounded to bf16, each wide layer (out, in) as the swizzled
-    shared-memory images of its 64-column K slices (layer1's K 63 -> 64 with
-    a zero row), then fc_alpha and fc_rgb plain. The layers lie at
-    ``pack_tc_forward``'s offsets; only the order inside each differs."""
-    from .paper_t import gather_bf16
-
-    return gather_bf16(params, wg_gather_index)
-
-
-def unpack_wg_forward(buf: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """``pack_wg_forward``'s image as f32 operand matrices, in
-    ``unpack_tc_forward``'s form: name -> (out, in) with its K pads."""
-    from .paper_t import _unswizzled
-
-    got, off = {}, 0
-    for name, m in _tc_forward_matrices(unpack_params(torch.zeros(_NUM_PARAMS)), 0.0):
-        n, k = m.shape
-        part = buf[off:off + n * k].float()
-        got[name] = _unswizzled(part, n, k) if n >= _DIR_HIDDEN else part.view(n, k)
-        off += n * k
-    if off != buf.numel():
-        raise ValueError(f"a buffer of {buf.numel()} values for a layout of {off}")
-    return got
-
-
-def wg_forward_weights() -> int:
-    """bf16 values of ``pack_wg_forward``'s image."""
-    return wg_gather_index("cpu").numel()
-
-
-def _rounding(compute_dtype: str):
-    """x -> x rounded to the matmul input dtype, kept f32."""
-    if compute_dtype not in _COMPUTE_DTYPES:
-        raise ValueError(f"compute_dtype must be one of {_COMPUTE_DTYPES}")
-    if compute_dtype == "bfloat16":
-        return lambda x: x.bfloat16().float()
-    return lambda x: x
+_FRAGMENTS = Fragments(_TC_WARPS)
+IMAGES = Images(
+    tc_forward=WeightImage(unpack_params, _NUM_PARAMS, _tc_forward_matrices, _FRAGMENTS),
+    tc_forward_points=WeightImage(unpack_params_points, _NUM_PARAMS_POINTS,
+                                  _tc_forward_points_matrices, _FRAGMENTS),
+    wg_forward=WeightImage(unpack_params, _NUM_PARAMS, _tc_forward_matrices, Swizzled()),
+    tc_backward=WeightImage(unpack_params, _NUM_PARAMS, _tc_backward_matrices, _FRAGMENTS),
+    f32_backward=WeightImage(unpack_params, _NUM_PARAMS, _f32_backward_matrices, Rows(),
+                             bf16=False),
+)
 
 
 def _dense(layer, x, r, cols=None):
@@ -349,7 +250,7 @@ def flexible_mlp_rays_plain(
 ) -> torch.Tensor:
     """Plain PyTorch version of the ray-major kernel (and of ``fused_mlp_t``,
     which computes the same function): (R, S, 4) f32."""
-    r = _rounding(compute_dtype)
+    r = rounder(compute_dtype)
     dc = dir_contribution(model, viewdirs)                          # (R, 64)
     feat, sigma = _trunk_plain(model, pts, r)
     hd = torch.relu(
@@ -367,7 +268,7 @@ def flexible_mlp_plain(
     """Plain PyTorch version of the point-major kernel: (N, 4) f32. In
     bfloat16 the direction encoding and W_dir's direction rows are rounded
     too, as the kernel rounds them."""
-    r = _rounding(compute_dtype)
+    r = rounder(compute_dtype)
     feat, sigma = _trunk_plain(model, pts, r)
     layer = model.layers_dir[0]
     w = layer.weight.float()
@@ -395,21 +296,7 @@ def _kernels():
     return points, rays
 
 
-def _check(name: str, model, pts: torch.Tensor, compute_dtype: str):
-    """The checks both wrappers make before choosing a path."""
-    if compute_dtype not in _COMPUTE_DTYPES:
-        raise ValueError(f"compute_dtype must be one of {_COMPUTE_DTYPES}")
-    if not supports_fused(model):
-        raise ValueError(f"{name}: model is not the 4x128 10/4 FlexibleNeRF shape")
-    if pts.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name}: no kernel for device {pts.device}")
-
-
-def _check_cuda(name: str, model, pts: torch.Tensor, viewdirs: torch.Tensor):
-    if pts.dtype != torch.float32 or viewdirs.dtype != torch.float32:
-        raise ValueError(f"{name}: pts and viewdirs must be float32")
-    if viewdirs.device != pts.device or model.layer1.weight.device != pts.device:
-        raise ValueError(f"{name}: pts, viewdirs and the model must share a device")
+_GATE = "the 4x128 10/4 FlexibleNeRF shape"
 
 
 def fused_flexible_mlp(
@@ -425,15 +312,10 @@ def fused_flexible_mlp(
     the kernel; anything it does not take raises.
     ``fused_flexible_mlp.launches`` counts the kernel's launches.
     """
-    _check("fused_flexible_mlp", model, pts, compute_dtype)
-    if pts.device.type == "cpu":
+    what = "fused_flexible_mlp"
+    if check_forward(what, supports_fused(model), _GATE, compute_dtype, model, pts, viewdirs,
+                     points=True):
         return flexible_mlp_plain(model, pts, viewdirs, compute_dtype)
-    if pts.ndim != 2 or pts.shape[-1] != 3 or tuple(viewdirs.shape) != tuple(pts.shape):
-        raise ValueError(
-            f"fused_flexible_mlp: want pts (N, 3) and viewdirs (N, 3), got "
-            f"{tuple(pts.shape)} and {tuple(viewdirs.shape)}"
-        )
-    _check_cuda("fused_flexible_mlp", model, pts, viewdirs)
     n = pts.shape[0]
     out = torch.empty((n, 4), dtype=torch.float32, device=pts.device)
     if n == 0:
@@ -444,15 +326,12 @@ def fused_flexible_mlp(
     with torch.no_grad(), torch.cuda.device(pts.device):
         pts_c, vd_c = pts.contiguous(), viewdirs.contiguous()
         params = pack_params_points(model).contiguous()
-        wbf = pack_tc_forward_points(params) if compute_dtype == "bfloat16" else None
-        stream = torch.cuda.current_stream(pts.device).cuda_stream
-        rc = _kernels()[0](
+        wbf = IMAGES.tc_forward_points.pack(params) if compute_dtype == "bfloat16" else None
+        check_rc(what, _kernels()[0](
             pts_c.data_ptr(), vd_c.data_ptr(), params.data_ptr(), params.numel(),
             None if wbf is None else wbf.data_ptr(), 0 if wbf is None else wbf.numel(),
-            out.data_ptr(), n, int(wbf is not None), stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"fused_flexible_mlp: kernel launch failed with CUDA error {rc}")
+            out.data_ptr(), n, int(wbf is not None), cuda_stream(pts.device),
+        ))
     fused_flexible_mlp.launches += 1
     return out
 
@@ -473,15 +352,9 @@ def fused_flexible_mlp_rays(
     through the kernel; anything it does not take raises.
     ``fused_flexible_mlp_rays.launches`` counts the kernel's launches.
     """
-    _check("fused_flexible_mlp_rays", model, pts, compute_dtype)
-    if pts.device.type == "cpu":
+    what = "fused_flexible_mlp_rays"
+    if check_forward(what, supports_fused(model), _GATE, compute_dtype, model, pts, viewdirs):
         return flexible_mlp_rays_plain(model, pts, viewdirs, compute_dtype)
-    if pts.ndim != 3 or pts.shape[-1] != 3 or tuple(viewdirs.shape) != (pts.shape[0], 3):
-        raise ValueError(
-            f"fused_flexible_mlp_rays: want pts (R, S, 3) and viewdirs (R, 3), got "
-            f"{tuple(pts.shape)} and {tuple(viewdirs.shape)}"
-        )
-    _check_cuda("fused_flexible_mlp_rays", model, pts, viewdirs)
     r, s = pts.shape[0], pts.shape[1]
     out = torch.empty((r, s, 4), dtype=torch.float32, device=pts.device)
     if r * s == 0:
@@ -492,15 +365,12 @@ def fused_flexible_mlp_rays(
         pts_c = pts.contiguous()
         dc = dir_contribution(model, viewdirs).contiguous()
         params = pack_params(model).contiguous()
-        wbf = pack_tc_forward(params) if compute_dtype == "bfloat16" else None
-        stream = torch.cuda.current_stream(pts.device).cuda_stream
-        rc = _kernels()[1](
+        wbf = IMAGES.tc_forward.pack(params) if compute_dtype == "bfloat16" else None
+        check_rc(what, _kernels()[1](
             pts_c.data_ptr(), dc.data_ptr(), params.data_ptr(), params.numel(),
             None if wbf is None else wbf.data_ptr(), 0 if wbf is None else wbf.numel(),
-            out.data_ptr(), r * s, s, int(wbf is not None), stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"fused_flexible_mlp_rays: kernel launch failed with CUDA error {rc}")
+            out.data_ptr(), r * s, s, int(wbf is not None), cuda_stream(pts.device),
+        ))
     fused_flexible_mlp_rays.launches += 1
     return out
 

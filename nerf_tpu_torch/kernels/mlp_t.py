@@ -15,8 +15,8 @@ TFLOP/s on an H100 SXM at 700 W, about 35% of the f32 FMA peak);
 (bf16 operands, f32 sums; ``csrc/flex_wg.cuh``: one persistent,
 warp-specialised block an SM whose producer warpgroup encodes the next
 tiles while its consumers multiply), its weights handed over as the bf16
-shared-memory image the kernel keeps resident (``kernels/mlp.pack_wg_forward``),
-built once per call. Its outputs are bitwise those of the ``mma.sync`` tile
+shared-memory image the kernel keeps resident (``kernels/mlp.IMAGES``'
+``wg_forward``), built once per call. Its outputs are bitwise those of the ``mma.sync`` tile
 (``csrc/flex_tc.cuh``) that the other bf16 4x128 kernels run.
 
 Like the TPU version, the per-ray direction contribution
@@ -38,17 +38,14 @@ import functools
 import torch
 
 from ..models.mlp import FlexibleNeRFModel
-# The family's shared pieces live with the gate in kernels/mlp.py, as in the
-# JAX package; they are re-exported here for the callers of this module.
-from .mlp import (  # noqa: F401
-    _COMPUTE_DTYPES,
+from .common import check_forward, check_rc, cuda_stream
+from .mlp import (
     _NUM_PARAMS,
+    IMAGES,
     dir_contribution,
     flexible_mlp_rays_plain,
     pack_params,
-    pack_wg_forward,
     supports_fused,
-    wg_forward_weights,
 )
 
 # #1 computes the ray-major kernel's function: one plain version serves both.
@@ -65,7 +62,7 @@ def _kernel():
     fn.argtypes = [ptr, ptr, ptr, i64, ptr, i64, ptr, i64, i32, i32, ptr]
     fn.restype = ctypes.c_int
     got = (lib.nerf_mlp_t_num_params(), lib.nerf_mlp_t_wg_weights())
-    want = (_NUM_PARAMS, wg_forward_weights())
+    want = (_NUM_PARAMS, IMAGES.wg_forward.size)
     if got != want:
         raise RuntimeError(f"csrc/flex_mlp.cuh / flex_wg.cuh layouts {got} != wrapper's {want}")
     return fn
@@ -85,24 +82,9 @@ def fused_mlp_t(
     counts the kernel's launches, ``fused_mlp_t.wgmma_launches`` those of
     its bf16 instance (``csrc/flex_wg.cuh``).
     """
-    if compute_dtype not in _COMPUTE_DTYPES:
-        raise ValueError(f"compute_dtype must be one of {_COMPUTE_DTYPES}")
-    if not supports_fused(model):
-        raise ValueError("fused_mlp_t: model is not the 4x128 10/4 FlexibleNeRF shape")
-    if pts.device.type == "cpu":
+    if check_forward("fused_mlp_t", supports_fused(model), "the 4x128 10/4 FlexibleNeRF shape",
+                     compute_dtype, model, pts, viewdirs):
         return mlp_t_plain(model, pts, viewdirs, compute_dtype)
-    if pts.device.type != "cuda":
-        raise ValueError(f"fused_mlp_t: no kernel for device {pts.device}")
-    if pts.ndim != 3 or pts.shape[-1] != 3 or tuple(viewdirs.shape) != (pts.shape[0], 3):
-        raise ValueError(
-            f"fused_mlp_t: want pts (N, S, 3) and viewdirs (N, 3), got "
-            f"{tuple(pts.shape)} and {tuple(viewdirs.shape)}"
-        )
-    if pts.dtype != torch.float32 or viewdirs.dtype != torch.float32:
-        raise ValueError("fused_mlp_t: pts and viewdirs must be float32")
-    if viewdirs.device != pts.device or model.layer1.weight.device != pts.device:
-        raise ValueError("fused_mlp_t: pts, viewdirs and the model must share a device")
-
     n, s = pts.shape[0], pts.shape[1]
     out = torch.empty((n, s, 4), dtype=torch.float32, device=pts.device)
     if n * s == 0:
@@ -114,15 +96,12 @@ def fused_mlp_t(
         pts_c = pts.contiguous()
         dc = dir_contribution(model, viewdirs).contiguous()
         params = pack_params(model).contiguous()
-        wbf = pack_wg_forward(params) if compute_dtype == "bfloat16" else None
-        stream = torch.cuda.current_stream(pts.device).cuda_stream
-        rc = _kernel()(
+        wbf = IMAGES.wg_forward.pack(params) if compute_dtype == "bfloat16" else None
+        check_rc("fused_mlp_t", _kernel()(
             pts_c.data_ptr(), dc.data_ptr(), params.data_ptr(), params.numel(),
             None if wbf is None else wbf.data_ptr(), 0 if wbf is None else wbf.numel(),
-            out.data_ptr(), n * s, s, int(wbf is not None), stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"fused_mlp_t: kernel launch failed with CUDA error {rc}")
+            out.data_ptr(), n * s, s, int(wbf is not None), cuda_stream(pts.device),
+        ))
     fused_mlp_t.launches += 1
     fused_mlp_t.wgmma_launches += wbf is not None
     return out

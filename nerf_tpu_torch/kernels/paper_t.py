@@ -14,9 +14,11 @@ What bounds it on the card is arithmetic: 622,720 multiply-adds a point at
 runs f32 FMAs from registers; ``"bfloat16"`` runs every wide product on the
 tensor cores (``wgmma``, bf16 operands, f32 sums; ``csrc/paper_wg.cuh``), its
 weights handed over as a bf16 image of the kernel's shared-memory ring
-stages (``pack_wg_forward``), built once per call. ``pack_tc_forward`` packs
+stages (``images(f).wg_forward``), built once per call. ``tc_forward`` packs
 the same weights in ``mma.sync`` fragment order for #9's bf16 training
-forward (``csrc/paper_tc.cuh``).
+forward (``csrc/paper_tc.cuh``). ``images`` declares the family's four
+weight images, #9's backward's among them; ``kernels/common.WeightImage``
+packs them.
 
 Like the TPU version, the per-ray direction contribution
 ``enc(viewdirs) @ W_dir[:, 256:].T`` (N, 128) is computed outside the kernel
@@ -32,16 +34,24 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, List, Tuple
+from typing import Dict, List, NamedTuple, Tuple
 
 import torch
 
 from ..models.mlp import PaperNeRFModel
 from ..ops.encoding import positional_encoding
-from .flex_train import _rounder
-from .mlp import f32_matmul
-from .mlp_t import _COMPUTE_DTYPES
-from .train_vjp import aligned
+from .common import (
+    Fragments,
+    Rows,
+    Swizzled,
+    WeightImage,
+    aligned,
+    check_forward,
+    check_rc,
+    cuda_stream,
+    f32_matmul,
+    rounder,
+)
 
 _WIDTH = 256
 _DIR_WIDTH = 128
@@ -125,25 +135,6 @@ def _pad16(n: int) -> int:
     return -(-n // 16) * 16
 
 
-def fragment_order(m: torch.Tensor, warps: int = 8) -> torch.Tensor:
-    """An (N, K) operand matrix (N a multiple of 16 ``warps``, K of 16)
-    flattened in the order the tensor-core kernels read it
-    (``csrc/tc_mma.cuh``): for each 16-deep k-step, for each of the ``warps``
-    warps (N / warps consecutive outputs; 8 in the PaperNeRF kernels, 4 in the
-    4x128 ones), for each lane l, the NT = N / (8 warps) m16n8k16 B fragments
-    that lane holds: ``m[n][k]`` for n = (warp * NT + j) * 8 + l // 4 and
-    k = 16 ks + 8 h + 2 (l % 4) + e, in (j, h, e) order."""
-    n, k = m.shape
-    x = m.reshape(warps, n // (8 * warps), 8, k // 16, 2, 4, 2)   # warp, j, l // 4, ks, h, l % 4, e
-    return x.permute(3, 0, 2, 5, 1, 4, 6).reshape(-1)
-
-
-def fragment_matrix(flat: torch.Tensor, n: int, k: int, warps: int = 8) -> torch.Tensor:
-    """The inverse of ``fragment_order``: the (N, K) matrix."""
-    x = flat.reshape(k // 16, warps, 8, 4, n // (8 * warps), 2, 2)
-    return x.permute(1, 4, 2, 0, 5, 3, 6).reshape(n, k)
-
-
 def _tc_forward_matrices(layers, dim: int, pad) -> List[Tuple[str, torch.Tensor]]:
     """The tensor-core forward's operands, in ``csrc/paper_tc.cuh``'s
     FwdLayout order: each wide layer as (out, in) with K padded to 16 by
@@ -163,83 +154,11 @@ def _tc_forward_matrices(layers, dim: int, pad) -> List[Tuple[str, torch.Tensor]
         "fc_feat", "layers_dir.0", "layers_dir.1", "layers_dir.2", "fc_alpha", "fc_rgb")]
 
 
-def _flatten(mats, warps: int = 8) -> torch.Tensor:
-    """The operand matrices (name, (N, K)) as one buffer: the wide ones (N of
-    8 ``warps`` or more) in fragment order, the narrow heads row by row."""
-    return torch.cat([fragment_order(m, warps) if m.shape[0] >= 8 * warps else m.reshape(-1)
-                      for _, m in mats])
-
-
-@functools.lru_cache(maxsize=None)
-def _gather_index(matrices, num_freq: int, device: str) -> torch.Tensor:
-    """Where each value of a bf16 weight buffer comes from in the packed
-    parameters (``num_params`` for a zero pad), on ``device``: the packing,
-    worked out once by running ``matrices`` on the positions themselves."""
-    n = num_params(num_freq)
-    ref = torch.arange(n + 1, dtype=torch.float64)
-    flat = _flatten(matrices(unpack_params(ref, num_freq), 3 + 6 * num_freq, float(n)))
-    return flat.long().to(device)
-
-
-def gather_bf16(params: torch.Tensor, index) -> torch.Tensor:
-    """A bf16 weight buffer from the packed f32 parameters (..., n), one a
-    leading index (a scene): ``index(device)`` gives where each value comes
-    from (n for a zero pad). One gather and one rounding, 16-byte aligned."""
-    params = params.detach().float()
-    ext = torch.nn.functional.pad(params, (0, 1))
-    out = ext[..., index(str(params.device))].to(torch.bfloat16)
-    return out if out.data_ptr() % 16 == 0 else out.clone()
-
-
-def _gather_bf16(params: torch.Tensor, matrices, num_freq: int) -> torch.Tensor:
-    """The bf16 weight buffer that ``matrices`` lays out at ``num_freq``."""
-    return gather_bf16(params, lambda device: _gather_index(matrices, num_freq, device))
-
-
-def pack_tc_forward(params: torch.Tensor, num_freq: int) -> torch.Tensor:
-    """The bf16 forward kernels' weights (``csrc/paper_tc.cuh`` FwdLayout),
-    from the packed parameters: every weight rounded to bf16, the wide ones
-    in fragment order with zero K pads."""
-    return _gather_bf16(params, _tc_forward_matrices, num_freq)
-
-
-def unpack_tc_forward(buf: torch.Tensor, num_freq: int) -> Dict[str, torch.Tensor]:
-    """``pack_tc_forward``'s buffer as f32 operand matrices: name -> (out,
-    in) with its K pads."""
-    return _unflatten(buf, _tc_forward_matrices(
-        unpack_params(torch.zeros(num_params(num_freq)), num_freq), 3 + 6 * num_freq, 0.0))
-
-
-_SLICE_K = 64   # K columns of a ring slice of the wgmma kernel (csrc/paper_wg.cuh kSliceK)
-
-
-def _swizzled(m: torch.Tensor, pad: float) -> torch.Tensor:
-    """An (N, K) operand as the shared-memory images of its ring slices
-    (``csrc/paper_wg.cuh``): K cut into 64-column slices, the last padded
-    with ``pad``; each slice N rows of 128 bytes, K-major, whose eight
-    16-byte chunks lie swizzled: column k of row n in chunk (k // 8) ^ (n % 8),
-    the layout wgmma's 128-byte-swizzle descriptor reads."""
-    n, k = m.shape
-    kp = -(-k // _SLICE_K) * _SLICE_K
-    x = torch.nn.functional.pad(m, (0, kp - k), value=pad).reshape(n, kp // _SLICE_K, 8, 8)
-    rows = torch.arange(n).view(n, 1)
-    x = x[rows, :, torch.arange(8).view(1, 8) ^ (rows % 8)]     # n, chunk, slice, e
-    return x.permute(2, 0, 1, 3).reshape(-1)
-
-
-def _unswizzled(flat: torch.Tensor, n: int, k: int) -> torch.Tensor:
-    """The inverse of ``_swizzled``: the (N, K) matrix, the slices' pads cut."""
-    kp = -(-k // _SLICE_K) * _SLICE_K
-    x = flat.reshape(kp // _SLICE_K, n, 8, 8).permute(1, 0, 2, 3)   # n, slice, chunk, e
-    rows = torch.arange(n).view(n, 1)
-    x = x[rows, :, torch.arange(8).view(1, 8) ^ (rows % 8)]         # n, chunk, slice, e
-    return x.permute(0, 2, 1, 3).reshape(n, kp)[:, :k]
-
-
-def _wg_parts(mats) -> List[Tuple[str, torch.Tensor]]:
+def _wg_matrices(layers, dim: int, pad) -> List[Tuple[str, torch.Tensor]]:
     """The wgmma kernel's operands in the order its ring reads them: the
     tensor-core forward's matrices (``_tc_forward_matrices``) with layer 4
     cut into its encoding rows and its h rows (each starts a slice)."""
+    mats = _tc_forward_matrices(layers, dim, pad)
     kin = mats[0][1].shape[1]
     out = []
     for name, m in mats:
@@ -250,76 +169,65 @@ def _wg_parts(mats) -> List[Tuple[str, torch.Tensor]]:
     return out
 
 
-def _wg_image(mats, pad: float) -> torch.Tensor:
-    """``_tc_forward_matrices``' operands as the wgmma kernel's weight image:
-    every wide one as its swizzled ring slices (``_swizzled``), in order,
-    then the narrow heads fc_alpha and fc_rgb row by row."""
-    return torch.cat([_swizzled(m, pad) if m.shape[0] >= _DIR_WIDTH else m.reshape(-1)
-                      for _, m in _wg_parts(mats)])
+def _tc_backward_matrices(layers, dim: int, pad) -> List[Tuple[str, torch.Tensor]]:
+    """The bf16 layer-gradient pass's operands, in ``csrc/paper_tc.cuh``'s
+    kB* order, each (in, out) for dX = dY W: fc_rgb (K 3 -> 16),
+    layers_dir.2, .1, [layers_dir.0 feat rows; fc_alpha] (K 129 -> 144),
+    fc_feat, layers_xyz.7 .. .1 (layer 4: its h rows); K pads hold ``pad``."""
+    def w(name):
+        return layers[name][0]
+
+    head = torch.cat([w("layers_dir.0"), w("fc_alpha")], dim=1)
+    mats = [("fc_rgb", torch.nn.functional.pad(w("fc_rgb"), (0, 13), value=pad)),
+            ("layers_dir.2", w("layers_dir.2")), ("layers_dir.1", w("layers_dir.1")),
+            ("head", torch.nn.functional.pad(head, (0, 15), value=pad)),
+            ("fc_feat", w("fc_feat"))]
+    return mats + [(f"layers_xyz.{i}", w(f"layers_xyz.{i}")[dim:] if i == 4
+                    else w(f"layers_xyz.{i}")) for i in range(7, 0, -1)]
+
+
+def _f32_backward_matrices(layers, dim: int, pad) -> List[Tuple[str, torch.Tensor]]:
+    """The f32 backward's weights (``csrc/paper_train.cu`` kT*): nn.Linear
+    (out, in) matrices; [layers_dir.0 feat cols; fc_alpha] lie as one (129,
+    256) block, layers_xyz.4 gives its h columns only."""
+    return [(name, (layers[name][0][dim:] if name == "layers_xyz.4" else layers[name][0]).t())
+            for name in ("fc_rgb", "layers_dir.2", "layers_dir.1", "layers_dir.0", "fc_alpha",
+                         "fc_feat", "layers_xyz.7", "layers_xyz.6", "layers_xyz.5",
+                         "layers_xyz.4", "layers_xyz.3", "layers_xyz.2", "layers_xyz.1")]
+
+
+class Images(NamedTuple):
+    """The family's weight images at one encoding depth, each from
+    ``pack_params``' buffer: ``image.pack(params)`` builds one with one
+    gather, ``image.unpack(buf)`` gives its operands back."""
+
+    # csrc/paper_tc.cuh FwdLayout, mma.sync fragments of 8-warp blocks: #9's
+    # bf16 forward's weights.
+    tc_forward: WeightImage
+    # csrc/paper_wg.cuh: #4's bf16 weights, each wide layer (out, in) as the
+    # swizzled images of its 64-column K slices in the order the kernel's
+    # ring streams them (the skip's encoding rows and h rows each a whole
+    # number of slices; "layers_xyz.4.enc" and ".h").
+    wg_forward: WeightImage
+    # csrc/paper_tc.cuh kB*: the bf16 layer-gradient pass's weights.
+    tc_backward: WeightImage
+    # csrc/paper_train.cu kT*: the f32 backward's weights.
+    f32_backward: WeightImage
 
 
 @functools.lru_cache(maxsize=None)
-def _wg_index(num_freq: int, device: str) -> torch.Tensor:
-    """Where each value of ``pack_wg_forward``'s image comes from in the packed
-    parameters (``num_params`` for a zero pad), on ``device``."""
-    n = num_params(num_freq)
-    ref = torch.arange(n + 1, dtype=torch.float64)
-    mats = _tc_forward_matrices(unpack_params(ref, num_freq), 3 + 6 * num_freq, float(n))
-    return _wg_image(mats, float(n)).long().to(device)
+def images(num_freq: int) -> Images:
+    """The family's weight images at encoding depth ``num_freq``."""
+    unpack = functools.partial(unpack_params, num_freq=num_freq)
+    n, dim = num_params(num_freq), 3 + 6 * num_freq
 
+    def image(matrices, fmt, bf16=True):
+        return WeightImage(unpack, n, lambda layers, pad: matrices(layers, dim, pad), fmt, bf16)
 
-def pack_wg_forward(params: torch.Tensor, num_freq: int) -> torch.Tensor:
-    """The bf16 render forward's weights (``csrc/paper_wg.cuh``), from the
-    packed parameters: every weight rounded to bf16, each wide layer (out,
-    in) as the swizzled images of its 64-column K slices in the order the
-    kernel's ring streams them (K pads zero: 63 -> 64, the skip's encoding
-    rows and h rows each a whole number of slices), then fc_alpha and
-    fc_rgb plain."""
-    return gather_bf16(params, lambda device: _wg_index(num_freq, device))
-
-
-def unpack_wg_forward(buf: torch.Tensor, num_freq: int) -> Dict[str, torch.Tensor]:
-    """``pack_wg_forward``'s image as f32 operand matrices, in
-    ``unpack_tc_forward``'s form: name -> (out, in) with its pads to 16
-    (layers_xyz.4: [enc rows, pad, h rows]). Raises if a slice's pad beyond
-    those is not zero."""
-    mats = _tc_forward_matrices(unpack_params(torch.zeros(num_params(num_freq)), num_freq),
-                                3 + 6 * num_freq, 0.0)
-    got, off = {}, 0
-    for name, m in _wg_parts(mats):
-        n, k = m.shape
-        size = n * (-(-k // _SLICE_K) * _SLICE_K if n >= _DIR_WIDTH else k)
-        part = buf[off:off + size].float()
-        if n >= _DIR_WIDTH:
-            whole = _unswizzled(part, n, -(-k // _SLICE_K) * _SLICE_K)
-            if whole[:, k:].any():
-                raise ValueError(f"{name}: nonzero values in its slices' pad")
-            got[name] = whole[:, :k]
-        else:
-            got[name] = part.view(n, k)
-        off += size
-    if off != buf.numel():
-        raise ValueError(f"a buffer of {buf.numel()} values for a layout of {off}")
-    got["layers_xyz.4"] = torch.cat([got.pop("layers_xyz.4.enc"), got.pop("layers_xyz.4.h")], 1)
-    return got
-
-
-def wg_forward_weights(num_freq: int) -> int:
-    """bf16 values of ``pack_wg_forward``'s image."""
-    return _wg_index(num_freq, "cpu").numel()
-
-
-def _unflatten(buf: torch.Tensor, mats, warps: int = 8) -> Dict[str, torch.Tensor]:
-    """The inverse of ``_flatten``: name -> the f32 (N, K) matrix."""
-    out, off = {}, 0
-    for name, m in mats:
-        n, k = m.shape
-        part = buf[off:off + n * k].float()
-        out[name] = fragment_matrix(part, n, k, warps) if n >= 8 * warps else part.view(n, k)
-        off += n * k
-    if off != buf.numel():
-        raise ValueError(f"a buffer of {buf.numel()} values for a layout of {off}")
-    return out
+    return Images(tc_forward=image(_tc_forward_matrices, Fragments(8)),
+                  wg_forward=image(_wg_matrices, Swizzled()),
+                  tc_backward=image(_tc_backward_matrices, Fragments(8)),
+                  f32_backward=image(_f32_backward_matrices, Rows(), bf16=False))
 
 
 def paper_plain_forward(pts: torch.Tensor, dc: torch.Tensor, params: torch.Tensor,
@@ -329,7 +237,7 @@ def paper_plain_forward(pts: torch.Tensor, dc: torch.Tensor, params: torch.Tenso
     f32 holding values of the compute dtype (None with ``residuals=False``,
     which frees each trunk activation once the next exists). Differentiable
     in ``params`` and ``dc``."""
-    r = _rounder(compute_dtype)
+    r = rounder(compute_dtype)
     layers = unpack_params(params.float(), num_freq)
     n, s = pts.shape[0], pts.shape[1]
 
@@ -359,8 +267,6 @@ def paper_plain_forward(pts: torch.Tensor, dc: torch.Tensor, params: torch.Tenso
 def paper_t_plain(model: PaperNeRFModel, pts: torch.Tensor, viewdirs: torch.Tensor,
                   compute_dtype: str = "float32") -> torch.Tensor:
     """Plain PyTorch version of the kernel, same semantics: (N, S, 4) f32."""
-    if compute_dtype not in _COMPUTE_DTYPES:
-        raise ValueError(f"compute_dtype must be one of {_COMPUTE_DTYPES}")
     return paper_plain_forward(pts, dir_contribution(model, viewdirs), pack_params(model),
                                model.num_encoding_fn_xyz, compute_dtype, residuals=False)[0]
 
@@ -379,16 +285,11 @@ def _kernel():
         getattr(lib, name).restype = i32
     for f in (0, 6, 10, 16):
         got = (lib.nerf_paper_num_params(f), lib.nerf_paper_wg_weights(f))
-        want = (num_params(f), wg_forward_weights(f))
+        want = (num_params(f), images(f).wg_forward.size)
         if got != want:
             raise RuntimeError(f"csrc/paper_mlp.cuh / paper_wg.cuh layouts at {f} frequencies "
                                f"{got} != wrapper's {want}")
     return fn
-
-
-def tc_forward_weights(num_freq: int) -> int:
-    """bf16 values of ``pack_tc_forward``'s buffer."""
-    return _gather_index(_tc_forward_matrices, num_freq, "cpu").numel()
 
 
 def fused_paper_mlp_t(model: PaperNeRFModel, pts: torch.Tensor, viewdirs: torch.Tensor,
@@ -402,22 +303,9 @@ def fused_paper_mlp_t(model: PaperNeRFModel, pts: torch.Tensor, viewdirs: torch.
     of its bf16 instance (``csrc/paper_wg.cuh``).
     """
     what = "fused_paper_mlp_t"
-    if compute_dtype not in _COMPUTE_DTYPES:
-        raise ValueError(f"compute_dtype must be one of {_COMPUTE_DTYPES}")
-    if not supports_fused_paper(model):
-        raise ValueError(f"{what}: model is not a PaperNeRF shape the kernel takes")
-    if pts.device.type == "cpu":
+    if check_forward(what, supports_fused_paper(model), "a PaperNeRF shape the kernel takes",
+                     compute_dtype, model, pts, viewdirs):
         return paper_t_plain(model, pts, viewdirs, compute_dtype)
-    if pts.device.type != "cuda":
-        raise ValueError(f"{what}: no kernel for device {pts.device}")
-    if pts.ndim != 3 or pts.shape[-1] != 3 or tuple(viewdirs.shape) != (pts.shape[0], 3):
-        raise ValueError(f"{what}: want pts (N, S, 3) and viewdirs (N, 3), got "
-                         f"{tuple(pts.shape)} and {tuple(viewdirs.shape)}")
-    if pts.dtype != torch.float32 or viewdirs.dtype != torch.float32:
-        raise ValueError(f"{what}: pts and viewdirs must be float32")
-    if viewdirs.device != pts.device or model.fc_feat.weight.device != pts.device:
-        raise ValueError(f"{what}: pts, viewdirs and the model must share a device")
-
     n, s = pts.shape[0], pts.shape[1]
     out = torch.empty((n, s, 4), dtype=torch.float32, device=pts.device)
     if n * s == 0:
@@ -430,13 +318,11 @@ def fused_paper_mlp_t(model: PaperNeRFModel, pts: torch.Tensor, viewdirs: torch.
         dc = aligned(dir_contribution(model, viewdirs))
         params = aligned(pack_params(model))
         f = model.num_encoding_fn_xyz
-        wbf = pack_wg_forward(params, f) if compute_dtype == "bfloat16" else None
-        stream = torch.cuda.current_stream(pts.device).cuda_stream
-        rc = _kernel()(pts_c.data_ptr(), dc.data_ptr(), params.data_ptr(), params.numel(),
-                       None if wbf is None else wbf.data_ptr(), 0 if wbf is None else wbf.numel(),
-                       out.data_ptr(), n * s, s, f, int(wbf is not None), stream)
-    if rc != 0:
-        raise RuntimeError(f"{what}: kernel launch failed with CUDA error {rc}")
+        wbf = images(f).wg_forward.pack(params) if compute_dtype == "bfloat16" else None
+        check_rc(what, _kernel()(
+            pts_c.data_ptr(), dc.data_ptr(), params.data_ptr(), params.numel(),
+            None if wbf is None else wbf.data_ptr(), 0 if wbf is None else wbf.numel(),
+            out.data_ptr(), n * s, s, f, int(wbf is not None), cuda_stream(pts.device)))
     fused_paper_mlp_t.launches += 1
     fused_paper_mlp_t.wgmma_launches += wbf is not None
     return out

@@ -22,8 +22,8 @@ kernels for Hopper in ``csrc/paper_train.cu``, behind one
 forward, the layer gradients and the weight gradients on the tensor cores
 (``mma.sync``, bf16 operands, f32 sums; ``csrc/paper_tc.cuh``), with bf16
 copies of the weights in the instruction's fragment order
-(``kernels/paper_t.pack_tc_forward``, ``pack_tc_backward``) built once per
-call.
+(``kernels/paper_t.images``' ``tc_forward`` and ``tc_backward``) built once
+per call.
 
 ``layers_dir[3]`` is never run, so autograd gives it no gradient; the
 trainer's ``create_train_state`` sets every gradient to zeros and steps
@@ -56,22 +56,19 @@ import functools
 
 import torch
 
-from .flex_train import _rounder
+from .common import rounder
 from .paper_t import (
     _DIR_WIDTH,
     _WIDTH,
-    _gather_bf16,
     _pad4,
     _pad16,
-    _unflatten,
     dir_contribution,
+    images,
     layout,
     num_params,
     pack_params,
-    pack_tc_forward,
     paper_plain_forward,
     supports_fused_paper,
-    tc_forward_weights,
     unpack_params,
 )
 from .train_vjp import (
@@ -88,14 +85,6 @@ from .train_vjp import (
 _TILE = 64                 # points per block (csrc/paper_mlp.cuh kTile)
 _TILES_PER_CHUNK = 32      # point tiles per weight-gradient block
 _DELTA_ROWS = 4 + 3 * _DIR_WIDTH + 9 * _WIDTH     # 2692 f32 gradient rows per point
-# Backward weights (csrc/paper_train.cu kT*): nn.Linear (out, in) matrices;
-# [layers_dir.0 feat cols; fc_alpha] is one (129, 256) block, layers_xyz.4
-# gives its h columns only.
-_BWD_ORDER = ("fc_rgb", "layers_dir.2", "layers_dir.1", "layers_dir.0", "fc_alpha", "fc_feat",
-              "layers_xyz.7", "layers_xyz.6", "layers_xyz.5", "layers_xyz.4",
-              "layers_xyz.3", "layers_xyz.2", "layers_xyz.1")
-_NUM_BWD_WEIGHTS = 3 * 128 + 2 * 128 * 128 + 129 * 256 + 8 * 256 * 256   # 590464
-_NUM_TC_BWD_WEIGHTS = 16 * 128 + 2 * 128 * 128 + 144 * 256 + 8 * 256 * 256   # 595968
 
 
 def res_rows(num_freq: int) -> int:
@@ -106,56 +95,6 @@ def res_rows(num_freq: int) -> int:
 def tc_res_rows(num_freq: int) -> int:
     """Residual rows of a point in the bf16 kernels, enc padded to 16."""
     return _pad16(3 + 6 * num_freq) + 9 * _WIDTH + 3 * _DIR_WIDTH
-
-
-@functools.lru_cache(maxsize=None)
-def _bwd_index(num_freq: int, device: str) -> torch.Tensor:
-    """Where each value of the f32 backward weights comes from in the packed
-    parameters, on ``device``: the packing run on the positions themselves."""
-    layers = unpack_params(torch.arange(num_params(num_freq), dtype=torch.float64), num_freq)
-    dim = 3 + 6 * num_freq
-    parts = []
-    for name in _BWD_ORDER:
-        w = layers[name][0]
-        parts.append((w[dim:] if name == "layers_xyz.4" else w).t().reshape(-1))
-    return torch.cat(parts).long().to(device)
-
-
-def pack_backward_weights(params: torch.Tensor, num_freq: int) -> torch.Tensor:
-    """The backward kernel's weights: each layer's (out, in) matrix, in the
-    order of ``csrc/paper_train.cu``'s kT* offsets; (..., num_params) ->
-    (..., 590464), one gather."""
-    return params[..., _bwd_index(num_freq, str(params.device))]
-
-
-def _tc_backward_matrices(layers, dim: int, pad):
-    """The bf16 layer-gradient pass's operands, in ``csrc/paper_tc.cuh``'s
-    kB* order, each (in, out) for dX = dY W: fc_rgb (K 3 -> 16),
-    layers_dir.2, .1, [layers_dir.0 feat rows; fc_alpha] (K 129 -> 144),
-    fc_feat, layers_xyz.7 .. .1 (layer 4: its h rows); K pads hold ``pad``."""
-    def w(name):
-        return layers[name][0]
-
-    head = torch.cat([w("layers_dir.0"), w("fc_alpha")], dim=1)
-    mats = [("fc_rgb", torch.nn.functional.pad(w("fc_rgb"), (0, 13), value=pad)),
-            ("layers_dir.2", w("layers_dir.2")), ("layers_dir.1", w("layers_dir.1")),
-            ("head", torch.nn.functional.pad(head, (0, 15), value=pad)),
-            ("fc_feat", w("fc_feat"))]
-    return mats + [(f"layers_xyz.{i}", w(f"layers_xyz.{i}")[dim:] if i == 4
-                    else w(f"layers_xyz.{i}")) for i in range(7, 0, -1)]
-
-
-def pack_tc_backward(params: torch.Tensor, num_freq: int) -> torch.Tensor:
-    """The bf16 backward kernel's weights (``csrc/paper_tc.cuh`` kB*), from
-    the packed parameters: rounded to bf16, fragment order, zero K pads."""
-    return _gather_bf16(params, _tc_backward_matrices, num_freq)
-
-
-def unpack_tc_backward(buf: torch.Tensor, num_freq: int):
-    """``pack_tc_backward``'s buffer as f32 operand matrices: name -> (in,
-    out) with its K pads ("head" is [layers_dir.0 feat rows; fc_alpha])."""
-    zeros = unpack_params(torch.zeros(num_params(num_freq)), num_freq)
-    return _unflatten(buf, _tc_backward_matrices(zeros, 3 + 6 * num_freq, 0.0))
 
 
 def residuals_as_plain(residuals, n_points: int, num_freq: int, compute_dtype: str = "float32"):
@@ -196,7 +135,7 @@ def paper_train_plain_bwd(g: torch.Tensor, residuals, params: torch.Tensor, n: i
                           compute_dtype: str = "float32", num_freq: int = 10):
     """Plain version of the backward kernel: ``(d params in the packed layout
     (zero pads), ddc (N, 128))`` from the cotangent and the residuals."""
-    r = _rounder(compute_dtype)
+    r = rounder(compute_dtype)
     layers = unpack_params(params.float(), num_freq)
     dim = 3 + 6 * num_freq
     enc, *hs = (x.float() for x in residuals)
@@ -254,9 +193,9 @@ def _kernels(num_freq: int):
     lib.nerf_paper_train_layout.restype = None
     got = (ctypes.c_int * 9)()
     lib.nerf_paper_train_layout(num_freq, got)
-    want = (res_rows(num_freq), _DELTA_ROWS, num_params(num_freq), _NUM_BWD_WEIGHTS, _TILE,
-            _TILES_PER_CHUNK, tc_res_rows(num_freq), tc_forward_weights(num_freq),
-            _NUM_TC_BWD_WEIGHTS)
+    im = images(num_freq)
+    want = (res_rows(num_freq), _DELTA_ROWS, num_params(num_freq), im.f32_backward.size, _TILE,
+            _TILES_PER_CHUNK, tc_res_rows(num_freq), im.tc_forward.size, im.tc_backward.size)
     if tuple(got) != want:
         raise RuntimeError(f"csrc/paper_train.cu layout {tuple(got)} != wrapper's {want}")
     fwd = lib.nerf_paper_train_forward
@@ -272,9 +211,7 @@ _LAUNCHES = TrainLaunches(
     name="fused_paper_mlp_train",
     layout=_layout,
     kernels=_kernels,
-    pack_tc_forward=pack_tc_forward,
-    pack_tc_backward=pack_tc_backward,
-    pack_backward_weights=pack_backward_weights,
+    images=images,
 )
 
 

@@ -11,15 +11,16 @@ What bounds it on the card is the MLP's arithmetic (that of
 ``kernels/mlp_t.py``); the kernel runs the forward of ``fused_mlp_t`` over
 the tiles of a block's rays into shared memory (f32: ``csrc/flex_mlp.cuh``'s
 FMA tile; bf16: ``csrc/flex_tc.cuh``'s tensor-core tile on the weights
-``mlp.pack_tc_forward`` builds), then ``csrc/composite.cuh``'s scan over
+``mlp.IMAGES.tc_forward``), then ``csrc/composite.cuh``'s scan over
 them. The per-ray direction contribution and the packed parameters are
 ``mlp.dir_contribution`` and ``mlp.pack_params``, and the shape gate is
 ``mlp.supports_fused``, 10 encoding frequencies included. The bf16 maps are
 bitwise those of ``fused_volume_render`` on ``fused_mlp_t``'s bf16 field.
 
-The plain version ``render_stage_plain`` is ``mlp_t_plain`` followed by
-``volume_render_plain``; ``compute_dtype="bfloat16"`` rounds the MLP's
-operands as ``mlp_t_plain`` emulates it.
+The plain version ``render_stage_plain`` is ``mlp_t_plain`` (that is,
+``mlp.flexible_mlp_rays_plain``) followed by ``volume_render_plain``;
+``compute_dtype="bfloat16"`` rounds the MLP's operands as ``mlp_t_plain``
+emulates it.
 """
 
 from __future__ import annotations
@@ -30,9 +31,9 @@ from typing import Dict
 
 import torch
 
+from .common import check_forward, check_rc, cuda_stream
 from .composite import MAP_NAMES, check_ray_inputs, empty_maps, volume_render_plain
-from .mlp import _COMPUTE_DTYPES, dir_contribution, pack_params, pack_tc_forward, supports_fused
-from .mlp_t import mlp_t_plain
+from .mlp import IMAGES, dir_contribution, flexible_mlp_rays_plain, pack_params, supports_fused
 
 
 def render_stage_plain(
@@ -45,7 +46,7 @@ def render_stage_plain(
     compute_dtype: str = "float32",
 ) -> Dict[str, torch.Tensor]:
     """Plain PyTorch version of the kernel, same semantics: the five maps."""
-    rf = mlp_t_plain(model, pts, viewdirs, compute_dtype)
+    rf = flexible_mlp_rays_plain(model, pts, viewdirs, compute_dtype)
     return volume_render_plain(rf, z_vals, ray_directions, white_background)
 
 
@@ -77,28 +78,15 @@ def fused_render_stage(
     the kernel; anything it does not take raises.
     ``fused_render_stage.launches`` counts the kernel's launches.
     """
-    if compute_dtype not in _COMPUTE_DTYPES:
-        raise ValueError(f"compute_dtype must be one of {_COMPUTE_DTYPES}")
-    if not supports_fused(model):
-        raise ValueError("fused_render_stage: model is not the 4x128 10/4 FlexibleNeRF shape")
-    if pts.device.type == "cpu":
+    what = "fused_render_stage"
+    if check_forward(what, supports_fused(model), "the 4x128 10/4 FlexibleNeRF shape",
+                     compute_dtype, model, pts, viewdirs):
         return render_stage_plain(model, pts, viewdirs, z_vals, ray_directions,
                                   white_background, compute_dtype)
-    if pts.device.type != "cuda":
-        raise ValueError(f"fused_render_stage: no kernel for device {pts.device}")
-    if (pts.ndim != 3 or pts.shape[-1] != 3 or pts.shape[1] == 0
-            or tuple(viewdirs.shape) != (pts.shape[0], 3)):
-        raise ValueError(
-            f"fused_render_stage: want pts (N, S > 0, 3) and viewdirs (N, 3), got "
-            f"{tuple(pts.shape)} and {tuple(viewdirs.shape)}"
-        )
-    if pts.dtype != torch.float32 or viewdirs.dtype != torch.float32:
-        raise ValueError("fused_render_stage: pts and viewdirs must be float32")
     n, s = pts.shape[0], pts.shape[1]
-    check_ray_inputs("fused_render_stage", z_vals, ray_directions, n, s, pts.device)
-    if viewdirs.device != pts.device or model.layer1.weight.device != pts.device:
-        raise ValueError("fused_render_stage: the inputs and the model must share a device")
-
+    if s == 0:
+        raise ValueError(f"{what}: want pts (N, S > 0, 3), got {tuple(pts.shape)}")
+    check_ray_inputs(what, z_vals, ray_directions, n, s, pts.device)
     out = empty_maps(n, s, pts.device)
     if n == 0:
         return out
@@ -108,21 +96,18 @@ def fused_render_stage(
     with torch.no_grad(), torch.cuda.device(pts.device):
         fn, max_samples = _kernel()
         if s > max_samples:
-            raise ValueError(f"fused_render_stage: the kernel takes at most {max_samples} "
-                             f"samples a ray, got {s}")
+            raise ValueError(f"{what}: the kernel takes at most {max_samples} samples a ray, "
+                             f"got {s}")
         pts_c, z_c, rd_c = (t.contiguous() for t in (pts, z_vals, ray_directions))
         dc = dir_contribution(model, viewdirs).contiguous()
         params = pack_params(model).contiguous()
-        wbf = pack_tc_forward(params) if compute_dtype == "bfloat16" else None
-        stream = torch.cuda.current_stream(pts.device).cuda_stream
-        rc = fn(
+        wbf = IMAGES.tc_forward.pack(params) if compute_dtype == "bfloat16" else None
+        check_rc(what, fn(
             pts_c.data_ptr(), z_c.data_ptr(), rd_c.data_ptr(), dc.data_ptr(), params.data_ptr(),
             params.numel(), None if wbf is None else wbf.data_ptr(),
             0 if wbf is None else wbf.numel(), *(out[name].data_ptr() for name in MAP_NAMES),
-            n, s, int(white_background), int(wbf is not None), stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"fused_render_stage: kernel launch failed with CUDA error {rc}")
+            n, s, int(white_background), int(wbf is not None), cuda_stream(pts.device),
+        ))
     fused_render_stage.launches += 1
     return out
 

@@ -34,7 +34,7 @@ stacked parameters.
 
 Precision policy (``train_vjp.py:47-55``): float32 means real float32. The
 host matmul and its gradient run in full f32 on the bfloat16 path too: each
-family's ``dir_contribution`` goes through ``kernels/mlp.f32_matmul``, which
+family's ``dir_contribution`` goes through ``kernels/common.f32_matmul``, which
 turns ``torch.backends.cuda.matmul.allow_tf32`` off around that product only
 and leaves the caller's setting as it was.
 """
@@ -45,7 +45,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-_COMPUTE_DTYPES = ("float32", "bfloat16")
+from .common import aligned, check_compute_dtype, check_rc, cuda_stream
 
 
 class TrainKernelFamily(NamedTuple):
@@ -110,8 +110,7 @@ def build_train_vjp(family: TrainKernelFamily) -> Callable[..., torch.Tensor]:
 
     def train_fn(model, pts: torch.Tensor, viewdirs: torch.Tensor,
                  compute_dtype: str = "float32") -> torch.Tensor:
-        if compute_dtype not in _COMPUTE_DTYPES:
-            raise ValueError(f"compute_dtype must be one of {_COMPUTE_DTYPES}")
+        check_compute_dtype(compute_dtype)
         if not family.supports(model):
             raise ValueError(f"{family.name}: the model is not the shape its kernels take")
         dc = family.dir_contribution(model, viewdirs.detach())
@@ -149,17 +148,9 @@ class TrainLaunches(NamedTuple):
     # trailing arguments are (scenes, points a scene, samples a ray, *static,
     # bf16, stream)
     kernels: Callable[..., tuple]
-    # (params (S, n), *static) -> (S, W): the bf16 forward weights, the bf16
-    # backward weights and the f32 backward weights, each one gather
-    pack_tc_forward: Callable[..., torch.Tensor]
-    pack_tc_backward: Callable[..., torch.Tensor]
-    pack_backward_weights: Callable[..., torch.Tensor]
-
-
-def aligned(t: torch.Tensor) -> torch.Tensor:
-    """Contiguous, float32 and 16-byte aligned (the kernels read float4)."""
-    t = t.float().contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
+    # *static -> the family's weight images (kernels/common.WeightImage):
+    # its .tc_forward, .tc_backward (bf16) and .f32_backward
+    images: Callable
 
 
 def check_cuda(what: str, t: torch.Tensor, *others: torch.Tensor) -> None:
@@ -167,12 +158,6 @@ def check_cuda(what: str, t: torch.Tensor, *others: torch.Tensor) -> None:
         raise ValueError(f"{what}: no kernel for device {t.device}")
     if any(o.device != t.device for o in others):
         raise ValueError(f"{what}: every tensor must be on {t.device}")
-
-
-def _bf16(compute_dtype: str) -> bool:
-    if compute_dtype not in _COMPUTE_DTYPES:
-        raise ValueError(f"compute_dtype must be one of {_COMPUTE_DTYPES}")
-    return compute_dtype == "bfloat16"
 
 
 def launch_forward(k: TrainLaunches, counter, pts: torch.Tensor, dc: torch.Tensor,
@@ -191,7 +176,7 @@ def launch_forward(k: TrainLaunches, counter, pts: torch.Tensor, dc: torch.Tenso
                          f"{tuple(dc.shape)}")
     if pts.dtype != torch.float32 or tuple(params.shape) != (scenes, lay.n_params):
         raise ValueError(f"{what}: want float32 pts and ({scenes}, {lay.n_params}) parameters")
-    bf16 = _bf16(compute_dtype)
+    bf16 = check_compute_dtype(compute_dtype)
     tiles = -(-n * s // lay.tile)
     device = pts.device
     out = torch.empty((scenes, n, s, 4), dtype=torch.float32, device=device)
@@ -204,14 +189,12 @@ def launch_forward(k: TrainLaunches, counter, pts: torch.Tensor, dc: torch.Tenso
     # this stream's order, after the kernel.
     with torch.cuda.device(device):
         pts_c, dc_c, params_c = (aligned(t) for t in (pts, dc, params))
-        wbf = k.pack_tc_forward(params_c, *static) if bf16 else None
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = k.kernels(*static)[0](
+        wbf = k.images(*static).tc_forward.pack(params_c) if bf16 else None
+        check_rc(what, k.kernels(*static)[0](
             pts_c.data_ptr(), dc_c.data_ptr(), params_c.data_ptr(), lay.n_params,
             None if wbf is None else wbf.data_ptr(), 0 if wbf is None else wbf.shape[-1],
-            out.data_ptr(), res.data_ptr(), scenes, n * s, s, *static, int(bf16), stream)
-    if rc != 0:
-        raise RuntimeError(f"{what}: kernel launch failed with CUDA error {rc}")
+            out.data_ptr(), res.data_ptr(), scenes, n * s, s, *static, int(bf16),
+            cuda_stream(device)))
     counter.fwd_launches += 1
     return out, (res,)
 
@@ -228,7 +211,7 @@ def launch_backward(k: TrainLaunches, counter, g: torch.Tensor, residuals,
     if g.ndim != 4 or g.shape[-1] != 4:
         raise ValueError(f"{what}: want a cotangent (S, N, P, 4), got {tuple(g.shape)}")
     scenes, n, s = g.shape[:3]
-    bf16 = _bf16(compute_dtype)
+    bf16 = check_compute_dtype(compute_dtype)
     tiles = -(-n * s // lay.tile)
     chunks = -(-tiles // lay.tiles_per_chunk)
     rows = lay.tc_res_rows if bf16 else lay.res_rows
@@ -250,15 +233,13 @@ def launch_backward(k: TrainLaunches, counter, g: torch.Tensor, residuals,
     partial = torch.empty((scenes, chunks * lay.n_params), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         g_c = aligned(g)
-        wt = (k.pack_tc_backward(params, *static) if bf16
-              else aligned(k.pack_backward_weights(params.detach(), *static)))
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = k.kernels(*static)[1](
+        images = k.images(*static)
+        wt = (images.tc_backward.pack(params) if bf16
+              else aligned(images.f32_backward.pack(params.detach())))
+        check_rc(what, k.kernels(*static)[1](
             g_c.data_ptr(), res.data_ptr(), wt.data_ptr(), wt.shape[-1], delta.data_ptr(),
             partial.data_ptr(), grad.data_ptr(), ddc.data_ptr(), scenes, n * s, s, *static,
-            int(bf16), stream)
-    if rc != 0:
-        raise RuntimeError(f"{what}: kernel launch failed with CUDA error {rc}")
+            int(bf16), cuda_stream(device)))
     counter.bwd_launches += 1
     return grad, ddc
 

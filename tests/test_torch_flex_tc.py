@@ -4,17 +4,18 @@ The bf16 instances of ``fused_mlp_t``, ``fused_render_stage``,
 ``fused_flexible_mlp``, ``fused_flexible_mlp_rays`` and
 ``fused_flex_mlp_train`` read their weights as
 bf16 copies that the wrappers build once per call
-(``kernels/mlp.pack_tc_forward``, ``pack_tc_forward_points`` for the
-point-major kernel, ``kernels/flex_train.pack_tc_backward``) in the order of
+(``kernels/mlp.IMAGES``' ``tc_forward``, ``tc_forward_points`` for the
+point-major kernel, ``tc_backward``) in the order of
 the ``mma.sync`` m16n8k16 B fragments of a 4-warp block, each K padded to a
 multiple of 16 with zero rows (layer 1's 63 -> 64, the direction rows' 27 ->
 32, drgb . W_rgb's 3 -> 16, the fused head's 129 -> 144). The kernels run
 only on the card (tests/test_torch_cuda.py); here:
 
 - the 4-warp fragment order is the PTX layout of the B operand, element by
-  element; #1's bf16 instance reads instead ``kernels/mlp.pack_wg_forward``'s
-  image (``csrc/flex_wg.cuh``): its wide layers as the 128-byte-swizzled
-  64-column K slices wgmma's descriptors read, checked element by element,
+  element; #1's bf16 instance reads instead the
+  ``kernels/mlp.IMAGES.wg_forward`` image (``csrc/flex_wg.cuh``): its wide
+  layers as the 128-byte-swizzled 64-column K slices wgmma's descriptors
+  read, checked element by element,
   unpacking to the same rounded weights, of the length the C layout counts,
   and a plain pass from it bitwise ``mlp_t_plain``'s;
 - each buffer unpacks to round_bf16(W) of the model's nn.Linear weights
@@ -56,32 +57,22 @@ from nerf_tpu.ops.pallas.mlp import fused_flexible_mlp as jax_flexible_mlp
 from nerf_tpu.ops.pallas.mlp import fused_flexible_mlp_rays as jax_flexible_mlp_rays
 from nerf_tpu.ops.pallas.mlp_t import fused_mlp_t as jax_mlp_t
 from nerf_tpu_torch.engine.checkpoint import load_jax_params
+from nerf_tpu_torch.kernels.common import fragment_matrix, fragment_order
 from nerf_tpu_torch.kernels.flex_train import (
     flex_train_plain_bwd,
     flex_train_plain_fwd,
-    pack_tc_backward,
     residuals_as_plain,
-    tc_forward_weights,
-    unpack_params,
-    unpack_tc_backward,
 )
 from nerf_tpu_torch.kernels.mlp import (
+    IMAGES,
     dir_contribution,
     flexible_mlp_plain,
     flexible_mlp_rays_plain,
     pack_params,
     pack_params_points,
-    pack_tc_forward,
-    pack_tc_forward_points,
-    pack_wg_forward,
-    unpack_tc_forward,
-    unpack_tc_forward_points,
-    unpack_wg_forward,
-    wg_forward_weights,
-    wg_gather_index,
+    unpack_params,
 )
 from nerf_tpu_torch.kernels.mlp_t import mlp_t_plain
-from nerf_tpu_torch.kernels.paper_t import fragment_matrix, fragment_order
 from nerf_tpu_torch.models import FlexibleNeRFModel
 
 torch.set_num_threads(1)
@@ -131,9 +122,9 @@ def test_fragment_order_is_the_mma_b_layout_of_a_4_warp_block(n):
 @pytest.mark.parametrize("seed", [0, 1])
 def test_forward_buffer_unpacks_to_the_rounded_weights(seed):
     model = _model(seed)
-    buf = pack_tc_forward(pack_params(model))
-    assert buf.dtype == torch.bfloat16 and buf.numel() == tc_forward_weights() == 82240
-    mats = unpack_tc_forward(buf)
+    buf = IMAGES.tc_forward.pack(pack_params(model))
+    assert buf.dtype == torch.bfloat16 and buf.numel() == IMAGES.tc_forward.size == 82240
+    mats = IMAGES.tc_forward.unpack(buf)
     assert list(mats) == ["layer1", "layers_xyz.0", "layers_xyz.1", "layers_xyz.2", "fc_feat",
                           "layers_dir.0", "fc_alpha", "fc_rgb"]
     w1 = mats["layer1"]
@@ -150,9 +141,9 @@ def test_forward_buffer_unpacks_to_the_rounded_weights(seed):
 @pytest.mark.parametrize("seed", [0, 1])
 def test_backward_buffer_unpacks_to_the_rounded_weights(seed):
     model = _model(seed)
-    buf = pack_tc_backward(pack_params(model))
+    buf = IMAGES.tc_backward.pack(pack_params(model))
     assert buf.dtype == torch.bfloat16 and buf.numel() == 76800
-    mats = unpack_tc_backward(buf)
+    mats = IMAGES.tc_backward.unpack(buf)
     rgb = mats["fc_rgb"]
     assert rgb.shape == (64, 16)
     assert torch.equal(rgb[:, :3], _r(model.fc_rgb.weight.t())) and not rgb[:, 3:].any()
@@ -171,23 +162,23 @@ def test_points_buffer_is_the_forward_buffer_then_the_rounded_direction_rows(see
     model = _model(seed)
     params = pack_params_points(model)
     assert params.numel() == 84548
-    buf = pack_tc_forward_points(params)
+    buf = IMAGES.tc_forward_points.pack(params)
     assert buf.dtype == torch.bfloat16 and buf.numel() == 82240 + 64 * 32
-    assert torch.equal(buf[:82240], pack_tc_forward(pack_params(model)))
-    mats = unpack_tc_forward_points(buf)
+    assert torch.equal(buf[:82240], IMAGES.tc_forward.pack(pack_params(model)))
+    mats = IMAGES.tc_forward_points.unpack(buf)
     assert list(mats)[-1] == "dir_rows"
     dirs = mats["dir_rows"]
     assert dirs.shape == (64, 32)
     assert torch.equal(dirs[:, :27], _r(model.layers_dir[0].weight[:, 128:]))
     assert not dirs[:, 27:].any()
-    rest = unpack_tc_forward(buf[:82240])
+    rest = IMAGES.tc_forward.unpack(buf[:82240])
     assert all(torch.equal(mats[k], v) for k, v in rest.items())
 
 
-def _with_forward_weights(model, pack=pack_tc_forward, unpack=unpack_tc_forward):
+def _with_forward_weights(model, image=IMAGES.tc_forward):
     """A copy of ``model`` whose forward weights are those of its bf16
-    forward buffer (``pack``'s, read back by ``unpack``)."""
-    mats = unpack(pack(pack_params(model)))
+    forward buffer (``image``, packed and read back)."""
+    mats = image.unpack(image.pack(pack_params(model)))
     out = copy.deepcopy(model)
     with torch.no_grad():
         out.layer1.weight.copy_(mats["layer1"][:, :63])
@@ -203,7 +194,7 @@ def _with_forward_weights(model, pack=pack_tc_forward, unpack=unpack_tc_forward)
 def _with_points_weights(model):
     """``_with_forward_weights`` with layers_dir.0's direction rows those of
     the point-major buffer too."""
-    mats = unpack_tc_forward_points(pack_tc_forward_points(pack_params_points(model)))
+    mats = IMAGES.tc_forward_points.unpack(IMAGES.tc_forward_points.pack(pack_params_points(model)))
     out = _with_forward_weights(model)
     with torch.no_grad():
         out.layers_dir[0].weight[:, 128:] = mats["dir_rows"][:, :27]
@@ -213,7 +204,7 @@ def _with_points_weights(model):
 def _with_backward_weights(model):
     """A copy of ``model`` whose weights in the bf16 backward buffer are that
     buffer's (layer1, not in it, stays)."""
-    mats = unpack_tc_backward(pack_tc_backward(pack_params(model)))
+    mats = IMAGES.tc_backward.unpack(IMAGES.tc_backward.pack(pack_params(model)))
     out = copy.deepcopy(model)
     with torch.no_grad():
         out.fc_rgb.weight.copy_(mats["fc_rgb"][:, :3].t())
@@ -260,7 +251,7 @@ def test_point_major_plain_pass_from_the_points_buffer_is_bitwise_the_bf16_plain
 
 @pytest.mark.parametrize("s", [1, 61, 128])
 def test_ray_major_plain_pass_from_the_forward_buffer_is_bitwise_mlp_t(s):
-    """#3's bf16 kernel runs the mma.sync tile on pack_tc_forward's buffer:
+    """#3's bf16 kernel runs the mma.sync tile on the tc_forward buffer:
     the ray-major plain pass on the buffer's weights is mlp_t's plain bf16
     pass, bit for bit, at a ray-major layout (R, S) whose tiles start
     mid-ray."""
@@ -287,7 +278,7 @@ def test_wg_image_is_the_swizzled_slice_layout():
     K-major operand; fc_alpha and fc_rgb follow plain. Checked on the
     image's gather index: each value's position in pack_params' buffer (one
     past its end for layer1's zero column)."""
-    index = wg_gather_index("cpu")
+    index = IMAGES.wg_forward.index("cpu")
     layers = unpack_params(torch.arange(82820 + 1, dtype=torch.float64))
     for name, n, k, off in WG_WIDE:
         w = layers[name][0].t()[:n]                      # (out, in) positions
@@ -306,11 +297,11 @@ def test_wg_buffer_unpacks_to_the_rounded_weights(seed):
     """#1's wgmma image holds the same matrices as the tensor-core forward
     buffer: round_bf16(W), layer1's pad column zero."""
     model = _model(seed)
-    buf = pack_wg_forward(pack_params(model))
-    assert buf.dtype == torch.bfloat16 and buf.numel() == wg_forward_weights()
+    buf = IMAGES.wg_forward.pack(pack_params(model))
+    assert buf.dtype == torch.bfloat16 and buf.numel() == IMAGES.wg_forward.size
     assert buf.data_ptr() % 16 == 0
-    mats = unpack_wg_forward(buf)
-    want = unpack_tc_forward(pack_tc_forward(pack_params(model)))
+    mats = IMAGES.wg_forward.unpack(buf)
+    want = IMAGES.tc_forward.unpack(IMAGES.tc_forward.pack(pack_params(model)))
     assert list(mats) == list(want)
     assert all(torch.equal(mats[k], v) for k, v in want.items())
     w1 = mats["layer1"]
@@ -322,7 +313,7 @@ def test_wg_weight_count_is_the_c_layout():
     kernels/mlp_t._kernel holds to this count): nine 128 x 64 slices
     (layer1 one, the four 128-wide layers two each), two 64 x 64 slices of
     the direction layer, then fc_alpha (128) and fc_rgb (3 x 64)."""
-    assert wg_forward_weights() == 9 * 128 * 64 + 2 * 64 * 64 + 128 + 3 * 64 == 82240
+    assert IMAGES.wg_forward.size == 9 * 128 * 64 + 2 * 64 * 64 + 128 + 3 * 64 == 82240
     assert sum(n * k for _, n, k, _ in WG_WIDE) == 81920
 
 
@@ -333,7 +324,7 @@ def test_plain_pass_from_the_wg_buffer_is_bitwise_mlp_t(s):
     model = _model(s + 3)
     pts, vd, _ = (torch.from_numpy(a) for a in _inputs(5, s, seed=s + 3))
     with torch.no_grad():
-        wg_model = _with_forward_weights(model, pack_wg_forward, unpack_wg_forward)
+        wg_model = _with_forward_weights(model, IMAGES.wg_forward)
         got = mlp_t_plain(wg_model, pts, vd, "bfloat16")
         want = mlp_t_plain(model, pts, vd, "bfloat16")
     assert got.shape == (5, s, 4)

@@ -51,12 +51,9 @@ from nerf_tpu.ops.pallas.flex_train import fused_flex_mlp_train as jax_flex_trai
 from nerf_tpu_torch.engine import renderer as trend
 from nerf_tpu_torch.engine.checkpoint import convert_torch_state_dict, load_jax_params
 from nerf_tpu_torch.kernels import flex_train as ft
-from nerf_tpu_torch.kernels.flex_train import (
-    fused_flex_mlp_train,
-    pack_backward_weights,
-    unpack_params,
-)
-from nerf_tpu_torch.kernels.mlp_t import mlp_t_plain, pack_params
+from nerf_tpu_torch.kernels.flex_train import fused_flex_mlp_train
+from nerf_tpu_torch.kernels.mlp import IMAGES, pack_params, unpack_params
+from nerf_tpu_torch.kernels.mlp_t import mlp_t_plain
 from nerf_tpu_torch.models import FlexibleNeRFModel
 
 torch.set_num_threads(1)
@@ -208,7 +205,7 @@ def test_packed_layouts_round_trip():
     torch.testing.assert_close(layers["layers_xyz.1"][0], model.layers_xyz[1].weight.t())
     torch.testing.assert_close(layers["fc_alpha"][1], model.fc_alpha.bias)
     torch.testing.assert_close(layers["layers_dir.0"][0], model.layers_dir[0].weight[:, :128].t())
-    wt = pack_backward_weights(params)
+    wt = IMAGES.f32_backward.pack(params)
     assert wt.numel() == 74048
     torch.testing.assert_close(wt[:192].view(3, 64), model.fc_rgb.weight)
     # [fc_feat; fc_alpha] are contiguous (129, 128) rows: the fused head.

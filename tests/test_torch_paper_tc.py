@@ -2,9 +2,9 @@
 
 The bf16 instances of ``fused_paper_mlp_t`` and ``fused_paper_mlp_train``
 read their weights as bf16 copies that the wrappers build once per call:
-#9's (``kernels/paper_t.pack_tc_forward``, ``kernels/paper_train.pack_tc_backward``)
+#9's (``kernels/paper_t.images(f)``' ``tc_forward`` and ``tc_backward``)
 in the order of the ``mma.sync`` m16n8k16 B fragments, #4's
-(``kernels/paper_t.pack_wg_forward``) as the swizzled shared-memory images of
+(``wg_forward``) as the swizzled shared-memory images of
 its wgmma kernel's 64-column K slices; each K padded to a multiple of 16 with
 zero rows. The kernels themselves run only on the card
 (tests/test_torch_cuda.py); here, at encoding depths 0, 6, 10 and 16 (K pads
@@ -45,28 +45,15 @@ from nerf_tpu.models import PaperNeRFModel as JaxPaper
 from nerf_tpu.ops.pallas.paper_t import fused_paper_mlp_t as jax_paper_t
 from nerf_tpu.ops.pallas.paper_train import fused_paper_mlp_train as jax_paper_train
 from nerf_tpu_torch.engine.checkpoint import load_jax_params
+from nerf_tpu_torch.kernels.common import fragment_matrix, fragment_order, swizzled, unswizzled
 from nerf_tpu_torch.kernels.paper_t import (
-    _swizzled,
-    _unswizzled,
     dir_contribution,
-    fragment_matrix,
-    fragment_order,
+    images,
     pack_params,
-    pack_tc_forward,
-    pack_wg_forward,
     paper_plain_forward,
-    tc_forward_weights,
     unpack_params,
-    unpack_tc_forward,
-    unpack_wg_forward,
-    wg_forward_weights,
 )
-from nerf_tpu_torch.kernels.paper_train import (
-    pack_tc_backward,
-    paper_train_plain_bwd,
-    paper_train_plain_fwd,
-    unpack_tc_backward,
-)
+from nerf_tpu_torch.kernels.paper_train import paper_train_plain_bwd, paper_train_plain_fwd
 from nerf_tpu_torch.models import PaperNeRFModel
 
 torch.set_num_threads(1)
@@ -117,14 +104,24 @@ def test_wg_image_is_the_swizzled_slice_layout():
     128-byte swizzle lays a K-major operand out."""
     n, k = 24, 100
     m = torch.arange(n * k, dtype=torch.float64).view(n, k)
-    flat = _swizzled(m, -1.0)
+    flat = swizzled(m, -1.0)
     assert flat.numel() == n * 128
     for row in range(n):
         for col in range(128):
             got = flat[(col // 64) * n * 64 + row * 64 + ((col % 64 // 8) ^ (row % 8)) * 8
                        + col % 8]
             assert got == (m[row, col] if col < k else -1.0), (row, col)
-    assert torch.equal(_unswizzled(flat, n, k), m)
+    assert torch.equal(unswizzled(flat, n, k), m)
+
+
+def _unpack_forward(buf, f, name="tc_forward"):
+    """The forward image ``name`` at depth ``f`` as operand matrices, layer
+    4 whole (the wgmma image holds its encoding rows and h rows apart)."""
+    mats = getattr(images(f), name).unpack(buf)
+    if name == "wg_forward":
+        mats["layers_xyz.4"] = torch.cat([mats.pop("layers_xyz.4.enc"),
+                                          mats.pop("layers_xyz.4.h")], 1)
+    return mats
 
 
 def _check_forward_weights(mats, model, f):
@@ -153,9 +150,9 @@ def _check_forward_weights(mats, model, f):
 @pytest.mark.parametrize("f", FREQS)
 def test_forward_buffer_unpacks_to_the_rounded_weights(f):
     model = _model(f)
-    buf = pack_tc_forward(pack_params(model), f)
-    assert buf.dtype == torch.bfloat16 and buf.numel() == tc_forward_weights(f)
-    _check_forward_weights(unpack_tc_forward(buf, f), model, f)
+    buf = images(f).tc_forward.pack(pack_params(model))
+    assert buf.dtype == torch.bfloat16 and buf.numel() == images(f).tc_forward.size
+    _check_forward_weights(_unpack_forward(buf, f), model, f)
 
 
 @pytest.mark.parametrize("f", FREQS)
@@ -163,10 +160,10 @@ def test_wg_buffer_unpacks_to_the_rounded_weights(f):
     """The wgmma render forward's image unpacks to the same matrices (its
     slices' pads beyond the 16-column ones checked zero by the unpacking)."""
     model = _model(f)
-    buf = pack_wg_forward(pack_params(model), f)
-    assert buf.dtype == torch.bfloat16 and buf.numel() == wg_forward_weights(f)
+    buf = images(f).wg_forward.pack(pack_params(model))
+    assert buf.dtype == torch.bfloat16 and buf.numel() == images(f).wg_forward.size
     assert buf.data_ptr() % 16 == 0
-    _check_forward_weights(unpack_wg_forward(buf, f), model, f)
+    _check_forward_weights(_unpack_forward(buf, f, "wg_forward"), model, f)
 
 
 @pytest.mark.parametrize("f", FREQS)
@@ -178,7 +175,7 @@ def test_wg_weight_count_is_the_c_layouts(f):
     kin = -(-(3 + 6 * f) // 16) * 16
     enc_slices = -(-kin // 64)
     want = (2 * enc_slices + 32) * 256 * 64 + 8 * 128 * 64 + 256 + 3 * 128
-    assert wg_forward_weights(f) == want
+    assert images(f).wg_forward.size == want
     assert want == (656000 if f == 16 else 623232)
 
 
@@ -186,9 +183,9 @@ def test_wg_weight_count_is_the_c_layouts(f):
 def test_backward_buffer_unpacks_to_the_rounded_weights(f):
     model = _model(f)
     dim = 3 + 6 * f
-    buf = pack_tc_backward(pack_params(model), f)
+    buf = images(f).tc_backward.pack(pack_params(model))
     assert buf.dtype == torch.bfloat16 and buf.numel() == 595968
-    mats = unpack_tc_backward(buf, f)
+    mats = images(f).tc_backward.unpack(buf)
     rgb = mats["fc_rgb"]
     assert rgb.shape == (128, 16)
     assert torch.equal(rgb[:, :3], _r(model.fc_rgb.weight.t())) and not rgb[:, 3:].any()
@@ -205,11 +202,11 @@ def test_backward_buffer_unpacks_to_the_rounded_weights(f):
         assert torch.equal(mats[f"layers_xyz.{i}"], _r((w[:, dim:] if i == 4 else w).t()))
 
 
-def _with_forward_weights(model, f, pack=pack_tc_forward, unpack=unpack_tc_forward):
+def _with_forward_weights(model, f, name="tc_forward"):
     """A copy of ``model`` whose forward weights are those of its bf16
-    forward buffer (``pack``'s, read back by ``unpack``)."""
+    forward image ``name``, packed and read back."""
     dim, kin = 3 + 6 * f, -(-(3 + 6 * f) // 16) * 16
-    mats = unpack(pack(pack_params(model), f), f)
+    mats = _unpack_forward(getattr(images(f), name).pack(pack_params(model)), f, name)
     out = copy.deepcopy(model)
     with torch.no_grad():
         for i in range(8):
@@ -233,7 +230,7 @@ def test_plain_pass_from_the_wg_buffer_is_bitwise_the_bf16_plain_pass(f):
         dc = dir_contribution(model, vd)
         want = paper_plain_forward(pts, dc, pack_params(model).detach(), f, "bfloat16",
                                    residuals=False)[0]
-        wg_model = _with_forward_weights(model, f, pack_wg_forward, unpack_wg_forward)
+        wg_model = _with_forward_weights(model, f, "wg_forward")
         got = paper_plain_forward(pts, dc, pack_params(wg_model), f, "bfloat16",
                                   residuals=False)[0]
     assert torch.equal(got, want)
@@ -243,7 +240,7 @@ def _with_backward_weights(model, f):
     """A copy of ``model`` whose weights in the bf16 backward buffer are that
     buffer's (layers_xyz.0 and layer 4's enc rows, not in it, stay)."""
     dim = 3 + 6 * f
-    mats = unpack_tc_backward(pack_tc_backward(pack_params(model), f), f)
+    mats = images(f).tc_backward.unpack(images(f).tc_backward.pack(pack_params(model)))
     out = copy.deepcopy(model)
     with torch.no_grad():
         out.fc_rgb.weight.copy_(mats["fc_rgb"][:, :3].t())

@@ -52,8 +52,8 @@ from nerf_tpu_torch.engine import renderer as trend
 from nerf_tpu_torch.engine import train as ttrain
 from nerf_tpu_torch.engine.checkpoint import convert_torch_state_dict, load_jax_params
 from nerf_tpu_torch.kernels import paper_train as tpt
-from nerf_tpu_torch.kernels.paper_t import num_params, pack_params, unpack_params
-from nerf_tpu_torch.kernels.paper_train import fused_paper_mlp_train, pack_backward_weights
+from nerf_tpu_torch.kernels.paper_t import images, num_params, pack_params, unpack_params
+from nerf_tpu_torch.kernels.paper_train import fused_paper_mlp_train
 from nerf_tpu_torch.models import PaperNeRFModel
 
 torch.set_num_threads(1)
@@ -236,7 +236,7 @@ def test_plain_backward_zeroes_the_layout_pads():
 
 def test_backward_weights_layout():
     model = PaperNeRFModel(**ENC)
-    wt = pack_backward_weights(pack_params(model).detach(), 10)
+    wt = images(10).f32_backward.pack(pack_params(model).detach())
     assert wt.numel() == 590464
     torch.testing.assert_close(wt[:384].view(3, 128), model.fc_rgb.weight)
     # [layers_dir.0 feat cols; fc_alpha] are contiguous (129, 256) rows: the fused head.

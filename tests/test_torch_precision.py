@@ -3,7 +3,7 @@ caller's TF32 setting.
 
 Both kernel families compute ``enc(viewdirs) @ W_dir[:, split:].T`` outside
 their kernels (``kernels/mlp.dir_contribution``, ``kernels/paper_t
-.dir_contribution``) through ``kernels/mlp.f32_matmul``, which turns
+.dir_contribution``) through ``kernels/common.f32_matmul``, which turns
 ``torch.backends.cuda.matmul.allow_tf32`` off around that product and its
 gradient only, as the JAX package asks for HIGHEST precision per dot. A
 caller who enabled TF32 keeps it. On the CPU the flag does not change the
@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from nerf_tpu_torch.kernels import mlp, paper_t
-from nerf_tpu_torch.kernels.mlp import f32_matmul
+from nerf_tpu_torch.kernels.common import f32_matmul
 from nerf_tpu_torch.models import FlexibleNeRFModel, PaperNeRFModel
 
 torch.set_num_threads(1)
