@@ -11,8 +11,9 @@ Phases, one or more lines each:
   2. build: compile ``nerf_tpu_torch/csrc`` with nvcc for sm_90a; the bf16
      instances of #1, #2, #3, #4, #7, #8 and #9 must hold tensor-core
      instructions (TENSOR_CORE_KERNELS), and the f32 4x128 forwards, #8's
-     f32 backward passes and the f32 Paper kernels must not spill
-     (F32_FLEX_KERNELS, F32_FLEX_BWD_KERNELS, F32_PAPER_KERNELS);
+     f32 backward passes, the f32 Paper kernels and #9's bf16
+     weight-gradient pass on wgmma must not spill (F32_FLEX_KERNELS,
+     F32_FLEX_BWD_KERNELS, F32_PAPER_KERNELS, WGMMA_BWD_KERNELS);
   3. kernel vs plain: the fused encode+MLP kernel against its plain PyTorch
      version at the render path's shapes, float32 and bfloat16 (the bf16
      instance on the tensor cores, to TC_BF16_FWD_TOL), the bf16 one also at
@@ -235,6 +236,9 @@ PAPER_CHECK_SHAPES = ((2048, 64), (2048, 128), (1000, 128), (333, 61))
 # #4's calls in a 400x400 frame of 64 + 128 samples at chunk 131072: coarse
 # and fine (64 + 192 samples), a whole chunk and the rest of 160,000 rays.
 PAPER_FRAME_SHAPES = ((131072, 64), (28928, 64), (131072, 192), (28928, 192))
+# #9's calls in the benchmark's paper_train step: 4096 rays of 64 coarse and
+# 64 + 128 fine samples.
+PAPER_TRAIN_SHAPES = ((4096, 64), (4096, 192))
 # #1's calls in a 400x400 frame of 64 + 64 samples (the flagship's), the same
 # way, and ragged ones: samples that do not divide a 64-point tile.
 FRAME_SHAPES = ((131072, 64), (131072, 128), (28928, 64), (28928, 128))
@@ -665,6 +669,9 @@ HASH_KERNELS = ("hashgrid:hash_encode_fwd<0>", "hashgrid:hash_encode_fwd<1>",
 F32_PAPER_KERNELS = ("paper_t:paper_t<0>", "paper_train:train_fwd<0>",
                      "paper_train:train_bwd_act<0>", "paper_train:train_bwd_wgrad<0>",
                      "paper_train:train_fwd_one<0>")
+# #9's bf16 weight-gradient pass, persistent on wgmma (wgrad_wg.cuh): its
+# consumers keep 128 f32 sums a thread in registers, and must not spill.
+WGMMA_BWD_KERNELS = ("paper_train:train_bwd_wgrad<1>",)
 
 
 def check(ok: bool, what: str) -> None:
@@ -700,6 +707,7 @@ def launch_counters():
         "fused_paper_mlp_t": (fused_paper_mlp_t, "launches"),
         "fused_paper_mlp_train_fwd": (fused_paper_mlp_train, "fwd_launches"),
         "fused_paper_mlp_train_bwd": (fused_paper_mlp_train, "bwd_launches"),
+        "fused_paper_mlp_train_wgmma_bwd": (fused_paper_mlp_train, "wgmma_bwd_launches"),
         "fused_volume_render": (fused_volume_render, "launches"),
         "fused_sample_pdf": (fused_sample_pdf, "launches"),
         "fused_render_stage": (fused_render_stage, "launches"),
@@ -1068,7 +1076,8 @@ def check_paper_kernels(dev) -> dict:
     plain versions at 10 frequencies, and once each at 6, 0 and 16: the forward's
     output and residuals against the plain forward's, the backward against
     the plain backward on the same inputs (the cotangent and the forward
-    kernel's residuals). Returns the worst error of each kernel per dtype
+    kernel's residuals), and the bf16 pair alone at PAPER_TRAIN_SHAPES too.
+    Returns the worst error of each kernel per dtype
     (residuals and gradients scaled by the plain one's largest entry, per
     residual and per leaf)."""
     import torch
@@ -1130,17 +1139,25 @@ def check_paper_kernels(dev) -> dict:
     print(f"[paper-kernel] fused_paper_mlp_t bf16 (wgmma, one launch each) max |kernel - plain| "
           f"(tol {TC_BF16_FWD_TOL:g}): {', '.join(lines)}")
     with torch.no_grad():
-        for f, (n, s) in [(10, shape) for shape in TRAIN_CHECK_SHAPES] + [
-                (f, (333, 61)) for f in PAPER_FREQS if f != 10]:
+        # The bf16 pair alone at paper_train's own shapes, where wgrad_wg.cuh's
+        # persistent body walks whole chunks of many work items.
+        for f, (n, s), dtypes in [(10, shape, tols) for shape in TRAIN_CHECK_SHAPES] + [
+                (f, (333, 61), tols) for f in PAPER_FREQS if f != 10] + [
+                (10, shape, tols[1:]) for shape in PAPER_TRAIN_SHAPES]:
             pts, _, dc, params, g = paper_case(n, s, models[f], dev, seed=n * s)
             parts = []
-            for dtype, tol in tols:
+            for dtype, tol in dtypes:
+                wgmma0 = fused_paper_mlp_train.wgmma_bwd_launches
                 out, res = paper_train_fwd(pts, dc, params, dtype, f)
                 grad, ddc = paper_train_bwd(g, res, params, n, s, dtype, f)
                 again = paper_train_bwd(g, res, params, n, s, dtype, f)
                 torch.cuda.synchronize()
                 check(torch.equal(grad, again[0]) and torch.equal(ddc, again[1]),
                       f"paper backward at ({n}, {s}) {dtype} not bitwise repeatable")
+                check(fused_paper_mlp_train.wgmma_bwd_launches - wgmma0
+                      == 2 * (dtype == "bfloat16"),
+                      f"paper backward at ({n}, {s}) {dtype}: weight gradients on wgmma "
+                      f"{fused_paper_mlp_train.wgmma_bwd_launches - wgmma0} of 2 calls")
                 want, want_res = paper_train_plain_fwd(pts, dc, params, dtype, f)
                 kernel_res = residuals_as_plain(res, n * s, f, dtype)
                 want_grad, want_ddc = paper_train_plain_bwd(g, kernel_res, params, n, s, dtype, f)
@@ -1159,7 +1176,7 @@ def check_paper_kernels(dev) -> dict:
                       f"paper training forward ({n}, {s}) {dtype}: {f_err}")
                 check(r_err <= tol, f"paper training residuals ({n}, {s}) {dtype}: {r_err}")
                 check(b_err <= tol, f"paper gradient {b_name} ({n}, {s}) {dtype}: {b_err}")
-                del res, want_res, kernel_res
+                del res, want_res, kernel_res, out, want, grad, ddc, again, want_grad, want_ddc
             print(f"[paper-train-kernel] ({n}, {s}) F={f}: {'; '.join(parts)}")
     # Through the autograd entry point: layers_dir.3 ends with a zero gradient.
     model = models[10]
@@ -1171,7 +1188,8 @@ def check_paper_kernels(dev) -> dict:
                  + model.layers_dir[3].bias.grad.abs().max())
     print(f"[paper-train-kernel] above: forward/13 residuals/28 leaves' and ddc's gradients, "
           f"scaled; tol f32 {F32_TOL:g}, bf16 {TC_BF16_FWD_TOL:g}/{BF16_TOL:g}/"
-          f"{BF16_TOL:g}; two backward calls bitwise equal at every shape; layers_dir.3 "
+          f"{BF16_TOL:g}; two backward calls bitwise equal at every shape, each bf16 one's "
+          f"weight gradients on wgmma (wgmma_bwd_launches); layers_dir.3 "
           f"gradient after a backward through the kernels: max |g| = {dead} (must be 0)")
     check(dead == 0.0, "layers_dir.3 got a gradient")
     return worst
@@ -1204,15 +1222,20 @@ def paper_main_path(cfg, tmp: str, dev) -> dict:
         run = train(cfg, logdir=os.path.join(tmp, "paper_train"), device=DEVICE)
     counts = read_launches()
     launches = {"fwd": counts["fused_paper_mlp_train_fwd"],
-                "bwd": counts["fused_paper_mlp_train_bwd"]}
+                "bwd": counts["fused_paper_mlp_train_bwd"],
+                "wgmma_bwd": counts["fused_paper_mlp_train_wgmma_bwd"]}
     steps = len(run.losses)
     print(f"[paper-train] {steps} steps of {cfg.nerf.train.num_random_rays} rays, 8x256, "
           f"{cfg.nerf.train.compute_dtype}: {launches['fwd']} forward and {launches['bwd']} "
-          f"backward kernel launches (expected {2 * steps} each); "
+          f"backward kernel launches (expected {2 * steps} each), {launches['wgmma_bwd']} "
+          f"with the weight gradients on wgmma; "
           f"{run.rays_per_sec:,.0f} rays/s over {run.seconds:.2f} s")
     check(steps == PAPER_TRAIN_STEPS, f"{steps} Paper steps trained")
     check(launches["fwd"] == 2 * steps and launches["bwd"] == 2 * steps,
           f"Paper training kernel launches {launches} != {2 * steps} each")
+    check(launches["wgmma_bwd"] == launches["bwd"]
+          or cfg.nerf.train.compute_dtype != "bfloat16",
+          f"Paper bf16 backward launches {launches}: not all on the wgmma body")
     losses = torch.tensor(run.losses)
     check(bool(torch.isfinite(losses).all()), "non-finite Paper training loss")
     k = min(20, steps // 2)
@@ -3097,6 +3120,7 @@ def multiscene_kernel_path(dev, on: str, model, spec, settings, batch, draws, sc
               f"gradients {vs_single['grad']:.3e}")
         others = {k: v for k, v in counts.items() if not k.startswith("fused_paper_mlp_train")}
         check(counts["fused_paper_mlp_train_fwd"] == 2 and counts["fused_paper_mlp_train_bwd"] == 2
+              and counts["fused_paper_mlp_train_wgmma_bwd"] == 2 * (dtype == "bfloat16")
               and not any(others.values()), f"Paper kernel multi-scene step {dtype}: {counts}")
         if dtype == "float32":
             check(max(vs_plain["loss"], vs_single["loss"]) <= MS_LOSS_RTOL
@@ -4195,7 +4219,8 @@ def main() -> int:
           + "; spills (store/load bytes): " + (", ".join(r for r in regs if "(" in r) or "none"))
     for what, names in (("f32 4x128 forwards", F32_FLEX_KERNELS),
                         ("f32 4x128 backward passes", F32_FLEX_BWD_KERNELS),
-                        ("f32 Paper kernels", F32_PAPER_KERNELS)):
+                        ("f32 Paper kernels", F32_PAPER_KERNELS),
+                        ("wgmma weight-gradient pass", WGMMA_BWD_KERNELS)):
         f32_regs = [r for r in regs if r.rsplit(" ", 1)[0].split(" (")[0] in names]
         print(f"[build] registers of the {what}: " + ", ".join(f32_regs))
         check(len(f32_regs) == len(names) and not any("(" in r for r in f32_regs),
@@ -4500,7 +4525,8 @@ def main() -> int:
               multiscene_launches=multi["kernel"]["paper_launches"]["float32"][
                   f"fused_paper_mlp_train_{which}"],
               multiscene_launches_bf16=multi["kernel"]["paper_launches"]["bfloat16"][
-                  f"fused_paper_mlp_train_{which}"])
+                  f"fused_paper_mlp_train_{which}"],
+              **({"wgmma_launches": paper["launches"]["wgmma_bwd"]} if which == "bwd" else {}))
     # Phase 12-13's kernels, at the shapes they were timed at (#6: det, so u
     # is one row of S floats); launches from phase 13's chains.
     n, s = KERNEL_CHUNK

@@ -27,15 +27,19 @@
 // bf16 tensor cores (989 TFLOP/s) the arithmetic takes 0.17 + 0.33 ms, and
 // the bytes set the pace: the forward's 0.72 GB of residual writes (0.22 ms
 // at 3.35 TB/s), and the backward's 1.41 GB of f32 deltas, written by the
-// layer-gradient pass and read by the weight-gradient pass.
+// layer-gradient pass and read, with the 0.7 GB of residuals, by the
+// weight-gradient pass. That pass is bound by those reads (17.1 GB, 5.1 ms,
+// at paper_train's 4096 x (64 + 192) points a step) and runs on wgmma in
+// wgrad_wg.cuh at ~80% of that bound.
 //
 // The f32 instances run on the FMA pipes (paper_mlp.cuh's register-blocked
 // dense layer, and fma_wgrad.cuh's weight-gradient pass, which the 4x128
-// field's shares); the bf16 instances run
-// the same passes on the tensor cores
-// (paper_tc.cuh: mma.sync m16n8k16, bf16 operands, f32 sums), with the tile,
-// the residuals and the deltas point-major, and bf16 weights the wrapper
-// prepares in fragment order (kernels/paper_train.py pack_tc_backward):
+// field's shares); the bf16 instances run the same passes on the tensor
+// cores, bf16 operands and f32 sums, with the tile, the residuals and the
+// deltas point-major: the forward and the layer gradients on paper_tc.cuh's
+// mma.sync m16n8k16 tile, with bf16 weights the wrapper prepares in fragment
+// order (kernels/paper_t.py images(f)), the weight gradients on
+// wgrad_wg.cuh's wgmma body:
 //   * forward: paper_t.cu's evaluation (paper_mlp.cuh's or paper_tc.cuh's
 //     forward_tile), one block of 256 threads per tile of 64 points, given a
 //     residual buffer, so it also writes each layer's tile to
@@ -56,12 +60,16 @@
 //        through its ring; the bf16 instance runs the fused head and
 //        drgb . W_rgb as padded products (K 129 -> 144 and 3 -> 16);
 //     2. train_bwd_wgrad: dW = X^T dY and db = sum dY for the 15 weight
-//        blocks (layer 4's enc rows and h rows are two), as one launch over
-//        (output tile, chunk of 32 point tiles), 128 x 128 output tiles: on
-//        the FMA pipes (f32: 8 x 8 outputs a thread, X and dY staged by
-//        cp.async two stages deep) or on the tensor cores (bf16). Each block
-//        keeps its partial sums in registers and writes them to its chunk's
-//        row of a work buffer laid out like the packed parameters;
+//        blocks (layer 4's enc rows and h rows are two), each summed per
+//        chunk of 32 point tiles into that chunk's row of a work buffer
+//        laid out like the packed parameters. f32: one launch over (128 x
+//        128 output tile, chunk), on the FMA pipes (fma_wgrad.cuh: 8 x 8
+//        outputs a thread, X and dY staged by cp.async two stages deep).
+//        bf16: one persistent block an SM on wgmma (wgrad_wg.cuh): tensor
+//        copies stream the residual and delta rows point-major through a
+//        ring, a converter warpgroup rounds dY to bf16 and sums the biases,
+//        two consumer warpgroups keep each 256 x 128 output tile in
+//        registers over the chunk; bitwise the mma.sync tile it replaced;
 //     3. train_bwd_reduce: sums the chunks' rows in a fixed order. No atomics:
 //        two identical calls give bitwise-equal gradients;
 //     4. train_bwd_ddc: ddc[ray] = sum over the ray's samples of layers_dir.0's
@@ -93,6 +101,7 @@
 #include "paper_mlp.cuh"
 #include "paper_tc.cuh"
 #include "scenes.cuh"
+#include "wgrad_wg.cuh"
 
 namespace {
 
@@ -130,11 +139,8 @@ constexpr size_t kBwdSmem = (kActFloats + 2 * kSlotFloats) * sizeof(float);
 constexpr int kWTile = wgrad::kWTile;
 constexpr int kWThreads = wgrad::kThreads;
 constexpr int kTilesPerChunk = 32;    // point tiles summed by one block
-static_assert(wgrad::kTile == kTile, "fma_wgrad.cuh tiles points as the kernels do");
-
-// bf16 weight-gradient tiling: 128 inputs x 128 outputs, 8 warps of 32 x 64.
-constexpr int kGTile = 128;
-constexpr int kGStride = kGTile + 8;   // shared row (bf16): ldmatrix rows on distinct banks
+static_assert(wgrad::kTile == kTile && wgrad_wg::kTile == kTile,
+              "fma_wgrad.cuh and wgrad_wg.cuh tile points as the kernels do");
 
 using bf16 = __nv_bfloat16;
 
@@ -448,8 +454,8 @@ struct WJobs {
 };
 
 // The weight blocks, their residual rows (the f32 layout, or the bf16 one of
-// the tensor-core instance) and their output tiles, kWTile square in both.
-static_assert(kGTile == kWTile, "both weight-gradient instances share the jobs' tiles");
+// the tensor-core instance) and, for the f32 instance, their kWTile-square
+// output tiles (the bf16 one takes wgrad_wg.cuh's items instead).
 WJobs make_jobs(const Layout& L, bool tensor_cores) {
   const int dim = L.dim;
   const int tile = kWTile;
@@ -503,168 +509,33 @@ __device__ __forceinline__ void wgrad_fma(const float* __restrict__ res,
                                (local % o_tiles) * kWTile, smem);
 }
 
-// The bf16 instance, on the tensor cores: a kGTile x kGTile output tile,
-// 8 warps of 32 inputs x 64 outputs (2 x 8 m16n8 tiles); per 64-point tile,
-// X (bf16 residuals) and dY (f32 deltas, rounded as they are staged) are
-// staged point-major and read with ldmatrix.trans (K = points). The bias
-// sums add the unrounded deltas as they are staged: each thread sums 4
-// outputs over 8 points of a tile, and the 8 warps' sums are added in a
-// fixed order at the end.
-__device__ __forceinline__ void wgrad_tc(const bf16* __restrict__ res,
-                                         const float* __restrict__ delta,
-                                         float* __restrict__ partial, long long n_tiles, int dim,
-                                         int n_params, const WJobs& jobs) {
-  __shared__ __align__(16) bf16 xs[kTile * kGStride];   // xs[p][i - i0]
-  __shared__ __align__(16) bf16 ys[kTile * kGStride];   // ys[p][o - o0], rounded
-  __shared__ float red[tc::kWarps][kGTile];
-
-  const WJob job = find_job(jobs);
-  const int o_tiles = (job.out_dim + kGTile - 1) / kGTile;
-  const int local = blockIdx.x - job.first_tile;
-  const int i0 = (local / o_tiles) * kGTile;
-  const int o0 = (local % o_tiles) * kGTile;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int wm = warp & 3;      // inputs wm * 32 .. + 31
-  const int wn = warp >> 2;     // outputs wn * 64 .. + 63
-  const int rows = tc::res_rows(dim);
-  const bool aligned = (job.d_row & 3) == 0;
-
-  float acc[2][8][4];
-#pragma unroll
-  for (int m = 0; m < 2; ++m) {
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
-    }
-  }
-  float bs[4] = {0.f, 0.f, 0.f, 0.f};
-
-  const long long t_begin = static_cast<long long>(blockIdx.y) * kTilesPerChunk;
-  const long long t_end = min(t_begin + kTilesPerChunk, n_tiles);
-  for (long long t = t_begin; t < t_end; ++t) {
-    // X: 16 chunks of 8 inputs x 64 points, 4 a thread. Inputs past in_dim
-    // (rounded up to 8: the residual's enc pad is zero) stage as 0.
-    const bf16* xt = res + t * kTile * rows + job.x_row + i0;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = threadIdx.x & 15;
-      const int p = (threadIdx.x >> 4) + 16 * j;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (i0 + 8 * c < job.in_dim) {
-        v = *reinterpret_cast<const uint4*>(xt + static_cast<long long>(p) * rows + 8 * c);
-      }
-      *reinterpret_cast<uint4*>(xs + p * kGStride + 8 * c) = v;
-    }
-    // dY: outputs o0 + 4 lane .. + 3 of points warp + 8 j.
-    const int o = o0 + 4 * lane;
-    const float* dtile = delta + t * kTile * kDRows + job.d_row + o;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int p = warp + 8 * j;
-      const float* src = dtile + static_cast<long long>(p) * kDRows;
-      float4 v;
-      if (aligned && o + 4 <= job.out_dim) {
-        v = *reinterpret_cast<const float4*>(src);
-      } else {
-        v.x = o < job.out_dim ? src[0] : 0.f;
-        v.y = o + 1 < job.out_dim ? src[1] : 0.f;
-        v.z = o + 2 < job.out_dim ? src[2] : 0.f;
-        v.w = o + 3 < job.out_dim ? src[3] : 0.f;
-      }
-      bs[0] += v.x;
-      bs[1] += v.y;
-      bs[2] += v.z;
-      bs[3] += v.w;
-      const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
-      const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
-      *reinterpret_cast<uint2*>(ys + p * kGStride + 4 * lane) =
-          make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
-                     *reinterpret_cast<const uint32_t*>(&hi));
-    }
-    __syncthreads();
-#pragma unroll
-    for (int ks = 0; ks < kTile / 16; ++ks) {
-      uint32_t af[2][4];
-#pragma unroll
-      for (int m = 0; m < 2; ++m) {
-        tc::ldsm4t(af[m], xs + (ks * 16 + (lane & 7) + (lane >> 4) * 8) * kGStride + wm * 32 +
-                              m * 16 + ((lane >> 3) & 1) * 8);
-      }
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        uint32_t bf[4];
-        tc::ldsm4t(bf, ys + (ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kGStride +
-                           wn * 64 + q * 16 + (lane >> 4) * 8);
-#pragma unroll
-        for (int m = 0; m < 2; ++m) {
-          tc::mma(acc[m][2 * q], af[m], bf[0], bf[1]);
-          tc::mma(acc[m][2 * q + 1], af[m], bf[2], bf[3]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  float* out = partial + static_cast<long long>(blockIdx.y) * n_params;
-#pragma unroll
-  for (int m = 0; m < 2; ++m) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int i = i0 + wm * 32 + m * 16 + (lane >> 2) + 8 * h;
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int oo = o0 + wn * 64 + n * 8 + 2 * (lane & 3) + e;
-          if (i < job.in_dim && oo < job.out_dim) {
-            out[job.w_off + i * job.out_dim + oo] = acc[m][n][2 * h + e];
-          }
-        }
-      }
-    }
-  }
-  if (job.b_off >= 0 && i0 == 0) {   // uniform over the block
-#pragma unroll
-    for (int e = 0; e < 4; ++e) red[warp][4 * lane + e] = bs[e];
-    __syncthreads();
-    const int ob = o0 + static_cast<int>(threadIdx.x);
-    if (threadIdx.x < kGTile && ob < pad4(job.out_dim)) {
-      float sum = 0.f;
-      for (int w = 0; w < tc::kWarps; ++w) sum += red[w][threadIdx.x];
-      // The layout pads a short bias (fc_alpha's 1, fc_rgb's 3) to 4
-      // floats: the pad gets a zero.
-      out[job.b_off + ob] = ob < job.out_dim ? sum : 0.f;
-    }
-  }
-}
-
-// Output tile blockIdx.x and chunk blockIdx.y of scene sc.
-template <bool kBf16>
-__device__ __forceinline__ void wgrad_scene(const Res<kBf16>* res, const float* delta,
-                                            float* partial, long long n_tiles, int dim,
-                                            int n_params, const WJobs& jobs,
-                                            const scenes::Strides& st, unsigned int sc) {
-  using scenes::at;
-  extern __shared__ float4 smem[];
-  res = at(res, st.res, sc);
-  delta = at(delta, st.delta, sc);
-  partial = at(partial, st.partial, sc);
-  if constexpr (kBf16) {
-    wgrad_tc(res, delta, partial, n_tiles, dim, n_params, jobs);
-  } else {
-    wgrad_fma(res, delta, partial, n_tiles, dim, n_params, jobs, reinterpret_cast<float*>(smem));
-  }
-}
-
-// The scene is blockIdx.z.
+// The f32 instance: output tile blockIdx.x and chunk blockIdx.y of scene
+// blockIdx.z.
 template <bool kBf16>
 __global__ void __launch_bounds__(kWThreads, 2)
 train_bwd_wgrad_kernel(const Res<kBf16>* __restrict__ res, const float* __restrict__ delta,
                        float* __restrict__ partial, long long n_tiles, int dim, int n_params,
                        const __grid_constant__ WJobs jobs, const scenes::Strides st) {
-  wgrad_scene<kBf16>(res, delta, partial, n_tiles, dim, n_params, jobs, st, blockIdx.z);
+  static_assert(!kBf16, "the bf16 weight gradients run wgrad_wg.cuh's body");
+  using scenes::at;
+  extern __shared__ float4 smem[];
+  const unsigned int sc = blockIdx.z;
+  wgrad_fma(at(res, st.res, sc), at(delta, st.delta, sc), at(partial, st.partial, sc), n_tiles,
+            dim, n_params, jobs, reinterpret_cast<float*>(smem));
+}
+
+// The bf16 instance, persistent on wgmma (wgrad_wg.cuh): every scene's
+// residual and delta rows through the tensor maps xmap and ymap.
+template <bool kBf16>
+__global__ void __launch_bounds__(wgrad_wg::kThreads, 1)
+train_bwd_wgrad_kernel(const __grid_constant__ CUtensorMap xmap,
+                       const __grid_constant__ CUtensorMap ymap, float* __restrict__ partial,
+                       long long partial_stride, int n_params, int n_tiles, int chunks,
+                       int n_scenes, const __grid_constant__ wgrad_wg::Items items) {
+  static_assert(kBf16, "the f32 weight gradients run fma_wgrad.cuh's body");
+  extern __shared__ float4 smem[];
+  wgrad_wg::run(&xmap, &ymap, partial, partial_stride, n_params, n_tiles, kTilesPerChunk,
+                chunks, n_scenes, items, reinterpret_cast<unsigned char*>(smem));
 }
 
 // Backward 3: grad[e] = sum over chunks c, in order, of partial[c][e], per
@@ -741,6 +612,43 @@ cudaError_t launch_fwd(const float* pts, const float* dc, const float* params, c
   return cudaGetLastError();
 }
 
+// The bf16 weight gradients: one persistent block an SM (no more than the
+// work items) over every scene's rows, which the tensor maps take as one
+// table: (n_scenes tiles kTile) rows of residuals, and of deltas. That holds
+// only while each scene's residuals and deltas lie end to end, unpadded:
+// any other stride is refused.
+cudaError_t launch_wgrad_wg(const bf16* res, const float* delta, float* partial,
+                            long long tiles, long long chunks, int n_scenes, const Layout& L,
+                            const WJobs& jobs, const scenes::Strides& st, cudaStream_t stream) {
+  const long long rows = n_scenes * tiles * kTile;
+  const wgrad_wg::Items items = wgrad_wg::make_items(jobs.job, jobs.n_jobs);
+  if (rows > 0x7fffffffLL || items.n == 0 || st.res != tiles * kTile * tc::res_rows(L.dim) ||
+      st.delta != tiles * kTile * kDRows) {
+    return cudaErrorInvalidValue;
+  }
+  CUtensorMap xmap, ymap;
+  cudaError_t err = wgrad_wg::make_map(&xmap, res, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                                       tc::res_rows(L.dim), rows, wgrad_wg::kBoxIn, true);
+  if (err == cudaSuccess) {
+    err = wgrad_wg::make_map(&ymap, delta, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, kDRows, rows,
+                             wgrad_wg::kOut, false);
+  }
+  int device = 0, sms = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  using Wg = void (*)(CUtensorMap, CUtensorMap, float*, long long, int, int, int, int,
+                      wgrad_wg::Items);
+  const Wg kernel = train_bwd_wgrad_kernel<true>;
+  if (err == cudaSuccess) err = set_smem(kernel, wgrad_wg::kSmemBytes, false);
+  if (err != cudaSuccess) return err;
+  const long long work = n_scenes * chunks * items.n;
+  const unsigned int grid = static_cast<unsigned int>(work < sms ? work : sms);
+  kernel<<<grid, wgrad_wg::kThreads, wgrad_wg::kSmemBytes, stream>>>(
+      xmap, ymap, partial, st.partial, L.total, static_cast<int>(tiles),
+      static_cast<int>(chunks), n_scenes, items);
+  return cudaGetLastError();
+}
+
 template <bool kBf16>
 cudaError_t launch_bwd(const float* g, const void* res, const void* wt, const Layout& L,
                        float* delta, float* partial, float* grad, float* ddc, int n_scenes,
@@ -760,16 +668,19 @@ cudaError_t launch_bwd(const float* g, const void* res, const void* wt, const La
       g, r, wt, delta, n_points, L.dim, st);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const size_t wsmem = kBf16 ? 0 : wgrad::kSmem;
-  if (!kBf16) {
-    err = set_smem(train_bwd_wgrad_kernel<kBf16>, wsmem, true);
-    if (err != cudaSuccess) return err;
-  }
   const WJobs jobs = make_jobs(L, kBf16);
-  const dim3 grid(jobs.n_wtiles, static_cast<unsigned int>(chunks), n_scenes);
-  train_bwd_wgrad_kernel<kBf16><<<grid, kWThreads, wsmem, stream>>>(r, delta, partial, tiles,
-                                                                    L.dim, L.total, jobs, st);
-  err = cudaGetLastError();
+  if constexpr (kBf16) {
+    err = launch_wgrad_wg(r, delta, partial, tiles, chunks, n_scenes, L, jobs, st, stream);
+  } else {
+    using Fma = void (*)(const float*, const float*, float*, long long, int, int, WJobs,
+                         scenes::Strides);
+    err = set_smem(static_cast<Fma>(train_bwd_wgrad_kernel<false>), wgrad::kSmem, true);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(jobs.n_wtiles, static_cast<unsigned int>(chunks), n_scenes);
+    train_bwd_wgrad_kernel<false><<<grid, kWThreads, wgrad::kSmem, stream>>>(
+        r, delta, partial, tiles, L.dim, L.total, jobs, st);
+    err = cudaGetLastError();
+  }
   if (err != cudaSuccess) return err;
   train_bwd_reduce_kernel<<<dim3((L.total + 255) / 256, n_scenes), 256, 0, stream>>>(
       partial, static_cast<int>(chunks), L.total, grad, st);
@@ -863,3 +774,4 @@ extern "C" int nerf_paper_train_backward(const float* g, const void* res, const 
                                samples, s);
   return static_cast<int>(err);
 }
+

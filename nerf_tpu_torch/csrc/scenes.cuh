@@ -15,6 +15,13 @@
 // forward and the bf16 layer-gradient pass launch a *_one_kernel at S = 1,
 // the same body on scene 0 with no offsets. The grid's y and z axes hold at
 // most 65,535 scenes.
+//
+// The one exception is the bf16 weight-gradient pass of #9 (wgrad_wg.cuh):
+// its persistent blocks walk work items of every scene, with the scene as
+// the slowest part of the item's index, and read each scene's residual and
+// delta rows through one tensor map over all scenes' rows. Its launcher
+// refuses buffers whose scenes do not lie end to end; its partial sums keep
+// the per-scene stride, and its chunks never straddle scenes.
 
 #pragma once
 

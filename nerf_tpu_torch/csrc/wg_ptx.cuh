@@ -1,10 +1,13 @@
-// Plain PTX wrappers of Hopper's asynchronous units, shared by the two wgmma
-// bodies: paper_wg.cuh (#4's bf16 render forward) and flex_wg.cuh (#1's):
-// shared addresses, mbarriers, named barriers, the wgmma fence, commit and
-// wait, the operand pins, the 128-byte-swizzle shared-memory descriptor, the
-// m64nNk16 bf16 products with f32 sums (A from shared memory, ss, or from
-// registers, rs) and the bf16 pair packing. What depends on a body's cluster
-// size (remote arrivals, multicast copies) stays with the body.
+// Plain PTX wrappers of Hopper's asynchronous units, shared by the three wgmma
+// bodies: paper_wg.cuh (#4's bf16 render forward), flex_wg.cuh (#1's) and
+// wgrad_wg.cuh (#9's bf16 weight gradients): shared addresses, mbarriers,
+// named barriers, the tensor copy (TMA) of a 2-D box, the wgmma fence,
+// commit and wait, the operand pins, the 128-byte-swizzle shared-memory
+// descriptors (K-major, and MN-major for operands whose K is the strided
+// axis), the m64nNk16 bf16 products with f32 sums (A from shared memory, ss,
+// or from registers, rs; both operands MN-major, ss_mn) and the bf16 pair
+// packing. What depends on a body's cluster size (remote arrivals, multicast
+// copies) stays with the body.
 
 #pragma once
 
@@ -39,6 +42,18 @@ __device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
 __device__ __forceinline__ void bar_expect(uint32_t bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
                : "memory");
+}
+
+// The box at (c0, c1) (elements along the inner axis, rows) of the tensor
+// that `map` (a __grid_constant__ CUtensorMap) describes, into shared memory
+// at dst, completing on `bar`.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map, int c0, int c1,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
 }
 
 __device__ __forceinline__ void named_sync(int id, int threads) {
@@ -80,6 +95,16 @@ __device__ __forceinline__ void pin(uint32_t (&a)[K][4]) {
 // the k-th 16-deep step of the atom starts 32 k bytes on (+ 2 k here).
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// The same for an MN-major operand (K strided; wgmma's transposed form):
+// each k a row of 128 bytes holding 64 bf16 of M (or N), 8-row groups of k
+// 1024 bytes apart, the next 64 of M (N) `mn_bytes` on; the k-th 16-deep
+// step starts 2048 k bytes on (+ 128 k here).
+__device__ __forceinline__ uint64_t sw128_mn_desc(uint32_t addr, uint32_t mn_bytes) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(mn_bytes >> 4) << 16) |
          (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
 }
 
@@ -185,6 +210,28 @@ __device__ __forceinline__ void mma_rs<64>(float (&d)[32], const uint32_t (&a)[4
       "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
       : PW_D16(d, 0), PW_D16(d, 16)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// (wgrad_wg.cuh) d = A . B + (accumulate ? d : 0), m64n128k16, both
+// operands MN-major in shared memory (sw128_mn_desc).
+template <int N>
+__device__ __forceinline__ void mma_ss_mn(float (&d)[N / 2], uint64_t da, uint64_t db,
+                                          int accumulate);
+
+template <>
+__device__ __forceinline__ void mma_ss_mn<128>(float (&d)[64], uint64_t da, uint64_t db,
+                                               int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 1, 1;\n}\n"
+      : D64(d)
+      : "l"(da), "l"(db), "r"(accumulate));
 }
 
 #undef D128

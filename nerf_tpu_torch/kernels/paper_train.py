@@ -20,10 +20,12 @@ kernels for Hopper in ``csrc/paper_train.cu``, behind one
 
 ``compute_dtype="float32"`` runs both on f32 FMAs; ``"bfloat16"`` runs the
 forward, the layer gradients and the weight gradients on the tensor cores
-(``mma.sync``, bf16 operands, f32 sums; ``csrc/paper_tc.cuh``), with bf16
-copies of the weights in the instruction's fragment order
-(``kernels/paper_t.images``' ``tc_forward`` and ``tc_backward``) built once
-per call.
+(bf16 operands, f32 sums): the forward and the layer gradients on
+``mma.sync`` (``csrc/paper_tc.cuh``), with bf16 copies of the weights in the
+instruction's fragment order (``kernels/paper_t.images``' ``tc_forward`` and
+``tc_backward``) built once per call; the weight gradients on ``wgmma``
+(``csrc/wgrad_wg.cuh``: one persistent block an SM, the residual and delta
+rows streamed by tensor copies), bitwise the ``mma.sync`` tile it replaced.
 
 ``layers_dir[3]`` is never run, so autograd gives it no gradient; the
 trainer's ``create_train_state`` sets every gradient to zeros and steps
@@ -46,7 +48,9 @@ calls them for the multi-scene step. ``paper_train_fwd`` / ``paper_train_bwd`` a
 their S = 1 case, which launches the single-scene kernels.
 
 ``fused_paper_mlp_train.fwd_launches`` and ``.bwd_launches`` count the
-kernels' launches (one per call each, a scene-batched call included).
+kernels' launches (one per call each, a scene-batched call included);
+``.wgmma_bwd_launches`` the backward launches whose weight gradients ran on
+the wgmma body (every bf16 one).
 """
 
 from __future__ import annotations
@@ -237,8 +241,12 @@ def paper_train_bwd_scenes(g: torch.Tensor, residuals, params: torch.Tensor,
     if g.device.type == "cpu":
         return plain_backward_scenes(paper_train_plain_bwd, g, residuals, params, compute_dtype,
                                      num_freq)
-    return launch_backward(_LAUNCHES, fused_paper_mlp_train, g, residuals, params,
-                           compute_dtype, num_freq)
+    before = fused_paper_mlp_train.bwd_launches
+    out = launch_backward(_LAUNCHES, fused_paper_mlp_train, g, residuals, params,
+                          compute_dtype, num_freq)
+    if compute_dtype == "bfloat16":   # the weight gradients' only bf16 body
+        fused_paper_mlp_train.wgmma_bwd_launches += fused_paper_mlp_train.bwd_launches - before
+    return out
 
 
 def paper_train_fwd(pts: torch.Tensor, dc: torch.Tensor, params: torch.Tensor,
@@ -287,3 +295,4 @@ of ``csrc/paper_train.cu`` on CUDA tensors (the plain version on CPU
 tensors). pts and viewdirs get no gradient; ``layers_dir[3]`` none either."""
 fused_paper_mlp_train.fwd_launches = 0
 fused_paper_mlp_train.bwd_launches = 0
+fused_paper_mlp_train.wgmma_bwd_launches = 0

@@ -14,7 +14,10 @@ mid-chunk, #9 at encoding depths 0, 6 and 16), and two launches bitwise
 equal. The bf16 instances of #1-#4, #7
 and the #8 and #9 pairs run on the tensor cores: their forwards are held
 to TC_FWD_TOL (#3 bitwise to #1 too: the same sums, #1's on wgmma, one
-wgmma launch a bf16 call, at a frame's four shapes), the bf16 backwards against the plain backward on the forward
+wgmma launch a bf16 call, at a frame's four shapes), the bf16 backwards
+(#9's weight gradients on wgmma, ``wgmma_bwd_launches`` one a bf16 call, at
+depths 0-16, one and six scenes, counts that end mid-tile, mid-chunk and
+mid-stage) against the plain backward on the forward
 kernel's own residuals (a bf16 sum in another order flips roundings and ReLU
 masks that an end-to-end comparison would follow), and #7's bf16 maps
 bitwise against #5 on #1's bf16 field, the same arithmetic.
@@ -278,19 +281,21 @@ def test_paper_kernel_takes_any_encoding_depth():
 def _check_paper_train_pair(model, n, s, compute_dtype, tol, f=10):
     """#9's forward (output and residuals) against the plain forward, its
     backward against the plain backward on the forward kernel's residuals,
-    two backward calls bitwise equal; one forward and two backward launches."""
+    two backward calls bitwise equal; one forward and two backward launches,
+    the backward's weight gradients on the wgmma body in bf16 only."""
     pts, vd = _inputs(n, s, seed=n * s + f)
     gen = torch.Generator(device="cuda").manual_seed(n)
     g = torch.randn(n, s, 4, generator=gen, device="cuda")
     params = paper_t.pack_params(model).detach()
     dc = paper_t.dir_contribution(model, vd).detach()
     fused = paper_train.fused_paper_mlp_train
-    fwd0, bwd0 = fused.fwd_launches, fused.bwd_launches
+    fwd0, bwd0, wg0 = fused.fwd_launches, fused.bwd_launches, fused.wgmma_bwd_launches
     out, res = paper_train.paper_train_fwd(pts, dc, params, compute_dtype, f)
     grad, ddc = paper_train.paper_train_bwd(g, res, params, n, s, compute_dtype, f)
     again = paper_train.paper_train_bwd(g, res, params, n, s, compute_dtype, f)
     torch.cuda.synchronize()
     assert (fused.fwd_launches, fused.bwd_launches) == (fwd0 + 1, bwd0 + 2)
+    assert fused.wgmma_bwd_launches == wg0 + 2 * (compute_dtype == "bfloat16")
     assert torch.equal(grad, again[0]) and torch.equal(ddc, again[1])    # deterministic
     want, want_res = paper_train.paper_train_plain_fwd(pts, dc, params, compute_dtype, f)
     kernel_res = paper_train.residuals_as_plain(res, n * s, f, compute_dtype)
@@ -313,10 +318,13 @@ def test_paper_train_kernels_match_plain(paper_model, n, s, compute_dtype, tol):
 
 
 @pytest.mark.parametrize("f", [0, 6, 10, 16])
-@pytest.mark.parametrize("n,s", [(7, 61), (333, 61)])     # points end mid-tile
+@pytest.mark.parametrize("n,s", [(7, 61), (333, 61), (41, 50), (1000, 131)])
 def test_paper_bf16_kernels_match_plain_at_any_depth(paper_model, f, n, s):
     """The tensor-core (bf16) #4 and #9 at every K padding of the encoding:
-    3 + 6F -> 16, 48, 64, 112."""
+    3 + 6F -> 16, 48, 64, 112. Every count ends mid-tile; (333, 61) in a
+    last chunk of 30 of 32 tiles, (41, 50) in a 2-point tile alone in its
+    chunk, (1000, 131) mid-stage of the weight gradients' 32-point stages, in
+    a last chunk of 31 tiles, with 1,600 work items for the SMs to walk."""
     model = PaperNeRFModel(num_encoding_fn_xyz=f,
                            generator=torch.Generator().manual_seed(f)).cuda().eval()
     pts, vd = _inputs(n, s, seed=f)
@@ -637,21 +645,26 @@ def _scene_fns(family, f):
 @pytest.mark.parametrize("family,scenes,n,s,f", [
     ("flex", 3, 333, 61, 10), ("flex", 2, 1024, 128, 10), ("flex", 1, 41, 50, 10),
     ("flex", 4, 7, 61, 10), ("paper", 3, 333, 61, 10), ("paper", 2, 41, 50, 6),
-    ("paper", 1, 1024, 64, 10), ("paper", 2, 7, 61, 16)])
+    ("paper", 1, 1024, 64, 10), ("paper", 2, 7, 61, 16), ("paper", 6, 333, 61, 0),
+    ("paper", 6, 41, 50, 6), ("paper", 6, 7, 61, 16)])
 def test_scene_batched_pair_is_the_single_scene_launches(model, family, scenes, n, s, f,
                                                          compute_dtype):
     """One forward and one backward launch for all scenes; each scene's
     output, residuals, gradient and ddc bitwise a single-scene launch's on
     its inputs. N·P odd or ending mid-tile (333 x 61, 7 x 61), a 3-chunk
-    run (41 x 50), one scene."""
+    run (41 x 50), one scene; #9 at six scenes at depths 0, 6 and 16. A
+    bf16 Paper backward runs its weight gradients on the wgmma body."""
     cases = _scene_case(family, scenes, n, s, f, seed=n + s)
     fwd_scenes, bwd_scenes, fwd, bwd, fused = _scene_fns(family, f)
     pts, dc, params, g = (torch.stack(x) for x in zip(*cases))
     fwd0, bwd0 = fused.fwd_launches, fused.bwd_launches
+    wg0 = getattr(fused, "wgmma_bwd_launches", 0)
     out, res = fwd_scenes(pts, dc, params, compute_dtype)
     grad, ddc = bwd_scenes(g, res, params, compute_dtype)
     torch.cuda.synchronize()
     assert (fused.fwd_launches, fused.bwd_launches) == (fwd0 + 1, bwd0 + 1)
+    wgmma = family == "paper" and compute_dtype == "bfloat16"
+    assert getattr(fused, "wgmma_bwd_launches", 0) == wg0 + wgmma
     assert bool(torch.isfinite(out).all() and torch.isfinite(grad).all())
     for i, (p_, d_, w_, g_) in enumerate(cases):
         o1, r1 = fwd(p_, d_, w_, compute_dtype)

@@ -375,14 +375,16 @@ cfg = {{
 def test_train_nerf_writes_a_paper_checkpoint_that_eval_reads(tmp_path):
     cfg_path = tmp_path / "tiny_paper.py"
     cfg_path.write_text(TINY_PAPER_PY.format(logdir=str(tmp_path / "logs")))
-    before = (fused_paper_mlp_train.fwd_launches, fused_paper_mlp_train.bwd_launches)
+    before = (fused_paper_mlp_train.fwd_launches, fused_paper_mlp_train.bwd_launches,
+              fused_paper_mlp_train.wgmma_bwd_launches)
     calls = []
     real = tpt.paper_train_plain_fwd
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(tpt, "paper_train_plain_fwd", lambda *a, **k: calls.append(1) or real(*a, **k))
         run = train_nerf.main(["--config", str(cfg_path), "--device", "cpu"])
     assert len(calls) == 2 * 4 and len(run.losses) == 4 and np.all(np.isfinite(run.losses))
-    assert (fused_paper_mlp_train.fwd_launches, fused_paper_mlp_train.bwd_launches) == before
+    assert (fused_paper_mlp_train.fwd_launches, fused_paper_mlp_train.bwd_launches,
+            fused_paper_mlp_train.wgmma_bwd_launches) == before
     ckpt = torch.load(run.checkpoint, weights_only=True)
     assert "layers_dir.3.weight" in ckpt["model_fine_state_dict"]
     assert len(ckpt["optimizer_state_dict"]["state"]) == 2 * 30

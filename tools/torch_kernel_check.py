@@ -24,7 +24,7 @@ batched call beside MS_SCENES single-scene calls in turns. With
 ``git archive``) it also builds that tree, prints both trees' registers and
 spills of the tensor-core instances and of the f32 4x128 and Paper
 instances, checks that the outputs ``bitwise_results`` lists (the f32 Paper
-ones among them) and #1's bf16 outputs at a frame's four shapes and ragged
+ones among them, and the bf16 #9 pair's at paper_train's two shapes) and #1's bf16 outputs at a frame's four shapes and ragged
 ones are bitwise the same from both, each tree through its own wrappers
 (its package, imported under another name), and #4's bf16 outputs
 within chip_smoke.py's BF16_TOL of the other tree's (its wgmma body sums in
@@ -315,7 +315,8 @@ def resample_case(n: int, m: int, s: int, dev):
 def bitwise_results(m: dict, dev):
     """Through one tree's wrappers: the f32 and bf16 outputs of #1, the #8
     pair and the #9 pair (forward output, residuals, gradient, ddc), the f32
-    ones of #2, #3, #4 and #7, at a render shape and a ragged one; #6's det
+    ones of #2, #3, #4 and #7, at a render shape and a ragged one; the bf16 #9
+    pair's at chip_smoke.py's PAPER_TRAIN_SHAPES (its weight gradients on wgmma); #6's det
     and stochastic outputs at RESAMPLE_CASES. Returns them and, apart, #4's
     bf16 outputs at the same shapes (paper_wg.cuh's wgmma body, which sums
     in another order than the mma.sync tile before it)."""
@@ -345,6 +346,14 @@ def bitwise_results(m: dict, dev):
                     m["paper_t"].fused_paper_mlp_t(paper, pts, vd, dt))
                 po, r = m["paper_train"].paper_train_fwd(pts, dc, pp, dt, 10)
                 out += [po, r[0], *m["paper_train"].paper_train_bwd(g, r, pp, n, s, dt, 10)]
+        # #9's bf16 pair at paper_train's coarse and fine passes.
+        for n, s in cs.PAPER_TRAIN_SHAPES:
+            pts, vd = cs.orbit_points(n, s, dev, n + s)
+            g = torch.randn(n, s, 4, generator=torch.Generator(device=dev).manual_seed(3),
+                            device=dev)
+            dc, pp = m["paper_t"].dir_contribution(paper, vd), m["paper_t"].pack_params(paper)
+            po, r = m["paper_train"].paper_train_fwd(pts, dc, pp, "bfloat16", 10)
+            out += [po, r[0], *m["paper_train"].paper_train_bwd(g, r, pp, n, s, "bfloat16", 10)]
         for n, mb, s in RESAMPLE_CASES:
             bins, w, u = resample_case(n, mb, s, dev)
             out.append(m["resample"].fused_sample_pdf(bins, w, 64, det=True))
